@@ -1,0 +1,248 @@
+"""Shared layers of the dense GPT-2 subset, as plain functions on tensors.
+
+The counterpart of ``repro/models/layers.py``, with its conventions:
+
+  * parameters are stored in fp32 and cast to the activation's compute
+    dtype at each use (``p["wq"].to(dt)``);
+  * norms, attention scores and softmax run in fp32; the unembedding
+    accumulates in fp32 even for bf16 activations;
+  * every init function takes an explicit ``torch.Generator`` and draws on
+    that generator's device.
+
+Serving attention writes the slot cache in place (the reference returns a
+new cache): decode writes one token per active slot, prefill one chunk of
+one slot.  Decode attention goes through ``kernels/decode_attention.py``
+with q pre-scaled in fp32 and rounded to its dtype, the convention of the
+reference's Pallas route (``layers.py:489-496``), so the CUDA kernel and
+the CPU's plain version compute one function.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attention import NEG_INF, decode_attention, ring_mask
+from ..quant import dequantize_kv, quantize_kv
+from .common import ModelConfig
+
+# ---------------------------------------------------------------------------
+# initializers
+
+
+def dense_init(gen: torch.Generator, shape, in_axis=-2):
+    """LeCun-normal (fan-in) initialization, fp32."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return x / math.sqrt(fan_in)
+
+
+def embed_init(gen: torch.Generator, shape):
+    return torch.randn(shape, generator=gen, device=gen.device) * 0.02
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm in fp32 with the population variance, cast back to x's
+    dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig):
+    D, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {"wq": dense_init(gen, (D, H * hd)),
+            "wk": dense_init(gen, (D, Hkv * hd)),
+            "wv": dense_init(gen, (D, Hkv * hd)),
+            "wo": dense_init(gen, (H * hd, D), in_axis=0)}
+
+
+def _qkv(p, x, cfg: ModelConfig):
+    dt = x.dtype
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, cfg.hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _softcap(scores, cap):
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+def attention_scale(cfg: ModelConfig, layer_scale: float) -> float:
+    """``layer_scale / sqrt(hd)`` rounded as the reference computes it: an
+    fp32 layer scale divided in fp32."""
+    return float(np.float32(layer_scale) / np.float32(math.sqrt(cfg.hd)))
+
+
+def attention_scores_block(q, k, cfg: ModelConfig, scale):
+    """q (B, Sq, H, hd), k (B, Sk, Hkv, hd) -> (B, Hkv, G, Sq, Sk) fp32
+    scores (fp32 products of the operands, exact for bf16)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    return _softcap(scores, cfg.attn_logit_softcap)
+
+
+def ring_write(cache, val, positions, active=None):
+    """cache (N, C, ...) <- val (N, 1, ...) at ``positions % C``, in place.
+    Where ``active`` (N,) bool is False the slot keeps its entry: a slot
+    that is mid-prefill or free must not get a token written into its
+    ring (the reference computes every slot and keeps the old state of the
+    inactive ones)."""
+    N, C = cache.shape[0], cache.shape[1]
+    rows = torch.arange(N, device=cache.device)
+    idx = torch.remainder(positions.to(torch.int64), C)
+    new = val[:, 0].to(cache.dtype)
+    if active is not None:
+        keep = active.reshape((N,) + (1,) * (new.dim() - 1))
+        new = torch.where(keep, new, cache[rows, idx])
+    cache[rows, idx] = new
+    return cache
+
+
+def kv_is_quantized(kv) -> bool:
+    """True when a slot cache carries int8 payloads + scale planes."""
+    return "k_scale" in kv
+
+
+def decode_attention_slots(p, x, cfg: ModelConfig, kv, positions, *,
+                           window: Optional[int] = None, layer_scale=1.0,
+                           active=None):
+    """Per-slot decode: x (N, 1, D); ``kv`` the per-layer slot cache —
+    {"k", "v"} (N, C, Hkv, hd), plus {"k_scale", "v_scale"} (N, C) fp32
+    for an int8 cache; positions (N,).  Writes each active slot's new K/V
+    at its position (int8: round-to-nearest payload + per-token scale) and
+    returns the attention output (N, 1, D)."""
+    dt = x.dtype
+    N = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    if kv_is_quantized(kv):
+        k8, ks = quantize_kv(k)                          # (N,1,Hkv,hd),(N,1)
+        v8, vs = quantize_kv(v)
+        for name, val in (("k", k8), ("v", v8), ("k_scale", ks),
+                          ("v_scale", vs)):
+            ring_write(kv[name], val, positions, active)
+    else:
+        ring_write(kv["k"], k, positions, active)
+        ring_write(kv["v"], v, positions, active)
+    scale = attention_scale(cfg, layer_scale)
+    qs = (q[:, 0].to(torch.float32) * scale).to(q.dtype)
+    out = decode_attention(qs, kv["k"], kv["v"], positions, scale=1.0,
+                           window=window, softcap=cfg.attn_logit_softcap,
+                           k_scale=kv.get("k_scale"),
+                           v_scale=kv.get("v_scale"))
+    out = out.reshape(N, 1, cfg.n_heads * cfg.hd).to(dt)
+    return out @ p["wo"].to(dt)
+
+
+def prefill_chunk_attention(p, h, cfg: ModelConfig, kv, slot: int,
+                            start: int, qpos, *, window: Optional[int] = None,
+                            layer_scale=1.0):
+    """Chunk-prefill attention for one slot: h (1, P, D) normed chunk;
+    ``kv`` the per-layer slot cache; qpos (P,) the chunk's absolute
+    positions.  Writes the chunk's K/V at [slot, start:start+P] in place
+    (int8 caches store payloads + per-token scales and the chunk attends
+    the dequantized row, its own tokens included), then attends the chunk
+    queries against the slot's whole ring row under :func:`ring_mask`.
+    Entries past the chunk's valid tokens are written but stay masked until
+    decode overwrites them.  Returns (1, P, D)."""
+    dt = h.dtype
+    P = h.shape[1]
+    C = kv["k"].shape[1]
+    quant = kv_is_quantized(kv)
+    q, k, v = _qkv(p, h, cfg)
+    rows = slice(start, start + P)
+    if quant:
+        k8, ks = quantize_kv(k)                          # (1,P,Hkv,hd),(1,P)
+        v8, vs = quantize_kv(v)
+        kv["k"][slot, rows] = k8[0]
+        kv["v"][slot, rows] = v8[0]
+        kv["k_scale"][slot, rows] = ks[0]
+        kv["v_scale"][slot, rows] = vs[0]
+        row_k = dequantize_kv(kv["k"][slot:slot + 1],
+                              kv["k_scale"][slot:slot + 1], dt)
+        row_v = dequantize_kv(kv["v"][slot:slot + 1],
+                              kv["v_scale"][slot:slot + 1], dt)
+    else:
+        kv["k"][slot, rows] = k[0].to(kv["k"].dtype)
+        kv["v"][slot, rows] = v[0].to(kv["v"].dtype)
+        row_k, row_v = kv["k"][slot:slot + 1], kv["v"][slot:slot + 1]
+    scale = attention_scale(cfg, layer_scale)
+    scores = attention_scores_block(q, row_k, cfg, scale)   # (1,Hkv,G,P,C)
+    mask = ring_mask(qpos, C, window)                       # (P, C)
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bkgst,btkh->bskgh", w, row_v)
+    out = out.reshape(1, P, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig):
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {"w_up": dense_init(gen, (D, F_)),
+            "b_up": torch.zeros((F_,), device=gen.device),
+            "w_down": dense_init(gen, (F_, D), in_axis=0),
+            "b_down": torch.zeros((D,), device=gen.device)}
+
+
+def mlp(p, x, cfg: ModelConfig):
+    """GELU MLP; GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    dt = x.dtype
+    h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig):
+    return {"tok": embed_init(gen, (cfg.padded_vocab, cfg.d_model)),
+            "pos": embed_init(gen, (cfg.max_position_embeddings, cfg.d_model))}
+
+
+def embed(p, tokens, cfg: ModelConfig, positions):
+    """Gather from the fp32 table, cast to the compute dtype, then add the
+    learned position row in that dtype.  A position past the table (only
+    the zero-padded tail of a last prefill chunk, whose queries nothing
+    reads) takes the last row instead of indexing out of bounds."""
+    x = p["tok"][tokens.to(torch.int64)].to(cfg.compute_dtype)
+    pos = positions.to(torch.int64).clamp(max=p["pos"].shape[0] - 1)
+    return x + p["pos"][pos].to(x.dtype)
+
+
+def unembed(p, x, cfg: ModelConfig):
+    """hidden -> fp32 logits over ``padded_vocab`` (tied embedding), the
+    padding columns masked to -1e30.  The tied weight is cast to x's dtype
+    and the product accumulates in fp32: products of bf16 values are exact
+    in fp32, as with the reference's ``preferred_element_type``."""
+    w = p["tok"].to(x.dtype).to(torch.float32)
+    logits = x.to(torch.float32) @ w.T
+    logits = _softcap(logits, cfg.final_logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        cols = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(cols < cfg.vocab_size, logits, NEG_INF)
+    return logits

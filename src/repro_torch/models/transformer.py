@@ -1,0 +1,189 @@
+"""Decoder-only transformer LM, dense GPT-2 family: parameters and the
+serve engine's slot protocol.
+
+The counterpart of ``repro/models/transformer.py``.  The parameters are an
+``nn.Module`` whose names follow the reference's params dict
+(``embed.tok``, ``embed.pos``, ``final_norm.scale``, and per layer
+``layers.<i>.ln1``, ``attn.wq/wk/wv/wo``, ``ln2``,
+``mlp.w_up/b_up/w_down/b_down``); the reference's scan over stacked layers
+is a Python loop over ``layers``.
+
+Slot protocol (continuous-batching engine, ``serve/engine.py``): the cache
+is the reference's slot-major ring, a dict of leaves with a leading layer
+axis — k/v (L, N, C, Hkv, hd), plus k_scale/v_scale (L, N, C) fp32 for an
+int8 cache.  Ring index s of a slot at position p holds absolute position
+p - ((p - s) mod C); the mask hides unwritten, stale and out-of-window
+entries, so reusing a slot needs no reset.  Prefill and decode update the
+cache in place.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.decode_attention import GLOBAL_WINDOW
+from .common import ModelConfig, check_supported
+from .layers import (decode_attention_slots, embed, init_attention,
+                     init_embedding, init_mlp, layer_norm, mlp,
+                     prefill_chunk_attention, unembed)
+
+# ---------------------------------------------------------------------------
+# params
+
+
+def _params(tree) -> nn.ParameterDict:
+    return nn.ParameterDict({name: nn.Parameter(t, requires_grad=False)
+                             for name, t in tree.items()})
+
+
+class _Layer(nn.Module):
+    def __init__(self, tree):
+        super().__init__()
+        self.ln1 = _params(tree["ln1"])
+        self.attn = _params(tree["attn"])
+        self.ln2 = _params(tree["ln2"])
+        self.mlp = _params(tree["mlp"])
+
+
+class Transformer(nn.Module):
+    """Parameters of the dense LM, from a tree shaped like the reference's
+    params dict with the layer stack as a list of per-layer dicts."""
+
+    def __init__(self, cfg: ModelConfig, tree):
+        super().__init__()
+        check_supported(cfg)
+        if len(tree["layers"]) != cfg.n_layers:
+            raise ValueError(f"{len(tree['layers'])} layers for a config "
+                             f"of {cfg.n_layers}")
+        self.cfg = cfg
+        self.embed = _params(tree["embed"])
+        self.final_norm = _params(tree["final_norm"])
+        self.layers = nn.ModuleList(_Layer(t) for t in tree["layers"])
+
+
+def _init_norm(cfg: ModelConfig, device):
+    return {"scale": torch.ones((cfg.d_model,), device=device),
+            "bias": torch.zeros((cfg.d_model,), device=device)}
+
+
+def _norm(p, x, cfg: ModelConfig):
+    return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
+    """Random parameters drawn from ``gen``, on ``gen``'s device."""
+    check_supported(cfg)
+    dev = gen.device
+    layers = [{"ln1": _init_norm(cfg, dev), "attn": init_attention(gen, cfg),
+               "ln2": _init_norm(cfg, dev), "mlp": init_mlp(gen, cfg)}
+              for _ in range(cfg.n_layers)]
+    return Transformer(cfg, {"embed": init_embedding(gen, cfg),
+                             "final_norm": _init_norm(cfg, dev),
+                             "layers": layers})
+
+
+# ---------------------------------------------------------------------------
+# per-layer flags (sliding-window pattern, attention temperature)
+
+
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Per-layer effective window (``GLOBAL_WINDOW`` = global)."""
+    n = cfg.n_layers
+    if cfg.local_global_pattern == "alternating" and cfg.local_window:
+        return [cfg.local_window if i % 2 == 0 else GLOBAL_WINDOW
+                for i in range(n)]
+    if cfg.local_window:
+        return [cfg.local_window] * n
+    return [GLOBAL_WINDOW] * n
+
+
+def layer_scales(cfg: ModelConfig) -> List[float]:
+    """Per-layer attention temperature, fp32 values as the reference's."""
+    n = cfg.n_layers
+    if cfg.attn_temperature_by_layer:
+        return [float(np.float32(1.0) / np.float32(1.0 + i)) for i in range(n)]
+    return [1.0] * n
+
+
+# ---------------------------------------------------------------------------
+# slot protocol
+
+
+def init_slots(cfg: ModelConfig, n_slots: int, cache_len: int,
+               device="cpu") -> dict:
+    """Zeroed slot cache: k/v (L, N, C, Hkv, hd) in the compute dtype, or
+    int8 payloads plus fp32 scale planes (L, N, C) when
+    ``cfg.kv_dtype == "int8"``."""
+    check_supported(cfg)
+    L = cfg.n_layers
+    shape = (L, n_slots, cache_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros((L, n_slots, cache_len), device=device),
+                "v_scale": torch.zeros((L, n_slots, cache_len), device=device)}
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def reset_slot(cfg: ModelConfig, cache, slot):
+    """Ring masking hides stale entries — nothing to clear for attention."""
+    return cache
+
+
+def _slot_layer_sweep(cfg: ModelConfig, params: Transformer, cache, x,
+                      attn_fn):
+    """Layer loop shared by :func:`decode_slots` and
+    :func:`prefill_into_slot`, parameterized by the attention call
+    ``attn_fn(p_attn, h, kv_l, window, scale) -> a``; ``kv_l`` is the
+    layer's view of every cache leaf.  Returns the hidden state."""
+    windows = layer_windows(cfg)
+    scales = layer_scales(cfg)
+    for i, layer in enumerate(params.layers):
+        kv_l = {name: leaf[i] for name, leaf in cache.items()}
+        x = x + attn_fn(layer.attn, _norm(layer.ln1, x, cfg), kv_l,
+                        windows[i], scales[i])
+        x = x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+    return x
+
+
+@torch.no_grad()
+def decode_slots(cfg: ModelConfig, params: Transformer, cache, tokens,
+                 positions, active=None):
+    """One decode step across all slots: tokens (N, 1), positions (N,).
+    Writes each slot's new K/V (only where ``active`` (N,) bool is True,
+    when given) and returns logits (N, 1, V) fp32."""
+    positions = positions.to(torch.int32)
+    x = embed(params.embed, tokens, cfg, positions[:, None])
+
+    def attn_fn(p, h, kv_l, w, s):
+        return decode_attention_slots(p, h, cfg, kv_l, positions, window=w,
+                                      layer_scale=s, active=active)
+
+    x = _slot_layer_sweep(cfg, params, cache, x, attn_fn)
+    x = _norm(params.final_norm, x, cfg)
+    return unembed(params.embed, x, cfg)
+
+
+@torch.no_grad()
+def prefill_into_slot(cfg: ModelConfig, params: Transformer, cache,
+                      slot: int, tokens, start: int, n_valid: int):
+    """Chunk-prefill one slot: tokens (1, P) at positions start..start+P-1.
+    Writes the chunk's K/V into the slot's ring and returns the logits (V,)
+    fp32 of the last *valid* token — the next-token distribution once the
+    final chunk lands.  Queries past ``n_valid`` compute values nothing
+    reads."""
+    P = tokens.shape[1]
+    qpos = start + torch.arange(P, dtype=torch.int32, device=tokens.device)
+    x = embed(params.embed, tokens, cfg, qpos[None])
+
+    def attn_fn(p, h, kv_l, w, s):
+        return prefill_chunk_attention(p, h, cfg, kv_l, slot, start, qpos,
+                                       window=w, layer_scale=s)
+
+    x = _slot_layer_sweep(cfg, params, cache, x, attn_fn)
+    last = _norm(params.final_norm, x[:, n_valid - 1:n_valid], cfg)
+    return unembed(params.embed, last, cfg)[0, 0]
