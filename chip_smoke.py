@@ -9,24 +9,43 @@ exits non-zero on the first failure.  It needs the repository's sources
 it fails and prints no result.  Phases, in order:
 
   1. card and build: the card's name and power limit as nvidia-smi gives
-     them; the CUDA kernel of the serving path built from
-     ``src/repro_torch/kernels/csrc``;
-  2. each kernel against its plain PyTorch version on the card, at the
-     serving shape and at the edge cases (GQA, window + softcap, ring
-     wraparound, an unwritten ring, a ring length off the kernel's tile);
-     fp32 within 1e-5, bf16 within 2e-2;
+     them; every CUDA source under ``src/repro_torch/kernels/csrc`` built
+     at once (one nvcc each, in parallel), with ptxas's spill count;
+  2. each kernel against its plain PyTorch version on the card: decode
+     attention at the serving shape and its edge cases (GQA, window +
+     softcap, ring wraparound, an unwritten ring, a ring length off the
+     kernel's tile); the fused CE kernels (forward, sampled forward, dh,
+     dW) at GPT-2 small's loss shape (D=768, Vp=50304, tied, ln fused,
+     bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
+     4096, and its edge cases (untied, softcap 30, rms, no norm, padded
+     vocab, ragged masked rows, fp32 h, bf16 W, D=128 and 1280).  The
+     forwards within 1e-5 (fp32) or 2e-2 (bf16); dh and dW within 1e-5 of
+     their largest element in fp32 and, with bf16 h or W, element by
+     element against each element's sum of absolute terms
+     (``check_bf16_grad``); the sampled labels identical except on rows
+     whose two best perturbed logits lie within 1e-5;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
      before each run and read just after: every decode step must launch
      the decode-attention kernel once per layer.  Then the decode path is
      held against the port's plain path on the CPU (same weights, fp32);
-  4. numbers: serving throughput and latency, and a JSON line of kernel
-     times (CUDA events, median over 200 launches with the 50 MB L2 cache
-     flushed between launches) beside their bound (the bytes and flops of
-     the ring rows the call's positions make valid: masked rows cannot
-     change the output), their plain version and the library call that
-     computes the same function.
+  4. GPT-2 small trained at full width and depth with Sophia-G (bf16
+     compute, B=8 x S=1024, 12 steps, Hessian refresh every 5 on 4 rows)
+     through ``train/trainer.py``.  Launch counts are zeroed just before
+     the run and read just after: each step launches the CE forward, dh
+     and dW once, each refresh step one more of each with the sampled
+     forward.  Step times, tokens/s, peak memory and a torch.profiler
+     window over a plain and a refresh step; then three fp32 steps at
+     B=2 x S=128 held against the port's plain path on the CPU;
+  5. numbers: serving throughput and latency, and a JSON line of kernel
+     times (CUDA events, median over 200 launches for decode attention
+     and 20 for the CE kernels, the 50 MB L2 cache flushed before each
+     launch) beside their bound (decode attention: the bytes of the ring
+     rows the call's positions make valid; the CE kernels: the larger of
+     their flops at the bf16 tensor-core peak and their bytes), their
+     plain version and the library call (or, for the CE kernels, the
+     library composition, not one call) that computes the same function.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -47,10 +66,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DECODE_ATTN = ("src/repro_torch/kernels/csrc/decode_attention.cu",
                {"decode_attention": "src/repro/kernels/decode_attention.py:47",
                 "decode_attention_q8": "src/repro/kernels/decode_attention.py:96"})
+FUSED_CE = ("src/repro_torch/kernels/csrc/fused_ce.cu",
+            {"ce_forward": "src/repro/kernels/fused_ce.py:521",
+             "ce_forward_sampled": "src/repro/kernels/fused_ce.py:544",
+             "ce_backward_dh": "src/repro/kernels/fused_ce.py:601 "
+                               "(and the dh half of :583)",
+             "ce_backward_dw": "src/repro/kernels/fused_ce.py:621 "
+                               "(and the dW half of :583)"})
+SOURCES = (DECODE_ATTN[0], FUSED_CE[0])
 
 
 def log(msg: str) -> None:
@@ -69,18 +97,30 @@ def card_line() -> str:
 # phase 1: build
 
 
-def phase_build():
+def _build_one(name):
     from repro_torch.kernels import _build
 
-    source = os.path.splitext(os.path.basename(DECODE_ATTN[0]))[0]
     t0 = time.perf_counter()
-    report = _build.build(source)
-    secs = time.perf_counter() - t0
-    # ptxas -v prints "<n> bytes spill stores" for every kernel instance
-    spilling = sum("spill stores" in ln and " 0 bytes spill stores" not in ln
-                   for ln in report.splitlines())
-    log(f"[build] {source} built in {secs:.1f}s into {_build.build_dir()}; "
-        f"{spilling} kernel instance(s) spill")
+    report = _build.build(name)
+    return time.perf_counter() - t0, report
+
+
+def phase_build():
+    """Every source at once: one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    names = [os.path.splitext(os.path.basename(src))[0] for src in SOURCES]
+    with ThreadPoolExecutor(len(names)) as pool:
+        done = dict(zip(names, pool.map(_build_one, names)))
+    for name, (secs, report) in done.items():
+        # ptxas -v prints "<n> bytes spill stores" for every kernel instance
+        spilling = sum("spill stores" in ln
+                       and " 0 bytes spill stores" not in ln
+                       for ln in report.splitlines())
+        log(f"[build] {name} built in {secs:.1f}s into {_build.build_dir()}; "
+            f"{spilling} kernel instance(s) spill")
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +209,231 @@ def phase_kernels(torch):
             log(f"[kernels] {name} pos0_garbage_ring {str(dtype)[6:]}: "
                 f"max abs err {err:.3g}, vs v[:, 0] {exact:.3g}")
     return main_err
+
+
+# the CE kernels: GPT-2 small's loss shape and the edge cases
+CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
+               softcap=None, h="bfloat16", w="float32", mask=False)
+CE_CASES = [
+    ("main", {}),
+    # the shapes the training run gives the kernels: every step's loss
+    # (B=8 x S=1024 rows) and the refresh's sampled loss (4 x 1024 rows)
+    ("train_step_N8192", dict(N=8192)),
+    ("refresh_N4096", dict(N=4096)),
+    ("untied", dict(tied=False)),
+    ("softcap30", dict(softcap=30.0)),
+    ("rms", dict(norm="rms")),
+    ("no_norm", dict(norm=None)),
+    ("padded_vocab_50257", dict(V=50257)),
+    ("ragged_masked_rows_N1000", dict(N=1000, mask=True)),
+    ("fp32_h", dict(h="float32")),
+    ("bf16_w", dict(w="bfloat16")),
+    ("fp32_D128_untied_padded", dict(N=200, D=128, V=1000, Vp=1024,
+                                     tied=False, h="float32")),
+    ("fp32_D1280_softcap_rms_masked", dict(N=130, D=1280, V=2000, Vp=2048,
+                                           h="float32", softcap=30.0,
+                                           norm="rms", mask=True)),
+]
+CE_SEED = (1234567, 89101112)      # the sampled forward's noise seed
+NEAR_TIE = 1e-5
+
+
+def _ce_inputs(torch, *, N, D, V, Vp, tied, norm, softcap, h, w, mask,
+               seed=0):
+    from repro_torch.kernels.fused_ce import rowscale
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    hid = (randn(N, D) * 2.0 + 0.5).to(getattr(torch, h))
+    wt = (randn(*((Vp, D) if tied else (D, Vp))) * 0.02).to(getattr(torch, w))
+    if norm is None:
+        normp = torch.zeros((2, D), device="cuda")
+    else:
+        normp = torch.stack([(1.0 if norm == "ln" else 0.0) + 0.1 * randn(D),
+                             0.1 * randn(D)])
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    m = ((torch.rand((N,), generator=gen, device="cuda") > 0.3).float()
+         if mask else None)
+    rs, _ = rowscale(N, m, device="cuda")
+    opts = dict(vocab=V, transpose_w=not tied, softcap=softcap, norm=norm,
+                eps=1e-6)
+    return hid, wt, normp, labels, rs, opts
+
+
+def _draw_gaps(torch, h2, w, normp, opts):
+    """Per row, the gap between the two best perturbed logits of the
+    plain sweep (a smaller gap is a near-tie the kernel may break the
+    other way: its sums run in another order)."""
+    from repro_torch.kernels.fused_ce import (_chunk_logits, apply_norm,
+                                              hash_gumbel)
+
+    hn = apply_norm(h2, normp, opts["norm"], opts["eps"])
+    h32 = hn.float()
+    N = h2.shape[0]
+    Vp = w.shape[1] if opts["transpose_w"] else w.shape[0]
+    rows = torch.arange(N, device="cuda")[:, None]
+    top = torch.full((N, 2), float("-inf"), device="cuda")
+    for c0 in range(0, Vp, 2048):
+        bv = min(2048, Vp - c0)
+        s, valid, cols, _ = _chunk_logits(h32, w, hn.dtype, c0, bv,
+                                          opts["transpose_w"],
+                                          opts["softcap"], opts["vocab"])
+        z = torch.where(valid, s + hash_gumbel(CE_SEED, rows, cols[None]),
+                        float("-inf"))
+        top = torch.cat([top, z], 1).topk(2, dim=1).values
+    return top[:, 0] - top[:, 1]
+
+
+def _abs_sums(torch, h, w, normp, labels, rs, lse, opts):
+    """(S_dh, S_dW): each gradient element's sum of absolute terms,
+    |d|.|W| and |d|^T.|h_n|, by the plain sweep's chunks."""
+    from repro_torch.kernels.fused_ce import _chunk_logits, apply_norm
+
+    hn = apply_norm(h, normp, opts["norm"], opts["eps"]).float()
+    tw = opts["transpose_w"]
+    Vp = w.shape[1] if tw else w.shape[0]
+    s_dh = torch.zeros(hn.shape, device="cuda")
+    s_dw = torch.zeros(w.shape, device="cuda")
+    for c0 in range(0, Vp, 2048):
+        bv = min(2048, Vp - c0)
+        s, _, cols, dcap = _chunk_logits(hn, w, h.dtype, c0, bv, tw,
+                                         opts["softcap"], opts["vocab"])
+        onehot = (cols[None] == labels.long()[:, None]).float()
+        d = (torch.exp(s - lse[:, None]) - onehot) * rs[:, None]
+        d = (d if dcap is None else d * dcap).abs()
+        wc = (w[:, c0:c0 + bv].T if tw else w[c0:c0 + bv]).float().abs()
+        s_dh += d @ wc
+        if tw:
+            s_dw[:, c0:c0 + bv] = hn.abs().T @ d
+        else:
+            s_dw[c0:c0 + bv] = d.T @ hn.abs()
+    return s_dh, s_dw
+
+
+BF16_TIGHT_SHARE = 1e-3
+
+
+def check_bf16_grad(torch, name, got, want, sums):
+    """dh or dW against the plain version where h or W is bf16, element by
+    element.  Both round h_n to bf16; where the two sides' norm statistics
+    differ in the last bit, an element of h_n may land one bf16 ulp (at
+    most 2^-7 of it) apart, so each term of a gradient element may move by
+    2^-7 of itself: every element must lie within 2^-7 of its sum of
+    absolute terms S (plus one ulp of a bf16 output, plus 2^-24 max S).
+    Such flips are rare, so at most 0.1% of the elements may lie beyond
+    2^-16 S; fp32 sums in another order stay well inside that.  Dropping
+    the softmax term, skipping the rounding of h_n or rounding W in d.W
+    puts 0.4-100% of the elements beyond it.  Returns (elements beyond
+    2^-7 S, share beyond 2^-16 S)."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    base = ((2 ** -7 if want.dtype == torch.bfloat16 else 0.0) * mag
+            + 2 ** -24 * sums.max())
+    n_hard = int((diff > 2 ** -7 * sums + base).sum())
+    share = float((diff > 2 ** -16 * sums + base).float().mean())
+    if n_hard or not share <= BF16_TIGHT_SHARE:
+        raise AssertionError(
+            f"{name}: {n_hard} elements beyond 2^-7 of their absolute sum, "
+            f"{share:.3g} of them beyond 2^-16 (limit {BF16_TIGHT_SHARE})")
+    return n_hard, share
+
+
+def check_ce_case(torch, name, spec):
+    """Every CE kernel against its plain version on one input; returns
+    {kernel: max abs error}.  The forwards are held at an absolute
+    tolerance; dh and dW at 1e-5 of their largest element in fp32, and
+    element by element (:func:`check_bf16_grad`) where h or W is bf16."""
+    from repro_torch.kernels import fused_ce as ce
+
+    h, w, normp, labels, rs, opts = _ce_inputs(torch, **spec)
+    fp32 = spec["h"] == spec["w"] == "float32"
+    tol = TOL["float32" if fp32 else "bfloat16"]
+    errs = {}
+    lse_k, ll_k = ce.ce_forward(h, w, normp, labels, **opts)
+    lse_p, ll_p = ce.ce_forward_plain(h, w, normp, labels, **opts)
+    torch.cuda.synchronize()
+    errs["ce_forward"] = max((lse_k - lse_p).abs().max().item(),
+                             (ll_k - ll_p).abs().max().item())
+
+    lse_s, ll_s, y_k = ce.ce_forward_sampled(h, w, normp, CE_SEED, **opts)
+    lse_sp, ll_sp, y_p = ce.ce_forward_sampled_plain(h, w, normp, CE_SEED,
+                                                     **opts)
+    torch.cuda.synchronize()
+    same = y_k == y_p
+    near = _draw_gaps(torch, h, w, normp, opts) < NEAR_TIE
+    n_near, n_diff = int(near.sum()), int((~same).sum())
+    if bool((~same & ~near).any()):
+        raise AssertionError(f"ce_forward_sampled {name}: {n_diff} drawn "
+                             "labels differ from the plain version's off a "
+                             "near-tie")
+    if int(y_k.max()) >= opts["vocab"]:
+        raise AssertionError(f"ce_forward_sampled {name}: drew a padded "
+                             "column")
+    errs["ce_forward_sampled"] = max(
+        (lse_s - lse_sp).abs().max().item(),
+        (ll_s - ll_sp)[same].abs().max().item())
+
+    dh_k = ce.ce_backward_dh(h, w, normp, labels, rs, lse_p, **opts)
+    dw_k = ce.ce_backward_dw(h, w, normp, labels, rs, lse_p, **opts)
+    dh_p, dw_p = ce.ce_backward_plain(h, w, normp, labels, rs, lse_p, **opts)
+    torch.cuda.synchronize()
+    if dh_k.dtype != dh_p.dtype or dw_k.dtype != w.dtype:
+        raise AssertionError(f"{name}: dh/dW dtypes {dh_k.dtype}, "
+                             f"{dw_k.dtype}")
+    pad = dw_k[:, opts["vocab"]:] if opts["transpose_w"] else \
+        dw_k[opts["vocab"]:]
+    if pad.numel() and bool((pad != 0).any()):
+        raise AssertionError(f"{name}: padded vocab columns got gradient")
+    for t in (lse_k, ll_k, lse_s, ll_s, dh_k, dw_k):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite kernel output")
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"CE kernels differ from their plain versions "
+                             f"({name}): {bad} > {tol}")
+    grads = {"ce_backward_dh": (dh_k, dh_p), "ce_backward_dw": (dw_k, dw_p)}
+    rel = {}
+    for k, (got, want) in grads.items():
+        errs[k] = (got.float() - want.float()).abs().max().item()
+        rel[k] = errs[k] / max(want.float().abs().max().item(), 1e-30)
+    if fp32:
+        if not max(rel.values()) <= tol:
+            raise AssertionError(f"{name}: dh/dW relative errors {rel} > "
+                                 f"{tol}")
+        grad_note = f"dh/dW within {tol} of their largest element"
+    else:
+        sums = dict(zip(grads, _abs_sums(torch, h, w, normp, labels, rs,
+                                         lse_p, opts)))
+        shares = {k: check_bf16_grad(torch, f"{k} {name}", *grads[k],
+                                     sums[k])[1] for k in grads}
+        grad_note = ("dh/dW element by element: none beyond 2^-7 of the "
+                     "absolute sum, share beyond 2^-16 "
+                     + ", ".join(f"{s:.3g}" for s in shares.values())
+                     + f" (limit {BF16_TIGHT_SHARE})")
+    log(f"[kernels] fused_ce {name} N={spec['N']} D={spec['D']} "
+        f"V={spec['V']} Vp={spec['Vp']} tied={spec['tied']} "
+        f"norm={spec['norm']} softcap={spec['softcap']} h={spec['h']} "
+        f"w={spec['w']} mask={spec['mask']}: max abs errors "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + f" (forwards within {tol}); dh/dW relative to their largest "
+        f"element " + ", ".join(f"{e:.3g}" for e in rel.values())
+        + f"; {grad_note}; sampled labels: {n_diff} differ, {n_near} rows "
+        f"near a tie (< {NEAR_TIE})")
+    return errs
+
+
+def phase_ce_kernels(torch):
+    """Returns {kernel name: max abs error at the shape the training run
+    gives it}: N=8192, and N=4096 for the sampled forward."""
+    errs = {name: check_ce_case(torch, name, dict(CE_MAIN, **over))
+            for name, over in CE_CASES}
+    out = dict(errs["train_step_N8192"])
+    out["ce_forward_sampled"] = errs["refresh_N4096"]["ce_forward_sampled"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -334,16 +599,143 @@ def phase_serve(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernel timings
+# phase 4: train GPT-2 small
 
 
-def time_ms(torch, fn, flush, reps=200):
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_K, TRAIN_SUB = 8, 1024, 12, 5, 4
+
+
+def _train_fns(torch, cfg, tc, device, params=None):
+    from repro_torch.train import make_train_fns
+
+    init_fn, step = make_train_fns(cfg, tc, device=device)
+    return init_fn(params), step
+
+
+def phase_train(torch):
+    """Returns the report: launch counts, step times, memory, profile."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train.trainer import to_device_batch
+
+    cfg = get_config("gpt2-small")
+    tc = TrainerConfig(peak_lr=6e-4, total_steps=TRAIN_STEPS, warmup_steps=2,
+                       hess_interval=TRAIN_K, hess_subbatch=TRAIN_SUB, seed=0)
+    state, train_step = _train_fns(torch, cfg, tc, "cuda")
+    src = make_source(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                 vocab_size=cfg.vocab_size, seed=0))
+    batches = [to_device_batch(src.batch_at(t), "cuda")
+               for t in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for t in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[t], t % TRAIN_K == 0)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_ref = len(range(0, TRAIN_STEPS, TRAIN_K))
+    want = {"ce_forward": TRAIN_STEPS, "ce_forward_sampled": n_ref,
+            "ce_backward_dh": TRAIN_STEPS + n_ref,
+            "ce_backward_dw": TRAIN_STEPS + n_ref}
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if int(state.opt_state.hess_count) != n_ref:
+        raise AssertionError(f"hess_count {int(state.opt_state.hess_count)}"
+                             f" != {n_ref}")
+    plain = [dt for t, dt in enumerate(times) if t % TRAIN_K]
+    refresh = [dt for t, dt in enumerate(times) if t % TRAIN_K == 0]
+    tokens = TRAIN_B * TRAIN_S
+    p50 = statistics.median(plain)
+    report = dict(launches=launches, losses=losses,
+                  plain_p50_ms=p50 * 1e3,
+                  refresh_p50_ms=statistics.median(refresh) * 1e3,
+                  tokens_per_s=tokens * TRAIN_STEPS / sum(times),
+                  tokens_per_s_plain_p50=tokens / p50,
+                  peak_mem_gib=peak / 2 ** 30, step_ms=[x * 1e3 for x in times])
+    log(f"[train] gpt2-small bf16 B={TRAIN_B} S={TRAIN_S} Sophia-G k="
+        f"{TRAIN_K} sub={TRAIN_SUB}: {TRAIN_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; hess_count "
+        f"{int(state.opt_state.hess_count)}; step p50 plain "
+        f"{report['plain_p50_ms']:.1f} ms, refresh "
+        f"{report['refresh_p50_ms']:.1f} ms; {report['tokens_per_s']:.0f} "
+        f"tok/s over the run ({report['tokens_per_s_plain_p50']:.0f} at the "
+        f"plain p50); peak memory {report['peak_mem_gib']:.2f} GiB; "
+        f"launches {launches}")
+    log(f"[train] step ms: {[round(x, 1) for x in report['step_ms']]}")
+
+    windows = []
+    for label, flag in (("plain step", False), ("refresh step", True)):
+        holder = {}
+
+        def one_step():
+            holder["out"] = train_step(state, batches[1], flag)
+
+        win = profile_window(f"train {label} (gpt2-small B={TRAIN_B} "
+                             f"S={TRAIN_S} bf16)", one_step, match="::ce_")
+        state = holder["out"][0]
+        win["matched_share"] = (win["matched_us"] / win["device_busy_us"]
+                                if win["device_busy_us"] else None)
+        windows.append(win)
+        log("[profile] " + json.dumps(win))
+    report["profile"] = windows
+    report["cpu_check_max_rel"] = check_train_against_cpu(torch, cfg)
+    return report
+
+
+def check_train_against_cpu(torch, cfg):
+    """Three fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) on the
+    card (the CE kernels) and on the CPU (their plain versions), same
+    weights and batches: the losses must agree within 1e-4 relative."""
+    import copy
+
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.train import TrainerConfig, train_loop
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tc = TrainerConfig(peak_lr=6e-4, total_steps=3, warmup_steps=1,
+                       hess_interval=2, hess_subbatch=1, seed=0)
+    state, _ = _train_fns(torch, cfg32, tc, "cuda")
+    cpu_params = copy.deepcopy(state.params).cpu()
+    src = make_source(DataConfig(seq_len=128, global_batch=2,
+                                 vocab_size=cfg.vocab_size, seed=1))
+    _, h_card = train_loop(cfg32, tc, src, num_steps=3, state=state,
+                           device="cuda")
+    cpu_state, _ = _train_fns(torch, cfg32, tc, "cpu", cpu_params)
+    _, h_cpu = train_loop(cfg32, tc, src, num_steps=3, state=cpu_state,
+                          device="cpu")
+    card = [h["loss"] for h in h_card]
+    cpu = [h["loss"] for h in h_cpu]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"[train] card vs CPU plain path, fp32 B=2 S=128, 3 steps (refresh "
+        f"at 0, 2): losses {card} vs {cpu}, max relative diff {rel:.3g}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"card vs CPU training losses differ by {rel}")
+    return rel
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel timings
+
+
+def time_ms(torch, fn, flush, reps=200, warmup=10):
     """Median per-call device time: CUDA events around each call, the L2
     flushed before it by reading a buffer larger than the cache, and the
     stream held by a device-side sleep (~0.5 ms) so that the host has
     enqueued the whole call before the start event fires — the events then
     time the device's work, not the wrapper's host code."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
@@ -435,6 +827,106 @@ def phase_timings(torch, main_err, served):
     return rows
 
 
+CE_TIME = dict(N=8192, D=768, V=50304, Vp=50304, tied=True, norm="ln",
+               softcap=None, h="bfloat16", w="float32", mask=False)
+
+
+def phase_ce_timings(torch, ce_err, trained):
+    """The CE kernels at the training loss shape beside their bound, their
+    plain versions and the library composition (not one call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_ce as ce
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
+    h, w, normp, labels, rs, opts = _ce_inputs(torch, **CE_TIME)
+    N, D = h.shape
+    Vp = CE_TIME["Vp"]
+    lse, _ = ce.ce_forward_plain(h, w, normp, labels, **opts)
+    calls = {
+        "ce_forward": (lambda: ce.ce_forward(h, w, normp, labels, **opts),
+                       lambda: ce.ce_forward_plain(h, w, normp, labels,
+                                                   **opts)),
+        "ce_forward_sampled": (
+            lambda: ce.ce_forward_sampled(h, w, normp, CE_SEED, **opts),
+            lambda: ce.ce_forward_sampled_plain(h, w, normp, CE_SEED,
+                                                **opts)),
+        "ce_backward_dh": (
+            lambda: ce.ce_backward_dh(h, w, normp, labels, rs, lse, **opts),
+            lambda: ce.ce_backward_dh_plain(h, w, normp, labels, rs, lse,
+                                            **opts)),
+        "ce_backward_dw": (
+            lambda: ce.ce_backward_dw(h, w, normp, labels, rs, lse, **opts),
+            lambda: ce.ce_backward_dw_plain(h, w, normp, labels, rs, lse,
+                                            **opts)),
+    }
+
+    # the library composition: F.linear on the normed bf16 rows and W cast
+    # to bf16 (bf16 logits), logsumexp and a gather in fp32; its autograd
+    # backward gives dh and dW together
+    hn = ce.apply_norm(h, normp, "ln", opts["eps"]).detach()
+
+    def composition(requires_grad=False):
+        x = hn.clone().requires_grad_(requires_grad)
+        wp = w.detach().clone().requires_grad_(requires_grad)
+        logits = F.linear(x, wp.to(x.dtype)).float()
+        loss = torch.sum(rs * (torch.logsumexp(logits, -1)
+                               - logits.gather(1, labels.long()[:, None])[:, 0]))
+        return loss, x, wp
+
+    def comp_backward():
+        loss, x, wp = composition(True)
+        return torch.autograd.grad(loss, (x, wp))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    comp_backward()
+    torch.cuda.synchronize()
+    comp_peak = torch.cuda.max_memory_allocated() - base
+    lib_fwd = time_ms(torch, lambda: composition(False), flush, reps=20,
+                      warmup=2)
+    lib_fb = time_ms(torch, comp_backward, flush, reps=20, warmup=2)
+    log(f"[timing] library composition (not one call) at N={N} D={D} "
+        f"Vp={Vp}: forward {lib_fwd:.3f} ms, forward + autograd backward "
+        f"{lib_fb:.3f} ms, backward alone {lib_fb - lib_fwd:.3f} ms; peak "
+        f"memory above the inputs {comp_peak / 2 ** 30:.2f} GiB")
+    library = {"ce_forward": lib_fwd, "ce_forward_sampled": None,
+               "ce_backward_dh": lib_fb - lib_fwd,
+               "ce_backward_dw": lib_fb - lib_fwd}
+
+    rows = []
+    for name, replaces in FUSED_CE[1].items():
+        kernel, plain = calls[name]
+        ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
+        plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
+        flops = ce.ce_flops(N, D, Vp, name)
+        nbytes = ce.ce_bytes(N, D, Vp, name, bytes_h=h.element_size(),
+                             bytes_w=w.element_size())
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        rows.append({
+            "name": name, "route": "cuda", "source": FUSED_CE[0],
+            "replaces": replaces,
+            "launches": trained["launches"].get(name, 0),
+            "max_abs_err": ce_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library[name],
+            "library_note": (None if library[name] is None else
+                             "F.linear + logsumexp + gather, not one call"
+                             + ("" if name == "ce_forward" else
+                                "; its autograd backward, dh and dW "
+                                "together")),
+            "shape": f"N={N} D={D} Vp={Vp} h=bf16 W=fp32 tied ln"})
+        log(f"[timing] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"library {library[name]}, bound {bound_ms:.4f} ms ({flops} "
+            f"flops at {BF16_FLOPS_PER_S:.3g}/s, {nbytes} bytes at "
+            f"{HBM_BYTES_PER_S:.3g}/s); {flops / ms / 1e9:.1f} TFLOP/s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -450,11 +942,16 @@ def main() -> int:
     log(card)
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
     phase_build()
     main_err = phase_kernels(torch)
+    ce_err = phase_ce_kernels(torch)
     served = phase_serve(torch)
-    rows = phase_timings(torch, main_err, served)
+    trained = phase_train(torch)
+    rows = (phase_timings(torch, main_err, served)
+            + phase_ce_timings(torch, ce_err, trained))
     name, power = [s.strip() for s in card.split(",", 1)]
+    log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)
     log(json.dumps({"kernels": rows, "card": name, "power_limit": power}))
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ use into ``build/repro_torch_kernels/``; its plain PyTorch version beside it
 serves tensors that lie on the CPU.
 
 Ported so far: serving GPT-2 (dense family) through the continuous-batching
-engine, with the decode-attention kernel.
+engine, with the decode-attention kernel; training GPT-2 with Sophia-G and
+the GNB estimator (``train/``), with the fused cross-entropy kernels.
 """
 __version__ = "0.1.0"

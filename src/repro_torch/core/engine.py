@@ -1,0 +1,332 @@
+"""Flat-buffer optimizer engine: the counterpart of ``repro/core/engine.py``
+for the Sophia family on the reference backend.
+
+The engine keeps the optimizer state as a few dtype-homogeneous flat
+shards, one per parameter dtype, each tail-padded to a multiple of
+``BLOCK``.  A static :class:`ShardLayout` maps a parameter tree
+(``core/types.py``) to the flat view.  The layout reproduces the
+reference's exactly: the leaves in ``jax.tree.flatten`` order (sorted keys,
+a stacked leaf raveled layer 0 first), the same offsets and the same tail
+pad, so the flat ``m``/``h`` shards of the two packages can be exchanged
+as they are (``convert.engine_state_from_jax``).
+
+Each step ravels the parameters and the fp32 gradients, runs the update
+per shard and writes the new parameters back into the tree's tensors in
+place (the reference returns a new pytree).  Padded elements are fixed
+points of the update (p = m = h = g = 0 stays 0).
+
+The backend is the plain copy of the reference oracles in
+``kernels/ref.py``, the reference trainer's default (``fused_kernel=False``).
+The Pallas engine kernels (``backend="pallas"``, rows 2-10 of the kernel
+table) and the other optimizer families raise ``NotImplementedError``
+until their slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels import ref as kref
+from .types import Tree, leaf_parts, leaf_shape, tree_leaves
+
+BLOCK = 128 * 1024   # the reference's kernel block: every shard pads to it
+
+#: trainer-level optimizer names -> engine family (the reference's table)
+FAMILIES = {
+    "sophia_g": "sophia",
+    "sophia_h": "sophia",
+    "adamw": "adamw",
+    "lion": "lion",
+    "signgd": "signgd",
+    "adahessian": "adahessian",
+    "sgd": "sgd",
+}
+_HESSIAN_AWARE = ("sophia", "adahessian")
+_PORTED = ("sophia",)
+
+
+def hessian_aware_optimizer(optimizer: str) -> bool:
+    """True for optimizer names whose curvature refreshes out-of-band."""
+    return FAMILIES.get(optimizer) in _HESSIAN_AWARE
+
+
+def dtype_name(dt: torch.dtype) -> str:
+    """``torch.float32`` -> ``"float32"``, the reference's spelling."""
+    return str(dt).removeprefix("torch.")
+
+
+# ---------------------------------------------------------------------------
+# static layout
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Static map between a parameter tree and its flat dtype shards."""
+
+    leaf_shapes: Tuple[Tuple[int, ...], ...]
+    leaf_dtypes: Tuple[torch.dtype, ...]
+    leaf_shard: Tuple[int, ...]    # which shard each leaf lives in
+    leaf_offset: Tuple[int, ...]   # element offset of the leaf in its shard
+    shard_dtypes: Tuple[torch.dtype, ...]
+    shard_sizes: Tuple[int, ...]   # padded: multiples of ``block``
+    shard_used: Tuple[int, ...]    # true element counts (pad excluded)
+    block: int
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shard_sizes)
+
+    @property
+    def n_params(self) -> int:
+        return sum(self.shard_used)
+
+    def manifest(self) -> dict:
+        """JSON summary (stored in checkpoint manifests), field for field
+        the reference's."""
+        return {
+            "block": self.block,
+            "n_leaves": len(self.leaf_shapes),
+            "n_params": self.n_params,
+            "shards": [{"dtype": dtype_name(d), "size": int(s),
+                        "used": int(u)}
+                       for d, s, u in zip(self.shard_dtypes, self.shard_sizes,
+                                          self.shard_used)],
+        }
+
+
+def build_layout(params: Tree, *, block: int = BLOCK) -> ShardLayout:
+    """Group leaves into dtype-homogeneous shards, assign static offsets."""
+    leaves = tree_leaves(params)
+    shapes = tuple(leaf_shape(leaf) for leaf in leaves)
+    dtypes = tuple(leaf_parts(leaf)[0].dtype for leaf in leaves)
+    shard_dtypes: list = []
+    used: list = []
+    leaf_shard, leaf_offset = [], []
+    for shape, dt in zip(shapes, dtypes):
+        if dt not in shard_dtypes:
+            shard_dtypes.append(dt)
+            used.append(0)
+        si = shard_dtypes.index(dt)
+        leaf_shard.append(si)
+        leaf_offset.append(used[si])
+        used[si] += math.prod(shape)
+    sizes = tuple(-(-u // block) * block for u in used)
+    return ShardLayout(leaf_shapes=shapes, leaf_dtypes=dtypes,
+                       leaf_shard=tuple(leaf_shard),
+                       leaf_offset=tuple(leaf_offset),
+                       shard_dtypes=tuple(shard_dtypes), shard_sizes=sizes,
+                       shard_used=tuple(used), block=block)
+
+
+def ravel_shards(layout: ShardLayout, tree: Tree, *,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Tree -> flat shards, one concatenate per shard with the zero tail
+    pad as its last operand.  ``dtype`` overrides the shard dtype
+    (gradients and estimates ravel to fp32)."""
+    leaves = tree_leaves(tree)
+    parts: list = [[] for _ in layout.shard_sizes]
+    device = leaf_parts(leaves[0])[0].device
+    for leaf, si in zip(leaves, layout.leaf_shard):
+        tdt = dtype if dtype is not None else layout.shard_dtypes[si]
+        parts[si].extend(t.reshape(-1).to(tdt) for t in leaf_parts(leaf))
+    out = []
+    for si, chunks in enumerate(parts):
+        tdt = dtype if dtype is not None else layout.shard_dtypes[si]
+        pad = layout.shard_sizes[si] - layout.shard_used[si]
+        if pad:
+            chunks = chunks + [torch.zeros((pad,), dtype=tdt, device=device)]
+        out.append(torch.cat(chunks))
+    return tuple(out)
+
+
+def unravel_shards(layout: ShardLayout,
+                   shards: Tuple[torch.Tensor, ...]) -> list:
+    """Flat shards -> one tensor per leaf in the reference's leaf shape
+    (a stacked leaf as one (n_layers, ...) view), in the leaf dtype."""
+    out = []
+    for shape, dt, si, off in zip(layout.leaf_shapes, layout.leaf_dtypes,
+                                  layout.leaf_shard, layout.leaf_offset):
+        n = math.prod(shape)
+        out.append(shards[si][off:off + n].reshape(shape).to(dt))
+    return out
+
+
+@torch.no_grad()
+def write_shards(layout: ShardLayout, shards: Tuple[torch.Tensor, ...],
+                 tree: Tree) -> None:
+    """Copy flat shards into the tree's tensors, in place."""
+    for leaf, value in zip(tree_leaves(tree), unravel_shards(layout, shards)):
+        parts = leaf_parts(leaf)
+        if isinstance(leaf, (list, tuple)):
+            for t, v in zip(parts, value):
+                t.copy_(v)
+        else:
+            parts[0].copy_(value)
+
+
+# ---------------------------------------------------------------------------
+# engine state
+
+
+class EngineState(NamedTuple):
+    """Optimizer state over flat shards (lives flat across the whole run).
+    ``m`` is the first moment; ``h`` Sophia's diagonal-Hessian EMA."""
+
+    count: torch.Tensor           # int32: step counter t
+    m: Tuple[torch.Tensor, ...]
+    h: Tuple[torch.Tensor, ...]
+    hess_count: torch.Tensor      # int32: Hessian refreshes so far
+    clip_fraction: torch.Tensor   # fp32 telemetry (paper Fig 9a)
+
+
+# ---------------------------------------------------------------------------
+# the engine
+
+
+class OptimizerEngine:
+    """One update path over flat shards::
+
+        eng = OptimizerEngine("sophia_g", hypers=dict(beta1=.96, beta2=.99,
+                              gamma=.05, eps=1e-12, weight_decay=.2,
+                              clip_threshold=1.0))
+        state = eng.init(tree)
+        tree, state = eng.step_shards(state, tree, eng.ravel_grads(tree, g),
+                                      lr)
+        tree, state = eng.step_with_refresh(state, tree, g_sh, lr, est_sh,
+                                            scale, do_refresh)
+
+    ``tree`` is a parameter tree (``Transformer.param_tree()`` or a plain
+    dict); its tensors are updated in place and the tree is returned.
+    """
+
+    def __init__(self, optimizer: str, *, hypers: dict,
+                 backend: str = "reference", block: int = BLOCK,
+                 state_dtype: torch.dtype = torch.float32):
+        if optimizer not in FAMILIES:
+            raise ValueError(f"unknown optimizer {optimizer!r}")
+        if FAMILIES[optimizer] not in _PORTED:
+            raise NotImplementedError(
+                f"optimizer {optimizer!r}: the port's engine implements the "
+                "Sophia family only; the baselines come with a later slice")
+        if backend == "pallas":
+            raise NotImplementedError(
+                "backend 'pallas' (fused_kernel=True): the engine kernels "
+                "(rows 2-10 of the kernel table) are not ported yet")
+        if backend != "reference":
+            raise ValueError(f"unknown backend {backend!r}")
+        self.optimizer = optimizer
+        self.family = FAMILIES[optimizer]
+        self.hypers = dict(hypers)
+        self.backend = backend
+        self.block = block
+        self.state_dtype = state_dtype
+        self._layouts: dict = {}
+
+    @property
+    def hessian_aware(self) -> bool:
+        return self.family in _HESSIAN_AWARE
+
+    @property
+    def tracks_clip_fraction(self) -> bool:
+        return self.family == "sophia"
+
+    def layout(self, params: Tree) -> ShardLayout:
+        leaves = tree_leaves(params)
+        key = tuple((leaf_shape(leaf), leaf_parts(leaf)[0].dtype)
+                    for leaf in leaves)
+        lay = self._layouts.get(key)
+        if lay is None:
+            lay = build_layout(params, block=self.block)
+            self._layouts[key] = lay
+        return lay
+
+    def describe(self, params: Tree) -> dict:
+        return self.layout(params).manifest()
+
+    def init(self, params: Tree) -> EngineState:
+        lay = self.layout(params)
+        device = leaf_parts(tree_leaves(params)[0])[0].device
+
+        def zeros():
+            return tuple(torch.zeros((s,), dtype=self.state_dtype,
+                                     device=device)
+                         for s in lay.shard_sizes)
+
+        scalar = dict(device=device)
+        return EngineState(
+            count=torch.zeros((), dtype=torch.int32, **scalar),
+            m=zeros(), h=zeros(),
+            hess_count=torch.zeros((), dtype=torch.int32, **scalar),
+            clip_fraction=torch.zeros((), dtype=torch.float32, **scalar))
+
+    def ravel_grads(self, params: Tree,
+                    grads: Tree) -> Tuple[torch.Tensor, ...]:
+        """Grads tree -> fp32 flat shards in this engine's layout."""
+        return ravel_shards(self.layout(params), grads, dtype=torch.float32)
+
+    def step_shards(self, state: EngineState, params: Tree,
+                    g_sh: Tuple[torch.Tensor, ...], lr) -> tuple:
+        """One optimizer step from fp32 gradient shards.  ``lr`` is a
+        0-dim fp32 tensor (the schedule's value).  Returns ``(params,
+        new_state)``; ``params`` is updated in place."""
+        return self._apply_shards(state, params, g_sh, lr, None, None, None)
+
+    def step_with_refresh(self, state: EngineState, params: Tree,
+                          g_sh: Tuple[torch.Tensor, ...], lr, est, scale,
+                          do_refresh) -> tuple:
+        """One step with the Hessian-EMA refresh fused in: when
+        ``do_refresh`` is set, each curvature shard absorbs ``scale *
+        est`` (Algorithm 3 line 9; ``scale`` is the GNB batch factor B)
+        before the update reads it.  ``est`` is a tuple of flat fp32
+        shards in this engine's layout."""
+        if not self.hessian_aware:
+            raise ValueError(
+                f"step_with_refresh requires a hessian-aware family, "
+                f"got {self.family!r} (use step_shards)")
+        lay = self.layout(params)
+        if (len(est) != lay.n_shards
+                or any(e.shape != (s,) for e, s in zip(est, lay.shard_sizes))):
+            raise ValueError("est must be flat shards in the engine layout")
+        e_sh = tuple(e.to(torch.float32) for e in est)
+        flag = float(do_refresh)
+        scale = torch.as_tensor(scale, dtype=torch.float32)
+        return self._apply_shards(state, params, g_sh, lr, e_sh, flag, scale)
+
+    def _apply_shards(self, state: EngineState, params: Tree, g_sh, lr,
+                      e_sh, flag, scale) -> tuple:
+        lay = self.layout(params)
+        lr = torch.as_tensor(lr, dtype=torch.float32)
+        hp = self.hypers
+        args = dict(beta1=hp["beta1"], gamma=hp["gamma"], eps=hp["eps"],
+                    weight_decay=hp["weight_decay"],
+                    clip_threshold=hp["clip_threshold"])
+        p_sh = ravel_shards(lay, params)
+        new_p, new_m, new_h = [], [], []
+        nclip = None
+        for i in range(lay.n_shards):
+            if e_sh is None:
+                p2, m2, n_i = kref.sophia_fused_ref(
+                    p_sh[i], state.m[i], state.h[i], g_sh[i], lr=lr, **args)
+                h2 = state.h[i]
+            else:
+                p2, m2, h2, n_i = kref.sophia_step_refresh_ref(
+                    p_sh[i], state.m[i], state.h[i], g_sh[i], e_sh[i], lr=lr,
+                    flag=flag, scale=scale, beta2=hp["beta2"], **args)
+            new_p.append(p2)
+            new_m.append(m2)
+            new_h.append(h2)
+            n_i = n_i.to(torch.float32)
+            nclip = n_i if nclip is None else nclip + n_i
+        write_shards(lay, tuple(new_p), params)
+        hess_count = state.hess_count
+        if flag is not None:
+            hess_count = hess_count + int(flag > 0.5)
+        new_state = EngineState(
+            count=state.count + 1, m=tuple(new_m), h=tuple(new_h),
+            hess_count=hess_count,
+            clip_fraction=(nclip / lay.n_params).to(torch.float32))
+        return params, new_state

@@ -1,0 +1,740 @@
+// Logits-free fused LM cross-entropy for Hopper (sm_90a): the forward
+// sweep (labelled, or with the in-sweep Gumbel-argmax draw of GNB's
+// sampled labels) and the two backward sweeps, d(normed hidden) and dW.
+//
+// Replaces the TPU kernels of src/repro/kernels/fused_ce.py:
+//   ce_forward_kernel<SAMPLE = false>  _ce_forward (pallas_call :521,
+//                                      body _ce_fwd_kernel :281)
+//   ce_forward_kernel<SAMPLE = true>   _ce_forward_sampled (:544, body :312)
+//   ce_backward_dh_kernel              _ce_backward's dh sweep (:601, body
+//                                      _ce_bwd_dh_kernel :388) and the dh
+//                                      half of its fused schedule (:583,
+//                                      body _ce_bwd_fused_kernel :443)
+//   ce_backward_dw_kernel              _ce_backward's dW sweep (:621, body
+//                                      _ce_bwd_dw_kernel :413) and the dW
+//                                      half of the fused schedule
+// The TPU's one-sweep "fused" backward exists only because of a Pallas
+// pipelining rule (an output block must not be revisited after another
+// was written); blocks here own their outputs outright, so the backward
+// is always the dh kernel and the dW kernel.
+//
+// The function, as the reference computes it: the final norm applied to
+// each hidden row (fp32 statistics, cast back to h's dtype T: ln =
+// (x - mu) * rstd * scale + bias, rms = x * rstd * (1 + scale)); logits
+// h_n . W^T with W cast to T and products summed in fp32; softcap
+// c * tanh(s / c); padded vocab columns (>= V) at the -1e30 sentinel.
+//   forward:  lse = m + log(max(l, 1e-37)) by the online max / sum-exp,
+//             and the logit at the label, or, sampled, the first argmax
+//             of s + g over valid columns with g = hash_gumbel(seed, row,
+//             col) and the raw logit there.  Only (N,) vectors are
+//             written; the (N, Vp) logits never exist.
+//   backward: d = (exp(s - lse) - onehot(label)) * rs * dcap, rs the
+//             rowscale times the loss cotangent; dh = d . W (W in fp32)
+//             and dW = d^T . h_n (h_n in fp32), both summed in fp32, dW
+//             rounded once into W's dtype.
+//
+// Bound: operations.  Each sweep multiplies (N, D) by (D, Vp): 2 N D Vp
+// flops for the forward, twice that for each backward kernel (the logits
+// are recomputed), against one read of h and W.  At the GPT-2 small
+// training shape (N = 8192, D = 768, Vp = 50304) that is ~2,600 flops per
+// byte, far above the ~295 where the card's bf16 tensor cores stop being
+// the limit.  This first version computes on the fp32 FMA units, with
+// shared-memory tiles and a 4x8 (forward) or 2x4 / 4x2 (backward) tile of
+// outputs per thread; the tensor cores (wgmma, TMA) are a later PR's work.
+// Design:
+//   * the TPU's sequential vocab grid axis becomes a loop inside a block;
+//     the forward keeps one running (m, l, label logit) or (m, l, best z,
+//     its column, its logit) per output row in each thread's registers,
+//     merges the 16 threads of a row by shuffles at the end, and splits
+//     the vocab over gridDim.y blocks so a short batch still fills the
+//     card; a second small kernel merges the splits in column order
+//     (strict > across splits, earliest column on ties within one, so the
+//     draw is the first argmax of the whole row, as the reference's);
+//   * the dh kernel owns 32 rows and loops over the vocabulary, the dW
+//     kernel owns 32 vocabulary columns and loops over the rows; each
+//     recomputes a logits tile, writes its d tile to shared memory, and
+//     adds d . X (X = W or h_n, staged 128 columns of D at a time) into an
+//     fp32 accumulator of (32, D) in shared memory.  No atomics: dW is
+//     deterministic and rounds once;
+//   * the row statistics of the norm come from a small first kernel, one
+//     warp per row, shared by every tile of that row;
+//   * IEEE rounding intrinsics keep the norm, softcap and d arithmetic in
+//     the reference's operation order (no contraction into FMA).
+// The C entry points return cudaGetLastError() after the launches and
+// never synchronise.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;
+constexpr float kNegInf = -1e30f;  // the reference's masked-logit sentinel
+constexpr int kBK = 32;            // D-depth of one staged logits chunk
+constexpr int kBD = 128;           // D-width of one staged product chunk
+constexpr int kXS = kBD + 1;       // its padded row stride
+constexpr int kOwn = 32;           // dh: rows per block; dW: columns
+constexpr int kInner = 64;         // dh: columns per step; dW: rows
+constexpr int kDS = kInner + 1;    // padded row stride of the d tile
+
+enum NormKind { kNormNone = 0, kNormLn = 1, kNormRms = 2 };
+
+struct CeArgs {
+  const void* h;        // (N, D) of T
+  const void* w;        // (Vp, D), or (D, Vp) transposed, of TW
+  const float* normp;   // (2, D): the norm's scale row and bias row
+  const float* stats;   // (N, 2): mean and 1/sqrt(var + eps) of each row
+  const int* labels;    // (N,): labels, or the sampled labels (backward)
+  const float* rs;      // (N,): rowscale times the cotangent (backward)
+  const float* lse;     // (N,): saved log-sum-exp (backward)
+  int N, D, V, Vp;
+  int norm;
+  float eps, softcap;   // softcap 0: none
+  uint32_t seed0, seed1;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Round through T and back: W cast to h's dtype, the normed row's cast.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Element (r, k) of the normed hidden, rounded to T, as fp32.
+template <typename T>
+__device__ __forceinline__ float hn_at(const CeArgs& a, int r, int k) {
+  const float x = to_float(static_cast<const T*>(a.h)[(size_t)r * a.D + k]);
+  if (a.norm == kNormNone) return x;
+  const float mu = a.stats[2 * r], rstd = a.stats[2 * r + 1];
+  const float scale = a.normp[k];
+  float y;
+  if (a.norm == kNormLn) {
+    y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), scale),
+                  a.normp[a.D + k]);
+  } else {
+    y = __fmul_rn(__fmul_rn(x, rstd), __fadd_rn(1.0f, scale));
+  }
+  return round_to<T>(y);
+}
+
+// Element (column c, depth k) of W in its stored dtype, as fp32.
+template <typename TW, bool TRANSW>
+__device__ __forceinline__ float w_at(const CeArgs& a, int c, int k) {
+  const TW* w = static_cast<const TW*>(a.w);
+  return to_float(TRANSW ? w[(size_t)k * a.Vp + c] : w[(size_t)c * a.D + k]);
+}
+
+// The logit of one summed dot product: softcap, then the padded-vocab
+// mask.  *dcap gets the softcap's derivative factor (1 when uncapped).
+__device__ __forceinline__ float finish_logit(const CeArgs& a, float raw,
+                                              int c, float* dcap) {
+  float s = raw, dc = 1.0f;
+  if (a.softcap > 0.0f) {
+    const float t = tanhf(raw / a.softcap);
+    s = a.softcap * t;
+    dc = __fsub_rn(1.0f, __fmul_rn(t, t));
+  }
+  *dcap = dc;
+  return c < a.V ? s : kNegInf;
+}
+
+// d logit of one entry: (p - onehot) * rs, times the softcap factor.
+__device__ __forceinline__ float dlogit(const CeArgs& a, float raw, int c,
+                                        float lse, int lab, float rs) {
+  float dcap;
+  const float s = finish_logit(a, raw, c, &dcap);
+  const float p = expf(s - lse);
+  const float d = __fmul_rn(__fsub_rn(p, c == lab ? 1.0f : 0.0f), rs);
+  return a.softcap > 0.0f ? __fmul_rn(d, dcap) : d;
+}
+
+// lowbias32-style finalizer and the counter-based Gumbel(0, 1) noise of
+// the reference (fused_ce.py:_mix32, hash_gumbel), in native uint32.
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// ``row_mix`` is mix32(row ^ seed0), computed once per row.
+__device__ __forceinline__ float hash_gumbel(uint32_t row_mix, uint32_t col,
+                                             uint32_t seed1) {
+  const uint32_t x = mix32(row_mix ^ (col * 0x9E3779B9u) ^ seed1);
+  float u = (float)(x >> 8) * (1.0f / 16777216.0f);
+  u = fminf(fmaxf(u, 1e-7f), 1.0f - 1e-7f);
+  return -logf(-logf(u));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Mean and 1/sqrt(var + eps) of each row (ln), or 0 and 1/sqrt(mean(x^2)
+// + eps) (rms): one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_stats_kernel(const T* __restrict__ h, float* __restrict__ stats, int N,
+                 int D, int norm, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (r >= N) return;
+  const T* x = h + (size_t)r * D;
+  float mu = 0.0f;
+  if (norm == kNormLn) {
+    float s = 0.0f;
+    for (int k = lane; k < D; k += 32) s += to_float(x[k]);
+    mu = warp_sum(s) / (float)D;
+  }
+  float v = 0.0f;
+  for (int k = lane; k < D; k += 32) {
+    const float d = to_float(x[k]) - mu;
+    v = fmaf(d, d, v);
+  }
+  const float var = warp_sum(v) / (float)D;
+  if (lane == 0) {
+    stats[2 * r] = mu;
+    stats[2 * r + 1] = 1.0f / sqrtf(var + eps);
+  }
+}
+
+// acc[i][j] += h_n[r0 + ty + 16 i] . wc[c0 + tx + 16 j] over the whole of
+// D, with wc = W cast to T; products and sums in fp32.  A 16 x 16 grid of
+// threads, each with TM x TN outputs strided by 16 (conflict-free shared
+// reads).  As is [kBK][BM + 1], Bs [kBK][BN + 1]; rows past N read 0.
+template <typename T, typename TW, bool TRANSW, int BM, int BN, int TM,
+          int TN>
+__device__ __forceinline__ void logits_tile(const CeArgs& a, int r0, int c0,
+                                            float* As, float* Bs,
+                                            float (&acc)[TM][TN]) {
+  static_assert(BM == 16 * TM && BN == 16 * TN, "a 16 x 16 thread grid");
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int k0 = 0; k0 < a.D; k0 += kBK) {
+    for (int e = threadIdx.x; e < BM * kBK; e += kThreads) {
+      const int r = e / kBK, k = e % kBK;
+      As[k * (BM + 1) + r] = r0 + r < a.N ? hn_at<T>(a, r0 + r, k0 + k) : 0.0f;
+    }
+    for (int e = threadIdx.x; e < BN * kBK; e += kThreads) {
+      const int c = TRANSW ? e % BN : e / kBK;
+      const int k = TRANSW ? e / BN : e % kBK;
+      Bs[k * (BN + 1) + c] = round_to<T>(w_at<TW, TRANSW>(a, c0 + c, k0 + k));
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < kBK; ++k) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = As[k * (BM + 1) + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = Bs[k * (BN + 1) + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+
+constexpr int kFwdBM = 64, kFwdBN = 128, kFwdTM = 4, kFwdTN = 8;
+
+// Block (row tile, vocab split): the running online reductions over the
+// split's vocab tiles, merged over the 16 threads of each row, written as
+// partials part[{m, l, ll, zm}][split][row] (and part_idx for the draw).
+template <typename T, typename TW, bool TRANSW, bool SAMPLE>
+__global__ void __launch_bounds__(kThreads)
+ce_forward_kernel(CeArgs a, int tiles_per_split, float* __restrict__ part,
+                  int* __restrict__ part_idx) {
+  constexpr int BM = kFwdBM, BN = kFwdBN, TM = kFwdTM, TN = kFwdTN;
+  __shared__ float As[kBK * (BM + 1)];
+  __shared__ float Bs[kBK * (BN + 1)];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int r0 = blockIdx.x * BM;
+  const int t0 = blockIdx.y * tiles_per_split;
+  const int t1 = min(a.Vp / BN, t0 + tiles_per_split);
+
+  float m[TM], l[TM], ll[TM], zm[TM];
+  int lab[TM], zi[TM];
+  uint32_t rmix[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty + 16 * i;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+    ll[i] = 0.0f;
+    zm[i] = kNegInf;
+    zi[i] = 0;
+    lab[i] = !SAMPLE && r < a.N ? a.labels[r] : -1;
+    rmix[i] = mix32((uint32_t)r ^ a.seed0);
+  }
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int c0 = tile * BN;
+    float acc[TM][TN] = {};
+    logits_tile<T, TW, TRANSW, BM, BN, TM, TN>(a, r0, c0, As, Bs, acc);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float s[TN];
+      float tmax = kNegInf;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float dcap;
+        s[j] = finish_logit(a, acc[i][j], c0 + tx + 16 * j, &dcap);
+        tmax = fmaxf(tmax, s[j]);
+      }
+      const float m_new = fmaxf(m[i], tmax);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (c0 + tx + 16 * j < a.V) sum += expf(s[j] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + tx + 16 * j;
+        if (SAMPLE) {
+          if (c < a.V) {
+            const float z = s[j] + hash_gumbel(rmix[i], (uint32_t)c, a.seed1);
+            if (z > zm[i]) {   // strict: a thread's columns rise, so the
+              zm[i] = z;       // earliest of equal maxima stays
+              zi[i] = c;
+              ll[i] = s[j];
+            }
+          }
+        } else if (c == lab[i]) {
+          ll[i] = s[j];
+        }
+      }
+    }
+  }
+
+  // merge the 16 threads of each row (lanes tx = 0..15 of a half warp)
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[i], off);
+      const float ll2 = __shfl_xor_sync(0xffffffffu, ll[i], off);
+      const float mn = fmaxf(m[i], m2);
+      l[i] = l[i] * expf(m[i] - mn) + l2 * expf(m2 - mn);
+      m[i] = mn;
+      if (SAMPLE) {
+        const float z2 = __shfl_xor_sync(0xffffffffu, zm[i], off);
+        const int i2 = __shfl_xor_sync(0xffffffffu, zi[i], off);
+        if (z2 > zm[i] || (z2 == zm[i] && i2 < zi[i])) {
+          zm[i] = z2;
+          zi[i] = i2;
+          ll[i] = ll2;
+        }
+      } else {
+        ll[i] += ll2;   // one column of the row holds the label
+      }
+    }
+  }
+  if (tx != 0) return;
+  const size_t P = (size_t)gridDim.y * a.N;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= a.N) continue;
+    const size_t o = (size_t)blockIdx.y * a.N + r;
+    part[o] = m[i];
+    part[P + o] = l[i];
+    part[2 * P + o] = ll[i];
+    if (SAMPLE) {
+      part[3 * P + o] = zm[i];
+      part_idx[o] = zi[i];
+    }
+  }
+}
+
+// Merge the vocab splits of each row in column order: lse, the label (or
+// drawn) logit and the draw.
+__global__ void __launch_bounds__(kThreads)
+ce_combine_kernel(int N, int splits, int sample,
+                  const float* __restrict__ part,
+                  const int* __restrict__ part_idx, float* __restrict__ lse,
+                  float* __restrict__ ll, int* __restrict__ yhat) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  const size_t P = (size_t)splits * N;
+  float M = kNegInf, L = 0.0f, LL = 0.0f, Z = kNegInf;
+  int I = 0;
+  for (int s = 0; s < splits; ++s) {
+    const size_t o = (size_t)s * N + r;
+    const float m = part[o];
+    const float mn = fmaxf(M, m);
+    L = L * expf(M - mn) + part[P + o] * expf(m - mn);
+    M = mn;
+    if (sample) {
+      const float z = part[3 * P + o];
+      if (z > Z) {
+        Z = z;
+        I = part_idx[o];
+        LL = part[2 * P + o];
+      }
+    } else {
+      LL += part[2 * P + o];
+    }
+  }
+  lse[r] = M + logf(fmaxf(L, 1e-37f));
+  ll[r] = LL;
+  if (sample) yhat[r] = I;
+}
+
+// ---------------------------------------------------------------------------
+// backward
+
+// acc[o][k0 + kk] += sum_q dS[o][q] * Xs[q][kk] over one staged chunk of
+// kBD columns; thread t owns rows o = 4 (t / 32) + i and columns
+// kk = t % 32 + 32 j (broadcast dS reads, consecutive Xs reads).
+__device__ __forceinline__ void accumulate_chunk(float* acc, int acc_stride,
+                                                 int k0, const float* dS,
+                                                 const float* Xs) {
+  const int lane = threadIdx.x % 32, grp = threadIdx.x / 32;
+  float part[4][4] = {};
+#pragma unroll 4
+  for (int q = 0; q < kInner; ++q) {
+    float dv[4], xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dv[i] = dS[(4 * grp + i) * kDS + q];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xv[j] = Xs[q * kXS + lane + 32 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = fmaf(dv[i], xv[j], part[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[(4 * grp + i) * acc_stride + k0 + lane + 32 * j] += part[i][j];
+}
+
+// Shared memory of a backward block, in floats: the (kOwn, D) accumulator,
+// the d tile, the two logits staging tiles and the product staging chunk.
+__host__ __device__ constexpr int bwd_smem_floats(int D) {
+  return kOwn * (D + 1) + kOwn * kDS + kBK * (kOwn + 1) + kBK * (kInner + 1) +
+         kInner * kXS;
+}
+
+// Block: kOwn rows.  Loops over vocab tiles of kInner columns; dh rows
+// written as fp32 (a fused norm: the caller pulls them back through it)
+// or in T.
+template <typename T, typename TW, bool TRANSW>
+__global__ void __launch_bounds__(kThreads)
+ce_backward_dh_kernel(CeArgs a, void* __restrict__ dh, int dh_f32) {
+  constexpr int BM = kOwn, BN = kInner, TM = BM / 16, TN = BN / 16;
+  extern __shared__ float smem[];
+  const int acc_stride = a.D + 1;
+  float* acc = smem;                        // [kOwn][D + 1]
+  float* dS = acc + kOwn * acc_stride;      // [kOwn][kDS]: d[row][col]
+  float* As = dS + kOwn * kDS;              // [kBK][BM + 1]
+  float* Bs = As + kBK * (BM + 1);          // [kBK][BN + 1]
+  float* Xs = Bs + kBK * (BN + 1);          // [kInner][kXS]: W rows, fp32
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int r0 = blockIdx.x * BM;
+  for (int e = threadIdx.x; e < kOwn * acc_stride; e += kThreads) acc[e] = 0.0f;
+
+  float lse[TM], rs[TM];
+  int lab[TM];
+  bool live[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty + 16 * i;
+    live[i] = r < a.N;
+    lse[i] = live[i] ? a.lse[r] : 0.0f;
+    rs[i] = live[i] ? a.rs[r] : 0.0f;
+    lab[i] = live[i] ? a.labels[r] : -1;
+  }
+
+  for (int c0 = 0; c0 < a.Vp; c0 += BN) {
+    float s[TM][TN] = {};
+    logits_tile<T, TW, TRANSW, BM, BN, TM, TN>(a, r0, c0, As, Bs, s);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + tx + 16 * j;
+        dS[(ty + 16 * i) * kDS + tx + 16 * j] =
+            live[i] ? dlogit(a, s[i][j], c, lse[i], lab[i], rs[i]) : 0.0f;
+      }
+    for (int k0 = 0; k0 < a.D; k0 += kBD) {
+      for (int e = threadIdx.x; e < kInner * kBD; e += kThreads) {
+        const int c = TRANSW ? e % kInner : e / kBD;
+        const int k = TRANSW ? e / kInner : e % kBD;
+        Xs[c * kXS + k] = w_at<TW, TRANSW>(a, c0 + c, k0 + k);
+      }
+      __syncthreads();
+      accumulate_chunk(acc, acc_stride, k0, dS, Xs);
+      __syncthreads();
+    }
+  }
+
+  for (int e = threadIdx.x; e < kOwn * a.D; e += kThreads) {
+    const int r = e / a.D, k = e % a.D;
+    if (r0 + r >= a.N) continue;
+    const float v = acc[r * acc_stride + k];
+    const size_t o = (size_t)(r0 + r) * a.D + k;
+    if (dh_f32) {
+      static_cast<float*>(dh)[o] = v;
+    } else {
+      static_cast<T*>(dh)[o] = from_float<T>(v);
+    }
+  }
+}
+
+// Block: kOwn vocab columns.  Loops over row tiles of kInner rows; dW
+// rounds once from the fp32 accumulator into W's dtype and layout.
+template <typename T, typename TW, bool TRANSW>
+__global__ void __launch_bounds__(kThreads)
+ce_backward_dw_kernel(CeArgs a, TW* __restrict__ dw) {
+  constexpr int BM = kInner, BN = kOwn, TM = BM / 16, TN = BN / 16;
+  extern __shared__ float smem[];
+  const int acc_stride = a.D + 1;
+  float* acc = smem;                        // [kOwn][D + 1]
+  float* dS = acc + kOwn * acc_stride;      // [kOwn][kDS]: d[col][row]
+  float* As = dS + kOwn * kDS;              // [kBK][BM + 1]
+  float* Bs = As + kBK * (BM + 1);          // [kBK][BN + 1]
+  float* Xs = Bs + kBK * (BN + 1);          // [kInner][kXS]: h_n rows, fp32
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int c0 = blockIdx.x * BN;
+  for (int e = threadIdx.x; e < kOwn * acc_stride; e += kThreads) acc[e] = 0.0f;
+
+  for (int r0 = 0; r0 < a.N; r0 += BM) {
+    float lse[TM], rs[TM];
+    int lab[TM];
+    bool live[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = r0 + ty + 16 * i;
+      live[i] = r < a.N;
+      lse[i] = live[i] ? a.lse[r] : 0.0f;
+      rs[i] = live[i] ? a.rs[r] : 0.0f;
+      lab[i] = live[i] ? a.labels[r] : -1;
+    }
+    float s[TM][TN] = {};
+    logits_tile<T, TW, TRANSW, BM, BN, TM, TN>(a, r0, c0, As, Bs, s);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + tx + 16 * j;
+        dS[(tx + 16 * j) * kDS + ty + 16 * i] =
+            live[i] ? dlogit(a, s[i][j], c, lse[i], lab[i], rs[i]) : 0.0f;
+      }
+    for (int k0 = 0; k0 < a.D; k0 += kBD) {
+      for (int e = threadIdx.x; e < kInner * kBD; e += kThreads) {
+        const int r = e / kBD, k = e % kBD;
+        Xs[r * kXS + k] = r0 + r < a.N ? hn_at<T>(a, r0 + r, k0 + k) : 0.0f;
+      }
+      __syncthreads();
+      accumulate_chunk(acc, acc_stride, k0, dS, Xs);
+      __syncthreads();
+    }
+  }
+
+  for (int e = threadIdx.x; e < kOwn * a.D; e += kThreads) {
+    const int c = TRANSW ? e % kOwn : e / a.D;
+    const int k = TRANSW ? e / kOwn : e % a.D;
+    const size_t o = TRANSW ? (size_t)k * a.Vp + c0 + c
+                            : (size_t)(c0 + c) * a.D + k;
+    dw[o] = from_float<TW>(acc[c * acc_stride + k]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+
+template <typename T>
+cudaError_t launch_row_stats(const CeArgs& a, float* stats, cudaStream_t st) {
+  if (a.norm == kNormNone) return cudaSuccess;
+  const int rows_per_block = kThreads / 32;
+  row_stats_kernel<T><<<(a.N + rows_per_block - 1) / rows_per_block,
+                        kThreads, 0, st>>>(static_cast<const T*>(a.h), stats,
+                                           a.N, a.D, a.norm, a.eps);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TW, bool TRANSW, bool SAMPLE>
+cudaError_t forward_impl(const CeArgs& a, float* stats, int splits,
+                         int tiles_per_split, float* part, int* part_idx,
+                         float* lse, float* ll, int* yhat, cudaStream_t st) {
+  cudaError_t err = launch_row_stats<T>(a, stats, st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + kFwdBM - 1) / kFwdBM, splits);
+  ce_forward_kernel<T, TW, TRANSW, SAMPLE>
+      <<<grid, kThreads, 0, st>>>(a, tiles_per_split, part, part_idx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ce_combine_kernel<<<(a.N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      a.N, splits, SAMPLE ? 1 : 0, part, part_idx, lse, ll, yhat);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TW, bool TRANSW>
+cudaError_t dh_impl(const CeArgs& a, float* stats, void* dh, int dh_f32,
+                    cudaStream_t st) {
+  cudaError_t err = launch_row_stats<T>(a, stats, st);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * bwd_smem_floats(a.D);
+  err = cudaFuncSetAttribute(ce_backward_dh_kernel<T, TW, TRANSW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  ce_backward_dh_kernel<T, TW, TRANSW>
+      <<<(a.N + kOwn - 1) / kOwn, kThreads, smem, st>>>(a, dh, dh_f32);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TW, bool TRANSW>
+cudaError_t dw_impl(const CeArgs& a, float* stats, void* dw,
+                    cudaStream_t st) {
+  cudaError_t err = launch_row_stats<T>(a, stats, st);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * bwd_smem_floats(a.D);
+  err = cudaFuncSetAttribute(ce_backward_dw_kernel<T, TW, TRANSW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  ce_backward_dw_kernel<T, TW, TRANSW>
+      <<<a.Vp / kOwn, kThreads, smem, st>>>(a, static_cast<TW*>(dw));
+  return cudaGetLastError();
+}
+
+typedef cudaError_t (*ForwardFn)(const CeArgs&, float*, int, int, float*,
+                                 int*, float*, float*, int*, cudaStream_t);
+typedef cudaError_t (*DhFn)(const CeArgs&, float*, void*, int, cudaStream_t);
+typedef cudaError_t (*DwFn)(const CeArgs&, float*, void*, cudaStream_t);
+
+// Tables indexed by 4 * h_bf16 + 2 * w_bf16 + transpose_w.
+template <bool SAMPLE>
+ForwardFn pick_forward(int index) {
+  static const ForwardFn table[8] = {
+      forward_impl<float, float, false, SAMPLE>,
+      forward_impl<float, float, true, SAMPLE>,
+      forward_impl<float, bf16, false, SAMPLE>,
+      forward_impl<float, bf16, true, SAMPLE>,
+      forward_impl<bf16, float, false, SAMPLE>,
+      forward_impl<bf16, float, true, SAMPLE>,
+      forward_impl<bf16, bf16, false, SAMPLE>,
+      forward_impl<bf16, bf16, true, SAMPLE>};
+  return table[index];
+}
+
+const DhFn kDhTable[8] = {
+    dh_impl<float, float, false>, dh_impl<float, float, true>,
+    dh_impl<float, bf16, false>,  dh_impl<float, bf16, true>,
+    dh_impl<bf16, float, false>,  dh_impl<bf16, float, true>,
+    dh_impl<bf16, bf16, false>,   dh_impl<bf16, bf16, true>};
+
+const DwFn kDwTable[8] = {
+    dw_impl<float, float, false>, dw_impl<float, float, true>,
+    dw_impl<float, bf16, false>,  dw_impl<float, bf16, true>,
+    dw_impl<bf16, float, false>,  dw_impl<bf16, float, true>,
+    dw_impl<bf16, bf16, false>,   dw_impl<bf16, bf16, true>};
+
+CeArgs make_args(const void* h, const void* w, const float* normp,
+                 const float* stats, const int* labels, const float* rs,
+                 const float* lse, int N, int D, int V, int Vp, int norm,
+                 float eps, float softcap, unsigned int seed0,
+                 unsigned int seed1) {
+  CeArgs a;
+  a.h = h;
+  a.w = w;
+  a.normp = normp;
+  a.stats = stats;
+  a.labels = labels;
+  a.rs = rs;
+  a.lse = lse;
+  a.N = N;
+  a.D = D;
+  a.V = V;
+  a.Vp = Vp;
+  a.norm = norm;
+  a.eps = eps;
+  a.softcap = softcap;
+  a.seed0 = seed0;
+  a.seed1 = seed1;
+  return a;
+}
+
+int table_index(int h_bf16, int w_bf16, int transpose_w) {
+  return 4 * (h_bf16 != 0) + 2 * (w_bf16 != 0) + (transpose_w != 0);
+}
+
+}  // namespace
+
+extern "C" {
+
+// lse, ll (and, sampled, yhat) of every row.  stats: (N, 2) fp32 scratch;
+// part: (4, splits, N) fp32 and part_idx (splits, N) int32 scratch.
+int ce_forward_launch(const void* h, const void* w, const float* normp,
+                      float* stats, const int* labels, float* part,
+                      int* part_idx, float* lse, float* ll, int* yhat, int N,
+                      int D, int V, int Vp, int h_bf16, int w_bf16,
+                      int transpose_w, int norm, float eps, float softcap,
+                      int sample, unsigned int seed0, unsigned int seed1,
+                      int splits, int tiles_per_split, void* stream) {
+  const CeArgs a = make_args(h, w, normp, stats, labels, nullptr, nullptr, N,
+                             D, V, Vp, norm, eps, softcap, seed0, seed1);
+  const int idx = table_index(h_bf16, w_bf16, transpose_w);
+  const ForwardFn fn = sample ? pick_forward<true>(idx)
+                              : pick_forward<false>(idx);
+  return (int)fn(a, stats, splits, tiles_per_split, part, part_idx, lse, ll,
+                 yhat, static_cast<cudaStream_t>(stream));
+}
+
+// dh (N, D): fp32 when dh_f32, else h's dtype.
+int ce_backward_dh_launch(const void* h, const void* w, const float* normp,
+                          float* stats, const int* labels, const float* rs,
+                          const float* lse, void* dh, int dh_f32, int N,
+                          int D, int V, int Vp, int h_bf16, int w_bf16,
+                          int transpose_w, int norm, float eps, float softcap,
+                          void* stream) {
+  const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
+                             Vp, norm, eps, softcap, 0u, 0u);
+  return (int)kDhTable[table_index(h_bf16, w_bf16, transpose_w)](
+      a, stats, dh, dh_f32, static_cast<cudaStream_t>(stream));
+}
+
+// dW, W's shape and dtype.
+int ce_backward_dw_launch(const void* h, const void* w, const float* normp,
+                          float* stats, const int* labels, const float* rs,
+                          const float* lse, void* dw, int N, int D, int V,
+                          int Vp, int h_bf16, int w_bf16, int transpose_w,
+                          int norm, float eps, float softcap, void* stream) {
+  const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
+                             Vp, norm, eps, softcap, 0u, 0u);
+  return (int)kDwTable[table_index(h_bf16, w_bf16, transpose_w)](
+      a, stats, dw, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory bytes one backward block asks for at width D.
+int ce_backward_smem_bytes(int D) {
+  return (int)(sizeof(float) * bwd_smem_floats(D));
+}
+
+}  // extern "C"

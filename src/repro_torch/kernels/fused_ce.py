@@ -1,0 +1,639 @@
+"""Logits-free fused LM cross-entropy: the counterpart of
+``repro/kernels/fused_ce.py``.
+
+The loss of a hidden batch against a (Vp, D) tied or (D, Vp) untied
+unembedding without the (N, Vp) logits ever existing:
+
+  forward   one vocab sweep keeps a running (max, sum-exp, label logit)
+            per row and emits only ``lse`` and the label logit, (N,) each;
+            the final norm is applied to the hidden rows inside the sweep;
+  sampling  the same sweep draws ŷ ~ softmax(logits) by online Gumbel-argmax
+            over counter-based hash noise (a pure uint32 function of
+            ``(seed, row, col)``, so it reproduces the reference's draws
+            exactly) and keeps the drawn column's raw logit: GNB's sampled
+            labels with no second pass;
+  backward two sweeps recompute each logits tile and emit d(normed hidden)
+            and dW from ``softmax - onehot``; the autograd functions pull
+            d(normed hidden) back through the norm with autograd of the
+            plain :func:`apply_norm`.
+
+On a CUDA tensor each entry point launches the hand-written kernels of
+``csrc/fused_ce.cu`` (and adds one to its count in ``KERNEL_LAUNCHES``):
+
+  ``ce_forward``          forward (TPU kernel ``_ce_forward``, row 11)
+  ``ce_forward_sampled``  forward with the draw (``_ce_forward_sampled``,
+                          row 12)
+  ``ce_backward_dh``      d(normed hidden) (``_ce_backward`` dh, row 14,
+                          and the dh half of its fused schedule, row 13)
+  ``ce_backward_dw``      dW (``_ce_backward`` dW, row 15, and the dW half
+                          of row 13)
+
+On a CPU tensor it computes the plain version beside it, the reference's
+checkpoint-free chunked sweep (``models/loss.py:_chunked_sweep``) with the
+hash noise in place of ``jax.random``.  A CUDA tensor the kernel does not
+take raises; there is no other route.
+
+Compute convention (the reference's ``unembed``): W cast to the hidden
+dtype, products summed in fp32, softcap in fp32, padded columns at the
+-1e30 sentinel (never sampled, exactly zero gradient).  d(hidden) sums
+``d . W`` with W in fp32; dW sums ``d^T . h_n`` in fp32 and rounds once
+into W's dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import KERNEL_LAUNCHES, _build
+
+NEG_INF = -1e30       # masked-logit sentinel of the reference
+CHUNK = 2048          # vocab columns per chunk of the plain sweep
+NORMS = (None, "ln", "rms")
+_NORM_CODE = {None: 0, "ln": 1, "rms": 2}
+_f32 = torch.float32
+_M32 = 0xFFFFFFFF
+MAX_D = 1280          # widest hidden whose (32, D) fp32 accumulator fits a
+#                       backward block's shared memory
+
+# ---------------------------------------------------------------------------
+# counter-based Gumbel noise (the reference's _mix32 / hash_gumbel)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32): split so that no
+    product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32-style finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def hash_uniform(seed, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The fp32 uniform in [1e-7, 1 - 1e-7] behind :func:`hash_gumbel`."""
+    s0, s1 = (int(v) & _M32 for v in seed)
+    r = _mix32((rows.to(torch.int64) & _M32) ^ s0)
+    x = _mix32(r ^ _mul32(cols.to(torch.int64) & _M32, 0x9E3779B9) ^ s1)
+    u = (x >> 8).to(_f32) * (1.0 / (1 << 24))
+    return u.clamp(1e-7, 1.0 - 1e-7)
+
+
+def hash_gumbel(seed, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Gumbel(0, 1) noise as a pure function of ``(seed, row, col)``:
+    ``seed`` two uint32 values (ints or a (2,) array), ``rows``/``cols``
+    broadcastable integer tensors of global indices (taken mod 2**32)."""
+    return -torch.log(-torch.log(hash_uniform(seed, rows, cols)))
+
+
+# ---------------------------------------------------------------------------
+# the online-reduction rules (the reference's, one copy)
+
+
+def online_lse_step(m, l, s, valid=None):
+    """One vocab chunk of a running log-sum-exp; ``valid`` masks columns
+    so that a padded column adds nothing.  The final lse is m + log(l)."""
+    m_new = torch.maximum(m, s.amax(-1))
+    e = torch.exp(s - m_new[:, None])
+    if valid is not None:
+        e = torch.where(valid, e, 0.0)
+    return m_new, l * torch.exp(m - m_new) + e.sum(-1)
+
+
+def online_argmax_step(best, s, z, c0):
+    """One vocab chunk of a running Gumbel-argmax over (zm, zi, zl):
+    strict ``>`` across chunks and the first maximum within one, so any
+    chunking gives the first argmax of the whole row."""
+    zm, zi, zl = best
+    zmax, zarg = z.max(-1)
+    chunk_logit = s.gather(1, zarg[:, None])[:, 0]
+    upd = zmax > zm
+    return (torch.where(upd, zmax, zm),
+            torch.where(upd, (c0 + zarg).to(torch.int32), zi),
+            torch.where(upd, chunk_logit, zl))
+
+
+def vocab_chunk(v: int, want: int, quantum: int = 1) -> int:
+    """Largest multiple of ``quantum`` <= want dividing ``v``."""
+    b = max(quantum, min(want, v))
+    b -= b % quantum
+    while b >= quantum:
+        if v % b == 0:
+            return b
+        b -= quantum
+    return quantum
+
+
+def rowscale(n_rows: int, mask, device=None):
+    """(per-row scale, n_valid): ``mask / sum(mask)`` flattened to
+    (n_rows,), or uniform 1/N unmasked.  ``n_valid`` is GNB's batch
+    factor B."""
+    if mask is None:
+        return (torch.full((n_rows,), 1.0 / n_rows, dtype=_f32,
+                           device=device),
+                torch.tensor(float(n_rows), dtype=_f32, device=device))
+    m = mask.reshape(-1).to(_f32)
+    n_valid = torch.clamp_min(m.sum(), 1.0)
+    return m / n_valid, n_valid
+
+
+def apply_norm(x, normp, norm, eps):
+    """The fused final norm, the reference's convention: fp32 statistics
+    over the last axis, cast back to x's dtype.  ``normp`` is the (2, D)
+    fp32 [scale; bias] pair: ln is ``scale * xhat + bias``, rms ``x *
+    rsqrt(mean(x^2) + eps) * (1 + scale)`` (no bias)."""
+    if norm is None:
+        return x
+    x32 = x.to(_f32)
+    scale = normp[0]
+    if norm == "ln":
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+        out = (x32 - mu) * torch.rsqrt(var + eps) * scale + normp[1]
+    elif norm == "rms":
+        var = x32.square().mean(dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + eps) * (1.0 + scale)
+    else:
+        raise ValueError(f"norm {norm!r} is not ln or rms")
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the chunked vocab sweep
+
+
+def _vp_of(w, transpose_w) -> int:
+    return w.shape[1] if transpose_w else w.shape[0]
+
+
+def _chunk_logits(h32, w, cdt, c0, bv, transpose_w, softcap, vocab):
+    """One chunk's logits (s, valid, cols, dcap): W cast to the hidden
+    dtype ``cdt``, fp32 products and sums, softcap, padded columns at the
+    sentinel.  ``dcap`` is the softcap derivative (None uncapped)."""
+    if transpose_w:
+        raw = h32 @ w[:, c0:c0 + bv].to(cdt).to(_f32)
+    else:
+        raw = h32 @ w[c0:c0 + bv].to(cdt).to(_f32).T
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(raw / softcap)
+        raw = softcap * t
+        dcap = 1.0 - t * t
+    cols = torch.arange(c0, c0 + bv, device=raw.device)
+    valid = (cols < vocab)[None, :]
+    return torch.where(valid, raw, NEG_INF), valid, cols, dcap
+
+
+def _sweep_plain(h2, w, normp, labels, seed, *, vocab, transpose_w, softcap,
+                 norm, eps, chunk):
+    hn = apply_norm(h2, normp, norm, eps)
+    N = hn.shape[0]
+    Vp = _vp_of(w, transpose_w)
+    bv = vocab_chunk(Vp, chunk, 128)
+    h32 = hn.to(_f32)
+    dev = h2.device
+    m = torch.full((N,), NEG_INF, dtype=_f32, device=dev)
+    l = torch.zeros((N,), dtype=_f32, device=dev)
+    ll = torch.zeros((N,), dtype=_f32, device=dev)
+    zm = torch.full((N,), NEG_INF, dtype=_f32, device=dev)
+    zi = torch.zeros((N,), dtype=torch.int32, device=dev)
+    rows = torch.arange(N, device=dev)[:, None]
+    for c0 in range(0, Vp, bv):
+        s, valid, cols, _ = _chunk_logits(h32, w, hn.dtype, c0, bv,
+                                          transpose_w, softcap, vocab)
+        m, l = online_lse_step(m, l, s, valid)
+        if seed is None:
+            hit = cols[None, :] == labels.to(torch.int64)[:, None]
+            ll = ll + torch.where(hit, s, 0.0).sum(-1)
+        else:
+            z = torch.where(valid, s + hash_gumbel(seed, rows, cols[None, :]),
+                            NEG_INF)
+            zm, zi, ll = online_argmax_step((zm, zi, ll), s, z, c0)
+    lse = m + torch.log(torch.clamp_min(l, 1e-37))
+    return lse, ll, zi
+
+
+def ce_forward_plain(h2, w, normp, labels, *, vocab, transpose_w=False,
+                     softcap=None, norm=None, eps=1e-6, chunk=CHUNK):
+    """(lse, label logit) per row, fp32 (N,) each."""
+    lse, ll, _ = _sweep_plain(h2, w, normp, labels, None, vocab=vocab,
+                              transpose_w=transpose_w, softcap=softcap,
+                              norm=norm, eps=eps, chunk=chunk)
+    return lse, ll
+
+
+def ce_forward_sampled_plain(h2, w, normp, seed, *, vocab,
+                             transpose_w=False, softcap=None, norm=None,
+                             eps=1e-6, chunk=CHUNK):
+    """(lse, drawn logit, ŷ int32) per row."""
+    return _sweep_plain(h2, w, normp, None, seed, vocab=vocab,
+                        transpose_w=transpose_w, softcap=softcap, norm=norm,
+                        eps=eps, chunk=chunk)
+
+
+def ce_backward_plain(h2, w, normp, labels, rs, lse, *, vocab,
+                      transpose_w=False, softcap=None, norm=None, eps=1e-6,
+                      chunk=CHUNK):
+    """(d normed hidden, dW): dh fp32 with a norm (the caller pulls it
+    back), else h's dtype; dW in W's dtype and layout."""
+    hn = apply_norm(h2, normp, norm, eps)
+    N, D = hn.shape
+    Vp = _vp_of(w, transpose_w)
+    bv = vocab_chunk(Vp, chunk, 128)
+    h32 = hn.to(_f32)
+    w32 = w.to(_f32)
+    lab = labels.to(torch.int64)[:, None]
+    dh = torch.zeros((N, D), dtype=_f32, device=h2.device)
+    dw = torch.zeros(w.shape, dtype=_f32, device=h2.device)
+    for c0 in range(0, Vp, bv):
+        s, _, cols, dcap = _chunk_logits(h32, w, hn.dtype, c0, bv,
+                                         transpose_w, softcap, vocab)
+        p = torch.exp(s - lse[:, None])
+        onehot = (cols[None, :] == lab).to(_f32)
+        d = (p - onehot) * rs[:, None]
+        if dcap is not None:
+            d = d * dcap
+        if transpose_w:
+            dh += d @ w32[:, c0:c0 + bv].T
+            dw[:, c0:c0 + bv] = h32.T @ d
+        else:
+            dh += d @ w32[c0:c0 + bv]
+            dw[c0:c0 + bv] = d.T @ h32
+    return (dh if norm is not None else dh.to(h2.dtype)), dw.to(w.dtype)
+
+
+def ce_backward_dh_plain(*args, **kw):
+    return ce_backward_plain(*args, **kw)[0]
+
+
+def ce_backward_dw_plain(*args, **kw):
+    return ce_backward_plain(*args, **kw)[1]
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+
+
+_PTR, _INT, _FLOAT, _UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                             ctypes.c_uint)
+_SIGNATURES = {
+    "ce_forward_launch": [_PTR] * 10 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT,
+                                                      _UINT, _UINT, _INT,
+                                                      _INT, _PTR],
+    "ce_backward_dh_launch": [_PTR] * 8 + [_INT] * 9 + [_FLOAT, _FLOAT,
+                                                         _PTR],
+    "ce_backward_dw_launch": [_PTR] * 8 + [_INT] * 8 + [_FLOAT, _FLOAT,
+                                                         _PTR],
+}
+
+
+@functools.cache
+def _launch_fn(name: str):
+    fn = getattr(_build.load("fused_ce"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_kernel_args(h2, w, normp, *, transpose_w, norm) -> None:
+    """Raise ``ValueError`` for anything the CUDA kernels do not take."""
+    if h2.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"fused_ce: h {tuple(h2.shape)} must be (N, D) and "
+                         f"w {tuple(w.shape)} two-dimensional")
+    N, D = h2.shape
+    Dw = w.shape[0] if transpose_w else w.shape[1]
+    if Dw != D:
+        raise ValueError(f"fused_ce: w {tuple(w.shape)} does not match "
+                         f"D={D} (transpose_w={transpose_w})")
+    if D % 128 or D > MAX_D:
+        raise ValueError(f"fused_ce: D={D} must be a multiple of 128, at "
+                         f"most {MAX_D}")
+    if _vp_of(w, transpose_w) % 128:
+        raise ValueError("fused_ce: the padded vocab must be a multiple of "
+                         "128")
+    for t, name in ((h2, "h"), (w, "w")):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"fused_ce: {name} dtype {t.dtype} is not "
+                             "float32 or bfloat16")
+        if t.device != h2.device or not t.is_contiguous():
+            raise ValueError(f"fused_ce: {name} must be contiguous on "
+                             f"{h2.device}")
+    if norm not in _NORM_CODE:
+        raise ValueError(f"fused_ce: norm {norm!r} not in {NORMS}")
+    if (normp.shape != (2, D) or normp.dtype != _f32
+            or normp.device != h2.device or not normp.is_contiguous()):
+        raise ValueError("fused_ce: normp must be (2, D) float32, "
+                         f"contiguous on {h2.device}")
+
+
+def _common(h2, w, normp, *, vocab, transpose_w, softcap, norm, eps):
+    check_kernel_args(h2, w, normp, transpose_w=transpose_w, norm=norm)
+    N, D = h2.shape
+    return dict(
+        stats=torch.empty((max(N, 1), 2), dtype=_f32, device=h2.device),
+        dims=(N, D, int(vocab), _vp_of(w, transpose_w),
+              int(h2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+              int(bool(transpose_w)), _NORM_CODE[norm]),
+        cfg=(float(eps), float(softcap or 0.0)),
+        stream=torch.cuda.current_stream(h2.device).cuda_stream)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def forward_splits(N: int, Vp: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the forward's vocab axis: enough
+    (64-row x split) blocks for about four per SM of an H100."""
+    n_tiles = Vp // 128
+    row_blocks = -(-N // 64)
+    want = max(1, min(n_tiles, -(-528 // row_blocks)))
+    per = -(-n_tiles // want)
+    return -(-n_tiles // per), per
+
+
+def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
+                    softcap, norm, eps):
+    c = _common(h2, w, normp, vocab=vocab, transpose_w=transpose_w,
+                softcap=softcap, norm=norm, eps=eps)
+    N = h2.shape[0]
+    dev = h2.device
+    sample = seed is not None
+    splits, per = forward_splits(N, c["dims"][3])
+    part = torch.empty((4 * splits * N,), dtype=_f32, device=dev)
+    part_idx = torch.empty((splits * N,), dtype=torch.int32, device=dev)
+    lse = torch.empty((N,), dtype=_f32, device=dev)
+    ll = torch.empty((N,), dtype=_f32, device=dev)
+    yhat = torch.empty((N,), dtype=torch.int32, device=dev)
+    if sample:
+        s0, s1 = (int(v) & _M32 for v in seed)
+        lab_ptr = None
+    else:
+        labels = labels.to(device=dev, dtype=torch.int32).contiguous()
+        if labels.shape != (N,):
+            raise ValueError(f"fused_ce: labels {tuple(labels.shape)} must "
+                             f"be ({N},)")
+        s0 = s1 = 0
+        lab_ptr = labels.data_ptr()
+    err = _launch_fn("ce_forward_launch")(
+        h2.data_ptr(), w.data_ptr(), normp.data_ptr(),
+        c["stats"].data_ptr(), lab_ptr, part.data_ptr(), part_idx.data_ptr(),
+        lse.data_ptr(), ll.data_ptr(), yhat.data_ptr(), *c["dims"],
+        *c["cfg"], int(sample), s0, s1, splits, per, c["stream"])
+    name = "ce_forward_sampled" if sample else "ce_forward"
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
+    return lse, ll, yhat
+
+
+def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
+                     transpose_w, softcap, norm, eps):
+    c = _common(h2, w, normp, vocab=vocab, transpose_w=transpose_w,
+                softcap=softcap, norm=norm, eps=eps)
+    N = h2.shape[0]
+    dev = h2.device
+    labels = labels.to(device=dev, dtype=torch.int32).contiguous()
+    rs = rs.to(device=dev, dtype=_f32).contiguous()
+    lse = lse.to(device=dev, dtype=_f32).contiguous()
+    for t, name in ((labels, "labels"), (rs, "rs"), (lse, "lse")):
+        if t.shape != (N,):
+            raise ValueError(f"fused_ce: {name} {tuple(t.shape)} must be "
+                             f"({N},)")
+    ptrs = (h2.data_ptr(), w.data_ptr(), normp.data_ptr(),
+            c["stats"].data_ptr(), labels.data_ptr(), rs.data_ptr(),
+            lse.data_ptr())
+    if which == "dh":
+        out = torch.empty(h2.shape, device=dev,
+                          dtype=_f32 if norm is not None else h2.dtype)
+        err = _launch_fn("ce_backward_dh_launch")(
+            *ptrs, out.data_ptr(), int(norm is not None), *c["dims"],
+            *c["cfg"], c["stream"])
+    else:
+        out = torch.empty(w.shape, dtype=w.dtype, device=dev)
+        err = _launch_fn("ce_backward_dw_launch")(
+            *ptrs, out.data_ptr(), *c["dims"], *c["cfg"], c["stream"])
+    name = f"ce_backward_{which}"
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
+    return out
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"fused_ce: no route for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# entry points: plain version on the CPU, the kernel on the GPU
+
+
+def ce_forward(h2, w, normp, labels, *, vocab, transpose_w=False,
+               softcap=None, norm=None, eps=1e-6):
+    """h2 (N, D); w (Vp, D), or (D, Vp) with ``transpose_w``; normp (2, D)
+    fp32; labels (N,) -> (lse, label logit), fp32 (N,) each."""
+    if _route(h2) == "cpu":
+        return ce_forward_plain(h2, w, normp, labels, vocab=vocab,
+                                transpose_w=transpose_w, softcap=softcap,
+                                norm=norm, eps=eps)
+    lse, ll, _ = _forward_kernel(h2, w, normp, labels, None, vocab=vocab,
+                                 transpose_w=transpose_w, softcap=softcap,
+                                 norm=norm, eps=eps)
+    return lse, ll
+
+
+def ce_forward_sampled(h2, w, normp, seed, *, vocab, transpose_w=False,
+                       softcap=None, norm=None, eps=1e-6):
+    """The forward sweep with the draw: (lse, drawn logit, ŷ int32)."""
+    if _route(h2) == "cpu":
+        return ce_forward_sampled_plain(h2, w, normp, seed, vocab=vocab,
+                                        transpose_w=transpose_w,
+                                        softcap=softcap, norm=norm, eps=eps)
+    return _forward_kernel(h2, w, normp, None, seed, vocab=vocab,
+                           transpose_w=transpose_w, softcap=softcap,
+                           norm=norm, eps=eps)
+
+
+def ce_backward_dh(h2, w, normp, labels, rs, lse, *, vocab,
+                   transpose_w=False, softcap=None, norm=None, eps=1e-6):
+    """d(normed hidden) (N, D): fp32 with a norm, else h's dtype."""
+    kw = dict(vocab=vocab, transpose_w=transpose_w, softcap=softcap,
+              norm=norm, eps=eps)
+    if _route(h2) == "cpu":
+        return ce_backward_dh_plain(h2, w, normp, labels, rs, lse, **kw)
+    return _backward_kernel("dh", h2, w, normp, labels, rs, lse, **kw)
+
+
+def ce_backward_dw(h2, w, normp, labels, rs, lse, *, vocab,
+                   transpose_w=False, softcap=None, norm=None, eps=1e-6):
+    """dW in W's shape and dtype."""
+    kw = dict(vocab=vocab, transpose_w=transpose_w, softcap=softcap,
+              norm=norm, eps=eps)
+    if _route(h2) == "cpu":
+        return ce_backward_dw_plain(h2, w, normp, labels, rs, lse, **kw)
+    return _backward_kernel("dw", h2, w, normp, labels, rs, lse, **kw)
+
+
+def ce_backward(h2, w, normp, labels, rs, lse, *, vocab, transpose_w=False,
+                softcap=None, norm=None, eps=1e-6):
+    """(d normed hidden, dW): one plain sweep on the CPU, the dh and dW
+    kernels on the GPU."""
+    kw = dict(vocab=vocab, transpose_w=transpose_w, softcap=softcap,
+              norm=norm, eps=eps)
+    if _route(h2) == "cpu":
+        return ce_backward_plain(h2, w, normp, labels, rs, lse, **kw)
+    return (_backward_kernel("dh", h2, w, normp, labels, rs, lse, **kw),
+            _backward_kernel("dw", h2, w, normp, labels, rs, lse, **kw))
+
+
+# ---------------------------------------------------------------------------
+# autograd
+
+
+def _norm_pullback(h2, normp, norm, eps, dhn):
+    """Pull d(normed hidden) back through the norm with autograd of the
+    plain :func:`apply_norm` (the same fp32 statistics and cast as the
+    kernels)."""
+    if norm is None:
+        return dhn.to(h2.dtype), None
+    with torch.enable_grad():
+        x = h2.detach().requires_grad_(True)
+        p = normp.detach().requires_grad_(True)
+        out = apply_norm(x, p, norm, eps).to(_f32)
+        dh, dnormp = torch.autograd.grad(out, (x, p), dhn)
+    return dh, dnormp
+
+
+class _FusedNLL(torch.autograd.Function):
+    """sum(rowscale * (lse - label logit)): differentiable in h2, w, normp
+    and rowscale (whose cotangent is ``(lse - ll) * g``)."""
+
+    @staticmethod
+    def forward(ctx, h2, w, normp, rowscale, labels, opts):
+        lse, ll = ce_forward(h2, w, normp, labels, **opts)
+        ctx.save_for_backward(h2, w, normp, labels, rowscale, lse, ll)
+        ctx.opts = opts
+        return torch.sum(rowscale * (lse - ll))
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w, normp, labels, rowscale, lse, ll = ctx.saved_tensors
+        return _backward(ctx.opts, h2, w, normp, labels, rowscale, lse, ll,
+                         g) + (None, None)
+
+
+class _FusedSampledNLL(torch.autograd.Function):
+    """The same loss against ŷ drawn inside the forward sweep."""
+
+    @staticmethod
+    def forward(ctx, h2, w, normp, rowscale, seed, opts):
+        lse, ll, yhat = ce_forward_sampled(h2, w, normp, seed, **opts)
+        ctx.save_for_backward(h2, w, normp, yhat, rowscale, lse, ll)
+        ctx.opts = opts
+        return torch.sum(rowscale * (lse - ll))
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w, normp, yhat, rowscale, lse, ll = ctx.saved_tensors
+        return _backward(ctx.opts, h2, w, normp, yhat, rowscale, lse, ll,
+                         g) + (None, None)
+
+
+def _backward(opts, h2, w, normp, labels, rowscale, lse, ll, g):
+    rs = (rowscale * g).to(_f32)
+    dhn, dw = ce_backward(h2, w, normp, labels, rs, lse, **opts)
+    dh, dnormp = _norm_pullback(h2, normp, opts["norm"], opts["eps"], dhn)
+    return dh, dw, dnormp, (lse - ll) * g
+
+
+def _pack_norm(norm_kind, norm_scale, norm_bias, D, device):
+    """(norm, (2, D) fp32 [scale; bias]); zeros without a norm."""
+    if norm_kind is None:
+        return None, torch.zeros((2, D), dtype=_f32, device=device)
+    if norm_kind not in ("ln", "rms"):
+        raise ValueError(f"norm_kind {norm_kind!r} is not ln or rms")
+    scale = norm_scale.to(_f32)
+    bias = (torch.zeros((D,), dtype=_f32, device=device) if norm_bias is None
+            else norm_bias.to(_f32))
+    return norm_kind, torch.stack([scale, bias])
+
+
+def _prep(hidden, w, mask, *, vocab_size, transpose_w, softcap, norm_kind,
+          norm_scale, norm_bias, norm_eps):
+    D = hidden.shape[-1]
+    h2 = hidden.reshape(-1, D).contiguous()
+    rs, n_valid = rowscale(h2.shape[0], mask, device=hidden.device)
+    norm, normp = _pack_norm(norm_kind, norm_scale, norm_bias, D,
+                             hidden.device)
+    opts = dict(vocab=int(vocab_size), transpose_w=bool(transpose_w),
+                softcap=float(softcap) if softcap else None, norm=norm,
+                eps=float(norm_eps))
+    return h2, rs, n_valid, normp, opts
+
+
+def fused_lm_loss(hidden, w, labels, mask=None, *, vocab_size,
+                  transpose_w=False, softcap=None, norm_kind=None,
+                  norm_scale=None, norm_bias=None, norm_eps=1e-6):
+    """Masked-mean LM cross-entropy without materializing logits.
+
+    hidden (..., D); w (Vp, D) tied or (D, Vp) untied (``transpose_w``);
+    labels (...) int; mask (...) optional.  Returns ``(loss, n_valid)``.
+    Differentiable in ``hidden``, ``w`` and the norm parameters.  With
+    ``norm_kind`` ("ln"/"rms") ``hidden`` is PRE-final-norm and the norm is
+    applied inside the sweep."""
+    h2, rs, n_valid, normp, opts = _prep(
+        hidden, w, mask, vocab_size=vocab_size, transpose_w=transpose_w,
+        softcap=softcap, norm_kind=norm_kind, norm_scale=norm_scale,
+        norm_bias=norm_bias, norm_eps=norm_eps)
+    lab = labels.reshape(-1).to(torch.int32)
+    return _FusedNLL.apply(h2, w, normp, rs, lab, opts), n_valid
+
+
+def fused_lm_loss_sampled(hidden, w, seed, mask=None, *, vocab_size,
+                          transpose_w=False, softcap=None, norm_kind=None,
+                          norm_scale=None, norm_bias=None, norm_eps=1e-6):
+    """GNB's sampled-label CE in one sweep: draws ŷ ~ softmax(logits) with
+    the hash noise of ``seed`` (two uint32 values) inside the forward and
+    returns the masked-mean NLL against it as ``(loss, n_valid)``; its
+    gradient is Algorithm 2's ĝ through this stage."""
+    h2, rs, n_valid, normp, opts = _prep(
+        hidden, w, mask, vocab_size=vocab_size, transpose_w=transpose_w,
+        softcap=softcap, norm_kind=norm_kind, norm_scale=norm_scale,
+        norm_bias=norm_bias, norm_eps=norm_eps)
+    seed = tuple(int(v) & _M32 for v in seed)
+    return _FusedSampledNLL.apply(h2, w, normp, rs, seed, opts), n_valid
+
+
+# ---------------------------------------------------------------------------
+# work of one call (bound and yardstick in chip_smoke.py)
+
+
+def ce_flops(N: int, D: int, Vp: int, which: str) -> int:
+    """Multiply-add flops of one call: the forward's logits product, and
+    for each backward kernel the recomputed logits plus its own product."""
+    return 2 * N * D * Vp * (1 if which.startswith("ce_forward") else 2)
+
+
+def ce_bytes(N: int, D: int, Vp: int, which: str, *, bytes_h: int,
+             bytes_w: int, norm: bool = True) -> int:
+    """Bytes one call must move: each input read once (h, W, the norm
+    pair, the (N,) vectors it reads) and each output written once."""
+    vec = 4 * N
+    inputs = N * D * bytes_h + Vp * D * bytes_w + (8 * D if norm else 0)
+    if which == "ce_forward":
+        return inputs + vec + 2 * vec                  # labels; lse, ll
+    if which == "ce_forward_sampled":
+        return inputs + 3 * vec                        # lse, ll, yhat
+    reads = inputs + 3 * vec                           # labels, rs, lse
+    if which == "ce_backward_dh":
+        return reads + N * D * (4 if norm else bytes_h)
+    return reads + Vp * D * bytes_w

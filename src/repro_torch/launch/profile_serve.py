@@ -53,7 +53,11 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_window(label, fn, top=8) -> dict:
+def profile_window(label, fn, top=8, match="decode_attention") -> dict:
+    """Profile ``fn()``: wall time, device busy (union of kernel
+    intervals), idle share, kernel count, the device time of kernels whose
+    name contains ``match`` (key ``matched_us``) and the ``top`` kernels
+    by device time."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -70,8 +74,8 @@ def profile_window(label, fn, top=8) -> dict:
     return {"window": label, "wall_us": wall_us, "device_busy_us": busy,
             "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
             "kernels_launched": len(kernels),
-            "decode_attention_us": sum(t for n, t in by_name.items()
-                                       if "decode_attention" in n),
+            "match": match,
+            "matched_us": sum(t for n, t in by_name.items() if match in n),
             "top_kernels_us": [[n[:80], t] for n, t in ranked]}
 
 

@@ -9,8 +9,10 @@ The counterpart of ``repro/models/layers.py``, with its conventions:
   * every init function takes an explicit ``torch.Generator`` and draws on
     that generator's device.
 
-Serving attention writes the slot cache in place (the reference returns a
-new cache): decode writes one token per active slot, prefill one chunk of
+Training attention (:func:`full_attention`) materializes the (S, S)
+scores in fp32, the reference's route with ``fused_attn=False``; the flash
+kernels come with a later slice.  Serving attention writes the slot cache
+in place (the reference returns a new cache): decode writes one token per active slot, prefill one chunk of
 one slot.  Decode attention goes through ``kernels/decode_attention.py``
 with q pre-scaled in fp32 and rounded to its dtype, the convention of the
 reference's Pallas route (``layers.py:489-496``), so the CUDA kernel and
@@ -100,6 +102,58 @@ def attention_scores_block(q, k, cfg: ModelConfig, scale):
     scores = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
     return _softcap(scores, cfg.attn_logit_softcap)
+
+
+def _causal_window_mask(S, window, device):
+    """(S, S) bool mask, True = attend; the window counts key distance."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def full_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0):
+    """Causal training attention with materialized scores, the reference's
+    ``full_attention``: fp32 scores ``q.k * layer_scale / sqrt(hd)``,
+    softcap, the causal (and window) mask at the -1e30 sentinel, fp32
+    softmax cast to x's dtype, then ``w . v`` and the output projection.
+    x (B, S, D) -> (B, S, D)."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    scale = attention_scale(cfg, layer_scale)
+    scores = attention_scores_block(q, k, cfg, scale)      # (B,Hkv,G,S,S)
+    mask = _causal_window_mask(S, window, x.device)
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v)
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(dt)
+
+
+TRAIN_ATTN_IMPLS = ("auto", "full", "chunked", "flash", "flash_jvp")
+
+
+def train_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0,
+                    impl="auto"):
+    """Route one training attention call: "auto" and "full" take
+    :func:`full_attention` up to 4096 tokens.  The chunked route (above
+    4096 tokens) and the flash kernels (rows 16-18 of the kernel table)
+    are not ported yet and raise."""
+    impl = impl or "auto"
+    if impl not in TRAIN_ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl in ("flash", "flash_jvp"):
+        raise NotImplementedError(
+            f"attention impl {impl!r}: the flash attention kernels (rows "
+            "16-18) are not ported yet; use 'full' (fused_attn=False)")
+    if impl == "chunked" or x.shape[1] > 4096:
+        raise NotImplementedError(
+            "chunked training attention (sequences above 4096 tokens) is "
+            "not ported yet")
+    return full_attention(p, x, cfg, window=window, layer_scale=layer_scale)
 
 
 def ring_write(cache, val, positions, active=None):

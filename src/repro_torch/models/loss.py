@@ -1,0 +1,73 @@
+"""The LM loss from final hidden states, logits-free: the counterpart of
+``repro/models/loss.py`` on its "fused" route.
+
+:func:`lm_loss` and :func:`lm_loss_sampled` hand the hidden states, the
+unembedding in its stored layout and (with ``pre_norm``) the final norm's
+parameters to ``kernels/fused_ce.py``: the norm is applied inside the
+vocab sweep and the [B*T, V] logits never exist.  The tied weight is the
+embedding table itself, so autograd sums its gradient from the CE with the
+one from the embedding lookup.
+
+The reference's other routes are not ported: "chunked" and "unfused" draw
+GNB's labels with ``jax.random`` (no PyTorch code reproduces those draws)
+and "fused_jvp" serves the Hutchinson HVP; each raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from ..kernels.fused_ce import fused_lm_loss, fused_lm_loss_sampled
+from .common import ModelConfig
+
+IMPLS = ("fused", "fused_jvp", "chunked", "unfused")
+
+
+def _check_impl(impl) -> None:
+    impl = impl or "fused"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown loss impl {impl!r}")
+    if impl != "fused":
+        raise NotImplementedError(
+            f"loss impl {impl!r} is not ported: the port's LM loss is the "
+            "fused logits-free kernel ('fused'); the chunked and unfused "
+            "routes draw with jax.random and fused_jvp serves the "
+            "Hutchinson estimator")
+
+
+def unembed_weights(cfg: ModelConfig, params):
+    """(w, transpose_w): the unembedding in its stored layout, (Vp, D)
+    tied or (D, Vp) untied."""
+    if cfg.tie_embeddings:
+        return params.embed["tok"], False
+    return params.embed["unembed"], True
+
+
+def _kernel_kw(cfg: ModelConfig, params, pre_norm) -> dict:
+    w, tw = unembed_weights(cfg, params)
+    kw = dict(w=w, vocab_size=cfg.vocab_size, transpose_w=tw,
+              softcap=cfg.final_logit_softcap)
+    if pre_norm is not None:
+        p = params.final_norm
+        kw.update(norm_kind=pre_norm, norm_scale=p["scale"],
+                  norm_bias=p["bias"] if "bias" in p else None,
+                  norm_eps=cfg.norm_eps)
+    return kw
+
+
+def lm_loss(cfg: ModelConfig, params, hidden, labels, mask=None, *,
+            impl=None, pre_norm=None):
+    """Masked-mean LM cross-entropy: ``(ce, n_valid)``.  With ``pre_norm``
+    ("ln" | "rms") ``hidden`` is PRE-final-norm and the norm
+    (``params.final_norm``) is fused into the sweep."""
+    _check_impl(impl)
+    kw = _kernel_kw(cfg, params, pre_norm)
+    return fused_lm_loss(hidden, kw.pop("w"), labels, mask, **kw)
+
+
+def lm_loss_sampled(cfg: ModelConfig, params, hidden, seed, mask=None, *,
+                    impl=None, pre_norm=None):
+    """GNB's sampled-label CE (Algorithm 2 lines 3-5): ŷ ~ softmax(logits)
+    drawn inside the sweep from the hash noise of ``seed`` (two uint32
+    values); returns ``(nll, n_valid)``, whose gradient is ĝ."""
+    _check_impl(impl)
+    kw = _kernel_kw(cfg, params, pre_norm)
+    return fused_lm_loss_sampled(hidden, kw.pop("w"), seed, mask, **kw)

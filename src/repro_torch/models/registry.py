@@ -8,7 +8,9 @@ from .common import ModelConfig
 
 
 def get_model(cfg: ModelConfig) -> SimpleNamespace:
-    """The family's serve-engine slot protocol:
+    """The family's training functions (``forward_hidden``, ``forward``,
+    ``loss_fn``, ``sampled_loss_fn``, as in ``models/transformer.py``) and
+    its serve-engine slot protocol:
 
         init_params(cfg, generator)                     -> Transformer
         init_slots(cfg, n_slots, cache_len, device)     -> slot cache dict
@@ -23,6 +25,10 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
     if cfg.family == "dense":
         return SimpleNamespace(
             init_params=transformer.init_params,
+            forward_hidden=transformer.forward_hidden,
+            forward=transformer.forward,
+            loss_fn=transformer.loss_fn,
+            sampled_loss_fn=transformer.sampled_loss_fn,
             init_slots=transformer.init_slots,
             prefill_into_slot=transformer.prefill_into_slot,
             decode_slots=transformer.decode_slots,

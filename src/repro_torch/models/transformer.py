@@ -1,12 +1,21 @@
-"""Decoder-only transformer LM, dense GPT-2 family: parameters and the
-serve engine's slot protocol.
+"""Decoder-only transformer LM, dense GPT-2 family: parameters, the
+training forward and losses, and the serve engine's slot protocol.
 
 The counterpart of ``repro/models/transformer.py``.  The parameters are an
 ``nn.Module`` whose names follow the reference's params dict
 (``embed.tok``, ``embed.pos``, ``final_norm.scale``, and per layer
 ``layers.<i>.ln1``, ``attn.wq/wk/wv/wo``, ``ln2``,
 ``mlp.w_up/b_up/w_down/b_down``); the reference's scan over stacked layers
-is a Python loop over ``layers``.
+is a Python loop over ``layers``.  The parameters take gradients; the
+serving entry points run under ``torch.inference_mode()``, which records
+no autograd graph and skips autograd's per-op bookkeeping.  :meth:`Transformer.param_tree` is the reference's params dict
+with each stacked leaf as a list of per-layer tensors (``core/types.py``),
+the view the optimizer engine ravels.
+
+Training (``forward_hidden``, ``forward``, ``loss_fn``,
+``sampled_loss_fn``): the reference's trunk with its materialized-scores
+attention (``fused_attn=False``) and the logits-free fused loss with the
+final norm fused into the sweep (``models/loss.py``).
 
 Slot protocol (continuous-batching engine, ``serve/engine.py``): the cache
 is the reference's slot-major ring, a dict of leaves with a leading layer
@@ -28,14 +37,14 @@ from ..kernels.decode_attention import GLOBAL_WINDOW
 from .common import ModelConfig, check_supported
 from .layers import (decode_attention_slots, embed, init_attention,
                      init_embedding, init_mlp, layer_norm, mlp,
-                     prefill_chunk_attention, unembed)
+                     prefill_chunk_attention, train_attention, unembed)
 
 # ---------------------------------------------------------------------------
 # params
 
 
 def _params(tree) -> nn.ParameterDict:
-    return nn.ParameterDict({name: nn.Parameter(t, requires_grad=False)
+    return nn.ParameterDict({name: nn.Parameter(t)
                              for name, t in tree.items()})
 
 
@@ -62,6 +71,19 @@ class Transformer(nn.Module):
         self.embed = _params(tree["embed"])
         self.final_norm = _params(tree["final_norm"])
         self.layers = nn.ModuleList(_Layer(t) for t in tree["layers"])
+
+    def param_tree(self) -> dict:
+        """The reference's params dict over this module's parameters; each
+        leaf under ``"layers"`` is a list of the per-layer tensors."""
+        groups = ("ln1", "attn", "ln2", "mlp")
+        return {
+            "embed": dict(self.embed.items()),
+            "final_norm": dict(self.final_norm.items()),
+            "layers": {g: {name: [getattr(layer, g)[name]
+                                  for layer in self.layers]
+                           for name in getattr(self.layers[0], g).keys()}
+                       for g in groups},
+        }
 
 
 def _init_norm(cfg: ModelConfig, device):
@@ -109,6 +131,76 @@ def layer_scales(cfg: ModelConfig) -> List[float]:
 
 
 # ---------------------------------------------------------------------------
+# training forward
+
+
+def _check_remat(remat: str) -> None:
+    if remat != "none":
+        raise NotImplementedError(f"remat {remat!r} is not ported; only "
+                                  "'none'")
+
+
+def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
+                   positions=None, attn_impl: str = "auto",
+                   remat: str = "none", final_norm: bool = True):
+    """tokens (B, S) -> (hidden (B, S, D), aux): the trunk shared by
+    :func:`forward` and the losses.  ``final_norm=False`` returns the
+    PRE-norm hidden, which the fused loss normalizes inside its sweep.
+    ``aux`` is the MoE load-balance term, 0 for the dense family."""
+    _check_remat(remat)
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = embed(params.embed, tokens, cfg, positions)
+    windows = layer_windows(cfg)
+    scales = layer_scales(cfg)
+    for i, layer in enumerate(params.layers):
+        h = _norm(layer.ln1, x, cfg)
+        x = x + train_attention(layer.attn, h, cfg, window=windows[i],
+                                layer_scale=scales[i], impl=attn_impl)
+        x = x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+    if final_norm:
+        x = _norm(params.final_norm, x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens, *, positions=None,
+            attn_impl: str = "auto", remat: str = "none"):
+    """tokens (B, S) -> (logits (B, S, V) fp32, aux)."""
+    x, aux = forward_hidden(cfg, params, tokens, positions=positions,
+                            attn_impl=attn_impl, remat=remat)
+    return unembed(params.embed, x, cfg), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer, batch, *,
+            attn_impl="auto", remat="none", loss_impl=None):
+    """batch {tokens, labels, [mask], [positions]} -> (loss, metrics), the
+    CE through the logits-free fused loss with the final norm fused."""
+    from .loss import lm_loss
+    hidden, aux = forward_hidden(cfg, params, batch["tokens"],
+                                 positions=batch.get("positions"),
+                                 attn_impl=attn_impl, remat=remat,
+                                 final_norm=False)
+    ce, _ = lm_loss(cfg, params, hidden, batch["labels"], batch.get("mask"),
+                    impl=loss_impl, pre_norm=cfg.norm_type)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def sampled_loss_fn(cfg: ModelConfig, params: Transformer, batch, seed, *,
+                    attn_impl="auto", remat="none", loss_impl=None):
+    """GNB's sampled-label NLL (Algorithm 2): ``(nll, n_valid)`` with the
+    labels drawn from the model's own softmax inside the loss sweep, from
+    the hash noise of ``seed`` (two uint32 values)."""
+    from .loss import lm_loss_sampled
+    hidden, _ = forward_hidden(cfg, params, batch["tokens"],
+                               positions=batch.get("positions"),
+                               attn_impl=attn_impl, remat=remat,
+                               final_norm=False)
+    return lm_loss_sampled(cfg, params, hidden, seed, batch.get("mask"),
+                           impl=loss_impl, pre_norm=cfg.norm_type)
+
+
+# ---------------------------------------------------------------------------
 # slot protocol
 
 
@@ -150,7 +242,7 @@ def _slot_layer_sweep(cfg: ModelConfig, params: Transformer, cache, x,
     return x
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def decode_slots(cfg: ModelConfig, params: Transformer, cache, tokens,
                  positions, active=None):
     """One decode step across all slots: tokens (N, 1), positions (N,).
@@ -168,7 +260,7 @@ def decode_slots(cfg: ModelConfig, params: Transformer, cache, tokens,
     return unembed(params.embed, x, cfg)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def prefill_into_slot(cfg: ModelConfig, params: Transformer, cache,
                       slot: int, tokens, start: int, n_valid: int):
     """Chunk-prefill one slot: tokens (1, P) at positions start..start+P-1.

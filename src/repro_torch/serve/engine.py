@@ -250,8 +250,10 @@ class ServeEngine:
         self._eos[slot] = NO_EOS
 
     # ------------------------------------------------------------------
+    @torch.inference_mode()
     def tick(self) -> None:
-        """One scheduler round: admit -> chunk-prefill -> decode burst."""
+        """One scheduler round: admit -> chunk-prefill -> decode burst,
+        under ``torch.inference_mode()`` (serving records no autograd)."""
         self._admit()
         self._prefill_tick()
         self._decode_tick()

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the serve engine's launch count.  Every test here needs an
+version, the serve engine's launch count and the trainer's.  Every test here needs an
 NVIDIA GPU; each carries the ``cuda`` marker and skips without one.  The
 file imports no JAX, so it runs on a GPU machine that has only PyTorch:
 
@@ -12,12 +12,14 @@ import pytest
 import torch
 
 from repro_torch.configs.gpt2 import GPT2_TINY
-from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+from repro_torch.data import DataConfig, make_source
+from repro_torch.kernels import KERNEL_LAUNCHES, fused_ce, reset_launch_counts
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                    decode_attention_plain)
 from repro_torch.models import get_model
 from repro_torch.quant import quantize_kv
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.train import TrainerConfig, make_train_fns, train_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +95,80 @@ def test_engine_on_card_matches_cpu_and_launches_per_layer(cuda_device,
     name = "decode_attention_q8" if kv_dtype == "int8" else "decode_attention"
     assert launches == {name: cfg.n_layers * eng.decode_ticks
                         * eng.steps_per_tick}
+
+
+@pytest.mark.parametrize("h_dtype,w_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("tied,norm,softcap", [(True, "ln", None),
+                                               (False, "rms", 30.0),
+                                               (True, None, None)])
+def test_fused_ce_kernels_match_plain(cuda_device, h_dtype, w_dtype, tied,
+                                      norm, softcap):
+    """Each CE kernel (forward, sampled forward, dh, dW) against its plain
+    version at a small shape with a padded vocab, ragged rows and a mask:
+    fp32 within 1e-5, bf16 within 2e-2 (dh and dW relative to their
+    scale); the same draws (no near-ties at this size)."""
+    N, D, V, Vp = 77, 128, 1000, 1024
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    h = (torch.randn((N, D), generator=gen, device=cuda_device) * 2
+         ).to(h_dtype)
+    w = (torch.randn((Vp, D) if tied else (D, Vp), generator=gen,
+                     device=cuda_device) * 0.05).to(w_dtype)
+    normp = torch.stack([1.0 + 0.1 * torch.randn(D, generator=gen,
+                                                 device=cuda_device),
+                         0.1 * torch.randn(D, generator=gen,
+                                           device=cuda_device)])
+    labels = torch.randint(0, V, (N,), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+    mask = (torch.rand((N,), generator=gen, device=cuda_device) > 0.3).float()
+    rs, _ = fused_ce.rowscale(N, mask)
+    opts = dict(vocab=V, transpose_w=not tied, softcap=softcap, norm=norm)
+    tol = 1e-5 if h_dtype == w_dtype == torch.float32 else 2e-2
+    reset_launch_counts()
+    lse, ll = fused_ce.ce_forward(h, w, normp, labels, **opts)
+    lse_s, ll_s, y = fused_ce.ce_forward_sampled(h, w, normp, (5, 6), **opts)
+    dh = fused_ce.ce_backward_dh(h, w, normp, labels, rs, lse, **opts)
+    dw = fused_ce.ce_backward_dw(h, w, normp, labels, rs, lse, **opts)
+    torch.cuda.synchronize()
+    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 1, "ce_forward_sampled": 1,
+                                     "ce_backward_dh": 1, "ce_backward_dw": 1}
+    lse_p, ll_p = fused_ce.ce_forward_plain(h, w, normp, labels, **opts)
+    lse_sp, ll_sp, y_p = fused_ce.ce_forward_sampled_plain(h, w, normp,
+                                                           (5, 6), **opts)
+    dh_p, dw_p = fused_ce.ce_backward_plain(h, w, normp, labels, rs, lse,
+                                            **opts)
+    for got, want in ((lse, lse_p), (ll, ll_p), (lse_s, lse_sp),
+                      (ll_s, ll_sp)):
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert torch.equal(y, y_p) and int(y.max()) < V
+    for got, want in ((dh, dh_p), (dw, dw_p)):
+        assert got.dtype == want.dtype
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def test_trainer_launches_the_ce_kernels(cuda_device):
+    """Four GPT2_TINY steps on the card (refresh at 0 and 2): one forward,
+    dh and dW per step, one more of each with the sampled forward per
+    refresh; the losses agree with the CPU's plain path (fp32)."""
+    cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
+    tc = TrainerConfig(peak_lr=5e-4, total_steps=8, warmup_steps=2,
+                       hess_interval=2, hess_subbatch=2)
+    src = make_source(DataConfig(seq_len=32, global_batch=4,
+                                 vocab_size=cfg.vocab_size))
+    init_fn, _ = make_train_fns(cfg, tc, device=cuda_device)
+    state = init_fn()
+    cpu_params = get_model(cfg).init_params(cfg, torch.Generator())
+    cpu_params.load_state_dict({k: v.cpu() for k, v in
+                                state.params.state_dict().items()})
+    reset_launch_counts()
+    state, hist = train_loop(cfg, tc, src, num_steps=4, state=state,
+                             device=cuda_device)
+    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 4, "ce_forward_sampled": 2,
+                                     "ce_backward_dh": 6, "ce_backward_dw": 6}
+    cpu_init, _ = make_train_fns(cfg, tc, device="cpu")
+    _, hist_cpu = train_loop(cfg, tc, src, num_steps=4,
+                             state=cpu_init(cpu_params), device="cpu")
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in hist_cpu], rtol=1e-4)

@@ -1,0 +1,350 @@
+"""The port's logits-free fused CE (repro_torch.kernels.fused_ce), its
+plain versions on the CPU, held against the JAX reference: the hash noise,
+the forward (loss, lse, sampled labels) against the Pallas kernels in
+interpret mode with explicit small blocks, and the gradients against the
+``kernels/ref.py`` closed-form oracles.  Inputs come from numpy with a
+seed, as in tests/test_fused_ce.py (VOCAB=200 padded to 256)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fused_ce import _mix32 as jax_mix32
+from repro.kernels.fused_ce import fused_lm_loss as jax_fused_lm_loss
+from repro.kernels.fused_ce import fused_lm_sample as jax_fused_lm_sample
+from repro.kernels.fused_ce import hash_gumbel as jax_hash_gumbel
+from repro.kernels.fused_ce import seed_from_key
+from repro.kernels.ref import (_lm_logits_ref, lm_loss_grads_ref,
+                               lm_loss_sampled_ref)
+from repro.models.layers import layer_norm as jax_layer_norm
+from repro.models.layers import rms_norm as jax_rms_norm
+from repro_torch.kernels import fused_ce as ce
+
+# One intra-op thread per process: the suite runs six pytest-xdist workers
+# on the machine's cores, and torch's default pool in every worker
+# oversubscribes them, slowing every test beside it (JAX's too) severalfold.
+torch.set_num_threads(1)
+
+TOL = 3e-6          # fp32, the reference tests' bound against the oracle
+BF16_RTOL = 4e-3    # one bf16 ulp: both sides round an fp32 sum taken in
+#                     another order
+VOCAB, VP, D = 200, 256, 32
+JAX_BLOCKS = dict(block_n=16, block_v=64)
+
+
+def _setup(dtype="float32", tied=True, *, B=4, T=12, seed=0,
+           w_dtype="float32"):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((B, T, D)).astype(np.float32)
+    w = (rng.standard_normal((VP, D) if tied else (D, VP)) * 0.2
+         ).astype(np.float32)
+    labels = rng.integers(0, VOCAB, (B, T)).astype(np.int32)
+    mask = (rng.random((B, T)) > 0.3).astype(np.float32)
+    scale = (rng.standard_normal(D) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal(D) * 0.1).astype(np.float32)
+    jd, wd = getattr(jnp, dtype), getattr(jnp, w_dtype)
+    jx = dict(h=jnp.asarray(h).astype(jd), w=jnp.asarray(w).astype(wd),
+              labels=jnp.asarray(labels), mask=jnp.asarray(mask),
+              scale=jnp.asarray(scale), bias=jnp.asarray(bias))
+    tx = {k: _to_torch(v) for k, v in jx.items()}
+    return jx, tx
+
+
+def _to_torch(x):
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(x.copy())
+
+
+def _np(t):
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _close(got, want, dtype, atol=TOL):
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    rtol = BF16_RTOL if dtype == "bfloat16" else 0.0
+    np.testing.assert_allclose(_np(got), want, rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the counter-based noise
+
+
+def test_hash_noise_matches_reference():
+    """The hashed uint32 bits and the uniform behind the Gumbel noise are
+    bit-identical to the reference's over seeds, rows and columns up to
+    2**32 - 1.  The noise itself is ``-log(-log(u))``: XLA's CPU log and
+    torch's differ by at most one ulp, so g agrees within 1e-6."""
+    seeds = [(0, 0), (1, 2), (0xFFFFFFFF, 0x80000000), (123456789, 987654321)]
+    rows = np.array([0, 1, 7, 47, 2**31 - 1, 2**31, 2**32 - 1, 123457],
+                    np.uint32)
+    cols = np.array([0, 1, 199, 255, 50303, 2**31 - 1, 2**31, 2**32 - 1],
+                    np.uint32)
+    rng = np.random.default_rng(3)
+    big_r = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    big_c = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    for s in seeds:
+        seed = np.array(s, np.uint32)
+        for r, c in ((rows[:, None], cols[None, :]), (big_r, big_c)):
+            x = jax_mix32(jax_mix32(jnp.asarray(r) ^ seed[0])
+                          ^ (jnp.asarray(c) * np.uint32(0x9E3779B9)) ^ seed[1])
+            u_ref = np.clip((np.asarray(x) >> 8).astype(np.float32)
+                            * np.float32(1.0 / (1 << 24)), 1e-7, 1 - 1e-7)
+            tr = torch.from_numpy(r.astype(np.int64))
+            tc = torch.from_numpy(c.astype(np.int64))
+            u = ce.hash_uniform(s, tr, tc).numpy()
+            np.testing.assert_array_equal(u.view(np.uint32),
+                                          u_ref.view(np.uint32))
+            g_ref = np.asarray(jax_hash_gumbel(jnp.asarray(seed),
+                                               jnp.asarray(r), jnp.asarray(c)))
+            np.testing.assert_allclose(ce.hash_gumbel(s, tr, tc).numpy(),
+                                       g_ref, rtol=0, atol=1e-6)
+
+
+def test_hash_noise_is_gumbel_distributed():
+    rows = torch.arange(512)[:, None]
+    cols = torch.arange(256)[None, :]
+    g = ce.hash_gumbel((17, 4), rows, cols).numpy()
+    assert abs(g.mean() - 0.5772) < 0.02
+    assert abs(g.var() - np.pi ** 2 / 6) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# forward: loss, lse and the sampled labels
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_forward_matches_reference_kernel(tied, softcap):
+    """fp32: the loss equals the Pallas kernel's (interpret mode) and the
+    lse and label logit the oracle's, within 3e-6; the plain sweep runs in
+    128-column chunks, so the online carries cross chunks."""
+    jx, tx = _setup("float32", tied)
+    loss_ref, _ = jax_fused_lm_loss(jx["h"], jx["w"], jx["labels"],
+                                    jx["mask"], vocab_size=VOCAB,
+                                    transpose_w=not tied, softcap=softcap,
+                                    **JAX_BLOCKS)
+    loss, n_valid = ce.fused_lm_loss(tx["h"], tx["w"], tx["labels"],
+                                     tx["mask"], vocab_size=VOCAB,
+                                     transpose_w=not tied, softcap=softcap)
+    np.testing.assert_allclose(float(loss), float(loss_ref), atol=TOL)
+    assert float(n_valid) == float(jx["mask"].sum())
+    s, _, _ = _lm_logits_ref(jx["h"], jx["w"], vocab_size=VOCAB,
+                             transpose_w=not tied, softcap=softcap)
+    lse_ref = jax.nn.logsumexp(s, axis=-1)
+    ll_ref = jnp.take_along_axis(s, jx["labels"].reshape(-1, 1), 1)[:, 0]
+    lse, ll = ce.ce_forward_plain(
+        tx["h"].reshape(-1, D), tx["w"], torch.zeros(2, D),
+        tx["labels"].reshape(-1), vocab=VOCAB, transpose_w=not tied,
+        softcap=softcap, chunk=128)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=TOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_ref), atol=TOL)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_sampled_labels_identical_to_reference(tied):
+    """ŷ from the plain sweep equals the Pallas kernel's draw and the
+    oracle's full-grid argmax, for any vocab chunking; never a padded
+    column."""
+    jx, tx = _setup("float32", tied)
+    key = jax.random.PRNGKey(9)
+    seed = np.asarray(seed_from_key(key))
+    y_kernel = np.asarray(jax_fused_lm_sample(
+        jx["h"], jx["w"], key, vocab_size=VOCAB, transpose_w=not tied,
+        block_n=16, block_v=128)).reshape(-1)
+    for chunk in (128, 256):
+        lse, _, y = ce.ce_forward_sampled_plain(
+            tx["h"].reshape(-1, D), tx["w"], torch.zeros(2, D), seed,
+            vocab=VOCAB, transpose_w=not tied, chunk=chunk)
+        np.testing.assert_array_equal(y.numpy(), y_kernel)
+    if tied:
+        _, y_ref, _, _ = lm_loss_sampled_ref(jx["h"], jx["w"], key,
+                                             vocab_size=VOCAB)
+        np.testing.assert_array_equal(y.numpy(),
+                                      np.asarray(y_ref).reshape(-1))
+    assert int(y.max()) < VOCAB
+
+
+def test_sampled_loss_and_grads_match_oracle():
+    jx, tx = _setup("float32", True)
+    key = jax.random.PRNGKey(9)
+    loss_r, _, dh_r, dw_r = lm_loss_sampled_ref(jx["h"], jx["w"], key,
+                                                jx["mask"], vocab_size=VOCAB)
+    h = tx["h"].requires_grad_(True)
+    w = tx["w"].requires_grad_(True)
+    loss, _ = ce.fused_lm_loss_sampled(h, w, np.asarray(seed_from_key(key)),
+                                       tx["mask"], vocab_size=VOCAB)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_r), atol=TOL)
+    np.testing.assert_allclose(_np(h.grad), np.asarray(dh_r), atol=TOL)
+    np.testing.assert_allclose(_np(w.grad), np.asarray(dw_r), atol=TOL)
+    np.testing.assert_array_equal(_np(w.grad)[VOCAB:], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# gradients against the closed-form oracle
+
+
+def _jax_norm(norm, h, scale, bias):
+    if norm == "ln":
+        return jax_layer_norm(h, scale, bias, 1e-6)
+    return jax_rms_norm(h, scale, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm", [None, "ln", "rms"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("tied", [True, False])
+def test_grads_match_oracle(tied, softcap, norm, dtype):
+    """Loss, d(hidden), dW (and the norm's d(scale), d(bias)) with a mask
+    and a padded vocab.  The oracle ``lm_loss_grads_ref`` runs on the
+    reference's normed hidden; with a norm its d(normed hidden) is pulled
+    back by ``jax.vjp`` of the reference's norm (fp32), and for bf16 —
+    where the oracle rounds d(normed hidden) to bf16 before any pullback —
+    d(hidden) is held against the reference's Pallas kernel with the norm
+    fused, which pulls back the fp32 value as the port does.  The untied
+    bf16 cell without a norm is the one the reference's own kernel fails
+    (ROADMAP C); the port is held to the oracle there as everywhere."""
+    jx, tx = _setup(dtype, tied)
+    tw = not tied
+    kw = dict(vocab_size=VOCAB, transpose_w=tw, softcap=softcap)
+    normp = jnp.stack([jx["scale"], jx["bias"]])
+
+    h = tx["h"].clone().requires_grad_(True)
+    w = tx["w"].clone().requires_grad_(True)
+    sc = tx["scale"].clone().requires_grad_(True)
+    bi = tx["bias"].clone().requires_grad_(True)
+    norm_kw = ({} if norm is None else
+               dict(norm_kind=norm, norm_scale=sc,
+                    norm_bias=bi if norm == "ln" else None))
+    loss, _ = ce.fused_lm_loss(h, w, tx["labels"], tx["mask"], **kw,
+                               **norm_kw)
+    loss.backward()
+    assert h.grad.dtype == h.dtype and w.grad.dtype == w.dtype
+
+    hn = jx["h"] if norm is None else _jax_norm(norm, jx["h"], jx["scale"],
+                                                jx["bias"])
+    loss_r, dhn_r, dw_r = lm_loss_grads_ref(hn, jx["w"], jx["labels"],
+                                            jx["mask"], **kw)
+    np.testing.assert_allclose(loss.item(), float(loss_r), atol=TOL)
+    _close(w.grad, dw_r, "float32")
+    if norm is None:
+        _close(h.grad, dhn_r, dtype)
+        return
+    if dtype == "float32":
+        def f(x, p):
+            from repro.kernels.fused_ce import apply_norm
+            return apply_norm(x, p, norm, 1e-6).astype(jnp.float32)
+        _, pull = jax.vjp(f, jx["h"], normp)
+        dh_r, dnormp_r = pull(dhn_r.astype(jnp.float32))
+    else:
+        def g(x, s, b):
+            return jax_fused_lm_loss(x, jx["w"], jx["labels"], jx["mask"],
+                                     norm_kind=norm, norm_scale=s,
+                                     norm_bias=b if norm == "ln" else None,
+                                     norm_eps=1e-6, **kw, **JAX_BLOCKS)[0]
+        dh_r, ds_r, db_r = jax.grad(g, argnums=(0, 1, 2))(
+            jx["h"], jx["scale"], jx["bias"])
+        dnormp_r = jnp.stack([ds_r, db_r])
+    _close(h.grad, dh_r, dtype)
+    # d(scale), d(bias): sums over every row of fp32 products of bf16
+    # values; 2e-5 as the reference's norm-fusion test
+    np.testing.assert_allclose(_np(sc.grad), np.asarray(dnormp_r[0]),
+                               atol=2e-5)
+    if norm == "ln":
+        np.testing.assert_allclose(_np(bi.grad), np.asarray(dnormp_r[1]),
+                                   atol=2e-5)
+
+
+def test_bf16_weights_accumulate_dw_in_fp32():
+    """bf16 W: dW sums in fp32 and rounds once, as the oracle does, so the
+    two agree to about one bf16 ulp (the reference test's 2e-5)."""
+    jx, tx = _setup("bfloat16", True, T=24, w_dtype="bfloat16")
+    w = tx["w"].clone().requires_grad_(True)
+    loss, _ = ce.fused_lm_loss(tx["h"], w, tx["labels"], tx["mask"],
+                               vocab_size=VOCAB)
+    loss.backward()
+    _, _, dw_r = lm_loss_grads_ref(jx["h"], jx["w"], jx["labels"],
+                                   jx["mask"], vocab_size=VOCAB)
+    assert w.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(w.grad),
+                               np.asarray(dw_r.astype(jnp.float32)),
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_padded_vocab_columns_get_exactly_zero_grad(tied):
+    _, tx = _setup("float32", tied)
+    w = tx["w"].clone().requires_grad_(True)
+    loss, _ = ce.fused_lm_loss(tx["h"], w, tx["labels"], tx["mask"],
+                               vocab_size=VOCAB, transpose_w=not tied)
+    loss.backward()
+    dw = _np(w.grad)
+    pad, live = ((dw[:, VOCAB:], dw[:, :VOCAB]) if not tied
+                 else (dw[VOCAB:], dw[:VOCAB]))
+    np.testing.assert_array_equal(pad, 0.0)
+    assert np.abs(live).max() > 0.0
+
+
+def test_backward_pieces_agree_with_the_whole():
+    """ce_backward_dh / ce_backward_dw on the CPU are the two halves of the
+    one plain backward sweep."""
+    _, tx = _setup("float32", True)
+    h2 = tx["h"].reshape(-1, D)
+    lab = tx["labels"].reshape(-1)
+    rs, _ = ce.rowscale(h2.shape[0], tx["mask"])
+    normp = torch.stack([1.0 + tx["scale"], tx["bias"]])
+    opts = dict(vocab=VOCAB, norm="ln", eps=1e-6)
+    lse, _ = ce.ce_forward(h2, tx["w"], normp, lab, **opts)
+    dh, dw = ce.ce_backward(h2, tx["w"], normp, lab, rs, lse, **opts)
+    assert dh.dtype == torch.float32     # d(normed hidden) with a norm
+    torch.testing.assert_close(
+        ce.ce_backward_dh(h2, tx["w"], normp, lab, rs, lse, **opts), dh,
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        ce.ce_backward_dw(h2, tx["w"], normp, lab, rs, lse, **opts), dw,
+        rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# what the CUDA route accepts
+
+
+def test_kernel_argument_checks():
+    h = torch.zeros(4, 96)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ce.check_kernel_args(h, torch.zeros(256, 96), torch.zeros(2, 96),
+                             transpose_w=False, norm=None)
+    h = torch.zeros(4, 128)
+    with pytest.raises(ValueError, match="padded vocab"):
+        ce.check_kernel_args(h, torch.zeros(200, 128), torch.zeros(2, 128),
+                             transpose_w=False, norm=None)
+    with pytest.raises(ValueError, match="does not match"):
+        ce.check_kernel_args(h, torch.zeros(256, 128), torch.zeros(2, 128),
+                             transpose_w=True, norm=None)
+    with pytest.raises(ValueError, match="normp"):
+        ce.check_kernel_args(h, torch.zeros(256, 128), torch.zeros(2, 64),
+                             transpose_w=False, norm="ln")
+    ce.check_kernel_args(h, torch.zeros(256, 128), torch.zeros(2, 128),
+                         transpose_w=False, norm="ln")
+
+
+def test_no_route_for_other_devices():
+    h = torch.zeros(4, 128, device="meta")
+    with pytest.raises(ValueError, match="no route"):
+        ce.ce_forward(h, torch.zeros(256, 128, device="meta"),
+                      torch.zeros(2, 128, device="meta"),
+                      torch.zeros(4, dtype=torch.int32, device="meta"),
+                      vocab=200)
+
+
+@pytest.mark.parametrize("N,Vp", [(8192, 50304), (4096, 50304), (7, 256),
+                                  (2048, 1024)])
+def test_forward_vocab_splits_cover_every_tile(N, Vp):
+    splits, per = ce.forward_splits(N, Vp)
+    n_tiles = Vp // 128
+    assert splits * per >= n_tiles > (splits - 1) * per
+    assert splits * -(-N // 64) <= 2 * 528 or splits == 1

@@ -1,0 +1,156 @@
+"""The port's training forward (repro_torch.models: full_attention,
+forward_hidden, loss_fn, sampled_loss_fn through models/loss.py) held
+against the JAX reference on GPT2_TINY: the same weights (carried over by
+``params_from_jax``), the same numpy batch, the reference's fused loss in
+interpret mode and its materialized-scores attention."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.gpt2 import GPT2_TINY
+from repro.kernels.fused_ce import seed_from_key
+from repro.models import get_model as jax_get_model
+from repro.models.layers import full_attention as jax_full_attention
+from repro_torch.convert import params_from_jax
+from repro_torch.core.types import flat_tensors, tree_leaves, tree_unflatten
+from repro_torch.models import ModelConfig, get_model
+from repro_torch.models.layers import full_attention, train_attention
+from repro_torch.models.loss import lm_loss
+
+# One intra-op thread per process: the suite runs six pytest-xdist workers
+# on the machine's cores, and torch's default pool in every worker
+# oversubscribes them, slowing every test beside it (JAX's too) severalfold.
+torch.set_num_threads(1)
+
+CFG32 = dataclasses.replace(GPT2_TINY, dtype="float32")
+TCFG32 = ModelConfig(**dataclasses.asdict(CFG32))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params = jax_get_model(CFG32).init_params(CFG32, jax.random.PRNGKey(0))
+    return params, params_from_jax(jax.tree.map(np.asarray, params), TCFG32)
+
+
+def _batch(B=4, S=24, mask=True, seed=1):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, CFG32.vocab_size, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, CFG32.vocab_size, (B, S)).astype(np.int32)}
+    if mask:
+        out["mask"] = (rng.random((B, S)) > 0.25).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in out.items()},
+            {k: torch.from_numpy(v) for k, v in out.items()})
+
+
+def _grads(tparams, loss):
+    tree = tparams.param_tree()
+    return tree_unflatten(tree, torch.autograd.grad(loss, flat_tensors(tree)))
+
+
+def _assert_grads(tgrads, jgrads, atol):
+    for t, j in zip(tree_leaves(tgrads), jax.tree.leaves(jgrads)):
+        t = torch.stack(t) if isinstance(t, list) else t
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_full_attention_matches_reference(weights, dtype, atol):
+    """Causal training attention of layer 0: fp32 within 1e-5, bf16
+    within 2e-2 (the reference tests' bf16 bound)."""
+    params, tparams = weights
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 40, CFG32.d_model)).astype(np.float32)
+    jp = jax.tree.map(lambda a: a[0], params["layers"]["attn"])
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    want = jax_full_attention(jp, jx, CFG32, None)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = full_attention(tparams.layers[0].attn, tx, TCFG32)
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+
+
+def test_train_attention_routes(weights):
+    _, tparams = weights
+    x = torch.zeros(1, 8, CFG32.d_model)
+    p = tparams.layers[0].attn
+    for impl in ("auto", "full", None):
+        torch.testing.assert_close(train_attention(p, x, TCFG32, impl=impl),
+                                   full_attention(p, x, TCFG32))
+    for impl in ("flash", "flash_jvp", "chunked"):
+        with pytest.raises(NotImplementedError):
+            train_attention(p, x, TCFG32, impl=impl)
+    with pytest.raises(NotImplementedError, match="4096"):
+        train_attention(p, torch.zeros(1, 4097, CFG32.d_model), TCFG32)
+    with pytest.raises(ValueError):
+        train_attention(p, x, TCFG32, impl="nope")
+
+
+def test_loss_fn_and_grads_match_reference(weights):
+    """CE through the fused loss with the final norm fused, masked mean:
+    loss within 1e-5 and every parameter's gradient within 2e-5 (the
+    reference's loss-impl agreement bound)."""
+    params, tparams = weights
+    jb, tb = _batch()
+    jm = jax_get_model(CFG32)
+    (jloss, jmet), jg = jax.value_and_grad(
+        lambda p: jm.loss_fn(CFG32, p, jb, loss_impl="fused"),
+        has_aux=True)(params)
+    loss, met = get_model(TCFG32).loss_fn(TCFG32, tparams, tb)
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5)
+    np.testing.assert_allclose(met["ce"].item(), float(jmet["ce"]),
+                               atol=1e-5)
+    _assert_grads(_grads(tparams, loss), jg, atol=2e-5)
+
+
+def test_sampled_loss_fn_matches_reference(weights):
+    """GNB's sampled-label NLL on the reference's noise seed: the same
+    draws, so the NLL, its valid count and ĝ agree."""
+    params, tparams = weights
+    jb, tb = _batch(B=2, mask=False)
+    key = jax.random.PRNGKey(11)
+    jm = jax_get_model(CFG32)
+    (jnll, jn), jg = jax.value_and_grad(
+        lambda p: jm.sampled_loss_fn(CFG32, p, jb, key, loss_impl="fused"),
+        has_aux=True)(params)
+    nll, n = get_model(TCFG32).sampled_loss_fn(
+        TCFG32, tparams, tb, np.asarray(seed_from_key(key)))
+    assert float(n) == float(jn) == 48.0
+    np.testing.assert_allclose(nll.item(), float(jnll), atol=1e-5)
+    _assert_grads(_grads(tparams, nll), jg, atol=2e-5)
+
+
+def test_forward_logits_match_reference(weights):
+    params, tparams = weights
+    jb, tb = _batch(B=2, S=16, mask=False)
+    want, _ = jax_get_model(CFG32).forward(CFG32, params, jb["tokens"])
+    got, aux = get_model(TCFG32).forward(TCFG32, tparams, tb["tokens"])
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "unfused", "fused_jvp"])
+def test_unported_loss_impls_raise(weights, impl):
+    _, tparams = weights
+    _, tb = _batch(B=1, S=4, mask=False)
+    with pytest.raises(NotImplementedError):
+        lm_loss(TCFG32, tparams, torch.zeros(1, 4, CFG32.d_model),
+                tb["labels"], impl=impl)
+
+
+def test_parameters_train_but_serving_builds_no_graph(weights):
+    _, tparams = weights
+    assert all(p.requires_grad for p in tparams.parameters())
+    model = get_model(TCFG32)
+    cache = model.init_slots(TCFG32, 2, 16)
+    logits = model.decode_slots(TCFG32, tparams, cache,
+                                torch.zeros(2, 1, dtype=torch.int32),
+                                torch.zeros(2, dtype=torch.int32))
+    assert not logits.requires_grad and logits.grad_fn is None
+    assert not any(t.requires_grad for t in cache.values())
