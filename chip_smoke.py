@@ -23,7 +23,13 @@ it fails and prints no result.  Phases, in order:
      their largest element in fp32 and, with bf16 h or W, element by
      element against each element's sum of absolute terms
      (``check_bf16_grad``); the sampled labels identical except on rows
-     whose two best perturbed logits lie within 1e-5;
+     whose two best perturbed logits lie within 1e-5; the flash-attention
+     kernels (forward, dQ, dK/dV) at GPT-2 small's training shape (B=8,
+     H=12, S=1024, hd=64, causal) and the refresh's B=4, and the edge
+     cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
+     non-causal, S=1000 off the tile, hd=128, rows with no key), fp32 and
+     bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
+     their largest element;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -32,20 +38,26 @@ it fails and prints no result.  Phases, in order:
      held against the port's plain path on the CPU (same weights, fp32);
   4. GPT-2 small trained at full width and depth with Sophia-G (bf16
      compute, B=8 x S=1024, 12 steps, Hessian refresh every 5 on 4 rows)
-     through ``train/trainer.py``.  Launch counts are zeroed just before
-     the run and read just after: each step launches the CE forward, dh
-     and dW once, each refresh step one more of each with the sampled
-     forward.  Step times, tokens/s, peak memory and a torch.profiler
-     window over a plain and a refresh step; then three fp32 steps at
-     B=2 x S=128 held against the port's plain path on the CPU;
+     through ``train/trainer.py`` on the default flash-attention route.
+     Launch counts are zeroed just before the run and read just after:
+     each step launches the CE forward, dh and dW once, each refresh step
+     one more of each with the sampled forward, and each step and each
+     refresh launches every attention kernel once per layer.  Step times,
+     tokens/s, peak memory and a torch.profiler window over a plain and a
+     refresh step (the CE's and attention's device time and share); then
+     three fp32 steps at B=2 x S=128 held against the port's plain path
+     on the CPU, once on the flash route and once on the
+     materialized-scores one (``fused_attn=False``);
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention
-     and 20 for the CE kernels, the 50 MB L2 cache flushed before each
-     launch) beside their bound (decode attention: the bytes of the ring
-     rows the call's positions make valid; the CE kernels: the larger of
-     their flops at the bf16 tensor-core peak and their bytes), their
-     plain version and the library call (or, for the CE kernels, the
-     library composition, not one call) that computes the same function.
+     and 20 for the CE and flash kernels, the 50 MB L2 cache flushed
+     before each launch) beside their bound (decode attention: the bytes
+     of the ring rows the call's positions make valid; the CE and flash
+     kernels: the larger of their flops at the bf16 tensor-core peak and
+     their bytes), their plain version and the library call (for the CE
+     kernels the library composition, not one call; for the flash
+     kernels SDPA's forward, and its backward for dQ and dK/dV together)
+     that computes the same function.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -78,7 +90,11 @@ FUSED_CE = ("src/repro_torch/kernels/csrc/fused_ce.cu",
                                "(and the dh half of :583)",
              "ce_backward_dw": "src/repro/kernels/fused_ce.py:621 "
                                "(and the dW half of :583)"})
-SOURCES = (DECODE_ATTN[0], FUSED_CE[0])
+FLASH_ATTN = ("src/repro_torch/kernels/csrc/flash_attention.cu",
+              {"attn_fwd": "src/repro/kernels/flash_attention.py:198",
+               "attn_bwd_dq": "src/repro/kernels/flash_attention.py:333",
+               "attn_bwd_dkv": "src/repro/kernels/flash_attention.py:374"})
+SOURCES = (DECODE_ATTN[0], FUSED_CE[0], FLASH_ATTN[0])
 
 
 def log(msg: str) -> None:
@@ -436,6 +452,108 @@ def phase_ce_kernels(torch):
     return out
 
 
+# the flash-attention kernels: GPT-2 small's training shape (and the
+# refresh's half batch) and the edge cases
+ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
+                 window=None, softcap=None, q_offset=0)
+ATTN_CASES = [
+    ("train_step", {}),
+    ("refresh_B4", dict(B=4)),
+    ("gqa_H8_Hkv2", dict(B=2, H=8, Hkv=2, Sq=512, Sk=512)),
+    ("window48_softcap20", dict(B=2, Sq=512, Sk=512, window=48,
+                                softcap=20.0)),
+    ("q_offset256_Sq256_Sk512", dict(B=2, Sq=256, Sk=512, q_offset=256)),
+    ("noncausal", dict(B=2, Sq=384, Sk=512, causal=False)),
+    ("S1000_off_tile", dict(B=2, Sq=1000, Sk=1000)),
+    ("hd128", dict(B=2, H=8, Hkv=8, Sq=512, Sk=512, hd=128)),
+    ("row_with_no_key", dict(B=2, H=4, Hkv=4, Sq=64, Sk=96, window=16,
+                             q_offset=64)),
+]
+
+
+def _attn_inputs(torch, spec, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    B, H, Hkv, Sq, Sk, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "Sk",
+                                               "hd"))
+    q, g = randn(B, H, Sq, hd), randn(B, H, Sq, hd)
+    k, v = randn(B, Hkv, Sk, hd), randn(B, Hkv, Sk, hd)
+    kw = dict(causal=spec["causal"], window=spec["window"],
+              softcap=spec["softcap"], q_offset=spec["q_offset"],
+              scale=1.0 / hd ** 0.5)
+    return q, k, v, g, kw
+
+
+def check_flash_case(torch, name, spec, dtype):
+    """The three kernels against their plain versions on one input (the
+    backward's on the kernel forward's lse and delta); each output within
+    TOL of its largest element.  lse is compared on the rows that attend
+    some key; a row that attends none must give o = 0 and lse <= -1e29 on
+    both sides.  Returns {kernel: max abs error}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, g, kw = _attn_inputs(torch, spec, dtype)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = fa.flash_backward_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = fa.flash_backward_dkv(q, k, v, g, lse, delta, **kw)
+    o_p, lse_p = fa.flash_forward_plain(q, k, v, **kw)
+    dq_p = fa.flash_backward_dq_plain(q, k, v, g, lse, delta, **kw)
+    dk_p, dv_p = fa.flash_backward_dkv_plain(q, k, v, g, lse, delta, **kw)
+    torch.cuda.synchronize()
+    has_key = fa.band_mask(spec["Sq"], spec["Sk"], causal=spec["causal"],
+                           window=spec["window"], q_offset=spec["q_offset"],
+                           device="cuda").any(-1)
+    empty = ~has_key
+    if bool(empty.any()):
+        for side, (oo, ll) in (("kernel", (o, lse)), ("plain", (o_p, lse_p))):
+            if (bool((oo[:, :, empty] != 0).any())
+                    or not bool((ll[:, :, empty] <= -1e29).all())):
+                raise AssertionError(f"flash {name}: a row with no key gets "
+                                     f"o != 0 or lse > -1e29 ({side})")
+    pairs = {"o": (o, o_p), "lse": (lse[:, :, has_key], lse_p[:, :, has_key]),
+             "dq": (dq, dq_p), "dk": (dk, dk_p), "dv": (dv, dv_p)}
+    tol = TOL[str(dtype)[6:]]
+    errs, rel = {}, {}
+    for key, (got, want) in pairs.items():
+        if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash {name}: {key} is {got.dtype} (want "
+                                 f"{want.dtype}) or not finite")
+        errs[key] = (got.float() - want.float()).abs().max().item()
+        rel[key] = errs[key] / max(want.float().abs().max().item(), 1e-30)
+    bad = {key: r for key, r in rel.items() if not r <= tol}
+    if bad:
+        raise AssertionError(f"flash kernels differ from their plain "
+                             f"versions ({name}, {str(dtype)[6:]}): errors "
+                             f"relative to the largest element {bad} > {tol}")
+    log(f"[kernels] flash_attention {name} {str(dtype)[6:]} "
+        + " ".join(f"{n}={spec[n]}" for n in ATTN_MAIN)
+        + ": max abs errors " + ", ".join(f"{n} {e:.3g}"
+                                          for n, e in errs.items())
+        + "; relative to the largest element "
+        + ", ".join(f"{r:.3g}" for r in rel.values()) + f" (within {tol})"
+        + (f"; {int(empty.sum())} rows with no key" if bool(empty.any())
+           else ""))
+    return {"attn_fwd": max(errs["o"], errs["lse"]),
+            "attn_bwd_dq": errs["dq"],
+            "attn_bwd_dkv": max(errs["dk"], errs["dv"])}
+
+
+def phase_flash_kernels(torch):
+    """Returns {kernel name: max abs error at the training shape, bf16}."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, over in ATTN_CASES:
+            errs = check_flash_case(torch, name, dict(ATTN_MAIN, **over),
+                                    dtype)
+            if name == "train_step" and dtype == torch.bfloat16:
+                out = errs
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve GPT-2 small
 
@@ -644,9 +762,11 @@ def phase_train(torch):
     launches = dict(KERNEL_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_ref = len(range(0, TRAIN_STEPS, TRAIN_K))
+    attn = cfg.n_layers * (TRAIN_STEPS + n_ref)
     want = {"ce_forward": TRAIN_STEPS, "ce_forward_sampled": n_ref,
             "ce_backward_dh": TRAIN_STEPS + n_ref,
-            "ce_backward_dw": TRAIN_STEPS + n_ref}
+            "ce_backward_dw": TRAIN_STEPS + n_ref,
+            "attn_fwd": attn, "attn_bwd_dq": attn, "attn_bwd_dkv": attn}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     if not all(np.isfinite(losses)):
@@ -683,45 +803,62 @@ def phase_train(torch):
             holder["out"] = train_step(state, batches[1], flag)
 
         win = profile_window(f"train {label} (gpt2-small B={TRAIN_B} "
-                             f"S={TRAIN_S} bf16)", one_step, match="::ce_")
+                             f"S={TRAIN_S} bf16)", one_step, match="::ce_",
+                             also=("flash_attn::",))
         state = holder["out"][0]
-        win["matched_share"] = (win["matched_us"] / win["device_busy_us"]
-                                if win["device_busy_us"] else None)
+        busy = win["device_busy_us"]
+        win["matched_share"] = win["matched_us"] / busy if busy else None
+        win["attn_us"] = win["also_us"]["flash_attn::"]
+        win["attn_share"] = win["attn_us"] / busy if busy else None
         windows.append(win)
         log("[profile] " + json.dumps(win))
     report["profile"] = windows
-    report["cpu_check_max_rel"] = check_train_against_cpu(torch, cfg)
+    report["cpu_check_max_rel"] = {
+        f"fused_attn={fused}": check_train_against_cpu(torch, cfg, fused)
+        for fused in (True, False)}
     return report
 
 
-def check_train_against_cpu(torch, cfg):
+def check_train_against_cpu(torch, cfg, fused_attn):
     """Three fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) on the
-    card (the CE kernels) and on the CPU (their plain versions), same
-    weights and batches: the losses must agree within 1e-4 relative."""
+    card (the kernels) and on the CPU (their plain versions), same weights
+    and batches, on the flash route (``fused_attn``) or the
+    materialized-scores one: the losses must agree within 1e-4
+    relative, and the card run must launch the attention kernels exactly
+    when ``fused_attn`` is set."""
     import copy
 
     from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
     from repro_torch.train import TrainerConfig, train_loop
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     tc = TrainerConfig(peak_lr=6e-4, total_steps=3, warmup_steps=1,
-                       hess_interval=2, hess_subbatch=1, seed=0)
+                       hess_interval=2, hess_subbatch=1, seed=0,
+                       fused_attn=fused_attn)
     state, _ = _train_fns(torch, cfg32, tc, "cuda")
     cpu_params = copy.deepcopy(state.params).cpu()
     src = make_source(DataConfig(seq_len=128, global_batch=2,
                                  vocab_size=cfg.vocab_size, seed=1))
+    reset_launch_counts()
     _, h_card = train_loop(cfg32, tc, src, num_steps=3, state=state,
                            device="cuda")
+    attn = KERNEL_LAUNCHES["attn_fwd"]
+    if (attn > 0) != fused_attn:
+        raise AssertionError(f"fused_attn={fused_attn}: {attn} attention "
+                             "kernel launches in the card run")
     cpu_state, _ = _train_fns(torch, cfg32, tc, "cpu", cpu_params)
     _, h_cpu = train_loop(cfg32, tc, src, num_steps=3, state=cpu_state,
                           device="cpu")
     card = [h["loss"] for h in h_card]
     cpu = [h["loss"] for h in h_cpu]
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    log(f"[train] card vs CPU plain path, fp32 B=2 S=128, 3 steps (refresh "
-        f"at 0, 2): losses {card} vs {cpu}, max relative diff {rel:.3g}")
+    log(f"[train] card vs CPU plain path, fused_attn={fused_attn}, fp32 "
+        f"B=2 S=128, 3 steps (refresh at 0, 2): losses {card} vs {cpu}, max "
+        f"relative diff {rel:.3g}")
     if not rel <= 1e-4:
-        raise AssertionError(f"card vs CPU training losses differ by {rel}")
+        raise AssertionError(f"card vs CPU training losses differ by {rel} "
+                             f"(fused_attn={fused_attn})")
     return rel
 
 
@@ -927,6 +1064,78 @@ def phase_ce_timings(torch, ce_err, trained):
     return rows
 
 
+def phase_flash_timings(torch, attn_err, trained):
+    """The flash kernels at GPT-2 small's training shape in bf16 beside
+    their bound, their plain versions, and SDPA (``is_causal=True``; its
+    forward for row 16, its autograd backward, dq, dk and dv together, for
+    rows 17 and 18), which the port never calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
+    spec = ATTN_MAIN
+    q, k, v, g, kw = _attn_inputs(torch, spec, torch.bfloat16)
+    B, H, Hkv, S, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "hd"))
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    delta = (g.float() * o.float()).sum(-1)
+    calls = {
+        "attn_fwd": (lambda: fa.flash_forward(q, k, v, **kw),
+                     lambda: fa.flash_forward_plain(q, k, v, **kw)),
+        "attn_bwd_dq": (
+            lambda: fa.flash_backward_dq(q, k, v, g, lse, delta, **kw),
+            lambda: fa.flash_backward_dq_plain(q, k, v, g, lse, delta,
+                                               **kw)),
+        "attn_bwd_dkv": (
+            lambda: fa.flash_backward_dkv(q, k, v, g, lse, delta, **kw),
+            lambda: fa.flash_backward_dkv_plain(q, k, v, g, lse, delta,
+                                                **kw)),
+    }
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_err = (sdpa_o.float() - o.float()).abs().max().item()
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), flush, reps=20, warmup=2)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_o, leaves, g, retain_graph=True), flush, reps=20, warmup=2)
+    log(f"[timing] SDPA yardstick (is_causal=True) at B={B} H={H} S={S} "
+        f"hd={hd} bf16: forward {lib_fwd:.3f} ms, backward (dq, dk, dv "
+        f"together) {lib_bwd:.3f} ms; max abs err vs the kernel's o "
+        f"{sdpa_err:.3g}")
+    library = {"attn_fwd": lib_fwd, "attn_bwd_dq": lib_bwd,
+               "attn_bwd_dkv": lib_bwd}
+    pairs = int(fa.band_mask(S, S, causal=True, window=None,
+                             q_offset=0).sum())
+    rows = []
+    for name, replaces in FLASH_ATTN[1].items():
+        kernel, plain = calls[name]
+        ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
+        plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
+        flops = fa.attn_flops(B, H, hd, pairs, name)
+        nbytes = fa.attn_bytes(B, H, Hkv, S, S, hd, name,
+                               itemsize=q.element_size())
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": FLASH_ATTN[0],
+            "replaces": replaces,
+            "launches": trained["launches"].get(name, 0),
+            "max_abs_err": attn_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library[name],
+            "library_note": ("F.scaled_dot_product_attention forward"
+                             if name == "attn_fwd" else
+                             "F.scaled_dot_product_attention's autograd "
+                             "backward, dq, dk and dv together"),
+            "shape": f"B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 causal"})
+        log(f"[timing] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA {library[name]:.3f} ms, bound {max(t_ops, t_bytes):.4f} "
+            f"ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, {nbytes} bytes "
+            f"at {HBM_BYTES_PER_S:.3g}/s); {flops / ms / 1e9:.1f} TFLOP/s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -946,10 +1155,12 @@ def main() -> int:
     phase_build()
     main_err = phase_kernels(torch)
     ce_err = phase_ce_kernels(torch)
+    attn_err = phase_flash_kernels(torch)
     served = phase_serve(torch)
     trained = phase_train(torch)
     rows = (phase_timings(torch, main_err, served)
-            + phase_ce_timings(torch, ce_err, trained))
+            + phase_ce_timings(torch, ce_err, trained)
+            + phase_flash_timings(torch, attn_err, trained))
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)

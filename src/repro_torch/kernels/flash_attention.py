@@ -1,0 +1,358 @@
+"""Training-path flash attention: the counterpart of
+``repro/kernels/flash_attention.py`` (its ``custom_vjp`` route).
+
+q (B, H, Sq, hd) attends k and v (B, Hkv, Sk, hd), GQA with ``H % Hkv ==
+0``, without the (Sq, Sk) scores ever being stored:
+
+  forward   one sweep over the key tiles keeps a running max, sum and fp32
+            output accumulator per query row and writes o (q's dtype) and
+            the row's log-sum-exp (fp32), the backward's residual;
+  backward  ``delta = rowsum(g * o)`` in fp32 from the ROUNDED o (a plain
+            op outside the kernels, as in the reference); then the dQ
+            kernel and the dK/dV kernel each recompute ``p = exp(z - lse)``
+            per tile and ``ds = p * (do . v^T - delta)``, the softcap chain
+            ``1 - t^2`` on top.
+
+On a CUDA tensor each wrapper launches its hand-written kernel of
+``csrc/flash_attention.cu`` and adds one to its count in
+``KERNEL_LAUNCHES``:
+
+  ``flash_forward``       "attn_fwd"      (TPU ``_forward``, row 16)
+  ``flash_backward_dq``   "attn_bwd_dq"   (``_backward`` dQ, row 17)
+  ``flash_backward_dkv``  "attn_bwd_dkv"  (``_backward`` dK/dV, row 18)
+
+On a CPU tensor it computes the plain version beside it, the closed form
+of the ``kernels/ref.py`` oracles with the kernels' fp32 rounding points.
+A CUDA tensor the kernels do not take (a head dim other than 32, 64 or
+128, another dtype than fp32 or bf16) raises ``ValueError``; there is no
+other route.
+
+Masking is the reference's: causal, a sliding window by key distance (the
+sentinel ``1 << 30`` means none), ``q_offset`` shifting the query
+positions, the softcap ``c * tanh(s / c)``, masked scores at -1e30, a
+``where`` guard so that a fully-masked tile adds 0, and ``l = max(l,
+1e-30)`` so that a row with no key gives o = 0 and lse ~ -1e30.  The
+reference's block sizes and its "skip" / "dense" schedules are not
+arguments: the schedules compute the same function, and the CUDA kernels
+always skip the tiles outside the causal / window band.  lse is not
+differentiable; the forward-mode twin (``use_jvp``) is not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import KERNEL_LAUNCHES, _build
+
+NEG_INF = -1e30           # masked-score sentinel of the reference
+WINDOW_NONE = 1 << 30     # window value that masks nothing
+HEAD_DIMS = (32, 64, 128)
+_f32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the oracles' closed forms, per GQA group
+
+
+def band_mask(Sq: int, Sk: int, *, causal: bool, window: Optional[int],
+              q_offset: int, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: query row r (position ``q_offset + r``) attends key
+    c when ``c <= q_offset + r`` (causal) and ``c > q_offset + r -
+    window``."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    m = (kpos <= qpos) if causal else torch.ones((Sq, Sk), dtype=torch.bool,
+                                                 device=device)
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def _grouped(x: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(B, H, S, hd) -> fp32 (B, Hkv, G, S, hd)."""
+    B, H, S, hd = x.shape
+    return x.to(_f32).reshape(B, Hkv, H // Hkv, S, hd)
+
+
+def _scores(q, k, *, causal, scale, window, softcap, q_offset):
+    """(z, dcap, mask): the scaled, softcapped fp32 scores (B, Hkv, G, Sq,
+    Sk), the softcap derivative (None uncapped) and the attend-mask."""
+    Hkv, Sk = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqd,bktd->bkgqt", _grouped(q, Hkv),
+                     k.to(_f32)) * scale
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s, dcap = softcap * t, 1.0 - t * t
+    mask = band_mask(q.shape[2], Sk, causal=causal, window=window,
+                     q_offset=q_offset, device=q.device)
+    return s, dcap, mask
+
+
+def _probs(z, mask, lse):
+    """p = exp(z - lse) where attended, else 0 (the where guard)."""
+    return torch.where(mask, torch.exp(z - lse[..., None]), 0.0)
+
+
+def flash_forward_plain(q, k, v, *, causal=True, scale, window=None,
+                        softcap=None, q_offset=0):
+    """(o in q's dtype, lse (B, H, Sq) fp32)."""
+    B, H, Sq, hd = q.shape
+    Hkv = k.shape[1]
+    z, _, mask = _scores(q, k, causal=causal, scale=scale, window=window,
+                         softcap=softcap, q_offset=q_offset)
+    z = torch.where(mask, z, NEG_INF)
+    m = z.amax(-1)
+    e = torch.where(mask, torch.exp(z - m[..., None]), 0.0)
+    lse = m + torch.log(torch.clamp_min(e.sum(-1), 1e-30))
+    o = torch.einsum("bkgqt,bktd->bkgqd", _probs(z, mask, lse), v.to(_f32))
+    return (o.reshape(B, H, Sq, hd).to(q.dtype),
+            lse.reshape(B, H, Sq))
+
+
+def _ds(q, k, v, do, lse, delta, opts):
+    """(p, ds) of the backward recompute, grouped fp32 (B, Hkv, G, Sq,
+    Sk)."""
+    Hkv = k.shape[1]
+    z, dcap, mask = _scores(q, k, **opts)
+    p = _probs(z, mask, lse.reshape(z.shape[:-1]))
+    dp = torch.einsum("bkgqd,bktd->bkgqt", _grouped(do, Hkv), v.to(_f32))
+    ds = p * (dp - delta.reshape(z.shape[:-1])[..., None])
+    if dcap is not None:
+        ds = ds * dcap
+    return p, ds
+
+
+def flash_backward_dq_plain(q, k, v, do, lse, delta, *, causal=True, scale,
+                            window=None, softcap=None, q_offset=0):
+    """dq in q's dtype: ``(ds . k) * scale``."""
+    opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                q_offset=q_offset)
+    _, ds = _ds(q, k, v, do, lse, delta, opts)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.to(_f32)) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_backward_dkv_plain(q, k, v, do, lse, delta, *, causal=True, scale,
+                             window=None, softcap=None, q_offset=0):
+    """(dk, dv) in k's and v's dtypes, summed over each GQA group:
+    ``(ds^T . q) * scale`` and ``p^T . do``."""
+    opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                q_offset=q_offset)
+    Hkv = k.shape[1]
+    p, ds = _ds(q, k, v, do, lse, delta, opts)
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, _grouped(q, Hkv)) * scale
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, _grouped(do, Hkv))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+
+
+_PTR, _INT, _LL, _FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_float)
+_DIMS = [_INT] * 8 + [_LL, _LL, _FLOAT, _FLOAT, _PTR]
+_SIGNATURES = {
+    "flash_forward_launch": [_PTR] * 5 + _DIMS,
+    "flash_backward_dq_launch": [_PTR] * 7 + _DIMS,
+    "flash_backward_dkv_launch": [_PTR] * 8 + _DIMS,
+}
+
+
+@functools.cache
+def _launch_fn(name: str):
+    fn = getattr(_build.load("flash_attention"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_kernel_args(q, k, v, do=None, lse=None, delta=None) -> None:
+    """Raise ``ValueError`` for anything the CUDA kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} must be (B, "
+                         f"H, Sq, hd) and k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} (B, Hkv, Sk, hd) alike")
+    B, H, Sq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not fit "
+                         f"q {tuple(q.shape)} (H must be a multiple of Hkv)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: dtype {q.dtype} is not float32 "
+                         "or bfloat16")
+    want = [(q, q.shape, q.dtype), (k, k.shape, q.dtype),
+            (v, k.shape, q.dtype), (do, q.shape, q.dtype),
+            (lse, (B, H, Sq), _f32), (delta, (B, H, Sq), _f32)]
+    for t, shape, dtype in want:
+        if t is not None and (t.shape != shape or t.dtype != dtype
+                              or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError("flash_attention: an operand is "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}; "
+                             f"want {tuple(shape)} {dtype}, contiguous on "
+                             f"{q.device}")
+
+
+def _dims(q, k, *, causal, window, q_offset, scale, softcap):
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    return (B, H, Hkv, Sq, Sk, hd, int(q.dtype == torch.bfloat16),
+            int(bool(causal)), WINDOW_NONE if window is None else int(window),
+            int(q_offset), float(scale), float(softcap or 0.0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _forward_kernel(q, k, v, **opts):
+    check_kernel_args(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=_f32, device=q.device)
+    err = _launch_fn("flash_forward_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *_dims(q, k, **opts))
+    _raise_on(err, "attn_fwd")
+    KERNEL_LAUNCHES["attn_fwd"] += 1
+    return o, lse
+
+
+def _dq_kernel(q, k, v, do, lse, delta, **opts):
+    check_kernel_args(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    err = _launch_fn("flash_backward_dq_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_dims(q, k, **opts))
+    _raise_on(err, "attn_bwd_dq")
+    KERNEL_LAUNCHES["attn_bwd_dq"] += 1
+    return dq
+
+
+def _dkv_kernel(q, k, v, do, lse, delta, **opts):
+    check_kernel_args(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _launch_fn("flash_backward_dkv_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_dims(q, k, **opts))
+    _raise_on(err, "attn_bwd_dkv")
+    KERNEL_LAUNCHES["attn_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type == "cpu"
+    raise ValueError(f"flash_attention: no route for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# entry points: plain version on the CPU, the kernel on the GPU
+
+
+def flash_forward(q, k, v, *, causal=True, scale, window=None, softcap=None,
+                  q_offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o like q, lse (B, H, Sq) fp32)."""
+    opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                q_offset=q_offset)
+    if _on_cpu(q):
+        return flash_forward_plain(q, k, v, **opts)
+    return _forward_kernel(q, k, v, **opts)
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, *, causal=True, scale,
+                      window=None, softcap=None, q_offset=0):
+    """dq like q, from the forward's lse and ``delta = rowsum(do * o)``."""
+    opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                q_offset=q_offset)
+    if _on_cpu(q):
+        return flash_backward_dq_plain(q, k, v, do, lse, delta, **opts)
+    return _dq_kernel(q, k, v, do, lse, delta, **opts)
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=True, scale,
+                       window=None, softcap=None, q_offset=0):
+    """(dk like k, dv like v), each summed over its GQA group."""
+    opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                q_offset=q_offset)
+    if _on_cpu(q):
+        return flash_backward_dkv_plain(q, k, v, do, lse, delta, **opts)
+    return _dkv_kernel(q, k, v, do, lse, delta, **opts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v); the backward launches dQ, then dK/dV."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        o, lse = flash_forward(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g.to(_f32) * o.to(_f32)).sum(-1)
+        dq = flash_backward_dq(q, k, v, g, lse, delta, **ctx.opts)
+        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, **ctx.opts)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
+                    softcap=None, q_offset=0):
+    """Fused attention: q (B, H, Sq, hd), k and v (B, Hkv, Sk, hd) in fp32
+    or bf16 -> o like q, differentiable in q, k and v.  ``scale``
+    defaults to 1/sqrt(hd); ``window`` None or ``WINDOW_NONE`` is global;
+    ``q_offset`` (>= 0) shifts the query positions."""
+    if q.shape[1] % k.shape[1] or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    opts = dict(causal=bool(causal),
+                scale=float(1.0 / math.sqrt(q.shape[-1]) if scale is None
+                            else scale),
+                window=None if window is None or window >= WINDOW_NONE
+                else int(window),
+                softcap=None if softcap is None else float(softcap),
+                q_offset=int(q_offset))
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), opts)
+
+
+# ---------------------------------------------------------------------------
+# work of one call (bound in chip_smoke.py)
+
+
+def attn_flops(B, H, hd, pairs, which: str) -> int:
+    """Multiply-add flops of one call over ``pairs`` attended (query, key)
+    pairs per (batch, head): the forward's two products (q.k, p.v), dQ's
+    three (q.k, do.v, ds.k), dK/dV's four (q.k, do.v, p^T.do, ds^T.q)."""
+    n = {"attn_fwd": 2, "attn_bwd_dq": 3, "attn_bwd_dkv": 4}[which]
+    return 2 * B * H * hd * pairs * n
+
+
+def attn_bytes(B, H, Hkv, Sq, Sk, hd, which: str, *, itemsize: int) -> int:
+    """Bytes one call must move: each input read once, each output
+    written once (q-like planes, k-like planes, fp32 (B, H, Sq) rows)."""
+    qp = B * H * Sq * hd * itemsize
+    kp = B * Hkv * Sk * hd * itemsize
+    row = 4 * B * H * Sq
+    if which == "attn_fwd":
+        return 2 * qp + 2 * kp + row              # q, k, v; o, lse
+    if which == "attn_bwd_dq":
+        return 3 * qp + 2 * kp + 2 * row          # q, k, v, do, lse, delta; dq
+    return 2 * qp + 4 * kp + 2 * row              # ...; dk, dv

@@ -53,11 +53,12 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_window(label, fn, top=8, match="decode_attention") -> dict:
+def profile_window(label, fn, top=8, match="decode_attention",
+                   also=()) -> dict:
     """Profile ``fn()``: wall time, device busy (union of kernel
     intervals), idle share, kernel count, the device time of kernels whose
-    name contains ``match`` (key ``matched_us``) and the ``top`` kernels
-    by device time."""
+    name contains ``match`` (key ``matched_us``; for each string of
+    ``also``, key ``also_us``) and the ``top`` kernels by device time."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -76,6 +77,8 @@ def profile_window(label, fn, top=8, match="decode_attention") -> dict:
             "kernels_launched": len(kernels),
             "match": match,
             "matched_us": sum(t for n, t in by_name.items() if match in n),
+            "also_us": {m: sum(t for n, t in by_name.items() if m in n)
+                        for m in also},
             "top_kernels_us": [[n[:80], t] for n, t in ranked]}
 
 

@@ -4,21 +4,25 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
         --steps 400 --global-batch 8 --seq-len 1024 --ckpt-dir /tmp/run1
 
-Trains with Sophia-G and the GNB estimator through the logits-free fused
-loss (the CUDA kernels on the GPU, their plain versions with ``--device
-cpu``) and prints the reference's ``step N loss ... gnorm ...`` lines.
+Trains with Sophia-G and the GNB estimator through flash attention and
+the logits-free fused loss (the CUDA kernels on the GPU, their plain
+versions with ``--device cpu``; ``--no-fused-attn`` takes the
+materialized-scores attention) and prints the reference's ``step N loss
+... gnorm ...`` lines, and at the end, on the GPU, the peak device memory.
 With ``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps and at the
 end, and resumes from the newest complete checkpoint there; resuming with
-another optimizer or state dtype is refused.  The reference's flags of
-options this slice does not port (``--fused-attn``, ``--fused-kernel``,
-``--no-fused-loss``, another ``--opt`` or ``--estimator``, ``--remat``,
-``--compress-grads``, ``--compress-hess``, ``--comm-telemetry``) raise
-``NotImplementedError``; the multi-host and elastic flags are not offered.
+another optimizer or state dtype is refused.  The reference's flags of options this slice does not port
+(``--fused-kernel``, ``--no-fused-loss``, another ``--opt`` or
+``--estimator``, ``--remat``, ``--compress-grads``, ``--compress-hess``,
+``--comm-telemetry``) raise ``NotImplementedError``; the multi-host and
+elastic flags are not offered.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from ..configs import ARCHS, get_config
 from ..data import DataConfig, make_source
@@ -52,10 +56,11 @@ def main(argv=None):
                     help="logits-free fused CE + in-sweep GNB sampling "
                          "(--no-fused-loss is not ported: raises)")
     ap.add_argument("--fused-attn", action=argparse.BooleanOptionalAction,
-                    default=False,
-                    help="flash attention on the train path (not ported "
-                         "yet: raises); the default trains on the "
-                         "materialized-scores attention")
+                    default=True,
+                    help="flash attention on the train path (the CUDA "
+                         "kernels of kernels/flash_attention.py); "
+                         "--no-fused-attn trains on the materialized-scores "
+                         "attention")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--compress-hess", action="store_true")
     ap.add_argument("--comm-telemetry", action="store_true")
@@ -130,8 +135,11 @@ def main(argv=None):
             ckpt.save(args.ckpt_dir, t + 1, state, extra=layout_meta)
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) != args.steps:
         ckpt.save(args.ckpt_dir, args.steps, state, extra=layout_meta)
+    peak = (f"; peak device memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB"
+            if device.type == "cuda" else "")
     print(f"done: {args.steps - start} steps in {time.time() - t_start:.1f}s"
-          f" (hess refreshes: {int(state.opt_state.hess_count)})")
+          f" (hess refreshes: {int(state.opt_state.hess_count)}){peak}")
     return state
 
 

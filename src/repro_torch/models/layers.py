@@ -9,9 +9,10 @@ The counterpart of ``repro/models/layers.py``, with its conventions:
   * every init function takes an explicit ``torch.Generator`` and draws on
     that generator's device.
 
-Training attention (:func:`full_attention`) materializes the (S, S)
-scores in fp32, the reference's route with ``fused_attn=False``; the flash
-kernels come with a later slice.  Serving attention writes the slot cache
+Training attention takes the flash kernels (``kernels/flash_attention.py``,
+the reference's default route, ``fused_attn=True``) or
+:func:`full_attention`, which materializes the (S, S) scores in fp32 (the
+reference's ``fused_attn=False``).  Serving attention writes the slot cache
 in place (the reference returns a new cache): decode writes one token per active slot, prefill one chunk of
 one slot.  Decode attention goes through ``kernels/decode_attention.py``
 with q pre-scaled in fp32 and rounded to its dtype, the convention of the
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention import NEG_INF, decode_attention, ring_mask
+from ..kernels.flash_attention import flash_attention
 from ..quant import dequantize_kv, quantize_kv
 from .common import ModelConfig
 
@@ -133,22 +135,45 @@ def full_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0):
     return out @ p["wo"].to(dt)
 
 
+def _flash_attention_proj(p, x, cfg: ModelConfig, *, window=None,
+                          layer_scale=1.0):
+    """The reference's flash route (``layers.py:_flash_attention_proj``):
+    qkv, heads to (B, H, S, hd), the flash kernels, back, then the output
+    projection.  Its scale is ``layer_scale / sqrt(hd)`` in Python double
+    (the kernel rounds it to fp32 once), and p stays in fp32 until o is
+    rounded: in bf16 this route and :func:`full_attention`, which rounds
+    the softmax weights before ``w . v``, differ by about an ulp."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True,
+                        scale=float(layer_scale) / math.sqrt(cfg.hd),
+                        window=window, softcap=cfg.attn_logit_softcap)
+    out = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(dt)
+
+
 TRAIN_ATTN_IMPLS = ("auto", "full", "chunked", "flash", "flash_jvp")
 
 
 def train_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0,
                     impl="auto"):
-    """Route one training attention call: "auto" and "full" take
-    :func:`full_attention` up to 4096 tokens.  The chunked route (above
-    4096 tokens) and the flash kernels (rows 16-18 of the kernel table)
-    are not ported yet and raise."""
+    """Route one training attention call: "flash" takes the flash kernels
+    (:func:`_flash_attention_proj`); "auto" and "full" take
+    :func:`full_attention` up to 4096 tokens.  The custom_jvp twin
+    ("flash_jvp") and the chunked route (above 4096 tokens) are not ported
+    yet and raise."""
     impl = impl or "auto"
     if impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl in ("flash", "flash_jvp"):
+    if impl == "flash":
+        return _flash_attention_proj(p, x, cfg, window=window,
+                                     layer_scale=layer_scale)
+    if impl == "flash_jvp":
         raise NotImplementedError(
-            f"attention impl {impl!r}: the flash attention kernels (rows "
-            "16-18) are not ported yet; use 'full' (fused_attn=False)")
+            "attention impl 'flash_jvp' (the forward-mode twin for the "
+            "Hutchinson HVP) is not ported yet; use 'flash'")
     if impl == "chunked" or x.shape[1] > 4096:
         raise NotImplementedError(
             "chunked training attention (sequences above 4096 tokens) is "

@@ -1,6 +1,7 @@
 """Training loop, Algorithm 3 with the refresh at ``t % k == 0``: the
 counterpart of ``repro/train/trainer.py`` for Sophia-G with the GNB
-estimator and the logits-free fused loss.
+estimator, flash attention (``fused_attn``, the default) and the
+logits-free fused loss.
 
 Every step:
   grad accumulation over microbatches -> global-norm clip (threshold 1.0,
@@ -61,11 +62,9 @@ class TrainerConfig:
     grad_accum: int = 1
     remat: str = "none"
     attn_impl: str = "auto"
-    fused_attn: bool = False           # the reference's default is True
-    #                                    (Pallas flash attention); its
-    #                                    kernels (rows 16-18) come with the
-    #                                    next slice, so the port trains on
-    #                                    the materialized-scores route
+    fused_attn: bool = True            # flash attention (rows 16-18) while
+    #                                    attn_impl is "auto"; False trains
+    #                                    on the materialized-scores route
     fused_kernel: bool = False         # engine kernels: not ported
     fused_loss: bool = True            # the logits-free fused CE kernels
     compress_grads: bool = False
@@ -79,8 +78,8 @@ def check_ported(tc: TrainerConfig) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not
     port, rather than quietly running something else."""
     refused = {
-        "fused_attn=True (flash attention, rows 16-18)": tc.fused_attn,
-        f"attn_impl={tc.attn_impl!r}": tc.attn_impl not in ("auto", "full"),
+        f"attn_impl={tc.attn_impl!r}":
+            tc.attn_impl not in ("auto", "full", "flash"),
         "fused_kernel=True (engine kernels, rows 2-10)": tc.fused_kernel,
         "fused_loss=False (the chunked loss draws with jax.random)":
             not tc.fused_loss,
@@ -145,7 +144,10 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
     schedule = make_schedule(tc)
     clipper = clip_by_global_norm(tc.grad_clip)
     seed_of = hess_seed_fn or (lambda step: hess_seed(tc.seed, step))
-    attn_impl = tc.attn_impl
+    # fused_attn applies only while attn_impl is "auto"; an explicit impl
+    # wins (the reference's mapping, trainer.py:216-221)
+    attn_impl = (tc.attn_impl if tc.attn_impl != "auto"
+                 else ("flash" if tc.fused_attn else "auto"))
 
     def init_fn(params=None) -> TrainState:
         if params is None:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, the serve engine's launch count and the trainer's.  Every test here needs an
+version, the serve engine's launch count and the trainer's (flash
+attention and the fused CE).  Every test here needs an
 NVIDIA GPU; each carries the ``cuda`` marker and skips without one.  The
 file imports no JAX, so it runs on a GPU machine that has only PyTorch:
 
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch.configs.gpt2 import GPT2_TINY
 from repro_torch.data import DataConfig, make_source
-from repro_torch.kernels import KERNEL_LAUNCHES, fused_ce, reset_launch_counts
+from repro_torch.kernels import (KERNEL_LAUNCHES, flash_attention, fused_ce,
+                                 reset_launch_counts)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                    decode_attention_plain)
 from repro_torch.models import get_model
@@ -148,13 +150,89 @@ def test_fused_ce_kernels_match_plain(cuda_device, h_dtype, w_dtype, tied,
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,hd,causal,window,softcap,qoff", [
+    (2, 4, 4, 256, 256, 64, True, None, None, 0),     # GPT-2's layout
+    (1, 8, 2, 128, 192, 128, True, 48, 20.0, 64),     # GQA, window, softcap
+    (2, 2, 1, 100, 100, 32, False, None, None, 0),    # off the tile
+])
+def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
+                                             Sk, hd, causal, window, softcap,
+                                             qoff):
+    """The forward, dQ and dK/dV kernels against their plain versions on
+    the same inputs: o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2
+    (bf16) of each output's largest element."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, g = (torch.randn((B, H, Sq, hd), generator=gen, device=cuda_device)
+            .to(dt) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, Sk, hd), generator=gen, device=cuda_device)
+            .to(dt) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
+              scale=hd ** -0.5)
+    reset_launch_counts()
+    o, lse = flash_attention.flash_forward(q, k, v, **kw)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = flash_attention.flash_backward_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = flash_attention.flash_backward_dkv(q, k, v, g, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert dict(KERNEL_LAUNCHES) == {"attn_fwd": 1, "attn_bwd_dq": 1,
+                                     "attn_bwd_dkv": 1}
+    want = (flash_attention.flash_forward_plain(q, k, v, **kw)
+            + (flash_attention.flash_backward_dq_plain(q, k, v, g, lse, delta,
+                                                       **kw),)
+            + flash_attention.flash_backward_dkv_plain(q, k, v, g, lse, delta,
+                                                       **kw))
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    for got, ref in zip((o, lse, dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        scale = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("hd", [48, 256])
+def test_flash_attention_kernel_refuses_head_dim(cuda_device, hd):
+    """A head dim without a kernel instance raises on the card: no plain
+    fallback."""
+    q = torch.zeros((1, 2, 64, hd), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+
+
 def test_trainer_launches_the_ce_kernels(cuda_device):
-    """Four GPT2_TINY steps on the card (refresh at 0 and 2): one forward,
-    dh and dW per step, one more of each with the sampled forward per
-    refresh; the losses agree with the CPU's plain path (fp32)."""
+    """Four GPT2_TINY steps on the card (refresh at 0 and 2) on the
+    default flash route: one CE forward, dh and dW per step, one more of
+    each with the sampled forward per refresh, and each attention kernel
+    once per layer for every step and every refresh; the losses agree with
+    the CPU's plain path (fp32)."""
     cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
     tc = TrainerConfig(peak_lr=5e-4, total_steps=8, warmup_steps=2,
                        hess_interval=2, hess_subbatch=2)
+    hist, hist_cpu, launches = _train_card_and_cpu(cuda_device, cfg, tc)
+    per_layer = cfg.n_layers * 6
+    assert launches == {"ce_forward": 4, "ce_forward_sampled": 2,
+                        "ce_backward_dh": 6, "ce_backward_dw": 6,
+                        "attn_fwd": per_layer, "attn_bwd_dq": per_layer,
+                        "attn_bwd_dkv": per_layer}
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in hist_cpu], rtol=1e-4)
+
+
+def test_trainer_materialized_attention_on_card(cuda_device):
+    """fused_attn=False keeps the materialized-scores route: no attention
+    kernel launches, the CE kernels as before, losses as on the CPU."""
+    cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
+    tc = TrainerConfig(peak_lr=5e-4, total_steps=8, warmup_steps=2,
+                       hess_interval=2, hess_subbatch=2, fused_attn=False)
+    hist, hist_cpu, launches = _train_card_and_cpu(cuda_device, cfg, tc)
+    assert launches == {"ce_forward": 4, "ce_forward_sampled": 2,
+                        "ce_backward_dh": 6, "ce_backward_dw": 6}
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in hist_cpu], rtol=1e-4)
+
+
+def _train_card_and_cpu(cuda_device, cfg, tc):
+    """Four steps on the card and on the CPU from the same weights:
+    (card history, CPU history, the card run's launch counts)."""
     src = make_source(DataConfig(seq_len=32, global_batch=4,
                                  vocab_size=cfg.vocab_size))
     init_fn, _ = make_train_fns(cfg, tc, device=cuda_device)
@@ -165,10 +243,8 @@ def test_trainer_launches_the_ce_kernels(cuda_device):
     reset_launch_counts()
     state, hist = train_loop(cfg, tc, src, num_steps=4, state=state,
                              device=cuda_device)
-    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 4, "ce_forward_sampled": 2,
-                                     "ce_backward_dh": 6, "ce_backward_dw": 6}
+    launches = dict(KERNEL_LAUNCHES)
     cpu_init, _ = make_train_fns(cfg, tc, device="cpu")
     _, hist_cpu = train_loop(cfg, tc, src, num_steps=4,
                              state=cpu_init(cpu_params), device="cpu")
-    np.testing.assert_allclose([h["loss"] for h in hist],
-                               [h["loss"] for h in hist_cpu], rtol=1e-4)
+    return hist, hist_cpu, launches

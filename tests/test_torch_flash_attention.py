@@ -1,0 +1,244 @@
+"""The port's flash attention (repro_torch.kernels.flash_attention) held
+against the JAX reference on the CPU: the plain forward, dQ and dK/dV
+against the port's copied oracles and the reference's ``kernels/ref.py``
+oracles over the reference tests' case matrix (causal, window, softcap,
+GQA, q_offset, non-causal), within 3e-6 in fp32; against the reference's
+Pallas kernels (interpret mode, as its own tests run them on the CPU) and
+``jax.grad`` within 6e-6 (both sides sit within 3e-6 of the oracle), and in
+bf16 at the reference test's 2/256 relative + 2e-5 absolute; autograd
+through the port's entry against the direct plain backward; and the
+model-level flash route on a GPT2_TINY layer.  Inputs come from numpy."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.gpt2 import GPT2_TINY
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.models import get_model as jax_get_model
+from repro.models.layers import train_attention as jax_train_attention
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_backward_dkv, flash_backward_dkv_plain,
+    flash_backward_dq, flash_backward_dq_plain, flash_forward,
+    flash_forward_plain)
+from repro_torch.models import ModelConfig
+from repro_torch.models.layers import train_attention
+
+# One intra-op thread per process: the suite runs six pytest-xdist workers
+# on the machine's cores, and torch's default pool in every worker
+# oversubscribes them, slowing every test beside it (JAX's too) severalfold.
+torch.set_num_threads(1)
+
+F32_TOL = 3e-6
+PALLAS_TOL = 6e-6
+BF16_RTOL = 2.0 / 256
+BF16_ATOL = 2e-5
+
+# the case matrix of tests/test_flash_attention.py (block sizes and
+# schedules are the reference kernel's, used only on its side)
+CASES = [
+    # B, H, Hkv, Sq, Sk, hd, bq, bk, causal, window, softcap, qoff, sched
+    (1, 2, 1, 192, 192, 32, 64, 64, True, None, None, 0, None),
+    (1, 2, 1, 192, 192, 32, 64, 64, True, 48, None, 0, "skip"),
+    (1, 2, 1, 192, 192, 32, 64, 64, True, None, 20.0, 0, None),
+    (1, 2, 2, 128, 192, 32, 32, 64, True, 80, 8.0, 64, "skip"),
+    (1, 4, 1, 96, 160, 32, 32, 32, False, None, None, 0, "dense"),
+    (2, 2, 1, 128, 128, 64, 64, 64, True, None, None, 0, "dense"),
+]
+IDS = ["causal", "window48", "softcap20", "gqa_window_softcap_qoffset",
+       "noncausal_gqa4", "batch2_hd64"]
+
+
+def _inputs(B, H, Hkv, Sq, Sk, hd, seed=0):
+    rng = np.random.default_rng(seed + Sq + Sk + hd)
+    q = rng.standard_normal((B, H, Sq, hd)).astype(np.float32) * 0.5
+    k = rng.standard_normal((B, Hkv, Sk, hd)).astype(np.float32) * 0.5
+    v = rng.standard_normal((B, Hkv, Sk, hd)).astype(np.float32) * 0.5
+    g = rng.standard_normal((B, H, Sq, hd)).astype(np.float32) * 0.5
+    return q, k, v, g
+
+
+def _np(t):
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _plain_all(q, k, v, g, kw):
+    """(o, lse, dq, dk, dv) of the port's plain versions, delta from the
+    rounded o as the autograd function computes it."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = flash_forward_plain(q, k, v, scale=scale, **kw)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = flash_backward_dq_plain(q, k, v, g, lse, delta, scale=scale, **kw)
+    dk, dv = flash_backward_dkv_plain(q, k, v, g, lse, delta, scale=scale,
+                                      **kw)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize(
+    "B,H,Hkv,Sq,Sk,hd,bq,bk,causal,window,softcap,qoff,sched", CASES,
+    ids=IDS)
+def test_plain_matches_oracles(B, H, Hkv, Sq, Sk, hd, bq, bk, causal,
+                               window, softcap, qoff, sched):
+    """Forward (o, lse), dQ and dK/dV within 3e-6 of the port's copied
+    oracles and of the reference's ``kernels/ref.py`` oracles."""
+    q, k, v, g = _inputs(B, H, Hkv, Sq, Sk, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    got = _plain_all(*map(torch.from_numpy, (q, k, v, g)), kw)
+    port = (port_ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                         **kw)
+            + port_ref.flash_attention_grads_ref(
+                *map(torch.from_numpy, (q, k, v, g)), **kw))
+    ref = (jax_ref.flash_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)
+           + jax_ref.flash_attention_grads_ref(
+               *map(jnp.asarray, (q, k, v, g)), **kw))
+    for name, a, b, c in zip(("o", "lse", "dq", "dk", "dv"), got, port, ref):
+        np.testing.assert_allclose(_np(a), _np(b), atol=F32_TOL, rtol=0,
+                                   err_msg=f"{name} vs the port's oracle")
+        np.testing.assert_allclose(_np(a), np.asarray(c), atol=F32_TOL,
+                                   rtol=0,
+                                   err_msg=f"{name} vs the reference oracle")
+
+
+def _against_pallas(case, dtype, atol, rtol):
+    B, H, Hkv, Sq, Sk, hd, bq, bk, causal, window, softcap, qoff, sched = \
+        case
+    q, k, v, g = _inputs(B, H, Hkv, Sq, Sk, hd, seed=1)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jg = (jnp.asarray(x).astype(jdt) for x in (q, k, v, g))
+
+    def f(q, k, v):
+        o = jax_flash(q, k, v, block_q=bq, block_k=bk, schedule=sched, **kw)
+        return (o.astype(jnp.float32) * jg.astype(jnp.float32)).sum(), o
+
+    (_, jo), jgrads = jax.value_and_grad(f, argnums=(0, 1, 2),
+                                         has_aux=True)(jq, jk, jv)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    o = flash_attention(tq, tk, tv, **kw)
+    tgrads = torch.autograd.grad(o, (tq, tk, tv),
+                                 torch.from_numpy(g).to(tdt))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), (o,) + tgrads,
+                          (jo,) + tuple(jgrads)):
+        assert a.dtype == tdt
+        np.testing.assert_allclose(_np(a), np.asarray(b.astype(jnp.float32)),
+                                   atol=atol, rtol=rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4]],
+                         ids=["window48", "gqa_window_softcap_qoffset",
+                              "noncausal_gqa4"])
+def test_matches_reference_pallas_kernels(case):
+    """o and (dq, dk, dv) against the reference's Pallas forward and its
+    custom_vjp backward under jax.grad, fp32, within 6e-6."""
+    _against_pallas(case, "float32", PALLAS_TOL, 0.0)
+
+
+def test_matches_reference_pallas_kernels_bf16():
+    """bf16 at the reference test's bound (one output-rounding ulp where
+    sums in another order straddle a rounding boundary)."""
+    _against_pallas(CASES[2], "bfloat16", BF16_ATOL, BF16_RTOL)
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[5]],
+                         ids=["gqa_window_softcap_qoffset", "batch2_hd64"])
+def test_autograd_equals_plain_backward(case):
+    """torch.autograd through the entry gives exactly the direct plain dQ
+    and dK/dV, also for a cotangent that arrives non-contiguous; the CPU
+    route launches nothing."""
+    B, H, Hkv, Sq, Sk, hd, _, _, causal, window, softcap, qoff, _ = case
+    q, k, v, g = map(torch.from_numpy, _inputs(B, H, Hkv, Sq, Sk, hd))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    _, _, dq, dk, dv = _plain_all(q, k, v, g, kw)
+    g_t = g.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not g_t.is_contiguous()
+    reset_launch_counts()
+    for cot in (g, g_t):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(o, leaves, cot)
+        for a, b in zip(got, (dq, dk, dv)):
+            assert torch.equal(a, b)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = flash_forward(q, k, v, scale=scale, **kw)
+    delta = (g * o).sum(-1)
+    assert torch.equal(flash_backward_dq(q, k, v, g, lse, delta,
+                                         scale=scale, **kw), dq)
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_backward_dkv(q, k, v, g, lse, delta, scale=scale, **kw),
+        (dk, dv)))
+    assert sum(KERNEL_LAUNCHES.values()) == 0
+
+
+def test_row_with_no_key():
+    """A query row that attends no key (window and q_offset past the keys)
+    gets o = 0, lse at the -1e30 sentinel and zero gradient, as the
+    reference oracle gives; the other rows match it."""
+    q, k, v, g = map(torch.from_numpy, _inputs(1, 2, 1, 64, 96, 32))
+    kw = dict(causal=True, window=16, softcap=None, q_offset=64)
+    o, lse, dq, dk, dv = _plain_all(q, k, v, g, kw)
+    empty = 64 + torch.arange(64) - 16 >= 95        # no key c in (qpos-16, 95]
+    assert 0 < int(empty.sum()) < 64
+    assert torch.all(o[:, :, empty] == 0) and torch.all(dq[:, :, empty] == 0)
+    assert torch.all(lse[:, :, empty] < -1e29)
+    ro, rl = jax_ref.flash_attention_ref(*map(jnp.asarray, (q, k, v)), **kw)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ro), atol=F32_TOL)
+    np.testing.assert_allclose(lse[:, :, ~empty].numpy(),
+                               np.asarray(rl)[:, :, ~empty.numpy()],
+                               atol=F32_TOL)
+    for a, b in zip((dq, dk, dv), jax_ref.flash_attention_grads_ref(
+            *map(jnp.asarray, (q, k, v, g)), **kw)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=F32_TOL)
+
+
+def test_entry_rejects_bad_arguments():
+    q = torch.zeros(1, 3, 8, 32)
+    kv = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv)                      # 3 % 2 heads
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :2], kv, kv, q_offset=-1)
+
+
+CFG32 = dataclasses.replace(GPT2_TINY, dtype="float32")
+TCFG32 = ModelConfig(**dataclasses.asdict(CFG32))
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_train_attention_flash_matches_reference(dtype, atol):
+    """The model-level flash route of a GPT2_TINY layer (qkv, transposes,
+    the kernels' plain versions, output projection) against the
+    reference's ``train_attention(impl="flash")`` with the same weights:
+    fp32 within 1e-5 (and its input gradient too), bf16 within 2e-2 (the
+    reference tests' bf16 bound)."""
+    params = jax_get_model(CFG32).init_params(CFG32, jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), TCFG32)
+    jp = jax.tree.map(lambda a: a[0], params["layers"]["attn"])
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 40, CFG32.d_model)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def f(x):
+        out = jax_train_attention(jp, x, CFG32, None, impl="flash")
+        return (out.astype(jnp.float32) * jnp.asarray(g)).sum(), out
+
+    (_, want), jdx = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(x).astype(jdt))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    got = train_attention(tparams.layers[0].attn, tx, TCFG32, impl="flash")
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+    if dtype == "float32":
+        (dx,) = torch.autograd.grad(got, (tx,), torch.from_numpy(g))
+        np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=atol)

@@ -18,7 +18,8 @@ from repro.models.layers import full_attention as jax_full_attention
 from repro_torch.convert import params_from_jax
 from repro_torch.core.types import flat_tensors, tree_leaves, tree_unflatten
 from repro_torch.models import ModelConfig, get_model
-from repro_torch.models.layers import full_attention, train_attention
+from repro_torch.models.layers import (_flash_attention_proj, full_attention,
+                                       train_attention)
 from repro_torch.models.loss import lm_loss
 
 # One intra-op thread per process: the suite runs six pytest-xdist workers
@@ -82,7 +83,9 @@ def test_train_attention_routes(weights):
     for impl in ("auto", "full", None):
         torch.testing.assert_close(train_attention(p, x, TCFG32, impl=impl),
                                    full_attention(p, x, TCFG32))
-    for impl in ("flash", "flash_jvp", "chunked"):
+    torch.testing.assert_close(train_attention(p, x, TCFG32, impl="flash"),
+                               _flash_attention_proj(p, x, TCFG32))
+    for impl in ("flash_jvp", "chunked"):
         with pytest.raises(NotImplementedError):
             train_attention(p, x, TCFG32, impl=impl)
     with pytest.raises(NotImplementedError, match="4096"):

@@ -87,10 +87,14 @@ def test_memmap_batches_bit_identical(tmp_path):
 # the trajectory
 
 
-def test_trajectory_matches_reference_trainer():
+@pytest.mark.parametrize("fused_attn", [False, True],
+                         ids=["materialized_attn", "flash_attn"])
+def test_trajectory_matches_reference_trainer(fused_attn):
     """13 steps with the refresh every 4 (at 0, 4, 8, 12: three full
-    intervals), fused loss, materialized-scores attention, reference
-    engine backend, the reference's weights, batches and noise seeds.
+    intervals), fused loss, flash attention (the reference's Pallas kernels
+    in interpret mode against the port's plain versions) or the
+    materialized-scores route, reference engine backend, the reference's
+    weights, batches and noise seeds.
     Contract of tests/test_unified_step.py: equal hess_count; losses to
     rtol 1e-4 / atol 1e-5; all parameter coordinates within 2e-3; m and h
     within 2e-3.  Its quantile (>= 99.99% of coordinates within 3e-6 +
@@ -104,7 +108,7 @@ def test_trajectory_matches_reference_trainer():
     within 3e-6 and 99.99% within 1e-5 + 1e-5 |a| (ROADMAP C); the test
     holds 99.95% at 3e-6 and 99.99% at 1e-5."""
     steps = 13
-    jtc = JTrainerConfig(fused_loss=True, fused_attn=False,
+    jtc = JTrainerConfig(fused_loss=True, fused_attn=fused_attn,
                          fused_kernel=False, **TRAIN)
     src = jax_make_source(_src())
     init_fn, _ = jax_make_train_fns(CFG32, jtc)
@@ -116,7 +120,7 @@ def test_trajectory_matches_reference_trainer():
                                  step)
         return np.asarray(seed_from_key(rng))
 
-    tc = TrainerConfig(**TRAIN)
+    tc = TrainerConfig(fused_attn=fused_attn, **TRAIN)
     params = params_from_jax(jax.tree.map(np.asarray, s0.params), TCFG32)
     t_init, _ = make_train_fns(TCFG32, tc, device="cpu")
     s_port, hist = train_loop(TCFG32, tc, src, num_steps=steps,
@@ -236,7 +240,37 @@ def test_launcher_smoke_on_cpu(tmp_path):
         torch_launch.main(args + ["--state-dtype", "bfloat16"])
 
 
-@pytest.mark.parametrize("flag", [["--fused-attn"], ["--fused-kernel"],
+def test_launcher_no_fused_attn_trains_on_materialized_route(monkeypatch):
+    """--no-fused-attn trains on the materialized-scores attention and the
+    default on the flash route: the launcher hands the trainer
+    fused_attn False or True, and two steps give finite losses.  The smoke
+    config computes in bf16, where the two routes round differently (the
+    flash route keeps p in fp32 until o), so step 0's losses agree only to
+    ~1e-4 relative."""
+    seen = []
+    real = torch_launch.make_train_fns
+
+    def spy(cfg, tc, **kw):
+        seen.append(tc.fused_attn)
+        return real(cfg, tc, **kw)
+
+    monkeypatch.setattr(torch_launch, "make_train_fns", spy)
+    args = ["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+            "--global-batch", "2", "--hess-subbatch", "1", "--log-every",
+            "1"]
+    losses = []
+    for extra in (["--no-fused-attn"], []):
+        with redirect_stdout(io.StringIO()) as out:
+            state = torch_launch.main(args + extra)
+        assert state.step == 2
+        losses.append([float(ln.split()[3]) for ln in
+                       out.getvalue().splitlines() if ln.startswith("step")])
+    assert seen == [False, True]
+    assert all(np.isfinite(losses).ravel())
+    np.testing.assert_allclose(losses[0][0], losses[1][0], rtol=1e-3)
+
+
+@pytest.mark.parametrize("flag", [["--fused-kernel"],
                                   ["--no-fused-loss"], ["--opt", "adamw"],
                                   ["--estimator", "hutchinson"],
                                   ["--remat", "full"], ["--compress-grads"],
@@ -248,7 +282,7 @@ def test_launcher_unported_flags_raise(flag):
 
 
 @pytest.mark.parametrize("over", [
-    dict(fused_attn=True), dict(attn_impl="flash"), dict(attn_impl="chunked"),
+    dict(attn_impl="flash_jvp"), dict(attn_impl="chunked"),
     dict(fused_kernel=True), dict(fused_loss=False),
     dict(estimator="empirical_fisher"), dict(optimizer="sophia_h"),
     dict(compress_hess=True), dict(remat="dots")])
