@@ -9,8 +9,8 @@ exits non-zero on the first failure.  It needs the repository's sources
 it fails and prints no result.  Phases, in order:
 
   1. card and build: the card's name and power limit as nvidia-smi gives
-     them; every CUDA source under ``src/repro_torch/kernels/csrc`` built
-     at once (one nvcc each, in parallel), with ptxas's spill count;
+     them; every CUDA source under ``src/repro_torch/kernels/csrc`` (four)
+     built at once (one nvcc each, in parallel), with ptxas's spill count;
   2. each kernel against its plain PyTorch version on the card: decode
      attention at the serving shape and its edge cases (GQA, window +
      softcap, ring wraparound, an unwritten ring, a ring length off the
@@ -29,7 +29,13 @@ it fails and prints no result.  Phases, in order:
      cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
      non-causal, S=1000 off the tile, hd=128, rows with no key), fp32 and
      bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
-     their largest element;
+     their largest element; the engine kernels (the Sophia step, the
+     Hessian EMA with square off and on, the refresh-fused step with flag
+     0 and 1, AdamW at steps 1, 2 and 1000) at GPT-2 small's flat shard
+     (n=124,518,400, block 131072) with fp32 and with bf16 state, and the
+     edge cases (3 blocks of 128, one block, h with zeros and negative
+     entries, rho=1e9, bf16 p, the zero tail pad), every output and every
+     per-block clip count bit-identical to the plain version;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -38,26 +44,34 @@ it fails and prints no result.  Phases, in order:
      held against the port's plain path on the CPU (same weights, fp32);
   4. GPT-2 small trained at full width and depth with Sophia-G (bf16
      compute, B=8 x S=1024, 12 steps, Hessian refresh every 5 on 4 rows)
-     through ``train/trainer.py`` on the default flash-attention route.
-     Launch counts are zeroed just before the run and read just after:
-     each step launches the CE forward, dh and dW once, each refresh step
-     one more of each with the sampled forward, and each step and each
-     refresh launches every attention kernel once per layer.  Step times,
-     tokens/s, peak memory and a torch.profiler window over a plain and a
-     refresh step (the CE's and attention's device time and share); then
-     three fp32 steps at B=2 x S=128 held against the port's plain path
-     on the CPU, once on the flash route and once on the
-     materialized-scores one (``fused_attn=False``);
+     through ``train/trainer.py`` on the default flash-attention route
+     with the engine kernels (``fused_kernel=True``).  Launch counts are
+     zeroed just before the run and read just after: each step launches
+     the CE forward, dh and dW once, each refresh step one more of each
+     with the sampled forward, each step and each refresh launches every
+     attention kernel once per layer, each refresh step the refresh-fused
+     engine kernel and each other step the Sophia step kernel.  Step
+     times, tokens/s, peak memory and a torch.profiler window over a plain
+     and a refresh step (the CE's, attention's and engine kernels' device
+     time and share); the engine's out-of-band ``update_hessian`` on the
+     trained state (one EMA launch per shard); 4 AdamW steps at the same
+     shape (one AdamW kernel launch per step, no sampled CE); then three
+     fp32 steps at B=2 x S=128 held against the port's plain path on the
+     CPU three ways: the flash route with the engine kernels, the
+     materialized-scores route (``fused_attn=False``) on the reference
+     backend, and AdamW with the engine kernels;
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention
-     and 20 for the CE and flash kernels, the 50 MB L2 cache flushed
-     before each launch) beside their bound (decode attention: the bytes
-     of the ring rows the call's positions make valid; the CE and flash
-     kernels: the larger of their flops at the bf16 tensor-core peak and
-     their bytes), their plain version and the library call (for the CE
+     and 20 for the CE, flash and engine kernels, the 50 MB L2 cache
+     flushed before each launch) beside their bound (decode attention:
+     the bytes of the ring rows the call's positions make valid; the CE
+     and flash kernels: the larger of their flops at the bf16 tensor-core
+     peak and their bytes; the engine kernels: their bytes at GPT-2
+     small's shard), their plain version and the library call (for the CE
      kernels the library composition, not one call; for the flash
-     kernels SDPA's forward, and its backward for dQ and dK/dV together)
-     that computes the same function.
+     kernels SDPA's forward, and its backward for dQ and dK/dV together;
+     for AdamW ``torch.optim.AdamW(fused=True).step()``) that computes the
+     same function.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -94,7 +108,12 @@ FLASH_ATTN = ("src/repro_torch/kernels/csrc/flash_attention.cu",
               {"attn_fwd": "src/repro/kernels/flash_attention.py:198",
                "attn_bwd_dq": "src/repro/kernels/flash_attention.py:333",
                "attn_bwd_dkv": "src/repro/kernels/flash_attention.py:374"})
-SOURCES = (DECODE_ATTN[0], FUSED_CE[0], FLASH_ATTN[0])
+SOPHIA_UPDATE = ("src/repro_torch/kernels/csrc/sophia_update.cu",
+                 {"sophia_step": "src/repro/kernels/sophia_update.py:72",
+                  "hessian_ema": "src/repro/kernels/sophia_update.py:105",
+                  "sophia_refresh": "src/repro/kernels/sophia_update.py:157",
+                  "adamw_step": "src/repro/kernels/sophia_update.py:243"})
+SOURCES = (DECODE_ATTN[0], FUSED_CE[0], FLASH_ATTN[0], SOPHIA_UPDATE[0])
 
 
 def log(msg: str) -> None:
@@ -554,6 +573,130 @@ def phase_flash_kernels(torch):
     return out
 
 
+# the engine kernels: GPT-2 small's flat shard (build_layout: one fp32
+# shard of 124,518,400 elements, 950 blocks of 131072) and the edge cases
+SHARD_N, SHARD_BLOCK = 124_518_400, 131_072
+SOPHIA_HP = dict(beta1=0.96, gamma=0.05, eps=1e-12, weight_decay=0.2)
+ADAMW_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.2)
+
+
+def _engine_operands(torch, n, pdt, sdt, *, seed=0, h_kind="positive"):
+    """p, m, h, g, e on the card at a trained model's scales (p ~ 0.02,
+    m and g ~ 1e-3, h and e ~ 1e-6).  ``h_kind`` "mixed" puts zeros and
+    negative entries in h (Hutchinson-style estimates), "tail_pad" zeroes
+    the last quarter of every operand (the engine's pad)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(scale):
+        return torch.randn((n,), generator=gen, device="cuda") * scale
+
+    p, m, g = randn(0.02), randn(1e-3), randn(1e-3)
+    h, e = randn(1e-3).square(), randn(1e-3).square()
+    if h_kind == "mixed":
+        h = randn(1e-6)
+        h[::5] = 0.0
+    ops = [p.to(pdt), m.to(sdt), h.to(sdt), g, e]
+    if h_kind == "tail_pad":
+        for t in ops:
+            t[3 * n // 4:] = 0
+    return ops
+
+
+def _bits(torch, t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_engine_case(torch, name, n, block, pdt, sdt, *, h_kind="positive",
+                      rho=1.0, flags=(0, 1), steps=(1, 2, 1000)):
+    """Rows 2, 3 (square off and on), 4 (each flag) and 6 (each step)
+    against their plain versions on the same card tensors: every output
+    and every per-block clip count bit for bit.  Returns {kernel: max abs
+    error} (0.0 when bit-identical) and logs the clip counts."""
+    from repro_torch.kernels import sophia_update as su
+
+    p, m, h, g, e = _engine_operands(torch, n, pdt, sdt, h_kind=h_kind)
+    lr = torch.tensor(6e-4, device="cuda")
+    scale = torch.tensor(4096.0, device="cuda")       # GNB's B: 4 x 1024
+    sk = dict(SOPHIA_HP, clip_threshold=rho, block=block)
+    calls = [("sophia_step", su.sophia_fused_block,
+              su.sophia_fused_block_plain, (p, m, h, g, lr), sk)]
+    calls += [("hessian_ema", su.hessian_ema_block,
+               su.hessian_ema_block_plain, (h, e),
+               dict(beta2=0.99, scale=scale, square=sq, block=block))
+              for sq in (False, True)]
+    calls += [("sophia_refresh", su.sophia_refresh_fused_block,
+               su.sophia_refresh_fused_block_plain,
+               (p, m, h, g, e, lr, flag, scale), dict(sk, beta2=0.99))
+              for flag in flags]
+    v = h.abs()
+    calls += [("adamw_step", su.adamw_fused_block, su.adamw_fused_block_plain,
+               (p, m, v, g, lr, torch.tensor(float(st), device="cuda")),
+               dict(ADAMW_HP, block=block)) for st in steps]
+    errs, clips = {}, []
+    for kname, kernel, plain, args, kw in calls:
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"engine {kname} {name}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            if not bool(torch.isfinite(a.float()).all()):
+                raise AssertionError(f"engine {kname} {name}: non-finite")
+            if not torch.equal(_bits(torch, a), _bits(torch, b)):
+                diff = (a.float() - b.float()).abs().max().item()
+                raise AssertionError(
+                    f"engine kernel {kname} ({name}) is not bit-identical "
+                    f"to its plain version: max abs err {diff}")
+            err = max(err, (a.float() - b.float()).abs().max().item())
+        if kname in ("sophia_step", "sophia_refresh"):
+            clips.append(int(got[-1].sum()))
+        if h_kind == "tail_pad" and any(
+                bool((t[3 * n // 4:] != 0).any()) if t.dtype != torch.int32
+                else bool(t[-1] != 0) for t in got):
+            raise AssertionError(f"engine {kname} {name}: the zero pad is "
+                                 "not a fixed point")
+        errs[kname] = max(errs.get(kname, 0.0), err)
+    log(f"[kernels] sophia_update {name} n={n} block={block} "
+        f"p={str(pdt)[6:]} state={str(sdt)[6:]} h={h_kind} rho={rho}: rows "
+        f"2, 3 (square 0/1), 4 (flag {'/'.join(map(str, flags))}) and 6 "
+        f"(steps {'/'.join(map(str, steps))}) bit-identical to their plain "
+        f"versions, clip counts {clips} equal")
+    return errs
+
+
+def phase_engine_kernels(torch):
+    """Returns {kernel name: max abs error at GPT-2 small's shard with
+    fp32 state, the training run's}."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = check_engine_case(torch, "gpt2_small_shard", SHARD_N, SHARD_BLOCK,
+                            f32, f32)
+    check_engine_case(torch, "gpt2_small_shard_bf16_state", SHARD_N,
+                      SHARD_BLOCK, f32, bf16)
+    edges = [
+        ("block128_x3", dict(n=384, block=128, pdt=f32, sdt=f32)),
+        ("one_block", dict(n=128, block=128, pdt=f32, sdt=bf16)),
+        ("h_zero_and_negative", dict(n=3 * 4096, block=4096, pdt=f32,
+                                     sdt=f32, h_kind="mixed")),
+        ("rho_1e9", dict(n=3 * 4096, block=4096, pdt=f32, sdt=f32,
+                         rho=1e9)),
+        ("bf16_p", dict(n=2 * SHARD_BLOCK, block=SHARD_BLOCK, pdt=bf16,
+                        sdt=bf16)),
+        ("bf16_p_fp32_state", dict(n=2 * SHARD_BLOCK, block=SHARD_BLOCK,
+                                   pdt=bf16, sdt=f32)),
+        ("tail_pad_fixed_point", dict(n=4 * 1024, block=1024, pdt=f32,
+                                      sdt=bf16, h_kind="tail_pad")),
+    ]
+    for name, spec in edges:
+        check_engine_case(torch, name, spec.pop("n"), spec.pop("block"),
+                          spec.pop("pdt"), spec.pop("sdt"), **spec)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve GPT-2 small
 
@@ -743,7 +886,8 @@ def phase_train(torch):
 
     cfg = get_config("gpt2-small")
     tc = TrainerConfig(peak_lr=6e-4, total_steps=TRAIN_STEPS, warmup_steps=2,
-                       hess_interval=TRAIN_K, hess_subbatch=TRAIN_SUB, seed=0)
+                       hess_interval=TRAIN_K, hess_subbatch=TRAIN_SUB, seed=0,
+                       fused_kernel=True)
     state, train_step = _train_fns(torch, cfg, tc, "cuda")
     src = make_source(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
                                  vocab_size=cfg.vocab_size, seed=0))
@@ -763,10 +907,13 @@ def phase_train(torch):
     peak = torch.cuda.max_memory_allocated()
     n_ref = len(range(0, TRAIN_STEPS, TRAIN_K))
     attn = cfg.n_layers * (TRAIN_STEPS + n_ref)
+    # the engine kernels: the refresh-fused step on each refresh step, the
+    # plain step on the others, never the out-of-band EMA
     want = {"ce_forward": TRAIN_STEPS, "ce_forward_sampled": n_ref,
             "ce_backward_dh": TRAIN_STEPS + n_ref,
             "ce_backward_dw": TRAIN_STEPS + n_ref,
-            "attn_fwd": attn, "attn_bwd_dq": attn, "attn_bwd_dkv": attn}
+            "attn_fwd": attn, "attn_bwd_dq": attn, "attn_bwd_dkv": attn,
+            "sophia_step": TRAIN_STEPS - n_ref, "sophia_refresh": n_ref}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     if not all(np.isfinite(losses)):
@@ -784,7 +931,8 @@ def phase_train(torch):
                   tokens_per_s=tokens * TRAIN_STEPS / sum(times),
                   tokens_per_s_plain_p50=tokens / p50,
                   peak_mem_gib=peak / 2 ** 30, step_ms=[x * 1e3 for x in times])
-    log(f"[train] gpt2-small bf16 B={TRAIN_B} S={TRAIN_S} Sophia-G k="
+    log(f"[train] gpt2-small bf16 B={TRAIN_B} S={TRAIN_S} Sophia-G "
+        f"fused_kernel=True k="
         f"{TRAIN_K} sub={TRAIN_SUB}: {TRAIN_STEPS} steps, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; hess_count "
         f"{int(state.opt_state.hess_count)}; step p50 plain "
@@ -804,28 +952,117 @@ def phase_train(torch):
 
         win = profile_window(f"train {label} (gpt2-small B={TRAIN_B} "
                              f"S={TRAIN_S} bf16)", one_step, match="::ce_",
-                             also=("flash_attn::",))
+                             also=("flash_attn::", "sophia_update::"))
         state = holder["out"][0]
         busy = win["device_busy_us"]
         win["matched_share"] = win["matched_us"] / busy if busy else None
         win["attn_us"] = win["also_us"]["flash_attn::"]
         win["attn_share"] = win["attn_us"] / busy if busy else None
+        win["engine_us"] = win["also_us"]["sophia_update::"]
+        win["engine_share"] = win["engine_us"] / busy if busy else None
+        if not win["engine_us"] > 0:
+            raise AssertionError(f"profile of the {label}: no sophia_update "
+                                 "kernel on the device")
         windows.append(win)
         log("[profile] " + json.dumps(win))
     report["profile"] = windows
+    report["hessian_ema_launches"] = out_of_band_refresh(torch, tc, state)
+    report["adamw"] = train_adamw(torch, cfg, batches)
     report["cpu_check_max_rel"] = {
-        f"fused_attn={fused}": check_train_against_cpu(torch, cfg, fused)
-        for fused in (True, False)}
+        name: check_train_against_cpu(torch, cfg, name, over)
+        for name, over in (
+            ("flash+fused_kernel", dict(fused_kernel=True)),
+            ("materialized+reference", dict(fused_attn=False)),
+            ("adamw+fused_kernel", dict(optimizer="adamw",
+                                        fused_kernel=True)))}
     return report
 
 
-def check_train_against_cpu(torch, cfg, fused_attn):
+def out_of_band_refresh(torch, tc, state):
+    """The engine's out-of-band refresh (``update_hessian``, what tests and
+    tooling call) on the trained state at GPT-2 small's shard: counts
+    zeroed before, read after; one ``hessian_ema`` launch per shard and
+    hess_count one up.  Returns the launch count."""
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.train import make_engine
+
+    engine = make_engine(tc)
+    tree = state.params.param_tree()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    est = tuple((torch.randn(h.shape, generator=gen, device="cuda")
+                 * 1e-3).square() for h in state.opt_state.h)
+    scale = torch.tensor(float(TRAIN_SUB * TRAIN_S), device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    new = engine.update_hessian(state.opt_state, est, scale=scale,
+                                params=tree)
+    torch.cuda.synchronize()
+    launches = dict(KERNEL_LAUNCHES)
+    want = {"hessian_ema": len(est)}
+    if launches != want:
+        raise AssertionError(f"update_hessian launches {launches} != {want}")
+    if (int(new.hess_count) != int(state.opt_state.hess_count) + 1
+            or not all(bool(torch.isfinite(h.float()).all())
+                       for h in new.h)):
+        raise AssertionError("update_hessian: hess_count or h is wrong")
+    log(f"[train] out-of-band update_hessian on the trained state "
+        f"({[h.numel() for h in new.h]} elements): launches {launches}")
+    return launches["hessian_ema"]
+
+
+ADAMW_STEPS = 4
+
+
+def train_adamw(torch, cfg, batches):
+    """AdamW on the engine kernels at the same shape, 4 steps: one
+    ``adamw_step`` per step, the CE forward, dh and dW and the attention
+    kernels per step, no sampled CE (no refresh); finite losses."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.train import TrainerConfig
+
+    tc = TrainerConfig(optimizer="adamw", fused_kernel=True, peak_lr=6e-4,
+                       total_steps=ADAMW_STEPS, warmup_steps=2, seed=0)
+    state, train_step = _train_fns(torch, cfg, tc, "cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times, losses = [], []
+    for t in range(ADAMW_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[t], False)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(KERNEL_LAUNCHES)
+    attn = cfg.n_layers * ADAMW_STEPS
+    want = {"ce_forward": ADAMW_STEPS, "ce_backward_dh": ADAMW_STEPS,
+            "ce_backward_dw": ADAMW_STEPS, "attn_fwd": attn,
+            "attn_bwd_dq": attn, "attn_bwd_dkv": attn,
+            "adamw_step": ADAMW_STEPS}
+    if launches != want:
+        raise AssertionError(f"AdamW launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or int(state.opt_state.hess_count):
+        raise AssertionError(f"AdamW: losses {losses}, hess_count "
+                             f"{int(state.opt_state.hess_count)}")
+    report = dict(launches=launches, losses=losses,
+                  step_p50_ms=statistics.median(times) * 1e3,
+                  step_ms=[x * 1e3 for x in times])
+    log(f"[train] gpt2-small bf16 B={TRAIN_B} S={TRAIN_S} AdamW "
+        f"fused_kernel=True: {ADAMW_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step p50 {report['step_p50_ms']:.1f} ms, step "
+        f"ms {[round(x * 1e3, 1) for x in times]}; launches {launches}")
+    return report
+
+
+def check_train_against_cpu(torch, cfg, name, over):
     """Three fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) on the
     card (the kernels) and on the CPU (their plain versions), same weights
-    and batches, on the flash route (``fused_attn``) or the
-    materialized-scores one: the losses must agree within 1e-4
+    and batches, with the trainer options ``over`` (the attention route,
+    the engine backend, the optimizer): the losses must agree within 1e-4
     relative, and the card run must launch the attention kernels exactly
-    when ``fused_attn`` is set."""
+    when ``fused_attn`` is set and an engine kernel exactly when
+    ``fused_kernel`` is."""
     import copy
 
     from repro_torch.data import DataConfig, make_source
@@ -834,8 +1071,7 @@ def check_train_against_cpu(torch, cfg, fused_attn):
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     tc = TrainerConfig(peak_lr=6e-4, total_steps=3, warmup_steps=1,
-                       hess_interval=2, hess_subbatch=1, seed=0,
-                       fused_attn=fused_attn)
+                       hess_interval=2, hess_subbatch=1, seed=0, **over)
     state, _ = _train_fns(torch, cfg32, tc, "cuda")
     cpu_params = copy.deepcopy(state.params).cpu()
     src = make_source(DataConfig(seq_len=128, global_batch=2,
@@ -844,8 +1080,9 @@ def check_train_against_cpu(torch, cfg, fused_attn):
     _, h_card = train_loop(cfg32, tc, src, num_steps=3, state=state,
                            device="cuda")
     attn = KERNEL_LAUNCHES["attn_fwd"]
-    if (attn > 0) != fused_attn:
-        raise AssertionError(f"fused_attn={fused_attn}: {attn} attention "
+    engine = sum(KERNEL_LAUNCHES[k] for k in SOPHIA_UPDATE[1])
+    if (attn > 0) != tc.fused_attn or (engine > 0) != tc.fused_kernel:
+        raise AssertionError(f"{name}: {attn} attention and {engine} engine "
                              "kernel launches in the card run")
     cpu_state, _ = _train_fns(torch, cfg32, tc, "cpu", cpu_params)
     _, h_cpu = train_loop(cfg32, tc, src, num_steps=3, state=cpu_state,
@@ -853,12 +1090,12 @@ def check_train_against_cpu(torch, cfg, fused_attn):
     card = [h["loss"] for h in h_card]
     cpu = [h["loss"] for h in h_cpu]
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    log(f"[train] card vs CPU plain path, fused_attn={fused_attn}, fp32 "
-        f"B=2 S=128, 3 steps (refresh at 0, 2): losses {card} vs {cpu}, max "
+    log(f"[train] card vs CPU plain path, {name}, fp32 B=2 S=128, 3 steps "
+        f"(refresh at 0, 2 for Sophia-G): losses {card} vs {cpu}, max "
         f"relative diff {rel:.3g}")
     if not rel <= 1e-4:
         raise AssertionError(f"card vs CPU training losses differ by {rel} "
-                             f"(fused_attn={fused_attn})")
+                             f"({name})")
     return rel
 
 
@@ -1136,6 +1373,94 @@ def phase_flash_timings(torch, attn_err, trained):
     return rows
 
 
+# fp32 operations per element (the bound's second term; the bytes bound
+# these kernels): sophia 12 (3 mul + add for m', mul + max + div, clamp 2,
+# the compare, 2 mul + sub for p'), the EMA 4, the refresh both, AdamW 15
+ENGINE_OPS_PER_ELEM = {"sophia_step": 12, "hessian_ema": 4,
+                       "sophia_refresh": 16, "adamw_step": 15}
+
+
+def phase_engine_timings(torch, engine_err, trained):
+    """The engine kernels at GPT-2 small's shard with fp32 state (the
+    training run's) beside their byte bound, their plain versions and, for
+    AdamW, ``torch.optim.AdamW(fused=True).step()`` on one flat parameter
+    of the shard's size (one PyTorch call computing AdamW in its own
+    rounding order; the port never calls it)."""
+    from repro_torch.kernels import sophia_update as su
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
+    n, block = SHARD_N, SHARD_BLOCK
+    p, m, h, g, e = _engine_operands(torch, n, torch.float32, torch.float32)
+    lr = torch.tensor(6e-4, device="cuda")
+    scale = torch.tensor(4096.0, device="cuda")
+    step = torch.tensor(5.0, device="cuda")
+    sk = dict(SOPHIA_HP, block=block)
+    ak = dict(ADAMW_HP, block=block)
+    calls = {
+        "sophia_step": (lambda: su.sophia_fused_block(p, m, h, g, lr, **sk),
+                        lambda: su.sophia_fused_block_plain(p, m, h, g, lr,
+                                                            **sk)),
+        "hessian_ema": (
+            lambda: su.hessian_ema_block(h, e, beta2=0.99, scale=scale,
+                                         block=block),
+            lambda: su.hessian_ema_block_plain(h, e, beta2=0.99, scale=scale,
+                                               block=block)),
+        "sophia_refresh": (
+            lambda: su.sophia_refresh_fused_block(p, m, h, g, e, lr, 1, scale,
+                                                  beta2=0.99, **sk),
+            lambda: su.sophia_refresh_fused_block_plain(
+                p, m, h, g, e, lr, 1, scale, beta2=0.99, **sk)),
+        "adamw_step": (
+            lambda: su.adamw_fused_block(p, m, h, g, lr, step, **ak),
+            lambda: su.adamw_fused_block_plain(p, m, h, g, lr, step, **ak)),
+    }
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g.clone()
+    opt = torch.optim.AdamW([param], lr=6e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.2, fused=True)
+    library = {"sophia_step": None, "hessian_ema": None,
+               "sophia_refresh": None,
+               "adamw_step": time_ms(torch, opt.step, flush, reps=20,
+                                     warmup=2)}
+    del opt, param
+    launches = dict(trained["launches"])
+    launches["hessian_ema"] = trained["hessian_ema_launches"]
+    launches["adamw_step"] = trained["adamw"]["launches"]["adamw_step"]
+    rows = []
+    for name, replaces in SOPHIA_UPDATE[1].items():
+        kernel, plain = calls[name]
+        ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
+        plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
+        nbytes = su.engine_kernel_bytes(name, n, torch.float32,
+                                        torch.float32, block)
+        flops = ENGINE_OPS_PER_ELEM[name] * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOPHIA_UPDATE[0],
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "launches_path": ("update_hessian (out of band)"
+                              if name == "hessian_ema" else
+                              f"{ADAMW_STEPS}-step AdamW run"
+                              if name == "adamw_step" else
+                              f"{TRAIN_STEPS}-step Sophia-G run"),
+            "max_abs_err": engine_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library[name],
+            "library_note": ("torch.optim.AdamW(fused=True).step() on one "
+                             "flat parameter, its own rounding order"
+                             if name == "adamw_step" else None),
+            "shape": f"n={n} block={block} p=fp32 state=fp32"})
+        log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library[name]}, bound {bound_ms:.4f} ms ({nbytes} "
+            f"bytes at {HBM_BYTES_PER_S:.3g}/s, {flops} fp32 ops); "
+            f"{nbytes / ms / 1e9:.2f} TB/s = {bound_ms / ms:.1%} of the "
+            f"bound")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1156,9 +1481,11 @@ def main() -> int:
     main_err = phase_kernels(torch)
     ce_err = phase_ce_kernels(torch)
     attn_err = phase_flash_kernels(torch)
+    engine_err = phase_engine_kernels(torch)
     served = phase_serve(torch)
     trained = phase_train(torch)
     rows = (phase_timings(torch, main_err, served)
+            + phase_engine_timings(torch, engine_err, trained)
             + phase_ce_timings(torch, ce_err, trained)
             + phase_flash_timings(torch, attn_err, trained))
     name, power = [s.strip() for s in card.split(",", 1)]

@@ -1,6 +1,6 @@
 """Optimizer substrate of the port: parameter trees, schedules, global-norm
-clipping, the flat-buffer engine (Sophia family, reference backend) and the
-GNB estimator.  The counterpart of ``repro/core``."""
+clipping, the flat-buffer engine (Sophia and AdamW; the reference and
+the fused backends) and the GNB estimator.  The counterpart of ``repro/core``."""
 from .clipping import ClipState, clip_by_global_norm
 from .engine import (BLOCK, EngineState, OptimizerEngine, ShardLayout,
                      build_layout, hessian_aware_optimizer, ravel_shards,

@@ -1,5 +1,5 @@
 """Flat-buffer optimizer engine: the counterpart of ``repro/core/engine.py``
-for the Sophia family on the reference backend.
+for the Sophia family and AdamW.
 
 The engine keeps the optimizer state as a few dtype-homogeneous flat
 shards, one per parameter dtype, each tail-padded to a multiple of
@@ -15,11 +15,18 @@ per shard and writes the new parameters back into the tree's tensors in
 place (the reference returns a new pytree).  Padded elements are fixed
 points of the update (p = m = h = g = 0 stays 0).
 
-The backend is the plain copy of the reference oracles in
-``kernels/ref.py``, the reference trainer's default (``fused_kernel=False``).
-The Pallas engine kernels (``backend="pallas"``, rows 2-10 of the kernel
-table) and the other optimizer families raise ``NotImplementedError``
-until their slice.
+Backends:
+    * ``reference`` -- the plain copy of the reference oracles in
+      ``kernels/ref.py``, the reference trainer's default
+      (``fused_kernel=False``);
+    * ``fused`` -- the engine kernels of ``kernels/sophia_update.py`` (the
+      reference's ``backend="pallas"``, ``fused_kernel=True``): one launch
+      per shard, the clip counts computed in the kernel.  On a CPU shard
+      they compute their plain versions, the same operations as
+      ``reference``, so the two backends agree bit for bit there.
+
+The other optimizer families (Lion, SignGD, SGD, AdaHessian) raise
+``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import ref as kref
+from ..kernels import sophia_update as kblk
 from .types import Tree, leaf_parts, leaf_shape, tree_leaves
 
-BLOCK = 128 * 1024   # the reference's kernel block: every shard pads to it
+BLOCK = kblk.BLOCK   # the reference's kernel block: every shard pads to it
 
 #: trainer-level optimizer names -> engine family (the reference's table)
 FAMILIES = {
@@ -45,7 +53,8 @@ FAMILIES = {
     "sgd": "sgd",
 }
 _HESSIAN_AWARE = ("sophia", "adahessian")
-_PORTED = ("sophia",)
+_PORTED = ("sophia", "adamw")
+BACKENDS = ("reference", "fused")
 
 
 def hessian_aware_optimizer(optimizer: str) -> bool:
@@ -174,7 +183,8 @@ def write_shards(layout: ShardLayout, shards: Tuple[torch.Tensor, ...],
 
 class EngineState(NamedTuple):
     """Optimizer state over flat shards (lives flat across the whole run).
-    ``m`` is the first moment; ``h`` Sophia's diagonal-Hessian EMA."""
+    ``m`` is the first moment; ``h`` the curvature / second-moment slot
+    (Sophia's diagonal-Hessian EMA, AdamW's v)."""
 
     count: torch.Tensor           # int32: step counter t
     m: Tuple[torch.Tensor, ...]
@@ -198,6 +208,7 @@ class OptimizerEngine:
                                       lr)
         tree, state = eng.step_with_refresh(state, tree, g_sh, lr, est_sh,
                                             scale, do_refresh)
+        state = eng.update_hessian(state, est_sh, scale=B, params=tree)
 
     ``tree`` is a parameter tree (``Transformer.param_tree()`` or a plain
     dict); its tensors are updated in place and the tree is returned.
@@ -210,14 +221,12 @@ class OptimizerEngine:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if FAMILIES[optimizer] not in _PORTED:
             raise NotImplementedError(
-                f"optimizer {optimizer!r}: the port's engine implements the "
-                "Sophia family only; the baselines come with a later slice")
-        if backend == "pallas":
-            raise NotImplementedError(
-                "backend 'pallas' (fused_kernel=True): the engine kernels "
-                "(rows 2-10 of the kernel table) are not ported yet")
-        if backend != "reference":
-            raise ValueError(f"unknown backend {backend!r}")
+                f"optimizer {optimizer!r}: the port's engine implements "
+                "Sophia and AdamW; the other baselines come with a later "
+                "slice")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r} (the port's are "
+                             f"{BACKENDS}; 'fused' runs the CUDA kernels)")
         self.optimizer = optimizer
         self.family = FAMILIES[optimizer]
         self.hypers = dict(hypers)
@@ -287,46 +296,105 @@ class OptimizerEngine:
             raise ValueError(
                 f"step_with_refresh requires a hessian-aware family, "
                 f"got {self.family!r} (use step_shards)")
-        lay = self.layout(params)
-        if (len(est) != lay.n_shards
-                or any(e.shape != (s,) for e, s in zip(est, lay.shard_sizes))):
-            raise ValueError("est must be flat shards in the engine layout")
-        e_sh = tuple(e.to(torch.float32) for e in est)
+        e_sh = self._est_shards(self.layout(params), est)
         flag = float(do_refresh)
         scale = torch.as_tensor(scale, dtype=torch.float32)
         return self._apply_shards(state, params, g_sh, lr, e_sh, flag, scale)
 
+    @staticmethod
+    def _est_shards(lay: ShardLayout, est) -> Tuple[torch.Tensor, ...]:
+        if (len(est) != lay.n_shards
+                or any(e.shape != (s,) for e, s in zip(est, lay.shard_sizes))):
+            raise ValueError("est must be flat shards in the engine layout")
+        return tuple(e.to(torch.float32) for e in est)
+
     def _apply_shards(self, state: EngineState, params: Tree, g_sh, lr,
                       e_sh, flag, scale) -> tuple:
+        """Shared shard loop for the plain step (``e_sh is None``) and the
+        step with the refresh fused in."""
         lay = self.layout(params)
         lr = torch.as_tensor(lr, dtype=torch.float32)
-        hp = self.hypers
-        args = dict(beta1=hp["beta1"], gamma=hp["gamma"], eps=hp["eps"],
-                    weight_decay=hp["weight_decay"],
-                    clip_threshold=hp["clip_threshold"])
+        c1 = (state.count + 1).to(torch.float32)   # bias-correction step
         p_sh = ravel_shards(lay, params)
         new_p, new_m, new_h = [], [], []
         nclip = None
         for i in range(lay.n_shards):
-            if e_sh is None:
-                p2, m2, n_i = kref.sophia_fused_ref(
-                    p_sh[i], state.m[i], state.h[i], g_sh[i], lr=lr, **args)
-                h2 = state.h[i]
-            else:
-                p2, m2, h2, n_i = kref.sophia_step_refresh_ref(
-                    p_sh[i], state.m[i], state.h[i], g_sh[i], e_sh[i], lr=lr,
-                    flag=flag, scale=scale, beta2=hp["beta2"], **args)
+            e_i = e_sh[i] if e_sh is not None else None
+            p2, m2, h2, n_i = self._step_shard(
+                p_sh[i], state.m[i], state.h[i], g_sh[i], e_i, lr, c1, flag,
+                scale)
             new_p.append(p2)
             new_m.append(m2)
             new_h.append(h2)
-            n_i = n_i.to(torch.float32)
-            nclip = n_i if nclip is None else nclip + n_i
+            if n_i is not None:
+                n_i = n_i.to(torch.float32)
+                nclip = n_i if nclip is None else nclip + n_i
         write_shards(lay, tuple(new_p), params)
         hess_count = state.hess_count
         if flag is not None:
             hess_count = hess_count + int(flag > 0.5)
+        clip_fraction = (state.clip_fraction if nclip is None
+                         else (nclip / lay.n_params).to(torch.float32))
         new_state = EngineState(
             count=state.count + 1, m=tuple(new_m), h=tuple(new_h),
-            hess_count=hess_count,
-            clip_fraction=(nclip / lay.n_params).to(torch.float32))
+            hess_count=hess_count, clip_fraction=clip_fraction)
         return params, new_state
+
+    def _step_shard(self, p, m, h, g, e, lr, c1, flag, scale):
+        """One flat shard on the backend: the plain update when ``e`` is
+        None, the update with the refresh fused in otherwise.  Returns (p',
+        m', h', clip count or None)."""
+        hp = self.hypers
+        fused = self.backend == "fused"
+        kw = dict(block=self.block) if fused else {}
+        if self.family == "sophia":
+            args = dict(beta1=hp["beta1"], gamma=hp["gamma"], eps=hp["eps"],
+                        weight_decay=hp["weight_decay"],
+                        clip_threshold=hp["clip_threshold"])
+            if e is not None:
+                if fused:
+                    p2, m2, h2, nclip = kblk.sophia_refresh_fused_block(
+                        p, m, h, g, e, lr, flag, scale, beta2=hp["beta2"],
+                        **args, **kw)
+                    return p2, m2, h2, nclip.sum(dtype=torch.int32)
+                return kref.sophia_step_refresh_ref(
+                    p, m, h, g, e, lr=lr, flag=flag, scale=scale,
+                    beta2=hp["beta2"], **args)
+            if fused:
+                p2, m2, nclip = kblk.sophia_fused_block(p, m, h, g, lr,
+                                                        **args, **kw)
+                return p2, m2, h, nclip.sum(dtype=torch.int32)
+            p2, m2, nclip = kref.sophia_fused_ref(p, m, h, g, lr=lr, **args)
+            return p2, m2, h, nclip
+        # adamw: h holds v
+        args = dict(beta1=hp["beta1"], beta2=hp["beta2"], eps=hp["eps"],
+                    weight_decay=hp["weight_decay"])
+        if fused:
+            p2, m2, v2 = kblk.adamw_fused_block(p, m, h, g, lr, c1, **args,
+                                                **kw)
+        else:
+            p2, m2, v2 = kref.adamw_fused_ref(p, m, h, g, lr=lr, step=c1,
+                                              **args)
+        return p2, m2, v2, None
+
+    def update_hessian(self, state: EngineState, est, *, scale=1.0,
+                       params: Tree) -> EngineState:
+        """Fold a fresh diagonal-Hessian estimate into the curvature
+        shards out of band: h' = beta2 h + (1-beta2) scale est per shard
+        (``est`` flat fp32 shards in this engine's layout, ``scale`` GNB's
+        B).  The trainer fuses this into :meth:`step_with_refresh`; this
+        form is for tests and tooling.  A family without out-of-band
+        curvature returns the state unchanged."""
+        if not self.hessian_aware:
+            return state
+        e_sh = self._est_shards(self.layout(params), est)
+        beta2 = self.hypers["beta2"]
+        if self.backend == "fused":
+            new_h = tuple(kblk.hessian_ema_block(h, e, beta2=beta2,
+                                                 scale=scale,
+                                                 block=self.block)
+                          for h, e in zip(state.h, e_sh))
+        else:
+            new_h = tuple(kref.hessian_ema_ref(h, e, beta2=beta2, scale=scale)
+                          for h, e in zip(state.h, e_sh))
+        return state._replace(h=new_h, hess_count=state.hess_count + 1)

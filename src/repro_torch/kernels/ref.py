@@ -1,13 +1,17 @@
 """Plain PyTorch copies of the reference's oracles
 (``repro/kernels/ref.py``).
 
-The Sophia step and the step with the Hessian-EMA refresh fused in, on
-one flat tensor, are the optimizer engine's reference backend, the default
-of the reference trainer (``fused_kernel=False``); the Pallas engine
-kernels that compute the same functions (``sophia_update.py``, rows 2-4 of
-the kernel table) come with the engine-kernel slice.  The flash-attention
-oracles hold the plain versions of ``kernels/flash_attention.py`` and,
-through them, its CUDA kernels."""
+The Sophia step, the Hessian EMA, the step with the refresh fused in and
+the AdamW step, on one flat tensor, are the optimizer engine's reference
+backend, the default of the reference trainer (``fused_kernel=False``),
+and the math of the plain versions of the engine kernels
+(``kernels/sophia_update.py``, rows 2-4 and 6 of the kernel table).  The
+flash-attention oracles hold the plain versions of
+``kernels/flash_attention.py`` and, through them, its CUDA kernels.
+
+The operation order is the reference's, one PyTorch operation per
+rounding: the CUDA kernels repeat it operation for operation, so that on
+the card they agree with these bit for bit."""
 from __future__ import annotations
 
 import math
@@ -17,27 +21,42 @@ import torch
 _f32 = torch.float32
 
 
-def sophia_fused_ref(p, m, h, g, *, lr, beta1, gamma, eps, weight_decay,
-                     clip_threshold=1.0):
-    """One Sophia step on a flat tensor; returns (p', m', n_clipped):
+def sophia_update_ref(p, m, h, g, *, lr, beta1, gamma, eps, weight_decay,
+                      clip_threshold=1.0):
+    """One Sophia step on a flat tensor; returns (p', m', clipped), the
+    last the bool mask |raw| >= rho that the clip counts sum:
 
         m'  = beta1 m + (1-beta1) g
-        u   = clip(m' / max(gamma h, eps), +-rho)
-        p'  = p - lr wd p - lr u
+        raw = m' / max(gamma h, eps);  u = clip(raw, +-rho)
+        p'  = p (1 - lr wd) - lr u
 
     fp32 math, stored dtypes kept (bf16 state rounds once at the end)."""
     m_new = beta1 * m.to(_f32) + (1.0 - beta1) * g.to(_f32)
     raw = m_new / torch.clamp_min(gamma * h.to(_f32), eps)
     u = raw.clamp(-clip_threshold, clip_threshold)
     p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * u
-    n_clipped = (raw.abs() >= clip_threshold).sum(dtype=torch.int32)
-    return p_new.to(p.dtype), m_new.to(m.dtype), n_clipped
+    return p_new.to(p.dtype), m_new.to(m.dtype), raw.abs() >= clip_threshold
 
 
-def hessian_ema_ref(h, hhat, *, beta2, scale=1.0):
+def sophia_fused_ref(p, m, h, g, *, lr, beta1, gamma, eps, weight_decay,
+                     clip_threshold=1.0):
+    """One Sophia step on a flat tensor; returns (p', m', n_clipped), the
+    count an int32 scalar (:func:`sophia_update_ref`)."""
+    p_new, m_new, clipped = sophia_update_ref(
+        p, m, h, g, lr=lr, beta1=beta1, gamma=gamma, eps=eps,
+        weight_decay=weight_decay, clip_threshold=clip_threshold)
+    return p_new, m_new, clipped.sum(dtype=torch.int32)
+
+
+def hessian_ema_ref(h, hhat, *, beta2, scale=1.0, square=False):
     """h' = beta2 h + (1-beta2) scale hhat (Algorithm 3 line 9), rounded
-    through h's dtype; ``scale`` folds the GNB batch factor B in."""
-    e = torch.as_tensor(scale, dtype=_f32) * hhat.to(_f32)
+    through h's dtype; ``scale`` folds the GNB batch factor B in;
+    ``square=True`` gives the AdaHessian variant h' = b2 h + (1-b2)
+    (scale hhat)^2."""
+    e = torch.as_tensor(scale, dtype=_f32, device=hhat.device) \
+        * hhat.to(_f32)
+    if square:
+        e = e * e
     return (beta2 * h.to(_f32) + (1.0 - beta2) * e).to(h.dtype)
 
 
@@ -53,6 +72,22 @@ def sophia_step_refresh_ref(p, m, h, g, e, *, lr, flag, scale, beta1, beta2,
         p, m, h_sel, g, lr=lr, beta1=beta1, gamma=gamma, eps=eps,
         weight_decay=weight_decay, clip_threshold=clip_threshold)
     return p2, m2, h_sel, nclip
+
+
+def adamw_fused_ref(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay,
+                    step):
+    """One AdamW step on a flat tensor; returns (p', m', v').  The bias
+    corrections 1 - beta**step are computed in fp32 from an fp32 ``step``,
+    as XLA computes the reference's."""
+    g32 = g.to(_f32)
+    m_new = beta1 * m.to(_f32) + (1.0 - beta1) * g32
+    v_new = beta2 * v.to(_f32) + (1.0 - beta2) * (g32 * g32)
+    step = torch.as_tensor(step, dtype=_f32, device=g.device)
+    bc1 = 1.0 - beta1 ** step
+    bc2 = 1.0 - beta2 ** step
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * u
+    return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -53,12 +53,27 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def _idle_gaps(kernels, top=3):
+    """The ``top`` longest device idle gaps between kernels: [gap us, the
+    kernel that ended last before it, the kernel after it]."""
+    gaps, end, last = [], None, None
+    for name, s, e in sorted(kernels, key=lambda k: k[1]):
+        if end is not None and s > end:
+            gaps.append([s - end, last[:60], name[:60]])
+        if end is None or e > end:
+            end, last = e, name
+    return sorted(gaps, key=lambda g: -g[0])[:top]
+
+
 def profile_window(label, fn, top=8, match="decode_attention",
                    also=()) -> dict:
     """Profile ``fn()``: wall time, device busy (union of kernel
     intervals), idle share, kernel count, the device time of kernels whose
     name contains ``match`` (key ``matched_us``; for each string of
-    ``also``, key ``also_us``) and the ``top`` kernels by device time."""
+    ``also``, key ``also_us``), the ``top`` kernels by device time, the
+    longest idle gaps between kernels (``idle_gaps_us``) and the device
+    idle before the window's first kernel, from its first host operation
+    (``lead_us``, on the profiler's clock)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -72,6 +87,10 @@ def profile_window(label, fn, top=8, match="decode_attention",
     for name, s, e in kernels:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    host_start = min((e.time_range.start for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     default=None)
+    first = min((s for _, s, _ in kernels), default=None)
     return {"window": label, "wall_us": wall_us, "device_busy_us": busy,
             "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
             "kernels_launched": len(kernels),
@@ -79,7 +98,10 @@ def profile_window(label, fn, top=8, match="decode_attention",
             "matched_us": sum(t for n, t in by_name.items() if match in n),
             "also_us": {m: sum(t for n, t in by_name.items() if m in n)
                         for m in also},
-            "top_kernels_us": [[n[:80], t] for n, t in ranked]}
+            "top_kernels_us": [[n[:80], t] for n, t in ranked],
+            "idle_gaps_us": _idle_gaps(kernels),
+            "lead_us": (None if first is None or host_start is None
+                        else first - host_start)}
 
 
 def main(argv=None):

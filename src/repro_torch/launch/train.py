@@ -4,16 +4,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
         --steps 400 --global-batch 8 --seq-len 1024 --ckpt-dir /tmp/run1
 
-Trains with Sophia-G and the GNB estimator through flash attention and
-the logits-free fused loss (the CUDA kernels on the GPU, their plain
-versions with ``--device cpu``; ``--no-fused-attn`` takes the
-materialized-scores attention) and prints the reference's ``step N loss
-... gnorm ...`` lines, and at the end, on the GPU, the peak device memory.
-With ``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps and at the
-end, and resumes from the newest complete checkpoint there; resuming with
-another optimizer or state dtype is refused.  The reference's flags of options this slice does not port
-(``--fused-kernel``, ``--no-fused-loss``, another ``--opt`` or
-``--estimator``, ``--remat``, ``--compress-grads``, ``--compress-hess``,
+Trains with Sophia-G and the GNB estimator, or with ``--opt adamw``,
+through flash attention and the logits-free fused loss (the CUDA kernels
+on the GPU, their plain versions with ``--device cpu``;
+``--no-fused-attn`` takes the materialized-scores attention;
+``--fused-kernel`` runs the optimizer step on the engine kernels) and
+prints the reference's ``step N loss ... gnorm ...`` lines, and at the
+end, on the GPU, the peak device memory.  With ``--ckpt-dir`` it
+checkpoints every ``--ckpt-every`` steps and at the end, and resumes from
+the newest complete checkpoint there; resuming with another optimizer or
+state dtype is refused.  The reference's flags of options this slice does
+not port (``--no-fused-loss``, another ``--opt`` or ``--estimator``,
+``--remat``, ``--compress-grads``, ``--compress-hess``,
 ``--comm-telemetry``) raise ``NotImplementedError``; the multi-host and
 elastic flags are not offered.
 """
@@ -50,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--remat", default="none")
     ap.add_argument("--fused-kernel", action="store_true",
-                    help="engine kernels (not ported yet: raises)")
+                    help="the optimizer step on the engine kernels "
+                         "(kernels/sophia_update.py)")
     ap.add_argument("--fused-loss", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="logits-free fused CE + in-sweep GNB sampling "

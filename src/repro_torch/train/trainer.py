@@ -1,7 +1,8 @@
 """Training loop, Algorithm 3 with the refresh at ``t % k == 0``: the
 counterpart of ``repro/train/trainer.py`` for Sophia-G with the GNB
-estimator, flash attention (``fused_attn``, the default) and the
-logits-free fused loss.
+estimator and for AdamW, with flash attention (``fused_attn``, the
+default), the logits-free fused loss and, with ``fused_kernel``, the
+engine kernels.
 
 Every step:
   grad accumulation over microbatches -> global-norm clip (threshold 1.0,
@@ -65,7 +66,8 @@ class TrainerConfig:
     fused_attn: bool = True            # flash attention (rows 16-18) while
     #                                    attn_impl is "auto"; False trains
     #                                    on the materialized-scores route
-    fused_kernel: bool = False         # engine kernels: not ported
+    fused_kernel: bool = False         # engine kernels (rows 2-4, 6):
+    #                                    the engine's "fused" backend
     fused_loss: bool = True            # the logits-free fused CE kernels
     compress_grads: bool = False
     compress_hess: bool = False
@@ -80,11 +82,11 @@ def check_ported(tc: TrainerConfig) -> None:
     refused = {
         f"attn_impl={tc.attn_impl!r}":
             tc.attn_impl not in ("auto", "full", "flash"),
-        "fused_kernel=True (engine kernels, rows 2-10)": tc.fused_kernel,
         "fused_loss=False (the chunked loss draws with jax.random)":
             not tc.fused_loss,
         f"estimator={tc.estimator!r}": tc.estimator != "gnb",
-        f"optimizer={tc.optimizer!r}": tc.optimizer != "sophia_g",
+        f"optimizer={tc.optimizer!r}": tc.optimizer not in ("sophia_g",
+                                                             "adamw"),
         "compress_grads": tc.compress_grads,
         "compress_hess": tc.compress_hess,
         "comm_telemetry": tc.comm_telemetry,
@@ -94,7 +96,7 @@ def check_ported(tc: TrainerConfig) -> None:
     if bad:
         raise NotImplementedError(
             "not ported yet (the port trains Sophia-G with the GNB "
-            f"estimator and the fused loss): {', '.join(bad)}")
+            f"estimator, and AdamW, with the fused loss): {', '.join(bad)}")
     if tc.state_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"state_dtype {tc.state_dtype!r}")
 
@@ -106,13 +108,20 @@ def make_schedule(tc: TrainerConfig):
 
 
 def make_engine(tc: TrainerConfig) -> OptimizerEngine:
-    """Engine for ``tc.optimizer`` with the paper's Sophia hypers, on the
-    reference backend (:func:`check_ported` refuses ``fused_kernel``)."""
-    hypers = dict(beta1=tc.beta1, beta2=tc.beta2, gamma=tc.gamma,
-                  eps=tc.eps, weight_decay=tc.weight_decay,
-                  clip_threshold=tc.clip_threshold)
+    """Engine for ``tc.optimizer`` with the paper's per-optimizer hypers
+    (the reference's table), on the ``fused`` backend (the engine kernels)
+    with ``tc.fused_kernel`` and the ``reference`` backend without."""
+    if tc.optimizer == "adamw":
+        hypers = dict(beta1=0.9, beta2=0.95, eps=1e-8,
+                      weight_decay=tc.weight_decay)
+    else:
+        hypers = dict(beta1=tc.beta1, beta2=tc.beta2, gamma=tc.gamma,
+                      eps=tc.eps, weight_decay=tc.weight_decay,
+                      clip_threshold=tc.clip_threshold)
     sdt = torch.bfloat16 if tc.state_dtype == "bfloat16" else torch.float32
-    return OptimizerEngine(tc.optimizer, hypers=hypers, state_dtype=sdt)
+    return OptimizerEngine(tc.optimizer, hypers=hypers,
+                           backend="fused" if tc.fused_kernel
+                           else "reference", state_dtype=sdt)
 
 
 def hess_seed(seed: int, step: int):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the serve engine's launch count and the trainer's (flash
-attention and the fused CE).  Every test here needs an
+attention, the fused CE and the engine kernels).  Every test here needs an
 NVIDIA GPU; each carries the ``cuda`` marker and skips without one.  The
 file imports no JAX, so it runs on a GPU machine that has only PyTorch:
 
@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.gpt2 import GPT2_TINY
 from repro_torch.data import DataConfig, make_source
 from repro_torch.kernels import (KERNEL_LAUNCHES, flash_attention, fused_ce,
-                                 reset_launch_counts)
+                                 reset_launch_counts, sophia_update)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                    decode_attention_plain)
 from repro_torch.models import get_model
@@ -248,3 +248,121 @@ def _train_card_and_cpu(cuda_device, cfg, tc):
     _, hist_cpu = train_loop(cfg, tc, src, num_steps=4,
                              state=cpu_init(cpu_params), device="cpu")
     return hist, hist_cpu, launches
+
+
+# ---------------------------------------------------------------------------
+# the engine kernels (rows 2-4 and 6)
+
+SOPHIA = dict(beta1=0.96, gamma=0.05, eps=1e-12, weight_decay=0.2)
+ADAMW = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.2)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _assert_bitwise(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def _engine_operands(device, n, pdt, sdt, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(scale=1.0):
+        return torch.randn((n,), generator=gen, device=device) * scale
+
+    h = randn(0.01)
+    h[::7] = 0.0            # zeros and negatives: max(gamma h, eps) = eps
+    return (randn().to(pdt), randn(0.1).to(sdt), h.to(sdt), randn(0.1),
+            randn(0.1).square())
+
+
+@pytest.mark.parametrize("n,block", [(3 * 128, 128), (2 * 131072, 131072)])
+@pytest.mark.parametrize("pdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_engine_kernels_match_plain_bitwise(cuda_device, n, block, pdt, sdt):
+    """Rows 2, 3 (square off and on), 4 (flag 0 and 1) and 6 (steps 1 and
+    1000) against their plain versions on the same device tensors: every
+    output and every per-block clip count bit for bit, one launch each."""
+    p, m, h, g, e = _engine_operands(cuda_device, n, pdt, sdt)
+    lr = torch.tensor(3e-3, device=cuda_device)
+    scale = torch.tensor(240.0, device=cuda_device)
+    calls = [
+        ("sophia_step", sophia_update.sophia_fused_block,
+         sophia_update.sophia_fused_block_plain, (p, m, h, g, lr),
+         dict(SOPHIA, block=block))]
+    for square in (False, True):
+        calls.append(("hessian_ema", sophia_update.hessian_ema_block,
+                      sophia_update.hessian_ema_block_plain, (h, e),
+                      dict(beta2=0.99, scale=scale, square=square,
+                           block=block)))
+    for flag in (0, 1):
+        calls.append(("sophia_refresh",
+                      sophia_update.sophia_refresh_fused_block,
+                      sophia_update.sophia_refresh_fused_block_plain,
+                      (p, m, h, g, e, lr, flag, scale),
+                      dict(SOPHIA, beta2=0.99, block=block)))
+    for step in (1, 1000):
+        calls.append(("adamw_step", sophia_update.adamw_fused_block,
+                      sophia_update.adamw_fused_block_plain,
+                      (p, m, h.abs(), g, lr,
+                       torch.tensor(float(step), device=cuda_device)),
+                      dict(ADAMW, block=block)))
+    for name, kernel, plain, args, kw in calls:
+        reset_launch_counts()
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert dict(KERNEL_LAUNCHES) == {name: 1}
+        want = plain(*args, **kw)
+        for a, b in zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))):
+            _assert_bitwise(a, b)
+
+
+def test_engine_kernels_refuse_bad_arguments(cuda_device):
+    """n % block != 0, a CPU tensor among CUDA ones and a tensor off the
+    16-byte alignment raise ValueError before any launch."""
+    p, m, h, g, _ = _engine_operands(cuda_device, 512, torch.float32,
+                                     torch.float32)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of block"):
+        sophia_update.sophia_fused_block(p, m, h, g, 1e-3, block=384,
+                                         **SOPHIA)
+    with pytest.raises(ValueError, match="not cuda"):
+        sophia_update.adamw_fused_block(p, m, h.cpu(), g, 1e-3, 1,
+                                        block=128, **ADAMW)
+    with pytest.raises(ValueError, match="aligned"):
+        sophia_update.hessian_ema_block(h[1:385], g[1:385], beta2=0.99,
+                                        block=128)
+    assert not KERNEL_LAUNCHES
+
+
+@pytest.mark.parametrize("optimizer", ["sophia_g", "adamw"])
+def test_trainer_fused_kernel_launches_engine_kernels(cuda_device,
+                                                      optimizer):
+    """Four GPT2_TINY steps (refresh at 0 and 2) with ``fused_kernel``:
+    Sophia-G launches the refresh-fused step on the refresh steps and the
+    plain step on the others, AdamW its step on every one (and no sampled
+    CE, no refresh); never the out-of-band EMA.  Losses as on the CPU."""
+    cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
+    tc = TrainerConfig(optimizer=optimizer, peak_lr=5e-4, total_steps=8,
+                       warmup_steps=2, hess_interval=2, hess_subbatch=2,
+                       fused_kernel=True)
+    hist, hist_cpu, launches = _train_card_and_cpu(cuda_device, cfg, tc)
+    if optimizer == "sophia_g":
+        per_layer = cfg.n_layers * 6
+        assert launches == {"ce_forward": 4, "ce_forward_sampled": 2,
+                            "ce_backward_dh": 6, "ce_backward_dw": 6,
+                            "attn_fwd": per_layer, "attn_bwd_dq": per_layer,
+                            "attn_bwd_dkv": per_layer, "sophia_step": 2,
+                            "sophia_refresh": 2}
+    else:
+        per_layer = cfg.n_layers * 4
+        assert launches == {"ce_forward": 4, "ce_backward_dh": 4,
+                            "ce_backward_dw": 4, "attn_fwd": per_layer,
+                            "attn_bwd_dq": per_layer,
+                            "attn_bwd_dkv": per_layer, "adamw_step": 4}
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in hist_cpu], rtol=1e-4)

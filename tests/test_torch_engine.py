@@ -158,9 +158,9 @@ def test_refresh_flag_clear_is_the_plain_step():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(optimizer="adamw"), NotImplementedError),
+    (dict(optimizer="sgd"), NotImplementedError),
     (dict(optimizer="lion"), NotImplementedError),
-    (dict(backend="pallas"), NotImplementedError),
+    (dict(backend="pallas"), ValueError),     # the port's name is "fused"
     (dict(backend="triton"), ValueError),
     (dict(optimizer="nope"), ValueError),
 ])

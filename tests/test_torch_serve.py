@@ -219,3 +219,15 @@ def test_sample_tokens_greedy_ties_and_temperature():
                           torch.full((n,), 2.0))
     freq = np.bincount(draws.numpy(), minlength=4) / n
     np.testing.assert_allclose(freq, probs, atol=0.03)
+
+
+def test_profile_idle_gaps_between_kernels():
+    """profile_window's gap report: the idle spans between the union of
+    kernel intervals, longest first, named by the kernel that ended last
+    before each and the one after it; overlapping kernels leave none."""
+    from repro_torch.launch.profile_serve import _idle_gaps
+    kernels = [("a", 0, 10), ("b", 5, 20), ("c", 30, 40), ("d", 100, 101),
+               ("e", 35, 38)]
+    assert _idle_gaps(kernels) == [[60, "c", "d"], [10, "b", "c"]]
+    assert _idle_gaps(kernels, top=1) == [[60, "c", "d"]]
+    assert _idle_gaps([("a", 0, 5), ("b", 5, 9)]) == []
