@@ -31,11 +31,15 @@ it fails and prints no result.  Phases, in order:
      bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
      their largest element; the engine kernels (the Sophia step, the
      Hessian EMA with square off and on, the refresh-fused step with flag
-     0 and 1, AdamW at steps 1, 2 and 1000) at GPT-2 small's flat shard
-     (n=124,518,400, block 131072) with fp32 and with bf16 state, and the
-     edge cases (3 blocks of 128, one block, h with zeros and negative
-     entries, rho=1e9, bf16 p, the zero tail pad), every output and every
-     per-block clip count bit-identical to the plain version;
+     0 and 1, AdamW at steps 1, 2 and 1000, the AdaHessian refresh-fused
+     step with flag 0 and 1 at steps 1, 2 and 1000, the AdaHessian step at
+     those steps, Lion, SignGD and SGD, the last three also with m = g = 0
+     on every 7th element, where the sign argument is exactly 0) at GPT-2
+     small's flat shard (n=124,518,400, block 131072) with fp32 and with
+     bf16 state, and the edge cases (3 blocks of 128, one block, h with
+     zeros and negative entries, rho=1e9, bf16 p, the zero tail pad),
+     every output and every per-block clip count bit-identical to the
+     plain version;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -55,11 +59,21 @@ it fails and prints no result.  Phases, in order:
      and a refresh step (the CE's, attention's and engine kernels' device
      time and share); the engine's out-of-band ``update_hessian`` on the
      trained state (one EMA launch per shard); 4 AdamW steps at the same
-     shape (one AdamW kernel launch per step, no sampled CE); then three
-     fp32 steps at B=2 x S=128 held against the port's plain path on the
-     CPU three ways: the flash route with the engine kernels, the
+     shape (one AdamW kernel launch per step, no sampled CE); the paper's
+     other optimizers at the same shape on the engine kernels: Sophia-H
+     with the Hutchinson estimator (12 steps, refresh every 5 on 4 rows:
+     its HVP runs reverse-over-reverse through the loss and attention
+     twins, which launch the CE and attention forwards and no backward
+     kernel), AdaHessian with Hutchinson (6 steps, refresh at 0 and 5),
+     Lion, SignGD and SGD (4 steps each), with exact launch counts, step
+     times, peak memory and a profile window of a Sophia-H refresh step;
+     then fp32 steps at B=2 x S=128 held against the port's plain path on
+     the CPU seven ways: the flash route with the engine kernels, the
      materialized-scores route (``fused_attn=False``) on the reference
-     backend, and AdamW with the engine kernels;
+     backend, AdamW, Sophia-H (Hutchinson, the same probe on both sides)
+     and Lion with the engine kernels (3 steps each), AdaHessian
+     (Hutchinson; 2 steps and its refreshed v), and one Sophia-G step with
+     the empirical-Fisher estimator (its refreshed h too);
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention
      and 20 for the CE, flash and engine kernels, the 50 MB L2 cache
@@ -70,8 +84,9 @@ it fails and prints no result.  Phases, in order:
      small's shard), their plain version and the library call (for the CE
      kernels the library composition, not one call; for the flash
      kernels SDPA's forward, and its backward for dQ and dK/dV together;
-     for AdamW ``torch.optim.AdamW(fused=True).step()``) that computes the
-     same function.
+     for AdamW ``torch.optim.AdamW(fused=True).step()``, for SGD
+     ``torch.optim.SGD(momentum=0, fused=True).step()``, which writes p
+     only) that computes the same function.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -112,7 +127,14 @@ SOPHIA_UPDATE = ("src/repro_torch/kernels/csrc/sophia_update.cu",
                  {"sophia_step": "src/repro/kernels/sophia_update.py:72",
                   "hessian_ema": "src/repro/kernels/sophia_update.py:105",
                   "sophia_refresh": "src/repro/kernels/sophia_update.py:157",
-                  "adamw_step": "src/repro/kernels/sophia_update.py:243"})
+                  "adahessian_refresh":
+                      "src/repro/kernels/sophia_update.py:202",
+                  "adamw_step": "src/repro/kernels/sophia_update.py:243",
+                  "adahessian_step":
+                      "src/repro/kernels/sophia_update.py:277",
+                  "lion_step": "src/repro/kernels/sophia_update.py:306",
+                  "signgd_step": "src/repro/kernels/sophia_update.py:333",
+                  "sgd_step": "src/repro/kernels/sophia_update.py:356"})
 SOURCES = (DECODE_ATTN[0], FUSED_CE[0], FLASH_ATTN[0], SOPHIA_UPDATE[0])
 
 
@@ -150,12 +172,17 @@ def phase_build():
     with ThreadPoolExecutor(len(names)) as pool:
         done = dict(zip(names, pool.map(_build_one, names)))
     for name, (secs, report) in done.items():
-        # ptxas -v prints "<n> bytes spill stores" for every kernel instance
-        spilling = sum("spill stores" in ln
-                       and " 0 bytes spill stores" not in ln
-                       for ln in report.splitlines())
+        # ptxas -v prints "Function properties for <f>" and then "<n> bytes
+        # spill stores" for every kernel instance
+        spilling, func = [], None
+        for ln in report.splitlines():
+            if "Function properties for " in ln:
+                func = ln.split("Function properties for ", 1)[1].strip()
+            elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
+                spilling.append(f"{func}: {ln.strip()}")
         log(f"[build] {name} built in {secs:.1f}s into {_build.build_dir()}; "
-            f"{spilling} kernel instance(s) spill")
+            f"{len(spilling)} kernel instance(s) spill"
+            + "".join(f"\n[build]   {entry}" for entry in spilling))
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +605,12 @@ def phase_flash_kernels(torch):
 SHARD_N, SHARD_BLOCK = 124_518_400, 131_072
 SOPHIA_HP = dict(beta1=0.96, gamma=0.05, eps=1e-12, weight_decay=0.2)
 ADAMW_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.2)
+# the trainer's table (train/trainer.py:make_engine); SGD with momentum so
+# that m' is not g
+ADAHESSIAN_HP = dict(beta1=0.92, beta2=0.99, eps=1e-8, weight_decay=0.2)
+LION_HP = dict(beta1=0.95, beta2=0.98, weight_decay=0.2)
+SIGNGD_HP = dict(beta1=0.96, weight_decay=0.2)
+SGD_HP = dict(momentum=0.9)
 
 
 def _engine_operands(torch, n, pdt, sdt, *, seed=0, h_kind="positive"):
@@ -608,10 +641,14 @@ def _bits(torch, t):
 
 def check_engine_case(torch, name, n, block, pdt, sdt, *, h_kind="positive",
                       rho=1.0, flags=(0, 1), steps=(1, 2, 1000)):
-    """Rows 2, 3 (square off and on), 4 (each flag) and 6 (each step)
-    against their plain versions on the same card tensors: every output
-    and every per-block clip count bit for bit.  Returns {kernel: max abs
-    error} (0.0 when bit-identical) and logs the clip counts."""
+    """Rows 2, 3 (square off and on), 4 (each flag), 6 (each step), 5
+    (each flag and step), 7 (each step) and 8-10 against their plain
+    versions on the same card tensors: every output and every per-block
+    clip count bit for bit.  AdaHessian's v is |h| (zeros where h has
+    them), its estimate e signed; Lion and SignGD also run with m = g = 0
+    on every 7th element, where their sign argument is exactly 0.
+    Returns {kernel: max abs error} (0.0 when bit-identical) and logs the
+    clip counts."""
     from repro_torch.kernels import sophia_update as su
 
     p, m, h, g, e = _engine_operands(torch, n, pdt, sdt, h_kind=h_kind)
@@ -632,6 +669,31 @@ def check_engine_case(torch, name, n, block, pdt, sdt, *, h_kind="positive",
     calls += [("adamw_step", su.adamw_fused_block, su.adamw_fused_block_plain,
                (p, m, v, g, lr, torch.tensor(float(st), device="cuda")),
                dict(ADAMW_HP, block=block)) for st in steps]
+    one = torch.tensor(1.0, device="cuda")            # Hutchinson's scale
+    e_signed = e.clone()                # u . Hu is signed; the pad stays 0
+    e_signed[::3] *= -1
+    ak = dict(ADAHESSIAN_HP, block=block)
+    calls += [("adahessian_refresh", su.adahessian_refresh_fused_block,
+               su.adahessian_refresh_fused_block_plain,
+               (p, m, v, g, e_signed, lr, flag, one,
+                torch.tensor(float(st), device="cuda")), ak)
+              for flag in flags for st in steps]
+    calls += [("adahessian_step", su.adahessian_fused_block,
+               su.adahessian_fused_block_plain,
+               (p, m, v, g, lr, torch.tensor(float(st), device="cuda")), ak)
+              for st in steps]
+    m0, g0 = m.clone(), g.clone()
+    m0[::7] = 0
+    g0[::7] = 0
+    for mm, gg in ((m, g), (m0, g0)):
+        calls += [
+            ("lion_step", su.lion_fused_block, su.lion_fused_block_plain,
+             (p, mm, gg, lr), dict(LION_HP, block=block)),
+            ("signgd_step", su.signgd_fused_block,
+             su.signgd_fused_block_plain, (p, mm, gg, lr),
+             dict(SIGNGD_HP, block=block)),
+            ("sgd_step", su.sgd_fused_block, su.sgd_fused_block_plain,
+             (p, mm, gg, lr), dict(SGD_HP, block=block))]
     errs, clips = {}, []
     for kname, kernel, plain, args, kw in calls:
         got = kernel(*args, **kw)
@@ -661,11 +723,13 @@ def check_engine_case(torch, name, n, block, pdt, sdt, *, h_kind="positive",
             raise AssertionError(f"engine {kname} {name}: the zero pad is "
                                  "not a fixed point")
         errs[kname] = max(errs.get(kname, 0.0), err)
+    fl, st = "/".join(map(str, flags)), "/".join(map(str, steps))
     log(f"[kernels] sophia_update {name} n={n} block={block} "
         f"p={str(pdt)[6:]} state={str(sdt)[6:]} h={h_kind} rho={rho}: rows "
-        f"2, 3 (square 0/1), 4 (flag {'/'.join(map(str, flags))}) and 6 "
-        f"(steps {'/'.join(map(str, steps))}) bit-identical to their plain "
-        f"versions, clip counts {clips} equal")
+        f"2, 3 (square 0/1), 4 (flag {fl}), 6 (steps {st}), 5 (flag {fl} x "
+        f"steps {st}), 7 (steps {st}) and 8-10 (with and without exact-zero "
+        f"sign arguments) bit-identical to their plain versions, clip "
+        f"counts {clips} equal")
     return errs
 
 
@@ -967,14 +1031,28 @@ def phase_train(torch):
         log("[profile] " + json.dumps(win))
     report["profile"] = windows
     report["hessian_ema_launches"] = out_of_band_refresh(torch, tc, state)
+    del state
     report["adamw"] = train_adamw(torch, cfg, batches)
+    report["baselines"] = {name: train_baseline(torch, cfg, batches, name,
+                                                over, steps)
+                           for name, over, steps in BASELINE_RUNS}
     report["cpu_check_max_rel"] = {
-        name: check_train_against_cpu(torch, cfg, name, over)
-        for name, over in (
-            ("flash+fused_kernel", dict(fused_kernel=True)),
-            ("materialized+reference", dict(fused_attn=False)),
+        name: check_train_against_cpu(torch, cfg, name, over, steps=steps)
+        for name, over, steps in (
+            ("flash+fused_kernel", dict(fused_kernel=True), 3),
+            ("materialized+reference", dict(fused_attn=False), 3),
             ("adamw+fused_kernel", dict(optimizer="adamw",
-                                        fused_kernel=True)))}
+                                        fused_kernel=True), 3),
+            ("sophia_h+hutchinson", dict(optimizer="sophia_h",
+                                         estimator="hutchinson",
+                                         fused_kernel=True), 3),
+            ("adahessian+hutchinson", dict(optimizer="adahessian",
+                                           estimator="hutchinson",
+                                           fused_kernel=True), 2),
+            ("lion+fused_kernel", dict(optimizer="lion",
+                                       fused_kernel=True), 3),
+            ("sophia_g+empirical_fisher", dict(estimator="empirical_fisher",
+                                               fused_kernel=True), 1))}
     return report
 
 
@@ -1055,14 +1133,145 @@ def train_adamw(torch, cfg, batches):
     return report
 
 
-def check_train_against_cpu(torch, cfg, name, over):
-    """Three fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) on the
-    card (the kernels) and on the CPU (their plain versions), same weights
-    and batches, with the trainer options ``over`` (the attention route,
-    the engine backend, the optimizer): the losses must agree within 1e-4
-    relative, and the card run must launch the attention kernels exactly
-    when ``fused_attn`` is set and an engine kernel exactly when
-    ``fused_kernel`` is."""
+# the paper's other optimizers at the same shape on the engine kernels:
+# (name, trainer options, steps); the hessian-aware ones refresh every
+# TRAIN_K steps on TRAIN_SUB rows with the Hutchinson estimator
+BASELINE_RUNS = (
+    ("sophia_h", dict(optimizer="sophia_h", estimator="hutchinson"),
+     TRAIN_STEPS),
+    ("adahessian", dict(optimizer="adahessian", estimator="hutchinson"), 6),
+    ("lion", dict(optimizer="lion"), 4),
+    ("signgd", dict(optimizer="signgd"), 4),
+    ("sgd", dict(optimizer="sgd"), 4),
+)
+_ENGINE_COUNTS = {"sophia_h": ("sophia_step", "sophia_refresh"),
+                  "adahessian": ("adahessian_step", "adahessian_refresh"),
+                  "lion": ("lion_step", None), "signgd": ("signgd_step", None),
+                  "sgd": ("sgd_step", None)}
+
+
+def train_baseline(torch, cfg, batches, name, over, steps):
+    """``steps`` steps of one of the paper's other optimizers at B=8 x
+    S=1024 with ``fused_kernel=True``, counts zeroed before and read
+    after.  Each step launches the CE forward, dh and dW once and each
+    attention kernel once per layer; a Hutchinson refresh adds one CE
+    forward and one attention forward per layer (the twins' primals) and
+    NO backward kernel (the HVP's backward is plain PyTorch); the engine
+    launches the refresh-fused kernel on each refresh step and the plain
+    step kernel on the others.  Logs the losses, the plain and refresh
+    step p50, the peak memory and the launches; for Sophia-H also a
+    profile window of one refresh step."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.train import TrainerConfig
+
+    tc = TrainerConfig(peak_lr=6e-4, total_steps=steps, warmup_steps=2,
+                       hess_interval=TRAIN_K, hess_subbatch=TRAIN_SUB,
+                       seed=0, fused_kernel=True, **over)
+    state, train_step = _train_fns(torch, cfg, tc, "cuda")
+    aware = name in ("sophia_h", "adahessian")
+    refresh_at = [t for t in range(steps) if aware and t % TRAIN_K == 0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses, per_step = [], [], []
+    for t in range(steps):
+        before = dict(KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[t], t in refresh_at)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append({k: v - before.get(k, 0)
+                         for k, v in KERNEL_LAUNCHES.items()
+                         if v - before.get(k, 0)})
+    launches = dict(KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_ref = len(refresh_at)
+    L = cfg.n_layers
+    plain_k, refresh_k = _ENGINE_COUNTS[name]
+    want = {"ce_forward": steps + n_ref, "ce_backward_dh": steps,
+            "ce_backward_dw": steps, "attn_fwd": L * (steps + n_ref),
+            "attn_bwd_dq": L * steps, "attn_bwd_dkv": L * steps,
+            plain_k: steps - n_ref}
+    if n_ref:
+        want[refresh_k] = n_ref
+    if launches != want:
+        raise AssertionError(f"{name} launches {launches} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if int(state.opt_state.hess_count) != n_ref:
+        raise AssertionError(f"{name}: hess_count "
+                             f"{int(state.opt_state.hess_count)} != {n_ref}")
+    plain = [dt for t, dt in enumerate(times) if t not in refresh_at]
+    refresh = [dt for t, dt in enumerate(times) if t in refresh_at]
+    report = dict(launches=launches, losses=losses,
+                  plain_p50_ms=statistics.median(plain) * 1e3,
+                  refresh_p50_ms=(statistics.median(refresh) * 1e3
+                                  if refresh else None),
+                  peak_mem_gib=peak / 2 ** 30,
+                  step_ms=[x * 1e3 for x in times],
+                  refresh_step_launches=(per_step[refresh_at[0]]
+                                         if refresh else None))
+    log(f"[train] gpt2-small bf16 B={TRAIN_B} S={TRAIN_S} {name} "
+        f"({', '.join(f'{k}={v}' for k, v in over.items())}) "
+        f"fused_kernel=True: {steps} steps, losses "
+        f"{[round(x, 4) for x in losses]}; hess_count {n_ref}; step p50 "
+        f"plain {report['plain_p50_ms']:.1f} ms"
+        + (f", refresh {report['refresh_p50_ms']:.1f} ms" if refresh
+           else "")
+        + f"; peak memory {report['peak_mem_gib']:.2f} GiB; launches "
+        f"{launches}; step ms {[round(x * 1e3, 1) for x in times]}")
+    if refresh:
+        log(f"[train] {name} refresh step launches {per_step[refresh_at[0]]}"
+            f" (a plain step: {per_step[1]}): the HVP adds a CE and an "
+            "attention forward per layer and no backward kernel")
+    if name == "sophia_h":
+        holder = {}
+
+        def one_step():
+            holder["out"] = train_step(state, batches[1], True)
+
+        win = profile_window(f"train sophia_h refresh step (gpt2-small "
+                             f"B={TRAIN_B} S={TRAIN_S} bf16)", one_step,
+                             match="::ce_",
+                             also=("flash_attn::", "sophia_update::"))
+        busy = win["device_busy_us"]
+        win["matched_share"] = win["matched_us"] / busy if busy else None
+        log("[profile] " + json.dumps(win))
+        report["profile"] = win
+        del holder
+    del state
+    torch.cuda.empty_cache()
+    return report
+
+
+def _cpu_probe(torch, seed, device):
+    """Hutchinson's probe drawn on the CPU and moved to ``device``: the
+    card and the CPU run then see the same u."""
+    from repro_torch.train import hess_probe
+
+    def probe(step, layout):
+        return tuple(u.to(device)
+                     for u in hess_probe(seed, step, layout, "cpu"))
+    return probe
+
+
+def check_train_against_cpu(torch, cfg, name, over, steps=3):
+    """``steps`` fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) on
+    the card (the kernels) and on the CPU (their plain versions), same
+    weights, batches and Hutchinson probes, with the trainer options
+    ``over`` (the attention route, the engine backend, the optimizer, the
+    estimator): the losses must agree within 1e-4 relative, and the card
+    run must launch the attention kernels exactly when ``fused_attn`` is
+    set and an engine kernel exactly when ``fused_kernel`` is.  When only
+    the first step refreshed, the refreshed h (v) is held against the
+    CPU's too, within 1e-4 of its largest element.  AdaHessian runs 2
+    steps: its third step's loss rides on updates lr m / |u . Hu| whose
+    small denominators the card and the CPU round apart (ROADMAP C)."""
     import copy
 
     from repro_torch.data import DataConfig, make_source
@@ -1077,22 +1286,35 @@ def check_train_against_cpu(torch, cfg, name, over):
     src = make_source(DataConfig(seq_len=128, global_batch=2,
                                  vocab_size=cfg.vocab_size, seed=1))
     reset_launch_counts()
-    _, h_card = train_loop(cfg32, tc, src, num_steps=3, state=state,
-                           device="cuda")
+    s_card, h_card = train_loop(cfg32, tc, src, num_steps=steps,
+                                state=state, device="cuda",
+                                probe_fn=_cpu_probe(torch, tc.seed, "cuda"))
     attn = KERNEL_LAUNCHES["attn_fwd"]
     engine = sum(KERNEL_LAUNCHES[k] for k in SOPHIA_UPDATE[1])
     if (attn > 0) != tc.fused_attn or (engine > 0) != tc.fused_kernel:
         raise AssertionError(f"{name}: {attn} attention and {engine} engine "
                              "kernel launches in the card run")
     cpu_state, _ = _train_fns(torch, cfg32, tc, "cpu", cpu_params)
-    _, h_cpu = train_loop(cfg32, tc, src, num_steps=3, state=cpu_state,
-                          device="cpu")
+    s_cpu, h_cpu = train_loop(cfg32, tc, src, num_steps=steps,
+                              state=cpu_state, device="cpu",
+                              probe_fn=_cpu_probe(torch, tc.seed, "cpu"))
     card = [h["loss"] for h in h_card]
     cpu = [h["loss"] for h in h_cpu]
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    log(f"[train] card vs CPU plain path, {name}, fp32 B=2 S=128, 3 steps "
-        f"(refresh at 0, 2 for Sophia-G): losses {card} vs {cpu}, max "
-        f"relative diff {rel:.3g}")
+    h_rel = None
+    if (steps <= tc.hess_interval and s_cpu.opt_state.h
+            and int(s_cpu.opt_state.hess_count)):
+        h_rel = max(float((a.cpu().float() - b.float()).abs().max()
+                          / b.float().abs().max())
+                    for a, b in zip(s_card.opt_state.h, s_cpu.opt_state.h))
+        if not h_rel <= 1e-4:
+            raise AssertionError(f"card vs CPU refreshed h differs by "
+                                 f"{h_rel} of its largest element ({name})")
+    log(f"[train] card vs CPU plain path, {name}, fp32 B=2 S=128, {steps} "
+        f"step(s) (refresh at 0, 2 for the hessian-aware): losses {card} vs "
+        f"{cpu}, max relative diff {rel:.3g}"
+        + ("" if h_rel is None else
+           f"; refreshed h within {h_rel:.3g} of its largest element"))
     if not rel <= 1e-4:
         raise AssertionError(f"card vs CPU training losses differ by {rel} "
                              f"({name})")
@@ -1377,15 +1599,28 @@ def phase_flash_timings(torch, attn_err, trained):
 # these kernels): sophia 12 (3 mul + add for m', mul + max + div, clamp 2,
 # the compare, 2 mul + sub for p'), the EMA 4, the refresh both, AdamW 15
 ENGINE_OPS_PER_ELEM = {"sophia_step": 12, "hessian_ema": 4,
-                       "sophia_refresh": 16, "adamw_step": 15}
+                       "sophia_refresh": 16, "adamw_step": 15,
+                       # AdaHessian 11 (m' 3, the Adam update 8), its
+                       # refresh 16 (+ scale, square, the EMA 3); Lion 11
+                       # (sign argument 3, sign 2, m' 3, p' 3); SignGD 8;
+                       # SGD 4 (m' 2, p' 2)
+                       "adahessian_refresh": 16, "adahessian_step": 11,
+                       "lion_step": 11, "signgd_step": 8, "sgd_step": 4}
+# which run's launch count each engine kernel reports
+_ENGINE_RUN = {"sophia_step": "sophia_g", "sophia_refresh": "sophia_g",
+               "hessian_ema": "update_hessian", "adamw_step": "adamw",
+               "adahessian_refresh": "adahessian",
+               "adahessian_step": "adahessian", "lion_step": "lion",
+               "signgd_step": "signgd", "sgd_step": "sgd"}
 
 
 def phase_engine_timings(torch, engine_err, trained):
     """The engine kernels at GPT-2 small's shard with fp32 state (the
     training run's) beside their byte bound, their plain versions and, for
-    AdamW, ``torch.optim.AdamW(fused=True).step()`` on one flat parameter
-    of the shard's size (one PyTorch call computing AdamW in its own
-    rounding order; the port never calls it)."""
+    AdamW and SGD, ``torch.optim.AdamW(fused=True).step()`` and
+    ``torch.optim.SGD(momentum=0, fused=True).step()`` on one flat
+    parameter of the shard's size (one PyTorch call each, in its own
+    rounding order; the port never calls them)."""
     from repro_torch.kernels import sophia_update as su
 
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
@@ -1394,8 +1629,12 @@ def phase_engine_timings(torch, engine_err, trained):
     lr = torch.tensor(6e-4, device="cuda")
     scale = torch.tensor(4096.0, device="cuda")
     step = torch.tensor(5.0, device="cuda")
+    one = torch.tensor(1.0, device="cuda")
     sk = dict(SOPHIA_HP, block=block)
     ak = dict(ADAMW_HP, block=block)
+    hk = dict(ADAHESSIAN_HP, block=block)
+    lk, gk = dict(LION_HP, block=block), dict(SIGNGD_HP, block=block)
+    mk = dict(momentum=0.0, block=block)        # the trainer's SGD
     calls = {
         "sophia_step": (lambda: su.sophia_fused_block(p, m, h, g, lr, **sk),
                         lambda: su.sophia_fused_block_plain(p, m, h, g, lr,
@@ -1413,19 +1652,46 @@ def phase_engine_timings(torch, engine_err, trained):
         "adamw_step": (
             lambda: su.adamw_fused_block(p, m, h, g, lr, step, **ak),
             lambda: su.adamw_fused_block_plain(p, m, h, g, lr, step, **ak)),
+        "adahessian_refresh": (
+            lambda: su.adahessian_refresh_fused_block(p, m, h, g, e, lr, 1,
+                                                      one, step, **hk),
+            lambda: su.adahessian_refresh_fused_block_plain(
+                p, m, h, g, e, lr, 1, one, step, **hk)),
+        "adahessian_step": (
+            lambda: su.adahessian_fused_block(p, m, h, g, lr, step, **hk),
+            lambda: su.adahessian_fused_block_plain(p, m, h, g, lr, step,
+                                                    **hk)),
+        "lion_step": (lambda: su.lion_fused_block(p, m, g, lr, **lk),
+                      lambda: su.lion_fused_block_plain(p, m, g, lr, **lk)),
+        "signgd_step": (
+            lambda: su.signgd_fused_block(p, m, g, lr, **gk),
+            lambda: su.signgd_fused_block_plain(p, m, g, lr, **gk)),
+        "sgd_step": (lambda: su.sgd_fused_block(p, m, g, lr, **mk),
+                     lambda: su.sgd_fused_block_plain(p, m, g, lr, **mk)),
     }
     param = torch.nn.Parameter(p.clone())
     param.grad = g.clone()
     opt = torch.optim.AdamW([param], lr=6e-4, betas=(0.9, 0.95), eps=1e-8,
                             weight_decay=0.2, fused=True)
-    library = {"sophia_step": None, "hessian_ema": None,
-               "sophia_refresh": None,
-               "adamw_step": time_ms(torch, opt.step, flush, reps=20,
-                                     warmup=2)}
+    library = dict.fromkeys(calls)
+    library["adamw_step"] = time_ms(torch, opt.step, flush, reps=20,
+                                    warmup=2)
+    del opt
+    param.grad = g.clone()
+    opt = torch.optim.SGD([param], lr=6e-4, momentum=0.0, fused=True)
+    library["sgd_step"] = time_ms(torch, opt.step, flush, reps=20, warmup=2)
     del opt, param
-    launches = dict(trained["launches"])
-    launches["hessian_ema"] = trained["hessian_ema_launches"]
-    launches["adamw_step"] = trained["adamw"]["launches"]["adamw_step"]
+    runs = {"sophia_g": trained["launches"], "adamw":
+            trained["adamw"]["launches"],
+            "update_hessian": {"hessian_ema":
+                               trained["hessian_ema_launches"]}}
+    runs.update({name: r["launches"]
+                 for name, r in trained["baselines"].items()})
+    notes = {"adamw_step": "torch.optim.AdamW(fused=True).step() on one "
+                           "flat parameter, its own rounding order",
+             "sgd_step": "torch.optim.SGD(momentum=0, fused=True).step() "
+                         "on one flat parameter: it writes p only (12 "
+                         "bytes per element), no m"}
     rows = []
     for name, replaces in SOPHIA_UPDATE[1].items():
         kernel, plain = calls[name]
@@ -1439,19 +1705,14 @@ def phase_engine_timings(torch, engine_err, trained):
         bound_ms = max(t_bytes, t_ops)
         rows.append({
             "name": name, "route": "cuda", "source": SOPHIA_UPDATE[0],
-            "replaces": replaces, "launches": launches.get(name, 0),
-            "launches_path": ("update_hessian (out of band)"
-                              if name == "hessian_ema" else
-                              f"{ADAMW_STEPS}-step AdamW run"
-                              if name == "adamw_step" else
-                              f"{TRAIN_STEPS}-step Sophia-G run"),
+            "replaces": replaces,
+            "launches": runs[_ENGINE_RUN[name]].get(name, 0),
+            "launches_path": _ENGINE_RUN[name] + " run",
             "max_abs_err": engine_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library[name],
-            "library_note": ("torch.optim.AdamW(fused=True).step() on one "
-                             "flat parameter, its own rounding order"
-                             if name == "adamw_step" else None),
+            "library_note": notes.get(name),
             "shape": f"n={n} block={block} p=fp32 state=fp32"})
         log(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library[name]}, bound {bound_ms:.4f} ms ({nbytes} "

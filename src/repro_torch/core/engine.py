@@ -1,5 +1,6 @@
 """Flat-buffer optimizer engine: the counterpart of ``repro/core/engine.py``
-for the Sophia family and AdamW.
+for every optimizer family of the reference: Sophia (G and H), AdamW,
+AdaHessian, Lion, SignGD and SGD.
 
 The engine keeps the optimizer state as a few dtype-homogeneous flat
 shards, one per parameter dtype, each tail-padded to a multiple of
@@ -25,8 +26,8 @@ Backends:
       they compute their plain versions, the same operations as
       ``reference``, so the two backends agree bit for bit there.
 
-The other optimizer families (Lion, SignGD, SGD, AdaHessian) raise
-``NotImplementedError`` until their slice.
+Lion, SignGD and SGD keep no curvature shards (``h`` is empty, as in the
+reference); Sophia and AdaHessian refresh theirs out of band.
 """
 from __future__ import annotations
 
@@ -52,8 +53,8 @@ FAMILIES = {
     "adahessian": "adahessian",
     "sgd": "sgd",
 }
+_CURVATURE_FAMILIES = ("sophia", "adamw", "adahessian")
 _HESSIAN_AWARE = ("sophia", "adahessian")
-_PORTED = ("sophia", "adamw")
 BACKENDS = ("reference", "fused")
 
 
@@ -184,7 +185,8 @@ def write_shards(layout: ShardLayout, shards: Tuple[torch.Tensor, ...],
 class EngineState(NamedTuple):
     """Optimizer state over flat shards (lives flat across the whole run).
     ``m`` is the first moment; ``h`` the curvature / second-moment slot
-    (Sophia's diagonal-Hessian EMA, AdamW's v)."""
+    (Sophia's diagonal-Hessian EMA, AdamW's and AdaHessian's v; empty for
+    Lion, SignGD and SGD)."""
 
     count: torch.Tensor           # int32: step counter t
     m: Tuple[torch.Tensor, ...]
@@ -219,11 +221,6 @@ class OptimizerEngine:
                  state_dtype: torch.dtype = torch.float32):
         if optimizer not in FAMILIES:
             raise ValueError(f"unknown optimizer {optimizer!r}")
-        if FAMILIES[optimizer] not in _PORTED:
-            raise NotImplementedError(
-                f"optimizer {optimizer!r}: the port's engine implements "
-                "Sophia and AdamW; the other baselines come with a later "
-                "slice")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r} (the port's are "
                              f"{BACKENDS}; 'fused' runs the CUDA kernels)")
@@ -234,6 +231,10 @@ class OptimizerEngine:
         self.block = block
         self.state_dtype = state_dtype
         self._layouts: dict = {}
+
+    @property
+    def needs_curvature(self) -> bool:
+        return self.family in _CURVATURE_FAMILIES
 
     @property
     def hessian_aware(self) -> bool:
@@ -268,7 +269,7 @@ class OptimizerEngine:
         scalar = dict(device=device)
         return EngineState(
             count=torch.zeros((), dtype=torch.int32, **scalar),
-            m=zeros(), h=zeros(),
+            m=zeros(), h=zeros() if self.needs_curvature else (),
             hess_count=torch.zeros((), dtype=torch.int32, **scalar),
             clip_fraction=torch.zeros((), dtype=torch.float32, **scalar))
 
@@ -319,13 +320,14 @@ class OptimizerEngine:
         new_p, new_m, new_h = [], [], []
         nclip = None
         for i in range(lay.n_shards):
+            h_i = state.h[i] if self.needs_curvature else None
             e_i = e_sh[i] if e_sh is not None else None
             p2, m2, h2, n_i = self._step_shard(
-                p_sh[i], state.m[i], state.h[i], g_sh[i], e_i, lr, c1, flag,
-                scale)
+                p_sh[i], state.m[i], h_i, g_sh[i], e_i, lr, c1, flag, scale)
             new_p.append(p2)
             new_m.append(m2)
-            new_h.append(h2)
+            if h2 is not None:
+                new_h.append(h2)
             if n_i is not None:
                 n_i = n_i.to(torch.float32)
                 nclip = n_i if nclip is None else nclip + n_i
@@ -342,12 +344,14 @@ class OptimizerEngine:
 
     def _step_shard(self, p, m, h, g, e, lr, c1, flag, scale):
         """One flat shard on the backend: the plain update when ``e`` is
-        None, the update with the refresh fused in otherwise.  Returns (p',
-        m', h', clip count or None)."""
+        None, the update with the refresh fused in otherwise (the family
+        dispatch of the reference's ``core/engine.py:391-442``).  Returns
+        (p', m', h' or None, clip count or None)."""
         hp = self.hypers
         fused = self.backend == "fused"
         kw = dict(block=self.block) if fused else {}
-        if self.family == "sophia":
+        fam = self.family
+        if fam == "sophia":
             args = dict(beta1=hp["beta1"], gamma=hp["gamma"], eps=hp["eps"],
                         weight_decay=hp["weight_decay"],
                         clip_threshold=hp["clip_threshold"])
@@ -366,35 +370,67 @@ class OptimizerEngine:
                 return p2, m2, h, nclip.sum(dtype=torch.int32)
             p2, m2, nclip = kref.sophia_fused_ref(p, m, h, g, lr=lr, **args)
             return p2, m2, h, nclip
-        # adamw: h holds v
-        args = dict(beta1=hp["beta1"], beta2=hp["beta2"], eps=hp["eps"],
-                    weight_decay=hp["weight_decay"])
-        if fused:
-            p2, m2, v2 = kblk.adamw_fused_block(p, m, h, g, lr, c1, **args,
-                                                **kw)
+        if fam in ("adamw", "adahessian"):     # h holds v
+            args = dict(beta1=hp["beta1"], beta2=hp["beta2"], eps=hp["eps"],
+                        weight_decay=hp["weight_decay"])
+            if fam == "adamw":
+                if fused:
+                    return kblk.adamw_fused_block(p, m, h, g, lr, c1, **args,
+                                                  **kw) + (None,)
+                return kref.adamw_fused_ref(p, m, h, g, lr=lr, step=c1,
+                                            **args) + (None,)
+            if e is not None:
+                if fused:
+                    return kblk.adahessian_refresh_fused_block(
+                        p, m, h, g, e, lr, flag, scale, c1, **args,
+                        **kw) + (None,)
+                return kref.adahessian_step_refresh_ref(
+                    p, m, h, g, e, lr=lr, flag=flag, scale=scale, step=c1,
+                    **args) + (None,)
+            if fused:
+                p2, m2 = kblk.adahessian_fused_block(p, m, h, g, lr, c1,
+                                                     **args, **kw)
+            else:
+                p2, m2 = kref.adahessian_fused_ref(p, m, h, g, lr=lr,
+                                                   step=c1, **args)
+            return p2, m2, h, None
+        # Lion, SignGD, SGD: no curvature, no clip fraction
+        if fam == "lion":
+            args = dict(beta1=hp["beta1"], beta2=hp["beta2"],
+                        weight_decay=hp["weight_decay"])
+            step, plain = kblk.lion_fused_block, kref.lion_fused_ref
+        elif fam == "signgd":
+            args = dict(beta1=hp["beta1"], weight_decay=hp["weight_decay"])
+            step, plain = kblk.signgd_fused_block, kref.signgd_fused_ref
+        elif fam == "sgd":
+            args = dict(momentum=hp.get("momentum", 0.0))
+            step, plain = kblk.sgd_fused_block, kref.sgd_fused_ref
         else:
-            p2, m2, v2 = kref.adamw_fused_ref(p, m, h, g, lr=lr, step=c1,
-                                              **args)
-        return p2, m2, v2, None
+            raise ValueError(fam)
+        p2, m2 = (step(p, m, g, lr, **args, **kw) if fused
+                  else plain(p, m, g, lr=lr, **args))
+        return p2, m2, None, None
 
     def update_hessian(self, state: EngineState, est, *, scale=1.0,
                        params: Tree) -> EngineState:
         """Fold a fresh diagonal-Hessian estimate into the curvature
         shards out of band: h' = beta2 h + (1-beta2) scale est per shard
         (``est`` flat fp32 shards in this engine's layout, ``scale`` GNB's
-        B).  The trainer fuses this into :meth:`step_with_refresh`; this
-        form is for tests and tooling.  A family without out-of-band
-        curvature returns the state unchanged."""
+        B); AdaHessian squares the scaled estimate (its v is an EMA of
+        squared estimates).  The trainer fuses this into
+        :meth:`step_with_refresh`; this form is for tests and tooling.  A
+        family without out-of-band curvature returns the state
+        unchanged."""
         if not self.hessian_aware:
             return state
         e_sh = self._est_shards(self.layout(params), est)
-        beta2 = self.hypers["beta2"]
+        kw = dict(beta2=self.hypers["beta2"], scale=scale,
+                  square=self.family == "adahessian")
         if self.backend == "fused":
-            new_h = tuple(kblk.hessian_ema_block(h, e, beta2=beta2,
-                                                 scale=scale,
-                                                 block=self.block)
+            new_h = tuple(kblk.hessian_ema_block(h, e, block=self.block,
+                                                 **kw)
                           for h, e in zip(state.h, e_sh))
         else:
-            new_h = tuple(kref.hessian_ema_ref(h, e, beta2=beta2, scale=scale)
+            new_h = tuple(kref.hessian_ema_ref(h, e, **kw)
                           for h, e in zip(state.h, e_sh))
         return state._replace(h=new_h, hess_count=state.hess_count + 1)

@@ -1,23 +1,36 @@
-"""The GNB diagonal-Hessian estimator (Algorithm 2, paper Section 2.3):
-the counterpart of ``repro/core/estimators.py``, cut to the logits-free
-route the trainer takes with ``fused_loss=True``.
+"""Diagonal-Hessian estimators (paper Section 2.3): the counterpart of
+``repro/core/estimators.py``, cut to the routes the trainer takes with
+``fused_loss=True``.
 
-``gnb_ghat_flat_from_loss`` takes a model-level sampled-label loss whose
-labels ŷ ~ softmax(logits) are drawn inside the fused CE forward sweep
-(``models/loss.py:lm_loss_sampled``), differentiates it and ravels ĝ into
-the engine's flat fp32 shards.  The trainer squares the shards and hands
-them with B = the sweep's valid-position count to the engine's fused
-Hessian EMA.  The Hutchinson and empirical-Fisher estimators come with a
-later slice.
+* GNB (Algorithm 2): ``gnb_ghat_flat_from_loss`` takes a model-level
+  sampled-label loss whose labels ŷ ~ softmax(logits) are drawn inside the
+  fused CE forward sweep (``models/loss.py:lm_loss_sampled``),
+  differentiates it and ravels ĝ into the engine's flat fp32 shards.  The
+  trainer squares the shards and hands them with B = the sweep's
+  valid-position count to the engine's fused Hessian EMA.
+* Hutchinson (Algorithm 1): u ⊙ (H u) with u ~ N(0, I), unbiased for
+  diag(H).  The reference takes H u forward-over-reverse (``jax.jvp`` of
+  ``jax.grad``); the port, whose model is not functional, takes it
+  reverse-over-reverse: ``g = grad(loss, θ, create_graph=True)``, then
+  ``grad(g, θ, grad_outputs=u)``, which is the same H u up to rounding
+  since H is symmetric.  The loss must be twice differentiable: the
+  trainer runs it on the loss and attention twins (``fused_jvp``,
+  ``flash_jvp``), whose backward is plain PyTorch.
+* Empirical Fisher (the paper's Fig. 8b ablation): the squared gradient of
+  the TRUE-label loss, B = the sub-batch's positions.
+
+Each ``*_flat`` form emits the estimate as the engine's flat fp32 shards.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
-from .engine import ShardLayout, ravel_shards
-from .types import Tree, flat_tensors, tree_unflatten
+from .engine import ShardLayout, ravel_shards, unravel_shards
+from .types import Tree, flat_tensors, tree_leaves, tree_unflatten
+
+_f32 = torch.float32
 
 
 def subsample_batch(batch: dict, n: int) -> dict:
@@ -40,3 +53,67 @@ def gnb_ghat_flat_from_loss(
     g_sh = ravel_shards(layout, tree_unflatten(params, grads),
                         dtype=torch.float32)
     return g_sh, n_valid.to(torch.float32)
+
+
+def _hvp(loss_fn: Callable[[], torch.Tensor], tensors: List[torch.Tensor],
+         u: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """H u, reverse-over-reverse, one tensor per entry of ``tensors``; a
+    gradient that does not depend on the parameters (a zero row of H)
+    contributes nothing."""
+    loss = loss_fn()
+    grads = torch.autograd.grad(loss, tensors, create_graph=True)
+    live = [(g, v) for g, v in zip(grads, u) if g.requires_grad]
+    hv = torch.autograd.grad([g for g, _ in live], tensors,
+                             grad_outputs=[v for _, v in live],
+                             allow_unused=True) if live else \
+        [None] * len(tensors)
+    return [torch.zeros_like(t) if h is None else h
+            for t, h in zip(tensors, hv)]
+
+
+def hutchinson_estimator(loss_fn: Callable[[], torch.Tensor], params: Tree,
+                         u: Tree) -> Tree:
+    """u ⊙ (H u) as a tree of fp32 tensors shaped like ``params``:
+    ``loss_fn()`` is a scalar loss of ``params`` on the estimator
+    sub-batch and ``u`` a probe tree shaped like ``params`` in its dtypes
+    (``u ~ N(0, I)`` makes the product an unbiased estimate of diag(H))."""
+    tensors = flat_tensors(params)
+    probe = flat_tensors(u)
+    hv = _hvp(loss_fn, tensors, probe)
+    return tree_unflatten(params, [(v * h).to(_f32)
+                                   for v, h in zip(probe, hv)])
+
+
+def hutchinson_estimator_flat(loss_fn: Callable[[], torch.Tensor],
+                              params: Tree, u_sh: Sequence[torch.Tensor],
+                              layout: ShardLayout
+                              ) -> Tuple[torch.Tensor, ...]:
+    """:func:`hutchinson_estimator` on flat shards: the probe shards
+    ``u_sh`` are unraveled through the layout (cast to the leaf dtypes)
+    for the HVP, and u ⊙ (H u) is raveled back to fp32 shards, so the tail
+    pad, whose probe noise no parameter sees, stays zero."""
+    values = unravel_shards(layout, tuple(u_sh))
+    probe = [part for leaf, value in zip(tree_leaves(params), values)
+             for part in (value.unbind(0) if isinstance(leaf, (list, tuple))
+                          else (value,))]
+    hv = _hvp(loss_fn, flat_tensors(params), probe)
+    prod = [v.to(_f32) * h.to(_f32) for v, h in zip(probe, hv)]
+    return ravel_shards(layout, tree_unflatten(params, prod), dtype=_f32)
+
+
+def empirical_fisher_ghat_flat(loss_fn: Callable[[], torch.Tensor],
+                               params: Tree, layout: ShardLayout
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the TRUE-label loss ``loss_fn()`` as flat fp32
+    shards, before squaring."""
+    grads = torch.autograd.grad(loss_fn(), flat_tensors(params))
+    return ravel_shards(layout, tree_unflatten(params, grads), dtype=_f32)
+
+
+def empirical_fisher_estimator_flat(loss_fn: Callable[[], torch.Tensor],
+                                    params: Tree, layout: ShardLayout
+                                    ) -> Tuple[torch.Tensor, ...]:
+    """E-F's g ⊙ g as flat fp32 shards; the batch factor B is left to
+    the engine's Hessian EMA (its ``scale``), as GNB's is."""
+    return tuple(g * g for g in
+                 empirical_fisher_ghat_flat(loss_fn, params, layout))

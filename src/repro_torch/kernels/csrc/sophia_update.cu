@@ -1,5 +1,6 @@
 // Fused optimizer-engine kernels for Hopper (sm_90a): the Sophia step, the
-// Hessian EMA, the Sophia step with the refresh fused in, and AdamW, each
+// Hessian EMA, the Sophia step with the refresh fused in, AdamW, the
+// AdaHessian step with and without its refresh, Lion, SignGD and SGD, each
 // one streaming pass over a flat parameter shard.
 //
 // Replaces the TPU kernels of src/repro/kernels/sophia_update.py:
@@ -11,6 +12,16 @@
 //                          _sophia_refresh_kernel :115), row 4
 //   adamw_kernel           adamw_fused_block (:243, body _adamw_kernel
 //                          :218), row 6
+//   adahessian_refresh_kernel  adahessian_refresh_fused_block (:202, body
+//                          _adahessian_refresh_kernel :170), row 5
+//   adahessian_kernel      adahessian_fused_block (:277, body
+//                          _adahessian_kernel :255), row 7
+//   lion_kernel            lion_fused_block (:306, body _lion_kernel :288),
+//                          row 8
+//   signgd_kernel          signgd_fused_block (:333, body _signgd_kernel
+//                          :317), row 9
+//   sgd_kernel             sgd_fused_block (:356, body _sgd_kernel :344),
+//                          row 10
 //
 // The function, as the plain versions compute it (kernels/ref.py), in fp32
 // with p, m and h (AdamW's v) in their stored dtype P or S (fp32 or bf16),
@@ -24,6 +35,13 @@
 //            reads h is what makes the one sweep equal the two-pass path)
 //   adamw:   m' as above; v' = b2 v + (1-b2) g g;
 //            u = (m' / bc1) / (sqrt(v' / bc2) + eps); p' as above
+//   adahessian: the adamw step reading v as it is (no v'); its refresh
+//            first v_new = flag ? round_S(b2 v + (1-b2) (B e)^2) : v
+//   lion:    u = sign(b1 m + (1-b1) g) from the OLD m; m' = b2 m + (1-b2) g;
+//            p' as above
+//   signgd:  m' = b1 m + (1-b1) g; p' = p (1 - lr wd) - lr sign(m')
+//   sgd:     m' = mu m + g; p' = p - lr m' (no weight decay)
+// sign is torch.sign's: (0 < x) - (x < 0), so +-0 and NaN give 0.
 // Every operation rounds where the plain version's PyTorch operation
 // rounds: the IEEE intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn,
 // __fsqrt_rn) keep nvcc from contracting a*b + c into an FMA, clamps pass
@@ -37,7 +55,8 @@
 // (each input read once, each output written once): at GPT-2 small's
 // shard, n = 124,518,400 with fp32 state, 24 / 12 / 32 / 28 bytes per
 // element for sophia / ema / refresh / adamw, 0.89 / 0.45 / 1.19 / 1.04 ms
-// at 3.35 TB/s.
+// at 3.35 TB/s; 32 / 24 / 20 bytes for the adahessian refresh / the
+// adahessian step / lion, signgd and sgd, 1.19 / 0.89 / 0.74 ms.
 // Design: one streaming pass at 16 bytes a thread: each thread loads 4
 // fp32 values (float4) or 8 bf16 (uint4) of every operand, and 8 values
 // of each operand when any operand is bf16.  The TPU's 128k-element VMEM
@@ -136,9 +155,51 @@ struct AdamHp {
   float b1, omb1, b2, omb2, eps, wd;
 };
 
+// Lion, SignGD and SGD (b1 is SGD's momentum; the others unused there)
+struct MomentumHp {
+  float b1, omb1, b2, omb2, wd;
+};
+
+enum MomentumRule { kLion = 0, kSignGD = 1, kSgd = 2 };
+
 // 1 - lr wd, with lr wd rounded first (the plain version's two operations)
 __device__ __forceinline__ float decay_of(float lr, float wd) {
   return __fsub_rn(1.0f, __fmul_rn(lr, wd));
+}
+
+// torch.sign: 1, -1, or 0 at +-0 and NaN
+__device__ __forceinline__ float sign_of(float x) {
+  return (float)((0.0f < x) - (x < 0.0f));
+}
+
+// the Adam-shaped update of AdamW and AdaHessian from m' and the second
+// moment: p (1 - lr wd) - lr (m' / bc1) / (sqrt(v / bc2) + eps)
+__device__ __forceinline__ float adam_update(float p, float mn, float v,
+                                             float lr, float decay,
+                                             float bc1, float bc2,
+                                             float eps) {
+  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), eps);
+  const float u = __fdiv_rn(__fdiv_rn(mn, bc1), den);
+  return __fsub_rn(__fmul_rn(p, decay), __fmul_rn(lr, u));
+}
+
+// one Lion / SignGD / SGD element: returns p' and replaces m by m'
+template <int RULE>
+__device__ __forceinline__ float momentum_elem(float p, float& m, float g,
+                                               float lr, float decay,
+                                               const MomentumHp& hp) {
+  if constexpr (RULE == kLion) {
+    const float u =
+        sign_of(__fadd_rn(__fmul_rn(hp.b1, m), __fmul_rn(hp.omb1, g)));
+    m = __fadd_rn(__fmul_rn(hp.b2, m), __fmul_rn(hp.omb2, g));
+    return __fsub_rn(__fmul_rn(p, decay), __fmul_rn(lr, u));
+  } else if constexpr (RULE == kSignGD) {
+    m = __fadd_rn(__fmul_rn(hp.b1, m), __fmul_rn(hp.omb1, g));
+    return __fsub_rn(__fmul_rn(p, decay), __fmul_rn(lr, sign_of(m)));
+  } else {
+    m = __fadd_rn(__fmul_rn(hp.b1, m), g);
+    return __fsub_rn(p, __fmul_rn(lr, m));
+  }
 }
 
 // one Sophia element: returns p', writes m' and adds the clip to cnt
@@ -307,9 +368,7 @@ adamw_kernel(const P* __restrict__ p, const S* __restrict__ m,
                                  __fmul_rn(hp.omb1, gk));
       const float vn = __fadd_rn(__fmul_rn(hp.b2, vv[k]),
                                  __fmul_rn(hp.omb2, __fmul_rn(gk, gk)));
-      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), hp.eps);
-      const float u = __fdiv_rn(__fdiv_rn(mn, bc1), den);
-      vp[k] = __fsub_rn(__fmul_rn(vp[k], decay), __fmul_rn(lr, u));
+      vp[k] = adam_update(vp[k], mn, vn, lr, decay, bc1, bc2, hp.eps);
       vm[k] = mn;
       vv[k] = vn;
     }
@@ -318,6 +377,118 @@ adamw_kernel(const P* __restrict__ p, const S* __restrict__ m,
     store<VEC>(v_out, i, vv);
   }
 }
+
+template <typename P, typename S, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adahessian_kernel(const P* __restrict__ p, const S* __restrict__ m,
+                  const S* __restrict__ v, const float* __restrict__ g,
+                  const float* __restrict__ sc, P* __restrict__ p_out,
+                  S* __restrict__ m_out, int block, int splits, int span,
+                  AdamHp hp) {
+  const Span s = span_of(block, splits, span);
+  const float lr = sc[0];
+  const float bc1 = sc[1];
+  const float bc2 = sc[2];
+  const float decay = decay_of(lr, hp.wd);
+  for (long long i = s.start + (long long)threadIdx.x * VEC; i < s.end;
+       i += (long long)kThreads * VEC) {
+    float vp[VEC], vm[VEC], vv[VEC], vg[VEC];
+    load<VEC>(p, i, vp);
+    load<VEC>(m, i, vm);
+    load<VEC>(v, i, vv);
+    load<VEC>(g, i, vg);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      vm[k] = __fadd_rn(__fmul_rn(hp.b1, vm[k]), __fmul_rn(hp.omb1, vg[k]));
+      vp[k] = adam_update(vp[k], vm[k], vv[k], lr, decay, bc1, bc2, hp.eps);
+    }
+    store<VEC>(p_out, i, vp);
+    store<VEC>(m_out, i, vm);
+  }
+}
+
+template <typename P, typename S, int VEC>
+__global__ void __launch_bounds__(kThreads)
+adahessian_refresh_kernel(const P* __restrict__ p, const S* __restrict__ m,
+                          const S* __restrict__ v,
+                          const float* __restrict__ g,
+                          const float* __restrict__ e,
+                          const float* __restrict__ sc,
+                          P* __restrict__ p_out, S* __restrict__ m_out,
+                          S* __restrict__ v_out, int block, int splits,
+                          int span, int flag, AdamHp hp) {
+  const Span s = span_of(block, splits, span);
+  const float lr = sc[0];
+  const float scale = sc[1];
+  const float bc1 = sc[2];
+  const float bc2 = sc[3];
+  const float decay = decay_of(lr, hp.wd);
+  for (long long i = s.start + (long long)threadIdx.x * VEC; i < s.end;
+       i += (long long)kThreads * VEC) {
+    float vp[VEC], vm[VEC], vv[VEC], vg[VEC];
+    load<VEC>(p, i, vp);
+    load<VEC>(m, i, vm);
+    load<VEC>(v, i, vv);
+    load<VEC>(g, i, vg);
+    if (flag) {
+      float ve[VEC];
+      load<VEC>(e, i, ve);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float es = __fmul_rn(scale, ve[k]);
+        vv[k] = round_to<S>(__fadd_rn(__fmul_rn(hp.b2, vv[k]),
+                                      __fmul_rn(hp.omb2, __fmul_rn(es, es))));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      vm[k] = __fadd_rn(__fmul_rn(hp.b1, vm[k]), __fmul_rn(hp.omb1, vg[k]));
+      vp[k] = adam_update(vp[k], vm[k], vv[k], lr, decay, bc1, bc2, hp.eps);
+    }
+    store<VEC>(p_out, i, vp);
+    store<VEC>(m_out, i, vm);
+    store<VEC>(v_out, i, vv);
+  }
+}
+
+// Lion, SignGD and SGD: p, m and g in, p' and m' out
+template <int RULE, typename P, typename S, int VEC>
+__device__ __forceinline__ void momentum_sweep(
+    const P* __restrict__ p, const S* __restrict__ m,
+    const float* __restrict__ g, const float* __restrict__ sc,
+    P* __restrict__ p_out, S* __restrict__ m_out, int block, int splits,
+    int span, const MomentumHp& hp) {
+  const Span s = span_of(block, splits, span);
+  const float lr = sc[0];
+  const float decay = decay_of(lr, hp.wd);
+  for (long long i = s.start + (long long)threadIdx.x * VEC; i < s.end;
+       i += (long long)kThreads * VEC) {
+    float vp[VEC], vm[VEC], vg[VEC];
+    load<VEC>(p, i, vp);
+    load<VEC>(m, i, vm);
+    load<VEC>(g, i, vg);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      vp[k] = momentum_elem<RULE>(vp[k], vm[k], vg[k], lr, decay, hp);
+    store<VEC>(p_out, i, vp);
+    store<VEC>(m_out, i, vm);
+  }
+}
+
+#define SU_MOMENTUM_KERNEL(NAME, RULE)                                       \
+  template <typename P, typename S, int VEC>                                 \
+  __global__ void __launch_bounds__(kThreads)                                \
+      NAME(const P* __restrict__ p, const S* __restrict__ m,                 \
+           const float* __restrict__ g, const float* __restrict__ sc,        \
+           P* __restrict__ p_out, S* __restrict__ m_out, int block,          \
+           int splits, int span, MomentumHp hp) {                            \
+    momentum_sweep<RULE, P, S, VEC>(p, m, g, sc, p_out, m_out, block,        \
+                                    splits, span, hp);                       \
+  }
+
+SU_MOMENTUM_KERNEL(lion_kernel, kLion)
+SU_MOMENTUM_KERNEL(signgd_kernel, kSignGD)
+SU_MOMENTUM_KERNEL(sgd_kernel, kSgd)
 
 // launch geometry: `splits` CUDA blocks per reference block, each over a
 // span of up to kTilesPerBlock tiles (a multiple of vec)
@@ -396,6 +567,56 @@ int adamw_typed(const void* p, const void* m, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+template <typename P, typename S>
+int adahessian_typed(const void* p, const void* m, const void* v,
+                     const void* g, const void* sc, void* p_out, void* m_out,
+                     long long n, int block, AdamHp hp, cudaStream_t stream) {
+  constexpr int VEC = (sizeof(P) == 2 || sizeof(S) == 2) ? 8 : 4;
+  const Grid gr = grid_of(n, block, VEC);
+  if (gr.blocks > 0)
+    adahessian_kernel<P, S, VEC><<<(unsigned)gr.blocks, kThreads, 0,
+                                   stream>>>(
+        (const P*)p, (const S*)m, (const S*)v, (const float*)g,
+        (const float*)sc, (P*)p_out, (S*)m_out, block, gr.splits, gr.span,
+        hp);
+  return (int)cudaGetLastError();
+}
+
+template <typename P, typename S>
+int adahessian_refresh_typed(const void* p, const void* m, const void* v,
+                             const void* g, const void* e, const void* sc,
+                             void* p_out, void* m_out, void* v_out,
+                             long long n, int block, int flag, AdamHp hp,
+                             cudaStream_t stream) {
+  constexpr int VEC = (sizeof(P) == 2 || sizeof(S) == 2) ? 8 : 4;
+  const Grid gr = grid_of(n, block, VEC);
+  if (gr.blocks > 0)
+    adahessian_refresh_kernel<P, S, VEC><<<(unsigned)gr.blocks, kThreads, 0,
+                                           stream>>>(
+        (const P*)p, (const S*)m, (const S*)v, (const float*)g,
+        (const float*)e, (const float*)sc, (P*)p_out, (S*)m_out, (S*)v_out,
+        block, gr.splits, gr.span, flag, hp);
+  return (int)cudaGetLastError();
+}
+
+#define SU_MOMENTUM_TYPED(NAME, KERNEL)                                      \
+  template <typename P, typename S>                                          \
+  int NAME(const void* p, const void* m, const void* g, const void* sc,      \
+           void* p_out, void* m_out, long long n, int block, MomentumHp hp,  \
+           cudaStream_t stream) {                                            \
+    constexpr int VEC = (sizeof(P) == 2 || sizeof(S) == 2) ? 8 : 4;          \
+    const Grid gr = grid_of(n, block, VEC);                                  \
+    if (gr.blocks > 0)                                                       \
+      KERNEL<P, S, VEC><<<(unsigned)gr.blocks, kThreads, 0, stream>>>(       \
+          (const P*)p, (const S*)m, (const float*)g, (const float*)sc,       \
+          (P*)p_out, (S*)m_out, block, gr.splits, gr.span, hp);              \
+    return (int)cudaGetLastError();                                          \
+  }
+
+SU_MOMENTUM_TYPED(lion_typed, lion_kernel)
+SU_MOMENTUM_TYPED(signgd_typed, signgd_kernel)
+SU_MOMENTUM_TYPED(sgd_typed, sgd_kernel)
+
 }  // namespace sophia_update
 
 using namespace sophia_update;
@@ -452,5 +673,43 @@ int adamw_launch(const void* p, const void* m, const void* v, const void* g,
   return SU_DISPATCH(adamw_typed, p, m, v, g, sc, p_out, m_out, v_out, n,
                      block, hp, (cudaStream_t)stream);
 }
+
+int adahessian_step_launch(const void* p, const void* m, const void* v,
+                           const void* g, const void* sc, void* p_out,
+                           void* m_out, long long n, int block, int p_bf16,
+                           int s_bf16, float b1, float omb1, float b2,
+                           float omb2, float eps, float wd, void* stream) {
+  const AdamHp hp{b1, omb1, b2, omb2, eps, wd};
+  return SU_DISPATCH(adahessian_typed, p, m, v, g, sc, p_out, m_out, n,
+                     block, hp, (cudaStream_t)stream);
+}
+
+int adahessian_refresh_launch(const void* p, const void* m, const void* v,
+                              const void* g, const void* e, const void* sc,
+                              void* p_out, void* m_out, void* v_out,
+                              long long n, int block, int p_bf16, int s_bf16,
+                              int flag, float b1, float omb1, float b2,
+                              float omb2, float eps, float wd,
+                              void* stream) {
+  const AdamHp hp{b1, omb1, b2, omb2, eps, wd};
+  return SU_DISPATCH(adahessian_refresh_typed, p, m, v, g, e, sc, p_out,
+                     m_out, v_out, n, block, flag, hp, (cudaStream_t)stream);
+}
+
+// lion: (b1, omb1, b2, omb2, wd); signgd: (b1, omb1, -, -, wd); sgd: (mu,
+// -, -, -, 0)
+#define SU_MOMENTUM_LAUNCH(NAME, TYPED)                                      \
+  int NAME(const void* p, const void* m, const void* g, const void* sc,      \
+           void* p_out, void* m_out, long long n, int block, int p_bf16,     \
+           int s_bf16, float b1, float omb1, float b2, float omb2, float wd, \
+           void* stream) {                                                   \
+    const MomentumHp hp{b1, omb1, b2, omb2, wd};                             \
+    return SU_DISPATCH(TYPED, p, m, g, sc, p_out, m_out, n, block, hp,       \
+                       (cudaStream_t)stream);                                \
+  }
+
+SU_MOMENTUM_LAUNCH(lion_launch, lion_typed)
+SU_MOMENTUM_LAUNCH(signgd_launch, signgd_typed)
+SU_MOMENTUM_LAUNCH(sgd_launch, sgd_typed)
 
 }  // extern "C"

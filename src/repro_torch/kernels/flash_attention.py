@@ -35,7 +35,14 @@ positions, the softcap ``c * tanh(s / c)``, masked scores at -1e30, a
 reference's block sizes and its "skip" / "dense" schedules are not
 arguments: the schedules compute the same function, and the CUDA kernels
 always skip the tiles outside the causal / window band.  lse is not
-differentiable; the forward-mode twin (``use_jvp``) is not ported.
+differentiable.
+
+``use_jvp=True`` takes the twin of the Hutchinson path (the reference's
+``custom_jvp`` twin, ``flash_attention.py:432-547``): o from the forward
+kernel, and a backward of plain differentiable PyTorch over KV chunks of
+:func:`_chunk_len` keys, so that a gradient taken with
+``create_graph=True`` can be differentiated again and the HVP never
+reaches the dQ or dK/dV kernel.
 """
 from __future__ import annotations
 
@@ -311,12 +318,87 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _chunk_len(S: int, cap: int = 512) -> int:
+    """The twin's KV chunk: the largest divisor of S up to ``cap`` (the
+    reference's)."""
+    c = min(S, cap)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _attention_backward_chunked(q, k, v, do, *, causal=True, scale,
+                               window=None, softcap=None, q_offset=0):
+    """(dq, dk, dv) of attention in plain differentiable PyTorch over KV
+    chunks, all fp32: pass A recomputes each chunk's masked (softcapped)
+    scores and the row log-sum-exp, then o; pass B forms ``p = exp(z -
+    lse)``, ``ds = p * (do . v^T - rowsum(do * o)) * dcap`` and sums dq,
+    dk and dv (dk and dv over each GQA group).  Differentiating it gives
+    the second order of attention (the twin's backward)."""
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    q32, do32 = _grouped(q, Hkv), _grouped(do, Hkv)
+    k32, v32 = k.to(_f32), v.to(_f32)
+    mask = band_mask(Sq, Sk, causal=causal, window=window,
+                     q_offset=q_offset, device=q.device)
+    c = _chunk_len(Sk)
+    chunks, lse_parts = [], []
+    for c0 in range(0, Sk, c):
+        kc, mc = k32[:, :, c0:c0 + c], mask[:, c0:c0 + c]
+        s = torch.einsum("bkgsh,bkth->bkgst", q32, kc) * scale
+        dcap = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s, dcap = softcap * t, 1.0 - t * t
+        z = torch.where(mc, s, NEG_INF)
+        chunks.append((c0, z, mc, dcap))
+        lse_parts.append(torch.logsumexp(z, dim=-1))
+    lse = torch.logsumexp(torch.stack(lse_parts), dim=0)[..., None]
+    probs = [torch.where(mc, torch.exp(z - lse), 0.0)
+             for _, z, mc, _ in chunks]
+    o = sum(torch.einsum("bkgst,bkth->bkgsh", p, v32[:, :, c0:c0 + c])
+            for (c0, _, _, _), p in zip(chunks, probs))
+    delta = (do32 * o).sum(-1, keepdim=True)
+    dq = torch.zeros_like(q32)
+    dks, dvs = [], []
+    for (c0, _, _, dcap), p in zip(chunks, probs):
+        kc, vc = k32[:, :, c0:c0 + c], v32[:, :, c0:c0 + c]
+        ds = p * (torch.einsum("bkgsh,bkth->bkgst", do32, vc) - delta)
+        if dcap is not None:
+            ds = ds * dcap
+        dq = dq + torch.einsum("bkgst,bkth->bkgsh", ds, kc) * scale
+        dks.append(torch.einsum("bkgst,bkgsh->bkth", ds, q32) * scale)
+        dvs.append(torch.einsum("bkgst,bkgsh->bkth", p, do32))
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype),
+            torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+class _FlashAttentionTwin(torch.autograd.Function):
+    """o = attention(q, k, v) from the forward kernel; the backward is
+    :func:`_attention_backward_chunked`, differentiable PyTorch, so that
+    autograd can take the second order through it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        o, _ = flash_forward(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return _attention_backward_chunked(q, k, v, g, **ctx.opts) + (None,)
+
+
 def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
-                    softcap=None, q_offset=0):
+                    softcap=None, q_offset=0, use_jvp=False):
     """Fused attention: q (B, H, Sq, hd), k and v (B, Hkv, Sk, hd) in fp32
     or bf16 -> o like q, differentiable in q, k and v.  ``scale``
     defaults to 1/sqrt(hd); ``window`` None or ``WINDOW_NONE`` is global;
-    ``q_offset`` (>= 0) shifts the query positions."""
+    ``q_offset`` (>= 0) shifts the query positions.  ``use_jvp`` takes
+    the twin whose backward is plain PyTorch and differentiable again."""
     if q.shape[1] % k.shape[1] or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -329,8 +411,8 @@ def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
                 else int(window),
                 softcap=None if softcap is None else float(softcap),
                 q_offset=int(q_offset))
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), opts)
+    fn = _FlashAttentionTwin if use_jvp else _FlashAttention
+    return fn.apply(q.contiguous(), k.contiguous(), v.contiguous(), opts)
 
 
 # ---------------------------------------------------------------------------

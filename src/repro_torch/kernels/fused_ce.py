@@ -15,7 +15,12 @@ unembedding without the (N, Vp) logits ever existing:
   backward two sweeps recompute each logits tile and emit d(normed hidden)
             and dW from ``softmax - onehot``; the autograd functions pull
             d(normed hidden) back through the norm with autograd of the
-            plain :func:`apply_norm`.
+            plain :func:`apply_norm`;
+  twin      :func:`fused_lm_loss_jvp`, the labeled NLL for the Hutchinson
+            HVP: the forward kernel's value, and a backward of plain
+            differentiable PyTorch (2048-column chunks) that autograd can
+            differentiate again, so reverse-over-reverse never reaches a
+            backward kernel (the reference's ``custom_jvp`` twin).
 
 On a CUDA tensor each entry point launches the hand-written kernels of
 ``csrc/fused_ce.cu`` (and adds one to its count in ``KERNEL_LAUNCHES``):
@@ -555,6 +560,75 @@ def _backward(opts, h2, w, normp, labels, rowscale, lse, ll, g):
     return dh, dw, dnormp, (lse - ll) * g
 
 
+class _FusedNLLTwin(torch.autograd.Function):
+    """sum(rowscale * (lse - label logit)) without a norm: the forward is
+    the CE forward kernel (row 11); the backward is
+    :func:`_nll_backward_chunked`, differentiable PyTorch, so that a
+    gradient taken with ``create_graph=True`` can be differentiated again
+    (the HVP of the Hutchinson estimator)."""
+
+    @staticmethod
+    def forward(ctx, h2, w, rowscale, labels, opts):
+        normp = torch.zeros((2, h2.shape[1]), dtype=_f32, device=h2.device)
+        lse, ll = ce_forward(h2, w, normp, labels, **opts)
+        ctx.save_for_backward(h2, w, rowscale, labels)
+        ctx.opts = opts
+        return torch.sum(rowscale * (lse - ll))
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w, rowscale, labels = ctx.saved_tensors
+        dh, dw = _nll_backward_chunked(h2, w, rowscale, labels, g,
+                                       **ctx.opts)
+        return dh, dw, None, None, None
+
+
+def _nll_backward_chunked(h2, w, rowscale, labels, g, *, vocab, transpose_w,
+                          softcap, norm, eps, chunk=CHUNK):
+    """(dh, dW) of sum(rowscale * (lse - label logit)) in plain PyTorch
+    over vocab chunks, the reference's ``_fused_nll_jvp_rule`` sweeps
+    transposed: sweep A recomputes each chunk's logits (W cast to h's
+    dtype, fp32 products, softcap, padded columns at the sentinel) and the
+    log-sum-exp; sweep B forms ``d = (softmax - onehot) * rowscale * g``
+    per chunk and sums dh = d . W and dW = d^T . h.  Every operation is
+    differentiable, so the result is too (lse included: its derivative
+    reaches the second order).  The row scale (the mask) takes no
+    gradient."""
+    if norm is not None:
+        raise ValueError("the NLL twin takes normed hidden states (apply "
+                         "the norm first)")
+    N, D = h2.shape
+    Vp = _vp_of(w, transpose_w)
+    bv = vocab_chunk(Vp, chunk, 128)
+    h32 = h2.to(_f32)
+    lab = labels.to(torch.int64)[:, None]
+    chunks, lse_parts = [], []
+    for c0 in range(0, Vp, bv):
+        s, _, cols, dcap = _chunk_logits(h32, w, h2.dtype, c0, bv,
+                                         transpose_w, softcap, vocab)
+        chunks.append((c0, s, cols, dcap))
+        lse_parts.append(torch.logsumexp(s, dim=-1))
+    lse = torch.logsumexp(torch.stack(lse_parts), dim=0)
+    rsg = (rowscale * g).to(_f32)
+    dh = torch.zeros((N, D), dtype=_f32, device=h2.device)
+    dws = []
+    for c0, s, cols, dcap in chunks:
+        d = (torch.exp(s - lse[:, None])
+             - (cols[None, :] == lab).to(_f32)) * rsg[:, None]
+        if dcap is not None:
+            d = d * dcap
+        if transpose_w:
+            wc = w[:, c0:c0 + bv].to(h2.dtype).to(_f32)
+            dh = dh + d @ wc.T
+            dws.append(h32.T @ d)
+        else:
+            wc = w[c0:c0 + bv].to(h2.dtype).to(_f32)
+            dh = dh + d @ wc
+            dws.append(d.T @ h32)
+    dw = torch.cat(dws, dim=1 if transpose_w else 0).to(w.dtype)
+    return dh.to(h2.dtype), dw
+
+
 def _pack_norm(norm_kind, norm_scale, norm_bias, D, device):
     """(norm, (2, D) fp32 [scale; bias]); zeros without a norm."""
     if norm_kind is None:
@@ -611,6 +685,22 @@ def fused_lm_loss_sampled(hidden, w, seed, mask=None, *, vocab_size,
         norm_bias=norm_bias, norm_eps=norm_eps)
     seed = tuple(int(v) & _M32 for v in seed)
     return _FusedSampledNLL.apply(h2, w, normp, rs, seed, opts), n_valid
+
+
+def fused_lm_loss_jvp(hidden, w, labels, mask=None, *, vocab_size,
+                      transpose_w=False, softcap=None):
+    """The labeled NLL through the twin of the Hutchinson path: the value
+    from the CE forward kernel, derivatives of any order from plain
+    PyTorch (:class:`_FusedNLLTwin`).  No norm is fused: ``hidden`` is
+    already normed (the caller applies the final norm in PyTorch, where
+    autograd carries the tangent through it).  Returns ``(loss,
+    n_valid)``."""
+    h2, rs, n_valid, _, opts = _prep(
+        hidden, w, mask, vocab_size=vocab_size, transpose_w=transpose_w,
+        softcap=softcap, norm_kind=None, norm_scale=None, norm_bias=None,
+        norm_eps=0.0)
+    lab = labels.reshape(-1).to(torch.int32)
+    return _FusedNLLTwin.apply(h2, w, rs, lab, opts), n_valid
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
 """Plain PyTorch copies of the reference's oracles
 (``repro/kernels/ref.py``).
 
-The Sophia step, the Hessian EMA, the step with the refresh fused in and
-the AdamW step, on one flat tensor, are the optimizer engine's reference
-backend, the default of the reference trainer (``fused_kernel=False``),
-and the math of the plain versions of the engine kernels
-(``kernels/sophia_update.py``, rows 2-4 and 6 of the kernel table).  The
+The optimizer steps on one flat tensor (Sophia, its Hessian EMA and its
+step with the refresh fused in; AdamW; AdaHessian and its refresh-fused
+step; Lion; SignGD; SGD) are the optimizer engine's reference backend,
+the default of the reference trainer (``fused_kernel=False``), and the
+math of the plain versions of the engine kernels
+(``kernels/sophia_update.py``, rows 2-10 of the kernel table).  The
 flash-attention oracles hold the plain versions of
-``kernels/flash_attention.py`` and, through them, its CUDA kernels.
+``kernels/flash_attention.py`` and, through them, its CUDA kernels; the
+forward-mode oracle holds its ``flash_jvp`` twin.
 
 The operation order is the reference's, one PyTorch operation per
 rounding: the CUDA kernels repeat it operation for operation, so that on
@@ -90,6 +92,62 @@ def adamw_fused_ref(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay,
     return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
 
+def adahessian_fused_ref(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay,
+                         step):
+    """One AdaHessian step: Adam-shaped, v (the EMA of squared Hessian
+    estimates, refreshed out of band) read only; returns (p', m')."""
+    m_new = beta1 * m.to(_f32) + (1.0 - beta1) * g.to(_f32)
+    step = torch.as_tensor(step, dtype=_f32, device=g.device)
+    bc1 = 1.0 - beta1 ** step
+    bc2 = 1.0 - beta2 ** step
+    u = (m_new / bc1) / (torch.sqrt(v.to(_f32) / bc2) + eps)
+    p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * u
+    return p_new.to(p.dtype), m_new.to(m.dtype)
+
+
+def adahessian_step_refresh_ref(p, m, v, g, e, *, lr, flag, scale, beta1,
+                                beta2, eps, weight_decay, step):
+    """The AdaHessian step with the flag-gated refresh: when ``flag`` is
+    set, v first absorbs ``(scale * e)^2`` (``hessian_ema_ref`` with
+    ``square=True``, rounded through v's dtype) and the step reads the new
+    v; when clear, v passes through.  Returns (p', m', v')."""
+    v_sel = (hessian_ema_ref(v, e, beta2=beta2, scale=scale, square=True)
+             if float(flag) > 0.5 else v)
+    p2, m2 = adahessian_fused_ref(p, m, v_sel, g, lr=lr, beta1=beta1,
+                                  beta2=beta2, eps=eps,
+                                  weight_decay=weight_decay, step=step)
+    return p2, m2, v_sel
+
+
+def lion_fused_ref(p, m, g, *, lr, beta1, beta2, weight_decay):
+    """One Lion step: the update is the sign of the beta1 interpolation of
+    the OLD m and g; the stored m' is the beta2 EMA.  Returns (p', m').
+    ``torch.sign`` gives 0 at +-0 (and at NaN)."""
+    g32 = g.to(_f32)
+    m32 = m.to(_f32)
+    u = torch.sign(beta1 * m32 + (1.0 - beta1) * g32)
+    p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * u
+    m_new = beta2 * m32 + (1.0 - beta2) * g32
+    return p_new.to(p.dtype), m_new.to(m.dtype)
+
+
+def signgd_fused_ref(p, m, g, *, lr, beta1, weight_decay):
+    """One momentum SignSGD step (the paper's 'Clip' ablation): m' = beta1
+    m + (1-beta1) g, p' = p (1 - lr wd) - lr sign(m').  Returns (p',
+    m')."""
+    m_new = beta1 * m.to(_f32) + (1.0 - beta1) * g.to(_f32)
+    p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * torch.sign(m_new)
+    return p_new.to(p.dtype), m_new.to(m.dtype)
+
+
+def sgd_fused_ref(p, m, g, *, lr, momentum):
+    """One SGD step with heavy-ball momentum and no weight decay: m' = mu
+    m + g, p' = p - lr m'.  Returns (p', m')."""
+    m_new = momentum * m.to(_f32) + g.to(_f32)
+    p_new = p.to(_f32) - lr * m_new
+    return p_new.to(p.dtype), m_new.to(m.dtype)
+
+
 # ---------------------------------------------------------------------------
 # flash attention (rows 16-18 of the kernel table): the plain-softmax
 # oracles, mirroring the kernels' fp32 rounding points
@@ -170,3 +228,31 @@ def flash_attention_grads_ref(q, k, v, g, *, causal=True, scale=None,
     dk = dkx.reshape(B, Hkv, G, Sk, hd).sum(2)
     dv = dvx.reshape(B, Hkv, G, Sk, hd).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_jvp_ref(q, k, v, dq, dk, dv, *, causal=True, scale=None,
+                            window=None, softcap=None, q_offset=0):
+    """Forward-mode oracle of the attention output's tangent, all fp32:
+    ``do = (p * dz) @ v - rowsum(p * dz) * o + p @ dv`` with ``dz = dcap *
+    scale * (dq k^T + q dk^T)``; returns ``do`` in q's dtype."""
+    B, H, Sq, hd = q.shape
+    G = H // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    s_raw, _, p = _attn_probs_ref(q, k, causal=causal, scale=scale,
+                                  window=window, softcap=softcap,
+                                  q_offset=q_offset)
+    kx = k.repeat_interleave(G, dim=1).to(_f32)
+    vx = v.repeat_interleave(G, dim=1).to(_f32)
+    dkx = dk.repeat_interleave(G, dim=1).to(_f32)
+    dvx = dv.repeat_interleave(G, dim=1).to(_f32)
+    q32, dq32 = q.to(_f32), dq.to(_f32)
+    o32 = torch.einsum("bhqk,bhkd->bhqd", p, vx)
+    dz = (torch.einsum("bhqd,bhkd->bhqk", dq32, kx)
+          + torch.einsum("bhqd,bhkd->bhqk", q32, dkx)) * scale
+    if softcap is not None:
+        dz = dz * (1.0 - torch.tanh(s_raw / softcap) ** 2)
+    pdz = p * dz
+    do = (torch.einsum("bhqk,bhkd->bhqd", pdz, vx)
+          - pdz.sum(-1, keepdim=True) * o32
+          + torch.einsum("bhqk,bhkd->bhqd", p, dvx))
+    return do.to(q.dtype)

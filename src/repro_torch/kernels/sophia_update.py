@@ -1,36 +1,42 @@
 """Fused optimizer-engine kernels on flat shards: the counterpart of
-``repro/kernels/sophia_update.py`` for the Sophia step, the Hessian EMA,
-the step with the refresh fused in, and AdamW.
+``repro/kernels/sophia_update.py``: the Sophia step, the Hessian EMA, the
+step with the refresh fused in, AdamW, the AdaHessian step with and
+without its refresh, Lion, SignGD and SGD.
 
 The update is elementwise over every parameter: pure memory-bound work.
 Each kernel reads its operands once and writes its outputs once.  The
 engine (``core/engine.py``, backend ``"fused"``) calls them on whole
 dtype-homogeneous flat shards whose length is a multiple of ``block``
 (tail-padded once at init), so one launch covers the parameter set.
-Compute is fp32; p, m and h (AdamW's v) keep their stored dtype, fp32 or
-bf16; g and the estimate e are fp32.  The clip counts are per ``block``
-elements, int32 of shape ``(n // block,)``, as the reference's grid
-writes them.
+Compute is fp32; p, m and h (AdamW's and AdaHessian's v) keep their
+stored dtype, fp32 or bf16; g and the estimate e are fp32.  Sophia's clip
+counts are per ``block`` elements, int32 of shape ``(n // block,)``, as
+the reference's grid writes them.
 
 On a CUDA tensor each wrapper launches its hand-written kernel of
 ``csrc/sophia_update.cu`` and adds one to its count in
 ``KERNEL_LAUNCHES``:
 
-  ``sophia_fused_block``          ``sophia_step``     (TPU ``_sophia_kernel``,
-                                                       row 2)
-  ``hessian_ema_block``           ``hessian_ema``     (``_hess_ema_kernel``,
-                                                       row 3)
-  ``sophia_refresh_fused_block``  ``sophia_refresh``  (``_sophia_refresh_kernel``,
-                                                       row 4)
-  ``adamw_fused_block``           ``adamw_step``      (``_adamw_kernel``, row 6)
+  wrapper                          count               TPU kernel body, row
+  ``sophia_fused_block``           ``sophia_step``     ``_sophia_kernel``, 2
+  ``hessian_ema_block``            ``hessian_ema``     ``_hess_ema_kernel``, 3
+  ``sophia_refresh_fused_block``   ``sophia_refresh``  ``_sophia_refresh_kernel``,
+                                                       4
+  ``adahessian_refresh_fused_block``  ``adahessian_refresh``
+                                      ``_adahessian_refresh_kernel``, 5
+  ``adamw_fused_block``            ``adamw_step``      ``_adamw_kernel``, 6
+  ``adahessian_fused_block``       ``adahessian_step`` ``_adahessian_kernel``, 7
+  ``lion_fused_block``             ``lion_step``       ``_lion_kernel``, 8
+  ``signgd_fused_block``           ``signgd_step``     ``_signgd_kernel``, 9
+  ``sgd_fused_block``              ``sgd_step``        ``_sgd_kernel``, 10
 
 On a CPU tensor it computes the plain version beside it (``*_plain``): the
 ``kernels/ref.py`` math with the per-block counts summed from
 ``reshape(-1, block)``.  The kernels repeat that math operation for
 operation, so on the card a kernel and its plain version agree bit for
 bit.  Scalars that change from step to step (lr, the GNB factor B,
-AdamW's bias corrections from the step count) stay 0-dim device tensors:
-no step waits on the host.
+AdamW's and AdaHessian's bias corrections from the step count) stay 0-dim
+device tensors: no step waits on the host.
 """
 from __future__ import annotations
 
@@ -151,6 +157,47 @@ def adamw_fused_block_plain(p, m, v, g, lr, step, *, beta1, beta2, eps,
                                 step=_scalar(step, p.device))
 
 
+def adahessian_fused_block_plain(p, m, v, g, lr, step, *, beta1, beta2, eps,
+                                 weight_decay, block=BLOCK):
+    """(p', m'); v is read only."""
+    return kref.adahessian_fused_ref(p, m, v, g, lr=_scalar(lr, p.device),
+                                     beta1=beta1, beta2=beta2, eps=eps,
+                                     weight_decay=weight_decay,
+                                     step=_scalar(step, p.device))
+
+
+def adahessian_refresh_fused_block_plain(p, m, v, g, e, lr, flag, scale,
+                                         step, *, beta1, beta2, eps,
+                                         weight_decay, block=BLOCK):
+    """(p', m', v'): when ``flag`` is set, v first absorbs ``(scale *
+    e)^2``, rounded through its dtype, and the step reads the new v."""
+    return kref.adahessian_step_refresh_ref(
+        p, m, v, g, e, lr=_scalar(lr, p.device), flag=flag,
+        scale=_scalar(scale, p.device), beta1=beta1, beta2=beta2, eps=eps,
+        weight_decay=weight_decay, step=_scalar(step, p.device))
+
+
+def lion_fused_block_plain(p, m, g, lr, *, beta1, beta2, weight_decay,
+                           block=BLOCK):
+    """(p', m')."""
+    return kref.lion_fused_ref(p, m, g, lr=_scalar(lr, p.device),
+                               beta1=beta1, beta2=beta2,
+                               weight_decay=weight_decay)
+
+
+def signgd_fused_block_plain(p, m, g, lr, *, beta1, weight_decay,
+                             block=BLOCK):
+    """(p', m')."""
+    return kref.signgd_fused_ref(p, m, g, lr=_scalar(lr, p.device),
+                                 beta1=beta1, weight_decay=weight_decay)
+
+
+def sgd_fused_block_plain(p, m, g, lr, *, momentum, block=BLOCK):
+    """(p', m')."""
+    return kref.sgd_fused_ref(p, m, g, lr=_scalar(lr, p.device),
+                              momentum=momentum)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 
@@ -167,6 +214,17 @@ _SIGNATURES = {
                              + [_FLOAT] * 8 + [_PTR],
     "adamw_launch": [_PTR] * 8 + [_LL, _INT, _INT, _INT]
                     + [_FLOAT] * 6 + [_PTR],
+    "adahessian_step_launch": [_PTR] * 7 + [_LL, _INT, _INT, _INT]
+                              + [_FLOAT] * 6 + [_PTR],
+    "adahessian_refresh_launch": [_PTR] * 9 + [_LL, _INT, _INT, _INT, _INT]
+                                 + [_FLOAT] * 6 + [_PTR],
+    # Lion, SignGD, SGD: (b1, 1-b1, b2, 1-b2, wd), unused ones 0
+    "lion_launch": [_PTR] * 6 + [_LL, _INT, _INT, _INT] + [_FLOAT] * 5
+                   + [_PTR],
+    "signgd_launch": [_PTR] * 6 + [_LL, _INT, _INT, _INT] + [_FLOAT] * 5
+                     + [_PTR],
+    "sgd_launch": [_PTR] * 6 + [_LL, _INT, _INT, _INT] + [_FLOAT] * 5
+                  + [_PTR],
 }
 
 
@@ -287,6 +345,95 @@ def adamw_fused_block(p, m, v, g, lr, step, *, beta1, beta2, eps,
     return p2, m2, v2
 
 
+def adahessian_fused_block(p, m, v, g, lr, step, *, beta1, beta2, eps,
+                           weight_decay, block=BLOCK):
+    """One AdaHessian step on flat tensors, v read only (refreshed out of
+    band): returns (p', m').  ``step`` is the bias-correction step, a
+    number or a 0-dim device tensor."""
+    check_kernel_args("adahessian_fused_block", block, p=p, m=m, v=v, g=g)
+    kw = dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
+              block=block)
+    if p.device.type == "cpu":
+        return adahessian_fused_block_plain(p, m, v, g, lr, step, **kw)
+    bc1, bc2 = _bias_corrections(step, beta1, beta2, p.device)
+    sc = torch.stack([_scalar(lr, p.device), bc1, bc2])
+    p2, m2 = torch.empty_like(p), torch.empty_like(m)
+    _launch("adahessian_step_launch", "adahessian_step",
+            *_ptrs(p, m, v, g, sc, p2, m2), *_dims(p, m, block),
+            beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+            weight_decay, _stream(p))
+    return p2, m2
+
+
+def adahessian_refresh_fused_block(p, m, v, g, e, lr, flag, scale, step, *,
+                                   beta1, beta2, eps, weight_decay,
+                                   block=BLOCK):
+    """The AdaHessian step with the squared-estimate EMA fused in: one
+    sweep that reads v once.  ``flag`` (a host 0/1) selects whether v
+    absorbs ``(scale * e)^2`` first; ``scale`` and ``step`` may be 0-dim
+    device tensors.  Returns (p', m', v')."""
+    check_kernel_args("adahessian_refresh_fused_block", block, p=p, m=m,
+                      v=v, g=g, e=e)
+    kw = dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
+              block=block)
+    if p.device.type == "cpu":
+        return adahessian_refresh_fused_block_plain(p, m, v, g, e, lr, flag,
+                                                    scale, step, **kw)
+    bc1, bc2 = _bias_corrections(step, beta1, beta2, p.device)
+    sc = torch.stack([_scalar(lr, p.device), _scalar(scale, p.device), bc1,
+                      bc2])
+    p2, m2, v2 = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+    _launch("adahessian_refresh_launch", "adahessian_refresh",
+            *_ptrs(p, m, v, g, e, sc, p2, m2, v2), *_dims(p, m, block),
+            int(float(flag) > 0.5), beta1, 1.0 - beta1, beta2, 1.0 - beta2,
+            eps, weight_decay, _stream(p))
+    return p2, m2, v2
+
+
+def _momentum_step(launch, count, p, m, g, lr, block, hypers):
+    """Lion / SignGD / SGD on the card: (p', m')."""
+    sc = _scalar(lr, p.device).reshape(1)
+    p2, m2 = torch.empty_like(p), torch.empty_like(m)
+    _launch(launch, count, *_ptrs(p, m, g, sc, p2, m2), *_dims(p, m, block),
+            *hypers, _stream(p))
+    return p2, m2
+
+
+def lion_fused_block(p, m, g, lr, *, beta1, beta2, weight_decay,
+                     block=BLOCK):
+    """One Lion step on flat tensors: the sign of the beta1 interpolation
+    of the old m and g steps p; m' is the beta2 EMA.  Returns (p', m')."""
+    check_kernel_args("lion_fused_block", block, p=p, m=m, g=g)
+    if p.device.type == "cpu":
+        return lion_fused_block_plain(p, m, g, lr, beta1=beta1, beta2=beta2,
+                                      weight_decay=weight_decay, block=block)
+    return _momentum_step("lion_launch", "lion_step", p, m, g, lr, block,
+                          (beta1, 1.0 - beta1, beta2, 1.0 - beta2,
+                           weight_decay))
+
+
+def signgd_fused_block(p, m, g, lr, *, beta1, weight_decay, block=BLOCK):
+    """One momentum SignSGD step on flat tensors: returns (p', m')."""
+    check_kernel_args("signgd_fused_block", block, p=p, m=m, g=g)
+    if p.device.type == "cpu":
+        return signgd_fused_block_plain(p, m, g, lr, beta1=beta1,
+                                        weight_decay=weight_decay,
+                                        block=block)
+    return _momentum_step("signgd_launch", "signgd_step", p, m, g, lr, block,
+                          (beta1, 1.0 - beta1, 0.0, 0.0, weight_decay))
+
+
+def sgd_fused_block(p, m, g, lr, *, momentum, block=BLOCK):
+    """One SGD step with heavy-ball momentum, no weight decay: returns
+    (p', m')."""
+    check_kernel_args("sgd_fused_block", block, p=p, m=m, g=g)
+    if p.device.type == "cpu":
+        return sgd_fused_block_plain(p, m, g, lr, momentum=momentum,
+                                     block=block)
+    return _momentum_step("sgd_launch", "sgd_step", p, m, g, lr, block,
+                          (momentum, 0.0, 0.0, 0.0, 0.0))
+
+
 # ---------------------------------------------------------------------------
 # bytes of one call (the bound in chip_smoke.py)
 
@@ -295,13 +442,18 @@ def engine_kernel_bytes(name: str, n: int, p_dtype: torch.dtype,
                         state_dtype: torch.dtype, block: int = BLOCK) -> int:
     """Bytes one call must move: each input read once and each output
     written once (p and p' in p's dtype, m, h/v and their outputs in the
-    state dtype, g and e fp32, the int32 clip counts)."""
+    state dtype, g and e fp32, Sophia's int32 clip counts)."""
     bp = torch.empty((), dtype=p_dtype).element_size()
     bs = torch.empty((), dtype=state_dtype).element_size()
     counts = 4 * (n // block)
+    momentum = 2 * bp + 2 * bs + 4                      # p m g; p' m'
     per = {"sophia_step": 2 * bp + 3 * bs + 4,          # p m h g; p' m'
            "hessian_ema": 2 * bs + 4,                   # h e; h'
            "sophia_refresh": 2 * bp + 4 * bs + 8,       # p m h g e; p' m' h'
-           "adamw_step": 2 * bp + 4 * bs + 4}           # p m v g; p' m' v'
+           "adamw_step": 2 * bp + 4 * bs + 4,           # p m v g; p' m' v'
+           "adahessian_refresh": 2 * bp + 4 * bs + 8,   # p m v g e; p' m' v'
+           "adahessian_step": 2 * bp + 3 * bs + 4,      # p m v g; p' m'
+           "lion_step": momentum, "signgd_step": momentum,
+           "sgd_step": momentum}
     extra = counts if name in ("sophia_step", "sophia_refresh") else 0
     return n * per[name] + extra

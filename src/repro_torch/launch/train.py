@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
         --steps 400 --global-batch 8 --seq-len 1024 --ckpt-dir /tmp/run1
 
-Trains with Sophia-G and the GNB estimator, or with ``--opt adamw``,
+Trains with ``--opt`` sophia_g (the default), sophia_h, adamw, lion,
+signgd, sgd or adahessian, the hessian-aware ones (Sophia, AdaHessian)
+with ``--estimator`` gnb (the default), hutchinson or empirical_fisher,
 through flash attention and the logits-free fused loss (the CUDA kernels
 on the GPU, their plain versions with ``--device cpu``;
 ``--no-fused-attn`` takes the materialized-scores attention;
@@ -13,11 +15,11 @@ prints the reference's ``step N loss ... gnorm ...`` lines, and at the
 end, on the GPU, the peak device memory.  With ``--ckpt-dir`` it
 checkpoints every ``--ckpt-every`` steps and at the end, and resumes from
 the newest complete checkpoint there; resuming with another optimizer or
-state dtype is refused.  The reference's flags of options this slice does
-not port (``--no-fused-loss``, another ``--opt`` or ``--estimator``,
-``--remat``, ``--compress-grads``, ``--compress-hess``,
-``--comm-telemetry``) raise ``NotImplementedError``; the multi-host and
-elastic flags are not offered.
+state dtype is refused.  The reference's flags of options the port does
+not have yet (``--no-fused-loss``, ``--remat``, ``--compress-grads``,
+``--compress-hess``, ``--comm-telemetry``) raise
+``NotImplementedError``; the multi-host and elastic flags are not
+offered.
 """
 from __future__ import annotations
 
@@ -27,11 +29,12 @@ import time
 import torch
 
 from ..configs import ARCHS, get_config
+from ..core.engine import FAMILIES
 from ..data import DataConfig, make_source
 from ..serve.engine import resolve_device
 from ..train import TrainerConfig, checkpoint as ckpt, make_engine, \
     make_train_fns
-from ..train.trainer import to_device_batch
+from ..train.trainer import ESTIMATORS, to_device_batch
 
 
 def main(argv=None):
@@ -39,8 +42,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="gpt2-small", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config")
-    ap.add_argument("--opt", default="sophia_g")
-    ap.add_argument("--estimator", default="gnb")
+    ap.add_argument("--opt", default="sophia_g", choices=list(FAMILIES))
+    ap.add_argument("--estimator", default="gnb", choices=list(ESTIMATORS))
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=16)

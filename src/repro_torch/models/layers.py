@@ -136,7 +136,7 @@ def full_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0):
 
 
 def _flash_attention_proj(p, x, cfg: ModelConfig, *, window=None,
-                          layer_scale=1.0):
+                          layer_scale=1.0, use_jvp=False):
     """The reference's flash route (``layers.py:_flash_attention_proj``):
     qkv, heads to (B, H, S, hd), the flash kernels, back, then the output
     projection.  Its scale is ``layer_scale / sqrt(hd)`` in Python double
@@ -149,7 +149,8 @@ def _flash_attention_proj(p, x, cfg: ModelConfig, *, window=None,
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True,
                         scale=float(layer_scale) / math.sqrt(cfg.hd),
-                        window=window, softcap=cfg.attn_logit_softcap)
+                        window=window, softcap=cfg.attn_logit_softcap,
+                        use_jvp=use_jvp)
     out = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(dt)
 
@@ -160,20 +161,18 @@ TRAIN_ATTN_IMPLS = ("auto", "full", "chunked", "flash", "flash_jvp")
 def train_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0,
                     impl="auto"):
     """Route one training attention call: "flash" takes the flash kernels
-    (:func:`_flash_attention_proj`); "auto" and "full" take
-    :func:`full_attention` up to 4096 tokens.  The custom_jvp twin
-    ("flash_jvp") and the chunked route (above 4096 tokens) are not ported
-    yet and raise."""
+    (:func:`_flash_attention_proj`), "flash_jvp" their twin of the
+    Hutchinson HVP (the forward kernel, a backward that autograd can
+    differentiate again); "auto" and "full" take :func:`full_attention`
+    up to 4096 tokens.  The chunked route (above 4096 tokens) is not
+    ported yet and raises."""
     impl = impl or "auto"
     if impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "flash":
+    if impl in ("flash", "flash_jvp"):
         return _flash_attention_proj(p, x, cfg, window=window,
-                                     layer_scale=layer_scale)
-    if impl == "flash_jvp":
-        raise NotImplementedError(
-            "attention impl 'flash_jvp' (the forward-mode twin for the "
-            "Hutchinson HVP) is not ported yet; use 'flash'")
+                                     layer_scale=layer_scale,
+                                     use_jvp=impl == "flash_jvp")
     if impl == "chunked" or x.shape[1] > 4096:
         raise NotImplementedError(
             "chunked training attention (sequences above 4096 tokens) is "

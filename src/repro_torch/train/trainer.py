@@ -1,25 +1,32 @@
 """Training loop, Algorithm 3 with the refresh at ``t % k == 0``: the
-counterpart of ``repro/train/trainer.py`` for Sophia-G with the GNB
-estimator and for AdamW, with flash attention (``fused_attn``, the
-default), the logits-free fused loss and, with ``fused_kernel``, the
-engine kernels.
+counterpart of ``repro/train/trainer.py`` for every optimizer of the
+paper's comparison (Sophia-G and Sophia-H, AdamW, Lion, SignGD, SGD,
+AdaHessian) and the GNB, Hutchinson and empirical-Fisher estimators, with
+flash attention (``fused_attn``, the default), the logits-free fused loss
+and, with ``fused_kernel``, the engine kernels.
 
 Every step:
   grad accumulation over microbatches -> global-norm clip (threshold 1.0,
   trigger telemetry) -> ravel to flat fp32 shards -> engine update.
-On a refresh step the engine update is ``step_with_refresh``: before it,
-the GNB estimate is drawn on the first ``hess_subbatch`` rows of the batch
-from the pre-update parameters (ŷ drawn inside the fused CE forward sweep,
-ĝ by autograd, squared in flat space) and B = the sweep's valid-position
-count folds into the Hessian EMA.  The reference makes this one compiled
+On a refresh step of a hessian-aware optimizer (Sophia, AdaHessian) the
+engine update is ``step_with_refresh``: before it, the estimate is taken
+on the first ``hess_subbatch`` rows of the batch from the pre-update
+parameters and folds into the Hessian EMA with its scale.  GNB draws ŷ
+inside the fused CE forward sweep, takes ĝ by autograd and squares it in
+flat space, B = the sweep's valid-position count; Hutchinson takes u ⊙ Hu
+through the loss and attention twins (``fused_jvp``, ``flash_jvp``),
+scale 1; the empirical Fisher squares the true-label gradient, B = the
+sub-batch's positions.  The reference makes this one compiled
 program under a traced flag; the port runs eagerly and branches in Python
 on the same flag.
 
-The reference draws the refresh's noise seed from its JAX key stream
+The reference draws the refresh's randomness from its JAX key stream
 (``fold_in(fold_in(rng, RNG_TAG_HESS), step)``), which PyTorch cannot
 reproduce; the port derives its own from ``(seed, RNG_TAG_HESS, step)``
-with numpy (:func:`hess_seed`).  ``hess_seed_fn(step)`` replaces that
-derivation; the parity tests use it to pass in the reference's seeds.
+with numpy: GNB's noise seed (:func:`hess_seed`) and Hutchinson's probe
+(:func:`hess_probe`, a ``torch.Generator`` seeded from it).
+``hess_seed_fn(step)`` and ``probe_fn(step, layout)`` replace those
+draws; the parity tests use them to pass in the reference's.
 
 Options of the reference trainer this slice does not port raise
 ``NotImplementedError`` (:func:`check_ported`).
@@ -33,14 +40,17 @@ import numpy as np
 import torch
 
 from ..core import (OptimizerEngine, clip_by_global_norm, constant,
+                    empirical_fisher_estimator_flat,
                     gnb_ghat_flat_from_loss, hessian_aware_optimizer,
-                    linear_warmup_cosine, subsample_batch)
+                    hutchinson_estimator_flat, linear_warmup_cosine,
+                    subsample_batch)
 from ..core.types import flat_tensors, tree_unflatten
 from ..models import ModelConfig, get_model
 from ..serve.engine import resolve_device
 from .train_state import TrainState
 
 RNG_TAG_HESS = 1           # estimator label sampling (the reference's tag)
+ESTIMATORS = ("gnb", "hutchinson", "empirical_fisher")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +76,7 @@ class TrainerConfig:
     fused_attn: bool = True            # flash attention (rows 16-18) while
     #                                    attn_impl is "auto"; False trains
     #                                    on the materialized-scores route
-    fused_kernel: bool = False         # engine kernels (rows 2-4, 6):
+    fused_kernel: bool = False         # engine kernels (rows 2-10):
     #                                    the engine's "fused" backend
     fused_loss: bool = True            # the logits-free fused CE kernels
     compress_grads: bool = False
@@ -81,12 +91,9 @@ def check_ported(tc: TrainerConfig) -> None:
     port, rather than quietly running something else."""
     refused = {
         f"attn_impl={tc.attn_impl!r}":
-            tc.attn_impl not in ("auto", "full", "flash"),
+            tc.attn_impl not in ("auto", "full", "flash", "flash_jvp"),
         "fused_loss=False (the chunked loss draws with jax.random)":
             not tc.fused_loss,
-        f"estimator={tc.estimator!r}": tc.estimator != "gnb",
-        f"optimizer={tc.optimizer!r}": tc.optimizer not in ("sophia_g",
-                                                             "adamw"),
         "compress_grads": tc.compress_grads,
         "compress_hess": tc.compress_hess,
         "comm_telemetry": tc.comm_telemetry,
@@ -95,10 +102,12 @@ def check_ported(tc: TrainerConfig) -> None:
     bad = [name for name, hit in refused.items() if hit]
     if bad:
         raise NotImplementedError(
-            "not ported yet (the port trains Sophia-G with the GNB "
-            f"estimator, and AdamW, with the fused loss): {', '.join(bad)}")
+            "not ported yet (the port trains with the fused loss, without "
+            f"remat or compression): {', '.join(bad)}")
     if tc.state_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"state_dtype {tc.state_dtype!r}")
+    if tc.estimator not in ESTIMATORS:
+        raise ValueError(f"unknown estimator {tc.estimator!r}")
 
 
 def make_schedule(tc: TrainerConfig):
@@ -109,15 +118,28 @@ def make_schedule(tc: TrainerConfig):
 
 def make_engine(tc: TrainerConfig) -> OptimizerEngine:
     """Engine for ``tc.optimizer`` with the paper's per-optimizer hypers
-    (the reference's table), on the ``fused`` backend (the engine kernels)
-    with ``tc.fused_kernel`` and the ``reference`` backend without."""
-    if tc.optimizer == "adamw":
-        hypers = dict(beta1=0.9, beta2=0.95, eps=1e-8,
-                      weight_decay=tc.weight_decay)
-    else:
+    (the reference's table, ``trainer.py:133-155``), on the ``fused``
+    backend (the engine kernels) with ``tc.fused_kernel`` and the
+    ``reference`` backend without."""
+    name = tc.optimizer
+    if name in ("sophia_g", "sophia_h"):
         hypers = dict(beta1=tc.beta1, beta2=tc.beta2, gamma=tc.gamma,
                       eps=tc.eps, weight_decay=tc.weight_decay,
                       clip_threshold=tc.clip_threshold)
+    elif name == "adamw":
+        hypers = dict(beta1=0.9, beta2=0.95, eps=1e-8,
+                      weight_decay=tc.weight_decay)
+    elif name == "lion":
+        hypers = dict(beta1=0.95, beta2=0.98, weight_decay=tc.weight_decay)
+    elif name == "signgd":
+        hypers = dict(beta1=tc.beta1, weight_decay=tc.weight_decay)
+    elif name == "adahessian":
+        hypers = dict(beta1=0.92, beta2=0.99, eps=1e-8,
+                      weight_decay=tc.weight_decay)
+    elif name == "sgd":
+        hypers = dict(momentum=0.0)
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
     sdt = torch.bfloat16 if tc.state_dtype == "bfloat16" else torch.float32
     return OptimizerEngine(tc.optimizer, hypers=hypers,
                            backend="fused" if tc.fused_kernel
@@ -132,14 +154,29 @@ def hess_seed(seed: int, step: int):
     return int(bits[0]), int(bits[1])
 
 
+def hess_probe(seed: int, step: int, layout, device):
+    """The port's Hutchinson probe u ~ N(0, I) of the refresh at ``step``:
+    one fp32 draw per flat shard (as the reference draws it, per shard)
+    from a ``torch.Generator`` on ``device`` seeded from numpy with
+    ``(seed, RNG_TAG_HESS, step)``."""
+    gen_seed = int(np.random.default_rng((seed, RNG_TAG_HESS, step))
+                   .integers(0, 1 << 63, dtype=np.int64))
+    gen = torch.Generator(device=device).manual_seed(gen_seed)
+    return tuple(torch.randn((n,), generator=gen, dtype=torch.float32,
+                             device=device) for n in layout.shard_sizes)
+
+
 def to_device_batch(batch: dict, device) -> dict:
     return {key: torch.as_tensor(np.asarray(value)).to(device)
             for key, value in batch.items()}
 
 
 def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
-                   hess_seed_fn: Optional[Callable] = None):
-    """Returns ``(init_fn, train_step)``.
+                   hess_seed_fn: Optional[Callable] = None,
+                   probe_fn: Optional[Callable] = None):
+    """Returns ``(init_fn, train_step)``.  ``hess_seed_fn(step)`` replaces
+    GNB's noise seed and ``probe_fn(step, layout)`` Hutchinson's probe
+    shards (:func:`hess_seed`, :func:`hess_probe`).
 
     ``init_fn(params=None) -> TrainState``: random parameters from a
     ``torch.Generator`` seeded with ``tc.seed`` on the device, or the given
@@ -153,10 +190,15 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
     schedule = make_schedule(tc)
     clipper = clip_by_global_norm(tc.grad_clip)
     seed_of = hess_seed_fn or (lambda step: hess_seed(tc.seed, step))
+    probe_of = probe_fn or (lambda step, layout:
+                            hess_probe(tc.seed, step, layout, device))
     # fused_attn applies only while attn_impl is "auto"; an explicit impl
     # wins (the reference's mapping, trainer.py:216-221)
     attn_impl = (tc.attn_impl if tc.attn_impl != "auto"
                  else ("flash" if tc.fused_attn else "auto"))
+    # the HVP differentiates twice: it takes the attention twin of the
+    # flash route, as the reference does
+    hvp_attn_impl = "flash_jvp" if attn_impl == "flash" else attn_impl
 
     def init_fn(params=None) -> TrainState:
         if params is None:
@@ -193,19 +235,37 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         return (loss_sum * inv, {k: v * inv for k, v in met_sum.items()},
                 [g * inv for g in g_sum])
 
-    def estimate_flat(params, batch, seed):
-        """(ĝ² shards, B) on the estimator sub-batch."""
+    def estimate_flat(params, batch, step):
+        """(estimate shards, scale) on the estimator sub-batch, dispatched
+        on ``tc.estimator`` (the reference's ``_estimate_flat``)."""
         tree = params.param_tree()
+        lay = engine.layout(tree)
         sub = (subsample_batch(batch, tc.hess_subbatch) if tc.hess_subbatch
                else batch)
+        if tc.estimator == "gnb":
+            def sampled_loss():
+                return model.sampled_loss_fn(cfg, params, sub, seed_of(step),
+                                             attn_impl=attn_impl,
+                                             remat=tc.remat)
 
-        def sampled_loss():
-            return model.sampled_loss_fn(cfg, params, sub, seed,
-                                         attn_impl=attn_impl, remat=tc.remat)
+            g_sh, scale = gnb_ghat_flat_from_loss(sampled_loss, tree, lay)
+            return tuple(g * g for g in g_sh), scale
+        if tc.estimator == "hutchinson":
+            def loss():
+                return model.loss_fn(cfg, params, sub,
+                                     attn_impl=hvp_attn_impl, remat=tc.remat,
+                                     loss_impl="fused_jvp")[0]
 
-        g_sh, scale = gnb_ghat_flat_from_loss(sampled_loss, tree,
-                                              engine.layout(tree))
-        return tuple(g * g for g in g_sh), scale
+            return hutchinson_estimator_flat(loss, tree, probe_of(step, lay),
+                                             lay), 1.0
+        # empirical Fisher: B counts the sub-batch's positions
+        def loss():
+            return model.loss_fn(cfg, params, sub, attn_impl=attn_impl,
+                                 remat=tc.remat)[0]
+
+        lead = sub[sorted(sub)[0]]
+        n = lead.shape[0] * (lead.shape[1] if lead.dim() > 1 else 1)
+        return empirical_fisher_estimator_flat(loss, tree, lay), float(n)
 
     def train_step(state: TrainState, batch, do_refresh=False):
         """One step (Algorithm 3 lines 6-13, the refresh on the flag)."""
@@ -217,7 +277,7 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         g_sh = engine.ravel_grads(tree, grads)
         lr = schedule(state.opt_state.count)
         if do_refresh and engine.hessian_aware:
-            est_sh, scale = estimate_flat(params, batch, seed_of(state.step))
+            est_sh, scale = estimate_flat(params, batch, state.step)
             _, opt_state = engine.step_with_refresh(
                 state.opt_state, tree, g_sh, lr, est_sh, scale, True)
         else:
@@ -238,13 +298,15 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
 def train_loop(cfg: ModelConfig, tc: TrainerConfig, source, *,
                num_steps: int, state: Optional[TrainState] = None,
                device=None, hess_seed_fn: Optional[Callable] = None,
+               probe_fn: Optional[Callable] = None,
                callback: Optional[Callable] = None, start_step: int = 0):
     """Single-process loop: the batch of step t from ``source.batch_at(t)``
     and the refresh at ``t % hess_interval == 0``.  Returns ``(state,
     history)``, the history one dict of floats per step."""
     device = resolve_device(device)
     init_fn, train_step = make_train_fns(cfg, tc, device=device,
-                                         hess_seed_fn=hess_seed_fn)
+                                         hess_seed_fn=hess_seed_fn,
+                                         probe_fn=probe_fn)
     if state is None:
         state = init_fn()
     needs_hess = hessian_aware_optimizer(tc.optimizer)

@@ -230,9 +230,21 @@ def test_trainer_materialized_attention_on_card(cuda_device):
                                [h["loss"] for h in hist_cpu], rtol=1e-4)
 
 
+def _cpu_probe(seed, device):
+    """Hutchinson's probe drawn on the CPU and moved to ``device``, so
+    that the card and the CPU run see the same u."""
+    from repro_torch.train import hess_probe
+
+    def probe(step, layout):
+        return tuple(u.to(device)
+                     for u in hess_probe(seed, step, layout, "cpu"))
+    return probe
+
+
 def _train_card_and_cpu(cuda_device, cfg, tc):
-    """Four steps on the card and on the CPU from the same weights:
-    (card history, CPU history, the card run's launch counts)."""
+    """Four steps on the card and on the CPU from the same weights and
+    Hutchinson probes: (card history, CPU history, the card run's launch
+    counts)."""
     src = make_source(DataConfig(seq_len=32, global_batch=4,
                                  vocab_size=cfg.vocab_size))
     init_fn, _ = make_train_fns(cfg, tc, device=cuda_device)
@@ -242,11 +254,13 @@ def _train_card_and_cpu(cuda_device, cfg, tc):
                                 state.params.state_dict().items()})
     reset_launch_counts()
     state, hist = train_loop(cfg, tc, src, num_steps=4, state=state,
-                             device=cuda_device)
+                             device=cuda_device,
+                             probe_fn=_cpu_probe(tc.seed, cuda_device))
     launches = dict(KERNEL_LAUNCHES)
     cpu_init, _ = make_train_fns(cfg, tc, device="cpu")
     _, hist_cpu = train_loop(cfg, tc, src, num_steps=4,
-                             state=cpu_init(cpu_params), device="cpu")
+                             state=cpu_init(cpu_params), device="cpu",
+                             probe_fn=_cpu_probe(tc.seed, "cpu"))
     return hist, hist_cpu, launches
 
 
@@ -255,6 +269,7 @@ def _train_card_and_cpu(cuda_device, cfg, tc):
 
 SOPHIA = dict(beta1=0.96, gamma=0.05, eps=1e-12, weight_decay=0.2)
 ADAMW = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.2)
+ADAHESSIAN = dict(beta1=0.92, beta2=0.99, eps=1e-8, weight_decay=0.2)
 
 
 def _bits(t):
@@ -321,6 +336,52 @@ def test_engine_kernels_match_plain_bitwise(cuda_device, n, block, pdt, sdt):
             _assert_bitwise(a, b)
 
 
+@pytest.mark.parametrize("n,block", [(3 * 128, 128), (2 * 131072, 131072)])
+@pytest.mark.parametrize("pdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_baseline_engine_kernels_match_plain_bitwise(cuda_device, n, block,
+                                                     pdt, sdt):
+    """Rows 5 (flag 0 and 1 at steps 1 and 1000), 7 (steps 1 and 1000)
+    and 8-10 (Lion, SignGD, SGD, with m = g = 0 on every 7th element:
+    sign argument exactly 0) against their plain versions on the same
+    device tensors, bit for bit, one launch each."""
+    p, m, h, g, e = _engine_operands(cuda_device, n, pdt, sdt)
+    m[::7] = 0.0
+    g[::7] = 0.0
+    v, e = h.abs(), e - e.mean()
+    lr = torch.tensor(3e-3, device=cuda_device)
+    one = torch.tensor(1.0, device=cuda_device)
+    su = sophia_update
+    calls = []
+    for step in (1, 1000):
+        st = torch.tensor(float(step), device=cuda_device)
+        calls += [("adahessian_refresh", su.adahessian_refresh_fused_block,
+                   su.adahessian_refresh_fused_block_plain,
+                   (p, m, v, g, e, lr, flag, one, st),
+                   dict(ADAHESSIAN, block=block)) for flag in (0, 1)]
+        calls.append(("adahessian_step", su.adahessian_fused_block,
+                      su.adahessian_fused_block_plain, (p, m, v, g, lr, st),
+                      dict(ADAHESSIAN, block=block)))
+    calls += [
+        ("lion_step", su.lion_fused_block, su.lion_fused_block_plain,
+         (p, m, g, lr), dict(beta1=0.95, beta2=0.98, weight_decay=0.2,
+                             block=block)),
+        ("signgd_step", su.signgd_fused_block, su.signgd_fused_block_plain,
+         (p, m, g, lr), dict(beta1=0.96, weight_decay=0.2, block=block)),
+        ("sgd_step", su.sgd_fused_block, su.sgd_fused_block_plain,
+         (p, m, g, lr), dict(momentum=0.9, block=block))]
+    for name, kernel, plain, args, kw in calls:
+        reset_launch_counts()
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert dict(KERNEL_LAUNCHES) == {name: 1}
+        want = plain(*args, **kw)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            _assert_bitwise(a, b)
+
+
 def test_engine_kernels_refuse_bad_arguments(cuda_device):
     """n % block != 0, a CPU tensor among CUDA ones and a tensor off the
     16-byte alignment raise ValueError before any launch."""
@@ -366,3 +427,41 @@ def test_trainer_fused_kernel_launches_engine_kernels(cuda_device,
                             "attn_bwd_dkv": per_layer, "adamw_step": 4}
     np.testing.assert_allclose([h["loss"] for h in hist],
                                [h["loss"] for h in hist_cpu], rtol=1e-4)
+
+
+@pytest.mark.parametrize("over", [
+    dict(optimizer="lion"), dict(optimizer="signgd"), dict(optimizer="sgd"),
+    dict(optimizer="sophia_h", estimator="hutchinson"),
+    dict(optimizer="adahessian", estimator="hutchinson")],
+    ids=["lion", "signgd", "sgd", "sophia_h", "adahessian"])
+def test_trainer_launches_baseline_kernels(cuda_device, over):
+    """Four GPT2_TINY steps (refresh at 0 and 2 for the hessian-aware)
+    with ``fused_kernel``: each optimizer launches its engine kernel on
+    every step (the refresh-fused one on the refresh steps); a Hutchinson
+    refresh adds one CE forward and one attention forward per layer and
+    no backward kernel.  Losses as on the CPU with the same probes (for
+    AdaHessian, which divides by |u . Hu|, the first three)."""
+    cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
+    tc = TrainerConfig(peak_lr=5e-4, total_steps=8, warmup_steps=2,
+                       hess_interval=2, hess_subbatch=2, fused_kernel=True,
+                       **over)
+    hist, hist_cpu, launches = _train_card_and_cpu(cuda_device, cfg, tc)
+    aware = "estimator" in over
+    n_ref = 2 if aware else 0
+    L = cfg.n_layers
+    want = {"ce_forward": 4 + n_ref, "ce_backward_dh": 4,
+            "ce_backward_dw": 4, "attn_fwd": L * (4 + n_ref),
+            "attn_bwd_dq": L * 4, "attn_bwd_dkv": L * 4}
+    opt = over["optimizer"]
+    if opt == "sophia_h":
+        want.update(sophia_step=2, sophia_refresh=2)
+    elif opt == "adahessian":
+        want.update(adahessian_step=2, adahessian_refresh=2)
+    else:
+        want[f"{opt}_step"] = 4
+    assert launches == want
+    losses = [h["loss"] for h in hist]
+    assert np.isfinite(losses).all()
+    k = 3 if opt == "adahessian" else 4
+    np.testing.assert_allclose(losses[:k], [h["loss"] for h in hist_cpu][:k],
+                               rtol=1e-4)

@@ -157,9 +157,27 @@ def test_refresh_flag_clear_is_the_plain_step():
         torch.testing.assert_close(pa[k], pb[k], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("optimizer,n_h", [("sgd", 0), ("lion", 0),
+                                           ("signgd", 0), ("adahessian", 1)])
+def test_baseline_engines_build_their_state(optimizer, n_h):
+    """The baselines the engine refused before this slice: Lion, SignGD
+    and SGD keep no curvature shard (the reference's ``h=()``),
+    AdaHessian one v shard; one step moves the parameters and counts."""
+    rng = np.random.default_rng(2)
+    p = {k: torch.from_numpy(v.copy()) for k, v in _params(rng).items()}
+    hyp = dict(beta1=0.9, beta2=0.99, eps=1e-8, weight_decay=0.1,
+               momentum=0.5)
+    eng = OptimizerEngine(optimizer, hypers=hyp, block=128)
+    st = eng.init(p)
+    assert len(st.h) == n_h and len(st.m) == 1
+    before = {k: v.clone() for k, v in p.items()}
+    g = eng.ravel_grads(p, {k: torch.from_numpy(v)
+                            for k, v in _grads(rng).items()})
+    p, st = eng.step_shards(st, p, g, torch.tensor(1e-3))
+    assert int(st.count) == 1 and not torch.equal(p["w"], before["w"])
+
+
 @pytest.mark.parametrize("kw,err", [
-    (dict(optimizer="sgd"), NotImplementedError),
-    (dict(optimizer="lion"), NotImplementedError),
     (dict(backend="pallas"), ValueError),     # the port's name is "fused"
     (dict(backend="triton"), ValueError),
     (dict(optimizer="nope"), ValueError),

@@ -85,9 +85,11 @@ def test_train_attention_routes(weights):
                                    full_attention(p, x, TCFG32))
     torch.testing.assert_close(train_attention(p, x, TCFG32, impl="flash"),
                                _flash_attention_proj(p, x, TCFG32))
-    for impl in ("flash_jvp", "chunked"):
-        with pytest.raises(NotImplementedError):
-            train_attention(p, x, TCFG32, impl=impl)
+    torch.testing.assert_close(
+        train_attention(p, x, TCFG32, impl="flash_jvp"),
+        _flash_attention_proj(p, x, TCFG32), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError):
+        train_attention(p, x, TCFG32, impl="chunked")
     with pytest.raises(NotImplementedError, match="4096"):
         train_attention(p, torch.zeros(1, 4097, CFG32.d_model), TCFG32)
     with pytest.raises(ValueError):
@@ -138,7 +140,24 @@ def test_forward_logits_match_reference(weights):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("impl", ["chunked", "unfused", "fused_jvp"])
+def test_fused_jvp_loss_matches_reference(weights):
+    """The loss twin of the Hutchinson path (the final norm in PyTorch,
+    then the CE forward's value and a differentiable backward) against the
+    reference's ``fused_jvp`` (interpret mode): loss within 1e-5 and
+    every gradient within 2e-5, as the fused route."""
+    params, tparams = weights
+    jb, tb = _batch()
+    jm = jax_get_model(CFG32)
+    (jloss, _), jg = jax.value_and_grad(
+        lambda p: jm.loss_fn(CFG32, p, jb, loss_impl="fused_jvp"),
+        has_aux=True)(params)
+    loss, _ = get_model(TCFG32).loss_fn(TCFG32, tparams, tb,
+                                        loss_impl="fused_jvp")
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5)
+    _assert_grads(_grads(tparams, loss), jg, atol=2e-5)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "unfused"])
 def test_unported_loss_impls_raise(weights, impl):
     _, tparams = weights
     _, tb = _batch(B=1, S=4, mask=False)

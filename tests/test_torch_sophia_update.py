@@ -1,11 +1,13 @@
-"""The port's engine kernels (repro_torch.kernels.sophia_update, rows 2-4
-and 6 of the kernel table) held against the JAX reference on the CPU:
+"""The port's engine kernels (repro_torch.kernels.sophia_update, rows 2-10
+of the kernel table) held against the JAX reference on the CPU:
 each plain version against the reference's Pallas kernel in interpret
 mode (rtol 1e-6 / atol 3e-6, the tolerance of tests/test_torch_engine.py;
 per-block clip counts exactly equal), the per-tensor harness against the
 reference's, the port engine's ``fused`` backend against the reference
 engine's ``pallas`` backend and against the port's own ``reference``
-backend (bit for bit), and the wrappers' argument checks."""
+backend (bit for bit), and the wrappers' argument checks.  With bf16
+state, an output that the reference rounds after an FMA where the port
+rounds each product (:func:`_close_state`) may sit one bf16 ulp apart."""
 import dataclasses
 
 import jax
@@ -32,6 +34,9 @@ torch.set_num_threads(1)
 
 SOPHIA = dict(beta1=0.96, gamma=0.05, eps=1e-12, weight_decay=0.2)
 ADAMW = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+ADAHESSIAN = dict(beta1=0.92, beta2=0.99, eps=1e-8, weight_decay=0.1)
+LION = dict(beta1=0.95, beta2=0.98, weight_decay=0.1)
+SIGNGD = dict(beta1=0.96, weight_decay=0.1)
 TOL = dict(rtol=1e-6, atol=3e-6)
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -178,6 +183,101 @@ def test_adamw_plain_matches_pallas(step, pdt, sdt):
         _close(a, b)
 
 
+def _close_out(got, want):
+    """An output against the reference's: its dtype, and p within TOL;
+    state with :func:`_close_state`'s one-ulp allowance when bf16."""
+    assert got.dtype == _TDT[str(want.dtype)]
+    _close_state(got, want)
+
+
+@pytest.mark.parametrize("step", [1, 2, 1000])
+@pytest.mark.parametrize("pdt,sdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("float32", "bfloat16")])
+def test_adahessian_step_plain_matches_pallas(step, pdt, sdt):
+    """Row 7: v read only (its EMA of squared estimates, positive)."""
+    (jp, tp), (jm, tm), (jv, tv), (jg, tg), _ = _inputs(
+        384, 6, p_dtype=pdt, state_dtype=sdt)
+    lr = np.float32(1e-3)
+    want = jblk.adahessian_fused_block(jp, jm, jv, jg, lr, step, block=128,
+                                       interpret=True, **ADAHESSIAN)
+    got = blk.adahessian_fused_block(tp, tm, tv, tg, torch.tensor(lr),
+                                     torch.tensor(float(step)), block=128,
+                                     **ADAHESSIAN)
+    assert len(got) == 2
+    for a, b in zip(got, want):
+        _close_out(a, b)
+
+
+@pytest.mark.parametrize("flag", [0, 1])
+@pytest.mark.parametrize("step", [1, 1000])
+@pytest.mark.parametrize("n,block,pdt,sdt,h_kind", [
+    (384, 128, "float32", "float32", "positive"),
+    (512, 256, "bfloat16", "bfloat16", "mixed"),
+    (256, 256, "float32", "bfloat16", "tail_pad"),
+])
+def test_adahessian_refresh_plain_matches_pallas(flag, step, n, block, pdt,
+                                                 sdt, h_kind):
+    """Row 5: when the flag is set, v absorbs (scale e)^2 before the step
+    reads it; e is u ⊙ Hu-like (signed), the squares positive.  The
+    reference's kernel forms (1-b2) es es, its oracle and the port (1-b2)
+    (es es): bf16 v may land one ulp apart."""
+    (jp, tp), (jm, tm), (jv, tv), (jg, tg), (je, te) = _inputs(
+        n, 7, p_dtype=pdt, state_dtype=sdt, h_kind=h_kind)
+    jv, tv = _pair(np.abs(_np(tv)), sdt)
+    lr, scale = np.float32(2e-3), np.float32(1.0)
+    want = jblk.adahessian_refresh_fused_block(
+        jp, jm, jv, jg, je, lr, flag, scale, step, block=block,
+        interpret=True, **ADAHESSIAN)
+    got = blk.adahessian_refresh_fused_block(
+        tp, tm, tv, tg, te, torch.tensor(lr), flag, torch.tensor(scale),
+        torch.tensor(float(step)), block=block, **ADAHESSIAN)
+    for a, b in zip(got, want):
+        _close_out(a, b)
+    if not flag:
+        assert torch.equal(got[2], tv)
+    if h_kind == "tail_pad":
+        for t in got:
+            assert not _np(t)[3 * n // 4:].any()
+
+
+MOMENTUM = {
+    "lion": (jblk.lion_fused_block, blk.lion_fused_block, LION),
+    "signgd": (jblk.signgd_fused_block, blk.signgd_fused_block, SIGNGD),
+    "sgd": (jblk.sgd_fused_block, blk.sgd_fused_block, dict(momentum=0.9)),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(MOMENTUM))
+@pytest.mark.parametrize("pdt,sdt,zeros", [("float32", "float32", False),
+                                           ("float32", "float32", True),
+                                           ("bfloat16", "bfloat16", False),
+                                           ("float32", "bfloat16", True)])
+def test_momentum_steps_plain_match_pallas(rule, pdt, sdt, zeros):
+    """Rows 8-10 (Lion, SignGD, SGD): p' and m'.  ``zeros`` sets m and g
+    to 0 on every 7th element, where Lion's and SignGD's sign argument is
+    exactly 0 (sign 0: p only decays)."""
+    (jp, tp), (jm, tm), _, (jg, tg), _ = _inputs(384, 8, p_dtype=pdt,
+                                                 state_dtype=sdt)
+    if zeros:
+        m, g = _np(tm).copy(), _np(tg).copy()
+        m[::7] = 0.0
+        g[::7] = 0.0
+        (jm, tm), (jg, tg) = _pair(m, sdt), _pair(g)
+    jfn, tfn, hyp = MOMENTUM[rule]
+    lr = np.float32(1e-3)
+    want = jfn(jp, jm, jg, lr, block=128, interpret=True, **hyp)
+    got = tfn(tp, tm, tg, torch.tensor(lr), block=128, **hyp)
+    assert len(got) == 2
+    for a, b in zip(got, want):
+        _close_out(a, b)
+    if zeros and rule != "sgd":
+        decay = np.float32(1.0) - lr * np.float32(0.1)
+        np.testing.assert_array_equal(
+            _np(got[0])[::7],
+            _np((tp.float() * torch.tensor(decay)).to(tp.dtype))[::7])
+
+
 @pytest.mark.parametrize("shape", [(64,), (8, 128), (3, 5, 7)])
 def test_ops_harness_matches_reference(shape):
     """The per-tensor harness (pad each tensor to the block, cut back)
@@ -225,6 +325,10 @@ ENGINE_HYPERS = {
     "sophia_g": dict(beta1=0.96, beta2=0.99, gamma=0.05, eps=1e-12,
                      weight_decay=0.2, clip_threshold=1.0),
     "adamw": dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.2),
+    "adahessian": dict(ADAHESSIAN, weight_decay=0.2),
+    "lion": dict(LION, weight_decay=0.2),
+    "signgd": dict(SIGNGD, weight_decay=0.2),
+    "sgd": dict(momentum=0.9),
 }
 
 
@@ -289,6 +393,67 @@ def test_fused_engine_matches_pallas_engine(optimizer, state_dtype):
     for a, b in zip(moved.m + moved.h, js.m + js.h):
         assert a.dtype == _TDT[state_dtype]
         np.testing.assert_array_equal(_np(a), _jnp(b))
+
+
+@pytest.mark.parametrize("optimizer", ["adahessian", "lion", "signgd",
+                                       "sgd"])
+@pytest.mark.parametrize("backend", ["fused", "reference"])
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_baseline_engines_match_pallas_engine(optimizer, backend,
+                                              state_dtype):
+    """Six steps of AdaHessian (refreshing every other step: v absorbs
+    the square of a signed estimate, scale 1, then one out-of-band
+    ``update_hessian``), Lion, SignGD and SGD on the port's ``fused`` and
+    ``reference`` backends against the reference engine's ``pallas``
+    backend (interpret mode): parameters within TOL, state per
+    :func:`_close_state`; Lion, SignGD and SGD keep no h and no clip
+    fraction."""
+    rng = np.random.default_rng(1)
+    p0 = _params(rng)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    hyp = ENGINE_HYPERS[optimizer]
+    jeng = JEngine(optimizer, hypers=hyp, backend="pallas", block=128,
+                   state_dtype=_JDT[state_dtype], interpret=True)
+    teng = OptimizerEngine(optimizer, hypers=hyp, backend=backend,
+                           block=128, state_dtype=_TDT[state_dtype])
+    js, ts = jeng.init(jp), teng.init(tp)
+    assert len(ts.h) == len(js.h) == (1 if optimizer == "adahessian" else 0)
+
+    def est(e, eng, tree, conv):
+        return eng.ravel_grads(tree, {k: conv(v) for k, v in e.items()})
+
+    for t in range(6):
+        g, e = _grads(rng), _grads(rng, scale=0.3)
+        lr = np.float32(1e-3 * (1.0 + 0.1 * t))
+        jg = est(g, jeng, jp, jnp.asarray)
+        tg = est(g, teng, tp, torch.from_numpy)
+        if optimizer == "adahessian" and t % 2 == 0:
+            jp, js = jeng.step_with_refresh(js, jp, jg, lr,
+                                            est(e, jeng, jp, jnp.asarray),
+                                            1.0, jnp.asarray(True))
+            tp, ts = teng.step_with_refresh(
+                ts, tp, tg, torch.tensor(lr),
+                est(e, teng, tp, torch.from_numpy), 1.0, True)
+        else:
+            jp, js = jeng.step_shards(js, jp, jg, lr)
+            tp, ts = teng.step_shards(ts, tp, tg, torch.tensor(lr))
+        assert int(ts.count) == int(js.count) == t + 1
+        assert int(ts.hess_count) == int(js.hess_count)
+        for k in p0:
+            np.testing.assert_allclose(_np(tp[k]), _jnp(jp[k]), **TOL)
+        for a, b in zip(ts.m + ts.h, js.m + js.h):
+            assert a.dtype == _TDT[state_dtype]
+            _close_state(a, b)
+        assert float(ts.clip_fraction) == 0.0
+    e = _grads(rng, scale=0.3)
+    js = jeng.update_hessian(js, est(e, jeng, jp, jnp.asarray), scale=2.0,
+                             params=jp)
+    ts = teng.update_hessian(ts, est(e, teng, tp, torch.from_numpy),
+                             scale=2.0, params=tp)
+    assert int(ts.hess_count) == int(js.hess_count)
+    for a, b in zip(ts.h, js.h):
+        _close_state(a, b)
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
@@ -365,6 +530,22 @@ def test_make_engine_maps_options():
     assert not TrainerConfig().fused_kernel
 
 
+@pytest.mark.parametrize("optimizer", ["sophia_h", "lion", "signgd",
+                                       "adahessian", "sgd"])
+def test_make_engine_takes_the_reference_table(optimizer):
+    """The port's per-optimizer hypers are the reference trainer's, for
+    every optimizer of its table."""
+    from repro.train import make_engine as jax_make_engine
+    from repro.train import TrainerConfig as JTrainerConfig
+    over = dict(optimizer=optimizer, weight_decay=0.15, beta1=0.9,
+                fused_kernel=True)
+    eng = make_engine(TrainerConfig(**over))
+    jeng = jax_make_engine(JTrainerConfig(**over))
+    assert (eng.family, eng.hypers) == (jeng.family, jeng.hypers)
+    assert eng.backend == "fused" and jeng.backend == "pallas"
+    assert eng.hessian_aware == (optimizer in ("sophia_h", "adahessian"))
+
+
 # ---------------------------------------------------------------------------
 # argument checks (both routes)
 
@@ -399,6 +580,14 @@ def test_wrappers_refuse_bad_arguments(case):
         blk.sophia_fused_block(p, m, h, g, 1e-3, block=block, **SOPHIA)
     with pytest.raises(ValueError):
         blk.adamw_fused_block(p, m, h, g, 1e-3, 1, block=block, **ADAMW)
+    with pytest.raises(ValueError):
+        blk.adahessian_refresh_fused_block(p, m, h, g, g, 1e-3, 1, 1.0, 1,
+                                           block=block, **ADAHESSIAN)
+    if case != "mixed_state":        # the others take no h
+        with pytest.raises(ValueError):
+            blk.lion_fused_block(p, m, g, 1e-3, block=block, **LION)
+        with pytest.raises(ValueError):
+            blk.sgd_fused_block(p, m, g, 1e-3, momentum=0.0, block=block)
 
 
 def test_engine_kernel_bytes_at_gpt2_small():
@@ -417,3 +606,16 @@ def test_engine_kernel_bytes_at_gpt2_small():
         18 * n + counts
     assert blk.engine_kernel_bytes("sophia_refresh", n, f32, bf16) == \
         24 * n + counts
+
+
+def test_engine_kernel_bytes_of_rows_5_and_7_to_10():
+    """At GPT-2 small's shard with fp32 state: the AdaHessian refresh 32
+    bytes per element (p m v g e; p' m' v'), its step 24 (p m v g; p'
+    m'), Lion, SignGD and SGD 20 (p m g; p' m'); no counts."""
+    n, f32, bf16 = 124_518_400, torch.float32, torch.bfloat16
+    assert blk.engine_kernel_bytes("adahessian_refresh", n, f32, f32) == \
+        32 * n
+    assert blk.engine_kernel_bytes("adahessian_step", n, f32, f32) == 24 * n
+    for name in ("lion_step", "signgd_step", "sgd_step"):
+        assert blk.engine_kernel_bytes(name, n, f32, f32) == 20 * n
+        assert blk.engine_kernel_bytes(name, n, f32, bf16) == 16 * n
