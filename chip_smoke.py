@@ -18,11 +18,12 @@ it fails and prints no result.  Phases, in order:
      dW) at GPT-2 small's loss shape (D=768, Vp=50304, tied, ln fused,
      bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
      4096, and its edge cases (untied, softcap 30, rms, no norm, padded
-     vocab, ragged masked rows, fp32 h, bf16 W, D=128 and 1280).  The
-     forwards within 1e-5 (fp32) or 2e-2 (bf16); dh and dW within 1e-5 of
-     their largest element in fp32 and, with bf16 h or W, element by
-     element against each element's sum of absolute terms
-     (``check_bf16_grad``); the sampled labels identical except on rows
+     vocab, ragged masked rows, fp32 h, bf16 W, D=128 and 1280 with fp32
+     h and with bf16 h).  The forwards within 1e-5 (fp32) or 2e-2 (bf16);
+     dh and dW within 1e-5 of their largest element in fp32 and, with bf16
+     h or W, element by element against each element's sum of absolute
+     terms (``check_bf16_grad``; bf16 h takes the tensor-core backward,
+     and each case logs its share beyond 2^-16); the sampled labels identical except on rows
      whose two best perturbed logits lie within 1e-5; the flash-attention
      kernels (forward, dQ, dK/dV) at GPT-2 small's training shape (B=8,
      H=12, S=1024, hd=64, causal) and the refresh's B=4, and the edge
@@ -34,7 +35,9 @@ it fails and prints no result.  Phases, in order:
      0 and 1, AdamW at steps 1, 2 and 1000, the AdaHessian refresh-fused
      step with flag 0 and 1 at steps 1, 2 and 1000, the AdaHessian step at
      those steps, Lion, SignGD and SGD, the last three also with m = g = 0
-     on every 7th element, where the sign argument is exactly 0) at GPT-2
+     on every 7th element, where the sign argument is exactly 0, and Lion
+     and SignGD with NaN in g and m, NaN exactly where their plain
+     versions put it) at GPT-2
      small's flat shard (n=124,518,400, block 131072) with fp32 and with
      bf16 state, and the edge cases (3 blocks of 128, one block, h with
      zeros and negative entries, rho=1e9, bf16 p, the zero tail pad),
@@ -62,11 +65,13 @@ it fails and prints no result.  Phases, in order:
      shape (one AdamW kernel launch per step, no sampled CE); the paper's
      other optimizers at the same shape on the engine kernels: Sophia-H
      with the Hutchinson estimator (12 steps, refresh every 5 on 4 rows:
-     its HVP runs reverse-over-reverse through the loss and attention
+     its HVP runs forward-over-reverse through the loss and attention
      twins, which launch the CE and attention forwards and no backward
      kernel), AdaHessian with Hutchinson (6 steps, refresh at 0 and 5),
      Lion, SignGD and SGD (4 steps each), with exact launch counts, step
-     times, peak memory and a profile window of a Sophia-H refresh step;
+     times (the refresh p50 over the refresh steps after step 0, which
+     carries the first-call costs and is logged on its own), peak memory
+     and a profile window of a Sophia-H refresh step;
      then fp32 steps at B=2 x S=128 held against the port's plain path on
      the CPU seven ways: the flash route with the engine kernels, the
      materialized-scores route (``fused_attn=False``) on the reference
@@ -292,6 +297,13 @@ CE_CASES = [
     ("bf16_w", dict(w="bfloat16")),
     ("fp32_D128_untied_padded", dict(N=200, D=128, V=1000, Vp=1024,
                                      tied=False, h="float32")),
+    # the tensor-core route (bf16 h) at the widths MAX_D bounds
+    ("bf16_D128_untied_padded_no_norm", dict(N=200, D=128, V=1000, Vp=1024,
+                                             tied=False, norm=None)),
+    ("bf16_D1280_untied_softcap_rms_masked", dict(N=1000, D=1280, V=2000,
+                                                  Vp=2048, tied=False,
+                                                  softcap=30.0, norm="rms",
+                                                  mask=True)),
     ("fp32_D1280_softcap_rms_masked", dict(N=130, D=1280, V=2000, Vp=2048,
                                            h="float32", softcap=30.0,
                                            norm="rms", mask=True)),
@@ -733,6 +745,42 @@ def check_engine_case(torch, name, n, block, pdt, sdt, *, h_kind="positive",
     return errs
 
 
+def check_sign_nan(torch, sdt):
+    """Rows 8-9 with NaN in g (every 11th element) and in m (every 13th
+    from the 5th): the sign is ``jnp.sign``'s, NaN at NaN, so p' and m'
+    are NaN exactly where the plain versions' are (wherever m or g is),
+    and bit-identical to them everywhere else."""
+    from repro_torch.kernels import sophia_update as su
+
+    n, block = 3 * 4096, 4096
+    p, m, _, g, _ = _engine_operands(torch, n, torch.float32, sdt, seed=5)
+    g[::11] = float("nan")
+    m[5::13] = float("nan")
+    lr = torch.tensor(6e-4, device="cuda")
+    for kname, kernel, plain, hp in (
+            ("lion_step", su.lion_fused_block, su.lion_fused_block_plain,
+             LION_HP),
+            ("signgd_step", su.signgd_fused_block,
+             su.signgd_fused_block_plain, SIGNGD_HP)):
+        got = kernel(p, m, g, lr, block=block, **hp)
+        want = plain(p, m, g, lr, block=block, **hp)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            nan = torch.isnan(b.float())
+            if not (bool(nan[::11].all()) and bool(nan[5::13].all())
+                    and torch.equal(torch.isnan(a.float()), nan)):
+                raise AssertionError(f"engine {kname} NaN: the kernel's NaN "
+                                     "positions differ from the plain "
+                                     "version's")
+            if not torch.equal(_bits(torch, a)[~nan], _bits(torch, b)[~nan]):
+                raise AssertionError(f"engine {kname} NaN: not bit-identical"
+                                     " off the NaN positions")
+    log(f"[kernels] sophia_update sign_nan n={n} block={block} "
+        f"state={str(sdt)[6:]}: rows 8-9 with NaN in g and m put NaN where "
+        f"their plain versions do ({int(nan.sum())} of {n} elements) and "
+        "are bit-identical elsewhere")
+
+
 def phase_engine_kernels(torch):
     """Returns {kernel name: max abs error at GPT-2 small's shard with
     fp32 state, the training run's}."""
@@ -758,6 +806,8 @@ def phase_engine_kernels(torch):
     for name, spec in edges:
         check_engine_case(torch, name, spec.pop("n"), spec.pop("block"),
                           spec.pop("pdt"), spec.pop("sdt"), **spec)
+    for sdt in (f32, bf16):
+        check_sign_nan(torch, sdt)
     return out
 
 
@@ -985,13 +1035,16 @@ def phase_train(torch):
     if int(state.opt_state.hess_count) != n_ref:
         raise AssertionError(f"hess_count {int(state.opt_state.hess_count)}"
                              f" != {n_ref}")
+    # step 0 (a refresh) carries the first-call costs: the refresh p50
+    # reads the refresh steps after it
     plain = [dt for t, dt in enumerate(times) if t % TRAIN_K]
-    refresh = [dt for t, dt in enumerate(times) if t % TRAIN_K == 0]
+    refresh = [dt for t, dt in enumerate(times) if t and t % TRAIN_K == 0]
     tokens = TRAIN_B * TRAIN_S
     p50 = statistics.median(plain)
     report = dict(launches=launches, losses=losses,
                   plain_p50_ms=p50 * 1e3,
                   refresh_p50_ms=statistics.median(refresh) * 1e3,
+                  step0_ms=times[0] * 1e3,
                   tokens_per_s=tokens * TRAIN_STEPS / sum(times),
                   tokens_per_s_plain_p50=tokens / p50,
                   peak_mem_gib=peak / 2 ** 30, step_ms=[x * 1e3 for x in times])
@@ -1000,12 +1053,15 @@ def phase_train(torch):
         f"{TRAIN_K} sub={TRAIN_SUB}: {TRAIN_STEPS} steps, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; hess_count "
         f"{int(state.opt_state.hess_count)}; step p50 plain "
-        f"{report['plain_p50_ms']:.1f} ms, refresh "
-        f"{report['refresh_p50_ms']:.1f} ms; {report['tokens_per_s']:.0f} "
+        f"{report['plain_p50_ms']:.1f} ms, refresh (steps "
+        f"{TRAIN_K}, {2 * TRAIN_K}) {report['refresh_p50_ms']:.1f} ms; "
+        f"{report['tokens_per_s']:.0f} "
         f"tok/s over the run ({report['tokens_per_s_plain_p50']:.0f} at the "
         f"plain p50); peak memory {report['peak_mem_gib']:.2f} GiB; "
         f"launches {launches}")
     log(f"[train] step ms: {[round(x, 1) for x in report['step_ms']]}")
+    log(f"[train] Sophia-G step 0 (a refresh with the first-call costs): "
+        f"{report['step0_ms']:.1f} ms")
 
     windows = []
     for label, flag in (("plain step", False), ("refresh step", True)):
@@ -1156,7 +1212,8 @@ def train_baseline(torch, cfg, batches, name, over, steps):
     after.  Each step launches the CE forward, dh and dW once and each
     attention kernel once per layer; a Hutchinson refresh adds one CE
     forward and one attention forward per layer (the twins' primals) and
-    NO backward kernel (the HVP's backward is plain PyTorch); the engine
+    NO backward kernel (the HVP, forward-over-reverse, runs the twins'
+    backward and tangent rules, plain PyTorch); the engine
     launches the refresh-fused kernel on each refresh step and the plain
     step kernel on the others.  Logs the losses, the plain and refresh
     step p50, the peak memory and the launches; for Sophia-H also a
@@ -1206,12 +1263,15 @@ def train_baseline(torch, cfg, batches, name, over, steps):
     if int(state.opt_state.hess_count) != n_ref:
         raise AssertionError(f"{name}: hess_count "
                              f"{int(state.opt_state.hess_count)} != {n_ref}")
+    # step 0 carries the first-call costs: the refresh p50 reads the
+    # refresh steps after it, and step 0 is logged on its own
     plain = [dt for t, dt in enumerate(times) if t not in refresh_at]
-    refresh = [dt for t, dt in enumerate(times) if t in refresh_at]
+    refresh = [dt for t, dt in enumerate(times) if t in refresh_at and t]
     report = dict(launches=launches, losses=losses,
                   plain_p50_ms=statistics.median(plain) * 1e3,
                   refresh_p50_ms=(statistics.median(refresh) * 1e3
                                   if refresh else None),
+                  step0_ms=times[0] * 1e3,
                   peak_mem_gib=peak / 2 ** 30,
                   step_ms=[x * 1e3 for x in times],
                   refresh_step_launches=(per_step[refresh_at[0]]
@@ -1221,10 +1281,12 @@ def train_baseline(torch, cfg, batches, name, over, steps):
         f"fused_kernel=True: {steps} steps, losses "
         f"{[round(x, 4) for x in losses]}; hess_count {n_ref}; step p50 "
         f"plain {report['plain_p50_ms']:.1f} ms"
-        + (f", refresh {report['refresh_p50_ms']:.1f} ms" if refresh
-           else "")
+        + (f", refresh (steps {refresh_at[1:]}) "
+           f"{report['refresh_p50_ms']:.1f} ms" if refresh else "")
         + f"; peak memory {report['peak_mem_gib']:.2f} GiB; launches "
         f"{launches}; step ms {[round(x * 1e3, 1) for x in times]}")
+    log(f"[train] {name} step 0 ({'a refresh ' if refresh_at else ''}with "
+        f"the first-call costs): {report['step0_ms']:.1f} ms")
     if refresh:
         log(f"[train] {name} refresh step launches {per_step[refresh_at[0]]}"
             f" (a plain step: {per_step[1]}): the HVP adds a CE and an "

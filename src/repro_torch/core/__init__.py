@@ -8,7 +8,8 @@ from .engine import (BLOCK, EngineState, OptimizerEngine, ShardLayout,
                      unravel_shards, write_shards)
 from .estimators import (empirical_fisher_estimator_flat,
                          empirical_fisher_ghat_flat, gnb_ghat_flat_from_loss,
-                         hutchinson_estimator, hutchinson_estimator_flat,
+                         functional_loss, hutchinson_estimator,
+                         hutchinson_estimator_flat,
                          subsample_batch)
 from .schedule import constant, linear_warmup_cosine
 from .types import (flat_tensors, global_norm, tree_leaves, tree_map,

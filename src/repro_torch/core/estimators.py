@@ -9,13 +9,12 @@
   trainer squares the shards and hands them with B = the sweep's
   valid-position count to the engine's fused Hessian EMA.
 * Hutchinson (Algorithm 1): u ⊙ (H u) with u ~ N(0, I), unbiased for
-  diag(H).  The reference takes H u forward-over-reverse (``jax.jvp`` of
-  ``jax.grad``); the port, whose model is not functional, takes it
-  reverse-over-reverse: ``g = grad(loss, θ, create_graph=True)``, then
-  ``grad(g, θ, grad_outputs=u)``, which is the same H u up to rounding
-  since H is symmetric.  The loss must be twice differentiable: the
-  trainer runs it on the loss and attention twins (``fused_jvp``,
-  ``flash_jvp``), whose backward is plain PyTorch.
+  diag(H).  H u is taken forward-over-reverse, as the reference takes it
+  (``jax.jvp`` of ``jax.grad``): ``torch.func.jvp`` of ``torch.func.grad``
+  of a loss written as a function of the parameter tensors (the trainer
+  builds it with ``torch.func.functional_call``).  The loss runs on the
+  loss and attention twins (``fused_jvp``, ``flash_jvp``), whose backward
+  and tangent rules are plain PyTorch.
 * Empirical Fisher (the paper's Fig. 8b ablation): the squared gradient of
   the TRUE-label loss, B = the sub-batch's positions.
 
@@ -55,28 +54,55 @@ def gnb_ghat_flat_from_loss(
     return g_sh, n_valid.to(torch.float32)
 
 
-def _hvp(loss_fn: Callable[[], torch.Tensor], tensors: List[torch.Tensor],
+def _hvp(loss_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor],
+         tensors: List[torch.Tensor],
          u: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """H u, reverse-over-reverse, one tensor per entry of ``tensors``; a
-    gradient that does not depend on the parameters (a zero row of H)
-    contributes nothing."""
-    loss = loss_fn()
-    grads = torch.autograd.grad(loss, tensors, create_graph=True)
-    live = [(g, v) for g, v in zip(grads, u) if g.requires_grad]
-    hv = torch.autograd.grad([g for g, _ in live], tensors,
-                             grad_outputs=[v for _, v in live],
-                             allow_unused=True) if live else \
-        [None] * len(tensors)
-    return [torch.zeros_like(t) if h is None else h
-            for t, h in zip(tensors, hv)]
+    """H u, forward-over-reverse: the tangent along ``u`` of the gradient
+    of ``loss_fn(tensors)``, one tensor per entry of ``tensors``; a tensor
+    the loss does not depend on (a zero row of H) gets zeros."""
+    primals = tuple(t.detach() for t in tensors)
+    _, hv = torch.func.jvp(torch.func.grad(loss_fn), (primals,),
+                           (tuple(u),))
+    return list(hv)
 
 
-def hutchinson_estimator(loss_fn: Callable[[], torch.Tensor], params: Tree,
-                         u: Tree) -> Tree:
+class _Call(torch.nn.Module):
+    """``fn(module)`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, module: torch.nn.Module, fn: Callable):
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self):
+        return self.fn(self.module)
+
+
+def functional_loss(module: torch.nn.Module,
+                    tensors: Sequence[torch.Tensor],
+                    fn: Callable[[torch.nn.Module], torch.Tensor]
+                    ) -> Callable[[Sequence[torch.Tensor]], torch.Tensor]:
+    """``fn(module)`` as a function of the values of ``tensors``, which
+    are parameters of ``module`` (each once): ``loss(values)`` runs ``fn``
+    with ``torch.func.functional_call`` swapping them in, the form that
+    ``torch.func.grad`` differentiates."""
+    names = {id(p): f"module.{n}" for n, p in module.named_parameters()}
+    keys = [names[id(t)] for t in tensors]
+    call = _Call(module, fn)
+
+    def loss(values: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.func.functional_call(call, dict(zip(keys, values)), ())
+    return loss
+
+
+def hutchinson_estimator(
+        loss_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor],
+        params: Tree, u: Tree) -> Tree:
     """u ⊙ (H u) as a tree of fp32 tensors shaped like ``params``:
-    ``loss_fn()`` is a scalar loss of ``params`` on the estimator
-    sub-batch and ``u`` a probe tree shaped like ``params`` in its dtypes
-    (``u ~ N(0, I)`` makes the product an unbiased estimate of diag(H))."""
+    ``loss_fn(tensors)`` is the scalar loss on the estimator sub-batch as a
+    function of the tensors of ``params`` (in :func:`flat_tensors` order)
+    and ``u`` a probe tree shaped like ``params`` in its dtypes (``u ~ N(0,
+    I)`` makes the product an unbiased estimate of diag(H))."""
     tensors = flat_tensors(params)
     probe = flat_tensors(u)
     hv = _hvp(loss_fn, tensors, probe)
@@ -84,10 +110,10 @@ def hutchinson_estimator(loss_fn: Callable[[], torch.Tensor], params: Tree,
                                    for v, h in zip(probe, hv)])
 
 
-def hutchinson_estimator_flat(loss_fn: Callable[[], torch.Tensor],
-                              params: Tree, u_sh: Sequence[torch.Tensor],
-                              layout: ShardLayout
-                              ) -> Tuple[torch.Tensor, ...]:
+def hutchinson_estimator_flat(
+        loss_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor],
+        params: Tree, u_sh: Sequence[torch.Tensor], layout: ShardLayout
+) -> Tuple[torch.Tensor, ...]:
     """:func:`hutchinson_estimator` on flat shards: the probe shards
     ``u_sh`` are unraveled through the layout (cast to the leaf dtypes)
     for the HVP, and u ⊙ (H u) is raveled back to fp32 shards, so the tail

@@ -38,10 +38,10 @@
 // are recomputed), against one read of h and W.  At the GPT-2 small
 // training shape (N = 8192, D = 768, Vp = 50304) that is ~2,600 flops per
 // byte, far above the ~295 where the card's bf16 tensor cores stop being
-// the limit.  This first version computes on the fp32 FMA units, with
-// shared-memory tiles and a 4x8 (forward) or 2x4 / 4x2 (backward) tile of
-// outputs per thread; the tensor cores (wgmma, TMA) are a later PR's work.
-// Design:
+// the limit.
+//
+// The forward computes on the fp32 FMA units, with shared-memory tiles and
+// a 4x8 tile of outputs per thread:
 //   * the TPU's sequential vocab grid axis becomes a loop inside a block;
 //     the forward keeps one running (m, l, label logit) or (m, l, best z,
 //     its column, its logit) per output row in each thread's registers,
@@ -50,22 +50,64 @@
 //     card; a second small kernel merges the splits in column order
 //     (strict > across splits, earliest column on ties within one, so the
 //     draw is the first argmax of the whole row, as the reference's);
-//   * the dh kernel owns 32 rows and loops over the vocabulary, the dW
-//     kernel owns 32 vocabulary columns and loops over the rows; each
-//     recomputes a logits tile, writes its d tile to shared memory, and
-//     adds d . X (X = W or h_n, staged 128 columns of D at a time) into an
-//     fp32 accumulator of (32, D) in shared memory.  No atomics: dW is
-//     deterministic and rounds once;
 //   * the row statistics of the norm come from a small first kernel, one
 //     warp per row, shared by every tile of that row;
 //   * IEEE rounding intrinsics keep the norm, softcap and d arithmetic in
 //     the reference's operation order (no contraction into FMA).
+//
+// The backward with h in bf16 (the training path) runs on the bf16 tensor
+// cores (mma.sync.m16n8k16, fp32 accumulate), in a workspace design:
+//   * a prep kernel writes h_n, the normed rows rounded to bf16, once into
+//     an (Np, D) plane (rows padded to 128 with zeros), and one splits an
+//     fp32 W into bf16 planes hi = bf16(W) and lo = bf16(W - hi);
+//   * the vocabulary goes in chunks of cw columns (a multiple of 128, as
+//     many as keep the d workspace under 256 MiB; 7296 at N = 8192).  For
+//     each chunk a logits kernel recomputes s = h_n . hi^T (hi is exactly
+//     the reference's cast of W to h's dtype, so one bf16 product is the
+//     reference's logits) and writes d in fp32 as two bf16 planes d_hi =
+//     bf16(d), d_lo = bf16(d - d_hi) to the (Np, cw) workspace; then the
+//     dh kernel adds d . W over the chunk into an fp32 accumulator as
+//     d_hi.W_hi + d_hi.W_lo + d_lo.W_hi (two passes for bf16 W), and the dW
+//     kernel writes the chunk's rows of dW = d^T . h_n over all rows as
+//     d_hi^T.h_n + d_lo^T.h_n (h_n is exact in bf16), rounded once into W's
+//     dtype.  Each pair of pieces carries ~16 of fp32's 24 bits, the
+//     dropped lo.lo term is ~2^-18 of a product, and every sum runs in
+//     fp32: the reference's fp32 operands to well inside the element-wise
+//     contract (2^-16 of each element's sum of absolute terms).  A
+//     per-slice design (a block owning rows by a D-slice, recomputing the
+//     logits for each slice) would hold no workspace but pay the logits
+//     D / slice times; the workspace costs 4 N cw bytes written and read
+//     a chunk (239 MB at N = 8192: ~0.07 ms each way at 3.35 TB/s);
+//   * one mma kernel serves the three products: a 128 x 128 output tile per
+//     block of 8 warps (64 x 32 each: 4 x 4 mma tiles, 64 fp32 accumulators
+//     a thread and 64 more for the part in flight, see kPromote), k-steps
+//     of 32 through a 3-stage cp.async ring of padded
+//     shared-memory tiles, fragments by ldmatrix (.trans where an operand's
+//     contiguous axis is not k), the operand layouts (tied or untied W, d
+//     or d^T) as template flags, and the epilogue (d to the workspace, dh
+//     accumulate, dW store) as a template case.  Blocks own their outputs:
+//     no atomics, dW deterministic and rounded once.  At the training shape
+//     the grids are 3648 (logits), 384 (dh) and 342 (dW) blocks a chunk,
+//     all above the card's 132 SMs;
+//   * the chunk loop runs on the host, on the caller's stream.
+// With h in fp32 (the card-vs-CPU checks and tests; not the training
+// path) the backward keeps the first version on the fp32 FMA units: the
+// dh kernel owns 32 rows and loops over the vocabulary, the dW kernel owns
+// 32 vocabulary columns and loops over the rows; each recomputes a logits
+// tile, writes its d tile to shared memory, and adds d . X (X = W or h_n,
+// staged 128 columns of D at a time) into an fp32 (32, D) accumulator in
+// shared memory.  The bf16 split would give fp32 logits only with three
+// more passes, and the fp32 tolerance (1e-5 of the largest element) leaves
+// no room for a single-bf16 logits product.
 // The C entry points return cudaGetLastError() after the launches and
 // never synchronise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -404,7 +446,7 @@ ce_combine_kernel(int N, int splits, int sample,
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward on the fp32 FMA units (h in fp32)
 
 // acc[o][k0 + kk] += sum_q dS[o][q] * Xs[q][kk] over one staged chunk of
 // kBD columns; thread t owns rows o = 4 (t / 32) + i and columns
@@ -566,6 +608,340 @@ ce_backward_dw_kernel(CeArgs a, TW* __restrict__ dw) {
 }
 
 // ---------------------------------------------------------------------------
+// backward on the bf16 tensor cores (h in bf16)
+
+constexpr int kMT = 128;               // output tile rows of an mma block
+constexpr int kNT = 128;               // output tile columns
+constexpr int kKT = 32;                // k-depth of one pipeline stage
+constexpr int kStages = 3;             // cp.async ring depth
+// The tensor cores add a product into an fp32 accumulator truncating the
+// bits below the larger operand's last place, so a long chain drifts
+// toward zero by up to an ulp of the running sum per mma (one chain over
+// a 50304-column sweep put 20-67% of dh's elements past 2^-16 of their
+// absolute sum on an H100).  Each block therefore sums kPromote
+// stages (64 of k) on the tensor cores and adds that part into the running
+// sum with a rounded fp32 add.
+constexpr int kPromote = 2;
+constexpr int kKmStride = kKT + 8;     // padded row of a k-contiguous tile
+constexpr int kMnStride = kMT + 8;     // padded row of an m/n-contiguous tile
+constexpr int kPlane = kMT * kKmStride;  // bf16 elements of one tile plane
+static_assert(kMT == kNT && kMT * kKmStride >= kKT * kMnStride,
+              "one plane size serves both layouts");
+constexpr size_t kWsBudget = size_t(256) << 20;  // bytes of the d workspace
+
+enum Epilogue { kEpiDlogits = 0, kEpiDh = 1, kEpiDw = 2 };
+
+// One operand of a product: bf16 planes hi and lo (lo unused with fewer
+// passes), leading dimension ld in elements.  KMAJOR: element (i, k) at
+// i * ld + k; else at k * ld + i.
+struct Operand {
+  const bf16* hi;
+  const bf16* lo;
+  int ld;
+};
+
+// Epilogue state.  Logits: the chunk's first vocab column c0 and the d
+// workspace planes (ldd columns).  dh: the fp32 accumulator (ld D), whether
+// this chunk is the first (overwrite), and the bf16 output of the last
+// chunk (null unless dh is returned in h's dtype).  dW: c0 and the output
+// in W's dtype and layout.
+struct Epi {
+  int c0;
+  bf16* d_hi;
+  bf16* d_lo;
+  int ldd;
+  float* acc;
+  int first;
+  bf16* out_t;
+  void* dw;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  if (TRANS) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  }
+}
+
+// c += a . b: one m16n8k16 product, bf16 operands, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage one 128 x kKT tile of a plane (rows i0.., depth k0..) in shared
+// memory: 512 copies of 16 bytes, two a thread.
+template <bool KMAJOR>
+__device__ __forceinline__ void load_plane(bf16* dst, const bf16* src,
+                                           int ld, int i0, int k0) {
+#pragma unroll
+  for (int e = threadIdx.x; e < kMT * kKT / 8; e += kThreads) {
+    if (KMAJOR) {
+      const int i = e / (kKT / 8), k = (e % (kKT / 8)) * 8;
+      cp_async16(dst + i * kKmStride + k,
+                 src + (size_t)(i0 + i) * ld + k0 + k);
+    } else {
+      const int k = e / (kMT / 8), i = (e % (kMT / 8)) * 8;
+      cp_async16(dst + k * kMnStride + i,
+                 src + (size_t)(k0 + k) * ld + i0 + i);
+    }
+  }
+}
+
+// The A fragment of 16 rows from r0 at depth kk of a staged tile.
+template <bool KMAJOR>
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* t,
+                                       int r0, int kk) {
+  const int lane = threadIdx.x % 32;
+  if (KMAJOR) {
+    ldsm_x4<false>(r, t + (r0 + (lane & 15)) * kKmStride + kk +
+                          (lane >> 4) * 8);
+  } else {
+    const int q = lane >> 3, i = lane & 7;
+    ldsm_x4<true>(r, t + (kk + (q >> 1) * 8 + i) * kMnStride + r0 +
+                         (q & 1) * 8);
+  }
+}
+
+// The B fragments of two n8 tiles (16 columns from c0) at depth kk: {b0,
+// b1} of the first, then of the second.
+template <bool KMAJOR>
+__device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* t,
+                                       int c0, int kk) {
+  const int lane = threadIdx.x % 32;
+  const int q = lane >> 3, i = lane & 7;
+  if (KMAJOR) {
+    ldsm_x4<false>(r, t + (c0 + (q >> 1) * 8 + i) * kKmStride + kk +
+                          (q & 1) * 8);
+  } else {
+    ldsm_x4<true>(r, t + (kk + (q & 1) * 8 + i) * kMnStride + c0 +
+                         (q >> 1) * 8);
+  }
+}
+
+// The 128 x 128 tile at block (m0, n0) of the passes of A (M x K) . B
+// (K x N) over k < K: PASSES 1 is hi.hi, 2 adds A_lo.B_hi, 3 adds
+// A_hi.B_lo too; then the epilogue EPI.  Every dimension is a multiple of
+// the tile: the callers pad rows to 128, and D and every chunk are
+// multiples of 128.
+template <bool A_KMAJOR, bool B_KMAJOR, int PASSES, int EPI, typename TW,
+          bool TRANSW>
+__global__ void __launch_bounds__(kThreads)
+ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  constexpr int kAPlanes = PASSES >= 2 ? 2 : 1;
+  constexpr int kBPlanes = PASSES == 3 ? 2 : 1;
+  constexpr int kStageElems = (kAPlanes + kBPlanes) * kPlane;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;  // a 2 x 4 grid of 64 x 32 tiles
+  const int m0 = blockIdx.y * kMT, n0 = blockIdx.x * kNT;
+
+  auto stage_load = [&](int s, int kt) {
+    bf16* base = smem + s * kStageElems;
+    const int k0 = kt * kKT;
+    load_plane<A_KMAJOR>(base, A.hi, A.ld, m0, k0);
+    if (kAPlanes == 2)
+      load_plane<A_KMAJOR>(base + kPlane, A.lo, A.ld, m0, k0);
+    bf16* bb = base + kAPlanes * kPlane;
+    load_plane<B_KMAJOR>(bb, B.hi, B.ld, n0, k0);
+    if (kBPlanes == 2) load_plane<B_KMAJOR>(bb + kPlane, B.lo, B.ld, n0, k0);
+  };
+
+  // part sums kPromote stages on the tensor cores; acc sums the parts with
+  // IEEE fp32 adds (see kPromote)
+  float acc[4][4][4], part[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.0f;
+
+  const int nk = K / kKT;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) stage_load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) stage_load(nxt % kStages, nxt);
+    cp_async_commit();
+    const bf16* base = smem + (kt % kStages) * kStageElems;
+    const bf16* tb = base + kAPlanes * kPlane;
+#pragma unroll
+    for (int kk = 0; kk < kKT; kk += 16) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r[4];
+        frag_b<B_KMAJOR>(r, tb, wn * 32 + p * 16, kk);
+        bh[2 * p][0] = r[0];
+        bh[2 * p][1] = r[1];
+        bh[2 * p + 1][0] = r[2];
+        bh[2 * p + 1][1] = r[3];
+        if (kBPlanes == 2) {
+          frag_b<B_KMAJOR>(r, tb + kPlane, wn * 32 + p * 16, kk);
+          bl[2 * p][0] = r[0];
+          bl[2 * p][1] = r[1];
+          bl[2 * p + 1][0] = r[2];
+          bl[2 * p + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t ah[4], al[4];
+        frag_a<A_KMAJOR>(ah, base, wm * 64 + i * 16, kk);
+        if (kAPlanes == 2)
+          frag_a<A_KMAJOR>(al, base + kPlane, wm * 64 + i * 16, kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16(part[i][j], ah, bh[j][0], bh[j][1]);
+          if (PASSES >= 2) mma_bf16(part[i][j], al, bh[j][0], bh[j][1]);
+          if (PASSES == 3) mma_bf16(part[i][j], ah, bl[j][0], bl[j][1]);
+        }
+      }
+    }
+    if ((kt + 1) % kPromote == 0 || kt == nk - 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+            part[i][j][e] = 0.0f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[i][j][2 h + e] is the tile's element at row wm 64 + 16 i + lane / 4
+  // + 8 h, column wn 32 + 8 j + 2 (lane % 4) + e
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm * 64 + i * 16 + lane / 4 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + wn * 32 + j * 8 + 2 * (lane % 4);
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (EPI == kEpiDlogits) {
+          // r: a row (past N: d = 0); c: a column of the chunk
+          float d0 = 0.0f, d1 = 0.0f;
+          if (r < a.N) {
+            const float lse = a.lse[r], rs = a.rs[r];
+            const int lab = a.labels[r];
+            d0 = dlogit(a, v0, epi.c0 + c, lse, lab, rs);
+            d1 = dlogit(a, v1, epi.c0 + c + 1, lse, lab, rs);
+          }
+          const bf16 h0 = __float2bfloat16_rn(d0);
+          const bf16 h1 = __float2bfloat16_rn(d1);
+          __nv_bfloat162 hi, lo;
+          hi.x = h0;
+          hi.y = h1;
+          lo.x = __float2bfloat16_rn(__fsub_rn(d0, __bfloat162float(h0)));
+          lo.y = __float2bfloat16_rn(__fsub_rn(d1, __bfloat162float(h1)));
+          const size_t o = (size_t)r * epi.ldd + c;
+          *reinterpret_cast<__nv_bfloat162*>(epi.d_hi + o) = hi;
+          *reinterpret_cast<__nv_bfloat162*>(epi.d_lo + o) = lo;
+        } else if (EPI == kEpiDh) {
+          // r: a row, c: a column of D
+          if (r >= a.N) continue;
+          const size_t o = (size_t)r * a.D + c;
+          float2 v = make_float2(v0, v1);
+          if (!epi.first) {
+            const float2 p = *reinterpret_cast<const float2*>(epi.acc + o);
+            v.x = __fadd_rn(p.x, v.x);
+            v.y = __fadd_rn(p.y, v.y);
+          }
+          if (epi.out_t != nullptr) {
+            __nv_bfloat162 t;
+            t.x = __float2bfloat16_rn(v.x);
+            t.y = __float2bfloat16_rn(v.y);
+            *reinterpret_cast<__nv_bfloat162*>(epi.out_t + o) = t;
+          } else {
+            *reinterpret_cast<float2*>(epi.acc + o) = v;
+          }
+        } else {
+          // r: a vocab column of the chunk, c: a column of D
+          TW* dw = static_cast<TW*>(epi.dw);
+          const int col = epi.c0 + r;
+          if (TRANSW) {
+            dw[(size_t)c * a.Vp + col] = from_float<TW>(v0);
+            dw[(size_t)(c + 1) * a.Vp + col] = from_float<TW>(v1);
+          } else {
+            dw[(size_t)col * a.D + c] = from_float<TW>(v0);
+            dw[(size_t)col * a.D + c + 1] = from_float<TW>(v1);
+          }
+        }
+      }
+    }
+}
+
+// h_n, the normed rows rounded to bf16, in an (Np, D) plane; rows past N
+// are zero.
+__global__ void __launch_bounds__(kThreads)
+ce_prep_hn_kernel(CeArgs a, int Np, bf16* __restrict__ hn) {
+  const size_t n = (size_t)Np * a.D;
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * kThreads) {
+    const int r = (int)(e / a.D), k = (int)(e % a.D);
+    hn[e] = __float2bfloat16_rn(r < a.N ? hn_at<bf16>(a, r, k) : 0.0f);
+  }
+}
+
+// hi = bf16(w) and lo = bf16(w - hi), element by element.
+__global__ void __launch_bounds__(kThreads)
+ce_split_kernel(const float* __restrict__ w, size_t n, bf16* __restrict__ hi,
+                bf16* __restrict__ lo) {
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * kThreads) {
+    const float x = w[e];
+    const bf16 h = __float2bfloat16_rn(x);
+    hi[e] = h;
+    lo[e] = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 template <typename T>
@@ -596,7 +972,7 @@ cudaError_t forward_impl(const CeArgs& a, float* stats, int splits,
 
 template <typename T, typename TW, bool TRANSW>
 cudaError_t dh_impl(const CeArgs& a, float* stats, void* dh, int dh_f32,
-                    cudaStream_t st) {
+                    unsigned char*, cudaStream_t st) {
   cudaError_t err = launch_row_stats<T>(a, stats, st);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * bwd_smem_floats(a.D);
@@ -611,7 +987,7 @@ cudaError_t dh_impl(const CeArgs& a, float* stats, void* dh, int dh_f32,
 
 template <typename T, typename TW, bool TRANSW>
 cudaError_t dw_impl(const CeArgs& a, float* stats, void* dw,
-                    cudaStream_t st) {
+                    unsigned char*, cudaStream_t st) {
   cudaError_t err = launch_row_stats<T>(a, stats, st);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * bwd_smem_floats(a.D);
@@ -624,10 +1000,161 @@ cudaError_t dw_impl(const CeArgs& a, float* stats, void* dw,
   return cudaGetLastError();
 }
 
+// The tensor-core backward's workspace, at 256-byte offsets: h_n (Np, D);
+// W's hi and lo planes (fp32 W only); d_hi and d_lo (Np, cw); the fp32 dh
+// accumulator (N, D) when dh is returned in bf16.
+struct TcPlan {
+  int Np, cw, n_chunks;
+  size_t hn, w_hi, w_lo, d_hi, d_lo, acc, bytes;
+};
+
+TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc) {
+  TcPlan p;
+  p.Np = (N + kMT - 1) / kMT * kMT;
+  const int tiles = Vp / kNT;
+  const size_t per_tile = size_t(4) * p.Np * kNT;  // d_hi and d_lo bytes
+  const int max_tiles =
+      (int)std::min<size_t>(tiles, std::max<size_t>(1, kWsBudget / per_tile));
+  const int n = (tiles + max_tiles - 1) / max_tiles;
+  const int per = (tiles + n - 1) / n;
+  p.n_chunks = (tiles + per - 1) / per;
+  p.cw = per * kNT;
+  auto up = [](size_t x) { return (x + 255) / 256 * 256; };
+  const size_t wbytes = w_bf16 ? 0 : up(size_t(2) * Vp * D);
+  p.hn = 0;
+  p.w_hi = p.hn + up(size_t(2) * p.Np * D);
+  p.w_lo = p.w_hi + wbytes;
+  p.d_hi = p.w_lo + wbytes;
+  p.d_lo = p.d_hi + up(size_t(2) * p.Np * p.cw);
+  p.acc = p.d_lo + up(size_t(2) * p.Np * p.cw);
+  p.bytes = p.acc + (dh_acc ? up(size_t(4) * N * D) : 0);
+  return p;
+}
+
+template <bool A_KMAJOR, bool B_KMAJOR, int PASSES, int EPI, typename TW,
+          bool TRANSW>
+cudaError_t launch_mma(dim3 grid, const Operand& A, const Operand& B, int K,
+                       const CeArgs& a, const Epi& epi, cudaStream_t st) {
+  constexpr int planes = (PASSES >= 2 ? 2 : 1) + (PASSES == 3 ? 2 : 1);
+  const int smem = (int)(sizeof(bf16) * kStages * planes * kPlane);
+  auto kern = ce_mma_kernel<A_KMAJOR, B_KMAJOR, PASSES, EPI, TW, TRANSW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kThreads, smem, st>>>(A, B, K, a, epi);
+  return cudaGetLastError();
+}
+
+// Row statistics, h_n and W's planes: what every chunk reads.
+template <typename TW>
+cudaError_t tc_prep(const CeArgs& a, float* stats, const TcPlan& p,
+                    unsigned char* ws, cudaStream_t st) {
+  cudaError_t err = launch_row_stats<bf16>(a, stats, st);
+  if (err != cudaSuccess) return err;
+  ce_prep_hn_kernel<<<1024, kThreads, 0, st>>>(
+      a, p.Np, reinterpret_cast<bf16*>(ws + p.hn));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !std::is_same<TW, float>::value) return err;
+  ce_split_kernel<<<2048, kThreads, 0, st>>>(
+      static_cast<const float*>(a.w), (size_t)a.Vp * a.D,
+      reinterpret_cast<bf16*>(ws + p.w_hi),
+      reinterpret_cast<bf16*>(ws + p.w_lo));
+  return cudaGetLastError();
+}
+
+// W's bf16 planes from vocab column c0 on: (vocab c, depth k) lies at
+// c D + k in a tied W (Vp, D) and at k Vp + c in an untied one (D, Vp).
+template <typename TW, bool TRANSW>
+Operand w_operand(const CeArgs& a, const TcPlan& p, unsigned char* ws,
+                  int c0) {
+  const size_t off = TRANSW ? (size_t)c0 : (size_t)c0 * a.D;
+  const int ld = TRANSW ? a.Vp : a.D;
+  if (!std::is_same<TW, float>::value)
+    return Operand{static_cast<const bf16*>(a.w) + off, nullptr, ld};
+  return Operand{reinterpret_cast<const bf16*>(ws + p.w_hi) + off,
+                 reinterpret_cast<const bf16*>(ws + p.w_lo) + off, ld};
+}
+
+// d of the chunk of columns c0 .. c0 + width into the workspace: s = h_n .
+// hi^T over k = D (W k-contiguous when tied).
+template <typename TW, bool TRANSW>
+cudaError_t tc_dlogits(const CeArgs& a, const TcPlan& p, unsigned char* ws,
+                       int c0, int width, cudaStream_t st) {
+  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), nullptr, a.D};
+  Epi epi{};
+  epi.c0 = c0;
+  epi.d_hi = reinterpret_cast<bf16*>(ws + p.d_hi);
+  epi.d_lo = reinterpret_cast<bf16*>(ws + p.d_lo);
+  epi.ldd = p.cw;
+  return launch_mma<true, !TRANSW, 1, kEpiDlogits, TW, TRANSW>(
+      dim3(width / kNT, p.Np / kMT), hn, w_operand<TW, TRANSW>(a, p, ws, c0),
+      a.D, a, epi, st);
+}
+
+template <typename TW, bool TRANSW>
+cudaError_t dh_tc_impl(const CeArgs& a, float* stats, void* dh, int dh_f32,
+                       unsigned char* ws, cudaStream_t st) {
+  constexpr bool kW32 = std::is_same<TW, float>::value;
+  const TcPlan p = tc_plan(a.N, a.D, a.Vp, !kW32, !dh_f32);
+  cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
+  if (err != cudaSuccess) return err;
+  const Operand d{reinterpret_cast<const bf16*>(ws + p.d_hi),
+                  reinterpret_cast<const bf16*>(ws + p.d_lo), p.cw};
+  const dim3 grid(a.D / kNT, p.Np / kMT);
+  for (int ci = 0; ci < p.n_chunks; ++ci) {
+    const int c0 = ci * p.cw, width = std::min(p.cw, a.Vp - c0);
+    err = tc_dlogits<TW, TRANSW>(a, p, ws, c0, width, st);
+    if (err != cudaSuccess) return err;
+    Epi epi{};
+    epi.acc = dh_f32 ? static_cast<float*>(dh)
+                     : reinterpret_cast<float*>(ws + p.acc);
+    epi.first = ci == 0;
+    epi.out_t = !dh_f32 && ci == p.n_chunks - 1 ? static_cast<bf16*>(dh)
+                                                 : nullptr;
+    // d . W: k runs over the chunk's vocab columns, n over D; W is
+    // n-contiguous there when tied, k-contiguous when untied
+    const Operand w = w_operand<TW, TRANSW>(a, p, ws, c0);
+    err = kW32 ? launch_mma<true, TRANSW, 3, kEpiDh, TW, TRANSW>(
+                     grid, d, w, width, a, epi, st)
+               : launch_mma<true, TRANSW, 2, kEpiDh, TW, TRANSW>(
+                     grid, d, w, width, a, epi, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename TW, bool TRANSW>
+cudaError_t dw_tc_impl(const CeArgs& a, float* stats, void* dw,
+                       unsigned char* ws, cudaStream_t st) {
+  const TcPlan p = tc_plan(a.N, a.D, a.Vp, !std::is_same<TW, float>::value,
+                           0);
+  cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
+  if (err != cudaSuccess) return err;
+  // d^T . h_n: m runs over the chunk's vocab columns, k over the rows
+  // (d^T m-contiguous), n over D (h_n n-contiguous)
+  const Operand dt{reinterpret_cast<const bf16*>(ws + p.d_hi),
+                   reinterpret_cast<const bf16*>(ws + p.d_lo), p.cw};
+  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), nullptr, a.D};
+  for (int ci = 0; ci < p.n_chunks; ++ci) {
+    const int c0 = ci * p.cw, width = std::min(p.cw, a.Vp - c0);
+    err = tc_dlogits<TW, TRANSW>(a, p, ws, c0, width, st);
+    if (err != cudaSuccess) return err;
+    Epi epi{};
+    epi.c0 = c0;
+    epi.dw = dw;
+    err = launch_mma<false, false, 2, kEpiDw, TW, TRANSW>(
+        dim3(a.D / kNT, width / kMT), dt, hn, p.Np, a, epi, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 typedef cudaError_t (*ForwardFn)(const CeArgs&, float*, int, int, float*,
                                  int*, float*, float*, int*, cudaStream_t);
-typedef cudaError_t (*DhFn)(const CeArgs&, float*, void*, int, cudaStream_t);
-typedef cudaError_t (*DwFn)(const CeArgs&, float*, void*, cudaStream_t);
+typedef cudaError_t (*DhFn)(const CeArgs&, float*, void*, int,
+                            unsigned char*, cudaStream_t);
+typedef cudaError_t (*DwFn)(const CeArgs&, float*, void*, unsigned char*,
+                            cudaStream_t);
 
 // Tables indexed by 4 * h_bf16 + 2 * w_bf16 + transpose_w.
 template <bool SAMPLE>
@@ -644,17 +1171,18 @@ ForwardFn pick_forward(int index) {
   return table[index];
 }
 
+// The backward: fp32 h on the FMA units, bf16 h on the tensor cores.
 const DhFn kDhTable[8] = {
     dh_impl<float, float, false>, dh_impl<float, float, true>,
     dh_impl<float, bf16, false>,  dh_impl<float, bf16, true>,
-    dh_impl<bf16, float, false>,  dh_impl<bf16, float, true>,
-    dh_impl<bf16, bf16, false>,   dh_impl<bf16, bf16, true>};
+    dh_tc_impl<float, false>,     dh_tc_impl<float, true>,
+    dh_tc_impl<bf16, false>,      dh_tc_impl<bf16, true>};
 
 const DwFn kDwTable[8] = {
     dw_impl<float, float, false>, dw_impl<float, float, true>,
     dw_impl<float, bf16, false>,  dw_impl<float, bf16, true>,
-    dw_impl<bf16, float, false>,  dw_impl<bf16, float, true>,
-    dw_impl<bf16, bf16, false>,   dw_impl<bf16, bf16, true>};
+    dw_tc_impl<float, false>,     dw_tc_impl<float, true>,
+    dw_tc_impl<bf16, false>,      dw_tc_impl<bf16, true>};
 
 CeArgs make_args(const void* h, const void* w, const float* normp,
                  const float* stats, const int* labels, const float* rs,
@@ -707,34 +1235,41 @@ int ce_forward_launch(const void* h, const void* w, const float* normp,
                  yhat, static_cast<cudaStream_t>(stream));
 }
 
-// dh (N, D): fp32 when dh_f32, else h's dtype.
+// Workspace bytes the backward asks for (0 with fp32 h).
+long long ce_backward_ws_bytes(int N, int D, int Vp, int h_bf16, int w_bf16,
+                               int dh_f32) {
+  if (!h_bf16) return 0;
+  return (long long)tc_plan(N, D, Vp, w_bf16, !dh_f32).bytes;
+}
+
+// dh (N, D): fp32 when dh_f32, else h's dtype.  ws: the workspace of
+// ce_backward_ws_bytes(..., dh_f32).
 int ce_backward_dh_launch(const void* h, const void* w, const float* normp,
                           float* stats, const int* labels, const float* rs,
-                          const float* lse, void* dh, int dh_f32, int N,
-                          int D, int V, int Vp, int h_bf16, int w_bf16,
+                          const float* lse, void* dh, int dh_f32, void* ws,
+                          int N, int D, int V, int Vp, int h_bf16, int w_bf16,
                           int transpose_w, int norm, float eps, float softcap,
                           void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
                              Vp, norm, eps, softcap, 0u, 0u);
   return (int)kDhTable[table_index(h_bf16, w_bf16, transpose_w)](
-      a, stats, dh, dh_f32, static_cast<cudaStream_t>(stream));
+      a, stats, dh, dh_f32, static_cast<unsigned char*>(ws),
+      static_cast<cudaStream_t>(stream));
 }
 
-// dW, W's shape and dtype.
+// dW, W's shape and dtype.  ws: the workspace of ce_backward_ws_bytes(...,
+// 1).
 int ce_backward_dw_launch(const void* h, const void* w, const float* normp,
                           float* stats, const int* labels, const float* rs,
-                          const float* lse, void* dw, int N, int D, int V,
-                          int Vp, int h_bf16, int w_bf16, int transpose_w,
-                          int norm, float eps, float softcap, void* stream) {
+                          const float* lse, void* dw, void* ws, int N, int D,
+                          int V, int Vp, int h_bf16, int w_bf16,
+                          int transpose_w, int norm, float eps, float softcap,
+                          void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
                              Vp, norm, eps, softcap, 0u, 0u);
   return (int)kDwTable[table_index(h_bf16, w_bf16, transpose_w)](
-      a, stats, dw, static_cast<cudaStream_t>(stream));
-}
-
-// Shared memory bytes one backward block asks for at width D.
-int ce_backward_smem_bytes(int D) {
-  return (int)(sizeof(float) * bwd_smem_floats(D));
+      a, stats, dw, static_cast<unsigned char*>(ws),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

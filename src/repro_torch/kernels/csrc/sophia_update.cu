@@ -41,7 +41,7 @@
 //            p' as above
 //   signgd:  m' = b1 m + (1-b1) g; p' = p (1 - lr wd) - lr sign(m')
 //   sgd:     m' = mu m + g; p' = p - lr m' (no weight decay)
-// sign is torch.sign's: (0 < x) - (x < 0), so +-0 and NaN give 0.
+// sign is jnp.sign's: (0 < x) - (x < 0), so +-0 gives 0, and NaN at NaN.
 // Every operation rounds where the plain version's PyTorch operation
 // rounds: the IEEE intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn,
 // __fsqrt_rn) keep nvcc from contracting a*b + c into an FMA, clamps pass
@@ -167,9 +167,9 @@ __device__ __forceinline__ float decay_of(float lr, float wd) {
   return __fsub_rn(1.0f, __fmul_rn(lr, wd));
 }
 
-// torch.sign: 1, -1, or 0 at +-0 and NaN
+// jnp.sign: 1, -1, 0 at +-0, NaN at NaN (torch.sign gives 0 there)
 __device__ __forceinline__ float sign_of(float x) {
-  return (float)((0.0f < x) - (x < 0.0f));
+  return isnan(x) ? x : (float)((0.0f < x) - (x < 0.0f));
 }
 
 // the Adam-shaped update of AdamW and AdaHessian from m' and the second

@@ -39,10 +39,10 @@ differentiable.
 
 ``use_jvp=True`` takes the twin of the Hutchinson path (the reference's
 ``custom_jvp`` twin, ``flash_attention.py:432-547``): o from the forward
-kernel, and a backward of plain differentiable PyTorch over KV chunks of
-:func:`_chunk_len` keys, so that a gradient taken with
-``create_graph=True`` can be differentiated again and the HVP never
-reaches the dQ or dK/dV kernel.
+kernel, and a backward and a tangent rule of plain differentiable
+PyTorch over KV chunks of :func:`_chunk_len` keys, so that the HVP's
+``torch.func.jvp`` of ``torch.func.grad`` never reaches the dQ or dK/dV
+kernel.
 """
 from __future__ import annotations
 
@@ -374,22 +374,95 @@ def _attention_backward_chunked(q, k, v, do, *, causal=True, scale,
             torch.cat(dvs, dim=2).to(v.dtype))
 
 
+def _attention_tangent_chunked(q, k, v, dq, dk, dv, *, causal=True, scale,
+                               window=None, softcap=None, q_offset=0):
+    """The tangent of attention's output in plain PyTorch over KV chunks,
+    all fp32, the reference's ``_flash_jvp_rule``: pass A recomputes each
+    chunk's masked (softcapped) scores and the row log-sum-exp, then o;
+    pass B sums ``do = (p * dz) . v - rowsum(p * dz) o + p . dv`` with
+    ``dz = dcap * scale * (dq . k^T + q . dk^T)``.  A missing tangent is
+    zero.  Returns ``do`` in q's dtype."""
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    q32 = _grouped(q, Hkv)
+    k32, v32 = k.to(_f32), v.to(_f32)
+    dq32 = None if dq is None else _grouped(dq, Hkv)
+    dk32 = None if dk is None else dk.to(_f32)
+    dv32 = None if dv is None else dv.to(_f32)
+    mask = band_mask(Sq, Sk, causal=causal, window=window,
+                     q_offset=q_offset, device=q.device)
+    c = _chunk_len(Sk)
+    chunks, lse_parts = [], []
+    for c0 in range(0, Sk, c):
+        kc, mc = k32[:, :, c0:c0 + c], mask[:, c0:c0 + c]
+        s = torch.einsum("bkgsh,bkth->bkgst", q32, kc) * scale
+        dcap = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s, dcap = softcap * t, 1.0 - t * t
+        z = torch.where(mc, s, NEG_INF)
+        chunks.append((c0, z, mc, dcap))
+        lse_parts.append(torch.logsumexp(z, dim=-1))
+    lse = torch.logsumexp(torch.stack(lse_parts), dim=0)[..., None]
+    o = torch.zeros_like(q32)
+    u = torch.zeros_like(q32[..., :1])
+    t_pv = torch.zeros_like(q32)
+    for c0, z, mc, dcap in chunks:
+        p = torch.where(mc, torch.exp(z - lse), 0.0)
+        vc = v32[:, :, c0:c0 + c]
+        o = o + torch.einsum("bkgst,bkth->bkgsh", p, vc)
+        dz = torch.zeros_like(z)
+        if dq32 is not None:
+            dz = dz + torch.einsum("bkgsh,bkth->bkgst", dq32,
+                                   k32[:, :, c0:c0 + c])
+        if dk32 is not None:
+            dz = dz + torch.einsum("bkgsh,bkth->bkgst", q32,
+                                   dk32[:, :, c0:c0 + c])
+        dz = dz * scale
+        if dcap is not None:
+            dz = dz * dcap
+        pdz = p * dz
+        u = u + pdz.sum(-1, keepdim=True)
+        t_pv = t_pv + torch.einsum("bkgst,bkth->bkgsh", pdz, vc)
+        if dv32 is not None:
+            t_pv = t_pv + torch.einsum("bkgst,bkth->bkgsh", p,
+                                       dv32[:, :, c0:c0 + c])
+    return (t_pv - u * o).reshape(B, H, Sq, hd).to(q.dtype)
+
+
 class _FlashAttentionTwin(torch.autograd.Function):
     """o = attention(q, k, v) from the forward kernel; the backward is
-    :func:`_attention_backward_chunked`, differentiable PyTorch, so that
-    autograd can take the second order through it."""
+    :func:`_attention_backward_chunked` and the tangent
+    :func:`_attention_tangent_chunked`, both plain PyTorch, so that
+    ``torch.func.jvp`` of ``torch.func.grad`` (the Hutchinson HVP,
+    forward-over-reverse as the reference takes it) reaches no backward
+    kernel.  The backward differentiates in forward mode only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, opts):
+    def forward(q, k, v, opts):
         o, _ = flash_forward(q, k, v, **opts)
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = opts
         return o
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, opts = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.save_for_forward(q, k, v)
+        ctx.opts = opts
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return _attention_backward_chunked(q, k, v, g, **ctx.opts) + (None,)
+        # no graph for a second reverse pass (the HVP runs forward mode
+        # over this backward; see fused_ce._FusedNLLTwin.backward)
+        with torch.no_grad():
+            return _attention_backward_chunked(q, k, v, g,
+                                               **ctx.opts) + (None,)
+
+    @staticmethod
+    def jvp(ctx, dq, dk, dv, _):
+        q, k, v = ctx.saved_tensors
+        return _attention_tangent_chunked(q, k, v, dq, dk, dv, **ctx.opts)
 
 
 def flash_attention(q, k, v, *, causal=True, scale=None, window=None,

@@ -17,10 +17,11 @@ unembedding without the (N, Vp) logits ever existing:
             d(normed hidden) back through the norm with autograd of the
             plain :func:`apply_norm`;
   twin      :func:`fused_lm_loss_jvp`, the labeled NLL for the Hutchinson
-            HVP: the forward kernel's value, and a backward of plain
-            differentiable PyTorch (2048-column chunks) that autograd can
-            differentiate again, so reverse-over-reverse never reaches a
-            backward kernel (the reference's ``custom_jvp`` twin).
+            HVP: the forward kernel's value, and a backward and a tangent
+            rule of plain differentiable PyTorch (2048-column chunks), so
+            the HVP's ``torch.func.jvp`` of ``torch.func.grad`` never
+            reaches a backward kernel (the reference's ``custom_jvp``
+            twin).
 
 On a CUDA tensor each entry point launches the hand-written kernels of
 ``csrc/fused_ce.cu`` (and adds one to its count in ``KERNEL_LAUNCHES``):
@@ -61,7 +62,7 @@ _NORM_CODE = {None: 0, "ln": 1, "rms": 2}
 _f32 = torch.float32
 _M32 = 0xFFFFFFFF
 MAX_D = 1280          # widest hidden whose (32, D) fp32 accumulator fits a
-#                       backward block's shared memory
+#                       block's shared memory in the fp32-h backward
 
 # ---------------------------------------------------------------------------
 # counter-based Gumbel noise (the reference's _mix32 / hash_gumbel)
@@ -293,10 +294,11 @@ _SIGNATURES = {
     "ce_forward_launch": [_PTR] * 10 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT,
                                                       _UINT, _UINT, _INT,
                                                       _INT, _PTR],
-    "ce_backward_dh_launch": [_PTR] * 8 + [_INT] * 9 + [_FLOAT, _FLOAT,
+    "ce_backward_dh_launch": [_PTR] * 8 + [_INT, _PTR] + [_INT] * 8
+    + [_FLOAT, _FLOAT, _PTR],
+    "ce_backward_dw_launch": [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT,
                                                          _PTR],
-    "ce_backward_dw_launch": [_PTR] * 8 + [_INT] * 8 + [_FLOAT, _FLOAT,
-                                                         _PTR],
+    "ce_backward_ws_bytes": [_INT] * 6,
 }
 
 
@@ -304,7 +306,8 @@ _SIGNATURES = {
 def _launch_fn(name: str):
     fn = getattr(_build.load("fused_ce"), name)
     fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    fn.restype = (ctypes.c_longlong if name == "ce_backward_ws_bytes"
+                  else ctypes.c_int)
     return fn
 
 
@@ -416,16 +419,23 @@ def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
     ptrs = (h2.data_ptr(), w.data_ptr(), normp.data_ptr(),
             c["stats"].data_ptr(), labels.data_ptr(), rs.data_ptr(),
             lse.data_ptr())
+    # the tensor-core route's scratch (bf16 h): h_n, W's bf16 planes, one
+    # vocab chunk of d in two bf16 planes, dh's fp32 sums
+    dh_f32 = int(which == "dw" or norm is not None)
+    _, D, _, Vp, h_bf16, w_bf16 = c["dims"][:6]
+    ws = torch.empty((max(1, _launch_fn("ce_backward_ws_bytes")(
+        N, D, Vp, h_bf16, w_bf16, dh_f32)),), dtype=torch.uint8, device=dev)
     if which == "dh":
         out = torch.empty(h2.shape, device=dev,
                           dtype=_f32 if norm is not None else h2.dtype)
         err = _launch_fn("ce_backward_dh_launch")(
-            *ptrs, out.data_ptr(), int(norm is not None), *c["dims"],
+            *ptrs, out.data_ptr(), dh_f32, ws.data_ptr(), *c["dims"],
             *c["cfg"], c["stream"])
     else:
         out = torch.empty(w.shape, dtype=w.dtype, device=dev)
         err = _launch_fn("ce_backward_dw_launch")(
-            *ptrs, out.data_ptr(), *c["dims"], *c["cfg"], c["stream"])
+            *ptrs, out.data_ptr(), ws.data_ptr(), *c["dims"], *c["cfg"],
+            c["stream"])
     name = f"ce_backward_{which}"
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
@@ -563,24 +573,43 @@ def _backward(opts, h2, w, normp, labels, rowscale, lse, ll, g):
 class _FusedNLLTwin(torch.autograd.Function):
     """sum(rowscale * (lse - label logit)) without a norm: the forward is
     the CE forward kernel (row 11); the backward is
-    :func:`_nll_backward_chunked`, differentiable PyTorch, so that a
-    gradient taken with ``create_graph=True`` can be differentiated again
-    (the HVP of the Hutchinson estimator)."""
+    :func:`_nll_backward_chunked` and the tangent
+    :func:`_nll_tangent_chunked`, both plain PyTorch, so that
+    ``torch.func.jvp`` of ``torch.func.grad`` (the HVP of the Hutchinson
+    estimator, forward-over-reverse as the reference takes it) reaches no
+    backward kernel.  The backward differentiates in forward mode only (a
+    second reverse pass finds no graph).  The row scale (the mask) takes
+    no derivative."""
 
     @staticmethod
-    def forward(ctx, h2, w, rowscale, labels, opts):
+    def forward(h2, w, rowscale, labels, opts):
         normp = torch.zeros((2, h2.shape[1]), dtype=_f32, device=h2.device)
         lse, ll = ce_forward(h2, w, normp, labels, **opts)
-        ctx.save_for_backward(h2, w, rowscale, labels)
-        ctx.opts = opts
         return torch.sum(rowscale * (lse - ll))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h2, w, rowscale, labels, opts = inputs
+        ctx.save_for_backward(h2, w, rowscale, labels)
+        ctx.save_for_forward(h2, w, rowscale, labels)
+        ctx.opts = opts
 
     @staticmethod
     def backward(ctx, g):
         h2, w, rowscale, labels = ctx.saved_tensors
-        dh, dw = _nll_backward_chunked(h2, w, rowscale, labels, g,
-                                       **ctx.opts)
+        # torch.func.grad differentiates with create_graph, which would
+        # keep every chunk of this sweep for a second reverse pass that the
+        # HVP never takes; forward mode (its jvp) passes through no_grad
+        with torch.no_grad():
+            dh, dw = _nll_backward_chunked(h2, w, rowscale, labels, g,
+                                           **ctx.opts)
         return dh, dw, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dh2, dw, *_):
+        h2, w, rowscale, labels = ctx.saved_tensors
+        return _nll_tangent_chunked(h2, w, rowscale, labels, dh2, dw,
+                                    **ctx.opts)
 
 
 def _nll_backward_chunked(h2, w, rowscale, labels, g, *, vocab, transpose_w,
@@ -627,6 +656,43 @@ def _nll_backward_chunked(h2, w, rowscale, labels, g, *, vocab, transpose_w,
             dws.append(d.T @ h32)
     dw = torch.cat(dws, dim=1 if transpose_w else 0).to(w.dtype)
     return dh.to(h2.dtype), dw
+
+
+def _nll_tangent_chunked(h2, w, rowscale, labels, dh2, dw, *, vocab,
+                         transpose_w, softcap, norm, eps, chunk=CHUNK):
+    """The tangent of sum(rowscale * (lse - label logit)) in plain PyTorch
+    over vocab chunks, the reference's ``_fused_nll_jvp_rule``: sweep A
+    recomputes the log-sum-exp; sweep B sums ``dlse - d(label logit)`` per
+    row with ``dz = dcap * (dh . Wc^T + h . dWc^T)``, W and its tangent
+    cast to h's dtype as the logits cast W.  A missing tangent is zero."""
+    if norm is not None:
+        raise ValueError("the NLL twin takes normed hidden states (apply "
+                         "the norm first)")
+    Vp = _vp_of(w, transpose_w)
+    bv = vocab_chunk(Vp, chunk, 128)
+    h32 = h2.to(_f32)
+    dh32 = None if dh2 is None else dh2.to(h2.dtype).to(_f32)
+    lab = labels.to(torch.int64)[:, None]
+    lse = torch.logsumexp(torch.stack([
+        torch.logsumexp(_chunk_logits(h32, w, h2.dtype, c0, bv, transpose_w,
+                                      softcap, vocab)[0], dim=-1)
+        for c0 in range(0, Vp, bv)]), dim=0)
+    t = torch.zeros_like(lse)
+    for c0 in range(0, Vp, bv):
+        s, _, cols, dcap = _chunk_logits(h32, w, h2.dtype, c0, bv,
+                                         transpose_w, softcap, vocab)
+        dz = torch.zeros_like(s)
+        if dh32 is not None:
+            wc = (w[:, c0:c0 + bv] if transpose_w else w[c0:c0 + bv].T)
+            dz = dz + dh32 @ wc.to(h2.dtype).to(_f32)
+        if dw is not None:
+            dwc = (dw[:, c0:c0 + bv] if transpose_w else dw[c0:c0 + bv].T)
+            dz = dz + h32 @ dwc.to(h2.dtype).to(_f32)
+        if dcap is not None:
+            dz = dz * dcap
+        t = t + (torch.exp(s - lse[:, None]) * dz).sum(-1) \
+            - torch.where(cols[None, :] == lab, dz, 0.0).sum(-1)
+    return torch.sum(rowscale * t)
 
 
 def _pack_norm(norm_kind, norm_scale, norm_bias, D, device):

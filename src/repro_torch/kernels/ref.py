@@ -119,13 +119,19 @@ def adahessian_step_refresh_ref(p, m, v, g, e, *, lr, flag, scale, beta1,
     return p2, m2, v_sel
 
 
+def sign(x):
+    """``jnp.sign``: 1, -1, 0 at +-0, and NaN at NaN (``torch.sign`` gives
+    0 there)."""
+    return torch.where(x.isnan(), x, torch.sign(x))
+
+
 def lion_fused_ref(p, m, g, *, lr, beta1, beta2, weight_decay):
     """One Lion step: the update is the sign of the beta1 interpolation of
     the OLD m and g; the stored m' is the beta2 EMA.  Returns (p', m').
-    ``torch.sign`` gives 0 at +-0 (and at NaN)."""
+    The sign is :func:`sign`'s: 0 at +-0, NaN at NaN."""
     g32 = g.to(_f32)
     m32 = m.to(_f32)
-    u = torch.sign(beta1 * m32 + (1.0 - beta1) * g32)
+    u = sign(beta1 * m32 + (1.0 - beta1) * g32)
     p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * u
     m_new = beta2 * m32 + (1.0 - beta2) * g32
     return p_new.to(p.dtype), m_new.to(m.dtype)
@@ -136,7 +142,7 @@ def signgd_fused_ref(p, m, g, *, lr, beta1, weight_decay):
     m + (1-beta1) g, p' = p (1 - lr wd) - lr sign(m').  Returns (p',
     m')."""
     m_new = beta1 * m.to(_f32) + (1.0 - beta1) * g.to(_f32)
-    p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * torch.sign(m_new)
+    p_new = p.to(_f32) * (1.0 - lr * weight_decay) - lr * sign(m_new)
     return p_new.to(p.dtype), m_new.to(m.dtype)
 
 

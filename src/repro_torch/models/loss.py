@@ -9,8 +9,8 @@ embedding table itself, so autograd sums its gradient from the CE with the
 one from the embedding lookup.
 
 "fused_jvp" is the twin of the Hutchinson HVP: the final norm applied in
-PyTorch, then the CE forward kernel's value with a backward that autograd
-can differentiate again (``fused_lm_loss_jvp``).  The reference's other
+PyTorch, then the CE forward kernel's value with a backward and a tangent
+rule that ``torch.func.jvp`` carries through (``fused_lm_loss_jvp``).  The reference's other
 routes are not ported: "chunked" and "unfused" draw GNB's labels with
 ``jax.random`` (no PyTorch code reproduces those draws); each raises
 ``NotImplementedError``.

@@ -14,8 +14,9 @@ on the first ``hess_subbatch`` rows of the batch from the pre-update
 parameters and folds into the Hessian EMA with its scale.  GNB draws ŷ
 inside the fused CE forward sweep, takes ĝ by autograd and squares it in
 flat space, B = the sweep's valid-position count; Hutchinson takes u ⊙ Hu
-through the loss and attention twins (``fused_jvp``, ``flash_jvp``),
-scale 1; the empirical Fisher squares the true-label gradient, B = the
+forward-over-reverse (``torch.func.jvp`` of ``torch.func.grad`` of the loss
+as a function of the parameters) through the loss and attention twins
+(``fused_jvp``, ``flash_jvp``), scale 1; the empirical Fisher squares the true-label gradient, B = the
 sub-batch's positions.  The reference makes this one compiled
 program under a traced flag; the port runs eagerly and branches in Python
 on the same flag.
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core import (OptimizerEngine, clip_by_global_norm, constant,
-                    empirical_fisher_estimator_flat,
+                    empirical_fisher_estimator_flat, functional_loss,
                     gnb_ghat_flat_from_loss, hessian_aware_optimizer,
                     hutchinson_estimator_flat, linear_warmup_cosine,
                     subsample_batch)
@@ -196,8 +197,8 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
     # wins (the reference's mapping, trainer.py:216-221)
     attn_impl = (tc.attn_impl if tc.attn_impl != "auto"
                  else ("flash" if tc.fused_attn else "auto"))
-    # the HVP differentiates twice: it takes the attention twin of the
-    # flash route, as the reference does
+    # the HVP differentiates twice (forward over reverse): it takes the
+    # attention twin of the flash route, as the reference does
     hvp_attn_impl = "flash_jvp" if attn_impl == "flash" else attn_impl
 
     def init_fn(params=None) -> TrainState:
@@ -251,11 +252,11 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
             g_sh, scale = gnb_ghat_flat_from_loss(sampled_loss, tree, lay)
             return tuple(g * g for g in g_sh), scale
         if tc.estimator == "hutchinson":
-            def loss():
-                return model.loss_fn(cfg, params, sub,
-                                     attn_impl=hvp_attn_impl, remat=tc.remat,
-                                     loss_impl="fused_jvp")[0]
-
+            loss = functional_loss(
+                params, flat_tensors(tree),
+                lambda m: model.loss_fn(cfg, m, sub, attn_impl=hvp_attn_impl,
+                                        remat=tc.remat,
+                                        loss_impl="fused_jvp")[0])
             return hutchinson_estimator_flat(loss, tree, probe_of(step, lay),
                                              lay), 1.0
         # empirical Fisher: B counts the sub-batch's positions

@@ -10,6 +10,11 @@ not a test (pytest does not collect it):
         --opt adahessian --estimator hutchinson
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_trajectory_spread.py \\
         --opt lion
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_trajectory_spread.py \\
+        --grads
+
+``--grads`` prints, per leaf, the step-0 gradients' spread instead: the
+reference's eager against its jit, and the port against both.
 """
 import argparse
 import os
@@ -28,7 +33,7 @@ from test_torch_train import (CFG32, RNG_TAG_HESS, TCFG32,  # noqa: E402
                               jax_make_source, jax_make_train_fns,
                               jax_ravel_shards, jax_train_loop,
                               make_train_fns, params_from_jax, ravel_shards,
-                              seed_from_key, train_loop)
+                              seed_from_key, step0_gradients, train_loop)
 
 
 def _shares(name, x, a):
@@ -83,7 +88,9 @@ def estimates_at_step_0():
     from repro.core import estimators as jest
     from repro.core.engine import build_layout as jax_build_layout
     from repro.models import get_model as jax_get_model
-    from repro_torch.core.estimators import hutchinson_estimator_flat
+    from repro_torch.core.estimators import (functional_loss,
+                                             hutchinson_estimator_flat)
+    from repro_torch.core.types import flat_tensors
     from repro_torch.models import get_model
 
     params = jax_get_model(CFG32).init_params(CFG32, jax.random.PRNGKey(0))
@@ -108,9 +115,10 @@ def estimates_at_step_0():
                         lay.shard_sizes))
     tree = tparams.param_tree()
     port = hutchinson_estimator_flat(
-        lambda: get_model(TCFG32).loss_fn(TCFG32, tparams, tb,
-                                          attn_impl="flash_jvp",
-                                          loss_impl="fused_jvp")[0],
+        functional_loss(tparams, flat_tensors(tree),
+                        lambda m: get_model(TCFG32).loss_fn(
+                            TCFG32, m, tb, attn_impl="flash_jvp",
+                            loss_impl="fused_jvp")[0]),
         tree, u, build_layout(tree))[0].numpy()
     n = lay.n_params
     ref = np.abs(ref_jit[:n])
@@ -124,12 +132,28 @@ def estimates_at_step_0():
               f"{np.median(rel):.3g}")
 
 
+def grads_at_step_0():
+    for attn in ("flash", "full"):
+        print(f"step-0 gradients ({attn} attention), relative to each "
+              "leaf's largest |g|:")
+        for path, a, e, p in step0_gradients(attn):
+            scale = np.abs(a).max()
+            print(f"  {path:34s} scale {scale:.3g}; eager vs jit "
+                  f"{np.abs(e - a).max() / scale:.3g}, port vs jit "
+                  f"{np.abs(p - a).max() / scale:.3g}, port vs eager "
+                  f"{np.abs(p - e).max() / scale:.3g}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--opt", default="lion")
     ap.add_argument("--estimator", default="gnb")
+    ap.add_argument("--grads", action="store_true")
     args = ap.parse_args()
     torch.set_num_threads(4)
+    if args.grads:
+        grads_at_step_0()
+        return
     over = dict(TRAIN, optimizer=args.opt, estimator=args.estimator,
                 fused_kernel=True)
     (a, e, b), (h_jit, h_eag, h_port), _ = run(over, 13)

@@ -150,6 +150,78 @@ def test_fused_ce_kernels_match_plain(cuda_device, h_dtype, w_dtype, tied,
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
+def test_fused_ce_backward_at_gpt2_width(cuda_device):
+    """dh and dW at GPT-2 small's loss width on the tensor-core route
+    (bf16 h, fp32 tied W, ln fused): N=1000 ragged rows under a mask,
+    D=768, Vp=50304, held element by element as ``chip_smoke.py`` holds
+    them (``check_bf16_grad``: none beyond 2^-7 of its sum of absolute
+    terms, at most 0.1% beyond 2^-16 of it), and the padded rows' d and the
+    workspace never reach the output: every element finite."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    spec = dict(cs.CE_MAIN, N=1000, mask=True)
+    h, w, normp, labels, rs, opts = cs._ce_inputs(torch, **spec)
+    lse, _ = fused_ce.ce_forward_plain(h, w, normp, labels, **opts)
+    reset_launch_counts()
+    dh = fused_ce.ce_backward_dh(h, w, normp, labels, rs, lse, **opts)
+    dw = fused_ce.ce_backward_dw(h, w, normp, labels, rs, lse, **opts)
+    torch.cuda.synchronize()
+    assert dict(KERNEL_LAUNCHES) == {"ce_backward_dh": 1, "ce_backward_dw": 1}
+    dh_p, dw_p = fused_ce.ce_backward_plain(h, w, normp, labels, rs, lse,
+                                            **opts)
+    sums = cs._abs_sums(torch, h, w, normp, labels, rs, lse, opts)
+    for name, got, want, s in (("dh", dh, dh_p, sums[0]),
+                               ("dw", dw, dw_p, sums[1])):
+        assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+        cs.check_bf16_grad(torch, name, got, want, s)
+
+
+def test_hutchinson_hvp_launches_no_backward_kernel(cuda_device):
+    """u ⊙ Hu on GPT2_TINY (fp32, two heads of 64) through the loss and
+    flash twins on the card: the HVP, forward-over-reverse, launches the
+    CE forward once and the attention forward once per layer, and no CE
+    or attention backward kernel; the estimate equals the CPU's (the twins'
+    plain versions) within 1e-4 of its largest element."""
+    from repro_torch.core import build_layout, functional_loss
+    from repro_torch.core.estimators import hutchinson_estimator_flat
+    from repro_torch.core.types import flat_tensors
+
+    cfg = dataclasses.replace(GPT2_TINY, n_heads=2, n_kv_heads=2,
+                              dtype="float32")
+    model = get_model(cfg)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128))
+                                 .astype(np.int64))
+             for k in ("tokens", "labels")}
+    tree = params.param_tree()
+    lay = build_layout(tree)
+    u = tuple(torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              for n in lay.shard_sizes)
+
+    def estimate(p, b, probe):
+        t = p.param_tree()
+        loss = functional_loss(p, flat_tensors(t), lambda m: model.loss_fn(
+            cfg, m, b, attn_impl="flash_jvp", loss_impl="fused_jvp")[0])
+        return hutchinson_estimator_flat(loss, t, probe, lay)
+
+    want = estimate(params, batch, u)
+    card = params.to(cuda_device)
+    reset_launch_counts()
+    got = estimate(card, {k: v.to(cuda_device) for k, v in batch.items()},
+                   tuple(x.to(cuda_device) for x in u))
+    torch.cuda.synchronize()
+    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 1,
+                                     "attn_fwd": cfg.n_layers}
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,hd,causal,window,softcap,qoff", [
     (2, 4, 4, 256, 256, 64, True, None, None, 0),     # GPT-2's layout

@@ -177,6 +177,47 @@ def test_baseline_engines_build_their_state(optimizer, n_h):
     assert int(st.count) == 1 and not torch.equal(p["w"], before["w"])
 
 
+@pytest.mark.parametrize("optimizer", ["lion", "signgd"])
+def test_sign_engines_put_nan_where_the_reference_does(optimizer):
+    """Two steps of Lion and SignGD on the port's plain route against the
+    reference engine's Pallas backend (interpret mode), with NaN in g at a
+    few positions in each step (the first step's NaN reach m): p and m are
+    NaN exactly where the reference's are (``jnp.sign`` of NaN is NaN) and
+    within rtol 1e-6 / atol 3e-6 of them elsewhere, the bound of
+    :func:`test_steps_match_reference_engine` (the reference's jitted step
+    contracts products into FMAs)."""
+    rng = np.random.default_rng(4)
+    p0 = _params(rng)
+    hyp = dict(beta1=0.95, beta2=0.98, weight_decay=0.2)
+    if optimizer == "signgd":
+        hyp = dict(beta1=0.96, weight_decay=0.2)
+    jeng = JEngine(optimizer, hypers=hyp, backend="pallas", block=128,
+                   interpret=True)
+    teng = OptimizerEngine(optimizer, hypers=hyp, backend="reference",
+                           block=128)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    js, ts = jeng.init(jp), teng.init(tp)
+    for t, rows in enumerate(([2, 30], [7, 31])):
+        g = _grads(rng)
+        g["w"][rows, t] = np.nan
+        lr = np.float32(1e-3)
+        jg = jeng.ravel_grads(jp, {k: jnp.asarray(v) for k, v in g.items()})
+        tg = teng.ravel_grads(tp, {k: torch.from_numpy(v)
+                                   for k, v in g.items()})
+        jp, js = jeng.step_shards(js, jp, jg, lr)
+        tp, ts = teng.step_shards(ts, tp, tg, torch.tensor(lr))
+    pairs = [(_np(tp[k]), _jnp(jp[k])) for k in p0]
+    pairs += [(_np(a), _jnp(b)) for a, b in zip(ts.m, js.m)]
+    n_nan = 0
+    for a, b in pairs:
+        nan = np.isnan(b)
+        n_nan += int(nan.sum())
+        np.testing.assert_array_equal(np.isnan(a), nan)
+        np.testing.assert_allclose(a[~nan], b[~nan], rtol=1e-6, atol=3e-6)
+    assert n_nan == 8      # 4 NaN of p and 4 of m
+
+
 @pytest.mark.parametrize("kw,err", [
     (dict(backend="pallas"), ValueError),     # the port's name is "fused"
     (dict(backend="triton"), ValueError),

@@ -348,3 +348,101 @@ def test_forward_vocab_splits_cover_every_tile(N, Vp):
     n_tiles = Vp // 128
     assert splits * per >= n_tiles > (splits - 1) * per
     assert splits * -(-N // 64) <= 2 * 528 or splits == 1
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core backward's operand split, emulated in PyTorch
+
+
+def _split(x):
+    """fp32 -> its two bf16 pieces (as fp32): hi = bf16(x), lo = bf16(x -
+    hi), the pieces the dh and dW kernels feed the tensor cores."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_backward(h, w, normp, labels, rs, lse, opts, pieces):
+    """(dh, dW, S_dh, S_dW): the backward as the bf16 tensor-core route
+    sums it, emulated (bf16 values in fp32 tensors: every product exact,
+    every sum in fp32): d and an fp32 W in ``pieces`` bf16 pieces each,
+    dh = d_hi.W_hi + d_hi.W_lo + d_lo.W_hi and dW = d_hi^T.h_n +
+    d_lo^T.h_n with two (one piece: the hi products alone); and each
+    element's sum of absolute terms."""
+    tw = opts["transpose_w"]
+    hn = ce.apply_norm(h, normp, opts["norm"], opts["eps"]).float()
+    w32 = w.float()
+    w_hi, w_lo = _split(w32)
+    Vp = w.shape[1] if tw else w.shape[0]
+    dh = torch.zeros(hn.shape)
+    dw = torch.zeros(w.shape)
+    s_dh, s_dw = torch.zeros(hn.shape), torch.zeros(w.shape)
+    for c0 in range(0, Vp, 256):
+        s, _, cols, dcap = ce._chunk_logits(hn, w, h.dtype, c0, 256, tw,
+                                            opts["softcap"], opts["vocab"])
+        onehot = (cols[None] == labels.long()[:, None]).float()
+        d = (torch.exp(s - lse[:, None]) - onehot) * rs[:, None]
+        d = d if dcap is None else d * dcap
+        d_hi, d_lo = _split(d)
+
+        def cols_of(x):
+            return x[:, c0:c0 + 256].T if tw else x[c0:c0 + 256]
+
+        prod = d_hi @ cols_of(w_hi)
+        if pieces == 2:
+            prod = prod + d_hi @ cols_of(w_lo) + d_lo @ cols_of(w_hi)
+        dh += prod
+        s_dh += d.abs() @ cols_of(w32).abs()
+        g = d_hi.T @ hn + (d_lo.T @ hn if pieces == 2 else 0.0)
+        g_abs = d.abs().T @ hn.abs()
+        if tw:
+            dw[:, c0:c0 + 256], s_dw[:, c0:c0 + 256] = g.T, g_abs.T
+        else:
+            dw[c0:c0 + 256], s_dw[c0:c0 + 256] = g, g_abs
+    return dh, dw, s_dh, s_dw
+
+
+def _contract(got, want, sums):
+    """``chip_smoke.check_bf16_grad``'s measures for an fp32 output:
+    elements beyond 2^-7 of their absolute sum S (plus 2^-24 max S), and
+    the share beyond 2^-16 S."""
+    diff = (got - want).abs()
+    base = 2 ** -24 * sums.max()
+    return (int((diff > 2 ** -7 * sums + base).sum()),
+            float((diff > 2 ** -16 * sums + base).float().mean()))
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_tensor_core_operand_split_meets_the_bf16_contract(tied):
+    """The numerical design of the dh and dW kernels for bf16 h
+    (``csrc/fused_ce.cu``, the tensor-core route), emulated at N=300,
+    D=128, Vp=1024 (V=1000), bf16 h, fp32 W, ln: two bf16 pieces of d and
+    of W, summed in fp32, hold ``chip_smoke.check_bf16_grad``'s contract
+    against the plain backward (no element beyond 2^-7 of its sum of
+    absolute terms S, at most 0.1% beyond 2^-16 S; measured: none); one
+    piece (bf16 d and W alone) breaks it (89-98% of the elements beyond
+    2^-16 S), so the second piece is needed."""
+    rng = np.random.default_rng(21)
+    N, Dm, V, Vp = 300, 128, 1000, 1024
+    h = torch.from_numpy((rng.standard_normal((N, Dm)) * 2 + 0.5)
+                         .astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((Vp, Dm) if tied
+                                              else (Dm, Vp)) * 0.02)
+                         .astype(np.float32))
+    normp = torch.from_numpy(np.stack([
+        1.0 + 0.1 * rng.standard_normal(Dm),
+        0.1 * rng.standard_normal(Dm)]).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32))
+    rs = torch.full((N,), 1.0 / N)
+    opts = dict(vocab=V, transpose_w=not tied, softcap=None, norm="ln",
+                eps=1e-6)
+    lse, _ = ce.ce_forward_plain(h, w, normp, labels, **opts)
+    dh_p, dw_p = ce.ce_backward_plain(h, w, normp, labels, rs, lse, **opts)
+    dh, dw, s_dh, s_dw = _split_backward(h, w, normp, labels, rs, lse, opts,
+                                         pieces=2)
+    for got, want, sums in ((dh, dh_p, s_dh), (dw, dw_p, s_dw)):
+        n_hard, share = _contract(got, want.float(), sums)
+        assert n_hard == 0 and share <= 1e-3, (n_hard, share)
+    dh1, dw1, _, _ = _split_backward(h, w, normp, labels, rs, lse, opts,
+                                     pieces=1)
+    assert max(_contract(dh1, dh_p.float(), s_dh)[1],
+               _contract(dw1, dw_p.float(), s_dw)[1]) > 1e-3

@@ -6,9 +6,10 @@ batch, the reference's own probe u (``jax.random.normal`` per flat shard,
 which no PyTorch code reproduces) passed to the port, and the reference's
 twins (``fused_jvp``, ``flash_jvp``) in interpret mode.
 
-The reference takes H u forward-over-reverse and the port
-reverse-over-reverse; H is symmetric, so the two agree up to rounding:
-each leaf of u ⊙ Hu within 1e-5 of that leaf's largest |u ⊙ Hu|."""
+Both packages take H u forward-over-reverse (the reference ``jax.jvp`` of
+``jax.grad``, the port ``torch.func.jvp`` of ``torch.func.grad`` through
+the twins' ``jvp`` rules): each leaf of u ⊙ Hu within 1e-5 of that leaf's
+largest |u ⊙ Hu|."""
 import dataclasses
 
 import jax
@@ -27,9 +28,10 @@ from repro.train import make_train_fns as jax_make_train_fns
 from repro_torch.convert import params_from_jax
 from repro_torch.core import build_layout, unravel_shards
 from repro_torch.core.estimators import (empirical_fisher_estimator_flat,
+                                         functional_loss,
                                          hutchinson_estimator,
                                          hutchinson_estimator_flat)
-from repro_torch.core.types import tree_leaves, tree_unflatten
+from repro_torch.core.types import flat_tensors, tree_leaves, tree_unflatten
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_ce import fused_lm_loss, fused_lm_loss_jvp
@@ -103,8 +105,10 @@ def test_hutchinson_flat_matches_reference(weights, attn):
     lay = build_layout(tree)
     assert lay.shard_sizes == tuple(jlay.shard_sizes)
     got = hutchinson_estimator_flat(
-        lambda: tm.loss_fn(TCFG32, tparams, tb, attn_impl=tattn,
-                           loss_impl="fused_jvp")[0], tree, u_sh, lay)
+        functional_loss(tparams, flat_tensors(tree),
+                        lambda m: tm.loss_fn(TCFG32, m, tb, attn_impl=tattn,
+                                             loss_impl="fused_jvp")[0]),
+        tree, u_sh, lay)
     for g, w_, used in zip(got, want, lay.shard_used):
         assert g.dtype == torch.float32 and not g[used:].any()
         assert np.abs(np.asarray(w_)[used:]).max() == 0.0
@@ -134,8 +138,10 @@ def test_hutchinson_tree_form_matches_reference(weights):
                                         if isinstance(leaf, list)
                                         else [torch.from_numpy(v)])])
     got = hutchinson_estimator(
-        lambda: tm.loss_fn(TCFG32, tparams, tb, attn_impl="full",
-                           loss_impl="fused_jvp")[0], tree, u)
+        functional_loss(tparams, flat_tensors(tree),
+                        lambda m: tm.loss_fn(TCFG32, m, tb, attn_impl="full",
+                                             loss_impl="fused_jvp")[0]),
+        tree, u)
     _leaf_close([torch.stack(g).numpy() if isinstance(g, list) else g.numpy()
                  for g in tree_leaves(got)],
                 [np.asarray(w_) for w_ in jax.tree.leaves(want)])
@@ -204,11 +210,12 @@ def _plain_ce(h, w, labels, mask, *, V, transpose_w, softcap):
                                                  (False, 5.0)])
 def test_fused_jvp_twin_loss_grad_and_hvp(transpose_w, softcap):
     """The twin's loss and first gradient equal the fused loss's (its
-    plain versions here) within 1e-6; its HVP, reverse-over-reverse
-    through the twin's backward, equals ``torch.autograd.functional.hvp``
-    of the plain CE over materialized logits (a padded vocab: 300 of
-    384 columns, 2 chunks of 256 and 128) within 1e-5 of its largest
-    element."""
+    plain versions here) within 1e-6; its HVP, forward-over-reverse
+    (``torch.func.jvp`` of ``torch.func.grad``: the twin's tangent rule
+    and the tangent of its backward), equals
+    ``torch.autograd.functional.hvp`` of the plain CE over materialized
+    logits (a padded vocab: 300 of 384 columns, 2 chunks of 256 and 128)
+    within 1e-5 of its largest element."""
     N, D, V, Vp = 40, 32, 300, 384
     h, w, labels, mask = _ce_inputs(N, D, V, Vp, transpose_w)
     kw = dict(vocab_size=V, transpose_w=transpose_w, softcap=softcap)
@@ -220,17 +227,19 @@ def test_fused_jvp_twin_loss_grad_and_hvp(transpose_w, softcap):
                                  mask, **kw)
     assert float(n_twin) == float(n_base)
     np.testing.assert_allclose(twin.item(), base.item(), rtol=1e-6)
-    g_twin = torch.autograd.grad(twin, (hv, wv), create_graph=True)
+    g_twin = torch.autograd.grad(twin, (hv, wv))
     hb, wb = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
     g_base = torch.autograd.grad(
         fused_lm_loss(hb, wb, labels, mask, **kw)[0], (hb, wb))
     for a, b in zip(g_twin, g_base):
-        torch.testing.assert_close(a.detach(), b, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
     rng = np.random.default_rng(9)
     u = tuple(torch.from_numpy(rng.standard_normal(t.shape)
                                .astype(np.float32)) for t in (h, w))
-    hvp = torch.autograd.grad(g_twin, (hv, wv), grad_outputs=u)
+    _, hvp = torch.func.jvp(torch.func.grad(
+        lambda a, b: fused_lm_loss_jvp(a, b, labels, mask, **kw)[0],
+        argnums=(0, 1)), (h, w), u)
     _, want = torch.autograd.functional.hvp(
         lambda a, b: _plain_ce(a, b, labels, mask, V=V,
                                transpose_w=transpose_w, softcap=softcap),
@@ -246,12 +255,12 @@ def test_fused_jvp_twin_loss_grad_and_hvp(transpose_w, softcap):
     (4, 4, 24, None, None), (4, 2, 40, 9, 20.0)])
 def test_flash_jvp_twin_output_jvp_and_hvp(H, Hkv, S, window, softcap):
     """The twin's output equals the flash route's (its plain version) and
-    the oracle; its JVP (``torch.autograd.functional.jvp``, the double-
-    backward trick through the twin's backward) equals the forward-mode
-    oracle ``flash_attention_jvp_ref``; its HVP of a fixed projection of
-    o equals ``torch.autograd.functional.hvp`` of the materialized
-    attention (``flash_attention_ref``), within 1e-5 of the largest
-    element.  KV chunks of 24 and 40 keys (no divisor up to 512 but S)."""
+    the oracle; its JVP (``torch.func.jvp``: the twin's tangent rule)
+    equals the forward-mode oracle ``flash_attention_jvp_ref``; its HVP of
+    a fixed projection of o, forward-over-reverse, equals
+    ``torch.autograd.functional.hvp`` of the materialized attention
+    (``flash_attention_ref``), within 1e-5 of the largest element.  KV
+    chunks of 24 and 40 keys (no divisor up to 512 but S)."""
     rng = np.random.default_rng(4)
 
     def t(*shape):
@@ -268,7 +277,7 @@ def test_flash_jvp_twin_output_jvp_and_hvp(H, Hkv, S, window, softcap):
                                rtol=1e-5, atol=1e-6)
 
     tangents = (t(B, H, S, hd), t(B, Hkv, S, hd), t(B, Hkv, S, hd))
-    _, jvp = torch.autograd.functional.jvp(
+    _, jvp = torch.func.jvp(
         lambda a, b, c: flash_attention(a, b, c, use_jvp=True, **kw),
         (q, k, v), tangents)
     want = kref.flash_attention_jvp_ref(q, k, v, *tangents, **kw)
@@ -277,13 +286,61 @@ def test_flash_jvp_twin_output_jvp_and_hvp(H, Hkv, S, window, softcap):
     def proj(fn):
         return lambda a, b, c: (fn(a, b, c) * r).sum()
 
-    qkv = tuple(x.clone().requires_grad_(True) for x in (q, k, v))
-    g = torch.autograd.grad(
-        proj(lambda a, b, c: flash_attention(a, b, c, use_jvp=True,
-                                             **kw))(*qkv),
-        qkv, create_graph=True)
-    hvp = torch.autograd.grad(g, qkv, grad_outputs=tangents)
+    _, hvp = torch.func.jvp(torch.func.grad(
+        proj(lambda a, b, c: flash_attention(a, b, c, use_jvp=True, **kw)),
+        argnums=(0, 1, 2)), (q, k, v), tangents)
     _, want = torch.autograd.functional.hvp(
         proj(lambda a, b, c: kref.flash_attention_ref(a, b, c, **kw)[0]),
         (q, k, v), tangents)
     _leaf_close([x.numpy() for x in hvp], [x.numpy() for x in want])
+
+
+# ---------------------------------------------------------------------------
+# the twins' tangent rules against autograd's JVP of their plain versions
+
+
+@pytest.mark.parametrize("case", ["nll_tied", "nll_untied_softcap",
+                                  "attn", "attn_gqa_window_softcap"])
+def test_twin_jvp_rules_match_plain_jvp(case):
+    """Each twin's ``jvp`` rule (``torch.func.jvp`` reaches it) against
+    ``torch.autograd.functional.jvp`` (the double-backward trick) of its
+    plain counterpart: the CE over materialized logits and the
+    materialized attention ``flash_attention_ref``; the primal output and
+    its tangent within 1e-5 of their largest element."""
+    rng = np.random.default_rng(12)
+    if case.startswith("nll"):
+        transpose_w = case == "nll_untied_softcap"
+        softcap = 30.0 if transpose_w else None
+        V, Vp = 300, 384
+        h, w, labels, mask = _ce_inputs(40, 32, V, Vp, transpose_w, seed=5)
+        primals = (h, w)
+        kw = dict(vocab_size=V, transpose_w=transpose_w, softcap=softcap)
+
+        def twin(a, b):
+            return fused_lm_loss_jvp(a, b, labels, mask, **kw)[0]
+
+        def plain(a, b):
+            return _plain_ce(a, b, labels, mask, V=V,
+                             transpose_w=transpose_w, softcap=softcap)
+    else:
+        H, Hkv, S, window, softcap = ((4, 4, 24, None, None)
+                                      if case == "attn"
+                                      else (4, 2, 40, 9, 20.0))
+        B, hd = 2, 16
+        primals = tuple(torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))
+            for shape in ((B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+        kw = dict(causal=True, window=window, softcap=softcap)
+
+        def twin(a, b, c):
+            return flash_attention(a, b, c, use_jvp=True, **kw)
+
+        def plain(a, b, c):
+            return kref.flash_attention_ref(a, b, c, **kw)[0]
+    tangents = tuple(torch.from_numpy(
+        rng.standard_normal(p.shape).astype(np.float32)) for p in primals)
+    out, tan = torch.func.jvp(twin, primals, tangents)
+    want_out, want_tan = torch.autograd.functional.jvp(plain, primals,
+                                                       tangents)
+    _leaf_close([out.numpy(), tan.numpy()],
+                [want_out.numpy(), want_tan.numpy()])

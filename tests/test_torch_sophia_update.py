@@ -278,6 +278,38 @@ def test_momentum_steps_plain_match_pallas(rule, pdt, sdt, zeros):
             _np((tp.float() * torch.tensor(decay)).to(tp.dtype))[::7])
 
 
+NAN_G, NAN_M = [3, 100, 257], [50, 200]
+
+
+@pytest.mark.parametrize("rule", ["lion", "signgd"])
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16"])
+def test_sign_steps_put_nan_where_the_reference_does(rule, sdt):
+    """Rows 8-9 with NaN in g and in m: the sign is ``jnp.sign``'s, NaN at
+    NaN, so p' and m' are NaN exactly where the reference's are; every
+    other element is held as in :func:`test_momentum_steps_plain_match_pallas`
+    (the reference's jitted Pallas body contracts p (1 - lr wd) - lr u into
+    an FMA, so fp32 p' sits up to one ulp from the port's rounded products
+    on ~28% of the elements)."""
+    (jp, tp), (jm, tm), _, (jg, tg), _ = _inputs(384, 9, p_dtype="float32",
+                                                 state_dtype=sdt)
+    m, g = _np(tm).copy(), _np(tg).copy()
+    g[NAN_G] = np.nan
+    m[NAN_M] = np.nan
+    (jm, tm), (jg, tg) = _pair(m, sdt), _pair(g)
+    jfn, tfn, hyp = MOMENTUM[rule]
+    lr = np.float32(1e-3)
+    want = jfn(jp, jm, jg, lr, block=128, interpret=True, **hyp)
+    got = tfn(tp, tm, tg, torch.tensor(lr), block=128, **hyp)
+    for a, b in zip(got, want):
+        a, b = _np(a), _jnp(b)
+        nan = np.isnan(b)
+        assert nan[NAN_G + NAN_M].all() and nan.sum() == 5
+        np.testing.assert_array_equal(np.isnan(a), nan)
+    keep = torch.from_numpy(~np.isnan(_jnp(want[0])))
+    for a, b in zip(got, want):
+        _close_out(a[keep], jnp.asarray(np.asarray(b)[keep.numpy()]))
+
+
 @pytest.mark.parametrize("shape", [(64,), (8, 128), (3, 5, 7)])
 def test_ops_harness_matches_reference(shape):
     """The per-tensor harness (pad each tensor to the block, cut back)

@@ -133,26 +133,27 @@ def test_sgd_trajectory_holds_every_coordinate():
 def test_adahessian_hutchinson_trajectory_matches_reference_trainer():
     """AdaHessian with the Hutchinson estimator (the loss and flash twins,
     the reference's probes passed in) on the engine kernels, 13 steps,
-    refreshing at 0, 4, 8, 12.  AdaHessian divides by |u ⊙ Hu|, and the
-    reference (forward-over-reverse) and the port (reverse-over-reverse)
-    round the small entries of u ⊙ Hu differently: the step-0 estimates
-    agree as closely as the reference's jit and eager runs agree with
-    each other, yet a coordinate with |u ⊙ Hu| ~ 1e-6 takes a step of
-    ~0.1 whose size differs by ~1%, and the trajectories drift apart from
-    there (ROADMAP C).  The test holds the measured state: equal refresh
-    counts, the losses within 5e-3 relative (measured 2.1e-3), finite
-    parameters, at most 4% of the coordinates beyond 1e-5 + 1e-5 |a|
-    (measured 3.9%)."""
+    refreshing at 0, 4, 8, 12.  Both packages take H u forward-over-
+    reverse, and the step-0 estimates agree as closely as the reference's
+    jit and eager runs agree with each other (median relative difference
+    1.2e-6 against 8.7e-7), but AdaHessian divides by |u ⊙ Hu|: a
+    coordinate with |u ⊙ Hu| ~ 5e-6 takes a step of ~0.1 whose size
+    differs by ~0.7%, and the trajectories drift apart from there
+    (ROADMAP C).  The test holds the measured state with a margin of
+    about 1.5x on the losses and 3% on the share: equal refresh counts,
+    the losses within 3e-3 relative (measured 2.04e-3), finite
+    parameters, at most 3.6% of the coordinates beyond 1e-5 + 1e-5 |a|
+    (measured 3.49%)."""
     over = dict(TRAIN, optimizer="adahessian", estimator="hutchinson",
                 fused_kernel=True)
     s_port, s_ref, hist, hist_ref, a, b = _run_trajectories(over)
     assert int(s_port.opt_state.hess_count) == \
         int(s_ref.opt_state.hess_count) == 4
     np.testing.assert_allclose([h["loss"] for h in hist],
-                               [h["loss"] for h in hist_ref], rtol=5e-3)
+                               [h["loss"] for h in hist_ref], rtol=3e-3)
     assert np.isfinite(b).all()
     bad = np.abs(b - a) > (1e-5 + 1e-5 * np.abs(a))
-    assert bad.mean() <= 0.04, bad.mean()
+    assert bad.mean() <= 0.036, bad.mean()
 
 
 @pytest.mark.parametrize("over,shares", [
@@ -161,7 +162,8 @@ def test_adahessian_hutchinson_trajectory_matches_reference_trainer():
     pytest.param(dict(optimizer="signgd", fused_kernel=True), None,
                  id="signgd"),
     pytest.param(dict(optimizer="sophia_h", estimator="hutchinson",
-                      fused_kernel=True), None, id="sophia_h-hutchinson")])
+                      fused_kernel=True), ((3e-6, 1e-5), (1e-5, 1e-5)),
+                 id="sophia_h-hutchinson")])
 def test_sign_trajectory_matches_reference_trainer(over, shares):
     """Lion, SignGD and Sophia-H (Hutchinson, the reference's probes) on
     the engine kernels, 13 steps, under Sophia-G's contract
@@ -169,10 +171,69 @@ def test_sign_trajectory_matches_reference_trainer(over, shares):
     take the sign of a momentum (Sophia-H's clip mostly), so a coordinate
     whose sign argument sits at the rounding level steps +-lr apart.
     Lion signs every coordinate: 148 of 889,600 (0.017%) flip, each by
-    2 lr, so it holds 99.95% at both tolerances (ROADMAP C)."""
+    2 lr, so it holds 99.95% at both tolerances (ROADMAP C).  Sophia-H,
+    its HVP forward-over-reverse as the reference's, puts 6 of 889,600
+    coordinates beyond either tolerance, as many as the reference's own
+    eager run against its jit: it holds at most 1e-5 of them at both
+    (1.5x the measured 6.7e-6)."""
     s_port, _ = _check_trajectory(dict(TRAIN, **over), shares=shares)
     assert int(s_port.opt_state.hess_count) == \
         (4 if over["optimizer"] == "sophia_h" else 0)
+
+
+def step0_gradients(attn="flash"):
+    """Per leaf of GPT2_TINY (fp32, the trainer's initial weights, batch
+    0 of the trajectory's source, the fused loss on ``attn``): (path,
+    the reference's jit gradient, its eager gradient, the port's), as
+    numpy arrays, stacked leaves stacked."""
+    from repro.models import get_model as jax_get_model
+    from repro_torch.core.types import flat_tensors, tree_leaves
+    from repro_torch.models import get_model
+
+    jtc = JTrainerConfig(fused_loss=True, **TRAIN)
+    params = jax_make_train_fns(CFG32, jtc)[0](jax.random.PRNGKey(0)).params
+    batch = jax_make_source(_src()).batch_at(0)
+    jb = {k: jax.numpy.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+    def f(p):
+        return jax_get_model(CFG32).loss_fn(CFG32, p, jb, attn_impl=attn,
+                                            loss_impl="fused")[0]
+
+    g_jit = jax.jit(jax.grad(f))(params)
+    g_eager = jax.grad(f)(params)
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), TCFG32)
+    tree = tparams.param_tree()
+    grads = iter(torch.autograd.grad(
+        get_model(TCFG32).loss_fn(TCFG32, tparams, tb, attn_impl=attn)[0],
+        flat_tensors(tree)))
+    port = [_np(torch.stack([next(grads) for _ in leaf])
+                if isinstance(leaf, list) else next(grads))
+            for leaf in tree_leaves(tree)]
+    paths = [jax.tree_util.keystr(path) for path, _ in
+             jax.tree_util.tree_flatten_with_path(g_jit)[0]]
+    return [(path, np.asarray(a), np.asarray(e), p) for path, a, e, p in
+            zip(paths, jax.tree.leaves(g_jit), jax.tree.leaves(g_eager),
+                port)]
+
+
+def test_step0_gradients_match_reference_within_its_own_spread():
+    """The step-0 gradient of every leaf (GPT2_TINY, fp32, the trainer's
+    batch and flash attention: the reference's Pallas kernels in
+    interpret mode, the port's plain versions) against the reference's
+    jit, held to the reference's own spread, its eager gradient against
+    its jit: within 3x that spread per leaf, the spread floored at 2^-22
+    of the leaf's largest element (the final norm's eager and jit
+    gradients are identical).  Measured: 1.3-2.5x on every leaf (embedding,
+    attention, MLP, both norms, the CE), 6e-7 to 1.4e-6 of each leaf's
+    scale; no module stands out, so the trajectory quantile misses of
+    Lion and Sophia-G are amplification of summation-order differences
+    (ROADMAP C)."""
+    for path, a, e, p in step0_gradients():
+        scale = np.abs(a).max()
+        spread = max(np.abs(e - a).max(), 2.0 ** -22 * scale)
+        assert np.abs(p - a).max() <= 3.0 * spread, \
+            (path, np.abs(p - a).max() / scale, spread / scale)
 
 
 def _run_trajectories(over, steps=13):
