@@ -30,17 +30,19 @@ it fails and prints no result.  Phases, in order:
      cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
      non-causal, S=1000 off the tile, hd=128, rows with no key), fp32 and
      bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
-     their largest element; the engine kernels (the Sophia step, the
-     Hessian EMA with square off and on, the refresh-fused step with flag
-     0 and 1, AdamW at steps 1, 2 and 1000, the AdaHessian refresh-fused
-     step with flag 0 and 1 at steps 1, 2 and 1000, the AdaHessian step at
-     those steps, Lion, SignGD and SGD, the last three also with m = g = 0
-     on every 7th element, where the sign argument is exactly 0, and Lion
-     and SignGD with NaN in g and m, NaN exactly where their plain
-     versions put it) at GPT-2
-     small's flat shard (n=124,518,400, block 131072) with fp32 and with
-     bf16 state, and the edge cases (3 blocks of 128, one block, h with
-     zeros and negative entries, rho=1e9, bf16 p, the zero tail pad),
+     their largest element, and in bf16 (the tensor-core forward and
+     dK/dV) every element of o, dk and dv within 2^-7 of its absolute
+     sum (the share beyond 2^-9 logged); the engine kernels (the Sophia
+     step, the Hessian EMA with square off and on, the refresh-fused step
+     with flag 0 and 1, AdamW at steps 1, 2 and 1000, the AdaHessian
+     refresh-fused step with flag 0 and 1 at steps 1, 2 and 1000, the
+     AdaHessian step at those steps, Lion, SignGD and SGD, the last three
+     also with m = g = 0 on every 7th element, where the sign argument is
+     exactly 0, and Lion and SignGD with NaN in g and m, NaN exactly where
+     their plain versions put it) at GPT-2 small's flat shard
+     (n=124,518,400, block 131072) with fp32 and with bf16 state, and the
+     edge cases (3 blocks of 128, one block, h with zeros and negative
+     entries, rho=1e9, bf16 p, the zero tail pad),
      every output and every per-block clip count bit-identical to the
      plain version;
   3. GPT-2 small served at full width and depth with random weights from a
@@ -91,7 +93,8 @@ it fails and prints no result.  Phases, in order:
      kernels SDPA's forward, and its backward for dQ and dK/dV together;
      for AdamW ``torch.optim.AdamW(fused=True).step()``, for SGD
      ``torch.optim.SGD(momentum=0, fused=True).step()``, which writes p
-     only) that computes the same function.
+     only) that computes the same function; each flash row names the
+     units its bf16 products run on (tensor cores or FMA).
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -550,7 +553,10 @@ def check_flash_case(torch, name, spec, dtype):
     backward's on the kernel forward's lse and delta); each output within
     TOL of its largest element.  lse is compared on the rows that attend
     some key; a row that attends none must give o = 0 and lse <= -1e29 on
-    both sides.  Returns {kernel: max abs error}."""
+    both sides.  In bf16 (the tensor-core forward and dK/dV) also every
+    element of o, dk and dv within 2^-7 of its absolute sum
+    (``flash_attention.contract_sums``), the share beyond 2^-9 logged.
+    Returns {kernel: max abs error}."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, g, kw = _attn_inputs(torch, spec, dtype)
@@ -587,12 +593,28 @@ def check_flash_case(torch, name, spec, dtype):
         raise AssertionError(f"flash kernels differ from their plain "
                              f"versions ({name}, {str(dtype)[6:]}): errors "
                              f"relative to the largest element {bad} > {tol}")
+    contract = ""
+    if dtype == torch.bfloat16:
+        shares = {}
+        sums = fa.contract_sums(q, k, v, g, lse, delta, **kw)
+        for key, s in zip(("o", "dk", "dv"), sums):
+            n_hard, shares[key] = fa.contract_misses(*pairs[key], s)
+            if n_hard:
+                raise AssertionError(
+                    f"flash {name} bf16: {n_hard} elements of {key} beyond "
+                    f"2^-7 of their absolute sum (the tensor-core route's "
+                    f"contract)")
+        del sums
+        contract = ("; every element of o, dk, dv within 2^-7 of its "
+                    "absolute sum, share beyond 2^-9: "
+                    + ", ".join(f"{n} {x:.3g}" for n, x in shares.items()))
     log(f"[kernels] flash_attention {name} {str(dtype)[6:]} "
         + " ".join(f"{n}={spec[n]}" for n in ATTN_MAIN)
         + ": max abs errors " + ", ".join(f"{n} {e:.3g}"
                                           for n, e in errs.items())
         + "; relative to the largest element "
         + ", ".join(f"{r:.3g}" for r in rel.values()) + f" (within {tol})"
+        + contract
         + (f"; {int(empty.sum())} rows with no key" if bool(empty.any())
            else ""))
     return {"attn_fwd": max(errs["o"], errs["lse"]),
@@ -1585,11 +1607,17 @@ def phase_ce_timings(torch, ce_err, trained):
     return rows
 
 
+# which units each flash kernel's bf16 products run on
+FLASH_UNITS = {"attn_fwd": "tensor cores", "attn_bwd_dq": "FMA",
+               "attn_bwd_dkv": "tensor cores"}
+
+
 def phase_flash_timings(torch, attn_err, trained):
     """The flash kernels at GPT-2 small's training shape in bf16 beside
     their bound, their plain versions, and SDPA (``is_causal=True``; its
     forward for row 16, its autograd backward, dq, dk and dv together, for
-    rows 17 and 18), which the port never calls."""
+    rows 17 and 18), which the port never calls; each row names the units
+    its products run on (``FLASH_UNITS``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1644,13 +1672,14 @@ def phase_flash_timings(torch, attn_err, trained):
             "max_abs_err": attn_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library[name],
+            "library_ms": library[name], "units": FLASH_UNITS[name],
             "library_note": ("F.scaled_dot_product_attention forward"
                              if name == "attn_fwd" else
                              "F.scaled_dot_product_attention's autograd "
                              "backward, dq, dk and dv together"),
             "shape": f"B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 causal"})
-        log(f"[timing] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        log(f"[timing] {name} ({FLASH_UNITS[name]}): kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, "
             f"SDPA {library[name]:.3f} ms, bound {max(t_ops, t_bytes):.4f} "
             f"ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, {nbytes} bytes "
             f"at {HBM_BYTES_PER_S:.3g}/s); {flops / ms / 1e9:.1f} TFLOP/s")

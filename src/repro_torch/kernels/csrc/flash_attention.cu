@@ -2,10 +2,13 @@
 // two backward kernels, dQ and dK/dV.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py:
-//   forward_kernel  _forward (pallas_call :198, body _fwd_kernel :111)
-//   dq_kernel       _backward's dQ (pallas_call :333, body _dq_kernel :239)
-//   dkv_kernel      _backward's dK/dV (pallas_call :374, body _dkv_kernel
-//                   :268), summed over the GQA group
+//   forward_kernel (fp32),   _forward (pallas_call :198, body _fwd_kernel
+//   forward_wgmma_kernel     :111)
+//   (bf16)
+//   dq_kernel                _backward's dQ (pallas_call :333, body
+//                            _dq_kernel :239)
+//   dkv_kernel (fp32),       _backward's dK/dV (pallas_call :374, body
+//   dkv_wgmma_kernel (bf16)  _dkv_kernel :268), summed over the GQA group
 //
 // The function, as the reference computes it, for q (B, H, Sq, hd) and k,
 // v (B, Hkv, Sk, hd), query head h reading KV head h / (H / Hkv):
@@ -28,9 +31,13 @@
 // Bound: operations.  At GPT-2 small's training shape (B = 8, H = 12,
 // S = 1024, hd = 64, causal) one product over the attended pairs is 6.4
 // GFLOP against ~13 MB per (B, H, S, hd) plane: ~500 flops per byte, above
-// the ~295 where the bf16 tensor cores stop being the limit.  This first
-// version computes on the fp32 FMA units; wgmma and TMA are a later PR's
-// work.  Design:
+// the ~295 where the bf16 tensor cores stop being the limit.
+//
+// Two routes, by dtype.
+//
+// fp32 (the card-vs-CPU checks, held to 1e-5 of the largest element,
+// which one bf16 product cannot meet): every product on the fp32 FMA
+// units (forward_kernel, dq_kernel, dkv_kernel):
 //   * the TPU's sequential key-tile grid axis becomes a loop inside a
 //     block: a forward or dQ block owns 64 query rows of one head and
 //     walks the key tiles of the band the mask allows (the reference's
@@ -46,6 +53,50 @@
 //     row by shuffles (the 16 lanes of a half warp);
 //   * sequence lengths need not divide the tile: rows and keys past the
 //     end load as zeros and are masked.
+//
+// bf16 (the training path): the forward and dK/dV on the bf16 tensor
+// cores (forward_wgmma_kernel, dkv_wgmma_kernel); dQ keeps the FMA
+// dq_kernel.  The FMA design reaches ~2% of the bf16 peak: fp32 tiles
+// copied by plain loads, a barrier on each side of every tile, P and dS
+// round-tripped through shared memory.  The tensor-core kernels instead:
+//   * run every product as wgmma (one warpgroup, 64 rows, a block; fp32
+//     accumulate): forward S = Q K^T (m64n64) and O += P V (m64nHD),
+//     dK/dV S^T = K Q^T and dP^T = V dO^T (m64nBQ), dV += P^T dO and
+//     dK += dS^T Q (m64nHD).  Operands come from shared memory in the
+//     swizzled layouts described below (V, dO and Q of the last two read
+//     transposed), P and dS from registers: an accumulator of one product
+//     is the A operand of the next once rounded to bf16, so nothing goes
+//     back to shared memory;
+//   * stage bf16 tiles through cp.async rings, two tiles ahead (forward: 4
+//     stages of K and V; dK/dV: 3 of Q, dO, lse and delta), one barrier a
+//     tile; rows past the end arrive as zeros (source size 0);
+//   * pipeline the forward one tile apart: with P of tile j - 1 in
+//     registers, S of tile j and O += P V of tile j - 1 are issued together
+//     and the online softmax of tile j runs while the second is in flight;
+//   * keep the online softmax (m, l, alpha) in registers and take exp as
+//     one ex2.approx of an FMA (z log2(e) - m log2(e));
+//   * test the mask only in tiles where some pair of a warp's 16 rows does
+//     not attend, and the softcap only when there is one: both are
+//     template flags chosen per tile, since a test in the common tile (if
+//     converted per element) costs more than the products (forward 0.131
+//     against 0.080 ms, dK/dV 0.188 against 0.130 ms at GPT-2 small's
+//     shape on an H100 SXM, tests/_flash_variants.py);
+//   * under causal masking start the longest q tiles first (blockIdx.z
+//     reversed); dK/dV blocks own 64 keys of one KV head and keep dK and
+//     dV in fp32 registers across the q tiles (64 rows; 32 at hd 128) of
+//     every head of the group.
+//   TMA and a producer warp would replace the cp.async rings; they are not
+//   used yet.
+// Accuracy contract of the bf16 route: P (forward, and dV's product) and
+// dS (dK's product) are rounded to bf16 once; every other sum is fp32.
+// With A an output element's absolute sum in fp32 (o: sum_j p_ij |v_jd|;
+// dv: sum_i p_ij |do_id|; dk: scale sum_i |ds_ij| |q_id|), rounding P or
+// dS moves the fp32 element by less than 2^-8 A (bf16 keeps 8 significant
+// bits); the kernel's and the plain version's roundings of the element
+// into bf16 then land at most one bf16 ulp apart where |x| ~ A, and add
+// at most one ulp (<= 2^-8 A) where terms cancel: every element lies
+// within 2^-7 A of the plain version.  chip_smoke.py holds every bf16 case
+// to it and logs the share beyond 2^-9 A.
 // The C entry points return cudaGetLastError() after the launch (or
 // cudaErrorInvalidValue for a head dim without an instance) and never
 // synchronise.
@@ -103,31 +154,29 @@ __host__ __device__ __forceinline__ int n_tiles(int n) {
   return (n + kTile - 1) / kTile;
 }
 
-// Inclusive key tiles [lo, hi] that q tile i attends (the reference's
-// _kv_band, the last row clipped to Sq).
-__device__ __forceinline__ void kv_band(const Args& a, int i, int* lo,
-                                        int* hi) {
-  const long long last = (long long)min(a.Sq, (i + 1) * kTile) - 1;
-  long long h = n_tiles(a.Sk) - 1;
+// The key-tile band of query rows [r0, r1] and the q-tile band of keys
+// [c0, c1], tiles of `tile` rows (inclusive; the reference's _kv_band and
+// _q_band).
+__device__ __forceinline__ void key_band(const Args& a, long long r0,
+                                         long long r1, int tile, int* lo,
+                                         int* hi) {
+  long long h = (a.Sk + tile - 1) / tile - 1;
   if (a.causal) {
-    const long long c = floor_div(last + a.q_offset, kTile);
+    const long long c = floor_div(r1 + a.q_offset, tile);
     h = c < h ? c : h;
   }
-  const long long l =
-      floor_div((long long)i * kTile + a.q_offset - a.window + 1, kTile);
+  const long long l = floor_div(r0 + a.q_offset - a.window + 1, tile);
   *lo = l > 0 ? (int)l : 0;
   *hi = (int)h;
 }
 
-// Inclusive q tiles [lo, hi] that attend key tile j (the reference's
-// _q_band, the last key clipped to Sk).
-__device__ __forceinline__ void q_band(const Args& a, int j, int* lo,
-                                       int* hi) {
-  const long long last = (long long)min(a.Sk, (j + 1) * kTile) - 1;
+__device__ __forceinline__ void query_band(const Args& a, long long c0,
+                                           long long c1, int tile, int* lo,
+                                           int* hi) {
   long long l = 0;
-  if (a.causal) l = floor_div((long long)j * kTile - a.q_offset, kTile);
-  long long h = floor_div(last - 1 + a.window - a.q_offset, kTile);
-  const long long top = n_tiles(a.Sq) - 1;
+  if (a.causal) l = floor_div(c0 - a.q_offset, tile);
+  const long long h = floor_div(c1 - 1 + a.window - a.q_offset, tile);
+  const long long top = (a.Sq + tile - 1) / tile - 1;
   *lo = l > 0 ? (int)l : 0;
   *hi = (int)(h < top ? h : top);
 }
@@ -232,7 +281,8 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
     for (int d = 0; d < ND; ++d) acc[i][d] = 0.f;
   }
   int lo, hi;
-  kv_band(a, qt, &lo, &hi);
+  key_band(a, (long long)q0, (long long)min(a.Sq, q0 + kTile) - 1, kTile,
+           &lo, &hi);
   for (int j = lo; j <= hi; ++j) {
     __syncthreads();  // the previous tile's sk, sv and sp are read
     load_tile<T, HD>(sk, k, j * kTile, a.Sk);
@@ -326,7 +376,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     for (int d = 0; d < ND; ++d) acc[i][d] = 0.f;
   }
   int lo, hi;
-  kv_band(a, qt, &lo, &hi);
+  key_band(a, (long long)q0, (long long)min(a.Sq, q0 + kTile) - 1, kTile,
+           &lo, &hi);
   for (int j = lo; j <= hi; ++j) {
     __syncthreads();
     load_tile<T, HD>(sk, k, j * kTile, a.Sk);
@@ -412,7 +463,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 #pragma unroll
     for (int d = 0; d < ND; ++d) dk[i][d] = dv[i][d] = 0.f;
   int lo, hi;
-  q_band(a, kt, &lo, &hi);
+  query_band(a, (long long)k0, (long long)min(a.Sk, k0 + kTile) - 1, kTile,
+             &lo, &hi);
   for (int g = 0; g < G; ++g) {
     const size_t qrow = ((size_t)b * a.H + hk * G + g) * a.Sq;
     const T* q = static_cast<const T*>(a.q) + qrow * HD;
@@ -493,6 +545,651 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 route: the forward and dK/dV on the tensor cores
+//
+// wgmma (warpgroup products, bf16 operands, fp32 accumulate) on tiles that
+// cp.async rings stage in shared memory in the swizzled layouts wgmma
+// reads without bank conflicts: a (rows, HD) tile is cut into atoms of
+// kSw-byte rows (128 bytes, 64 columns, at hd 64 and 128; 64 bytes at hd
+// 32), atom after atom, and within an atom the 16-byte piece c of row r
+// sits at piece c ^ (r % 8) (128-byte swizzle; c ^ (r / 2 % 4) for 64
+// bytes).  Read along its columns (K-major: Q and K in S = Q K^T, K and V
+// with Q and dO in S^T = K Q^T and dP^T = V dO^T) a descriptor steps 32
+// bytes per 16 columns within an atom and 8 kSw bytes per 8 rows (SBO);
+// read along its rows (MN-major, transposed: V in O += P V, dO and Q in
+// dV += P^T dO and dK += dS^T Q) it steps 16 kSw bytes per 16 rows, 8 kSw
+// per 8 rows (SBO) and one atom (rows kSw bytes, LBO) per 64 columns.
+
+constexpr int kKeys = 64;  // keys of a forward K/V tile and of a dK/dV block
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; with ok false the 16 bytes are zeros
+// (source size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes, zeros with ok false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// This thread's copies but the newest N groups have landed, and are
+// visible to the tensor cores' (async proxy) reads once every thread has
+// passed the next barrier.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit, one instruction (relative error below
+// 2^-22; subnormal results flush to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 values rounded to bf16 once, x in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Bytes of an atom row of the swizzled layout, and the swizzle of row r.
+template <int HD>
+__host__ __device__ constexpr int sw_bytes() {
+  return HD == 32 ? 64 : 128;
+}
+
+template <int HD>
+__device__ __forceinline__ int swz(int r) {
+  return HD == 32 ? (r >> 1) & 3 : r & 7;
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, HD) bf16 plane into a tile of the
+// swizzled layout, by NT threads; rows past the end are zeros.
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(unsigned char* dst,
+                                          const bf16* src, int row0,
+                                          int rows) {
+  constexpr int kChunks = HD / 8;  // 16-byte pieces of a row
+  constexpr int S = sw_bytes<HD>(), kPer = S / 16;
+#pragma unroll
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += NT) {
+    const int r = e / kChunks, c = e % kChunks;
+    const int g = row0 + r;
+    const bool ok = g < rows;
+    cp_async16(dst + (c / kPer) * ROWS * S + r * S +
+                   ((c % kPer ^ swz<HD>(r)) << 4),
+               src + (size_t)(ok ? g : 0) * HD + c * 8, ok);
+  }
+}
+
+// The descriptor of a swizzled tile at p with leading byte offset lbo.
+template <int HD>
+__device__ __forceinline__ uint64_t desc(const unsigned char* p,
+                                         uint32_t lbo) {
+  constexpr int S = sw_bytes<HD>();
+  constexpr uint64_t kType = S == 128 ? 1 : 2;  // 128- or 64-byte swizzle
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(8 * S >> 4) << 32) |
+         (kType << 62);
+}
+
+// Depth step kk (16 columns) of a (ROWS, HD) tile read K-major, and (16
+// rows) of one read MN-major.
+template <int HD, int ROWS>
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* t, int kk) {
+  constexpr int S = sw_bytes<HD>();
+  return desc<HD>(t + kk * 32 / S * ROWS * S + kk * 32 % S, 16);
+}
+
+template <int HD, int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* t,
+                                            int kk) {
+  constexpr int S = sw_bytes<HD>();
+  return desc<HD>(t + kk * 16 * S, ROWS * S);
+}
+
+// d (m64n32) += A B (scale_d 0: d = A B), A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n64) += A B (scale_d 0: d = A B), A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n32) += A B, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n64) += A B, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n128) += A B, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The products for N = 32, 64 (S = A B, dispatching wgmma_ss_n*) and 32, 64,
+// 128 (wgmma_rs_n*): the accumulator holds N / 2 floats a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// Registers that wgmma reads (A fragments, accumulators) were last written
+// by other instructions: order them before the next wgmma.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Close the wgmmas issued since the last commit into a group.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N groups are in flight (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin the registers of d at this point of the program: after a
+// wgmma_wait, reads of an accumulator cannot move above the wait; before
+// wgmma_fence, writes to a wgmma operand cannot move below it.
+template <int R>
+__device__ __forceinline__ void hold(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void hold(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The A fragment of depth step kk (16 columns of an accumulator whose n8
+// tile n sits at c[4 n .. 4 n + 3]), each value rounded to bf16 once.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&r)[4],
+                                         const float (&c)[R], int kk) {
+  r[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+  r[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  r[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  r[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// Query rows [r0, r0 + nr) against keys [c0, c0 + nc): kAll when every
+// pair attends (the tile needs no mask), kNone when none does.
+enum Cover { kNone = 0, kSome = 1, kAll = 2 };
+__device__ __forceinline__ int cover(const Args& a, long long r0, int nr,
+                                     long long c0, int nc) {
+  const long long p0 = a.q_offset + r0, p1 = p0 + nr - 1;  // positions
+  const long long c1 = c0 + nc - 1;
+  if (r0 >= a.Sq || c0 >= a.Sk) return kNone;
+  if (a.causal && c0 > p1) return kNone;
+  if (c1 <= p0 - a.window) return kNone;
+  const bool all = r0 + nr <= a.Sq && c1 < a.Sk && (!a.causal || c1 <= p0) &&
+                   c0 > p1 - a.window;
+  return all ? kAll : kSome;
+}
+
+// The masked, softcapped scores of one key tile in place, the running max
+// m and sum l of this thread's two rows (rq and rq + 8) and their rescale
+// alpha; s[i] becomes p = exp(z - m) (0 where masked: the where guard).
+// MASKED: some pair of the warp's 16 rows and the tile does not attend;
+// CAP: a softcap.  Both are uniform over a tile, so the common case (a
+// tile inside the band, no softcap) carries neither test nor tanh.
+template <bool MASKED, bool CAP, int N>
+__device__ __forceinline__ void online_softmax(const Args& a, float (&s)[N],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int rq,
+                                               int c0) {
+  const int lane = threadIdx.x % 32;
+  uint32_t ok = 0xffffffffu;  // bit i: s[i] attends
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float z = s[i] * a.scale;
+    if constexpr (CAP) z = a.softcap * tanhf(z / a.softcap);
+    if constexpr (MASKED) {
+      if (!attends(a, rq + (i >> 1 & 1) * 8,
+                   c0 + (i >> 2) * 8 + 2 * (lane % 4) + (i & 1))) {
+        ok &= ~(1u << i);
+        z = kNegInf;
+      }
+    }
+    s[i] = z;
+    mx[i >> 1 & 1] = fmaxf(mx[i >> 1 & 1], z);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    alpha[hh] = fast_exp2((m[hh] - mx[hh]) * kLog2e);
+    m[hh] = mx[hh];
+    l[hh] *= alpha[hh];
+  }
+  const float mb[2] = {m[0] * kLog2e, m[1] * kLog2e};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float p = fast_exp2(fmaf(s[i], kLog2e, -mb[i >> 1 & 1]));
+    if constexpr (MASKED) p = (ok >> i) & 1u ? p : 0.f;
+    s[i] = p;
+    l[i >> 1 & 1] += p;
+  }
+}
+
+// forward: grid (H, B, q tiles of 64 rows), the longest tiles first under
+// causal masking; one warpgroup a block.  K and V tiles arrive through a
+// four-stage ring, two tiles ahead, and the products are pipelined one
+// tile apart: with P of tile j - 1 in registers, S = Q K_j^T and O += P
+// V_{j-1} go to the tensor cores together and the softmax of tile j runs
+// while the second is in flight.
+template <int HD>
+__global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
+  constexpr int NT = 128, BM = 64, kStages = 4;
+  constexpr int kTile = kKeys * HD * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sq = smem_raw;
+  unsigned char* skv = sq + BM * HD * 2;  // stage s: K at 2 s tiles, V next
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 = qt * BM;
+  const size_t qrow = ((size_t)b * a.H + h) * a.Sq;
+  const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
+  const bf16* kg = static_cast<const bf16*>(a.k) + krow * HD;
+  const bf16* vg = static_cast<const bf16*>(a.v) + krow * HD;
+  int lo, hi;
+  key_band(a, q0, (long long)min(a.Sq, q0 + BM) - 1, kKeys, &lo, &hi);
+  auto load_tile = [&](int j) {
+    unsigned char* t = skv + (j - lo) % kStages * 2 * kTile;
+    load_rows<HD, kKeys, NT>(t, kg, j * kKeys, a.Sk);
+    load_rows<HD, kKeys, NT>(t + kTile, vg, j * kKeys, a.Sk);
+  };
+  auto stage_k = [&](int j) { return skv + (j - lo) % kStages * 2 * kTile; };
+
+  // this thread's accumulator rows: w0 + lane / 4 (s[4 n], s[4 n + 1]) and
+  // + 8 (s[4 n + 2], s[4 n + 3]); columns 8 n + 2 (lane % 4) + {0, 1}
+  const int w0 = q0 + warp * 16;
+  const int rq = w0 + lane / 4;
+  float o[HD / 2], s[kKeys / 2], m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[kKeys / 16][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  load_rows<HD, BM, NT>(sq, static_cast<const bf16*>(a.q) + qrow * HD, q0,
+                        a.Sq);
+  if (lo <= hi) load_tile(lo);
+  cp_async_commit();
+  if (lo < hi) load_tile(lo + 1);
+  cp_async_commit();
+  for (int j = lo; j <= hi; ++j) {
+    cp_async_wait<1>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 2
+    if (j + 2 <= hi) load_tile(j + 2);
+    cp_async_commit();
+    const unsigned char* sk = stage_k(j);
+    hold(s);
+    hold(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<kKeys>(s, desc_k<HD, BM>(sq, kk), desc_k<HD, kKeys>(sk, kk),
+                      kk > 0);
+    wgmma_commit();
+    if (j > lo) {
+      const unsigned char* sv = stage_k(j - 1) + kTile;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk], desc_mn<HD, kKeys>(sv, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S of tile j; O += P V of tile j - 1 may run on
+    hold(s);
+    const int c0 = j * kKeys;
+    const bool full = cover(a, w0, 16, c0, kKeys) == kAll;
+    if (a.softcap != 0.f) {
+      if (full) online_softmax<false, true>(a, s, m, l, alpha, rq, c0);
+      else online_softmax<true, true>(a, s, m, l, alpha, rq, c0);
+    } else {
+      if (full) online_softmax<false, false>(a, s, m, l, alpha, rq, c0);
+      else online_softmax<true, false>(a, s, m, l, alpha, rq, c0);
+    }
+    wgmma_wait<0>();
+    hold(o);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[i >> 1 & 1];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      acc_to_a(pa[kk], s, kk);
+      hold(pa[kk]);
+    }
+  }
+  if (lo <= hi) {  // O += P V of the last tile
+    const unsigned char* sv = stage_k(hi) + kTile;
+    hold(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<HD>(o, pa[kk], desc_mn<HD, kKeys>(sv, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(o);
+  }
+  cp_async_wait<0>();
+
+  bf16* og = static_cast<bf16*>(a.o) + qrow * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int r = rq + hh * 8;
+    if (r >= a.Sq) continue;
+    const float lf = fmaxf(l[hh], kMinL);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int c = n * 8 + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(og + (size_t)r * HD + c) =
+          pack_bf16(o[4 * n + 2 * hh] / lf, o[4 * n + 2 * hh + 1] / lf);
+    }
+    if (lane % 4 == 0) a.lse[qrow + r] = m[hh] + logf(lf);
+  }
+}
+
+// P^T = exp(z^T - lse) and dS^T = P^T (dP^T - delta) (times dcap under a
+// softcap) in place of S^T and dP^T: this thread's rows are keys rk and rk
+// + 8, its columns queries q0 + 8 n + 2 (lane % 4) + {0, 1}.  MASKED and
+// CAP as in online_softmax.
+template <bool MASKED, bool CAP, int N>
+__device__ __forceinline__ void probs_t(const Args& a, float (&s)[N],
+                                        float (&dp)[N], const float* slse,
+                                        const float* sdelta, int q0,
+                                        int rk) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int qc = (i >> 2) * 8 + 2 * (lane % 4) + (i & 1);
+    float z = s[i] * a.scale, dcap = 1.f;
+    if constexpr (CAP) {
+      const float t = tanhf(z / a.softcap);
+      z = a.softcap * t;
+      dcap = 1.f - t * t;
+    }
+    float p = fast_exp2(fmaf(z, kLog2e, -slse[qc] * kLog2e));
+    if constexpr (MASKED)
+      p = attends(a, q0 + qc, rk + (i >> 1 & 1) * 8) ? p : 0.f;
+    float ds = p * (dp[i] - sdelta[qc]);
+    if constexpr (CAP) ds *= dcap;
+    s[i] = p;
+    dp[i] = ds;
+  }
+}
+
+// dK/dV: grid (Hkv, B, key tiles of 64); one warpgroup, its 64 keys the M
+// rows of every product.  The block walks the q tiles of BQ rows of every
+// query head of its group, fed by a three-stage cp.async ring (Q, dO, lse,
+// delta): S^T = K Q^T and dP^T = V dO^T (m64nBQ), then dV += P^T dO and
+// dK += dS^T Q (m64nHD, dO and Q MN-major) with P^T and dS^T rounded to
+// bf16 once, the dK and dV sums in fp32 registers throughout.
+template <int HD, int BQ>
+__global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
+  constexpr int NT = 128;
+  constexpr int kKV = kKeys * HD * 2, kQ = BQ * HD * 2;  // tile bytes
+  // Q, dO, lse and delta; a multiple of the swizzle's 1024-byte period
+  constexpr int kStage = (2 * kQ + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sk = smem_raw;
+  unsigned char* sv = sk + kKV;
+  unsigned char* stages = sv + kKV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const int k0 = kt * kKeys;
+  const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
+  int lo, hi;
+  query_band(a, k0, (long long)min(a.Sk, k0 + kKeys) - 1, BQ, &lo, &hi);
+  const int nq = hi >= lo ? hi - lo + 1 : 0;
+  const int total = G * nq;
+
+  auto stage_load = [&](int st, int t) {
+    const int g = t / nq, i = lo + t % nq;
+    const size_t qrow = ((size_t)b * a.H + hk * G + g) * a.Sq;
+    const int q0 = i * BQ;
+    unsigned char* base = stages + st * kStage;
+    load_rows<HD, BQ, NT>(base, static_cast<const bf16*>(a.q) + qrow * HD,
+                          q0, a.Sq);
+    load_rows<HD, BQ, NT>(base + kQ,
+                          static_cast<const bf16*>(a.dout) + qrow * HD, q0,
+                          a.Sq);
+    float* rows = reinterpret_cast<float*>(base + 2 * kQ);
+    for (int e = threadIdx.x; e < 2 * BQ; e += NT) {
+      const int r = q0 + e % BQ;
+      const bool ok = r < a.Sq;
+      const float* src = e < BQ ? a.lse_in : a.delta;
+      cp_async4(rows + e, src + (ok ? qrow + r : 0), ok);
+    }
+  };
+
+  load_rows<HD, kKeys, NT>(sk, static_cast<const bf16*>(a.k) + krow * HD,
+                           k0, a.Sk);
+  load_rows<HD, kKeys, NT>(sv, static_cast<const bf16*>(a.v) + krow * HD,
+                           k0, a.Sk);
+  if (total > 0) stage_load(0, 0);
+  cp_async_commit();
+  if (total > 1) stage_load(1, 1);
+  cp_async_commit();
+
+  // this thread's accumulator rows are keys kw + lane / 4 (+ 8); the
+  // columns of S^T and dP^T are queries 8 n + 2 (lane % 4) + {0, 1}, those
+  // of dK and dV head dims
+  const int kw = k0 + warp * 16;
+  const int rk = kw + lane / 4;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t = 0; t < total; ++t) {
+    const int st = t % 3;
+    cp_async_wait<1>();
+    __syncthreads();  // stage st landed; every warp is done with t - 1
+    if (t + 2 < total) stage_load((t + 2) % 3, t + 2);
+    cp_async_commit();
+    const int q0 = (lo + t % nq) * BQ;
+    if (cover(a, q0, BQ, k0, kKeys) == kNone) continue;  // block-uniform
+    const unsigned char* sq = stages + st * kStage;
+    const unsigned char* sdo = sq + kQ;
+    const float* slse = reinterpret_cast<const float*>(sq + 2 * kQ);
+    const float* sdelta = slse + BQ;
+
+    float s[BQ / 2], dp[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss<BQ>(s, desc_k<HD, kKeys>(sk, kk), desc_k<HD, BQ>(sq, kk),
+                      kk > 0);
+      wgmma_ss<BQ>(dp, desc_k<HD, kKeys>(sv, kk),
+                      desc_k<HD, BQ>(sdo, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(s);
+    hold(dp);
+
+    // P^T = exp(z^T - lse), dS^T = P^T (dP^T - delta) (x dcap), in place
+    const bool full = cover(a, q0, BQ, kw, 16) == kAll;
+    if (a.softcap != 0.f) {
+      if (full) probs_t<false, true>(a, s, dp, slse, sdelta, q0, rk);
+      else probs_t<true, true>(a, s, dp, slse, sdelta, q0, rk);
+    } else {
+      if (full) probs_t<false, false>(a, s, dp, slse, sdelta, q0, rk);
+      else probs_t<true, false>(a, s, dp, slse, sdelta, q0, rk);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: dO and Q MN-major
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      acc_to_a(pa[kk], s, kk);
+      acc_to_a(da[kk], dp, kk);
+      hold(pa[kk]);
+      hold(da[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<HD>(dv, pa[kk], desc_mn<HD, BQ>(sdo, kk));
+      wgmma_rs<HD>(dk, da[kk], desc_mn<HD, BQ>(sq, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dv);
+    hold(dk);
+  }
+  cp_async_wait<0>();
+
+  bf16* dkg = static_cast<bf16*>(a.dk) + krow * HD;
+  bf16* dvg = static_cast<bf16*>(a.dv) + krow * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rk + hh * 8;
+    if (r >= a.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const size_t at = (size_t)r * HD + n * 8 + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(dkg + at) = pack_bf16(
+          dk[4 * n + 2 * hh] * a.scale, dk[4 * n + 2 * hh + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvg + at) =
+          pack_bf16(dv[4 * n + 2 * hh], dv[4 * n + 2 * hh + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 enum Which { kForward = 0, kDq = 1, kDkv = 2 };
@@ -507,11 +1204,48 @@ size_t smem_bytes(Which w) {
   }
 }
 
+// The bf16 forward and dK/dV: the tensor-core kernels, one warpgroup a
+// block.  Forward q tiles of 64 rows and a four-stage K/V ring; dK/dV
+// q tiles of 64 rows (32 at hd 128, where dK and dV take twice the
+// registers) and a three-stage ring.
+template <int HD>
+cudaError_t launch_tc(Which w, const Args& a, cudaStream_t stream) {
+  void (*kern)(Args);
+  size_t smem;
+  int tiles, heads;
+  if (w == kForward) {
+    kern = forward_wgmma_kernel<HD>;
+    smem = (size_t)(64 + 4 * 2 * kKeys) * HD * 2;
+    tiles = (a.Sq + 63) / 64;
+    heads = a.H;
+  } else {
+    constexpr int BQ = HD == 128 ? 32 : 64;
+    kern = dkv_wgmma_kernel<HD, BQ>;
+    smem = (size_t)2 * kKeys * HD * 2 +
+           3 * ((2 * BQ * HD * 2 + 2 * BQ * 4 + 1023) / 1024 * 1024);
+    tiles = (a.Sk + kKeys - 1) / kKeys;
+    heads = a.Hkv;
+  }
+  if (tiles > 65535 || a.B > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (tiles == 0 || a.B == 0) return cudaSuccess;
+  kern<<<dim3(heads, a.B, tiles), 128, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// fp32: the FMA kernels; bf16: the tensor-core forward and dK/dV, and the
+// FMA dQ.
 template <typename T, int HD>
 cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args) = w == kForward ? forward_kernel<T, HD>
-                       : w == kDq    ? dq_kernel<T, HD>
-                                     : dkv_kernel<T, HD>;
+  void (*kern)(Args) = dq_kernel<T, HD>;
+  if constexpr (sizeof(T) == sizeof(bf16)) {
+    if (w != kDq) return launch_tc<HD>(w, a, stream);
+  } else {
+    if (w == kForward) kern = forward_kernel<T, HD>;
+    if (w == kDkv) kern = dkv_kernel<T, HD>;
+  }
   const size_t smem = smem_bytes<HD>(w);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

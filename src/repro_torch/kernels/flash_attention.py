@@ -21,11 +21,31 @@ On a CUDA tensor each wrapper launches its hand-written kernel of
   ``flash_backward_dq``   "attn_bwd_dq"   (``_backward`` dQ, row 17)
   ``flash_backward_dkv``  "attn_bwd_dkv"  (``_backward`` dK/dV, row 18)
 
-On a CPU tensor it computes the plain version beside it, the closed form
-of the ``kernels/ref.py`` oracles with the kernels' fp32 rounding points.
-A CUDA tensor the kernels do not take (a head dim other than 32, 64 or
-128, another dtype than fp32 or bf16) raises ``ValueError``; there is no
-other route.
+Two routes, by dtype.  fp32 runs every product on the fp32 FMA units, so
+that the card matches the CPU's plain version to 1e-5 of the largest
+element.  bf16 (the training path) runs the forward and dK/dV on the bf16
+tensor cores (``wgmma``, fp32 accumulate, tiles fed by ``cp.async``);
+its dQ is still the FMA kernel.  The bf16 route rounds P (the forward's
+P.V and dV's P^T.dO) and dS (dK's dS^T.Q) to bf16 once before its
+product; every other sum is fp32.  Its contract, held by
+:func:`contract_sums` on the card: every element x of o, dk and dv lies
+within ``2**-7 * A`` of the plain version, A the element's absolute sum
+computed in fp32 by the plain side:
+
+  o:   A = sum_j p_ij |v_jd|
+  dv:  A = sum_i p_ij |do_id|              (over the GQA group too)
+  dk:  A = scale * sum_i |ds_ij| |q_id|    (likewise)
+
+(rounding P or dS moves the fp32 element by less than 2^-8 A; the
+kernel's and the plain version's roundings into bf16 then land at most
+one ulp apart, which is at most 2^-7 |x| where |x| ~ A and at most 2^-8 A
+where terms cancel).
+
+On a CPU tensor a wrapper computes the plain version beside it, the
+closed form of the ``kernels/ref.py`` oracles with the kernels' fp32
+rounding points.  A CUDA tensor the kernels do not take (a head dim other
+than 32, 64 or 128, another dtype than fp32 or bf16, a bf16 operand off a
+16-byte boundary) raises ``ValueError``; there is no other route.
 
 Masking is the reference's: causal, a sliding window by key distance (the
 sentinel ``1 << 30`` means none), ``q_offset`` shifting the query
@@ -144,6 +164,32 @@ def flash_backward_dq_plain(q, k, v, do, lse, delta, *, causal=True, scale,
     return dq.reshape(q.shape).to(q.dtype)
 
 
+def contract_sums(q, k, v, do, lse, delta, *, causal=True, scale,
+                  window=None, softcap=None, q_offset=0):
+    """(A_o, A_dk, A_dv): each output element's absolute sum in fp32, the
+    scale of the bf16 route's contract (module docstring): ``p . |v|``,
+    ``scale * |ds|^T . |q|`` and ``p^T . |do|``, the last two summed over
+    each GQA group, from the backward's lse and delta."""
+    opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                q_offset=q_offset)
+    Hkv = k.shape[1]
+    p, ds = _ds(q, k, v, do, lse, delta, opts)
+    a_o = torch.einsum("bkgqt,bktd->bkgqd", p, v.to(_f32).abs())
+    a_dk = torch.einsum("bkgqt,bkgqd->bktd", ds.abs(),
+                        _grouped(q, Hkv).abs()) * scale
+    a_dv = torch.einsum("bkgqt,bkgqd->bktd", p, _grouped(do, Hkv).abs())
+    return a_o.reshape(q.shape), a_dk, a_dv
+
+
+def contract_misses(got, want, sums) -> Tuple[int, float]:
+    """(elements of ``got`` beyond ``2**-7`` of their absolute sum
+    ``sums`` from ``want``, share beyond ``2**-9``): the bf16 route's
+    contract (module docstring), with :func:`contract_sums`."""
+    diff = (got.float() - want.float()).abs()
+    return (int((diff > 2 ** -7 * sums).sum()),
+            float((diff > 2 ** -9 * sums).float().mean()))
+
+
 def flash_backward_dkv_plain(q, k, v, do, lse, delta, *, causal=True, scale,
                              window=None, softcap=None, q_offset=0):
     """(dk, dv) in k's and v's dtypes, summed over each GQA group:
@@ -206,6 +252,11 @@ def check_kernel_args(q, k, v, do=None, lse=None, delta=None) -> None:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}; "
                              f"want {tuple(shape)} {dtype}, contiguous on "
                              f"{q.device}")
+    # the tensor-core kernels copy rows in 16-byte pieces (cp.async)
+    if q.dtype == torch.bfloat16 and any(
+            t is not None and t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention: a bf16 operand does not start "
+                         "on a 16-byte boundary")
 
 
 def _dims(q, k, *, causal, window, q_offset, scale, softcap):

@@ -227,13 +227,17 @@ def test_hutchinson_hvp_launches_no_backward_kernel(cuda_device):
     (2, 4, 4, 256, 256, 64, True, None, None, 0),     # GPT-2's layout
     (1, 8, 2, 128, 192, 128, True, 48, 20.0, 64),     # GQA, window, softcap
     (2, 2, 1, 100, 100, 32, False, None, None, 0),    # off the tile
+    (2, 4, 4, 192, 192, 128, True, None, None, 0),    # hd 128
+    (2, 8, 2, 256, 256, 64, True, None, None, 0),     # GQA 8/2
 ])
 def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
                                              Sk, hd, causal, window, softcap,
                                              qoff):
     """The forward, dQ and dK/dV kernels against their plain versions on
     the same inputs: o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2
-    (bf16) of each output's largest element."""
+    (bf16) of each output's largest element; in bf16 (the tensor-core
+    forward and dK/dV) also every element of o, dk and dv within 2^-7 of
+    its absolute sum (``flash_attention.contract_sums``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     q, g = (torch.randn((B, H, Sq, hd), generator=gen, device=cuda_device)
             .to(dt) for _ in range(2))
@@ -259,6 +263,11 @@ def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
         assert got.dtype == ref.dtype and got.shape == ref.shape
         scale = ref.float().abs().max().item()
         assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+    if dt == torch.bfloat16:
+        sums = flash_attention.contract_sums(q, k, v, g, lse, delta, **kw)
+        for name, got, ref, s in zip(("o", "dk", "dv"), (o, dk, dv),
+                                     (want[0],) + want[3:], sums):
+            assert flash_attention.contract_misses(got, ref, s)[0] == 0, name
 
 
 @pytest.mark.parametrize("hd", [48, 256])

@@ -6,8 +6,10 @@ GQA, q_offset, non-causal), within 3e-6 in fp32; against the reference's
 Pallas kernels (interpret mode, as its own tests run them on the CPU) and
 ``jax.grad`` within 6e-6 (both sides sit within 3e-6 of the oracle), and in
 bf16 at the reference test's 2/256 relative + 2e-5 absolute; autograd
-through the port's entry against the direct plain backward; and the
-model-level flash route on a GPT2_TINY layer.  Inputs come from numpy."""
+through the port's entry against the direct plain backward; the model-level
+flash route on a GPT2_TINY layer; and a CPU emulation of the bf16
+tensor-core route's rounding points held to its element-wise contract.
+Inputs come from numpy."""
 import dataclasses
 
 import jax
@@ -25,9 +27,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_backward_dkv, flash_backward_dkv_plain,
-    flash_backward_dq, flash_backward_dq_plain, flash_forward,
-    flash_forward_plain)
+    NEG_INF, band_mask, contract_misses, contract_sums, flash_attention,
+    flash_backward_dkv, flash_backward_dkv_plain, flash_backward_dq,
+    flash_backward_dq_plain, flash_forward, flash_forward_plain)
 from repro_torch.models import ModelConfig
 from repro_torch.models.layers import train_attention
 
@@ -242,3 +244,161 @@ def test_train_attention_flash_matches_reference(dtype, atol):
     if dtype == "float32":
         (dx,) = torch.autograd.grad(got, (tx,), torch.from_numpy(g))
         np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 route's contract (csrc/flash_attention.cu, the tensor cores)
+
+
+def _bf16_route_emulated(q, k, v, do, lse, delta, *, causal, scale, window,
+                         softcap, q_offset, round_acc=False):
+    """(o, dk, dv) in bf16 with the rounding points of the tensor-core
+    forward and dK/dV: bf16 inputs, fp32 sums, P rounded to bf16 before
+    P.V and P^T.dO, dS before dS^T.Q.  The forward walks key tiles of 64
+    with the online softmax, dK/dV the q tiles of 64 rows (32 at hd 128)
+    of each query head of a group, as the kernels do.  ``round_acc``
+    also rounds each fp32 accumulator to bf16 after every tile (a design
+    the contract must refuse)."""
+    rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    acc_rnd = rnd if round_acc else (lambda x: x)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    kh, vh = k32.repeat_interleave(G, 1), v32.repeat_interleave(G, 1)
+    mask = band_mask(Sq, Sk, causal=causal, window=window, q_offset=q_offset)
+
+    def scores(qt, kt):
+        s = torch.einsum("...qd,...td->...qt", qt, kt) * scale
+        if softcap is None:
+            return s, 1.0
+        t = torch.tanh(s / softcap)
+        return softcap * t, 1.0 - t * t
+
+    m = torch.full((B, H, Sq), NEG_INF)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, hd)
+    for c0 in range(0, Sk, 64):
+        mc = mask[:, c0:c0 + 64]
+        z = torch.where(mc, scores(q32, kh[:, :, c0:c0 + 64])[0], NEG_INF)
+        m_new = torch.maximum(m, z.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mc, torch.exp(z - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc_rnd(acc * alpha[..., None] + rnd(p) @ vh[:, :, c0:c0 + 64])
+        m = m_new
+    o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
+
+    bq = 32 if hd == 128 else 64
+    qg = q32.reshape(B, Hkv, G, Sq, hd)
+    dog = do32.reshape(B, Hkv, G, Sq, hd)
+    lseg, deltag = lse.reshape(B, Hkv, G, Sq), delta.reshape(B, Hkv, G, Sq)
+    dk, dv = torch.zeros(B, Hkv, Sk, hd), torch.zeros(B, Hkv, Sk, hd)
+    for g in range(G):
+        for r0 in range(0, Sq, bq):
+            rows = slice(r0, r0 + bq)
+            qt, dot = qg[:, :, g, rows], dog[:, :, g, rows]
+            z, dcap = scores(qt, k32)
+            mc = mask[rows]
+            p = torch.where(mc, torch.exp(z - lseg[:, :, g, rows, None]),
+                            0.0)
+            dp = torch.einsum("bkqd,bktd->bkqt", dot, v32)
+            ds = p * (dp - deltag[:, :, g, rows, None]) * dcap
+            dv = acc_rnd(dv + torch.einsum("bkqt,bkqd->bktd", rnd(p), dot))
+            dk = acc_rnd(dk + torch.einsum("bkqt,bkqd->bktd", rnd(ds), qt))
+    return o, (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed):
+    """bf16 q, k, v, do from numpy; v and do with a mean of 1, so that
+    sums of P-weighted terms do not cancel and the contract's A is of the
+    size of the output (an accumulator's rounding then shows)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Sq, hd))
+    k = rng.standard_normal((B, Hkv, Sk, hd))
+    v = 1.0 + rng.standard_normal((B, Hkv, Sk, hd))
+    do = 1.0 + rng.standard_normal((B, H, Sq, hd))
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+                 for x in (q, k, v, do))
+
+
+def _bf16_plain_and_emulated(case, seed=3, round_acc=False):
+    B, H, Hkv, Sq, Sk, hd, causal, window, softcap, qoff = case
+    q, k, v, do = _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
+              scale=hd ** -0.5)
+    o, lse = flash_forward_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, **kw)
+    sums = contract_sums(q, k, v, do, lse, delta, **kw)
+    got = _bf16_route_emulated(q, k, v, do, lse, delta, round_acc=round_acc,
+                               **kw)
+    return got, (o, dk, dv), sums
+
+
+# ATTN_CASES' edges (chip_smoke.py) at small sizes:
+# B, H, Hkv, Sq, Sk, hd, causal, window, softcap, q_offset
+BF16_CASES = {
+    "causal_hd64": (1, 2, 2, 192, 192, 64, True, None, None, 0),
+    "gqa_H4_Hkv2": (1, 4, 2, 128, 128, 32, True, None, None, 0),
+    "window24_softcap20": (1, 2, 2, 160, 160, 64, True, 24, 20.0, 0),
+    "q_offset64_Sq64_Sk128": (1, 2, 2, 64, 128, 64, True, None, None, 64),
+    "noncausal": (1, 2, 1, 96, 128, 32, False, None, None, 0),
+    "S100_off_tile": (1, 2, 2, 100, 100, 64, True, None, None, 0),
+    "hd128": (1, 2, 2, 96, 96, 128, True, None, None, 0),
+    "row_with_no_key": (1, 2, 2, 64, 96, 32, True, 16, None, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES.values()),
+                         ids=list(BF16_CASES))
+def test_bf16_route_emulation_meets_the_contract(case):
+    """The numerical design of the tensor-core forward and dK/dV
+    (``csrc/flash_attention.cu``), emulated: P and dS rounded to bf16
+    once, every sum in fp32, hold every element of o, dk and dv within
+    2^-7 of its absolute sum (``contract_sums``) of the fp32 plain
+    version, the bound ``chip_smoke.py`` holds the kernels to."""
+    got, want, sums = _bf16_plain_and_emulated(case)
+    for name, a, b, s in zip(("o", "dk", "dv"), got, want, sums):
+        assert a.dtype == b.dtype == torch.bfloat16
+        n_hard, share = contract_misses(a, b, s)
+        assert n_hard == 0, (name, n_hard, share)
+
+
+def test_bf16_route_emulation_meets_the_contract_against_the_reference():
+    """The emulation against the reference's Pallas forward and its
+    custom_vjp backward in bf16 (interpret mode, as
+    :func:`test_matches_reference_pallas_kernels_bf16` runs them) on the
+    same numpy inputs: o, dk and dv within 2^-7 of their absolute sums."""
+    case = (1, 2, 1, 128, 128, 32, True, None, 20.0, 0)
+    B, H, Hkv, Sq, Sk, hd, causal, window, softcap, qoff = case
+    q, k, v, do = _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed=5)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v, do))
+
+    def f(q, k, v):
+        o = jax_flash(q, k, v, block_q=64, block_k=64, **kw)
+        return (o.astype(jnp.float32) * jg.astype(jnp.float32)).sum(), o
+
+    (_, jo), (_, jdk, jdv) = jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
+    scale = hd ** -0.5
+    o, lse = flash_forward_plain(q, k, v, scale=scale, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    sums = contract_sums(q, k, v, do, lse, delta, scale=scale, **kw)
+    got = _bf16_route_emulated(q, k, v, do, lse, delta, scale=scale, **kw)
+    for name, a, b, s in zip(("o", "dk", "dv"), got, (jo, jdk, jdv), sums):
+        ref = torch.from_numpy(np.array(b.astype(jnp.float32)))
+        assert contract_misses(a, ref, s)[0] == 0, name
+
+
+def test_bf16_contract_refuses_a_bf16_accumulator():
+    """The contract has teeth: the same emulation with each accumulator
+    also rounded to bf16 after every tile (8 key tiles, 8 q tiles) puts
+    elements of o and dv beyond 2^-7 of their absolute sum."""
+    case = (1, 2, 2, 512, 512, 64, True, None, None, 0)
+    got, want, sums = _bf16_plain_and_emulated(case, round_acc=True)
+    misses = {name: contract_misses(a, b, s)[0]
+              for name, a, b, s in zip(("o", "dk", "dv"), got, want, sums)}
+    assert misses["o"] > 0 and misses["dv"] > 0, misses
