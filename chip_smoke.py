@@ -22,17 +22,18 @@ it fails and prints no result.  Phases, in order:
      h and with bf16 h).  The forwards within 1e-5 (fp32) or 2e-2 (bf16);
      dh and dW within 1e-5 of their largest element in fp32 and, with bf16
      h or W, element by element against each element's sum of absolute
-     terms (``check_bf16_grad``; bf16 h takes the tensor-core backward,
-     and each case logs its share beyond 2^-16); the sampled labels identical except on rows
-     whose two best perturbed logits lie within 1e-5; the flash-attention
+     terms (``check_bf16_grad``; bf16 h takes the tensor-core kernels,
+     forward and backward, and each case logs its share beyond 2^-16);
+     the sampled labels identical except on rows whose two best perturbed
+     logits lie within 1e-5, never a padded column; the flash-attention
      kernels (forward, dQ, dK/dV) at GPT-2 small's training shape (B=8,
      H=12, S=1024, hd=64, causal) and the refresh's B=4, and the edge
      cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
      non-causal, S=1000 off the tile, hd=128, rows with no key), fp32 and
      bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
-     their largest element, and in bf16 (the tensor-core forward and
-     dK/dV) every element of o, dk and dv within 2^-7 of its absolute
-     sum (the share beyond 2^-9 logged); the engine kernels (the Sophia
+     their largest element, and in bf16 (all three on the tensor cores)
+     every element of o, dq, dk and dv within 2^-7 of its absolute sum
+     (the share beyond 2^-9 logged); the engine kernels (the Sophia
      step, the Hessian EMA with square off and on, the refresh-fused step
      with flag 0 and 1, AdamW at steps 1, 2 and 1000, the AdaHessian
      refresh-fused step with flag 0 and 1 at steps 1, 2 and 1000, the
@@ -93,8 +94,10 @@ it fails and prints no result.  Phases, in order:
      kernels SDPA's forward, and its backward for dQ and dK/dV together;
      for AdamW ``torch.optim.AdamW(fused=True).step()``, for SGD
      ``torch.optim.SGD(momentum=0, fused=True).step()``, which writes p
-     only) that computes the same function; each flash row names the
-     units its bf16 products run on (tensor cores or FMA).
+     only) that computes the same function; each CE and flash row names
+     the units its bf16 products run on (tensor cores or FMA); the CE
+     kernels at N=8192, the sampled forward also at the refresh's
+     N=4096.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -553,8 +556,8 @@ def check_flash_case(torch, name, spec, dtype):
     backward's on the kernel forward's lse and delta); each output within
     TOL of its largest element.  lse is compared on the rows that attend
     some key; a row that attends none must give o = 0 and lse <= -1e29 on
-    both sides.  In bf16 (the tensor-core forward and dK/dV) also every
-    element of o, dk and dv within 2^-7 of its absolute sum
+    both sides.  In bf16 (the tensor-core kernels) also every element of
+    o, dq, dk and dv within 2^-7 of its absolute sum
     (``flash_attention.contract_sums``), the share beyond 2^-9 logged.
     Returns {kernel: max abs error}."""
     from repro_torch.kernels import flash_attention as fa
@@ -597,7 +600,7 @@ def check_flash_case(torch, name, spec, dtype):
     if dtype == torch.bfloat16:
         shares = {}
         sums = fa.contract_sums(q, k, v, g, lse, delta, **kw)
-        for key, s in zip(("o", "dk", "dv"), sums):
+        for key, s in sums.items():
             n_hard, shares[key] = fa.contract_misses(*pairs[key], s)
             if n_hard:
                 raise AssertionError(
@@ -605,7 +608,7 @@ def check_flash_case(torch, name, spec, dtype):
                     f"2^-7 of their absolute sum (the tensor-core route's "
                     f"contract)")
         del sums
-        contract = ("; every element of o, dk, dv within 2^-7 of its "
+        contract = ("; every element of o, dq, dk, dv within 2^-7 of its "
                     "absolute sum, share beyond 2^-9: "
                     + ", ".join(f"{n} {x:.3g}" for n, x in shares.items()))
     log(f"[kernels] flash_attention {name} {str(dtype)[6:]} "
@@ -1509,11 +1512,16 @@ def phase_timings(torch, main_err, served):
 
 CE_TIME = dict(N=8192, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
+# which units the CE kernels' products run on at CE_TIME (bf16 h)
+CE_UNITS = dict.fromkeys(FUSED_CE[1], "tensor cores")
+CE_REFRESH_N = 4096        # the sampled forward's rows in a GNB refresh
 
 
 def phase_ce_timings(torch, ce_err, trained):
     """The CE kernels at the training loss shape beside their bound, their
-    plain versions and the library composition (not one call)."""
+    plain versions and the library composition (not one call); the
+    sampled forward also at the refresh's N=4096.  Each row names the
+    units its products run on (``CE_UNITS``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as ce
@@ -1593,22 +1601,40 @@ def phase_ce_timings(torch, ce_err, trained):
             "max_abs_err": ce_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library[name],
+            "library_ms": library[name], "units": CE_UNITS[name],
             "library_note": (None if library[name] is None else
                              "F.linear + logsumexp + gather, not one call"
                              + ("" if name == "ce_forward" else
                                 "; its autograd backward, dh and dW "
                                 "together")),
             "shape": f"N={N} D={D} Vp={Vp} h=bf16 W=fp32 tied ln"})
-        log(f"[timing] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library {library[name]}, bound {bound_ms:.4f} ms ({flops} "
-            f"flops at {BF16_FLOPS_PER_S:.3g}/s, {nbytes} bytes at "
-            f"{HBM_BYTES_PER_S:.3g}/s); {flops / ms / 1e9:.1f} TFLOP/s")
+        log(f"[timing] {name} ({CE_UNITS[name]}): kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library {library[name]}, bound "
+            f"{bound_ms:.4f} ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, "
+            f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g}/s); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+
+    # the sampled forward at the shape a refresh gives it
+    name = "ce_forward_sampled"
+    h, w, normp, _, _, opts = _ce_inputs(torch, **dict(CE_TIME,
+                                                       N=CE_REFRESH_N))
+    ms = time_ms(torch, lambda: ce.ce_forward_sampled(h, w, normp, CE_SEED,
+                                                      **opts),
+                 flush, reps=20, warmup=2)
+    flops = ce.ce_flops(CE_REFRESH_N, D, Vp, name)
+    nbytes = ce.ce_bytes(CE_REFRESH_N, D, Vp, name, bytes_h=h.element_size(),
+                         bytes_w=w.element_size())
+    bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    row = next(r for r in rows if r["name"] == name)
+    row.update(ms_N4096=ms, bound_ms_N4096=bound_ms)
+    log(f"[timing] {name} ({CE_UNITS[name]}) at the refresh's "
+        f"N={CE_REFRESH_N}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
     return rows
 
 
 # which units each flash kernel's bf16 products run on
-FLASH_UNITS = {"attn_fwd": "tensor cores", "attn_bwd_dq": "FMA",
+FLASH_UNITS = {"attn_fwd": "tensor cores", "attn_bwd_dq": "tensor cores",
                "attn_bwd_dkv": "tensor cores"}
 
 

@@ -5,8 +5,8 @@
 //   forward_kernel (fp32),   _forward (pallas_call :198, body _fwd_kernel
 //   forward_wgmma_kernel     :111)
 //   (bf16)
-//   dq_kernel                _backward's dQ (pallas_call :333, body
-//                            _dq_kernel :239)
+//   dq_kernel (fp32),        _backward's dQ (pallas_call :333, body
+//   dq_wgmma_kernel (bf16)   _dq_kernel :239)
 //   dkv_kernel (fp32),       _backward's dK/dV (pallas_call :374, body
 //   dkv_wgmma_kernel (bf16)  _dkv_kernel :268), summed over the GQA group
 //
@@ -54,27 +54,30 @@
 //   * sequence lengths need not divide the tile: rows and keys past the
 //     end load as zeros and are masked.
 //
-// bf16 (the training path): the forward and dK/dV on the bf16 tensor
-// cores (forward_wgmma_kernel, dkv_wgmma_kernel); dQ keeps the FMA
-// dq_kernel.  The FMA design reaches ~2% of the bf16 peak: fp32 tiles
-// copied by plain loads, a barrier on each side of every tile, P and dS
-// round-tripped through shared memory.  The tensor-core kernels instead:
+// bf16 (the training path): every kernel on the bf16 tensor cores
+// (forward_wgmma_kernel, dq_wgmma_kernel, dkv_wgmma_kernel).  The FMA
+// design reaches ~2% of the bf16 peak: fp32 tiles copied by plain loads, a
+// barrier on each side of every tile, P and dS round-tripped through
+// shared memory.  The tensor-core kernels instead:
 //   * run every product as wgmma (one warpgroup, 64 rows, a block; fp32
-//     accumulate): forward S = Q K^T (m64n64) and O += P V (m64nHD),
-//     dK/dV S^T = K Q^T and dP^T = V dO^T (m64nBQ), dV += P^T dO and
-//     dK += dS^T Q (m64nHD).  Operands come from shared memory in the
-//     swizzled layouts described below (V, dO and Q of the last two read
+//     accumulate): forward S = Q K^T (m64n64) and O += P V (m64nHD), dQ
+//     S = Q K^T and dP = dO V^T (m64n64) and dQ += dS K (m64nHD), dK/dV
+//     S^T = K Q^T and dP^T = V dO^T (m64nBQ), dV += P^T dO and dK += dS^T
+//     Q (m64nHD).  Operands come from shared memory in the swizzled
+//     layouts described below (V, K, dO and Q of the second products read
 //     transposed), P and dS from registers: an accumulator of one product
 //     is the A operand of the next once rounded to bf16, so nothing goes
 //     back to shared memory;
-//   * stage bf16 tiles through cp.async rings, two tiles ahead (forward: 4
-//     stages of K and V; dK/dV: 3 of Q, dO, lse and delta), one barrier a
-//     tile; rows past the end arrive as zeros (source size 0);
-//   * pipeline the forward one tile apart: with P of tile j - 1 in
-//     registers, S of tile j and O += P V of tile j - 1 are issued together
-//     and the online softmax of tile j runs while the second is in flight;
-//   * keep the online softmax (m, l, alpha) in registers and take exp as
-//     one ex2.approx of an FMA (z log2(e) - m log2(e));
+//   * stage bf16 tiles through cp.async rings, two tiles ahead (forward and
+//     dQ: 4 stages of K and V; dK/dV: 3 of Q, dO, lse and delta), one
+//     barrier a tile; rows past the end arrive as zeros (source size 0);
+//   * pipeline the forward and dQ one tile apart: with P (dS) of tile j - 1
+//     in registers, the score products of tile j and O += P V (dQ += dS K)
+//     of tile j - 1 are issued together, and the softmax (dS) of tile j
+//     runs while the second is in flight;
+//   * keep the online softmax (m, l, alpha), and dQ's lse and delta, in
+//     registers and take exp as one ex2.approx of an FMA (z log2(e) - m
+//     log2(e));
 //   * test the mask only in tiles where some pair of a warp's 16 rows does
 //     not attend, and the softcap only when there is one: both are
 //     template flags chosen per tile, since a test in the common tile (if
@@ -82,21 +85,27 @@
 //     against 0.080 ms, dK/dV 0.188 against 0.130 ms at GPT-2 small's
 //     shape on an H100 SXM, tests/_flash_variants.py);
 //   * under causal masking start the longest q tiles first (blockIdx.z
-//     reversed); dK/dV blocks own 64 keys of one KV head and keep dK and
-//     dV in fp32 registers across the q tiles (64 rows; 32 at hd 128) of
-//     every head of the group.
+//     reversed); dQ keeps its sum in fp32 registers across the key tiles;
+//     dK/dV blocks own 64 keys of one KV head and keep dK and dV in fp32
+//     registers across the q tiles (64 rows; 32 at hd 128) of every head
+//     of the group.
 //   TMA and a producer warp would replace the cp.async rings; they are not
 //   used yet.
 // Accuracy contract of the bf16 route: P (forward, and dV's product) and
-// dS (dK's product) are rounded to bf16 once; every other sum is fp32.
-// With A an output element's absolute sum in fp32 (o: sum_j p_ij |v_jd|;
-// dv: sum_i p_ij |do_id|; dk: scale sum_i |ds_ij| |q_id|), rounding P or
-// dS moves the fp32 element by less than 2^-8 A (bf16 keeps 8 significant
-// bits); the kernel's and the plain version's roundings of the element
-// into bf16 then land at most one bf16 ulp apart where |x| ~ A, and add
-// at most one ulp (<= 2^-8 A) where terms cancel: every element lies
-// within 2^-7 A of the plain version.  chip_smoke.py holds every bf16 case
-// to it and logs the share beyond 2^-9 A.
+// dS (dQ's and dK's products) are rounded to bf16 once; every other sum is
+// fp32.  With A an output element's absolute sum in fp32 (o: sum_j p_ij
+// |v_jd|; dq: scale sum_j |ds_ij| |k_jd|; dv: sum_i p_ij |do_id|; dk:
+// scale sum_i |ds_ij| |q_id|), rounding P or dS moves the fp32 element by
+// less than 2^-8 A (bf16 keeps 8 significant bits); the kernel's and the
+// plain version's roundings of the element into bf16 then land at most
+// one bf16 ulp apart where |x| ~ A, and add at most one ulp (<= 2^-8 A)
+// where terms cancel: every element lies within 2^-7 A of the plain
+// version.  dq's A also counts dS's own fp32 rounding, 2^-8 p_ij sum_e
+// |do_ie| |v_je| beside |ds_ij|: dP = dO V^T is summed here in another
+// order than in the plain version, and where dP - delta cancels (the
+// first key of a causal row) the two dS differ by all of themselves
+// (kernels/flash_attention.py).  chip_smoke.py holds every bf16 case to
+// it and logs the share beyond 2^-9 A.
 // The C entry points return cudaGetLastError() after the launch (or
 // cudaErrorInvalidValue for a head dim without an instance) and never
 // synchronise.
@@ -1189,6 +1198,164 @@ __global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
   }
 }
 
+// P = exp(z - lse) and dS = P (dP - delta) (times dcap under a softcap) in
+// place of dP, in the forward's row layout: this thread's rows are rq and
+// rq + 8 (lse log2(e) in lb, delta in dl), its columns keys c0 + 8 n + 2
+// (lane % 4) + {0, 1}.  MASKED and CAP as in online_softmax.
+template <bool MASKED, bool CAP, int N>
+__device__ __forceinline__ void probs(const Args& a, const float (&s)[N],
+                                      float (&dp)[N], const float (&lb)[2],
+                                      const float (&dl)[2], int rq, int c0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int hh = i >> 1 & 1;
+    float z = s[i] * a.scale, dcap = 1.f;
+    if constexpr (CAP) {
+      const float t = tanhf(z / a.softcap);
+      z = a.softcap * t;
+      dcap = 1.f - t * t;
+    }
+    float p = fast_exp2(fmaf(z, kLog2e, -lb[hh]));
+    if constexpr (MASKED)
+      p = attends(a, rq + hh * 8, c0 + (i >> 2) * 8 + 2 * (lane % 4) + (i & 1))
+              ? p
+              : 0.f;
+    float ds = p * (dp[i] - dl[hh]);
+    if constexpr (CAP) ds *= dcap;
+    dp[i] = ds;
+  }
+}
+
+// dQ: grid (H, B, q tiles of 64 rows), the longest tiles first under causal
+// masking; one warpgroup a block, Q and dO staged once.  K and V tiles
+// arrive through a four-stage ring, two tiles ahead, and the products are
+// pipelined one tile apart as in the forward: with dS of tile j - 1 in
+// registers, S = Q K_j^T and dP = dO V_j^T (m64n64, K-major) go to the
+// tensor cores with dQ += dS K_{j-1} (m64nHD, K read MN-major), and dS of
+// tile j is formed while the last is in flight.  dS is rounded to bf16
+// once; the dQ sum stays in fp32 registers and takes the scale at the end.
+template <int HD>
+__global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
+  constexpr int NT = 128, BM = 64, kStages = 4;
+  constexpr int kTile = kKeys * HD * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sq = smem_raw;
+  unsigned char* sdo = sq + BM * HD * 2;
+  unsigned char* skv = sdo + BM * HD * 2;  // stage s: K at 2 s tiles, V next
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 = qt * BM;
+  const size_t qrow = ((size_t)b * a.H + h) * a.Sq;
+  const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
+  const bf16* kg = static_cast<const bf16*>(a.k) + krow * HD;
+  const bf16* vg = static_cast<const bf16*>(a.v) + krow * HD;
+  int lo, hi;
+  key_band(a, q0, (long long)min(a.Sq, q0 + BM) - 1, kKeys, &lo, &hi);
+  auto stage_k = [&](int j) { return skv + (j - lo) % kStages * 2 * kTile; };
+  auto load_tile = [&](int j) {
+    unsigned char* t = stage_k(j);
+    load_rows<HD, kKeys, NT>(t, kg, j * kKeys, a.Sk);
+    load_rows<HD, kKeys, NT>(t + kTile, vg, j * kKeys, a.Sk);
+  };
+
+  // this thread's rows: w0 + lane / 4 and + 8, as in the forward
+  const int w0 = q0 + warp * 16;
+  const int rq = w0 + lane / 4;
+  float lb[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rq + hh * 8;
+    lb[hh] = r < a.Sq ? a.lse_in[qrow + r] * kLog2e : 0.f;
+    dl[hh] = r < a.Sq ? a.delta[qrow + r] : 0.f;
+  }
+  float dq[HD / 2], s[kKeys / 2], dp[kKeys / 2];
+  uint32_t da[kKeys / 16][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  load_rows<HD, BM, NT>(sq, static_cast<const bf16*>(a.q) + qrow * HD, q0,
+                        a.Sq);
+  load_rows<HD, BM, NT>(sdo, static_cast<const bf16*>(a.dout) + qrow * HD,
+                        q0, a.Sq);
+  if (lo <= hi) load_tile(lo);
+  cp_async_commit();
+  if (lo < hi) load_tile(lo + 1);
+  cp_async_commit();
+  for (int j = lo; j <= hi; ++j) {
+    cp_async_wait<1>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 2
+    if (j + 2 <= hi) load_tile(j + 2);
+    cp_async_commit();
+    const unsigned char* sk = stage_k(j);
+    hold(s);
+    hold(dp);
+    hold(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss<kKeys>(s, desc_k<HD, BM>(sq, kk), desc_k<HD, kKeys>(sk, kk),
+                      kk > 0);
+      wgmma_ss<kKeys>(dp, desc_k<HD, BM>(sdo, kk),
+                      desc_k<HD, kKeys>(sk + kTile, kk), kk > 0);
+    }
+    wgmma_commit();
+    if (j > lo) {
+      const unsigned char* skp = stage_k(j - 1);
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs<HD>(dq, da[kk], desc_mn<HD, kKeys>(skp, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S and dP of tile j; dQ += dS K of tile j - 1 runs on
+    hold(s);
+    hold(dp);
+    const int c0 = j * kKeys;
+    const bool full = cover(a, w0, 16, c0, kKeys) == kAll;
+    if (a.softcap != 0.f) {
+      if (full) probs<false, true>(a, s, dp, lb, dl, rq, c0);
+      else probs<true, true>(a, s, dp, lb, dl, rq, c0);
+    } else {
+      if (full) probs<false, false>(a, s, dp, lb, dl, rq, c0);
+      else probs<true, false>(a, s, dp, lb, dl, rq, c0);
+    }
+    wgmma_wait<0>();
+    hold(dq);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      acc_to_a(da[kk], dp, kk);
+      hold(da[kk]);
+    }
+  }
+  if (lo <= hi) {  // dQ += dS K of the last tile
+    const unsigned char* sk = stage_k(hi);
+    hold(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<HD>(dq, da[kk], desc_mn<HD, kKeys>(sk, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dq);
+  }
+  cp_async_wait<0>();
+
+  bf16* dqg = static_cast<bf16*>(a.dq) + qrow * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rq + hh * 8;
+    if (r >= a.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dqg + (size_t)r * HD + n * 8 +
+                                   2 * (lane % 4)) =
+          pack_bf16(dq[4 * n + 2 * hh] * a.scale,
+                    dq[4 * n + 2 * hh + 1] * a.scale);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 
@@ -1204,18 +1371,18 @@ size_t smem_bytes(Which w) {
   }
 }
 
-// The bf16 forward and dK/dV: the tensor-core kernels, one warpgroup a
-// block.  Forward q tiles of 64 rows and a four-stage K/V ring; dK/dV
-// q tiles of 64 rows (32 at hd 128, where dK and dV take twice the
-// registers) and a three-stage ring.
+// bf16: the tensor-core kernels, one warpgroup a block.  The forward and
+// dQ own q tiles of 64 rows and walk a four-stage K/V ring (dQ also keeps
+// its dO tile); dK/dV walks q tiles of 64 rows (32 at hd 128, where dK and
+// dV take twice the registers) through a three-stage ring.
 template <int HD>
 cudaError_t launch_tc(Which w, const Args& a, cudaStream_t stream) {
   void (*kern)(Args);
   size_t smem;
   int tiles, heads;
-  if (w == kForward) {
-    kern = forward_wgmma_kernel<HD>;
-    smem = (size_t)(64 + 4 * 2 * kKeys) * HD * 2;
+  if (w != kDkv) {
+    kern = w == kForward ? forward_wgmma_kernel<HD> : dq_wgmma_kernel<HD>;
+    smem = (size_t)((w == kForward ? 64 : 128) + 4 * 2 * kKeys) * HD * 2;
     tiles = (a.Sq + 63) / 64;
     heads = a.H;
   } else {
@@ -1235,26 +1402,25 @@ cudaError_t launch_tc(Which w, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp32: the FMA kernels; bf16: the tensor-core forward and dK/dV, and the
-// FMA dQ.
+// fp32: the FMA kernels; bf16: the tensor-core kernels.
 template <typename T, int HD>
 cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args) = dq_kernel<T, HD>;
   if constexpr (sizeof(T) == sizeof(bf16)) {
-    if (w != kDq) return launch_tc<HD>(w, a, stream);
+    return launch_tc<HD>(w, a, stream);
   } else {
-    if (w == kForward) kern = forward_kernel<T, HD>;
-    if (w == kDkv) kern = dkv_kernel<T, HD>;
+    void (*kern)(Args) = w == kForward ? forward_kernel<T, HD>
+                         : w == kDq    ? dq_kernel<T, HD>
+                                       : dkv_kernel<T, HD>;
+    const size_t smem = smem_bytes<HD>(w);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = w == kDkv ? n_tiles(a.Sk) : n_tiles(a.Sq);
+    const dim3 grid(tiles, w == kDkv ? a.Hkv : a.H, a.B);
+    if (tiles == 0 || a.B == 0) return cudaSuccess;
+    kern<<<grid, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  const size_t smem = smem_bytes<HD>(w);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = w == kDkv ? n_tiles(a.Sk) : n_tiles(a.Sq);
-  const dim3 grid(tiles, w == kDkv ? a.Hkv : a.H, a.B);
-  if (tiles == 0 || a.B == 0) return cudaSuccess;
-  kern<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -3,9 +3,11 @@
 // sampled labels) and the two backward sweeps, d(normed hidden) and dW.
 //
 // Replaces the TPU kernels of src/repro/kernels/fused_ce.py:
-//   ce_forward_kernel<SAMPLE = false>  _ce_forward (pallas_call :521,
+//   the forward (SAMPLE = false)       _ce_forward (pallas_call :521,
 //                                      body _ce_fwd_kernel :281)
-//   ce_forward_kernel<SAMPLE = true>   _ce_forward_sampled (:544, body :312)
+//   the forward (SAMPLE = true)        _ce_forward_sampled (:544, body :312)
+//     fp32 h: ce_forward_kernel<SAMPLE>; bf16 h: ce_mma_kernel with the
+//     kEpiLse / kEpiSample epilogue; both then ce_combine_kernel
 //   ce_backward_dh_kernel              _ce_backward's dh sweep (:601, body
 //                                      _ce_bwd_dh_kernel :388) and the dh
 //                                      half of its fused schedule (:583,
@@ -40,8 +42,9 @@
 // byte, far above the ~295 where the card's bf16 tensor cores stop being
 // the limit.
 //
-// The forward computes on the fp32 FMA units, with shared-memory tiles and
-// a 4x8 tile of outputs per thread:
+// The forward with h in fp32 (the card-vs-CPU checks) computes on the
+// fp32 FMA units, with shared-memory tiles and a 4x8 tile of outputs per
+// thread:
 //   * the TPU's sequential vocab grid axis becomes a loop inside a block;
 //     the forward keeps one running (m, l, label logit) or (m, l, best z,
 //     its column, its logit) per output row in each thread's registers,
@@ -54,6 +57,17 @@
 //     warp per row, shared by every tile of that row;
 //   * IEEE rounding intrinsics keep the norm, softcap and d arithmetic in
 //     the reference's operation order (no contraction into FMA).
+// With h in bf16 (the training path) the forward runs on the bf16 tensor
+// cores through the backward's product kernel (below): after the same
+// prep (h_n in bf16, an fp32 W's hi plane; ~90 MB at N = 8192), one
+// ce_mma_kernel sweep computes s = h_n . hi^T over the whole vocabulary,
+// 128 x 128 tiles with the row tiles fastest, and its epilogue folds each
+// tile into one partial per row (fold_tile: a thread's 8 columns, the 4
+// lanes of a quad by shuffles, the 4 column warps through shared memory,
+// earliest column on ties); ce_combine_kernel merges the Vp / 128
+// partials of each row in column order.  h_n and hi are the reference's
+// casts, so each product is exact and only the order of the fp32 sums
+// differs from the plain version.
 //
 // The backward with h in bf16 (the training path) runs on the bf16 tensor
 // cores (mma.sync.m16n8k16, fp32 accumulate), in a workspace design:
@@ -78,17 +92,18 @@
 //     logits for each slice) would hold no workspace but pay the logits
 //     D / slice times; the workspace costs 4 N cw bytes written and read
 //     a chunk (239 MB at N = 8192: ~0.07 ms each way at 3.35 TB/s);
-//   * one mma kernel serves the three products: a 128 x 128 output tile per
-//     block of 8 warps (64 x 32 each: 4 x 4 mma tiles, 64 fp32 accumulators
-//     a thread and 64 more for the part in flight, see kPromote), k-steps
-//     of 32 through a 3-stage cp.async ring of padded
-//     shared-memory tiles, fragments by ldmatrix (.trans where an operand's
-//     contiguous axis is not k), the operand layouts (tied or untied W, d
-//     or d^T) as template flags, and the epilogue (d to the workspace, dh
-//     accumulate, dW store) as a template case.  Blocks own their outputs:
-//     no atomics, dW deterministic and rounded once.  At the training shape
-//     the grids are 3648 (logits), 384 (dh) and 342 (dW) blocks a chunk,
-//     all above the card's 132 SMs;
+//   * one mma kernel serves the three products (and the forward's logits,
+//     above): a 128 x 128 output tile per block of 8 warps (64 x 32 each:
+//     4 x 4 mma tiles, 64 fp32 accumulators a thread and 64 more for the
+//     part in flight, see kPromote), k-steps of 32 through a 3-stage
+//     cp.async ring of padded shared-memory tiles, fragments by ldmatrix
+//     (.trans where an operand's contiguous axis is not k), the operand
+//     layouts (tied or untied W, d or d^T) as template flags, and the
+//     epilogue (d to the workspace, dh accumulate, dW store, the forward's
+//     fold) as a template case.  Blocks own their outputs: no atomics, dW
+//     deterministic and rounded once.  At the training shape the grids are
+//     3648 (logits), 384 (dh) and 342 (dW) blocks a chunk, all above the
+//     card's 132 SMs;
 //   * the chunk loop runs on the host, on the caller's stream.
 // With h in fp32 (the card-vs-CPU checks and tests; not the training
 // path) the backward keeps the first version on the fp32 FMA units: the
@@ -629,7 +644,15 @@ static_assert(kMT == kNT && kMT * kKmStride >= kKT * kMnStride,
               "one plane size serves both layouts");
 constexpr size_t kWsBudget = size_t(256) << 20;  // bytes of the d workspace
 
-enum Epilogue { kEpiDlogits = 0, kEpiDh = 1, kEpiDw = 2 };
+// d to the workspace, dh accumulate, dW store; the forward's fold of the
+// logits into (m, l, label logit) or, sampled, (m, l, draw) per row
+enum Epilogue {
+  kEpiDlogits = 0,
+  kEpiDh = 1,
+  kEpiDw = 2,
+  kEpiLse = 3,
+  kEpiSample = 4
+};
 
 // One operand of a product: bf16 planes hi and lo (lo unused with fewer
 // passes), leading dimension ld in elements.  KMAJOR: element (i, k) at
@@ -644,7 +667,8 @@ struct Operand {
 // workspace planes (ldd columns).  dh: the fp32 accumulator (ld D), whether
 // this chunk is the first (overwrite), and the bf16 output of the last
 // chunk (null unless dh is returned in h's dtype).  dW: c0 and the output
-// in W's dtype and layout.
+// in W's dtype and layout.  Forward: the partials that ce_combine_kernel
+// merges, part[{m, l, ll, zm}][tile][row] and part_idx[tile][row].
 struct Epi {
   int c0;
   bf16* d_hi;
@@ -654,6 +678,8 @@ struct Epi {
   int first;
   bf16* out_t;
   void* dw;
+  float* part;
+  int* part_idx;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -752,11 +778,129 @@ __device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* t,
   }
 }
 
+// The forward's epilogue: the logits tile at rows m0.., vocab columns c0
+// (all columns of the sweep from epi.c0 + n0 on) folded into one partial
+// per row, part[{m, l, ll, zm}][c0 / 128][row] (and part_idx): each thread
+// folds its 8 columns of each of its 8 rows in ascending order, the 4
+// lanes of a quad merge by shuffles and the 4 column warps through shared
+// memory (the drained cp.async ring) in column order.  The draw keeps the
+// earliest column among equal maxima at every merge, so with
+// ce_combine_kernel's strict > across tiles it is the first argmax of the
+// row, as the reference's.
+template <bool SAMPLE>
+__device__ __forceinline__ void fold_tile(const float (&acc)[4][4][4],
+                                          const CeArgs& a, const Epi& epi,
+                                          int m0, int n0,
+                                          unsigned char* smem_raw) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int c0 = epi.c0 + n0;
+  const int cl = c0 + wn * 32 + 2 * (lane % 4);  // column of j = 0, e = 0
+  float* red = reinterpret_cast<float*>(smem_raw);  // [4][4 wn][kMT rows]
+  int* red_i = reinterpret_cast<int*>(red + 16 * kMT);  // [4 wn][kMT rows]
+  __syncthreads();  // every warp is done reading the ring
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm * 64 + i * 16 + lane / 4 + 8 * h;
+      const int r = m0 + rl;
+      float s[8], m = kNegInf;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float dcap;
+        s[k] = finish_logit(a, acc[i][k >> 1][2 * h + (k & 1)],
+                            cl + 8 * (k >> 1) + (k & 1), &dcap);
+        m = fmaxf(m, s[k]);
+      }
+      float l = 0.0f, ll = 0.0f, zm = kNegInf;
+      int zi = 0;
+      const int lab = !SAMPLE && r < a.N ? a.labels[r] : -1;
+      const uint32_t rmix = mix32((uint32_t)r ^ a.seed0);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int c = cl + 8 * (k >> 1) + (k & 1);
+        if (c < a.V) {
+          l += expf(s[k] - m);
+          if (SAMPLE) {
+            const float z = s[k] + hash_gumbel(rmix, (uint32_t)c, a.seed1);
+            if (z > zm) {  // strict: the columns rise
+              zm = z;
+              zi = c;
+              ll = s[k];
+            }
+          }
+        }
+        if (!SAMPLE && c == lab) ll = s[k];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+        const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
+        const float ll2 = __shfl_xor_sync(0xffffffffu, ll, off);
+        const float mn = fmaxf(m, m2);
+        l = l * expf(m - mn) + l2 * expf(m2 - mn);
+        m = mn;
+        if (SAMPLE) {
+          const float z2 = __shfl_xor_sync(0xffffffffu, zm, off);
+          const int i2 = __shfl_xor_sync(0xffffffffu, zi, off);
+          if (z2 > zm || (z2 == zm && i2 < zi)) {
+            zm = z2;
+            zi = i2;
+            ll = ll2;
+          }
+        } else {
+          ll += ll2;  // one column of the row holds the label
+        }
+      }
+      if (lane % 4 == 0) {
+        red[(0 * 4 + wn) * kMT + rl] = m;
+        red[(1 * 4 + wn) * kMT + rl] = l;
+        red[(2 * 4 + wn) * kMT + rl] = ll;
+        red[(3 * 4 + wn) * kMT + rl] = zm;
+        red_i[wn * kMT + rl] = zi;
+      }
+    }
+  __syncthreads();
+  const int rl = threadIdx.x, r = m0 + rl;
+  if (rl >= kMT || r >= a.N) return;
+  float M = kNegInf, L = 0.0f, LL = 0.0f, Z = kNegInf;
+  int I = 0;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {  // column order
+    const float m = red[w * kMT + rl];
+    const float mn = fmaxf(M, m);
+    L = L * expf(M - mn) + red[(4 + w) * kMT + rl] * expf(m - mn);
+    M = mn;
+    if (SAMPLE) {
+      const float z = red[(12 + w) * kMT + rl];
+      if (z > Z) {
+        Z = z;
+        I = red_i[w * kMT + rl];
+        LL = red[(8 + w) * kMT + rl];
+      }
+    } else {
+      LL += red[(8 + w) * kMT + rl];
+    }
+  }
+  const size_t P = (size_t)(a.Vp / kNT) * a.N;
+  const size_t o = (size_t)(c0 / kNT) * a.N + r;
+  epi.part[o] = M;
+  epi.part[P + o] = L;
+  epi.part[2 * P + o] = LL;
+  if (SAMPLE) {
+    epi.part[3 * P + o] = Z;
+    epi.part_idx[o] = I;
+  }
+}
+
 // The 128 x 128 tile at block (m0, n0) of the passes of A (M x K) . B
 // (K x N) over k < K: PASSES 1 is hi.hi, 2 adds A_lo.B_hi, 3 adds
 // A_hi.B_lo too; then the epilogue EPI.  Every dimension is a multiple of
 // the tile: the callers pad rows to 128, and D and every chunk are
-// multiples of 128.
+// multiples of 128.  The forward's grid runs the row tiles fastest, so
+// that the blocks in flight share a few tiles of W and all of h_n stays in
+// the L2 cache: W is read from memory about once.
 template <bool A_KMAJOR, bool B_KMAJOR, int PASSES, int EPI, typename TW,
           bool TRANSW>
 __global__ void __launch_bounds__(kThreads)
@@ -766,9 +910,11 @@ ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
   constexpr int kAPlanes = PASSES >= 2 ? 2 : 1;
   constexpr int kBPlanes = PASSES == 3 ? 2 : 1;
   constexpr int kStageElems = (kAPlanes + kBPlanes) * kPlane;
+  constexpr bool kFold = EPI == kEpiLse || EPI == kEpiSample;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;  // a 2 x 4 grid of 64 x 32 tiles
-  const int m0 = blockIdx.y * kMT, n0 = blockIdx.x * kNT;
+  const int m0 = (kFold ? blockIdx.x : blockIdx.y) * kMT;
+  const int n0 = (kFold ? blockIdx.y : blockIdx.x) * kNT;
 
   auto stage_load = [&](int s, int kt) {
     bf16* base = smem + s * kStageElems;
@@ -851,6 +997,10 @@ ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
     }
   }
   cp_async_wait<0>();
+  if constexpr (kFold) {
+    fold_tile<EPI == kEpiSample>(acc, a, epi, m0, n0, smem_raw);
+    return;
+  }
 
   // acc[i][j][2 h + e] is the tile's element at row wm 64 + 16 i + lane / 4
   // + 8 h, column wn 32 + 8 j + 2 (lane % 4) + e
@@ -928,7 +1078,8 @@ ce_prep_hn_kernel(CeArgs a, int Np, bf16* __restrict__ hn) {
   }
 }
 
-// hi = bf16(w) and lo = bf16(w - hi), element by element.
+// hi = bf16(w) and, unless lo is null, lo = bf16(w - hi), element by
+// element.
 __global__ void __launch_bounds__(kThreads)
 ce_split_kernel(const float* __restrict__ w, size_t n, bf16* __restrict__ hi,
                 bf16* __restrict__ lo) {
@@ -937,7 +1088,8 @@ ce_split_kernel(const float* __restrict__ w, size_t n, bf16* __restrict__ hi,
     const float x = w[e];
     const bf16 h = __float2bfloat16_rn(x);
     hi[e] = h;
-    lo[e] = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
+    if (lo != nullptr)
+      lo[e] = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
   }
 }
 
@@ -957,7 +1109,8 @@ cudaError_t launch_row_stats(const CeArgs& a, float* stats, cudaStream_t st) {
 template <typename T, typename TW, bool TRANSW, bool SAMPLE>
 cudaError_t forward_impl(const CeArgs& a, float* stats, int splits,
                          int tiles_per_split, float* part, int* part_idx,
-                         float* lse, float* ll, int* yhat, cudaStream_t st) {
+                         float* lse, float* ll, int* yhat, unsigned char*,
+                         cudaStream_t st) {
   cudaError_t err = launch_row_stats<T>(a, stats, st);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + kFwdBM - 1) / kFwdBM, splits);
@@ -1000,13 +1153,16 @@ cudaError_t dw_impl(const CeArgs& a, float* stats, void* dw,
   return cudaGetLastError();
 }
 
-// The tensor-core backward's workspace, at 256-byte offsets: h_n (Np, D);
-// W's hi and lo planes (fp32 W only); d_hi and d_lo (Np, cw); the fp32 dh
-// accumulator (N, D) when dh is returned in bf16.
+// The tensor-core workspace, at 256-byte offsets: h_n (Np, D); W's hi and
+// (backward) lo planes, fp32 W only; the backward's d_hi and d_lo (Np, cw)
+// and, when dh is returned in bf16, its fp32 accumulator (N, D).
 struct TcPlan {
   int Np, cw, n_chunks;
+  bool w_lo_plane;
   size_t hn, w_hi, w_lo, d_hi, d_lo, acc, bytes;
 };
+
+size_t up256(size_t x) { return (x + 255) / 256 * 256; }
 
 TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc) {
   TcPlan p;
@@ -1019,15 +1175,26 @@ TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc) {
   const int per = (tiles + n - 1) / n;
   p.n_chunks = (tiles + per - 1) / per;
   p.cw = per * kNT;
-  auto up = [](size_t x) { return (x + 255) / 256 * 256; };
-  const size_t wbytes = w_bf16 ? 0 : up(size_t(2) * Vp * D);
+  p.w_lo_plane = true;
+  const size_t wbytes = w_bf16 ? 0 : up256(size_t(2) * Vp * D);
   p.hn = 0;
-  p.w_hi = p.hn + up(size_t(2) * p.Np * D);
+  p.w_hi = p.hn + up256(size_t(2) * p.Np * D);
   p.w_lo = p.w_hi + wbytes;
   p.d_hi = p.w_lo + wbytes;
-  p.d_lo = p.d_hi + up(size_t(2) * p.Np * p.cw);
-  p.acc = p.d_lo + up(size_t(2) * p.Np * p.cw);
-  p.bytes = p.acc + (dh_acc ? up(size_t(4) * N * D) : 0);
+  p.d_lo = p.d_hi + up256(size_t(2) * p.Np * p.cw);
+  p.acc = p.d_lo + up256(size_t(2) * p.Np * p.cw);
+  p.bytes = p.acc + (dh_acc ? up256(size_t(4) * N * D) : 0);
+  return p;
+}
+
+// The forward's: h_n and W's hi plane alone (one sweep, no d planes).
+TcPlan fwd_plan(int N, int D, int Vp, int w_bf16) {
+  TcPlan p = tc_plan(N, D, Vp, w_bf16, 0);
+  p.n_chunks = 1;
+  p.cw = Vp;
+  p.w_lo_plane = false;
+  p.w_lo = p.d_hi = p.d_lo = p.acc = p.bytes =
+      p.w_hi + (w_bf16 ? 0 : up256(size_t(2) * Vp * D));
   return p;
 }
 
@@ -1058,7 +1225,7 @@ cudaError_t tc_prep(const CeArgs& a, float* stats, const TcPlan& p,
   ce_split_kernel<<<2048, kThreads, 0, st>>>(
       static_cast<const float*>(a.w), (size_t)a.Vp * a.D,
       reinterpret_cast<bf16*>(ws + p.w_hi),
-      reinterpret_cast<bf16*>(ws + p.w_lo));
+      p.w_lo_plane ? reinterpret_cast<bf16*>(ws + p.w_lo) : nullptr);
   return cudaGetLastError();
 }
 
@@ -1089,6 +1256,33 @@ cudaError_t tc_dlogits(const CeArgs& a, const TcPlan& p, unsigned char* ws,
   return launch_mma<true, !TRANSW, 1, kEpiDlogits, TW, TRANSW>(
       dim3(width / kNT, p.Np / kMT), hn, w_operand<TW, TRANSW>(a, p, ws, c0),
       a.D, a, epi, st);
+}
+
+// The forward with bf16 h: s = h_n . hi^T over the whole vocabulary in
+// one mma sweep whose epilogue folds each 128-column tile into a partial
+// per row (fold_tile), then ce_combine_kernel merges the Vp / 128 partials
+// of each row in column order.
+template <typename TW, bool TRANSW, bool SAMPLE>
+cudaError_t forward_tc_impl(const CeArgs& a, float* stats, int splits, int,
+                            float* part, int* part_idx, float* lse,
+                            float* ll, int* yhat, unsigned char* ws,
+                            cudaStream_t st) {
+  if (splits != a.Vp / kNT) return cudaErrorInvalidValue;
+  const TcPlan p = fwd_plan(a.N, a.D, a.Vp, !std::is_same<TW, float>::value);
+  cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
+  if (err != cudaSuccess) return err;
+  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), nullptr, a.D};
+  Epi epi{};
+  epi.part = part;
+  epi.part_idx = part_idx;
+  err = launch_mma<true, !TRANSW, 1, SAMPLE ? kEpiSample : kEpiLse, TW,
+                   TRANSW>(dim3(p.Np / kMT, splits), hn,
+                           w_operand<TW, TRANSW>(a, p, ws, 0), a.D, a, epi,
+                           st);
+  if (err != cudaSuccess) return err;
+  ce_combine_kernel<<<(a.N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      a.N, splits, SAMPLE ? 1 : 0, part, part_idx, lse, ll, yhat);
+  return cudaGetLastError();
 }
 
 template <typename TW, bool TRANSW>
@@ -1150,13 +1344,15 @@ cudaError_t dw_tc_impl(const CeArgs& a, float* stats, void* dw,
 }
 
 typedef cudaError_t (*ForwardFn)(const CeArgs&, float*, int, int, float*,
-                                 int*, float*, float*, int*, cudaStream_t);
+                                 int*, float*, float*, int*, unsigned char*,
+                                 cudaStream_t);
 typedef cudaError_t (*DhFn)(const CeArgs&, float*, void*, int,
                             unsigned char*, cudaStream_t);
 typedef cudaError_t (*DwFn)(const CeArgs&, float*, void*, unsigned char*,
                             cudaStream_t);
 
-// Tables indexed by 4 * h_bf16 + 2 * w_bf16 + transpose_w.
+// Tables indexed by 4 * h_bf16 + 2 * w_bf16 + transpose_w: fp32 h on the
+// FMA units, bf16 h on the tensor cores.
 template <bool SAMPLE>
 ForwardFn pick_forward(int index) {
   static const ForwardFn table[8] = {
@@ -1164,14 +1360,13 @@ ForwardFn pick_forward(int index) {
       forward_impl<float, float, true, SAMPLE>,
       forward_impl<float, bf16, false, SAMPLE>,
       forward_impl<float, bf16, true, SAMPLE>,
-      forward_impl<bf16, float, false, SAMPLE>,
-      forward_impl<bf16, float, true, SAMPLE>,
-      forward_impl<bf16, bf16, false, SAMPLE>,
-      forward_impl<bf16, bf16, true, SAMPLE>};
+      forward_tc_impl<float, false, SAMPLE>,
+      forward_tc_impl<float, true, SAMPLE>,
+      forward_tc_impl<bf16, false, SAMPLE>,
+      forward_tc_impl<bf16, true, SAMPLE>};
   return table[index];
 }
 
-// The backward: fp32 h on the FMA units, bf16 h on the tensor cores.
 const DhFn kDhTable[8] = {
     dh_impl<float, float, false>, dh_impl<float, float, true>,
     dh_impl<float, bf16, false>,  dh_impl<float, bf16, true>,
@@ -1217,22 +1412,32 @@ int table_index(int h_bf16, int w_bf16, int transpose_w) {
 
 extern "C" {
 
+// Workspace bytes the forward asks for (0 with fp32 h).
+long long ce_forward_ws_bytes(int N, int D, int Vp, int h_bf16, int w_bf16) {
+  if (!h_bf16) return 0;
+  return (long long)fwd_plan(N, D, Vp, w_bf16).bytes;
+}
+
 // lse, ll (and, sampled, yhat) of every row.  stats: (N, 2) fp32 scratch;
-// part: (4, splits, N) fp32 and part_idx (splits, N) int32 scratch.
+// part: (4, splits, N) fp32 and part_idx (splits, N) int32 scratch, with
+// splits = Vp / 128 and one tile each for bf16 h; ws: the workspace of
+// ce_forward_ws_bytes.
 int ce_forward_launch(const void* h, const void* w, const float* normp,
                       float* stats, const int* labels, float* part,
                       int* part_idx, float* lse, float* ll, int* yhat, int N,
                       int D, int V, int Vp, int h_bf16, int w_bf16,
                       int transpose_w, int norm, float eps, float softcap,
                       int sample, unsigned int seed0, unsigned int seed1,
-                      int splits, int tiles_per_split, void* stream) {
+                      int splits, int tiles_per_split, void* ws,
+                      void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, nullptr, nullptr, N,
                              D, V, Vp, norm, eps, softcap, seed0, seed1);
   const int idx = table_index(h_bf16, w_bf16, transpose_w);
   const ForwardFn fn = sample ? pick_forward<true>(idx)
                               : pick_forward<false>(idx);
   return (int)fn(a, stats, splits, tiles_per_split, part, part_idx, lse, ll,
-                 yhat, static_cast<cudaStream_t>(stream));
+                 yhat, static_cast<unsigned char*>(ws),
+                 static_cast<cudaStream_t>(stream));
 }
 
 // Workspace bytes the backward asks for (0 with fp32 h).

@@ -23,23 +23,30 @@ On a CUDA tensor each wrapper launches its hand-written kernel of
 
 Two routes, by dtype.  fp32 runs every product on the fp32 FMA units, so
 that the card matches the CPU's plain version to 1e-5 of the largest
-element.  bf16 (the training path) runs the forward and dK/dV on the bf16
-tensor cores (``wgmma``, fp32 accumulate, tiles fed by ``cp.async``);
-its dQ is still the FMA kernel.  The bf16 route rounds P (the forward's
-P.V and dV's P^T.dO) and dS (dK's dS^T.Q) to bf16 once before its
-product; every other sum is fp32.  Its contract, held by
-:func:`contract_sums` on the card: every element x of o, dk and dv lies
-within ``2**-7 * A`` of the plain version, A the element's absolute sum
-computed in fp32 by the plain side:
+element.  bf16 (the training path) runs all three on the bf16 tensor
+cores (``wgmma``, fp32 accumulate, tiles fed by ``cp.async``).  The bf16
+route rounds P (the forward's P.V and dV's P^T.dO) and dS (dQ's dS.K and
+dK's dS^T.Q) to bf16 once before its product; every other sum is fp32.
+Its contract, held by :func:`contract_sums` on the card: every element x
+of o, dq, dk and dv lies within ``2**-7 * A`` of the plain version, A the
+element's absolute sum computed in fp32 by the plain side:
 
   o:   A = sum_j p_ij |v_jd|
+  dq:  A = scale * sum_j (|ds_ij| + 2^-8 p_ij sum_e |do_ie| |v_je|) |k_jd|
   dv:  A = sum_i p_ij |do_id|              (over the GQA group too)
   dk:  A = scale * sum_i |ds_ij| |q_id|    (likewise)
 
 (rounding P or dS moves the fp32 element by less than 2^-8 A; the
 kernel's and the plain version's roundings into bf16 then land at most
 one ulp apart, which is at most 2^-7 |x| where |x| ~ A and at most 2^-8 A
-where terms cancel).
+where terms cancel).  dq's second term is dS's own fp32 rounding: dS = p
+(dP - delta) with dP = do . v an fp32 sum over hd products, which the
+kernel takes in another order than the plain version, so the two dS
+differ by up to 2 hd 2^-24 p sum_e |do_ie| |v_je| (2^-16 of it at hd
+128).  Where dP - delta cancels, as at the first key of a causal row (p =
+1, dP = delta but for rounding), that difference is all of dS, and
+scale sum_j |ds_ij| |k_jd| alone would refuse any order of the sum but
+the plain version's own.
 
 On a CPU tensor a wrapper computes the plain version beside it, the
 closed form of the ``kernels/ref.py`` oracles with the kernels' fp32
@@ -166,19 +173,26 @@ def flash_backward_dq_plain(q, k, v, do, lse, delta, *, causal=True, scale,
 
 def contract_sums(q, k, v, do, lse, delta, *, causal=True, scale,
                   window=None, softcap=None, q_offset=0):
-    """(A_o, A_dk, A_dv): each output element's absolute sum in fp32, the
-    scale of the bf16 route's contract (module docstring): ``p . |v|``,
-    ``scale * |ds|^T . |q|`` and ``p^T . |do|``, the last two summed over
-    each GQA group, from the backward's lse and delta."""
+    """{"o", "dq", "dk", "dv"}: each output element's absolute sum in
+    fp32, the scale of the bf16 route's contract (module docstring): ``p .
+    |v|``, ``scale * (|ds| + 2^-8 p (|do| . |v|^T)) . |k|``, ``scale *
+    |ds|^T . |q|`` and ``p^T . |do|``, the last two summed over each GQA
+    group, from the backward's lse and delta."""
     opts = dict(causal=causal, scale=scale, window=window, softcap=softcap,
                 q_offset=q_offset)
     Hkv = k.shape[1]
     p, ds = _ds(q, k, v, do, lse, delta, opts)
     a_o = torch.einsum("bkgqt,bktd->bkgqd", p, v.to(_f32).abs())
+    dp_abs = torch.einsum("bkgqd,bktd->bkgqt", _grouped(do, Hkv).abs(),
+                          v.to(_f32).abs())
+    a_dq = torch.einsum("bkgqt,bktd->bkgqd", ds.abs() + 2 ** -8 * p * dp_abs,
+                        k.to(_f32).abs()) * scale
+    del dp_abs
     a_dk = torch.einsum("bkgqt,bkgqd->bktd", ds.abs(),
                         _grouped(q, Hkv).abs()) * scale
     a_dv = torch.einsum("bkgqt,bkgqd->bktd", p, _grouped(do, Hkv).abs())
-    return a_o.reshape(q.shape), a_dk, a_dv
+    return {"o": a_o.reshape(q.shape), "dq": a_dq.reshape(q.shape),
+            "dk": a_dk, "dv": a_dv}
 
 
 def contract_misses(got, want, sums) -> Tuple[int, float]:

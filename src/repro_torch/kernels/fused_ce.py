@@ -34,6 +34,10 @@ On a CUDA tensor each entry point launches the hand-written kernels of
   ``ce_backward_dw``      dW (``_ce_backward`` dW, row 15, and the dW half
                           of row 13)
 
+With h in bf16 (the training path) all four multiply on the bf16 tensor
+cores (h_n and W cast to bf16, as the reference casts them; fp32 sums);
+with fp32 h on the fp32 FMA units (the card-vs-CPU checks at 1e-5).
+
 On a CPU tensor it computes the plain version beside it, the reference's
 checkpoint-free chunked sweep (``models/loss.py:_chunked_sweep``) with the
 hash noise in place of ``jax.random``.  A CUDA tensor the kernel does not
@@ -293,7 +297,8 @@ _PTR, _INT, _FLOAT, _UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 _SIGNATURES = {
     "ce_forward_launch": [_PTR] * 10 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT,
                                                       _UINT, _UINT, _INT,
-                                                      _INT, _PTR],
+                                                      _INT, _PTR, _PTR],
+    "ce_forward_ws_bytes": [_INT] * 5,
     "ce_backward_dh_launch": [_PTR] * 8 + [_INT, _PTR] + [_INT] * 8
     + [_FLOAT, _FLOAT, _PTR],
     "ce_backward_dw_launch": [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT,
@@ -306,7 +311,7 @@ _SIGNATURES = {
 def _launch_fn(name: str):
     fn = getattr(_build.load("fused_ce"), name)
     fn.argtypes = _SIGNATURES[name]
-    fn.restype = (ctypes.c_longlong if name == "ce_backward_ws_bytes"
+    fn.restype = (ctypes.c_longlong if name.endswith("_ws_bytes")
                   else ctypes.c_int)
     return fn
 
@@ -334,6 +339,10 @@ def check_kernel_args(h2, w, normp, *, transpose_w, norm) -> None:
         if t.device != h2.device or not t.is_contiguous():
             raise ValueError(f"fused_ce: {name} must be contiguous on "
                              f"{h2.device}")
+    # with bf16 h the tensor-core kernels copy a bf16 W in 16-byte pieces
+    if (h2.dtype == w.dtype == torch.bfloat16) and w.data_ptr() % 16:
+        raise ValueError("fused_ce: a bf16 w does not start on a 16-byte "
+                         "boundary")
     if norm not in _NORM_CODE:
         raise ValueError(f"fused_ce: norm {norm!r} not in {NORMS}")
     if (normp.shape != (2, D) or normp.dtype != _f32
@@ -360,8 +369,10 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def forward_splits(N: int, Vp: int) -> Tuple[int, int]:
-    """(splits, tiles per split) of the forward's vocab axis: enough
-    (64-row x split) blocks for about four per SM of an H100."""
+    """(splits, tiles per split) of the fp32-h forward's vocab axis:
+    enough (64-row x split) blocks for about four per SM of an H100.  (The
+    bf16-h forward writes one partial per 128-column tile: Vp // 128
+    splits of one tile.)"""
     n_tiles = Vp // 128
     row_blocks = -(-N // 64)
     want = max(1, min(n_tiles, -(-528 // row_blocks)))
@@ -376,7 +387,12 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
     N = h2.shape[0]
     dev = h2.device
     sample = seed is not None
-    splits, per = forward_splits(N, c["dims"][3])
+    _, D, _, Vp, h_bf16, w_bf16 = c["dims"][:6]
+    # bf16 h: the tensor-core route, one partial per 128-column tile and a
+    # workspace for h_n and W's bf16 plane
+    splits, per = (Vp // 128, 1) if h_bf16 else forward_splits(N, Vp)
+    ws = torch.empty((max(1, _launch_fn("ce_forward_ws_bytes")(
+        N, D, Vp, h_bf16, w_bf16)),), dtype=torch.uint8, device=dev)
     part = torch.empty((4 * splits * N,), dtype=_f32, device=dev)
     part_idx = torch.empty((splits * N,), dtype=torch.int32, device=dev)
     lse = torch.empty((N,), dtype=_f32, device=dev)
@@ -396,7 +412,8 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
         h2.data_ptr(), w.data_ptr(), normp.data_ptr(),
         c["stats"].data_ptr(), lab_ptr, part.data_ptr(), part_idx.data_ptr(),
         lse.data_ptr(), ll.data_ptr(), yhat.data_ptr(), *c["dims"],
-        *c["cfg"], int(sample), s0, s1, splits, per, c["stream"])
+        *c["cfg"], int(sample), s0, s1, splits, per, ws.data_ptr(),
+        c["stream"])
     name = "ce_forward_sampled" if sample else "ce_forward"
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1

@@ -1,16 +1,16 @@
 """Variants of the tensor-core flash kernels, timed on the card beside the
 kernels as committed: each is ``csrc/flash_attention.cu`` with a few
-lines replaced, built with nvcc into ``build/flash_variants/``, held to
-the bf16 contract (every element of o, dk and dv within 2^-7 of its
-absolute sum) at GPT-2 small's training shape (B=8, H=12, S=1024, hd=64,
-causal) and timed as ``chip_smoke.py`` times the kernels (CUDA events,
-L2 flushed, median of 20).  A diagnostic behind PERF.md, not a test
+lines replaced (every occurrence), built with nvcc into
+``build/flash_variants/``, held to the bf16 contract (every element of o,
+dq, dk and dv within 2^-7 of its absolute sum) at GPT-2 small's training
+shape (B=8, H=12, S=1024, hd=64, causal) and timed as ``chip_smoke.py``
+times the kernels (CUDA events, L2 flushed, median of 20).  A diagnostic behind PERF.md, not a test
 (pytest does not collect it); it needs an NVIDIA GPU and nvcc:
 
     python3 tests/_flash_variants.py
 
-Variants: "committed"; "mask test in every tile" (the forward's and
-dK/dV's per-tile choice of the unmasked path taken away, so every
+Variants: "committed"; "mask test in every tile" (the per-tile choice
+of the unmasked path taken away from the forward, dQ and dK/dV, so every
 element of every tile runs the mask test); "dK/dV q tiles of 32".
 """
 import ctypes
@@ -46,8 +46,8 @@ VARIANTS = {
 def build(name):
     src = SOURCE.read_text()
     for old, new in VARIANTS[name].items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not in the source once")
+        if old not in src:
+            raise RuntimeError(f"{name}: {old!r} is not in the source")
         src = src.replace(old, new)
     out = _build.build_dir().parent / "flash_variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -72,11 +72,12 @@ def entry(lib, name):
 
 def measure(lib, flush):
     fwd_fn = entry(lib, "flash_forward_launch")
+    dq_fn = entry(lib, "flash_backward_dq_launch")
     dkv_fn = entry(lib, "flash_backward_dkv_launch")
     q, k, v, g, kw = cs._attn_inputs(torch, cs.ATTN_MAIN, torch.bfloat16)
     dims = fa._dims(q, k, **kw)
     o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device="cuda")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
     def fwd():
         if fwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -86,21 +87,28 @@ def measure(lib, flush):
     fwd()
     delta = (g.float() * o.float()).sum(-1)
 
+    def dq_():
+        if dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims):
+            raise RuntimeError("dQ launch failed")
+
     def dkv():
         if dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), *dims):
             raise RuntimeError("dK/dV launch failed")
 
+    dq_()
     dkv()
     torch.cuda.synchronize()
     o_p, _ = fa.flash_forward_plain(q, k, v, **kw)
+    dq_p = fa.flash_backward_dq_plain(q, k, v, g, lse, delta, **kw)
     dk_p, dv_p = fa.flash_backward_dkv_plain(q, k, v, g, lse, delta, **kw)
     sums = fa.contract_sums(q, k, v, g, lse, delta, **kw)
-    misses = {n: fa.contract_misses(got, want, s)[0]
-              for n, got, want, s in zip(("o", "dk", "dv"), (o, dk, dv),
-                                         (o_p, dk_p, dv_p), sums)}
+    got = dict(o=(o, o_p), dq=(dq, dq_p), dk=(dk, dk_p), dv=(dv, dv_p))
+    misses = {n: fa.contract_misses(*got[n], s)[0] for n, s in sums.items()}
     return {"forward_ms": cs.time_ms(torch, fwd, flush, reps=20, warmup=3),
+            "dq_ms": cs.time_ms(torch, dq_, flush, reps=20, warmup=3),
             "dkv_ms": cs.time_ms(torch, dkv, flush, reps=20, warmup=3),
             "beyond_2^-7": misses}
 

@@ -108,9 +108,10 @@ def test_engine_on_card_matches_cpu_and_launches_per_layer(cuda_device,
 def test_fused_ce_kernels_match_plain(cuda_device, h_dtype, w_dtype, tied,
                                       norm, softcap):
     """Each CE kernel (forward, sampled forward, dh, dW) against its plain
-    version at a small shape with a padded vocab, ragged rows and a mask:
-    fp32 within 1e-5, bf16 within 2e-2 (dh and dW relative to their
-    scale); the same draws (no near-ties at this size)."""
+    version at a small shape with a padded vocab, ragged rows and a mask
+    (bf16 h: the tensor-core kernels; fp32 h: the FMA ones): fp32 within
+    1e-5, bf16 within 2e-2 (dh and dW relative to their scale); the same
+    draws (no near-ties at this size), never a padded column."""
     N, D, V, Vp = 77, 128, 1000, 1024
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     h = (torch.randn((N, D), generator=gen, device=cuda_device) * 2
@@ -180,6 +181,41 @@ def test_fused_ce_backward_at_gpt2_width(cuda_device):
         cs.check_bf16_grad(torch, name, got, want, s)
 
 
+def test_fused_ce_forward_at_gpt2_width(cuda_device):
+    """The forward and the sampled forward at GPT-2 small's loss width on
+    the tensor-core route (bf16 h, fp32 tied W, ln fused), N=1000 ragged
+    rows (off the 128-row tile) and a vocabulary padded from 50257 to
+    50304, held as ``chip_smoke.py`` holds them: lse and the label or
+    drawn logit within the bf16 tolerance, every value finite, the draws
+    equal to the plain version's except at near-ties (``_draw_gaps``) and
+    never on a padded column."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    spec = dict(cs.CE_MAIN, N=1000, V=50257)
+    h, w, normp, labels, _, opts = cs._ce_inputs(torch, **spec)
+    reset_launch_counts()
+    lse, ll = fused_ce.ce_forward(h, w, normp, labels, **opts)
+    lse_s, ll_s, y = fused_ce.ce_forward_sampled(h, w, normp, cs.CE_SEED,
+                                                 **opts)
+    torch.cuda.synchronize()
+    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 1, "ce_forward_sampled": 1}
+    lse_p, ll_p = fused_ce.ce_forward_plain(h, w, normp, labels, **opts)
+    lse_sp, ll_sp, y_p = fused_ce.ce_forward_sampled_plain(
+        h, w, normp, cs.CE_SEED, **opts)
+    tol = cs.TOL["bfloat16"]
+    same = y == y_p
+    near = cs._draw_gaps(torch, h, w, normp, opts) < cs.NEAR_TIE
+    assert not bool((~same & ~near).any()) and int(y.max()) < spec["V"]
+    for got, want in ((lse, lse_p), (ll, ll_p), (lse_s, lse_sp),
+                      (ll_s[same], ll_sp[same])):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= tol
+
+
 def test_hutchinson_hvp_launches_no_backward_kernel(cuda_device):
     """u ⊙ Hu on GPT2_TINY (fp32, two heads of 64) through the loss and
     flash twins on the card: the HVP, forward-over-reverse, launches the
@@ -236,8 +272,8 @@ def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
     """The forward, dQ and dK/dV kernels against their plain versions on
     the same inputs: o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2
     (bf16) of each output's largest element; in bf16 (the tensor-core
-    forward and dK/dV) also every element of o, dk and dv within 2^-7 of
-    its absolute sum (``flash_attention.contract_sums``)."""
+    kernels) also every element of o, dq, dk and dv within 2^-7 of its
+    absolute sum (``flash_attention.contract_sums``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     q, g = (torch.randn((B, H, Sq, hd), generator=gen, device=cuda_device)
             .to(dt) for _ in range(2))
@@ -265,9 +301,11 @@ def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
         assert (got.float() - ref.float()).abs().max().item() <= tol * scale
     if dt == torch.bfloat16:
         sums = flash_attention.contract_sums(q, k, v, g, lse, delta, **kw)
-        for name, got, ref, s in zip(("o", "dk", "dv"), (o, dk, dv),
-                                     (want[0],) + want[3:], sums):
-            assert flash_attention.contract_misses(got, ref, s)[0] == 0, name
+        got = dict(o=o, dq=dq, dk=dk, dv=dv)
+        ref = dict(zip(("o", "dq", "dk", "dv"), (want[0],) + want[2:]))
+        for name, s in sums.items():
+            assert flash_attention.contract_misses(got[name], ref[name],
+                                                   s)[0] == 0, name
 
 
 @pytest.mark.parametrize("hd", [48, 256])

@@ -11,6 +11,7 @@ flash route on a GPT2_TINY layer; and a CPU emulation of the bf16
 tensor-core route's rounding points held to its element-wise contract.
 Inputs come from numpy."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -252,13 +253,16 @@ def test_train_attention_flash_matches_reference(dtype, atol):
 
 def _bf16_route_emulated(q, k, v, do, lse, delta, *, causal, scale, window,
                          softcap, q_offset, round_acc=False):
-    """(o, dk, dv) in bf16 with the rounding points of the tensor-core
-    forward and dK/dV: bf16 inputs, fp32 sums, P rounded to bf16 before
-    P.V and P^T.dO, dS before dS^T.Q.  The forward walks key tiles of 64
-    with the online softmax, dK/dV the q tiles of 64 rows (32 at hd 128)
-    of each query head of a group, as the kernels do.  ``round_acc``
-    also rounds each fp32 accumulator to bf16 after every tile (a design
-    the contract must refuse)."""
+    """(o, dq, dk, dv) in bf16 with the rounding points of the
+    tensor-core kernels: bf16 inputs, fp32 sums, P rounded to bf16 before
+    P.V and P^T.dO, dS before dS.K and dS^T.Q, dq scaled at the end; dQ's
+    dP summed in k-steps of 16 head dims, as ``wgmma`` sums it.  The
+    forward and dQ walk key tiles of 64 (the forward with the online
+    softmax), dK/dV the q tiles of 64 rows (32 at hd 128) of each query
+    head of a group, as the kernels do.  ``round_acc`` also rounds each
+    fp32 accumulator to bf16 after every tile, and dq's after every 16
+    keys (each k-step of its product): designs the contract must
+    refuse."""
     rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
     acc_rnd = rnd if round_acc else (lambda x: x)
     B, H, Sq, hd = q.shape
@@ -289,6 +293,22 @@ def _bf16_route_emulated(q, k, v, do, lse, delta, *, causal, scale, window,
         m = m_new
     o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
 
+    dq = torch.zeros(B, H, Sq, hd)
+    for c0 in range(0, Sk, 64):
+        mc = mask[:, c0:c0 + 64]
+        kt = kh[:, :, c0:c0 + 64]
+        z, dcap = scores(q32, kt)
+        p = torch.where(mc, torch.exp(z - lse[..., None]), 0.0)
+        # dP in k-steps of 16 head dims, as wgmma sums it: another order
+        # than the plain version's
+        vt = vh[:, :, c0:c0 + 64]
+        dp = sum(do32[..., d:d + 16] @ vt[..., d:d + 16].transpose(-1, -2)
+                 for d in range(0, hd, 16))
+        ds = rnd(p * (dp - delta[..., None]) * dcap)
+        for k0 in range(0, ds.shape[-1], 16):
+            dq = acc_rnd(dq + ds[..., k0:k0 + 16] @ kt[:, :, k0:k0 + 16])
+    dq = (dq * scale).to(torch.bfloat16)
+
     bq = 32 if hd == 128 else 64
     qg = q32.reshape(B, Hkv, G, Sq, hd)
     dog = do32.reshape(B, Hkv, G, Sq, hd)
@@ -306,7 +326,8 @@ def _bf16_route_emulated(q, k, v, do, lse, delta, *, causal, scale, window,
             ds = p * (dp - deltag[:, :, g, rows, None]) * dcap
             dv = acc_rnd(dv + torch.einsum("bkqt,bkqd->bktd", rnd(p), dot))
             dk = acc_rnd(dk + torch.einsum("bkqt,bkqd->bktd", rnd(ds), qt))
-    return o, (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16)
+    return (o, dq, (dk * scale).to(torch.bfloat16),
+            dv.to(torch.bfloat16))
 
 
 def _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed):
@@ -322,18 +343,28 @@ def _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed):
                  for x in (q, k, v, do))
 
 
-def _bf16_plain_and_emulated(case, seed=3, round_acc=False):
+@functools.lru_cache(maxsize=None)
+def _bf16_plain_and_emulated(case, seed=3, round_acc=False, k_mean=0.0,
+                             v_trend=0.0):
+    """({output: emulated}, {output: plain}, {output: absolute sums}) for
+    o, dq, dk and dv; ``k_mean`` is added to every element of k, and key j
+    of v gets ``v_trend`` times a ramp from -1 (the first key) to 1."""
     B, H, Hkv, Sq, Sk, hd, causal, window, softcap, qoff = case
     q, k, v, do = _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed)
+    k = (k.float() + k_mean).to(torch.bfloat16)
+    v = (v.float() + v_trend * torch.linspace(-1.0, 1.0, Sk)[:, None]
+         ).to(torch.bfloat16)
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
               scale=hd ** -0.5)
     o, lse = flash_forward_plain(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
+    dq = flash_backward_dq_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, **kw)
     sums = contract_sums(q, k, v, do, lse, delta, **kw)
     got = _bf16_route_emulated(q, k, v, do, lse, delta, round_acc=round_acc,
                                **kw)
-    return got, (o, dk, dv), sums
+    names = ("o", "dq", "dk", "dv")
+    return dict(zip(names, got)), dict(zip(names, (o, dq, dk, dv))), sums
 
 
 # ATTN_CASES' edges (chip_smoke.py) at small sizes:
@@ -359,17 +390,34 @@ def test_bf16_route_emulation_meets_the_contract(case):
     2^-7 of its absolute sum (``contract_sums``) of the fp32 plain
     version, the bound ``chip_smoke.py`` holds the kernels to."""
     got, want, sums = _bf16_plain_and_emulated(case)
-    for name, a, b, s in zip(("o", "dk", "dv"), got, want, sums):
-        assert a.dtype == b.dtype == torch.bfloat16
-        n_hard, share = contract_misses(a, b, s)
+    for name in ("o", "dk", "dv"):
+        assert got[name].dtype == want[name].dtype == torch.bfloat16
+        n_hard, share = contract_misses(got[name], want[name], sums[name])
         assert n_hard == 0, (name, n_hard, share)
 
 
-def test_bf16_route_emulation_meets_the_contract_against_the_reference():
-    """The emulation against the reference's Pallas forward and its
+@pytest.mark.parametrize("case", list(BF16_CASES.values()),
+                         ids=list(BF16_CASES))
+def test_bf16_dq_emulation_meets_the_contract(case):
+    """The numerical design of the tensor-core dQ
+    (``csrc/flash_attention.cu:dq_wgmma_kernel``), emulated: dS rounded to
+    bf16 once, its product with K and the sum over key tiles in fp32, the
+    scale at the end, holds every element of dq within 2^-7 of its
+    absolute sum A_dq = scale * sum_j |ds_ij| |k_jd| of the fp32 plain
+    version."""
+    got, want, sums = _bf16_plain_and_emulated(case)
+    assert got["dq"].dtype == want["dq"].dtype == torch.bfloat16
+    n_hard, share = contract_misses(got["dq"], want["dq"], sums["dq"])
+    assert n_hard == 0, (n_hard, share)
+
+
+@functools.lru_cache(maxsize=None)
+def _against_reference_bf16():
+    """({output: emulated}, {output: the reference's}, {output: absolute
+    sums}) for o, dq, dk and dv: the reference's Pallas forward and its
     custom_vjp backward in bf16 (interpret mode, as
-    :func:`test_matches_reference_pallas_kernels_bf16` runs them) on the
-    same numpy inputs: o, dk and dv within 2^-7 of their absolute sums."""
+    :func:`test_matches_reference_pallas_kernels_bf16` runs them) and the
+    emulation on the same numpy inputs."""
     case = (1, 2, 1, 128, 128, 32, True, None, 20.0, 0)
     B, H, Hkv, Sq, Sk, hd, causal, window, softcap, qoff = case
     q, k, v, do = _bf16_inputs(B, H, Hkv, Sq, Sk, hd, seed=5)
@@ -381,16 +429,34 @@ def test_bf16_route_emulation_meets_the_contract_against_the_reference():
         o = jax_flash(q, k, v, block_q=64, block_k=64, **kw)
         return (o.astype(jnp.float32) * jg.astype(jnp.float32)).sum(), o
 
-    (_, jo), (_, jdk, jdv) = jax.value_and_grad(
+    (_, jo), jgrads = jax.value_and_grad(
         f, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
     scale = hd ** -0.5
     o, lse = flash_forward_plain(q, k, v, scale=scale, **kw)
     delta = (do.float() * o.float()).sum(-1)
     sums = contract_sums(q, k, v, do, lse, delta, scale=scale, **kw)
+    names = ("o", "dq", "dk", "dv")
     got = _bf16_route_emulated(q, k, v, do, lse, delta, scale=scale, **kw)
-    for name, a, b, s in zip(("o", "dk", "dv"), got, (jo, jdk, jdv), sums):
-        ref = torch.from_numpy(np.array(b.astype(jnp.float32)))
-        assert contract_misses(a, ref, s)[0] == 0, name
+    ref = (torch.from_numpy(np.array(b.astype(jnp.float32)))
+           for b in (jo,) + tuple(jgrads))
+    return dict(zip(names, got)), dict(zip(names, ref)), sums
+
+
+def test_bf16_route_emulation_meets_the_contract_against_the_reference():
+    """The emulation against the reference's Pallas forward and its
+    custom_vjp backward in bf16 on the same numpy inputs: o, dk and dv
+    within 2^-7 of their absolute sums."""
+    got, ref, sums = _against_reference_bf16()
+    for name in ("o", "dk", "dv"):
+        assert contract_misses(got[name], ref[name], sums[name])[0] == 0, name
+
+
+def test_bf16_dq_emulation_meets_the_contract_against_the_reference():
+    """dq of the emulation against the reference's custom_vjp dq in bf16
+    (interpret mode) on the same inputs: every element within 2^-7 of
+    A_dq."""
+    got, ref, sums = _against_reference_bf16()
+    assert contract_misses(got["dq"], ref["dq"], sums["dq"])[0] == 0
 
 
 def test_bf16_contract_refuses_a_bf16_accumulator():
@@ -399,6 +465,24 @@ def test_bf16_contract_refuses_a_bf16_accumulator():
     elements of o and dv beyond 2^-7 of their absolute sum."""
     case = (1, 2, 2, 512, 512, 64, True, None, None, 0)
     got, want, sums = _bf16_plain_and_emulated(case, round_acc=True)
-    misses = {name: contract_misses(a, b, s)[0]
-              for name, a, b, s in zip(("o", "dk", "dv"), got, want, sums)}
+    misses = {name: contract_misses(got[name], want[name], sums[name])[0]
+              for name in ("o", "dk", "dv")}
     assert misses["o"] > 0 and misses["dv"] > 0, misses
+
+
+def test_bf16_contract_refuses_a_bf16_dq_accumulator():
+    """The contract has teeth for dq too: with dq's accumulator rounded to
+    bf16 after every k-step of its product (16 keys, as a bf16 accumulator
+    would be), elements of dq land beyond 2^-7 of A_dq, where the fp32
+    accumulator keeps every element inside.  Each row's dS sums to zero
+    over its keys, so dq's partial sums grow large only where they are
+    coherent: a ramp on v over the keys orders dS by key (negative early,
+    positive late), and a mean of 2 on k (which shifts every score of a row
+    alike, so p and dS stay) carries that order into every column of
+    dq."""
+    case = (1, 2, 2, 512, 512, 64, True, None, None, 0)
+    inputs = dict(k_mean=2.0, v_trend=2.0)
+    got, want, sums = _bf16_plain_and_emulated(case, round_acc=True, **inputs)
+    assert contract_misses(got["dq"], want["dq"], sums["dq"])[0] > 0
+    exact, want, sums = _bf16_plain_and_emulated(case, **inputs)
+    assert contract_misses(exact["dq"], want["dq"], sums["dq"])[0] == 0

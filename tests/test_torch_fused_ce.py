@@ -2,14 +2,20 @@
 plain versions on the CPU, held against the JAX reference: the hash noise,
 the forward (loss, lse, sampled labels) against the Pallas kernels in
 interpret mode with explicit small blocks, and the gradients against the
-``kernels/ref.py`` closed-form oracles.  Inputs come from numpy with a
-seed, as in tests/test_fused_ce.py (VOCAB=200 padded to 256)."""
+``kernels/ref.py`` closed-form oracles; CPU emulations of the bf16
+tensor-core routes (the backward's operand split, the forward's per-tile
+partials) against the plain versions and the reference.  Inputs come
+from numpy with a seed, as in tests/test_fused_ce.py (VOCAB=200 padded to
+256)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.fused_ce import _ce_forward as jax_ce_forward
+from repro.kernels.fused_ce import (
+    _ce_forward_sampled as jax_ce_forward_sampled)
 from repro.kernels.fused_ce import _mix32 as jax_mix32
 from repro.kernels.fused_ce import fused_lm_loss as jax_fused_lm_loss
 from repro.kernels.fused_ce import fused_lm_sample as jax_fused_lm_sample
@@ -31,6 +37,7 @@ BF16_RTOL = 4e-3    # one bf16 ulp: both sides round an fp32 sum taken in
 #                     another order
 VOCAB, VP, D = 200, 256, 32
 JAX_BLOCKS = dict(block_n=16, block_v=64)
+REF_BLOCKS = dict(bn=16, bv=64, interpret=True)   # _ce_forward's own names
 
 
 def _setup(dtype="float32", tied=True, *, B=4, T=12, seed=0,
@@ -330,6 +337,10 @@ def test_kernel_argument_checks():
                              transpose_w=False, norm="ln")
     ce.check_kernel_args(h, torch.zeros(256, 128), torch.zeros(2, 128),
                          transpose_w=False, norm="ln")
+    w = torch.zeros(256 * 128 + 1, dtype=torch.bfloat16)[1:].view(256, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        ce.check_kernel_args(h.to(torch.bfloat16), w, torch.zeros(2, 128),
+                             transpose_w=False, norm=None)
 
 
 def test_no_route_for_other_devices():
@@ -446,3 +457,113 @@ def test_tensor_core_operand_split_meets_the_bf16_contract(tied):
                                      pieces=1)
     assert max(_contract(dh1, dh_p.float(), s_dh)[1],
                _contract(dw1, dw_p.float(), s_dw)[1]) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core forward (bf16 h), emulated in PyTorch
+
+
+def _tc_forward_emulated(h2, w, normp, labels, seed, *, vocab, transpose_w,
+                         softcap, norm, eps=1e-6):
+    """(lse, label or drawn logit, ŷ) as the bf16-h forward sums them
+    (``csrc/fused_ce.cu``: ``ce_mma_kernel``'s fold epilogue, then
+    ``ce_combine_kernel``), emulated: h_n in bf16 and W's hi plane
+    bf16(W) (bf16 values in fp32 tensors: every product exact, every sum
+    in fp32); each 128-column tile folded into one partial per row (m, l
+    over its valid columns, and the label logit or the tile's first argmax
+    of s + g with its raw logit), the partials merged in column order with
+    strict > across tiles."""
+    hn = ce.apply_norm(h2, normp, norm, eps).float()
+    hi = w.to(torch.bfloat16).float()
+    Vp = w.shape[1] if transpose_w else w.shape[0]
+    N = hn.shape[0]
+    rows = torch.arange(N)[:, None]
+    M = torch.full((N,), ce.NEG_INF)
+    L, LL = torch.zeros(N), torch.zeros(N)
+    Z, I = torch.full((N,), ce.NEG_INF), torch.zeros(N, dtype=torch.int32)
+    for c0 in range(0, Vp, 128):
+        raw = hn @ (hi[:, c0:c0 + 128] if transpose_w
+                    else hi[c0:c0 + 128].T)
+        if softcap is not None:
+            raw = softcap * torch.tanh(raw / softcap)
+        cols = torch.arange(c0, c0 + 128)
+        valid = (cols < vocab)[None, :]
+        s = torch.where(valid, raw, ce.NEG_INF)
+        m = s.amax(-1)
+        l = torch.where(valid, torch.exp(s - m[:, None]), 0.0).sum(-1)
+        mn = torch.maximum(M, m)
+        L = L * torch.exp(M - mn) + l * torch.exp(m - mn)
+        M = mn
+        if seed is None:
+            hit = cols[None, :] == labels.long()[:, None]
+            LL = LL + torch.where(hit, s, 0.0).sum(-1)
+        else:
+            z = torch.where(valid, s + ce.hash_gumbel(seed, rows, cols[None]),
+                            ce.NEG_INF)
+            Z, I, LL = ce.online_argmax_step((Z, I, LL), s, z, c0)
+    return M + torch.log(torch.clamp_min(L, 1e-37)), LL, I
+
+
+SEED9 = np.asarray(seed_from_key(jax.random.PRNGKey(9)))
+
+
+@pytest.mark.parametrize("tied,softcap,norm,vocab,w_dtype", [
+    (True, None, None, VOCAB, "float32"),
+    (False, 30.0, None, VOCAB, "float32"),
+    (True, 30.0, "ln", VOCAB, "float32"),
+    (False, None, "rms", 100, "float32"),    # a tile wholly past the vocab
+    (True, None, "ln", 100, "bfloat16"),
+])
+def test_tensor_core_forward_emulation_matches_plain(tied, softcap, norm,
+                                                     vocab, w_dtype):
+    """The bf16-h forward's numerical design against ``ce_forward_plain``
+    and ``ce_forward_sampled_plain`` at bf16 h with a mask-free padded
+    vocabulary (VP=256): lse and the label or drawn logit within 3e-6
+    (fp32 sums in another order), the drawn labels identical and never a
+    padded column."""
+    _, tx = _setup("bfloat16", tied, w_dtype=w_dtype)
+    h2, lab = tx["h"].reshape(-1, D), tx["labels"].reshape(-1) % vocab
+    normp = torch.stack([1.0 + tx["scale"], tx["bias"]])
+    opts = dict(vocab=vocab, transpose_w=not tied, softcap=softcap,
+                norm=norm)
+    lse, ll, _ = _tc_forward_emulated(h2, tx["w"], normp, lab, None, **opts)
+    lse_p, ll_p = ce.ce_forward_plain(h2, tx["w"], normp, lab, **opts)
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(ll.numpy(), ll_p.numpy(), atol=TOL, rtol=0)
+    lse, ll, y = _tc_forward_emulated(h2, tx["w"], normp, None, SEED9,
+                                      **opts)
+    lse_p, ll_p, y_p = ce.ce_forward_sampled_plain(h2, tx["w"], normp, SEED9,
+                                                   **opts)
+    np.testing.assert_array_equal(y.numpy(), y_p.numpy())
+    assert int(y.max()) < vocab
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(ll.numpy(), ll_p.numpy(), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_tensor_core_forward_emulation_matches_reference(tied, softcap):
+    """The same emulation against the reference's ``_ce_forward`` and
+    ``_ce_forward_sampled`` (Pallas, interpret mode, blocks of 16 rows and
+    64 columns) on the same numpy inputs, bf16 h and fp32 W (cast to bf16
+    by both, as the reference's unembed casts it), VOCAB=200 padded to
+    256: lse and the label or drawn logit within 3e-6, and the drawn
+    labels bit-identical to the reference's."""
+    jx, tx = _setup("bfloat16", tied)
+    kw = dict(vocab=VOCAB, transpose_w=not tied, softcap=softcap, norm=None,
+              eps=1e-6)
+    jh, jlab = jx["h"].reshape(-1, D), jx["labels"].reshape(-1)
+    h2, lab = tx["h"].reshape(-1, D), tx["labels"].reshape(-1)
+    normp = torch.zeros(2, D)
+    lse_r, ll_r = jax_ce_forward(jh, jx["w"], None, jlab, **kw,
+                                 **REF_BLOCKS)
+    lse, ll, _ = _tc_forward_emulated(h2, tx["w"], normp, lab, None, **kw)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_r), atol=TOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_r), atol=TOL)
+    lse_r, ll_r, y_r = jax_ce_forward_sampled(jh, jx["w"], None,
+                                              jnp.asarray(SEED9), **kw,
+                                              **REF_BLOCKS)
+    lse, ll, y = _tc_forward_emulated(h2, tx["w"], normp, None, SEED9, **kw)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_r))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_r), atol=TOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_r), atol=TOL)
