@@ -14,7 +14,9 @@ it fails and prints no result.  Phases, in order:
   2. each kernel against its plain PyTorch version on the card: decode
      attention at the serving shape and its edge cases (GQA, window +
      softcap, ring wraparound, an unwritten ring, a ring length off the
-     kernel's tile); the fused CE kernels (forward, sampled forward, dh,
+     kernel's tile, GPT-2's full 1024-token context over 8 and over 64
+     slots, negative positions, positions below the split count); the
+     fused CE kernels (forward, sampled forward, dh,
      dW) at GPT-2 small's loss shape (D=768, Vp=50304, tied, ln fused,
      bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
      4096, and its edge cases (untied, softcap 30, rms, no norm, padded
@@ -83,8 +85,11 @@ it fails and prints no result.  Phases, in order:
      (Hutchinson; 2 steps and its refreshed v), and one Sophia-G step with
      the empirical-Fisher estimator (its refreshed h too);
   5. numbers: serving throughput and latency, and a JSON line of kernel
-     times (CUDA events, median over 200 launches for decode attention
-     and 20 for the CE, flash and engine kernels, the 50 MB L2 cache
+     times (CUDA events, median over 200 launches for decode attention,
+     at the serving shape and under ``shapes`` at 8 and 64 slots of a
+     1024-token context, each with its host issue time, split count and
+     the occupancy in clusters, and 20 for the CE, flash and engine
+     kernels, the 50 MB L2 cache
      flushed before each launch) beside their bound (decode attention:
      the bytes of the ring rows the call's positions make valid; the CE
      and flash kernels: the larger of their flops at the bf16 tensor-core
@@ -93,8 +98,9 @@ it fails and prints no result.  Phases, in order:
      kernels the library composition, not one call; for the flash
      kernels SDPA's forward, and its backward for dQ and dK/dV together;
      for AdamW ``torch.optim.AdamW(fused=True).step()``, for SGD
-     ``torch.optim.SGD(momentum=0, fused=True).step()``, which writes p
-     only) that computes the same function; each CE and flash row names
+     ``torch.optim.SGD(momentum=0.9, dampening=0, fused=True).step()``
+     beside the kernel at the same momentum) that computes the same
+     function; each CE and flash row names
      the units its bf16 products run on (tensor cores or FMA); the CE
      kernels at N=8192, the sampled forward also at the refresh's
      N=4096.
@@ -239,10 +245,23 @@ def check_decode_attention(torch, args, **kw):
 
 
 MAIN_POS = [0, 5, 100, 511, 512, 700, 1023, 1500]   # wraps past C = 512
+# decode attention's timed shapes, (N, H, Hkv, C, hd) and positions: (a) the
+# serving shape, the kernels line's row; (b) GPT-2's full 1024-token context
+# over 8 slots; (c) 64 slots at that context, every position >= 1023
+DECODE_SHAPES = {
+    "serving_c512": ((8, 12, 12, 512, 64), MAIN_POS),
+    "full_ctx_c1024": ((8, 12, 12, 1024, 64),
+                       [1023, 1024, 1500, 2047, 3000, 1023, 1100, 4095]),
+    "batch64_c1024": ((64, 12, 12, 1024, 64),
+                      [1023 + 37 * i for i in range(64)]),
+}
 
 
 def phase_kernels(torch):
     """Returns {kernel name: max abs err at the main bf16 shape}."""
+    from repro_torch.kernels.decode_attention import split_count
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         # name, (N, H, Hkv, C, hd), positions, extra kwargs
         ("main", (8, 12, 12, 512, 64), MAIN_POS, {}),
@@ -253,6 +272,17 @@ def phase_kernels(torch):
          {"window": 12, "softcap": 50.0}),
         ("wraparound", (4, 4, 4, 32, 64), [35, 171, 64, 95], {}),
         ("ring_len48", (4, 4, 4, 48, 64), [47, 20, 60, 95], {}),
+        # GPT-2's full context: every split walks its whole share
+        ("full_ctx_c1024", DECODE_SHAPES["full_ctx_c1024"][0],
+         DECODE_SHAPES["full_ctx_c1024"][1], {}),
+        # 64 slots x 12 heads fill the card alone: one block per walk
+        ("batch64_c1024", DECODE_SHAPES["batch64_c1024"][0],
+         DECODE_SHAPES["batch64_c1024"][1], {}),
+        # every row masked: the merge of S = 4 splits must give the
+        # uniform average over the ring
+        ("negative_pos", (3, 12, 12, 64, 64), [-1, -7, 3], {}),
+        # positions below the split count (S = 4): splits with no rows
+        ("splits_past_rows", (4, 12, 12, 512, 64), [0, 1, 2, 3], {}),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -263,7 +293,8 @@ def phase_kernels(torch):
                                       quant, seed=i)
                 err, _ = check_decode_attention(torch, args, **kw)
                 log(f"[kernels] {name} {case} {str(dtype)[6:]} "
-                    f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} {kw or ''}: "
+                    f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} "
+                    f"S={split_count(N, Hkv, C, sms)} {kw or ''}: "
                     f"max abs err {err:.3g}")
                 if case == "main" and dtype == torch.bfloat16:
                     main_err[name] = err
@@ -1443,70 +1474,91 @@ def host_ms(torch, fn, reps=200):
     return statistics.median(times)
 
 
-def phase_timings(torch, main_err, served):
+def time_decode(torch, quant, shape, positions, flush):
+    """One decode-attention kernel (bf16 q; bf16 or int8 cache) at one
+    shape: its device and host-issue time, its plain version's and SDPA's
+    (bf16 cache only) device time, its bound, the split count S and
+    ``cudaOccupancyMaxActiveClusters`` at that launch."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain, ring_mask)
+        decode_attention, decode_attention_plain, max_active_clusters,
+        ring_mask, split_count)
 
+    N, H, Hkv, C, hd = shape
+    a = _decode_inputs(torch, N, H, Hkv, C, hd, torch.bfloat16, positions,
+                       quant, seed=0)
+    kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"], scale=1.0)
+
+    def call():
+        return decode_attention(a["q"], a["k_cache"], a["v_cache"],
+                                a["positions"], **kw)
+
+    ms = time_ms(torch, call, flush)
+    issue_ms = host_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: decode_attention_plain(
+        a["q"], a["k_cache"], a["v_cache"], a["positions"], **kw), flush)
+    library_ms = None
+    if not quant:
+        q4 = a["q"][:, :, None, :]
+        k4 = a["k_cache"].permute(0, 2, 1, 3)
+        v4 = a["v_cache"].permute(0, 2, 1, 3)
+        mask = ring_mask(a["positions"], C)[:, None, None, :]
+        sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              scale=1.0)
+        sdpa_err = (sdpa[:, :, 0].float() - call().float()).abs().max().item()
+        log(f"[timing] SDPA yardstick vs kernel at N={N} C={C}: max abs err "
+            f"{sdpa_err:.3g}")
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, scale=1.0), flush)
+    # the bound counts what this call's data needs: q read and the output
+    # written once, the positions, and only the ring rows the positions make
+    # valid (K and V, int8: plus their two fp32 scales), with 4 flops per
+    # element per query head (q.k and p.v); a masked row cannot change the
+    # output
+    valid_rows = int(ring_mask(a["positions"], C).sum())
+    row_bytes = 2 * Hkv * hd * a["k_cache"].element_size() + 8 * quant
+    nbytes = (2 * a["q"].numel() * a["q"].element_size()
+              + a["positions"].numel() * 4 + valid_rows * row_bytes)
+    flops = 4 * H * hd * valid_rows
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = split_count(N, Hkv, C, sms)
+    clusters = max_active_clusters(N, H, Hkv, C, hd, torch.bfloat16, quant,
+                                   splits)
+    name = "decode_attention_q8" if quant else "decode_attention"
+    log(f"[timing] {name} N={N} C={C}: kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, library "
+        f"{'n/a' if library_ms is None else f'{library_ms * 1e3:.2f} us'}, "
+        f"bound {bound_ms * 1e3:.2f} us ({nbytes} bytes, {flops} flops; "
+        f"{valid_rows} valid rows of {N * C}), host issue "
+        f"{issue_ms * 1e3:.2f} us; S={splits}, {N * Hkv * splits} blocks, "
+        f"max active clusters {clusters}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "host_issue_ms": issue_ms,
+            "splits": splits, "max_active_clusters": clusters,
+            "shape": f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} q=bf16 "
+                     f"kv={'int8' if quant else 'bf16'} positions="
+                     f"{positions if N <= 8 else 'every one >= 1023'}"}
+
+
+def phase_timings(torch, main_err, served):
+    """Both decode kernels at the three ``DECODE_SHAPES``: the serving
+    shape is the row, the other two go under its ``shapes``."""
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
     rows = []
     for name, replaces in DECODE_ATTN[1].items():
         quant = name.endswith("q8")
-        a = _decode_inputs(torch, 8, 12, 12, 512, 64, torch.bfloat16,
-                           MAIN_POS, quant, seed=0)
-        N, H, hd = a["q"].shape
-        C, Hkv = a["k_cache"].shape[1:3]
-        kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"], scale=1.0)
-        def kernel():
-            return decode_attention(a["q"], a["k_cache"], a["v_cache"],
-                                    a["positions"], **kw)
-
-        ms = time_ms(torch, kernel, flush)
-        issue_ms = host_ms(torch, kernel)
-        plain_ms = time_ms(torch, lambda: decode_attention_plain(
-            a["q"], a["k_cache"], a["v_cache"], a["positions"], **kw), flush)
-        library_ms = None
-        if not quant:
-            q4 = a["q"][:, :, None, :]
-            k4 = a["k_cache"].permute(0, 2, 1, 3)
-            v4 = a["v_cache"].permute(0, 2, 1, 3)
-            mask = ring_mask(a["positions"], C)[:, None, None, :]
-            sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                                  scale=1.0)
-            ref = decode_attention(a["q"], a["k_cache"], a["v_cache"],
-                                   a["positions"], scale=1.0)
-            sdpa_err = (sdpa[:, :, 0].float() - ref.float()).abs().max().item()
-            log(f"[timing] SDPA yardstick vs kernel: max abs err {sdpa_err:.3g}")
-            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=1.0), flush)
-        # the bound counts what this call's data needs: q read and the
-        # output written once, the positions, and only the ring rows the
-        # positions make valid (K and V, int8: plus their two fp32 scales),
-        # with 4 flops per element per query head (q.k and p.v); a masked
-        # row cannot change the output
-        valid_rows = int(ring_mask(a["positions"], C).sum())
-        row_bytes = 2 * Hkv * hd * a["k_cache"].element_size() + 8 * quant
-        nbytes = (2 * a["q"].numel() * a["q"].element_size()
-                  + a["positions"].numel() * 4 + valid_rows * row_bytes)
-        flops = 4 * H * hd * valid_rows
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
+        timed = [time_decode(torch, quant, *DECODE_SHAPES[key], flush)
+                 for key in DECODE_SHAPES]
         rows.append({
             "name": name, "route": "cuda", "source": DECODE_ATTN[0],
             "replaces": replaces, "launches": served[name]["launches"],
-            "max_abs_err": main_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "host_issue_ms": issue_ms,
-            "shape": f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} q=bf16 "
-                     f"kv={'int8' if quant else 'bf16'} positions={MAIN_POS}"})
-        log(f"[timing] {name}: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, library "
-            f"{'n/a' if library_ms is None else f'{library_ms * 1e3:.2f} us'}"
-            f", bound {bound_ms * 1e3:.2f} us ({nbytes} bytes, {flops} flops; "
-            f"{valid_rows} valid rows of {N * C})")
+            "max_abs_err": main_err[name], **timed[0], "shapes": timed[1:]})
     return rows
 
 
@@ -1735,9 +1787,12 @@ def phase_engine_timings(torch, engine_err, trained):
     """The engine kernels at GPT-2 small's shard with fp32 state (the
     training run's) beside their byte bound, their plain versions and, for
     AdamW and SGD, ``torch.optim.AdamW(fused=True).step()`` and
-    ``torch.optim.SGD(momentum=0, fused=True).step()`` on one flat
-    parameter of the shard's size (one PyTorch call each, in its own
-    rounding order; the port never calls them)."""
+    ``torch.optim.SGD(momentum=0.9, dampening=0, fused=True).step()`` on
+    one flat parameter of the shard's size (one PyTorch call each, in its
+    own rounding order; the port never calls them).  SGD is timed at
+    ``SGD_HP``'s momentum 0.9 on both sides, after one warm library step
+    has made the momentum buffer, so that both read p, g and m and write p
+    and m (20 bytes per element)."""
     from repro_torch.kernels import sophia_update as su
 
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
@@ -1751,7 +1806,7 @@ def phase_engine_timings(torch, engine_err, trained):
     ak = dict(ADAMW_HP, block=block)
     hk = dict(ADAHESSIAN_HP, block=block)
     lk, gk = dict(LION_HP, block=block), dict(SIGNGD_HP, block=block)
-    mk = dict(momentum=0.0, block=block)        # the trainer's SGD
+    mk = dict(SGD_HP, block=block)              # m' = 0.9 m + g
     calls = {
         "sophia_step": (lambda: su.sophia_fused_block(p, m, h, g, lr, **sk),
                         lambda: su.sophia_fused_block_plain(p, m, h, g, lr,
@@ -1795,7 +1850,9 @@ def phase_engine_timings(torch, engine_err, trained):
                                     warmup=2)
     del opt
     param.grad = g.clone()
-    opt = torch.optim.SGD([param], lr=6e-4, momentum=0.0, fused=True)
+    opt = torch.optim.SGD([param], lr=6e-4, dampening=0, fused=True,
+                          **SGD_HP)
+    opt.step()                          # the momentum buffer exists from here
     library["sgd_step"] = time_ms(torch, opt.step, flush, reps=20, warmup=2)
     del opt, param
     runs = {"sophia_g": trained["launches"], "adamw":
@@ -1806,9 +1863,11 @@ def phase_engine_timings(torch, engine_err, trained):
                  for name, r in trained["baselines"].items()})
     notes = {"adamw_step": "torch.optim.AdamW(fused=True).step() on one "
                            "flat parameter, its own rounding order",
-             "sgd_step": "torch.optim.SGD(momentum=0, fused=True).step() "
-                         "on one flat parameter: it writes p only (12 "
-                         "bytes per element), no m"}
+             "sgd_step": "torch.optim.SGD(momentum=0.9, dampening=0, "
+                         "fused=True).step() on one flat parameter after "
+                         "a warm step: reads p, g, m and writes p, m (20 "
+                         "bytes per element), as the kernel at momentum "
+                         "0.9"}
     rows = []
     for name, replaces in SOPHIA_UPDATE[1].items():
         kernel, plain = calls[name]

@@ -37,21 +37,34 @@ def cuda_device():
                                       (torch.bfloat16, False),
                                       (torch.float32, True),
                                       (torch.bfloat16, True)])
-@pytest.mark.parametrize("N,H,Hkv,C,hd,window,softcap", [
-    (8, 12, 12, 512, 64, None, None),     # GPT-2 small serving shape
-    (4, 8, 2, 48, 128, None, None),       # GQA, ring off the kernel's tile
-    (3, 4, 2, 64, 256, 12, 50.0),         # window + softcap
+@pytest.mark.parametrize("N,H,Hkv,C,hd,window,softcap,positions", [
+    (8, 12, 12, 512, 64, None, None, None),   # GPT-2 small serving shape
+    (4, 8, 2, 48, 128, None, None, None),     # GQA, ring off the kernel's tile
+    (3, 4, 2, 64, 256, 12, 50.0, None),       # window + softcap
+    # full_ctx_c1024: GPT-2's whole context over 8 slots, S = 2 splits
+    (8, 12, 12, 1024, 64, None, None,
+     [1023, 1024, 1500, 2047, 3000, 1023, 1100, 4095]),
+    # batch64_c1024: 64 slots fill the card alone, S = 1
+    (64, 12, 12, 1024, 64, None, None, [1023 + 37 * i for i in range(64)]),
+    # negative_pos: every row masked, the uniform average over the ring
+    # merged from S = 4 splits
+    (3, 12, 12, 64, 64, None, None, [-1, -7, 3]),
+    # splits_past_rows: most of the S = 4 splits have no rows
+    (4, 12, 12, 512, 64, None, None, [0, 1, 2, 3]),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, dt, quant, N, H,
-                                               Hkv, C, hd, window, softcap):
+                                               Hkv, C, hd, window, softcap,
+                                               positions):
     """fp32 within 1e-5 (sums in another order), bf16 within 2e-2 (the
-    reference tests' bf16 bound)."""
+    reference tests' bf16 bound).  Positions default to a spread over
+    three laps of the ring."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     q = torch.randn((N, H, hd), generator=gen, device=cuda_device).to(dt)
     k = torch.randn((N, C, Hkv, hd), generator=gen, device=cuda_device)
     v = torch.randn((N, C, Hkv, hd), generator=gen, device=cuda_device)
-    pos = torch.tensor([(i * 97 + 5) % (3 * C) for i in range(N)],
-                       dtype=torch.int32, device=cuda_device)
+    if positions is None:
+        positions = [(i * 97 + 5) % (3 * C) for i in range(N)]
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda_device)
     kw = dict(window=window, softcap=softcap)
     if quant:
         k, kw["k_scale"] = quantize_kv(k)

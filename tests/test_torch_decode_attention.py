@@ -1,8 +1,12 @@
 """The port's decode attention (repro_torch.kernels.decode_attention) held
 against the JAX reference: its plain version against the oracle
 ``repro.kernels.ref.decode_attention_ref`` and against the Pallas kernel in
-interpret mode, on the same inputs made with numpy from a seed.  The CUDA
-kernel itself is held against the plain version in test_torch_cuda.py."""
+interpret mode, on the same inputs made with numpy from a seed; and the
+CUDA kernel's split schedule (``_decode_split.py``, S blocks per ring walk
+merged by the online softmax's rescale) against both.  The CUDA kernel
+itself is held against the plain version in test_torch_cuda.py."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +19,9 @@ from repro.quant import quantize_kv as jax_quantize_kv
 from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
 from repro_torch.kernels.decode_attention import (
     check_kernel_args, decode_attention, decode_attention_hbm_bytes,
-    decode_attention_plain)
+    decode_attention_plain, split_count)
+
+from _decode_split import decode_attention_split, split_bounds, walk_rows
 
 pytestmark = pytest.mark.serve
 
@@ -157,3 +163,69 @@ def test_hbm_bytes_formula_matches_reference(kv_dtype):
     for shape in [(8, 12, 12, 512, 64), (4, 8, 2, 256, 128)]:
         assert (decode_attention_hbm_bytes(*shape, kv_dtype=kv_dtype)
                 == jax_hbm_bytes(*shape, kv_dtype=kv_dtype))
+
+
+# positions 0, C - 1, C, 3C + 5, -1 and -7 at C = 16
+SPLIT_POS = [0, 15, 16, 53, -1, -7]
+SPLIT_CASES = {
+    # name: (N, H, Hkv, C, hd, positions, kwargs, int8 cache)
+    "positions": (6, 4, 2, 16, 16, SPLIT_POS, {}, False),
+    "window4_softcap50": (6, 4, 2, 16, 16, SPLIT_POS,
+                          dict(window=4, softcap=50.0), False),
+    "gqa4": (6, 8, 2, 16, 16, SPLIT_POS, {}, False),
+    "int8": (6, 4, 2, 16, 16, SPLIT_POS, {}, True),
+    "splits_past_rows": (4, 4, 2, 16, 16, [0, 1, 2, 5], {}, False),
+}
+
+
+@functools.cache
+def _split_case(name):
+    """Inputs and the two JAX outputs (oracle, Pallas interpret) of one
+    case, computed once for every S."""
+    N, H, Hkv, C, hd, pos, kw, quant = SPLIT_CASES[name]
+    q, k, v = _rand(N, H, Hkv, C, hd, seed=7)
+    pos = np.asarray(pos, np.int32)
+    if quant:
+        k, ks = (np.array(a) for a in jax_quantize_kv(jnp.asarray(k)))
+        v, vs = (np.array(a) for a in jax_quantize_kv(jnp.asarray(v)))
+        kw = dict(kw, k_scale=ks, v_scale=vs)
+    jargs = tuple(map(jnp.asarray, (q, k, v, pos)))
+    jkw = {key: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+           for key, a in kw.items()}
+    ref = np.asarray(decode_attention_ref(*jargs, **jkw))
+    pallas = np.asarray(decode_attention_pallas(*jargs, page_len=8, **jkw))
+    return (q, k, v, pos), kw, ref, pallas
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_schedule_matches_reference(case, S):
+    """The kernel's schedule in fp32: S splits of each slot's walk (empty
+    ones at S > n_rows, all-masked ones at negative positions, where the
+    merge must give the reference's uniform average), merged by the
+    rescale, within 3e-6 of the oracle and the Pallas kernel."""
+    (q, k, v, pos), kw, ref, pallas = _split_case(case)
+    tkw = {key: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+           for key, a in kw.items()}
+    got = decode_attention_split(*map(torch.from_numpy, (q, k, v, pos)), S,
+                                 **tkw).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=TOL)
+    np.testing.assert_allclose(got, pallas, atol=TOL)
+    if case == "splits_past_rows" and S > 1:
+        C = SPLIT_CASES[case][3]
+        assert any(lo == hi for lo, hi in split_bounds(walk_rows(0, C), S))
+
+
+@pytest.mark.parametrize("N,Hkv,C,want", [
+    (8, 12, 512, 2),      # the serving shape: 96 blocks alone
+    (8, 12, 1024, 2),     # GPT-2's full context
+    (64, 12, 1024, 1),    # 768 blocks fill the card alone
+    (16, 12, 1024, 1),
+    (4, 12, 512, 4),
+    (3, 12, 64, 4),       # no split shorter than 16 ring rows
+    (4, 2, 256, 8),       # at most the portable cluster size
+    (2, 2, 32, 2),
+])
+def test_split_count_rule(N, Hkv, C, want):
+    assert split_count(N, Hkv, C, sms=132) == want
