@@ -84,6 +84,24 @@ it fails and prints no result.  Phases, in order:
      and Lion with the engine kernels (3 steps each), AdaHessian
      (Hutchinson; 2 steps and its refreshed v), and one Sophia-G step with
      the empirical-Fisher estimator (its refreshed h too);
+  4b. the trainer's other routes at the same shape (Sophia-G, GNB refresh
+     at step 0, engine kernels): remat "none", "full", "dots" and "scan2"
+     (3 steps each; step 0's loss and every gradient against "none",
+     bit-identity logged; the flash forward launched again for every
+     recomputed layer, 24 a plain step under "full" and "dots", 33 under
+     "scan2"), Sophia-H with Hutchinson under "full" (2 steps; its HVP
+     runs the trunk without remat), ``fused_loss=False`` (3 steps: the chunked loss and the
+     GNB refresh from the sub-batch's materialized logits, no CE kernel;
+     step 0's loss within 1e-4 of the fused route's) and
+     ``attn_impl="chunked"`` (2 steps, no attention kernel; step 0's
+     loss within 1e-3 of the flash route's), each with its plain-step
+     p50, step 0 and peak memory; then the per-leaf API,
+     ``chain(clip_by_global_norm(1.0), sophia_g(lr))`` on GPT-2 small's
+     parameter tree, 5 steps after one ``gnb_estimator`` estimate, against
+     the engine on both backends fed the same gradients and estimate:
+     the parameters within 1e-5, the clip fractions within 1e-5 (the
+     per-leaf form sums its leaves' counts in fp32, as the reference), the
+     step p50s;
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -97,7 +115,8 @@ it fails and prints no result.  Phases, in order:
      small's shard), their plain version and the library call (for the CE
      kernels the library composition, not one call; for the flash
      kernels SDPA's forward, and its backward for dQ and dK/dV together;
-     for AdamW ``torch.optim.AdamW(fused=True).step()``, for SGD
+     for the Hessian EMA ``h.lerp_(e, 1 - beta2)``, for AdamW
+     ``torch.optim.AdamW(fused=True).step()``, for SGD
      ``torch.optim.SGD(momentum=0.9, dampening=0, fused=True).step()``
      beside the kernel at the same momentum) that computes the same
      function; each CE and flash row names
@@ -1064,6 +1083,7 @@ def phase_train(torch):
     batches = [to_device_batch(src.batch_at(t), "cuda")
                for t in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     times, losses = [], []
@@ -1113,7 +1133,8 @@ def phase_train(torch):
         f"{TRAIN_K}, {2 * TRAIN_K}) {report['refresh_p50_ms']:.1f} ms; "
         f"{report['tokens_per_s']:.0f} "
         f"tok/s over the run ({report['tokens_per_s_plain_p50']:.0f} at the "
-        f"plain p50); peak memory {report['peak_mem_gib']:.2f} GiB; "
+        f"plain p50); peak memory {report['peak_mem_gib']:.2f} GiB "
+        f"({resident / 2 ** 30:.2f} GiB resident at the start); "
         f"launches {launches}")
     log(f"[train] step ms: {[round(x, 1) for x in report['step_ms']]}")
     log(f"[train] Sophia-G step 0 (a refresh with the first-call costs): "
@@ -1288,6 +1309,7 @@ def train_baseline(torch, cfg, batches, name, over, steps):
     refresh_at = [t for t in range(steps) if aware and t % TRAIN_K == 0]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     times, losses, per_step = [], [], []
@@ -1339,7 +1361,8 @@ def train_baseline(torch, cfg, batches, name, over, steps):
         f"plain {report['plain_p50_ms']:.1f} ms"
         + (f", refresh (steps {refresh_at[1:]}) "
            f"{report['refresh_p50_ms']:.1f} ms" if refresh else "")
-        + f"; peak memory {report['peak_mem_gib']:.2f} GiB; launches "
+        + f"; peak memory {report['peak_mem_gib']:.2f} GiB "
+        f"({resident / 2 ** 30:.2f} GiB resident at the start); launches "
         f"{launches}; step ms {[round(x * 1e3, 1) for x in times]}")
     log(f"[train] {name} step 0 ({'a refresh ' if refresh_at else ''}with "
         f"the first-call costs): {report['step0_ms']:.1f} ms")
@@ -1437,6 +1460,339 @@ def check_train_against_cpu(torch, cfg, name, over, steps=3):
         raise AssertionError(f"card vs CPU training losses differ by {rel} "
                              f"({name})")
     return rel
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the trainer's other routes and the per-leaf optimizer API
+
+
+ROUTE_STEPS, PERLEAF_STEPS = 3, 5
+
+
+def _run_steps(torch, train_step, state, batches, refresh_at):
+    """Steps on ``batches`` from a zeroed peak and zeroed counts: (state,
+    losses, step seconds, launches per step, peak bytes, bytes resident at
+    the start)."""
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, per_step = [], [], []
+    for t, batch in enumerate(batches):
+        before = dict(KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, t in refresh_at)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append({k: v - before.get(k, 0)
+                         for k, v in KERNEL_LAUNCHES.items()
+                         if v - before.get(k, 0)})
+    return (state, losses, times, per_step,
+            torch.cuda.max_memory_allocated(), resident)
+
+
+def _step0_grads(torch, cfg, params, batch, **kw):
+    """(loss, gradients) of the trainer's loss at the initial weights."""
+    from repro_torch.core.types import flat_tensors
+    from repro_torch.models import get_model
+
+    loss, _ = get_model(cfg).loss_fn(cfg, params, batch, **kw)
+    return loss.detach(), torch.autograd.grad(
+        loss, flat_tensors(params.param_tree()))
+
+
+def phase_routes(torch):
+    """GPT-2 small at B=8 x S=1024, bf16, Sophia-G with GNB on the engine
+    kernels, on the trainer's routes that are not the default: the remat
+    policies, ``fused_loss=False`` and ``attn_impl="chunked"``; then the
+    per-leaf optimizer API against the engine.  Counts are zeroed before
+    each run and read after each step."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train.trainer import to_device_batch
+
+    cfg = get_config("gpt2-small")
+    src = make_source(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                 vocab_size=cfg.vocab_size, seed=0))
+    batches = [to_device_batch(src.batch_at(t), "cuda")
+               for t in range(PERLEAF_STEPS)]
+    base = dict(peak_lr=6e-4, total_steps=TRAIN_STEPS, warmup_steps=2,
+                hess_interval=TRAIN_K, hess_subbatch=TRAIN_SUB, seed=0,
+                fused_kernel=True)
+    L = cfg.n_layers
+    report = {}
+
+    def run(label, over, steps, want_plain, want_step0=None,
+            profile=False):
+        tc = TrainerConfig(**dict(base, **over))
+        state, train_step = _train_fns(torch, cfg, tc, "cuda")
+        state, losses, times, per_step, peak, resident = _run_steps(
+            torch, train_step, state, batches[:steps], (0,))
+        if not all(np.isfinite(losses)) or int(state.opt_state.hess_count) \
+                != 1:
+            raise AssertionError(f"{label}: losses {losses}, hess_count "
+                                 f"{int(state.opt_state.hess_count)}")
+        for t in range(1, steps):
+            if per_step[t] != want_plain:
+                raise AssertionError(f"{label}: step {t} launches "
+                                     f"{per_step[t]} != {want_plain}")
+        if want_step0 is not None and per_step[0] != want_step0:
+            raise AssertionError(f"{label}: step 0 launches {per_step[0]} "
+                                 f"!= {want_step0}")
+        out = dict(losses=losses, step_ms=[x * 1e3 for x in times],
+                   plain_p50_ms=statistics.median(times[1:]) * 1e3,
+                   refresh_step0_ms=times[0] * 1e3,
+                   peak_mem_gib=peak / 2 ** 30,
+                   resident_gib=resident / 2 ** 30, launches=per_step)
+        log(f"[routes] {label}: {steps} steps (a refresh at step 0), "
+            f"losses {[round(x, 4) for x in losses]}; plain step p50 "
+            f"{out['plain_p50_ms']:.1f} ms, step 0 (the refresh) "
+            f"{out['refresh_step0_ms']:.1f} ms; peak memory "
+            f"{out['peak_mem_gib']:.2f} GiB ({out['resident_gib']:.2f} GiB "
+            f"resident at the start: parameters, optimizer state and what "
+            f"earlier phases hold); launches step 0 {per_step[0]}, a plain "
+            f"step {per_step[1]}")
+        if profile:
+            holder = {}
+
+            def one_step():
+                holder["out"] = train_step(state, batches[1], False)
+
+            win = profile_window(f"train plain step, {label}", one_step,
+                                 match="flash_attn::",
+                                 also=("::ce_", "sophia_update::"))
+            del holder
+            out["profile"] = win
+            log("[profile] " + json.dumps(win))
+        del state
+        return out
+
+    # 1. remat: the flash forward runs again for each recomputed layer
+    scan_g = next(d for d in (8, 5, 4, 2) if L % d == 0)
+    fwd = {"none": L, "full": 2 * L, "dots": 2 * L,
+           "scan2": 2 * L + L - L // scan_g}   # scan2: the outer recompute
+    #                                            stops before a group's last
+    #                                            layer (its input is saved)
+    tc0 = TrainerConfig(**base)
+    state0, _ = _train_fns(torch, cfg, tc0, "cuda")
+    loss0, g0 = _step0_grads(torch, cfg, state0.params, batches[0],
+                             attn_impl="flash", loss_impl="fused")
+    agree = {}
+    for remat in ("none", "full", "dots", "scan2"):
+        loss_r, g_r = _step0_grads(torch, cfg, state0.params, batches[0],
+                                   attn_impl="flash", loss_impl="fused",
+                                   remat=remat)
+        same = bool(torch.equal(loss_r, loss0)) and all(
+            torch.equal(a, b) for a, b in zip(g_r, g0))
+        worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(g_r, g0))
+        del g_r
+        agree[remat] = dict(step0_bit_identical=same,
+                            step0_grad_max_rel=worst)
+        log(f"[routes] remat={remat}: step 0 loss and every gradient "
+            f"bit-identical to remat=none: {same} (largest gradient "
+            f"difference {worst:.3g} of its leaf's largest element)")
+        if not worst <= 1e-6:
+            raise AssertionError(f"remat={remat}: a gradient differs from "
+                                 f"remat=none by {worst} of its largest")
+    del g0, state0
+    report["remat"] = {}
+    for remat in ("none", "full", "dots", "scan2"):
+        want = {"ce_forward": 1, "ce_backward_dh": 1, "ce_backward_dw": 1,
+                "attn_fwd": fwd[remat], "attn_bwd_dq": L, "attn_bwd_dkv": L,
+                "sophia_step": 1}
+        out = run(f"remat={remat}", dict(remat=remat), ROUTE_STEPS, want,
+                  profile=remat in ("none", "full", "dots"))
+        out.update(agree[remat])
+        log(f"[routes] remat={remat}: flash forward launches per plain step "
+            f"{fwd[remat]}")
+        report["remat"][remat] = out
+    # the Hutchinson HVP runs its trunk without remat (torch.func and
+    # torch.utils.checkpoint do not compose): its peak under remat="full"
+    report["hutchinson_remat_full"] = run(
+        "sophia_h+hutchinson remat=full",
+        dict(optimizer="sophia_h", estimator="hutchinson", remat="full"), 2,
+        {"ce_forward": 1, "ce_backward_dh": 1, "ce_backward_dw": 1,
+         "attn_fwd": 2 * L, "attn_bwd_dq": L, "attn_bwd_dkv": L,
+         "sophia_step": 1},
+        {"ce_forward": 2, "ce_backward_dh": 1, "ce_backward_dw": 1,
+         "attn_fwd": 3 * L, "attn_bwd_dq": L, "attn_bwd_dkv": L,
+         "sophia_refresh": 1})
+
+    # 2. fused_loss=False: the chunked loss and the GNB refresh from the
+    # sub-batch's materialized logits; no CE kernel
+    out = run("fused_loss=False", dict(fused_loss=False), ROUTE_STEPS,
+              {"attn_fwd": L, "attn_bwd_dq": L, "attn_bwd_dkv": L,
+               "sophia_step": 1},
+              {"attn_fwd": 2 * L, "attn_bwd_dq": 2 * L,
+               "attn_bwd_dkv": 2 * L, "sophia_refresh": 1})
+    fused_loss0 = report["remat"]["none"]["losses"][0]
+    out["step0_rel_to_fused"] = abs(out["losses"][0] - fused_loss0) \
+        / abs(fused_loss0)
+    log(f"[routes] fused_loss=False step 0 loss {out['losses'][0]!r} vs the "
+        f"fused CE's {fused_loss0!r}: relative {out['step0_rel_to_fused']:.3g}"
+        f" (bound 1e-4)")
+    if not out["step0_rel_to_fused"] <= 1e-4:
+        raise AssertionError("fused_loss=False: step 0 loss off the fused "
+                             "route's")
+    report["unfused_loss"] = out
+
+    # 3. chunked attention: one KV block at S=1024; no attention kernel
+    out = run("attn_impl=chunked", dict(attn_impl="chunked"), 2,
+              {"ce_forward": 1, "ce_backward_dh": 1, "ce_backward_dw": 1,
+               "sophia_step": 1},
+              {"ce_forward": 1, "ce_forward_sampled": 1,
+               "ce_backward_dh": 2, "ce_backward_dw": 2,
+               "sophia_refresh": 1})
+    out["step0_rel_to_flash"] = abs(out["losses"][0] - fused_loss0) \
+        / abs(fused_loss0)
+    log(f"[routes] attn_impl=chunked step 0 loss {out['losses'][0]!r} vs the "
+        f"flash route's {fused_loss0!r}: relative "
+        f"{out['step0_rel_to_flash']:.3g} (bound 1e-3: the chunked route "
+        f"rounds the softmax weights to bf16 before p.v, flash keeps them "
+        f"in fp32)")
+    if not out["step0_rel_to_flash"] <= 1e-3:
+        raise AssertionError("attn_impl=chunked: step 0 loss off the flash "
+                             "route's")
+    report["chunked_attn"] = out
+    report["per_leaf"] = per_leaf_against_engine(torch, cfg, batches, base)
+    return report
+
+
+def per_leaf_against_engine(torch, cfg, batches, base):
+    """``chain(clip_by_global_norm(1.0), sophia_g(lr))`` on GPT-2 small's
+    parameter tree on the card, 5 steps, against the engine on its
+    ``reference`` and ``fused`` backends: all three are fed the same five
+    gradient trees (taken at the initial weights on five batches) and,
+    before step 0, the same ``gnb_estimator`` estimate (B · ĝ², the
+    sub-batch's logits materialized).  Logs the largest parameter
+    difference after 5 steps, the clip fractions and the step p50s."""
+    from repro_torch.core import (apply_updates, chain, clip_by_global_norm,
+                                  gnb_estimator, ravel_shards, sophia_g,
+                                  tree_map)
+    from repro_torch.core.types import flat_tensors, tree_unflatten
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.train import TrainerConfig, hess_generator, make_engine
+    from repro_torch.train.trainer import make_schedule
+
+    tc = TrainerConfig(**base)
+    model = get_model(cfg)
+    state, _ = _train_fns(torch, cfg, tc, "cuda")
+    params = state.params
+    tree = params.param_tree()
+    tensors = flat_tensors(tree)
+    grads = []
+    for batch in batches[:PERLEAF_STEPS]:
+        loss, _ = model.loss_fn(cfg, params, batch, attn_impl="flash")
+        grads.append(tree_unflatten(tree, torch.autograd.grad(loss,
+                                                              tensors)))
+    sub = {k: v[:TRAIN_SUB] for k, v in batches[0].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    est = gnb_estimator(
+        lambda _: model.logits_fn(cfg, params, sub, attn_impl="flash"),
+        tree, hess_generator(tc.seed, 0, "cuda"))
+    torch.cuda.synchronize()
+    est_ms = (time.perf_counter() - t0) * 1e3
+    est_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    schedule = make_schedule(tc)
+    start = tree_map(lambda t: t.detach().clone(), tree)
+    del state, params, tree, tensors
+
+    # the per-leaf chain
+    opt = chain(clip_by_global_norm(tc.grad_clip),
+                sophia_g(schedule, beta1=tc.beta1, beta2=tc.beta2,
+                         gamma=tc.gamma, eps=tc.eps,
+                         weight_decay=tc.weight_decay,
+                         clip_threshold=tc.clip_threshold))
+    p_leaf = tree_map(lambda t: t.clone(), start)
+    s_leaf = opt.init(p_leaf)
+    s_leaf = opt.update_hessian(est, s_leaf)
+    leaf_ms, leaf_clip = [], []
+    for g in grads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        updates, s_leaf = opt.update(g, s_leaf, p_leaf)
+        p_leaf = apply_updates(p_leaf, updates)
+        torch.cuda.synchronize()
+        leaf_ms.append((time.perf_counter() - t0) * 1e3)
+        leaf_clip.append(float(s_leaf[1].clip_fraction))
+    del updates
+
+    # the engine on each backend, the trainer's clip in front
+    runs = {}
+    for backend, fused in (("reference", False), ("fused", True)):
+        engine = make_engine(dataclasses.replace(tc, fused_kernel=fused))
+        clipper = clip_by_global_norm(tc.grad_clip)
+        p_eng = tree_map(lambda t: t.clone(), start)
+        lay = engine.layout(p_eng)
+        e_state = engine.init(p_eng)
+        c_state = clipper.init(p_eng)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        e_state = engine.update_hessian(
+            e_state, ravel_shards(lay, est, dtype=torch.float32), scale=1.0,
+            params=p_eng)
+        ms, clip = [], []
+        for g in grads:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g_c, c_state = clipper.update(g, c_state)
+            _, e_state = engine.step_shards(
+                e_state, p_eng, engine.ravel_grads(p_eng, g_c),
+                schedule(e_state.count))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            clip.append(float(e_state.clip_fraction))
+        launches = dict(KERNEL_LAUNCHES)
+        want = ({"hessian_ema": 1, "sophia_step": PERLEAF_STEPS} if fused
+                else {})
+        if launches != want:
+            raise AssertionError(f"engine ({backend}) launches {launches} "
+                                 f"!= {want}")
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(flat_tensors(p_leaf), flat_tensors(p_eng)))
+        runs[backend] = dict(max_abs_param_diff=diff, clip_fraction=clip,
+                             step_p50_ms=statistics.median(ms),
+                             step_ms=ms, launches=launches, params=p_eng)
+    ref_vs_fused = max(float((a - b).abs().max()) for a, b in zip(
+        flat_tensors(runs["reference"].pop("params")),
+        flat_tensors(runs["fused"].pop("params"))))
+    out = dict(per_leaf_step_p50_ms=statistics.median(leaf_ms),
+               per_leaf_step_ms=leaf_ms, per_leaf_clip_fraction=leaf_clip,
+               engines=runs, engine_reference_vs_fused=ref_vs_fused,
+               estimate_ms=est_ms, estimate_peak_gib=est_peak)
+    log(f"[per-leaf] chain(clip_by_global_norm(1.0), sophia_g) on GPT-2 "
+        f"small's tree, {PERLEAF_STEPS} steps after one gnb_estimator "
+        f"estimate (sub-batch {TRAIN_SUB}x{TRAIN_S}, logits materialized: "
+        f"{est_ms:.1f} ms, peak {est_peak:.2f} GiB): per-leaf step p50 "
+        f"{out['per_leaf_step_p50_ms']:.2f} ms, clip fraction "
+        f"{[round(x, 6) for x in leaf_clip]}")
+    for backend, r in runs.items():
+        log(f"[per-leaf] engine ({backend} backend): step p50 "
+            f"{r['step_p50_ms']:.2f} ms (clip, ravel and the update), clip "
+            f"fraction {[round(x, 6) for x in r['clip_fraction']]}, launches "
+            f"{r['launches']}; max |per-leaf - engine| over the parameters "
+            f"after {PERLEAF_STEPS} steps {r['max_abs_param_diff']:.3g}")
+    log(f"[per-leaf] engine reference vs fused backend after "
+        f"{PERLEAF_STEPS} steps: max |diff| {ref_vs_fused:.3g}")
+    if not all(r["max_abs_param_diff"] <= 1e-5 for r in runs.values()):
+        raise AssertionError("per-leaf Sophia-G drifted from the engine")
+    # the per-leaf form sums its leaves' clip counts in fp32, as the
+    # reference's does, inexact beyond 2^24; the engine sums int32 counts
+    if any(abs(a - b) > 1e-5 for r in runs.values()
+           for a, b in zip(r["clip_fraction"], leaf_clip)):
+        raise AssertionError("per-leaf and engine clip fractions differ")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1855,6 +2211,10 @@ def phase_engine_timings(torch, engine_err, trained):
     opt.step()                          # the momentum buffer exists from here
     library["sgd_step"] = time_ms(torch, opt.step, flush, reps=20, warmup=2)
     del opt, param
+    h_lib = h.clone()                   # h' = h + (1 - beta2) (e - h)
+    library["hessian_ema"] = time_ms(torch, lambda: h_lib.lerp_(e, 0.01),
+                                     flush, reps=20, warmup=2)
+    del h_lib
     runs = {"sophia_g": trained["launches"], "adamw":
             trained["adamw"]["launches"],
             "update_hessian": {"hessian_ema":
@@ -1867,7 +2227,11 @@ def phase_engine_timings(torch, engine_err, trained):
                          "fused=True).step() on one flat parameter after "
                          "a warm step: reads p, g, m and writes p, m (20 "
                          "bytes per element), as the kernel at momentum "
-                         "0.9"}
+                         "0.9",
+             "hessian_ema": "h.lerp_(e, 1 - beta2) in place: the EMA at "
+                            "scale 1 without the square (reads h, e and "
+                            "writes h, 12 bytes per element, as the "
+                            "kernel)"}
     rows = []
     for name, replaces in SOPHIA_UPDATE[1].items():
         kernel, plain = calls[name]
@@ -1921,6 +2285,7 @@ def main() -> int:
     engine_err = phase_engine_kernels(torch)
     served = phase_serve(torch)
     trained = phase_train(torch)
+    phase_routes(torch)
     rows = (phase_timings(torch, main_err, served)
             + phase_engine_timings(torch, engine_err, trained)
             + phase_ce_timings(torch, ce_err, trained)

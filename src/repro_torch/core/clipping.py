@@ -10,7 +10,8 @@ from typing import NamedTuple
 
 import torch
 
-from .types import Tree, global_norm, tree_map
+from .types import GradientTransformation, flat_tensors, global_norm, \
+    tree_map
 
 
 class ClipState(NamedTuple):
@@ -19,28 +20,31 @@ class ClipState(NamedTuple):
     last_norm: torch.Tensor   # fp32: the last step's pre-clip norm
 
 
-class GlobalNormClip:
-    """``init(device) -> ClipState``; ``update(grads, state) -> (grads,
-    state)`` with the grads scaled to fp32 norm <= ``max_norm``."""
+def clip_by_global_norm(max_norm: float = 1.0) -> GradientTransformation:
+    """``init(params) -> ClipState`` on the params' device; ``update(grads,
+    state, params=None) -> (grads, state)`` with the grads scaled to fp32
+    norm <= ``max_norm``."""
 
-    def __init__(self, max_norm: float = 1.0):
-        self.max_norm = max_norm
-
-    def init(self, device="cpu") -> ClipState:
+    def init(params):
+        tensors = flat_tensors(params)
+        device = tensors[0].device if tensors else "cpu"
         return ClipState(torch.zeros((), dtype=torch.int32, device=device),
                          torch.zeros((), dtype=torch.int32, device=device),
                          torch.zeros((), dtype=torch.float32, device=device))
 
-    def update(self, grads: Tree, state: ClipState):
+    def update(grads, state, params=None):
+        del params
         norm = global_norm(grads)
-        trigger = norm > self.max_norm
-        scale = torch.where(trigger, self.max_norm / (norm + 1e-16),
+        trigger = norm > max_norm
+        scale = torch.where(trigger, max_norm / (norm + 1e-16),
                             torch.ones_like(norm))
         grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
         return grads, ClipState(state.count + 1,
                                 state.triggers + trigger.to(torch.int32),
                                 norm)
 
+    return GradientTransformation(init=init, update=update)
 
-def clip_by_global_norm(max_norm: float = 1.0) -> GlobalNormClip:
-    return GlobalNormClip(max_norm)
+
+def clip_trigger_rate(state: ClipState) -> torch.Tensor:
+    return state.triggers / torch.clamp_min(state.count, 1)

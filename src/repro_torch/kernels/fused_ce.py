@@ -21,7 +21,10 @@ unembedding without the (N, Vp) logits ever existing:
             rule of plain differentiable PyTorch (2048-column chunks), so
             the HVP's ``torch.func.jvp`` of ``torch.func.grad`` never
             reaches a backward kernel (the reference's ``custom_jvp``
-            twin).
+            twin);
+  chunked   :func:`chunked_lm_loss` (and its sampled form), the
+            reference's "chunked" loss route: the twin with the plain
+            sweep as its forward, no kernel on any device.
 
 On a CUDA tensor each entry point launches the hand-written kernels of
 ``csrc/fused_ce.cu`` (and adds one to its count in ``KERNEL_LAUNCHES``):
@@ -224,8 +227,9 @@ def _sweep_plain(h2, w, normp, labels, seed, *, vocab, transpose_w, softcap,
             hit = cols[None, :] == labels.to(torch.int64)[:, None]
             ll = ll + torch.where(hit, s, 0.0).sum(-1)
         else:
-            z = torch.where(valid, s + hash_gumbel(seed, rows, cols[None, :]),
-                            NEG_INF)
+            g = (seed(c0, bv) if callable(seed)
+                 else hash_gumbel(seed, rows, cols[None, :]))
+            z = torch.where(valid, s + g, NEG_INF)
             zm, zi, ll = online_argmax_step((zm, zi, ll), s, z, c0)
     lse = m + torch.log(torch.clamp_min(l, 1e-37))
     return lse, ll, zi
@@ -243,7 +247,10 @@ def ce_forward_plain(h2, w, normp, labels, *, vocab, transpose_w=False,
 def ce_forward_sampled_plain(h2, w, normp, seed, *, vocab,
                              transpose_w=False, softcap=None, norm=None,
                              eps=1e-6, chunk=CHUNK):
-    """(lse, drawn logit, ŷ int32) per row."""
+    """(lse, drawn logit, ŷ int32) per row.  ``seed`` is two uint32
+    values (the hash noise) or ``draw(c0, width) -> (N, width)`` fp32
+    Gumbel noise of the chunk of columns from ``c0``, called in chunk
+    order."""
     return _sweep_plain(h2, w, normp, None, seed, vocab=vocab,
                         transpose_w=transpose_w, softcap=softcap, norm=norm,
                         eps=eps, chunk=chunk)
@@ -629,6 +636,20 @@ class _FusedNLLTwin(torch.autograd.Function):
                                     **ctx.opts)
 
 
+class _ChunkedNLL(_FusedNLLTwin):
+    """The reference's "chunked" loss route: :class:`_FusedNLLTwin` with
+    the forward computed by the plain vocab sweep (:func:`ce_forward_plain`,
+    2048-column chunks, no kernel) on every device.  The backward and the
+    tangent recompute each chunk in plain PyTorch, so the route composes
+    with ``torch.func`` (the Hutchinson HVP of ``fused_loss=False``)."""
+
+    @staticmethod
+    def forward(h2, w, rowscale, labels, opts):
+        normp = torch.zeros((2, h2.shape[1]), dtype=_f32, device=h2.device)
+        lse, ll = ce_forward_plain(h2, w, normp, labels, **opts)
+        return torch.sum(rowscale * (lse - ll))
+
+
 def _nll_backward_chunked(h2, w, rowscale, labels, g, *, vocab, transpose_w,
                           softcap, norm, eps, chunk=CHUNK):
     """(dh, dW) of sum(rowscale * (lse - label logit)) in plain PyTorch
@@ -784,6 +805,38 @@ def fused_lm_loss_jvp(hidden, w, labels, mask=None, *, vocab_size,
         norm_eps=0.0)
     lab = labels.reshape(-1).to(torch.int32)
     return _FusedNLLTwin.apply(h2, w, rs, lab, opts), n_valid
+
+
+def chunked_lm_loss(hidden, w, labels, mask=None, *, vocab_size,
+                    transpose_w=False, softcap=None):
+    """The labeled NLL through the plain vocab sweep (:class:`_ChunkedNLL`):
+    no kernel on any device, derivatives of any order from plain PyTorch.
+    ``hidden`` is already normed.  Returns ``(loss, n_valid)``."""
+    h2, rs, n_valid, _, opts = _prep(
+        hidden, w, mask, vocab_size=vocab_size, transpose_w=transpose_w,
+        softcap=softcap, norm_kind=None, norm_scale=None, norm_bias=None,
+        norm_eps=0.0)
+    lab = labels.reshape(-1).to(torch.int32)
+    return _ChunkedNLL.apply(h2, w, rs, lab, opts), n_valid
+
+
+def chunked_lm_loss_sampled(hidden, w, draw, mask=None, *, vocab_size,
+                            transpose_w=False, softcap=None):
+    """GNB's sampled-label NLL through the plain vocab sweep: ŷ drawn by
+    online chunked Gumbel-argmax from ``draw(c0, width)`` (the noise of
+    each 2048-column chunk, :func:`ce_forward_sampled_plain`), then the
+    NLL against ŷ through :func:`chunked_lm_loss`.  Returns ``(loss,
+    n_valid)``."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    with torch.no_grad():
+        normp = torch.zeros((2, h2.shape[1]), dtype=_f32, device=h2.device)
+        _, _, yhat = ce_forward_sampled_plain(
+            h2.detach(), w.detach(), normp, draw, vocab=int(vocab_size),
+            transpose_w=bool(transpose_w),
+            softcap=float(softcap) if softcap else None)
+    return chunked_lm_loss(hidden, w, yhat.reshape(hidden.shape[:-1]), mask,
+                           vocab_size=vocab_size, transpose_w=transpose_w,
+                           softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -10,16 +10,18 @@ with ``--estimator`` gnb (the default), hutchinson or empirical_fisher,
 through flash attention and the logits-free fused loss (the CUDA kernels
 on the GPU, their plain versions with ``--device cpu``;
 ``--no-fused-attn`` takes the materialized-scores attention;
-``--fused-kernel`` runs the optimizer step on the engine kernels) and
-prints the reference's ``step N loss ... gnorm ...`` lines, and at the
-end, on the GPU, the peak device memory.  With ``--ckpt-dir`` it
+``--no-fused-loss`` the plain chunked loss sweep, with the GNB refresh
+from the sub-batch's materialized logits; ``--remat full|dots|scan2``
+recomputes the trunk's activations in the backward; ``--fused-kernel``
+runs the optimizer step on the engine kernels) and prints the
+reference's ``step N loss ... gnorm ...`` lines, and at the end, on the
+GPU, the peak device memory.  With ``--ckpt-dir`` it
 checkpoints every ``--ckpt-every`` steps and at the end, and resumes from
 the newest complete checkpoint there; resuming with another optimizer or
 state dtype is refused.  The reference's flags of options the port does
-not have yet (``--no-fused-loss``, ``--remat``, ``--compress-grads``,
-``--compress-hess``, ``--comm-telemetry``) raise
-``NotImplementedError``; the multi-host and elastic flags are not
-offered.
+not have yet (``--compress-grads``, ``--compress-hess``,
+``--comm-telemetry``) raise ``NotImplementedError``; the multi-host and
+elastic flags are not offered.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..core.engine import FAMILIES
 from ..data import DataConfig, make_source
+from ..models.transformer import REMATS
 from ..serve.engine import resolve_device
 from ..train import TrainerConfig, checkpoint as ckpt, make_engine, \
     make_train_fns
@@ -53,14 +56,15 @@ def main(argv=None):
     ap.add_argument("--hess-interval", type=int, default=10)
     ap.add_argument("--hess-subbatch", type=int, default=8)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--remat", default="none")
+    ap.add_argument("--remat", default="none", choices=list(REMATS))
     ap.add_argument("--fused-kernel", action="store_true",
                     help="the optimizer step on the engine kernels "
                          "(kernels/sophia_update.py)")
     ap.add_argument("--fused-loss", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="logits-free fused CE + in-sweep GNB sampling "
-                         "(--no-fused-loss is not ported: raises)")
+                         "(kernels/fused_ce.py); --no-fused-loss takes the "
+                         "plain chunked sweep")
     ap.add_argument("--fused-attn", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="flash attention on the train path (the CUDA "

@@ -10,9 +10,10 @@ The counterpart of ``repro/models/layers.py``, with its conventions:
     that generator's device.
 
 Training attention takes the flash kernels (``kernels/flash_attention.py``,
-the reference's default route, ``fused_attn=True``) or
-:func:`full_attention`, which materializes the (S, S) scores in fp32 (the
-reference's ``fused_attn=False``).  Serving attention writes the slot cache
+the reference's default route, ``fused_attn=True``), :func:`full_attention`,
+which materializes the (S, S) scores in fp32 (the reference's
+``fused_attn=False``), or :func:`chunked_attention`, the reference's online
+softmax over KV blocks in plain PyTorch (above 4096 tokens on "auto").  Serving attention writes the slot cache
 in place (the reference returns a new cache): decode writes one token per active slot, prefill one chunk of
 one slot.  Decode attention goes through ``kernels/decode_attention.py``
 with q pre-scaled in fp32 and rounded to its dtype, the convention of the
@@ -155,6 +156,53 @@ def _flash_attention_proj(p, x, cfg: ModelConfig, *, window=None,
     return out @ p["wo"].to(dt)
 
 
+def chunked_attention(p, x, cfg: ModelConfig, *, window=None,
+                      layer_scale=1.0, kv_block: int = 1024):
+    """Causal training attention as an online softmax over KV blocks, the
+    reference's ``chunked_attention``: the (S, S) scores never exist, the
+    largest temporary is (B, Hkv, G, S, kv_block).  ``kv_block`` shrinks to
+    the largest divisor of S at most the request; scores ``q.k * scale``
+    in fp32 (scale ``layer_scale / sqrt(hd)`` in Python double, as the
+    reference's), softcap, the causal (and window) mask at the -1e30
+    sentinel, a running max from -inf, the block's weights cast to x's
+    dtype before ``p . v``.  x (B, S, D) -> (B, S, D)."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    scale = layer_scale / math.sqrt(cfg.hd)
+    Hkv, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    qg = q.reshape(B, S, Hkv, G, hd).to(torch.float32)
+    kv_block = min(kv_block, S)           # short sequences: one block
+    while S % kv_block:                   # largest divisor <= requested
+        kv_block -= 1
+    qpos = torch.arange(S, device=x.device)[:, None]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m_run = torch.full((B, Hkv, G, S), -math.inf, **f32)
+    l_run = torch.zeros((B, Hkv, G, S), **f32)
+    acc = torch.zeros((B, Hkv, G, S, hd), **f32)
+    for start in range(0, S, kv_block):
+        kb = k[:, start:start + kv_block]
+        vb = v[:, start:start + kv_block]
+        scores = torch.einsum("bskgh,btkh->bkgst", qg,
+                              kb.to(torch.float32)) * scale
+        scores = _softcap(scores, cfg.attn_logit_softcap)
+        kpos = start + torch.arange(kv_block, device=x.device)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+        m_new = torch.maximum(m_run, scores.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        pexp = torch.exp(scores - m_new[..., None])
+        l_run = l_run * alpha + pexp.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkh->bkgsh", pexp.to(dt), vb).to(torch.float32)
+        m_run = m_new
+    out = (acc / torch.clamp_min(l_run, 1e-30)[..., None]).to(dt)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(dt)
+
+
 TRAIN_ATTN_IMPLS = ("auto", "full", "chunked", "flash", "flash_jvp")
 
 
@@ -163,9 +211,9 @@ def train_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0,
     """Route one training attention call: "flash" takes the flash kernels
     (:func:`_flash_attention_proj`), "flash_jvp" their twin of the
     Hutchinson HVP (the forward kernel, a backward that autograd can
-    differentiate again); "auto" and "full" take :func:`full_attention`
-    up to 4096 tokens.  The chunked route (above 4096 tokens) is not
-    ported yet and raises."""
+    differentiate again), "chunked" :func:`chunked_attention`, "full"
+    :func:`full_attention`; "auto" (and None) takes the chunked route above
+    4096 tokens and the full one up to there, the reference's heuristic."""
     impl = impl or "auto"
     if impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -173,10 +221,9 @@ def train_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0,
         return _flash_attention_proj(p, x, cfg, window=window,
                                      layer_scale=layer_scale,
                                      use_jvp=impl == "flash_jvp")
-    if impl == "chunked" or x.shape[1] > 4096:
-        raise NotImplementedError(
-            "chunked training attention (sequences above 4096 tokens) is "
-            "not ported yet")
+    if impl == "chunked" or (impl == "auto" and x.shape[1] > 4096):
+        return chunked_attention(p, x, cfg, window=window,
+                                 layer_scale=layer_scale)
     return full_attention(p, x, cfg, window=window, layer_scale=layer_scale)
 
 
@@ -324,3 +371,17 @@ def unembed(p, x, cfg: ModelConfig):
         cols = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = torch.where(cols < cfg.vocab_size, logits, NEG_INF)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Token-level CE of fp32 logits (..., V) against int labels (...):
+    the masked mean ``sum(nll * mask) / max(sum(mask), 1)``, or the mean."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.to(torch.int64)[..., None])[..., 0]
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+    return nll.mean()

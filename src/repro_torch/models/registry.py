@@ -9,7 +9,8 @@ from .common import ModelConfig
 
 def get_model(cfg: ModelConfig) -> SimpleNamespace:
     """The family's training functions (``forward_hidden``, ``forward``,
-    ``loss_fn``, ``sampled_loss_fn``, as in ``models/transformer.py``) and
+    ``loss_fn``, ``sampled_loss_fn``, ``logits_fn``, as in
+    ``models/transformer.py``) and
     its serve-engine slot protocol:
 
         init_params(cfg, generator)                     -> Transformer
@@ -29,6 +30,7 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
             forward=transformer.forward,
             loss_fn=transformer.loss_fn,
             sampled_loss_fn=transformer.sampled_loss_fn,
+            logits_fn=transformer.logits_fn,
             init_slots=transformer.init_slots,
             prefill_into_slot=transformer.prefill_into_slot,
             decode_slots=transformer.decode_slots,

@@ -13,9 +13,10 @@ with each stacked leaf as a list of per-layer tensors (``core/types.py``),
 the view the optimizer engine ravels.
 
 Training (``forward_hidden``, ``forward``, ``loss_fn``,
-``sampled_loss_fn``): the reference's trunk with its materialized-scores
-attention (``fused_attn=False``) and the logits-free fused loss with the
-final norm fused into the sweep (``models/loss.py``).
+``sampled_loss_fn``, ``logits_fn``): the reference's trunk on every
+training-attention route (``models/layers.py:train_attention``) and remat
+policy, and the LM loss on every route (``models/loss.py``; the fused one
+with the final norm fused into the sweep).
 
 Slot protocol (continuous-batching engine, ``serve/engine.py``): the cache
 is the reference's slot-major ring, a dict of leaves with a leading layer
@@ -27,6 +28,7 @@ cache in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -134,10 +136,36 @@ def layer_scales(cfg: ModelConfig) -> List[float]:
 # training forward
 
 
-def _check_remat(remat: str) -> None:
-    if remat != "none":
-        raise NotImplementedError(f"remat {remat!r} is not ported; only "
-                                  "'none'")
+REMATS = ("none", "full", "dots", "scan2")
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable`` in PyTorch's
+    selective checkpointing: keep the outputs of the weight products
+    (``aten.mm``/``addmm``; x @ W of a (B, S, D) x lowers to ``mm``) and
+    recompute the rest, the batched products and the attention kernels'
+    outputs among it."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` with its activations recomputed in the backward: all of them
+    ("full") or all but the weight products' ("dots")."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
+
+
+def _scan_groups(n: int) -> int:
+    """The group size of "scan2" (the reference's ``transformer.py:226``)."""
+    return next(d for d in (8, 5, 4, 2) if n % d == 0)
 
 
 def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
@@ -146,19 +174,58 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
     """tokens (B, S) -> (hidden (B, S, D), aux): the trunk shared by
     :func:`forward` and the losses.  ``final_norm=False`` returns the
     PRE-norm hidden, which the fused loss normalizes inside its sweep.
-    ``aux`` is the MoE load-balance term, 0 for the dense family."""
-    _check_remat(remat)
+    ``aux`` is the MoE load-balance term, 0 for the dense family.
+
+    ``remat`` trades the backward's memory for a second forward, the
+    reference's policies: "full" recomputes every layer
+    (``torch.utils.checkpoint``), "dots" every layer but its weight
+    products' outputs (selective checkpointing), "scan2" checkpoints groups
+    of g layers (g the first of 8, 5, 4, 2 that divides the layer count)
+    and every layer inside a group again, so that the backward holds g
+    layer inputs at a time; with fewer than 4 layers "scan2" is the plain
+    loop, as in the reference.  Values do not change, and recomputed flash
+    layers launch the forward kernel again."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r} (one of {REMATS})")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = embed(params.embed, tokens, cfg, positions)
     windows = layer_windows(cfg)
     scales = layer_scales(cfg)
-    for i, layer in enumerate(params.layers):
-        h = _norm(layer.ln1, x, cfg)
-        x = x + train_attention(layer.attn, h, cfg, window=windows[i],
-                                layer_scale=scales[i], impl=attn_impl)
-        x = x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+
+    def layer_fn(i):
+        layer = params.layers[i]
+
+        def run(x):
+            h = _norm(layer.ln1, x, cfg)
+            x = x + train_attention(layer.attn, h, cfg, window=windows[i],
+                                    layer_scale=scales[i], impl=attn_impl)
+            return x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+        return run
+
+    n = len(params.layers)
+    if remat == "scan2" and n >= 4:
+        g = _scan_groups(n)
+
+        def group_fn(start):
+            inner = [_checkpointed(layer_fn(i), "full")
+                     for i in range(start, start + g)]
+
+            def run(x):
+                for f in inner:
+                    x = f(x)
+                return x
+            return run
+
+        for start in range(0, n, g):
+            x = _checkpointed(group_fn(start), "full")(x)
+    else:
+        for i in range(n):
+            run = layer_fn(i)
+            if remat in ("full", "dots"):
+                run = _checkpointed(run, remat)
+            x = run(x)
     if final_norm:
         x = _norm(params.final_norm, x, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -187,17 +254,28 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch, *,
 
 
 def sampled_loss_fn(cfg: ModelConfig, params: Transformer, batch, seed, *,
-                    attn_impl="auto", remat="none", loss_impl=None):
+                    attn_impl="auto", remat="none", loss_impl=None,
+                    **draws):
     """GNB's sampled-label NLL (Algorithm 2): ``(nll, n_valid)`` with the
     labels drawn from the model's own softmax inside the loss sweep, from
-    the hash noise of ``seed`` (two uint32 values)."""
+    the hash noise of ``seed`` (two uint32 values) on the fused route
+    (``models/loss.py:lm_loss_sampled`` for the others and ``draws``)."""
     from .loss import lm_loss_sampled
     hidden, _ = forward_hidden(cfg, params, batch["tokens"],
                                positions=batch.get("positions"),
                                attn_impl=attn_impl, remat=remat,
                                final_norm=False)
     return lm_loss_sampled(cfg, params, hidden, seed, batch.get("mask"),
-                           impl=loss_impl, pre_norm=cfg.norm_type)
+                           impl=loss_impl, pre_norm=cfg.norm_type, **draws)
+
+
+def logits_fn(cfg: ModelConfig, params: Transformer, batch, **kw):
+    """The logits (B, S, V) fp32 of ``batch["tokens"]``: the view of the
+    GNB estimator from materialized logits (Algorithm 2 line 3)."""
+    kw.pop("loss_impl", None)
+    logits, _ = forward(cfg, params, batch["tokens"],
+                        positions=batch.get("positions"), **kw)
+    return logits
 
 
 # ---------------------------------------------------------------------------

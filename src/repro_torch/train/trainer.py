@@ -1,9 +1,12 @@
 """Training loop, Algorithm 3 with the refresh at ``t % k == 0``: the
 counterpart of ``repro/train/trainer.py`` for every optimizer of the
 paper's comparison (Sophia-G and Sophia-H, AdamW, Lion, SignGD, SGD,
-AdaHessian) and the GNB, Hutchinson and empirical-Fisher estimators, with
-flash attention (``fused_attn``, the default), the logits-free fused loss
-and, with ``fused_kernel``, the engine kernels.
+AdaHessian) and the GNB, Hutchinson and empirical-Fisher estimators, on
+every training-attention route (flash attention with ``fused_attn``, the
+default; ``attn_impl`` "full" or "chunked"), both loss routes (the
+logits-free fused CE with ``fused_loss``, the default, else the plain
+chunked sweep), every remat policy and, with ``fused_kernel``, the engine
+kernels.
 
 Every step:
   grad accumulation over microbatches -> global-norm clip (threshold 1.0,
@@ -11,23 +14,33 @@ Every step:
 On a refresh step of a hessian-aware optimizer (Sophia, AdaHessian) the
 engine update is ``step_with_refresh``: before it, the estimate is taken
 on the first ``hess_subbatch`` rows of the batch from the pre-update
-parameters and folds into the Hessian EMA with its scale.  GNB draws ŷ
-inside the fused CE forward sweep, takes ĝ by autograd and squares it in
-flat space, B = the sweep's valid-position count; Hutchinson takes u ⊙ Hu
-forward-over-reverse (``torch.func.jvp`` of ``torch.func.grad`` of the loss
-as a function of the parameters) through the loss and attention twins
-(``fused_jvp``, ``flash_jvp``), scale 1; the empirical Fisher squares the true-label gradient, B = the
-sub-batch's positions.  The reference makes this one compiled
-program under a traced flag; the port runs eagerly and branches in Python
-on the same flag.
+parameters and folds into the Hessian EMA with its scale.
+  * GNB with ``fused_loss`` draws ŷ inside the fused CE forward sweep and
+    takes ĝ by autograd, B = the sweep's valid-position count; without it,
+    the sub-batch's logits are materialized (``logits_fn``) and one chunked
+    sweep draws ŷ and forms the log-sum-exp (``gnb_ghat_flat``), B = the
+    valid positions.  ĝ is squared in flat space.
+  * Hutchinson takes u ⊙ Hu forward-over-reverse (``torch.func.jvp`` of
+    ``torch.func.grad`` of the loss as a function of the parameters)
+    through the loss twin ("fused_jvp", or the chunked loss without
+    ``fused_loss``) and the attention twin ("flash_jvp"), scale 1.  Its
+    trunk runs without remat: ``torch.utils.checkpoint`` does not compose
+    with ``torch.func`` (the reference remats there; remat changes memory,
+    not values).
+  * The empirical Fisher squares the true-label gradient, B = the
+    sub-batch's positions.
+The reference makes this one compiled program under a traced flag; the
+port runs eagerly and branches in Python on the same flag.
 
 The reference draws the refresh's randomness from its JAX key stream
 (``fold_in(fold_in(rng, RNG_TAG_HESS), step)``), which PyTorch cannot
 reproduce; the port derives its own from ``(seed, RNG_TAG_HESS, step)``
-with numpy: GNB's noise seed (:func:`hess_seed`) and Hutchinson's probe
-(:func:`hess_probe`, a ``torch.Generator`` seeded from it).
-``hess_seed_fn(step)`` and ``probe_fn(step, layout)`` replace those
-draws; the parity tests use them to pass in the reference's.
+with numpy: GNB's noise seed of the fused sweep (:func:`hess_seed`), and a
+``torch.Generator`` seeded from it (:func:`hess_generator`) for
+Hutchinson's probe (:func:`hess_probe`) and the Gumbel noise of the
+chunked GNB sweep.  ``hess_seed_fn(step)``, ``probe_fn(step, layout)`` and
+``noise_fn(step, shape)`` replace those draws; the parity tests use them
+to pass in the reference's.
 
 Options of the reference trainer this slice does not port raise
 ``NotImplementedError`` (:func:`check_ported`).
@@ -42,11 +55,13 @@ import torch
 
 from ..core import (OptimizerEngine, clip_by_global_norm, constant,
                     empirical_fisher_estimator_flat, functional_loss,
-                    gnb_ghat_flat_from_loss, hessian_aware_optimizer,
-                    hutchinson_estimator_flat, linear_warmup_cosine,
-                    subsample_batch)
+                    gnb_ghat_flat, gnb_ghat_flat_from_loss,
+                    hessian_aware_optimizer, hutchinson_estimator_flat,
+                    linear_warmup_cosine, subsample_batch)
 from ..core.types import flat_tensors, tree_unflatten
 from ..models import ModelConfig, get_model
+from ..models.layers import TRAIN_ATTN_IMPLS
+from ..models.transformer import REMATS
 from ..serve.engine import resolve_device
 from .train_state import TrainState
 
@@ -72,14 +87,15 @@ class TrainerConfig:
     grad_clip: float = 1.0
     clip_threshold: float = 1.0        # Sophia rho
     grad_accum: int = 1
-    remat: str = "none"
+    remat: str = "none"                # none | full | dots | scan2
     attn_impl: str = "auto"
     fused_attn: bool = True            # flash attention (rows 16-18) while
     #                                    attn_impl is "auto"; False trains
     #                                    on the materialized-scores route
     fused_kernel: bool = False         # engine kernels (rows 2-10):
     #                                    the engine's "fused" backend
-    fused_loss: bool = True            # the logits-free fused CE kernels
+    fused_loss: bool = True            # the logits-free fused CE kernels;
+    #                                    False: the plain chunked sweep
     compress_grads: bool = False
     compress_hess: bool = False
     comm_telemetry: bool = False
@@ -89,22 +105,21 @@ class TrainerConfig:
 
 def check_ported(tc: TrainerConfig) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not
-    port, rather than quietly running something else."""
-    refused = {
-        f"attn_impl={tc.attn_impl!r}":
-            tc.attn_impl not in ("auto", "full", "flash", "flash_jvp"),
-        "fused_loss=False (the chunked loss draws with jax.random)":
-            not tc.fused_loss,
-        "compress_grads": tc.compress_grads,
-        "compress_hess": tc.compress_hess,
-        "comm_telemetry": tc.comm_telemetry,
-        f"remat={tc.remat!r}": tc.remat != "none",
-    }
+    port (gradient and estimator compression, communication telemetry),
+    rather than quietly running something else, and ``ValueError`` for an
+    unknown one."""
+    refused = {"compress_grads": tc.compress_grads,
+               "compress_hess": tc.compress_hess,
+               "comm_telemetry": tc.comm_telemetry}
     bad = [name for name, hit in refused.items() if hit]
     if bad:
         raise NotImplementedError(
-            "not ported yet (the port trains with the fused loss, without "
-            f"remat or compression): {', '.join(bad)}")
+            "not ported yet (the port trains on one device, without "
+            f"compression): {', '.join(bad)}")
+    if tc.attn_impl not in TRAIN_ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {tc.attn_impl!r}")
+    if tc.remat not in REMATS:
+        raise ValueError(f"unknown remat {tc.remat!r} (one of {REMATS})")
     if tc.state_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"state_dtype {tc.state_dtype!r}")
     if tc.estimator not in ESTIMATORS:
@@ -155,14 +170,20 @@ def hess_seed(seed: int, step: int):
     return int(bits[0]), int(bits[1])
 
 
+def hess_generator(seed: int, step: int, device) -> torch.Generator:
+    """The port's generator of the refresh at ``step``: a
+    ``torch.Generator`` on ``device`` seeded from numpy with ``(seed,
+    RNG_TAG_HESS, step)``."""
+    gen_seed = int(np.random.default_rng((seed, RNG_TAG_HESS, step))
+                   .integers(0, 1 << 63, dtype=np.int64))
+    return torch.Generator(device=device).manual_seed(gen_seed)
+
+
 def hess_probe(seed: int, step: int, layout, device):
     """The port's Hutchinson probe u ~ N(0, I) of the refresh at ``step``:
     one fp32 draw per flat shard (as the reference draws it, per shard)
-    from a ``torch.Generator`` on ``device`` seeded from numpy with
-    ``(seed, RNG_TAG_HESS, step)``."""
-    gen_seed = int(np.random.default_rng((seed, RNG_TAG_HESS, step))
-                   .integers(0, 1 << 63, dtype=np.int64))
-    gen = torch.Generator(device=device).manual_seed(gen_seed)
+    from :func:`hess_generator`."""
+    gen = hess_generator(seed, step, device)
     return tuple(torch.randn((n,), generator=gen, dtype=torch.float32,
                              device=device) for n in layout.shard_sizes)
 
@@ -174,10 +195,14 @@ def to_device_batch(batch: dict, device) -> dict:
 
 def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
                    hess_seed_fn: Optional[Callable] = None,
-                   probe_fn: Optional[Callable] = None):
+                   probe_fn: Optional[Callable] = None,
+                   noise_fn: Optional[Callable] = None):
     """Returns ``(init_fn, train_step)``.  ``hess_seed_fn(step)`` replaces
-    GNB's noise seed and ``probe_fn(step, layout)`` Hutchinson's probe
-    shards (:func:`hess_seed`, :func:`hess_probe`).
+    GNB's noise seed of the fused sweep, ``probe_fn(step, layout)``
+    Hutchinson's probe shards (:func:`hess_seed`, :func:`hess_probe`) and
+    ``noise_fn(step, shape)`` the Gumbel noise of the chunked GNB sweep
+    (``fused_loss=False``): the whole (B, S, Vp) tensor of the sub-batch's
+    logits, in place of draws from :func:`hess_generator`.
 
     ``init_fn(params=None) -> TrainState``: random parameters from a
     ``torch.Generator`` seeded with ``tc.seed`` on the device, or the given
@@ -198,8 +223,10 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
     attn_impl = (tc.attn_impl if tc.attn_impl != "auto"
                  else ("flash" if tc.fused_attn else "auto"))
     # the HVP differentiates twice (forward over reverse): it takes the
-    # attention twin of the flash route, as the reference does
+    # attention and loss twins, as the reference does (trainer.py:222,278)
     hvp_attn_impl = "flash_jvp" if attn_impl == "flash" else attn_impl
+    loss_impl = "fused" if tc.fused_loss else "chunked"
+    hvp_loss_impl = "fused_jvp" if tc.fused_loss else "chunked"
 
     def init_fn(params=None) -> TrainState:
         if params is None:
@@ -207,7 +234,7 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
             params = model.init_params(cfg, gen)
         tree = params.param_tree()
         return TrainState(step=0, params=params, opt_state=engine.init(tree),
-                          clip_state=clipper.init(device), rng=tc.seed)
+                          clip_state=clipper.init(tree), rng=tc.seed)
 
     def grads_of(params, batch):
         """(loss, metrics, grads as a flat tensor list): the mean over
@@ -220,7 +247,7 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         loss_sum, met_sum, g_sum = None, None, None
         for mb in micro:
             loss, met = model.loss_fn(cfg, params, mb, attn_impl=attn_impl,
-                                      remat=tc.remat)
+                                      remat=tc.remat, loss_impl=loss_impl)
             g = torch.autograd.grad(loss, tensors)
             loss = loss.detach()
             met = {k: v.detach() for k, v in met.items()}
@@ -243,7 +270,7 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         lay = engine.layout(tree)
         sub = (subsample_batch(batch, tc.hess_subbatch) if tc.hess_subbatch
                else batch)
-        if tc.estimator == "gnb":
+        if tc.estimator == "gnb" and tc.fused_loss:
             def sampled_loss():
                 return model.sampled_loss_fn(cfg, params, sub, seed_of(step),
                                              attn_impl=attn_impl,
@@ -251,18 +278,32 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
 
             g_sh, scale = gnb_ghat_flat_from_loss(sampled_loss, tree, lay)
             return tuple(g * g for g in g_sh), scale
+        if tc.estimator == "gnb":
+            # the sub-batch's logits materialized, one chunked sweep
+            def logits(_):
+                return model.logits_fn(cfg, params, sub, attn_impl=attn_impl,
+                                       remat=tc.remat)
+
+            shape = tuple(sub["tokens"].shape) + (cfg.padded_vocab,)
+            noise = noise_fn(step, shape) if noise_fn else None
+            gen = (None if noise_fn else
+                   hess_generator(tc.seed, step, device))
+            g_sh, scale = gnb_ghat_flat(logits, tree, gen, lay,
+                                        mask=sub.get("mask"), noise=noise)
+            return tuple(g * g for g in g_sh), scale
         if tc.estimator == "hutchinson":
+            # no remat under torch.func (see the module docstring)
             loss = functional_loss(
                 params, flat_tensors(tree),
                 lambda m: model.loss_fn(cfg, m, sub, attn_impl=hvp_attn_impl,
-                                        remat=tc.remat,
-                                        loss_impl="fused_jvp")[0])
+                                        remat="none",
+                                        loss_impl=hvp_loss_impl)[0])
             return hutchinson_estimator_flat(loss, tree, probe_of(step, lay),
                                              lay), 1.0
         # empirical Fisher: B counts the sub-batch's positions
         def loss():
             return model.loss_fn(cfg, params, sub, attn_impl=attn_impl,
-                                 remat=tc.remat)[0]
+                                 remat=tc.remat, loss_impl=loss_impl)[0]
 
         lead = sub[sorted(sub)[0]]
         n = lead.shape[0] * (lead.shape[1] if lead.dim() > 1 else 1)
@@ -300,6 +341,7 @@ def train_loop(cfg: ModelConfig, tc: TrainerConfig, source, *,
                num_steps: int, state: Optional[TrainState] = None,
                device=None, hess_seed_fn: Optional[Callable] = None,
                probe_fn: Optional[Callable] = None,
+               noise_fn: Optional[Callable] = None,
                callback: Optional[Callable] = None, start_step: int = 0):
     """Single-process loop: the batch of step t from ``source.batch_at(t)``
     and the refresh at ``t % hess_interval == 0``.  Returns ``(state,
@@ -307,7 +349,8 @@ def train_loop(cfg: ModelConfig, tc: TrainerConfig, source, *,
     device = resolve_device(device)
     init_fn, train_step = make_train_fns(cfg, tc, device=device,
                                          hess_seed_fn=hess_seed_fn,
-                                         probe_fn=probe_fn)
+                                         probe_fn=probe_fn,
+                                         noise_fn=noise_fn)
     if state is None:
         state = init_fn()
     needs_hess = hessian_aware_optimizer(tc.optimizer)

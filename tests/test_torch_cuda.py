@@ -373,10 +373,21 @@ def _cpu_probe(seed, device):
     return probe
 
 
+def _cpu_noise(seed, device):
+    """The Gumbel noise of the chunked GNB sweep drawn on the CPU and moved
+    to ``device``: the card and the CPU run then draw the same labels."""
+    from repro_torch.core.estimators import gumbel
+    from repro_torch.train import hess_generator
+
+    def noise(step, shape):
+        return gumbel(shape, hess_generator(seed, step, "cpu")).to(device)
+    return noise
+
+
 def _train_card_and_cpu(cuda_device, cfg, tc):
-    """Four steps on the card and on the CPU from the same weights and
-    Hutchinson probes: (card history, CPU history, the card run's launch
-    counts)."""
+    """Four steps on the card and on the CPU from the same weights,
+    Hutchinson probes and Gumbel noise: (card history, CPU history, the
+    card run's launch counts)."""
     src = make_source(DataConfig(seq_len=32, global_batch=4,
                                  vocab_size=cfg.vocab_size))
     init_fn, _ = make_train_fns(cfg, tc, device=cuda_device)
@@ -387,12 +398,14 @@ def _train_card_and_cpu(cuda_device, cfg, tc):
     reset_launch_counts()
     state, hist = train_loop(cfg, tc, src, num_steps=4, state=state,
                              device=cuda_device,
-                             probe_fn=_cpu_probe(tc.seed, cuda_device))
+                             probe_fn=_cpu_probe(tc.seed, cuda_device),
+                             noise_fn=_cpu_noise(tc.seed, cuda_device))
     launches = dict(KERNEL_LAUNCHES)
     cpu_init, _ = make_train_fns(cfg, tc, device="cpu")
     _, hist_cpu = train_loop(cfg, tc, src, num_steps=4,
                              state=cpu_init(cpu_params), device="cpu",
-                             probe_fn=_cpu_probe(tc.seed, "cpu"))
+                             probe_fn=_cpu_probe(tc.seed, "cpu"),
+                             noise_fn=_cpu_noise(tc.seed, "cpu"))
     return hist, hist_cpu, launches
 
 
@@ -597,3 +610,76 @@ def test_trainer_launches_baseline_kernels(cuda_device, over):
     k = 3 if opt == "adahessian" else 4
     np.testing.assert_allclose(losses[:k], [h["loss"] for h in hist_cpu][:k],
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("over,launches", [
+    # remat "full": each flash layer's forward runs again in the backward
+    (dict(remat="full"),
+     {"ce_forward": 4, "ce_forward_sampled": 2, "ce_backward_dh": 6,
+      "ce_backward_dw": 6, "attn_fwd": 12, "attn_bwd_dq": 6,
+      "attn_bwd_dkv": 6}),
+    # the chunked loss and the GNB refresh from materialized logits: no CE
+    # kernel
+    (dict(fused_loss=False),
+     {"attn_fwd": 6, "attn_bwd_dq": 6, "attn_bwd_dkv": 6}),
+    # chunked attention: no attention kernel
+    (dict(attn_impl="chunked"),
+     {"ce_forward": 4, "ce_forward_sampled": 2, "ce_backward_dh": 6,
+      "ce_backward_dw": 6})])
+def test_trainer_routes_launch_what_they_run(cuda_device, over, launches):
+    """Four GPT2_TINY steps on the card (refresh at 0 and 2) on the
+    trainer's other routes: the launch counts per layer (``launches``
+    gives the attention kernels' per layer) and the losses against the
+    CPU's plain path (fp32)."""
+    cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
+    tc = TrainerConfig(peak_lr=5e-4, total_steps=8, warmup_steps=2,
+                       hess_interval=2, hess_subbatch=2, **over)
+    hist, hist_cpu, got = _train_card_and_cpu(cuda_device, cfg, tc)
+    want = {k: v * (cfg.n_layers if k.startswith("attn") else 1)
+            for k, v in launches.items()}
+    assert got == want
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in hist_cpu], rtol=1e-4)
+
+
+def test_per_leaf_sophia_matches_the_engine_on_card(cuda_device):
+    """``chain(clip_by_global_norm(1.0), sophia_g(lr))`` on a GPT2_TINY
+    parameter tree on the card against the engine's fused backend, fed the
+    same gradients and Hessian estimate: 4 steps, the parameters within
+    1e-6, the same clip fractions."""
+    from repro_torch.core import (apply_updates, chain, clip_by_global_norm,
+                                  ravel_shards, sophia_g, tree_map)
+    from repro_torch.core.types import flat_tensors
+    from repro_torch.train import make_engine
+
+    cfg = dataclasses.replace(GPT2_TINY, dtype="float32")
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tree = tree_map(lambda t: t.detach().clone(), params.param_tree())
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    grads = [tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                            device=cuda_device), tree)
+             for _ in range(4)]
+    est = tree_map(lambda t: torch.rand(t.shape, generator=gen,
+                                        device=cuda_device) * 1e-3, tree)
+    tc = TrainerConfig(fused_kernel=True, peak_lr=1e-3)
+    opt = chain(clip_by_global_norm(1.0), sophia_g(1e-3))
+    p_leaf = tree_map(lambda t: t.clone(), tree)
+    s_leaf = opt.update_hessian(est, opt.init(p_leaf))
+    engine, clip = make_engine(tc), clip_by_global_norm(1.0)
+    p_eng = tree_map(lambda t: t.clone(), tree)
+    lay = engine.layout(p_eng)
+    e_state = engine.update_hessian(engine.init(p_eng),
+                                    ravel_shards(lay, est, dtype=torch.float32),
+                                    params=p_eng)
+    c_state = clip.init(p_eng)
+    for g in grads:
+        upd, s_leaf = opt.update(g, s_leaf, p_leaf)
+        p_leaf = apply_updates(p_leaf, upd)
+        g_c, c_state = clip.update(g, c_state)
+        _, e_state = engine.step_shards(e_state, p_eng,
+                                        engine.ravel_grads(p_eng, g_c),
+                                        torch.tensor(1e-3, device=cuda_device))
+        assert float(s_leaf[1].clip_fraction) == float(e_state.clip_fraction)
+    for a, b in zip(flat_tensors(p_leaf), flat_tensors(p_eng)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)

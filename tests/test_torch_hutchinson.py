@@ -117,6 +117,37 @@ def test_hutchinson_flat_matches_reference(weights, attn):
                 [t.numpy() for t in unravel_shards(lay, wt)])
 
 
+def test_hutchinson_on_the_chunked_loss_matches_reference(weights):
+    """The trainer's HVP with ``fused_loss=False``: the chunked loss (its
+    backward and tangent recomputing each vocabulary chunk, plain
+    PyTorch) and flash attention's twin against the reference's chunked
+    loss (a checkpointed ``lax.scan``) and ``flash_jvp``, the same probe
+    shards: every leaf within 1e-5 of its largest |u ⊙ Hu|."""
+    params, tparams = weights
+    jb, tb = _batch()
+    jm, tm = jax_get_model(CFG32), get_model(TCFG32)
+    jlay = jax_build_layout(params)
+    rng = jax.random.PRNGKey(5)
+    want = jest.hutchinson_estimator_flat(
+        lambda p: jm.loss_fn(CFG32, p, jb, attn_impl="flash_jvp",
+                             loss_impl="chunked")[0], params, rng, jlay)
+    keys = jax.random.split(rng, jlay.n_shards)
+    u_sh = tuple(torch.from_numpy(np.array(
+        jax.random.normal(k, (s,), jnp.float32)))
+        for k, s in zip(keys, jlay.shard_sizes))
+    tree = tparams.param_tree()
+    lay = build_layout(tree)
+    got = hutchinson_estimator_flat(
+        functional_loss(tparams, flat_tensors(tree),
+                        lambda m: tm.loss_fn(TCFG32, m, tb,
+                                             attn_impl="flash_jvp",
+                                             loss_impl="chunked")[0]),
+        tree, u_sh, lay)
+    wt = tuple(torch.from_numpy(np.asarray(w_)) for w_ in want)
+    _leaf_close([t.numpy() for t in unravel_shards(lay, got)],
+                [t.numpy() for t in unravel_shards(lay, wt)])
+
+
 def test_hutchinson_tree_form_matches_reference(weights):
     """The tree form with the reference's per-leaf probe (``split`` over
     the leaves), on the materialized attention and the loss twin."""

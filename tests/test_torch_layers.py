@@ -119,3 +119,68 @@ def test_attention_scale_rounds_in_fp32():
         cfg = dataclasses.replace(TCFG, head_dim=hd)
         want = jnp.asarray(s, jnp.float32) / np.sqrt(hd)
         assert tl.attention_scale(cfg, s) == float(want)
+
+
+def _attn_params(r, D, H, Hkv, hd):
+    return {"wq": r.standard_normal((D, H * hd), dtype=np.float32) / np.sqrt(D),
+            "wk": r.standard_normal((D, Hkv * hd), dtype=np.float32)
+            / np.sqrt(D),
+            "wv": r.standard_normal((D, Hkv * hd), dtype=np.float32)
+            / np.sqrt(D),
+            "wo": r.standard_normal((H * hd, D), dtype=np.float32)
+            / np.sqrt(H * hd)}
+
+
+@pytest.mark.parametrize("S,kv_block,window,softcap,heads,dtype", [
+    (40, 16, None, None, (4, 4), "float32"),     # 16 shrinks to 10
+    (40, 1024, None, None, (4, 4), "float32"),   # one block
+    (48, 16, 9, 20.0, (4, 2), "float32"),        # window, softcap, GQA
+    (33, 8, None, None, (4, 1), "float32"),      # 33 = 3 x 11: blocks of 3
+    (40, 16, 7, None, (4, 4), "bfloat16")])
+def test_chunked_attention_matches_reference(S, kv_block, window, softcap,
+                                             heads, dtype):
+    """The online softmax over KV blocks (kv_block shrunk to a divisor of
+    S, the -1e30 mask, a -inf initial max) against the reference's
+    ``chunked_attention`` on the same inputs: fp32 within 1e-6, bf16
+    within 2e-2 (the reference tests' bf16 bound); and, in fp32, the
+    materialized route's output within 1e-5."""
+    H, Hkv = heads
+    cfg = dataclasses.replace(CFG, n_heads=H, n_kv_heads=Hkv,
+                              attn_logit_softcap=softcap)
+    tcfg = ModelConfig(**dataclasses.asdict(cfg))
+    r = _rng(5)
+    p = _attn_params(r, cfg.d_model, H, Hkv, cfg.hd)
+    x = r.standard_normal((2, S, cfg.d_model), dtype=np.float32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    ref = jl.chunked_attention(_j(p), jx, cfg, None, window=window,
+                               kv_block=kv_block)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tl.chunked_attention(_t(p), tx, tcfg, window=window,
+                               kv_block=kv_block)
+    assert got.dtype == tx.dtype
+    want = np.asarray(ref.astype(jnp.float32))
+    atol = 2e-2 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+    if dtype == "float32":
+        full = tl.full_attention(_t(p), tx, tcfg, window=window)
+        np.testing.assert_allclose(got.numpy(), full.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_matches_reference(masked):
+    """Token-level CE of fp32 logits, the mean or the masked mean, against
+    the reference's ``cross_entropy`` (and a manual log-softmax)."""
+    r = _rng(6)
+    logits = r.standard_normal((2, 4, 8), dtype=np.float32) * 2
+    labels = r.integers(0, 8, (2, 4)).astype(np.int32)
+    mask = (r.random((2, 4)) > 0.4).astype(np.float32) if masked else None
+    ref = jl.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                           None if mask is None else jnp.asarray(mask))
+    got = tl.cross_entropy(torch.from_numpy(logits),
+                           torch.from_numpy(labels),
+                           None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-6)
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    nll = -np.take_along_axis(lp, labels[..., None], -1)[..., 0]
+    manual = nll.mean() if mask is None else (nll * mask).sum() / mask.sum()
+    np.testing.assert_allclose(got.item(), manual, rtol=1e-5)

@@ -1,8 +1,9 @@
 """The port's training forward (repro_torch.models: full_attention,
-forward_hidden, loss_fn, sampled_loss_fn through models/loss.py) held
-against the JAX reference on GPT2_TINY: the same weights (carried over by
-``params_from_jax``), the same numpy batch, the reference's fused loss in
-interpret mode and its materialized-scores attention."""
+forward_hidden, loss_fn, sampled_loss_fn through models/loss.py, every
+loss route and remat policy) held against the JAX reference on GPT2_TINY:
+the same weights (carried over by ``params_from_jax``), the same numpy
+batch, the reference's fused loss in interpret mode, its chunked and
+unfused routes and its materialized-scores attention."""
 import dataclasses
 
 import jax
@@ -18,9 +19,12 @@ from repro.models.layers import full_attention as jax_full_attention
 from repro_torch.convert import params_from_jax
 from repro_torch.core.types import flat_tensors, tree_leaves, tree_unflatten
 from repro_torch.models import ModelConfig, get_model
-from repro_torch.models.layers import (_flash_attention_proj, full_attention,
+from repro_torch.models.layers import (_flash_attention_proj,
+                                       chunked_attention, full_attention,
                                        train_attention)
+from repro_torch.kernels.fused_ce import ce_forward_sampled_plain, vocab_chunk
 from repro_torch.models.loss import lm_loss
+from repro.models.loss import _chunked_sweep as jax_chunked_sweep
 
 # One intra-op thread per process: the suite runs six pytest-xdist workers
 # on the machine's cores, and torch's default pool in every worker
@@ -77,6 +81,9 @@ def test_full_attention_matches_reference(weights, dtype, atol):
 
 
 def test_train_attention_routes(weights):
+    """"auto" (and None) and "full" take the materialized route up to 4096
+    tokens and "auto" the chunked one above; "chunked", "flash" and
+    "flash_jvp" take theirs; an unknown route raises."""
     _, tparams = weights
     x = torch.zeros(1, 8, CFG32.d_model)
     p = tparams.layers[0].attn
@@ -88,10 +95,14 @@ def test_train_attention_routes(weights):
     torch.testing.assert_close(
         train_attention(p, x, TCFG32, impl="flash_jvp"),
         _flash_attention_proj(p, x, TCFG32), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        train_attention(p, x, TCFG32, impl="chunked")
-    with pytest.raises(NotImplementedError, match="4096"):
-        train_attention(p, torch.zeros(1, 4097, CFG32.d_model), TCFG32)
+    torch.testing.assert_close(train_attention(p, x, TCFG32, impl="chunked"),
+                               chunked_attention(p, x, TCFG32), rtol=0,
+                               atol=0)
+    long = torch.randn(1, 4100, CFG32.d_model,
+                       generator=torch.Generator().manual_seed(0)) * 0.1
+    torch.testing.assert_close(train_attention(p, long, TCFG32),
+                               chunked_attention(p, long, TCFG32), rtol=0,
+                               atol=0)
     with pytest.raises(ValueError):
         train_attention(p, x, TCFG32, impl="nope")
 
@@ -158,12 +169,139 @@ def test_fused_jvp_loss_matches_reference(weights):
 
 
 @pytest.mark.parametrize("impl", ["chunked", "unfused"])
-def test_unported_loss_impls_raise(weights, impl):
+def test_loss_routes_match_reference(weights, impl):
+    """The reference's other loss routes: "chunked" (the plain vocab sweep,
+    its backward recomputing each chunk) and "unfused" (materialized
+    logits), masked mean, against the reference's same route: loss within
+    1e-5 and every gradient within 2e-5, the fused route's bounds; the
+    valid count is the mask's."""
+    params, tparams = weights
+    jb, tb = _batch()
+    jm = jax_get_model(CFG32)
+    (jloss, _), jg = jax.value_and_grad(
+        lambda p: jm.loss_fn(CFG32, p, jb, loss_impl=impl),
+        has_aux=True)(params)
+    loss, met = get_model(TCFG32).loss_fn(TCFG32, tparams, tb,
+                                          loss_impl=impl)
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5)
+    _assert_grads(_grads(tparams, loss), jg, atol=2e-5)
+    hidden = torch.zeros(4, 24, CFG32.d_model)
+    _, n_valid = lm_loss(TCFG32, tparams, hidden, tb["labels"], tb["mask"],
+                         impl=impl)
+    assert float(n_valid) == float(tb["mask"].sum())
+
+
+def _vocab_cfg(vocab):
+    cfg = dataclasses.replace(CFG32, vocab_size=vocab)
+    return cfg, ModelConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def wide_weights():
+    """GPT2_TINY at vocab 4500 (padded to 4608: three 1536-column chunks of
+    the sweep, the last with 108 padded columns)."""
+    cfg, tcfg = _vocab_cfg(4500)
+    params = jax_get_model(cfg).init_params(cfg, jax.random.PRNGKey(2))
+    return cfg, tcfg, params, params_from_jax(jax.tree.map(np.asarray,
+                                                           params), tcfg)
+
+
+def _chunk_noise(key, n_rows, vp):
+    """The reference's Gumbel noise of the chunked sweep, chunk c from
+    ``fold_in(key, c)`` (models/loss.py:_chunked_sweep), as (n_rows, vp)."""
+    bv = vocab_chunk(vp, 2048, 128)
+    return np.concatenate([np.asarray(jax.random.gumbel(
+        jax.random.fold_in(key, c), (n_rows, bv), jnp.float32))
+        for c in range(vp // bv)], axis=1)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "unfused"])
+def test_sampled_loss_routes_match_reference(wide_weights, impl):
+    """GNB's sampled-label NLL on the chunked and unfused routes with the
+    reference's draws passed in (the chunked sweep's Gumbel noise, the
+    unfused route's ``jax.random.categorical`` labels): the drawn labels
+    identical, the NLL within 1e-5 and ĝ within 2e-5 (the fused route's
+    bounds), B the mask's count."""
+    cfg, tcfg, params, tparams = wide_weights
+    jb, tb = _batch(B=2, S=16)
+    key = jax.random.PRNGKey(11)
+    jm = jax_get_model(cfg)
+    (jnll, jn), jg = jax.value_and_grad(
+        lambda p: jm.sampled_loss_fn(cfg, p, jb, key, loss_impl=impl),
+        has_aux=True)(params)
+    model = get_model(tcfg)
+    if impl == "chunked":
+        noise = _chunk_noise(key, 32, cfg.padded_vocab)
+        draws = dict(noise=torch.from_numpy(noise).reshape(2, 16, -1))
+        # the labels of the reference's sweep against the port's
+        hid = jm.forward_hidden(cfg, params, jb["tokens"])[0]
+        _, _, want_y = jax_chunked_sweep(cfg, hid, params["embed"]["tok"],
+                                         False, rng=key)
+        thid = model.forward_hidden(tcfg, tparams, tb["tokens"])[0]
+        _, _, got_y = ce_forward_sampled_plain(
+            thid.detach().reshape(32, -1), tparams.embed["tok"].detach(),
+            torch.zeros(2, cfg.d_model),
+            lambda c0, w: draws["noise"].reshape(32, -1)[:, c0:c0 + w],
+            vocab=cfg.vocab_size)
+        np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+    else:
+        logits = jm.forward(cfg, params, jb["tokens"])[0]
+        yhat = jax.random.categorical(key, logits, axis=-1)
+        draws = dict(yhat=torch.from_numpy(np.array(yhat)))
+        assert (np.asarray(yhat) < cfg.vocab_size).all()
+    nll, n = model.sampled_loss_fn(tcfg, tparams, tb, None, loss_impl=impl,
+                                   **draws)
+    assert float(n) == float(jn) == float(tb["mask"].sum())
+    np.testing.assert_allclose(nll.item(), float(jnll), atol=1e-5)
+    _assert_grads(_grads(tparams, nll), jg, atol=2e-5)
+
+
+def test_sampled_routes_draw_from_a_generator(weights):
+    """Without given draws the chunked and unfused routes draw from a
+    ``torch.Generator``: the same seed gives the same NLL, another seed
+    another; both match the labeled loss at the labels they drew only in
+    expectation, so here only finiteness and determinism are held."""
     _, tparams = weights
-    _, tb = _batch(B=1, S=4, mask=False)
-    with pytest.raises(NotImplementedError):
-        lm_loss(TCFG32, tparams, torch.zeros(1, 4, CFG32.d_model),
-                tb["labels"], impl=impl)
+    _, tb = _batch(B=2, S=8, mask=False)
+    model = get_model(TCFG32)
+    for impl in ("chunked", "unfused"):
+        out = [model.sampled_loss_fn(TCFG32, tparams, tb,
+                                     torch.Generator().manual_seed(s),
+                                     loss_impl=impl)[0].item()
+               for s in (0, 0, 1)]
+        assert np.isfinite(out).all()
+        assert out[0] == out[1] != out[2]
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "scan2"])
+@pytest.mark.parametrize("attn,impl", [("flash", "fused"),
+                                       ("full", "chunked"),
+                                       ("chunked", "unfused")])
+def test_remat_is_bit_identical(weights, remat, attn, impl):
+    """Every remat policy recomputes the same operations on the same
+    inputs: the loss and every gradient equal remat="none"'s bit for bit
+    (GPT2_TINY's 4 layers make "scan2" one checkpointed group of 4
+    checkpointed layers), on three attention and loss routes."""
+    _, tparams = weights
+    _, tb = _batch(B=2, S=16)
+    model = get_model(TCFG32)
+    out = []
+    for r in ("none", remat):
+        loss, _ = model.loss_fn(TCFG32, tparams, tb, attn_impl=attn,
+                                loss_impl=impl, remat=r)
+        out.append((loss, _grads(tparams, loss)))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    for a, b in zip(flat_tensors(g0), flat_tensors(g1)):
+        assert torch.equal(a, b)
+
+
+def test_unknown_remat_raises(weights):
+    _, tparams = weights
+    with pytest.raises(ValueError, match="remat"):
+        get_model(TCFG32).forward_hidden(TCFG32, tparams,
+                                         torch.zeros(1, 4, dtype=torch.int32),
+                                         remat="nope")
 
 
 def test_parameters_train_but_serving_builds_no_graph(weights):

@@ -1,9 +1,9 @@
 """The port's training slice (repro_torch.train) held against the JAX
 reference's trainer: a Sophia-G trajectory on GPT2_TINY (fp32) over three
 full Hessian-refresh intervals with the reference's weights, batches and
-noise seeds; bit-identical data batches; checkpoint save / restore /
-continue; the launcher on the CPU; and the options this slice does not
-port."""
+noise seeds (and on the chunked loss with the reference's Gumbel noise);
+bit-identical data batches; checkpoint save / restore / continue; remat;
+the launcher on the CPU; and the options the port does not have yet."""
 import dataclasses
 import io
 from contextlib import redirect_stdout
@@ -18,7 +18,7 @@ from repro.core.engine import ravel_shards as jax_ravel_shards
 from repro.data import DataConfig as JDataConfig
 from repro.data import MemmapTokens as JMemmapTokens
 from repro.data import make_source as jax_make_source
-from repro.kernels.fused_ce import seed_from_key
+from repro.kernels.fused_ce import seed_from_key, vocab_chunk
 from repro.train import TrainerConfig as JTrainerConfig
 from repro.train import make_engine as jax_make_engine
 from repro.train import make_train_fns as jax_make_train_fns
@@ -186,6 +186,42 @@ def test_sign_trajectory_matches_reference_trainer(over, shares):
         (4 if over["optimizer"] == "sophia_h" else 0)
 
 
+def test_unfused_loss_trajectory_matches_reference_trainer():
+    """Sophia-G with ``fused_loss=False`` (the reference's chunked loss, and
+    its GNB refresh from the sub-batch's materialized logits through
+    ``logits_fn`` and ``gnb_ghat_flat``), flash attention, 3 steps with the
+    refresh at step 0, the reference's Gumbel noise passed in through
+    ``noise_fn``: the contract of
+    :func:`test_trajectory_matches_reference_trainer`."""
+    s_port, _ = _check_trajectory(dict(TRAIN, fused_loss=False), steps=3)
+    assert int(s_port.opt_state.hess_count) == 1
+
+
+@pytest.mark.parametrize("estimator", ["hutchinson", "gnb"])
+def test_refresh_is_identical_under_remat(estimator):
+    """One Sophia step with a refresh at remat "full" and at "none", the
+    same probe: the same loss, Hessian EMA and parameters, bit for bit.
+    The Hutchinson HVP runs its trunk without remat
+    (``torch.utils.checkpoint`` does not compose with ``torch.func``), GNB
+    through the checkpointed trunk."""
+    src = make_source(DataConfig(**dataclasses.asdict(_src(B=2, S=16))))
+    out = []
+    for remat in ("none", "full"):
+        over = dict(TRAIN, hess_subbatch=1, remat=remat,
+                    optimizer="sophia_h" if estimator == "hutchinson"
+                    else "sophia_g", estimator=estimator)
+        state, hist = train_loop(TCFG32, TrainerConfig(**over), src,
+                                 num_steps=1, device="cpu")
+        out.append((hist[0]["loss"], state))
+    (l0, s0), (l1, s1) = out
+    assert l0 == l1 and int(s0.opt_state.hess_count) == 1
+    for a, b in zip(s0.opt_state.h + s0.opt_state.m,
+                    s1.opt_state.h + s1.opt_state.m):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(s0.params.parameters(), s1.params.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def step0_gradients(attn="flash"):
     """Per leaf of GPT2_TINY (fp32, the trainer's initial weights, batch
     0 of the trajectory's source, the fused loss on ``attn``): (path,
@@ -243,10 +279,11 @@ def test_step0_gradients_match_reference_within_its_own_spread():
 
 def _run_trajectories(over, steps=13):
     """13 steps of the reference trainer and of the port on its weights,
-    batches, noise seeds and Hutchinson probes with the options ``over``:
-    (port state, reference state, the two histories, the reference's and
-    the port's parameters raveled)."""
-    jtc = JTrainerConfig(fused_loss=True, **over)
+    batches, noise seeds, Gumbel noise and Hutchinson probes with the
+    options ``over`` (the fused loss unless they say otherwise): (port
+    state, reference state, the two histories, the reference's and the
+    port's parameters raveled)."""
+    jtc = JTrainerConfig(**dict(dict(fused_loss=True), **over))
     src = jax_make_source(_src())
     init_fn, _ = jax_make_train_fns(CFG32, jtc)
     s0 = init_fn(jax.random.PRNGKey(jtc.seed))
@@ -265,12 +302,22 @@ def _run_trajectories(over, steps=13):
             jax.random.normal(k, (n,), jax.numpy.float32)))
             for k, n in zip(keys, layout.shard_sizes))
 
+    def ref_noise(step, shape):
+        # the chunked sweep of gnb_ghat_flat: chunk c from fold_in(rng, c)
+        n_rows, vp = int(np.prod(shape[:-1])), shape[-1]
+        bv = vocab_chunk(vp, 4096)
+        return torch.from_numpy(np.concatenate([np.asarray(
+            jax.random.gumbel(jax.random.fold_in(ref_rng(step), c),
+                              (n_rows, bv), jax.numpy.float32))
+            for c in range(vp // bv)], axis=1)).reshape(shape)
+
     tc = TrainerConfig(**over)
     params = params_from_jax(jax.tree.map(np.asarray, s0.params), TCFG32)
     t_init, _ = make_train_fns(TCFG32, tc, device="cpu")
     s_port, hist = train_loop(TCFG32, tc, src, num_steps=steps,
                               state=t_init(params), device="cpu",
-                              hess_seed_fn=ref_seed, probe_fn=ref_probe)
+                              hess_seed_fn=ref_seed, probe_fn=ref_probe,
+                              noise_fn=ref_noise)
     lay = jax_make_engine(jtc).layout(s_ref.params)
     a = np.asarray(jax_ravel_shards(lay, s_ref.params)[0])[:lay.n_params]
     tree = s_port.params.param_tree()
@@ -278,12 +325,12 @@ def _run_trajectories(over, steps=13):
     return s_port, s_ref, hist, hist_ref, a, b
 
 
-def _check_trajectory(over, every=None, shares=None):
+def _check_trajectory(over, every=None, shares=None, steps=13):
     """The trajectories of :func:`_run_trajectories` under the contract of
     :func:`test_trajectory_matches_reference_trainer` (``shares``: the
     largest share of coordinates beyond each tolerance), and with
     ``every`` each parameter coordinate within it."""
-    s_port, s_ref, hist, hist_ref, a, b = _run_trajectories(over)
+    s_port, s_ref, hist, hist_ref, a, b = _run_trajectories(over, steps)
     assert int(s_port.opt_state.hess_count) == \
         int(s_ref.opt_state.hess_count)
     np.testing.assert_allclose([h["loss"] for h in hist],
@@ -468,8 +515,7 @@ def test_launcher_fused_kernel_and_adamw_on_cpu(tmp_path, extra):
         torch_launch.main(args + ckpt)
 
 
-@pytest.mark.parametrize("flag", [["--no-fused-loss"], ["--remat", "full"],
-                                  ["--compress-grads"],
+@pytest.mark.parametrize("flag", [["--compress-grads"],
                                   ["--comm-telemetry"]])
 def test_launcher_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
@@ -483,16 +529,27 @@ def test_launcher_unported_flags_raise(flag):
      2),
     (["--estimator", "hutchinson"], 2),
     (["--opt", "sophia_h", "--estimator", "hutchinson", "--no-fused-attn"],
-     2)])
-def test_launcher_baselines_and_estimators_on_cpu(tmp_path, extra,
-                                                  refreshes):
-    """The paper's other optimizers and the Hutchinson estimator train
-    from the launcher: finite losses, a refresh at steps 0 and 2 for the
-    hessian-aware ones, and a resume under another --opt refused."""
+     2),
+    (["--no-fused-loss"], 2),
+    (["--remat", "full"], 2)])
+def test_launcher_baselines_and_estimators_on_cpu(tmp_path, monkeypatch,
+                                                  extra, refreshes):
+    """The paper's other optimizers, the Hutchinson estimator, the chunked
+    loss (``--no-fused-loss``) and remat train from the launcher: finite
+    losses, a refresh at steps 0 and 2 for the hessian-aware ones, and a
+    resume under another --opt refused."""
     args = ["--smoke", "--device", "cpu", "--steps", "3", "--seq-len", "16",
             "--global-batch", "2", "--hess-subbatch", "1",
             "--hess-interval", "2", "--log-every", "1",
             "--ckpt-dir", str(tmp_path)]
+    seen = []
+    real = torch_launch.make_train_fns
+
+    def spy(cfg, tc, **kw):
+        seen.append(tc)
+        return real(cfg, tc, **kw)
+
+    monkeypatch.setattr(torch_launch, "make_train_fns", spy)
     with redirect_stdout(io.StringIO()) as out:
         state = torch_launch.main(args + extra)
     losses = [float(ln.split()[3]) for ln in out.getvalue().splitlines()
@@ -501,6 +558,8 @@ def test_launcher_baselines_and_estimators_on_cpu(tmp_path, extra,
     assert state.step == 3
     assert int(state.opt_state.hess_count) == refreshes
     opt = extra[1] if extra[0] == "--opt" else "sophia_g"
+    assert ("--remat" in extra) == (seen[-1].remat == "full")
+    assert ("--no-fused-loss" in extra) != seen[-1].fused_loss
     assert checkpoint.read_manifest(str(tmp_path))["extra"]["optimizer"] \
         == opt
     other = "sgd" if opt != "sgd" else "lion"
@@ -508,9 +567,7 @@ def test_launcher_baselines_and_estimators_on_cpu(tmp_path, extra,
         torch_launch.main(args + ["--opt", other])
 
 
-@pytest.mark.parametrize("over", [
-    dict(attn_impl="chunked"), dict(fused_loss=False),
-    dict(compress_hess=True), dict(remat="dots")])
+@pytest.mark.parametrize("over", [dict(compress_hess=True)])
 def test_trainer_unported_options_raise(over):
     with pytest.raises(NotImplementedError):
         make_train_fns(TCFG32, TrainerConfig(**over), device="cpu")
@@ -519,27 +576,41 @@ def test_trainer_unported_options_raise(over):
 @pytest.mark.parametrize("over", [
     dict(attn_impl="flash_jvp"), dict(optimizer="lion"),
     dict(estimator="empirical_fisher"),
-    dict(optimizer="sophia_h", estimator="hutchinson")])
+    dict(optimizer="sophia_h", estimator="hutchinson"),
+    dict(attn_impl="chunked"), dict(fused_loss=False), dict(remat="dots"),
+    dict(remat="scan2", fused_loss=False, estimator="empirical_fisher"),
+    dict(optimizer="sophia_h", estimator="hutchinson", fused_loss=False,
+         remat="full")])
 def test_trainer_takes_the_ported_options(over):
-    """Options the trainer refused before this slice train two steps on
-    the CPU (a refresh at step 0 for the hessian-aware ones): finite
-    losses, and the attention twin's loss equals the flash route's."""
+    """Options the trainer refused before (the attention twin, the other
+    optimizers and estimators, chunked attention, the chunked loss, every
+    remat policy) train two steps on the CPU (a refresh at step 0 for the
+    hessian-aware ones): finite losses, and the loss of the attention twin,
+    of remat and of the chunked loss equals the default route's at step
+    0 (chunked attention's within 1e-6)."""
     src = make_source(DataConfig(**dataclasses.asdict(_src(B=2, S=16))))
     tc = TrainerConfig(**dict(TRAIN, hess_subbatch=1, **over))
     state, hist = train_loop(TCFG32, tc, src, num_steps=2, device="cpu")
     assert all(np.isfinite(h["loss"]) for h in hist)
     aware = tc.optimizer != "lion"
     assert int(state.opt_state.hess_count) == int(aware)
-    if over.get("attn_impl") == "flash_jvp":
-        _, ref = train_loop(TCFG32, TrainerConfig(**dict(TRAIN,
-                                                         hess_subbatch=1)),
-                            src, num_steps=1, device="cpu")
+    _, ref = train_loop(TCFG32, TrainerConfig(**dict(TRAIN,
+                                                     hess_subbatch=1)),
+                        src, num_steps=1, device="cpu")
+    if over.get("attn_impl") == "chunked":
+        np.testing.assert_allclose(hist[0]["loss"], ref[0]["loss"],
+                                   rtol=1e-6)
+    elif "optimizer" not in over and "estimator" not in over or \
+            over.get("attn_impl") == "flash_jvp":
         assert hist[0]["loss"] == ref[0]["loss"]
 
 
 def test_trainer_refuses_an_unknown_estimator():
     with pytest.raises(ValueError, match="estimator"):
         make_train_fns(TCFG32, TrainerConfig(estimator="nope"), device="cpu")
+    for over in (dict(remat="nope"), dict(attn_impl="nope")):
+        with pytest.raises(ValueError):
+            make_train_fns(TCFG32, TrainerConfig(**over), device="cpu")
 
 
 def test_hess_seed_is_a_pure_function_of_seed_and_step():
