@@ -21,7 +21,11 @@ it fails and prints no result.  Phases, in order:
      bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
      4096, and its edge cases (untied, softcap 30, rms, no norm, padded
      vocab, ragged masked rows, fp32 h, bf16 W, D=128 and 1280 with fp32
-     h and with bf16 h).  The forwards within 1e-5 (fp32) or 2e-2 (bf16);
+     h and with bf16 h), the rope models' loss shapes (untied W, bf16 h:
+     NeoX-1.5B N=8192 D=1536 Vp=50432, stablelm-1.6b N=8192 D=2048
+     Vp=100352, NeoX-6.6B N=4096 D=4096 Vp=50432) and D=1536, 2048 and
+     4096 tied and untied with bf16 h and with fp32 h (whose backward
+     runs in D-slabs).  The forwards within 1e-5 (fp32) or 2e-2 (bf16);
      dh and dW within 1e-5 of their largest element in fp32 and, with bf16
      h or W, element by element against each element's sum of absolute
      terms (``check_bf16_grad``; bf16 h takes the tensor-core kernels,
@@ -31,7 +35,8 @@ it fails and prints no result.  Phases, in order:
      kernels (forward, dQ, dK/dV) at GPT-2 small's training shape (B=8,
      H=12, S=1024, hd=64, causal) and the refresh's B=4, and the edge
      cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
-     non-causal, S=1000 off the tile, hd=128, rows with no key), fp32 and
+     non-causal, S=1000 off the tile, hd=128, rows with no key) and the
+     rope models' S=2048 (hd 64, 24 heads; hd 128, 32 heads), fp32 and
      bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
      their largest element, and in bf16 (all three on the tensor cores)
      every element of o, dq, dk and dv within 2^-7 of its absolute sum
@@ -102,6 +107,23 @@ it fails and prints no result.  Phases, in order:
      the parameters within 1e-5, the clip fractions within 1e-5 (the
      per-leaf form sums its leaves' counts in fp32, as the reference), the
      step p50s;
+  4c. the rope models (GPT-NeoX 1.5B and 6.6B, the paper's own larger
+     models, and stablelm-1.6b through ``get_config``: rope, untied
+     embeddings, SwiGLU for stablelm), random weights from a seed: each
+     one's step-0 loss and gradients at full width and 2 layers, fp32,
+     B=1 x S=64, on the card against the CPU's plain path (loss within
+     1e-5 relative, every gradient within 1e-4 of its leaf's largest
+     element); Sophia-G trained at B x S=2048 (B=4; NeoX-6.6B B=2 at 8
+     of its 32 layers: its full depth's ~110 GB of state does not fit
+     one card) for 7 steps, bf16, engine kernels, peak lr 1e-5, GNB
+     refresh at steps 0, 3 and 6 on half the batch, exact launch counts,
+     the loss finite and falling, plain and refresh p50, tokens/s, peak
+     memory; served at
+     full depth (8 mixed requests over 8 slots, bf16 and int8 KV
+     caches), the 2-layer model's decode on the card against the CPU.
+     Counts are zeroed before each model's runs and read after: decode
+     attention, the Sophia step and the refresh-fused step, the four CE
+     kernels and the three flash kernels must each have launched;
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -122,7 +144,11 @@ it fails and prints no result.  Phases, in order:
      function; each CE and flash row names
      the units its bf16 products run on (tensor cores or FMA); the CE
      kernels at N=8192, the sampled forward also at the refresh's
-     N=4096.
+     N=4096; under each CE and flash row's ``shapes`` the rope models'
+     shapes, and under decode attention's NeoX-6.6B's heads (hd 128,
+     32 heads); each row's ``launches_models`` the launches of each rope
+     model's runs.  A JSON line of the rope models' step times, memory
+     and served tok/s comes before it.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -140,6 +166,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the rope models' steps allocate parameter-sized buffers (6-8 GB) after
+# their backward frees many smaller ones: growable segments keep the
+# allocator from fragmenting (set before torch first touches the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -273,6 +303,7 @@ DECODE_SHAPES = {
                        [1023, 1024, 1500, 2047, 3000, 1023, 1100, 4095]),
     "batch64_c1024": ((64, 12, 12, 1024, 64),
                       [1023 + 37 * i for i in range(64)]),
+    "neox66_hd128_c512": ((8, 32, 32, 512, 128), MAIN_POS),
 }
 
 
@@ -302,6 +333,11 @@ def phase_kernels(torch):
         ("negative_pos", (3, 12, 12, 64, 64), [-1, -7, 3], {}),
         # positions below the split count (S = 4): splits with no rows
         ("splits_past_rows", (4, 12, 12, 512, 64), [0, 1, 2, 3], {}),
+        # the rope models' serving shapes: stablelm (hd 64, 32 heads) and
+        # NeoX-6.6B (hd 128, 32 heads, new on a served path)
+        ("stablelm_hd64_H32", (8, 32, 32, 512, 64), MAIN_POS, {}),
+        ("neox66_hd128_H32", DECODE_SHAPES["neox66_hd128_c512"][0],
+         DECODE_SHAPES["neox66_hd128_c512"][1], {}),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -335,6 +371,13 @@ def phase_kernels(torch):
 
 
 # the CE kernels: GPT-2 small's loss shape and the edge cases
+# the rope models' loss shapes: the training batch's rows, untied W
+CE_MODEL_SHAPES = (
+    ("neox-1.5b", dict(N=8192, D=1536, V=50432, Vp=50432, tied=False)),
+    ("stablelm-1.6b", dict(N=8192, D=2048, V=100352, Vp=100352,
+                           tied=False)),
+    ("neox-6.6b", dict(N=4096, D=4096, V=50432, Vp=50432, tied=False)),
+)
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
 CE_CASES = [
@@ -353,7 +396,7 @@ CE_CASES = [
     ("bf16_w", dict(w="bfloat16")),
     ("fp32_D128_untied_padded", dict(N=200, D=128, V=1000, Vp=1024,
                                      tied=False, h="float32")),
-    # the tensor-core route (bf16 h) at the widths MAX_D bounds
+    # the tensor-core route (bf16 h) from the narrowest width up
     ("bf16_D128_untied_padded_no_norm", dict(N=200, D=128, V=1000, Vp=1024,
                                              tied=False, norm=None)),
     ("bf16_D1280_untied_softcap_rms_masked", dict(N=1000, D=1280, V=2000,
@@ -363,7 +406,17 @@ CE_CASES = [
     ("fp32_D1280_softcap_rms_masked", dict(N=130, D=1280, V=2000, Vp=2048,
                                            h="float32", softcap=30.0,
                                            norm="rms", mask=True)),
-]
+    # the rope models' loss shapes (untied W, bf16 h: the training path)
+    # and the widths 1536, 2048, 4096 tied, untied, bf16 h and fp32 h (the
+    # fp32-h backward in D-slabs of at most 1280 columns)
+] + [(f"{name}_N{sp['N']}_D{sp['D']}_Vp{sp['Vp']}_untied", sp)
+     for name, sp in CE_MODEL_SHAPES] + [
+    (f"{h}_D{D}_{'tied' if tied else 'untied_softcap_masked'}",
+     dict(N=1000 if h == "bf16" else 130, D=D, V=2000, Vp=2048, tied=tied,
+          h="bfloat16" if h == "bf16" else "float32",
+          softcap=None if tied else 30.0, mask=not tied))
+    for D in (1536, 2048, 4096) for h in ("bf16", "fp32")
+    for tied in (True, False)]
 CE_SEED = (1234567, 89101112)      # the sampled forward's noise seed
 NEAR_TIE = 1e-5
 
@@ -568,6 +621,13 @@ def phase_ce_kernels(torch):
 
 # the flash-attention kernels: GPT-2 small's training shape (and the
 # refresh's half batch) and the edge cases
+# the rope models' training attention: S = 2048, hd 64 with 24 and 32
+# heads, hd 128 with 32
+ATTN_MODEL_SHAPES = (
+    ("neox-1.5b", dict(B=4, H=24, Hkv=24, Sq=2048, Sk=2048)),
+    ("stablelm-1.6b", dict(B=4, H=32, Hkv=32, Sq=2048, Sk=2048)),
+    ("neox-6.6b", dict(B=2, H=32, Hkv=32, Sq=2048, Sk=2048, hd=128)),
+)
 ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
                  window=None, softcap=None, q_offset=0)
 ATTN_CASES = [
@@ -582,7 +642,8 @@ ATTN_CASES = [
     ("hd128", dict(B=2, H=8, Hkv=8, Sq=512, Sk=512, hd=128)),
     ("row_with_no_key", dict(B=2, H=4, Hkv=4, Sq=64, Sk=96, window=16,
                              q_offset=64)),
-]
+] + [(f"{name}_S2048_hd{sp.get('hd', 64)}", sp)
+     for name, sp in ATTN_MODEL_SHAPES]
 
 
 def _attn_inputs(torch, spec, dtype, seed=0):
@@ -905,8 +966,9 @@ def _requests(cfg, n=16, seed=1):
     return reqs
 
 
-def serve_once(torch, cfg, params, kv_dtype):
-    """One measured run; returns (engine, seconds, launch counts)."""
+def serve_once(torch, cfg, params, kv_dtype, n_requests=16):
+    """One measured run of ``n_requests`` mixed requests over 8 slots;
+    returns (engine, seconds, launch counts)."""
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
     from repro_torch.serve import ServeEngine
 
@@ -922,7 +984,7 @@ def serve_once(torch, cfg, params, kv_dtype):
     torch.cuda.synchronize()
 
     eng = engine()
-    reqs = _requests(cfg)
+    reqs = _requests(cfg, n=n_requests)
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
@@ -1796,6 +1858,239 @@ def per_leaf_against_engine(torch, cfg, batches, base):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the rope models (GPT-NeoX 1.5B / 6.6B, stablelm-1.6b)
+
+
+MODEL_S, MODEL_STEPS, MODEL_K = 2048, 7, 3
+# Sophia-G's first steps, with a Hessian EMA one refresh old, clip nearly
+# every coordinate to a sign step of lr; on 1.5-2 B parameters that step
+# overshoots at GPT-2's 6e-4 and, for NeoX, at 1e-4 (the loss rose by 1-7
+# nats within 6 steps on the H100), while 1e-5 lowers it steadily
+MODEL_LR = 1e-5
+# NeoX-6.6B at full depth holds ~110 GB of fp32 weight, gradient, m and h
+# (16 bytes a parameter): one 80 GB card trains it at 8 of its 32 layers
+# (~2.0 B parameters, ~32 GB of state, B = 2 x S = 2048) and serves it at
+# full depth (27.4 GB of fp32 weights)
+NEOX66_TRAIN_LAYERS = 8
+CPU_CHECK_LAYERS, CPU_CHECK_S = 2, 64
+
+
+def _model_runs():
+    """(name, config, layers trained, batch rows) of each rope model."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.gpt2 import NEOX_1_5B, NEOX_6_6B
+
+    return (("neox-1.5b", NEOX_1_5B, NEOX_1_5B.n_layers, 4),
+            ("stablelm-1.6b", get_config("stablelm-1.6b"), 24, 4),
+            ("neox-6.6b", NEOX_6_6B, NEOX66_TRAIN_LAYERS, 2))
+
+
+def model_step0_against_cpu(torch, name, cfg):
+    """The step-0 loss and gradients at full width and 2 layers, fp32,
+    B=1 x S=64: the card (the flash kernels, the fused CE's fp32 kernels,
+    whose backward runs in D-slabs at these widths) against the CPU's
+    plain path on the same weights.  The loss within 1e-5 relative and
+    every leaf's gradient within 1e-4 of its largest element (fp32 sums
+    in other orders on each side).  Returns (the 2-layer card params,
+    max relative gradient error)."""
+    import numpy as np
+
+    from repro_torch.core.types import flat_tensors
+    from repro_torch.models import get_model
+
+    cfg2 = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS,
+                               dtype="float32")
+    model = get_model(cfg2)
+    params = model.init_params(
+        cfg2, torch.Generator(device="cuda").manual_seed(1))
+    cpu_params = copy.deepcopy(params).cpu()
+    rng = np.random.default_rng(4)
+    batch = {k: rng.integers(0, cfg.vocab_size, (1, CPU_CHECK_S))
+             .astype(np.int32) for k in ("tokens", "labels")}
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = model.loss_fn(cfg2, p, b, attn_impl="flash")
+        grads = torch.autograd.grad(loss, flat_tensors(p.param_tree()))
+        out[dev] = (loss.item(), [g.cpu() for g in grads])
+    del cpu_params
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(g_card, g_cpu))
+    if not (np.isfinite(l_card) and loss_rel <= 1e-5 and rel <= 1e-4):
+        raise AssertionError(f"{name} step 0 card vs CPU: loss {l_card} vs "
+                             f"{l_cpu} ({loss_rel:.3g} relative), gradients "
+                             f"{rel:.3g} of their largest element")
+    log(f"[models] {name} step 0 at full width, {CPU_CHECK_LAYERS} layers, "
+        f"fp32, B=1 x S={CPU_CHECK_S}: card loss {l_card:.6f}, CPU "
+        f"{l_cpu:.6f} ({loss_rel:.3g} relative, within 1e-5); gradients "
+        f"within {rel:.3g} of each leaf's largest element (limit 1e-4)")
+    return params, rel
+
+
+def train_model(torch, name, cfg, B, peak_lr=MODEL_LR):
+    """Sophia-G (bf16 compute, engine kernels, peak lr MODEL_LR after 2
+    warmup steps, GNB refresh every MODEL_K steps from step 0 on half the
+    batch) at B x S=2048 for MODEL_STEPS steps through the trainer.
+    Launch counts zeroed just before, read just after, held exactly; the
+    loss finite and falling.  Returns the report."""
+    import numpy as np
+
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train.trainer import to_device_batch
+
+    sub = B // 2
+    tc = TrainerConfig(peak_lr=peak_lr, total_steps=MODEL_STEPS,
+                       warmup_steps=2, hess_interval=MODEL_K,
+                       hess_subbatch=sub, seed=0, fused_kernel=True)
+    state, train_step = _train_fns(torch, cfg, tc, "cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    src = make_source(DataConfig(seq_len=MODEL_S, global_batch=B,
+                                 vocab_size=cfg.vocab_size, seed=0))
+    batches = [to_device_batch(src.batch_at(t), "cuda")
+               for t in range(MODEL_STEPS)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for t in range(MODEL_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[t], t % MODEL_K == 0)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_ref = len(range(0, MODEL_STEPS, MODEL_K))
+    attn = cfg.n_layers * (MODEL_STEPS + n_ref)
+    want = {"ce_forward": MODEL_STEPS, "ce_forward_sampled": n_ref,
+            "ce_backward_dh": MODEL_STEPS + n_ref,
+            "ce_backward_dw": MODEL_STEPS + n_ref,
+            "attn_fwd": attn, "attn_bwd_dq": attn, "attn_bwd_dkv": attn,
+            "sophia_step": MODEL_STEPS - n_ref, "sophia_refresh": n_ref}
+    if launches != want:
+        raise AssertionError(f"{name} training launches {launches} != "
+                             f"{want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss is not finite and falling: "
+                             f"{losses}")
+    if int(state.opt_state.hess_count) != n_ref:
+        raise AssertionError(f"{name}: hess_count "
+                             f"{int(state.opt_state.hess_count)} != {n_ref}")
+    plain = [dt for t, dt in enumerate(times) if t % MODEL_K]
+    refresh = [dt for t, dt in enumerate(times) if t and t % MODEL_K == 0]
+    tokens = B * MODEL_S
+    p50 = statistics.median(plain)
+    report = dict(layers=cfg.n_layers, params=n_params, B=B, S=MODEL_S,
+                  launches=launches, losses=losses, plain_p50_ms=p50 * 1e3,
+                  refresh_p50_ms=statistics.median(refresh) * 1e3,
+                  step0_ms=times[0] * 1e3,
+                  tokens_per_s=tokens * MODEL_STEPS / sum(times),
+                  tokens_per_s_plain_p50=tokens / p50,
+                  peak_mem_gib=peak / 2 ** 30,
+                  resident_gib=resident / 2 ** 30)
+    log(f"[models] {name} trained: {cfg.n_layers} layers, {n_params:,} "
+        f"parameters, bf16 B={B} x S={MODEL_S} Sophia-G lr {peak_lr:g} "
+        f"fused_kernel=True "
+        f"k={MODEL_K} sub={sub}: {MODEL_STEPS} steps, loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step p50 plain {report['plain_p50_ms']:.1f} ms, refresh "
+        f"(steps {list(range(MODEL_K, MODEL_STEPS, MODEL_K))}) "
+        f"{report['refresh_p50_ms']:.1f} ms, step 0 "
+        f"{report['step0_ms']:.1f} ms; {report['tokens_per_s']:.0f} tok/s "
+        f"over the run ({report['tokens_per_s_plain_p50']:.0f} at the plain "
+        f"p50); peak memory {report['peak_mem_gib']:.2f} GiB "
+        f"({report['resident_gib']:.2f} GiB resident at the start); "
+        f"launches {launches}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return report
+
+
+MODEL_REQUESTS = 8
+
+
+def serve_model(torch, name, cfg, small):
+    """``cfg`` served at its depth with random weights from a seed: 8
+    mixed requests over 8 slots with a bf16 and an int8 KV cache (every
+    decode step launching the decode kernel once a layer), then the
+    2-layer params of the step-0 check (``small``, held on the CPU while
+    the model trains) decoded on the card against the CPU's plain path.
+    Returns the report."""
+    from repro_torch.models import get_model
+
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    report = {}
+    cfg2 = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS)
+    small.cuda()
+    for kv_dtype in ("bf16", "int8"):
+        eng, secs, launches = serve_once(torch, cfg, params, kv_dtype,
+                                         n_requests=MODEL_REQUESTS)
+        st = eng.stats()
+        ref_err = check_against_cpu(torch, cfg2, small, kv_dtype)
+        key = "decode_attention_q8" if kv_dtype == "int8" else \
+            "decode_attention"
+        report[kv_dtype] = dict(
+            launches=launches[key],
+            tok_per_s=st["tokens_emitted"] / secs,
+            token_p50_ms=st["token_lat_p50_s"] * 1e3,
+            tpot_p50_ms=st["tpot_p50_s"] * 1e3, cpu_logit_err=ref_err)
+        log(f"[models] {name} served: {cfg.n_layers} layers, kv={kv_dtype}: "
+            f"{len(eng.results)} requests, {st['tokens_emitted']} tokens in "
+            f"{secs:.3f}s = {st['tokens_emitted'] / secs:.1f} tok/s; token "
+            f"p50 {st['token_lat_p50_s'] * 1e3:.3f} ms; tpot p50 "
+            f"{st['tpot_p50_s'] * 1e3:.3f} ms; launches {launches}; card "
+            f"vs CPU logits ({CPU_CHECK_LAYERS} layers, fp32) err "
+            f"{ref_err:.3g}")
+        del eng
+    del params, small
+    torch.cuda.empty_cache()
+    return report
+
+
+# every kernel on a rope model's path: rows 1 (both caches), 2, 4, 11, 12,
+# 14, 15 and 16-18
+PATH_KERNELS = ("decode_attention", "decode_attention_q8", "sophia_step",
+                "sophia_refresh", "ce_forward", "ce_forward_sampled",
+                "ce_backward_dh", "ce_backward_dw", "attn_fwd",
+                "attn_bwd_dq", "attn_bwd_dkv")
+
+
+def phase_models(torch):
+    """Each rope model: the step-0 card-vs-CPU check, Sophia-G training
+    (NeoX-6.6B at NEOX66_TRAIN_LAYERS layers), serving at full depth.
+    Every row of the path (decode attention, the Sophia step and the
+    refresh-fused step, the four CE kernels, the three flash kernels)
+    must launch.  Returns {model: report}."""
+    reports = {}
+    for name, cfg, layers, B in _model_runs():
+        small, rel = model_step0_against_cpu(torch, name, cfg)
+        small.cpu()
+        torch.cuda.empty_cache()
+        trained = train_model(torch, name,
+                              dataclasses.replace(cfg, n_layers=layers), B)
+        served = serve_model(torch, name, cfg, small)
+        del small
+        launches = dict(trained["launches"])
+        launches["decode_attention"] = served["bf16"]["launches"]
+        launches["decode_attention_q8"] = served["int8"]["launches"]
+        missing = [k for k in PATH_KERNELS if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{name}: kernels of the path not launched: "
+                                 f"{missing}")
+        reports[name] = dict(step0_grad_rel=rel, train=trained,
+                             serve=served, launches=launches,
+                             full_layers=cfg.n_layers)
+        log(f"[models] {name}: launches on its path {launches}")
+    return reports
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timings
 
 
@@ -1925,19 +2220,18 @@ CE_UNITS = dict.fromkeys(FUSED_CE[1], "tensor cores")
 CE_REFRESH_N = 4096        # the sampled forward's rows in a GNB refresh
 
 
-def phase_ce_timings(torch, ce_err, trained):
-    """The CE kernels at the training loss shape beside their bound, their
-    plain versions and the library composition (not one call); the
-    sampled forward also at the refresh's N=4096.  Each row names the
-    units its products run on (``CE_UNITS``)."""
+def _ce_timed(torch, spec, label):
+    """The four CE kernels at ``spec`` (bf16 h, fp32 W): {kernel: entry}
+    with the kernel's time, its plain version's, its bound and the library
+    composition's (not one call) beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as ce
 
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
-    h, w, normp, labels, rs, opts = _ce_inputs(torch, **CE_TIME)
+    h, w, normp, labels, rs, opts = _ce_inputs(torch, **spec)
     N, D = h.shape
-    Vp = CE_TIME["Vp"]
+    Vp = spec["Vp"]
     lse, _ = ce.ce_forward_plain(h, w, normp, labels, **opts)
     calls = {
         "ce_forward": (lambda: ce.ce_forward(h, w, normp, labels, **opts),
@@ -1965,7 +2259,8 @@ def phase_ce_timings(torch, ce_err, trained):
     def composition(requires_grad=False):
         x = hn.clone().requires_grad_(requires_grad)
         wp = w.detach().clone().requires_grad_(requires_grad)
-        logits = F.linear(x, wp.to(x.dtype)).float()
+        wl = wp.T if opts["transpose_w"] else wp
+        logits = F.linear(x, wl.to(x.dtype)).float()
         loss = torch.sum(rs * (torch.logsumexp(logits, -1)
                                - logits.gather(1, labels.long()[:, None])[:, 0]))
         return loss, x, wp
@@ -1983,16 +2278,16 @@ def phase_ce_timings(torch, ce_err, trained):
     lib_fwd = time_ms(torch, lambda: composition(False), flush, reps=20,
                       warmup=2)
     lib_fb = time_ms(torch, comp_backward, flush, reps=20, warmup=2)
-    log(f"[timing] library composition (not one call) at N={N} D={D} "
-        f"Vp={Vp}: forward {lib_fwd:.3f} ms, forward + autograd backward "
-        f"{lib_fb:.3f} ms, backward alone {lib_fb - lib_fwd:.3f} ms; peak "
-        f"memory above the inputs {comp_peak / 2 ** 30:.2f} GiB")
+    log(f"[timing] library composition (not one call) {label} at N={N} "
+        f"D={D} Vp={Vp}: forward {lib_fwd:.3f} ms, forward + autograd "
+        f"backward {lib_fb:.3f} ms, backward alone {lib_fb - lib_fwd:.3f} "
+        f"ms; peak memory above the inputs {comp_peak / 2 ** 30:.2f} GiB")
     library = {"ce_forward": lib_fwd, "ce_forward_sampled": None,
                "ce_backward_dh": lib_fb - lib_fwd,
                "ce_backward_dw": lib_fb - lib_fwd}
-
-    rows = []
-    for name, replaces in FUSED_CE[1].items():
+    layout = "tied" if spec["tied"] else "untied"
+    out = {}
+    for name in FUSED_CE[1]:
         kernel, plain = calls[name]
         ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
         plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
@@ -2002,12 +2297,8 @@ def phase_ce_timings(torch, ce_err, trained):
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        rows.append({
-            "name": name, "route": "cuda", "source": FUSED_CE[0],
-            "replaces": replaces,
-            "launches": trained["launches"].get(name, 0),
-            "max_abs_err": ce_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library[name], "units": CE_UNITS[name],
             "library_note": (None if library[name] is None else
@@ -2015,29 +2306,63 @@ def phase_ce_timings(torch, ce_err, trained):
                              + ("" if name == "ce_forward" else
                                 "; its autograd backward, dh and dW "
                                 "together")),
-            "shape": f"N={N} D={D} Vp={Vp} h=bf16 W=fp32 tied ln"})
-        log(f"[timing] {name} ({CE_UNITS[name]}): kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {library[name]}, bound "
+            "shape": f"{label}: N={N} D={D} Vp={Vp} h=bf16 W=fp32 "
+                     f"{layout} ln"}
+        log(f"[timing] {name} ({CE_UNITS[name]}) {label}: kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms, library {library[name]}, bound "
             f"{bound_ms:.4f} ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, "
             f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g}/s); "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return out
 
-    # the sampled forward at the shape a refresh gives it
+
+def _ce_sampled_timed(torch, spec, label):
+    """The sampled forward at the rows a refresh gives it: (ms, bound)."""
+    from repro_torch.kernels import fused_ce as ce
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
     name = "ce_forward_sampled"
-    h, w, normp, _, _, opts = _ce_inputs(torch, **dict(CE_TIME,
-                                                       N=CE_REFRESH_N))
+    h, w, normp, _, _, opts = _ce_inputs(torch, **spec)
+    N, D = h.shape
     ms = time_ms(torch, lambda: ce.ce_forward_sampled(h, w, normp, CE_SEED,
                                                       **opts),
                  flush, reps=20, warmup=2)
-    flops = ce.ce_flops(CE_REFRESH_N, D, Vp, name)
-    nbytes = ce.ce_bytes(CE_REFRESH_N, D, Vp, name, bytes_h=h.element_size(),
+    flops = ce.ce_flops(N, D, spec["Vp"], name)
+    nbytes = ce.ce_bytes(N, D, spec["Vp"], name, bytes_h=h.element_size(),
                          bytes_w=w.element_size())
     bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    row = next(r for r in rows if r["name"] == name)
-    row.update(ms_N4096=ms, bound_ms_N4096=bound_ms)
-    log(f"[timing] {name} ({CE_UNITS[name]}) at the refresh's "
-        f"N={CE_REFRESH_N}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms; "
+    log(f"[timing] {name} ({CE_UNITS[name]}) {label} at the refresh's "
+        f"N={N}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms; "
         f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return ms, bound_ms
+
+
+
+
+def phase_ce_timings(torch, ce_err, trained):
+    """The CE kernels at the training loss shape beside their bound, their
+    plain versions and the library composition (not one call); the
+    sampled forward also at the refresh's N=4096; under each row's
+    ``shapes`` the same at the rope models' loss shapes.  Each row names
+    the units its products run on (``CE_UNITS``)."""
+    main = _ce_timed(torch, CE_TIME, "gpt2-small")
+    models = [(name, spec, _ce_timed(torch, spec, name))
+              for name, spec in ((n, dict(CE_TIME, **sp))
+                                 for n, sp in CE_MODEL_SHAPES)]
+    rows = []
+    for name, replaces in FUSED_CE[1].items():
+        rows.append({
+            "name": name, "route": "cuda", "source": FUSED_CE[0],
+            "replaces": replaces,
+            "launches": trained["launches"].get(name, 0),
+            "max_abs_err": ce_err[name], **main[name],
+            "shapes": [t[name] for _, _, t in models]})
+    row = next(r for r in rows if r["name"] == "ce_forward_sampled")
+    row["ms_N4096"], row["bound_ms_N4096"] = _ce_sampled_timed(
+        torch, dict(CE_TIME, N=CE_REFRESH_N), "gpt2-small")
+    for (name, spec, _), entry in zip(models, row["shapes"]):
+        entry["ms_refresh"], entry["bound_ms_refresh"] = _ce_sampled_timed(
+            torch, dict(spec, N=spec["N"] // 2), name)
     return rows
 
 
@@ -2046,18 +2371,15 @@ FLASH_UNITS = {"attn_fwd": "tensor cores", "attn_bwd_dq": "tensor cores",
                "attn_bwd_dkv": "tensor cores"}
 
 
-def phase_flash_timings(torch, attn_err, trained):
-    """The flash kernels at GPT-2 small's training shape in bf16 beside
-    their bound, their plain versions, and SDPA (``is_causal=True``; its
-    forward for row 16, its autograd backward, dq, dk and dv together, for
-    rows 17 and 18), which the port never calls; each row names the units
-    its products run on (``FLASH_UNITS``)."""
+def _flash_timed(torch, spec, label):
+    """The three flash kernels at ``spec`` in bf16: {kernel: entry} with
+    the kernel's time, its plain version's, its bound and SDPA's beside
+    it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
-    spec = ATTN_MAIN
     q, k, v, g, kw = _attn_inputs(torch, spec, torch.bfloat16)
     B, H, Hkv, S, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "hd"))
     o, lse = fa.flash_forward(q, k, v, **kw)
@@ -2081,16 +2403,16 @@ def phase_flash_timings(torch, attn_err, trained):
         q, k, v, is_causal=True), flush, reps=20, warmup=2)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         sdpa_o, leaves, g, retain_graph=True), flush, reps=20, warmup=2)
-    log(f"[timing] SDPA yardstick (is_causal=True) at B={B} H={H} S={S} "
-        f"hd={hd} bf16: forward {lib_fwd:.3f} ms, backward (dq, dk, dv "
-        f"together) {lib_bwd:.3f} ms; max abs err vs the kernel's o "
+    log(f"[timing] SDPA yardstick (is_causal=True) {label} at B={B} H={H} "
+        f"S={S} hd={hd} bf16: forward {lib_fwd:.3f} ms, backward (dq, dk, "
+        f"dv together) {lib_bwd:.3f} ms; max abs err vs the kernel's o "
         f"{sdpa_err:.3g}")
     library = {"attn_fwd": lib_fwd, "attn_bwd_dq": lib_bwd,
                "attn_bwd_dkv": lib_bwd}
     pairs = int(fa.band_mask(S, S, causal=True, window=None,
                              q_offset=0).sum())
-    rows = []
-    for name, replaces in FLASH_ATTN[1].items():
+    out = {}
+    for name in FLASH_ATTN[1]:
         kernel, plain = calls[name]
         ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
         plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
@@ -2099,25 +2421,42 @@ def phase_flash_timings(torch, attn_err, trained):
                                itemsize=q.element_size())
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": FLASH_ATTN[0],
-            "replaces": replaces,
-            "launches": trained["launches"].get(name, 0),
-            "max_abs_err": attn_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library[name], "units": FLASH_UNITS[name],
             "library_note": ("F.scaled_dot_product_attention forward"
                              if name == "attn_fwd" else
                              "F.scaled_dot_product_attention's autograd "
                              "backward, dq, dk and dv together"),
-            "shape": f"B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 causal"})
-        log(f"[timing] {name} ({FLASH_UNITS[name]}): kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, "
-            f"SDPA {library[name]:.3f} ms, bound {max(t_ops, t_bytes):.4f} "
-            f"ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, {nbytes} bytes "
-            f"at {HBM_BYTES_PER_S:.3g}/s); {flops / ms / 1e9:.1f} TFLOP/s")
-    return rows
+            "shape": f"{label}: B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 "
+                     f"causal"}
+        log(f"[timing] {name} ({FLASH_UNITS[name]}) {label}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+            f"{library[name]:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, {nbytes} bytes at "
+            f"{HBM_BYTES_PER_S:.3g}/s); {flops / ms / 1e9:.1f} TFLOP/s")
+    return out
+
+
+
+
+def phase_flash_timings(torch, attn_err, trained):
+    """The flash kernels at GPT-2 small's training shape in bf16 beside
+    their bound, their plain versions, and SDPA (``is_causal=True``; its
+    forward for row 16, its autograd backward, dq, dk and dv together, for
+    rows 17 and 18), which the port never calls; under each row's
+    ``shapes`` the same at the rope models' training shapes.  Each row
+    names the units its products run on (``FLASH_UNITS``)."""
+    main = _flash_timed(torch, ATTN_MAIN, "gpt2-small")
+    models = [_flash_timed(torch, dict(ATTN_MAIN, **sp), name)
+              for name, sp in ATTN_MODEL_SHAPES]
+    return [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
+             "replaces": replaces,
+             "launches": trained["launches"].get(name, 0),
+             "max_abs_err": attn_err[name], **main[name],
+             "shapes": [t[name] for t in models]}
+            for name, replaces in FLASH_ATTN[1].items()]
 
 
 # fp32 operations per element (the bound's second term; the bytes bound
@@ -2286,13 +2625,30 @@ def main() -> int:
     served = phase_serve(torch)
     trained = phase_train(torch)
     phase_routes(torch)
+    models = phase_models(torch)
     rows = (phase_timings(torch, main_err, served)
             + phase_engine_timings(torch, engine_err, trained)
             + phase_ce_timings(torch, ce_err, trained)
             + phase_flash_timings(torch, attn_err, trained))
+    for row in rows:     # each rope model's own run, counted apart
+        row["launches_models"] = {m: r["launches"].get(row["name"], 0)
+                                  for m, r in models.items()}
+    summary = {m: dict(layers_trained=r["train"]["layers"],
+                       layers=r["full_layers"], params_trained=r["train"][
+                           "params"],
+                       plain_p50_ms=r["train"]["plain_p50_ms"],
+                       refresh_p50_ms=r["train"]["refresh_p50_ms"],
+                       tokens_per_s=r["train"]["tokens_per_s"],
+                       peak_mem_gib=r["train"]["peak_mem_gib"],
+                       losses=r["train"]["losses"],
+                       served_tok_per_s={kv: x["tok_per_s"]
+                                         for kv, x in r["serve"].items()},
+                       step0_grad_rel=r["step0_grad_rel"])
+               for m, r in models.items()}
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)
+    log(json.dumps({"models": summary, "card": name, "power_limit": power}))
     log(json.dumps({"kernels": rows, "card": name, "power_limit": power}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

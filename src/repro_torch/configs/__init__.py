@@ -1,8 +1,10 @@
 """Architecture registry: --arch <id> -> (CONFIG, SMOKE_CONFIG).  Only the
 architectures the port implements are listed."""
-from . import gpt2
+from . import gpt2, stablelm_1_6b
 
 ARCHS = {
+    "stablelm-1.6b": stablelm_1_6b,
+    # paper's own family
     "gpt2-small": gpt2,
 }
 

@@ -3,10 +3,11 @@ the port through numpy.
 
 ``torch.Generator`` cannot reproduce ``jax.random`` draws, so the tests that
 hold the port against the reference build the weights once with the
-reference's ``init_params`` and hand them over as numpy arrays.  The
-engine's flat shards share the reference's layout
-(``core/engine.py:build_layout``), so its state carries over as a plain
-copy.
+reference's ``init_params`` and hand them over as numpy arrays, whatever
+leaves the config gives the tree (``embed/pos`` with learned positions,
+``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU).  The engine's
+flat shards share the reference's layout (``core/engine.py:build_layout``
+over the same sorted leaves), so its state carries over as a plain copy.
 """
 from __future__ import annotations
 

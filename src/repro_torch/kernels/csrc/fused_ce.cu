@@ -110,8 +110,13 @@
 // dh kernel owns 32 rows and loops over the vocabulary, the dW kernel owns
 // 32 vocabulary columns and loops over the rows; each recomputes a logits
 // tile, writes its d tile to shared memory, and adds d . X (X = W or h_n,
-// staged 128 columns of D at a time) into an fp32 (32, D) accumulator in
-// shared memory.  The bf16 split would give fp32 logits only with three
+// staged 128 columns of D at a time) into an fp32 accumulator in shared
+// memory.  The accumulator covers one D-slab of at most kMaxSlab columns
+// (bwd_slab), and gridDim.y runs over the slabs, so shared memory does not
+// grow with D: at D = 4096 each block keeps (32, 1024) and the logits are
+// recomputed once per slab, four times.  Each element's sum runs over the
+// vocabulary in the same order whatever the slab, so the slabs change no
+// value.  The bf16 split would give fp32 logits only with three
 // more passes, and the fp32 tolerance (1e-5 of the largest element) leaves
 // no room for a single-bf16 logits product.
 // The C entry points return cudaGetLastError() after the launches and
@@ -490,23 +495,38 @@ __device__ __forceinline__ void accumulate_chunk(float* acc, int acc_stride,
       acc[(4 * grp + i) * acc_stride + k0 + lane + 32 * j] += part[i][j];
 }
 
-// Shared memory of a backward block, in floats: the (kOwn, D) accumulator,
-// the d tile, the two logits staging tiles and the product staging chunk.
-__host__ __device__ constexpr int bwd_smem_floats(int D) {
-  return kOwn * (D + 1) + kOwn * kDS + kBK * (kOwn + 1) + kBK * (kInner + 1) +
-         kInner * kXS;
+// Widest D-slab of a backward block's accumulator: (32, 1280) fp32 and
+// the staging below fill 218 KB of the 227 KB a block may have.
+constexpr int kMaxSlab = 1280;
+
+// The slab width for D (a multiple of kBD): D split into the fewest slabs
+// of at most kMaxSlab columns, as evenly as kBD allows; the last may be
+// narrower.
+__host__ __device__ constexpr int bwd_slab(int D) {
+  return (D / kBD + (D + kMaxSlab - 1) / kMaxSlab - 1) /
+         ((D + kMaxSlab - 1) / kMaxSlab) * kBD;
 }
 
-// Block: kOwn rows.  Loops over vocab tiles of kInner columns; dh rows
-// written as fp32 (a fused norm: the caller pulls them back through it)
-// or in T.
+// Shared memory of a backward block, in floats: the (kOwn, slab)
+// accumulator, the d tile, the two logits staging tiles and the product
+// staging chunk.
+__host__ __device__ constexpr int bwd_smem_floats(int slab) {
+  return kOwn * (slab + 1) + kOwn * kDS + kBK * (kOwn + 1) +
+         kBK * (kInner + 1) + kInner * kXS;
+}
+
+// Block (kOwn rows, D-slab blockIdx.y).  Loops over vocab tiles of kInner
+// columns; dh rows written as fp32 (a fused norm: the caller pulls them
+// back through it) or in T.
 template <typename T, typename TW, bool TRANSW>
 __global__ void __launch_bounds__(kThreads)
 ce_backward_dh_kernel(CeArgs a, void* __restrict__ dh, int dh_f32) {
   constexpr int BM = kOwn, BN = kInner, TM = BM / 16, TN = BN / 16;
   extern __shared__ float smem[];
-  const int acc_stride = a.D + 1;
-  float* acc = smem;                        // [kOwn][D + 1]
+  const int slab = bwd_slab(a.D);
+  const int k_lo = blockIdx.y * slab, width = min(slab, a.D - k_lo);
+  const int acc_stride = slab + 1;
+  float* acc = smem;                        // [kOwn][slab + 1]
   float* dS = acc + kOwn * acc_stride;      // [kOwn][kDS]: d[row][col]
   float* As = dS + kOwn * kDS;              // [kBK][BM + 1]
   float* Bs = As + kBK * (BM + 1);          // [kBK][BN + 1]
@@ -538,23 +558,23 @@ ce_backward_dh_kernel(CeArgs a, void* __restrict__ dh, int dh_f32) {
         dS[(ty + 16 * i) * kDS + tx + 16 * j] =
             live[i] ? dlogit(a, s[i][j], c, lse[i], lab[i], rs[i]) : 0.0f;
       }
-    for (int k0 = 0; k0 < a.D; k0 += kBD) {
+    for (int k0 = k_lo; k0 < k_lo + width; k0 += kBD) {
       for (int e = threadIdx.x; e < kInner * kBD; e += kThreads) {
         const int c = TRANSW ? e % kInner : e / kBD;
         const int k = TRANSW ? e / kInner : e % kBD;
         Xs[c * kXS + k] = w_at<TW, TRANSW>(a, c0 + c, k0 + k);
       }
       __syncthreads();
-      accumulate_chunk(acc, acc_stride, k0, dS, Xs);
+      accumulate_chunk(acc, acc_stride, k0 - k_lo, dS, Xs);
       __syncthreads();
     }
   }
 
-  for (int e = threadIdx.x; e < kOwn * a.D; e += kThreads) {
-    const int r = e / a.D, k = e % a.D;
+  for (int e = threadIdx.x; e < kOwn * width; e += kThreads) {
+    const int r = e / width, k = e % width;
     if (r0 + r >= a.N) continue;
     const float v = acc[r * acc_stride + k];
-    const size_t o = (size_t)(r0 + r) * a.D + k;
+    const size_t o = (size_t)(r0 + r) * a.D + k_lo + k;
     if (dh_f32) {
       static_cast<float*>(dh)[o] = v;
     } else {
@@ -563,15 +583,18 @@ ce_backward_dh_kernel(CeArgs a, void* __restrict__ dh, int dh_f32) {
   }
 }
 
-// Block: kOwn vocab columns.  Loops over row tiles of kInner rows; dW
-// rounds once from the fp32 accumulator into W's dtype and layout.
+// Block (kOwn vocab columns, D-slab blockIdx.y).  Loops over row tiles of
+// kInner rows; dW rounds once from the fp32 accumulator into W's dtype and
+// layout.
 template <typename T, typename TW, bool TRANSW>
 __global__ void __launch_bounds__(kThreads)
 ce_backward_dw_kernel(CeArgs a, TW* __restrict__ dw) {
   constexpr int BM = kInner, BN = kOwn, TM = BM / 16, TN = BN / 16;
   extern __shared__ float smem[];
-  const int acc_stride = a.D + 1;
-  float* acc = smem;                        // [kOwn][D + 1]
+  const int slab = bwd_slab(a.D);
+  const int k_lo = blockIdx.y * slab, width = min(slab, a.D - k_lo);
+  const int acc_stride = slab + 1;
+  float* acc = smem;                        // [kOwn][slab + 1]
   float* dS = acc + kOwn * acc_stride;      // [kOwn][kDS]: d[col][row]
   float* As = dS + kOwn * kDS;              // [kBK][BM + 1]
   float* Bs = As + kBK * (BM + 1);          // [kBK][BN + 1]
@@ -602,22 +625,22 @@ ce_backward_dw_kernel(CeArgs a, TW* __restrict__ dw) {
         dS[(tx + 16 * j) * kDS + ty + 16 * i] =
             live[i] ? dlogit(a, s[i][j], c, lse[i], lab[i], rs[i]) : 0.0f;
       }
-    for (int k0 = 0; k0 < a.D; k0 += kBD) {
+    for (int k0 = k_lo; k0 < k_lo + width; k0 += kBD) {
       for (int e = threadIdx.x; e < kInner * kBD; e += kThreads) {
         const int r = e / kBD, k = e % kBD;
         Xs[r * kXS + k] = r0 + r < a.N ? hn_at<T>(a, r0 + r, k0 + k) : 0.0f;
       }
       __syncthreads();
-      accumulate_chunk(acc, acc_stride, k0, dS, Xs);
+      accumulate_chunk(acc, acc_stride, k0 - k_lo, dS, Xs);
       __syncthreads();
     }
   }
 
-  for (int e = threadIdx.x; e < kOwn * a.D; e += kThreads) {
-    const int c = TRANSW ? e % kOwn : e / a.D;
-    const int k = TRANSW ? e / kOwn : e % a.D;
-    const size_t o = TRANSW ? (size_t)k * a.Vp + c0 + c
-                            : (size_t)(c0 + c) * a.D + k;
+  for (int e = threadIdx.x; e < kOwn * width; e += kThreads) {
+    const int c = TRANSW ? e % kOwn : e / width;
+    const int k = TRANSW ? e / kOwn : e % width;
+    const size_t o = TRANSW ? (size_t)(k_lo + k) * a.Vp + c0 + c
+                            : (size_t)(c0 + c) * a.D + k_lo + k;
     dw[o] = from_float<TW>(acc[c * acc_stride + k]);
   }
 }
@@ -1128,13 +1151,15 @@ cudaError_t dh_impl(const CeArgs& a, float* stats, void* dh, int dh_f32,
                     unsigned char*, cudaStream_t st) {
   cudaError_t err = launch_row_stats<T>(a, stats, st);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * bwd_smem_floats(a.D);
+  const int slab = bwd_slab(a.D);
+  const size_t smem = sizeof(float) * bwd_smem_floats(slab);
   err = cudaFuncSetAttribute(ce_backward_dh_kernel<T, TW, TRANSW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + kOwn - 1) / kOwn, (a.D + slab - 1) / slab);
   ce_backward_dh_kernel<T, TW, TRANSW>
-      <<<(a.N + kOwn - 1) / kOwn, kThreads, smem, st>>>(a, dh, dh_f32);
+      <<<grid, kThreads, smem, st>>>(a, dh, dh_f32);
   return cudaGetLastError();
 }
 
@@ -1143,13 +1168,15 @@ cudaError_t dw_impl(const CeArgs& a, float* stats, void* dw,
                     unsigned char*, cudaStream_t st) {
   cudaError_t err = launch_row_stats<T>(a, stats, st);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * bwd_smem_floats(a.D);
+  const int slab = bwd_slab(a.D);
+  const size_t smem = sizeof(float) * bwd_smem_floats(slab);
   err = cudaFuncSetAttribute(ce_backward_dw_kernel<T, TW, TRANSW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
+  const dim3 grid(a.Vp / kOwn, (a.D + slab - 1) / slab);
   ce_backward_dw_kernel<T, TW, TRANSW>
-      <<<a.Vp / kOwn, kThreads, smem, st>>>(a, static_cast<TW*>(dw));
+      <<<grid, kThreads, smem, st>>>(a, static_cast<TW*>(dw));
   return cudaGetLastError();
 }
 

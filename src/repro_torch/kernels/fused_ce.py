@@ -68,8 +68,6 @@ NORMS = (None, "ln", "rms")
 _NORM_CODE = {None: 0, "ln": 1, "rms": 2}
 _f32 = torch.float32
 _M32 = 0xFFFFFFFF
-MAX_D = 1280          # widest hidden whose (32, D) fp32 accumulator fits a
-#                       block's shared memory in the fp32-h backward
 
 # ---------------------------------------------------------------------------
 # counter-based Gumbel noise (the reference's _mix32 / hash_gumbel)
@@ -333,9 +331,9 @@ def check_kernel_args(h2, w, normp, *, transpose_w, norm) -> None:
     if Dw != D:
         raise ValueError(f"fused_ce: w {tuple(w.shape)} does not match "
                          f"D={D} (transpose_w={transpose_w})")
-    if D % 128 or D > MAX_D:
-        raise ValueError(f"fused_ce: D={D} must be a multiple of 128, at "
-                         f"most {MAX_D}")
+    if D % 128 or D == 0:
+        raise ValueError(f"fused_ce: D={D} must be a positive multiple of "
+                         "128 (the kernels' tile)")
     if _vp_of(w, transpose_w) % 128:
         raise ValueError("fused_ce: the padded vocab must be a multiple of "
                          "128")

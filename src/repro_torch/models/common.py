@@ -84,24 +84,24 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config field the port does not
-    implement yet, so that no such field is silently ignored."""
+    implement yet, so that no such field is silently ignored.  The port
+    implements the dense family with LayerNorm, learned positions or rope
+    (without M-RoPE), GELU or SwiGLU, tied or untied embeddings."""
     refused = {
         "family": cfg.family != "dense",
-        "rope": cfg.rope,
         "mrope_sections": cfg.mrope_sections is not None,
         "norm_type": cfg.norm_type != "ln",
-        "activation": cfg.activation != "gelu",
+        "activation": cfg.activation not in ("gelu", "swiglu"),
         "post_norms": cfg.post_norms,
         "qkv_bias": cfg.qkv_bias,
         "embed_scale": cfg.embed_scale,
         "patch_embed_input": cfg.patch_embed_input,
-        "tie_embeddings": not cfg.tie_embeddings,
-        "learned_pos": not cfg.learned_pos,
     }
     bad = [name for name, hit in refused.items() if hit]
     if bad:
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port implements the dense GPT-2 "
-            f"subset only; unsupported fields: {', '.join(bad)}")
+            f"config {cfg.name!r}: the port implements the dense family "
+            f"with LayerNorm, learned positions or rope, GELU or SwiGLU; "
+            f"unsupported fields: {', '.join(bad)}")
     if cfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")

@@ -1,4 +1,6 @@
-"""Shared layers of the dense GPT-2 subset, as plain functions on tensors.
+"""Shared layers of the dense family (LayerNorm; learned positions or
+rope; GELU or SwiGLU; tied or untied embeddings), as plain functions on
+tensors.
 
 The counterpart of ``repro/models/layers.py``, with its conventions:
 
@@ -19,9 +21,15 @@ one slot.  Decode attention goes through ``kernels/decode_attention.py``
 with q pre-scaled in fp32 and rounded to its dtype, the convention of the
 reference's Pallas route (``layers.py:489-496``), so the CUDA kernel and
 the CPU's plain version compute one function.
+
+Under rope every attention route rotates q and k by their absolute
+positions before the scores (training: the (B, S) ``positions``, by
+default 0..S-1; decode: each slot's position; prefill: the chunk's),
+and the slot cache holds rotated keys, as the reference's does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -64,6 +72,45 @@ def layer_norm(x, scale, bias, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
+# rotary position embeddings
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device) -> torch.Tensor:
+    return rope_freqs(head_dim, theta).to(device)
+
+
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    """``1 / theta ** (2i / head_dim)`` in fp32, on the CPU (bit for bit
+    the reference's ``rope_freqs``)."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x (B, S, H, hd) rotated by positions (B, S): the angles, cos and sin
+    in fp32, the halves ``[x1 cos - x2 sin, x2 cos + x1 sin]`` in fp32,
+    cast back to x's dtype (the reference's ``apply_rope`` without
+    M-RoPE).  The frequencies are computed once on the CPU and cached on
+    each device, so every device rotates by the same fp32 values."""
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    angles = positions[..., None].to(torch.float32) * freqs   # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _train_positions(x, positions):
+    """The training routes' positions: the given (B, S), else 0..S-1."""
+    if positions is not None:
+        return positions
+    B, S = x.shape[0], x.shape[1]
+    return torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+# ---------------------------------------------------------------------------
 # attention
 
 
@@ -75,12 +122,17 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig):
             "wo": dense_init(gen, (H * hd, D), in_axis=0)}
 
 
-def _qkv(p, x, cfg: ModelConfig):
+def _qkv(p, x, cfg: ModelConfig, positions=None):
+    """q, k, v (B, S, heads, hd) in x's dtype; under rope q and k rotated
+    by ``positions`` (B, S)."""
     dt = x.dtype
     B, S, _ = x.shape
     q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, cfg.hd)
     k = (x @ p["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
     v = (x @ p["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -117,15 +169,17 @@ def _causal_window_mask(S, window, device):
     return m
 
 
-def full_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0):
+def full_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
+                   layer_scale=1.0):
     """Causal training attention with materialized scores, the reference's
     ``full_attention``: fp32 scores ``q.k * layer_scale / sqrt(hd)``,
     softcap, the causal (and window) mask at the -1e30 sentinel, fp32
     softmax cast to x's dtype, then ``w . v`` and the output projection.
-    x (B, S, D) -> (B, S, D)."""
+    x (B, S, D) -> (B, S, D); ``positions`` (B, S) rotate q and k under
+    rope (the training routes' default: 0..S-1)."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, _train_positions(x, positions))
     scale = attention_scale(cfg, layer_scale)
     scores = attention_scores_block(q, k, cfg, scale)      # (B,Hkv,G,S,S)
     mask = _causal_window_mask(S, window, x.device)
@@ -136,17 +190,18 @@ def full_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0):
     return out @ p["wo"].to(dt)
 
 
-def _flash_attention_proj(p, x, cfg: ModelConfig, *, window=None,
-                          layer_scale=1.0, use_jvp=False):
+def _flash_attention_proj(p, x, cfg: ModelConfig, *, positions=None,
+                          window=None, layer_scale=1.0, use_jvp=False):
     """The reference's flash route (``layers.py:_flash_attention_proj``):
     qkv, heads to (B, H, S, hd), the flash kernels, back, then the output
     projection.  Its scale is ``layer_scale / sqrt(hd)`` in Python double
     (the kernel rounds it to fp32 once), and p stays in fp32 until o is
     rounded: in bf16 this route and :func:`full_attention`, which rounds
-    the softmax weights before ``w . v``, differ by about an ulp."""
+    the softmax weights before ``w . v``, differ by about an ulp.  Under
+    rope q and k are rotated before the kernels."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, _train_positions(x, positions))
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True,
                         scale=float(layer_scale) / math.sqrt(cfg.hd),
@@ -156,7 +211,7 @@ def _flash_attention_proj(p, x, cfg: ModelConfig, *, window=None,
     return out @ p["wo"].to(dt)
 
 
-def chunked_attention(p, x, cfg: ModelConfig, *, window=None,
+def chunked_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
                       layer_scale=1.0, kv_block: int = 1024):
     """Causal training attention as an online softmax over KV blocks, the
     reference's ``chunked_attention``: the (S, S) scores never exist, the
@@ -165,10 +220,11 @@ def chunked_attention(p, x, cfg: ModelConfig, *, window=None,
     in fp32 (scale ``layer_scale / sqrt(hd)`` in Python double, as the
     reference's), softcap, the causal (and window) mask at the -1e30
     sentinel, a running max from -inf, the block's weights cast to x's
-    dtype before ``p . v``.  x (B, S, D) -> (B, S, D)."""
+    dtype before ``p . v``.  x (B, S, D) -> (B, S, D); ``positions`` as
+    in :func:`full_attention`."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, _train_positions(x, positions))
     scale = layer_scale / math.sqrt(cfg.hd)
     Hkv, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     qg = q.reshape(B, S, Hkv, G, hd).to(torch.float32)
@@ -206,25 +262,27 @@ def chunked_attention(p, x, cfg: ModelConfig, *, window=None,
 TRAIN_ATTN_IMPLS = ("auto", "full", "chunked", "flash", "flash_jvp")
 
 
-def train_attention(p, x, cfg: ModelConfig, *, window=None, layer_scale=1.0,
-                    impl="auto"):
+def train_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
+                    layer_scale=1.0, impl="auto"):
     """Route one training attention call: "flash" takes the flash kernels
     (:func:`_flash_attention_proj`), "flash_jvp" their twin of the
     Hutchinson HVP (the forward kernel, a backward that autograd can
     differentiate again), "chunked" :func:`chunked_attention`, "full"
     :func:`full_attention`; "auto" (and None) takes the chunked route above
-    4096 tokens and the full one up to there, the reference's heuristic."""
+    4096 tokens and the full one up to there, the reference's heuristic.
+    ``positions`` (B, S) go to the route (rope)."""
     impl = impl or "auto"
     if impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl in ("flash", "flash_jvp"):
-        return _flash_attention_proj(p, x, cfg, window=window,
-                                     layer_scale=layer_scale,
+        return _flash_attention_proj(p, x, cfg, positions=positions,
+                                     window=window, layer_scale=layer_scale,
                                      use_jvp=impl == "flash_jvp")
     if impl == "chunked" or (impl == "auto" and x.shape[1] > 4096):
-        return chunked_attention(p, x, cfg, window=window,
-                                 layer_scale=layer_scale)
-    return full_attention(p, x, cfg, window=window, layer_scale=layer_scale)
+        return chunked_attention(p, x, cfg, positions=positions,
+                                 window=window, layer_scale=layer_scale)
+    return full_attention(p, x, cfg, positions=positions, window=window,
+                          layer_scale=layer_scale)
 
 
 def ring_write(cache, val, positions, active=None):
@@ -255,11 +313,12 @@ def decode_attention_slots(p, x, cfg: ModelConfig, kv, positions, *,
     """Per-slot decode: x (N, 1, D); ``kv`` the per-layer slot cache —
     {"k", "v"} (N, C, Hkv, hd), plus {"k_scale", "v_scale"} (N, C) fp32
     for an int8 cache; positions (N,).  Writes each active slot's new K/V
-    at its position (int8: round-to-nearest payload + per-token scale) and
-    returns the attention output (N, 1, D)."""
+    (under rope, k rotated by the slot's position) at its position (int8:
+    round-to-nearest payload + per-token scale) and returns the attention
+    output (N, 1, D)."""
     dt = x.dtype
     N = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, positions[:, None])
     if kv_is_quantized(kv):
         k8, ks = quantize_kv(k)                          # (N,1,Hkv,hd),(N,1)
         v8, vs = quantize_kv(v)
@@ -287,14 +346,15 @@ def prefill_chunk_attention(p, h, cfg: ModelConfig, kv, slot: int,
     positions.  Writes the chunk's K/V at [slot, start:start+P] in place
     (int8 caches store payloads + per-token scales and the chunk attends
     the dequantized row, its own tokens included), then attends the chunk
-    queries against the slot's whole ring row under :func:`ring_mask`.
+    queries against the slot's whole ring row under :func:`ring_mask`;
+    under rope q and k are rotated by ``qpos`` first.
     Entries past the chunk's valid tokens are written but stay masked until
     decode overwrites them.  Returns (1, P, D)."""
     dt = h.dtype
     P = h.shape[1]
     C = kv["k"].shape[1]
     quant = kv_is_quantized(kv)
-    q, k, v = _qkv(p, h, cfg)
+    q, k, v = _qkv(p, h, cfg, qpos[None])
     rows = slice(start, start + P)
     if quant:
         k8, ks = quantize_kv(k)                          # (1,P,Hkv,hd),(1,P)
@@ -326,7 +386,14 @@ def prefill_chunk_attention(p, h, cfg: ModelConfig, kv, slot: int,
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig):
+    """GELU: ``w_up``, ``b_up``, ``w_down``, ``b_down``; SwiGLU:
+    ``w_gate``, ``w_up``, ``w_down`` without biases (the reference's
+    leaves)."""
     D, F_ = cfg.d_model, cfg.d_ff
+    if cfg.activation == "swiglu":
+        return {"w_gate": dense_init(gen, (D, F_)),
+                "w_up": dense_init(gen, (D, F_)),
+                "w_down": dense_init(gen, (F_, D), in_axis=0)}
     return {"w_up": dense_init(gen, (D, F_)),
             "b_up": torch.zeros((F_,), device=gen.device),
             "w_down": dense_init(gen, (F_, D), in_axis=0),
@@ -334,8 +401,12 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
 
 
 def mlp(p, x, cfg: ModelConfig):
-    """GELU MLP; GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    """SwiGLU ``(silu(x Wg) * (x Wu)) Wd``, or the GELU MLP (the tanh
+    approximation, ``jax.nn.gelu``'s default), in x's dtype."""
     dt = x.dtype
+    if cfg.activation == "swiglu":
+        g = F.silu(x @ p["w_gate"].to(dt))
+        return (g * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
     h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
     return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
@@ -345,27 +416,42 @@ def mlp(p, x, cfg: ModelConfig):
 
 
 def init_embedding(gen: torch.Generator, cfg: ModelConfig):
-    return {"tok": embed_init(gen, (cfg.padded_vocab, cfg.d_model)),
-            "pos": embed_init(gen, (cfg.max_position_embeddings, cfg.d_model))}
+    """``tok`` (Vp, D); ``unembed`` (D, Vp) only when untied; ``pos``
+    (max_position_embeddings, D) only with learned positions (a rope
+    config keeps the default 2^20 there, which no table is made for)."""
+    p = {"tok": embed_init(gen, (cfg.padded_vocab, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab))
+    if cfg.learned_pos:
+        p["pos"] = embed_init(gen, (cfg.max_position_embeddings,
+                                    cfg.d_model))
+    return p
 
 
-def embed(p, tokens, cfg: ModelConfig, positions):
-    """Gather from the fp32 table, cast to the compute dtype, then add the
-    learned position row in that dtype.  A position past the table (only
-    the zero-padded tail of a last prefill chunk, whose queries nothing
-    reads) takes the last row instead of indexing out of bounds."""
+def embed(p, tokens, cfg: ModelConfig, positions=None):
+    """Gather from the fp32 table, cast to the compute dtype, then, with
+    learned positions, add the position row in that dtype.  A position
+    past the table (only the zero-padded tail of a last prefill chunk,
+    whose queries nothing reads) takes the last row instead of indexing
+    out of bounds."""
     x = p["tok"][tokens.to(torch.int64)].to(cfg.compute_dtype)
+    if not cfg.learned_pos:
+        return x
     pos = positions.to(torch.int64).clamp(max=p["pos"].shape[0] - 1)
     return x + p["pos"][pos].to(x.dtype)
 
 
 def unembed(p, x, cfg: ModelConfig):
-    """hidden -> fp32 logits over ``padded_vocab`` (tied embedding), the
-    padding columns masked to -1e30.  The tied weight is cast to x's dtype
-    and the product accumulates in fp32: products of bf16 values are exact
-    in fp32, as with the reference's ``preferred_element_type``."""
-    w = p["tok"].to(x.dtype).to(torch.float32)
-    logits = x.to(torch.float32) @ w.T
+    """hidden -> fp32 logits over ``padded_vocab``, the padding columns
+    masked to -1e30: ``x . tok^T`` tied, ``x . unembed`` untied.  The
+    weight is cast to x's dtype and the product accumulates in fp32:
+    products of bf16 values are exact in fp32, as with the reference's
+    ``preferred_element_type``."""
+    if cfg.tie_embeddings:
+        w = p["tok"].to(x.dtype).to(torch.float32).T
+    else:
+        w = p["unembed"].to(x.dtype).to(torch.float32)
+    logits = x.to(torch.float32) @ w
     logits = _softcap(logits, cfg.final_logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         cols = torch.arange(cfg.padded_vocab, device=logits.device)

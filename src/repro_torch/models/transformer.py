@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM, dense GPT-2 family: parameters, the
-training forward and losses, and the serve engine's slot protocol.
+"""Decoder-only transformer LM, dense family (GPT-2, GPT-NeoX, stablelm):
+parameters, the training forward and losses, and the serve engine's slot
+protocol.
 
 The counterpart of ``repro/models/transformer.py``.  The parameters are an
 ``nn.Module`` whose names follow the reference's params dict
-(``embed.tok``, ``embed.pos``, ``final_norm.scale``, and per layer
-``layers.<i>.ln1``, ``attn.wq/wk/wv/wo``, ``ln2``,
-``mlp.w_up/b_up/w_down/b_down``); the reference's scan over stacked layers
+(``embed.tok``, ``embed.pos`` with learned positions, ``embed.unembed``
+when untied, ``final_norm.scale``, and per layer ``layers.<i>.ln1``,
+``attn.wq/wk/wv/wo``, ``ln2``, ``mlp.w_up/b_up/w_down/b_down`` (GELU) or
+``mlp.w_gate/w_up/w_down`` (SwiGLU)); the reference's scan over stacked layers
 is a Python loop over ``layers``.  The parameters take gradients; the
 serving entry points run under ``torch.inference_mode()``, which records
 no autograd graph and skips autograd's per-op bookkeeping.  :meth:`Transformer.param_tree` is the reference's params dict
@@ -172,9 +174,11 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
                    positions=None, attn_impl: str = "auto",
                    remat: str = "none", final_norm: bool = True):
     """tokens (B, S) -> (hidden (B, S, D), aux): the trunk shared by
-    :func:`forward` and the losses.  ``final_norm=False`` returns the
-    PRE-norm hidden, which the fused loss normalizes inside its sweep.
-    ``aux`` is the MoE load-balance term, 0 for the dense family.
+    :func:`forward` and the losses.  ``positions`` (B, S), by default
+    0..S-1, feed the learned position table or rope in every layer.
+    ``final_norm=False`` returns the PRE-norm hidden, which the fused loss
+    normalizes inside its sweep.  ``aux`` is the MoE load-balance term, 0
+    for the dense family.
 
     ``remat`` trades the backward's memory for a second forward, the
     reference's policies: "full" recomputes every layer
@@ -199,8 +203,9 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
 
         def run(x):
             h = _norm(layer.ln1, x, cfg)
-            x = x + train_attention(layer.attn, h, cfg, window=windows[i],
-                                    layer_scale=scales[i], impl=attn_impl)
+            x = x + train_attention(layer.attn, h, cfg, positions=positions,
+                                    window=windows[i], layer_scale=scales[i],
+                                    impl=attn_impl)
             return x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
         return run
 

@@ -140,7 +140,8 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.uid}: prompt {prompt_len} + max_new "
                 f"{req.max_new} exceeds cache_len {self.cache_len}")
-        if prompt_len + req.max_new > self.cfg.max_position_embeddings:
+        if (self.cfg.learned_pos and prompt_len + req.max_new
+                > self.cfg.max_position_embeddings):
             raise ValueError(
                 f"request {req.uid}: prompt {prompt_len} + max_new "
                 f"{req.max_new} exceeds the model's "

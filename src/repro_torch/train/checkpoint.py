@@ -1,5 +1,6 @@
 """Checkpointing, single process: the counterpart of
-``repro/train/checkpoint.py`` with its directory format.
+``repro/train/checkpoint.py`` with its directory format, so that a
+checkpoint of either package restores in the other.
 
     ckpt_dir/step_00001000/
         manifest.json     {step, n_leaves, treedef, shapes, dtypes, extra}
@@ -7,13 +8,29 @@
 
 A save goes to ``.tmp-step_X`` and is renamed into place, so a crashed
 save never shadows a complete one; ``keep`` bounds the steps kept.  The
-leaves follow the reference's TrainState order: the step, the parameter
-leaves (a stacked leaf saved with its leading layer axis), the engine
-state (count, m shards, h shards, hess_count, clip_fraction), the clip
-state and the seed.  bf16 leaves are stored as their 16 bits (int16) with
-"bfloat16" in the manifest (numpy has no bf16).  The launcher records the
-engine layout under ``extra``.  Multi-process and asynchronous saves are
-not ported.
+leaves follow the reference's TrainState order: the step (int32), the
+parameter leaves in sorted-key order (a stacked leaf saved with its
+leading layer axis), the engine state (count, m shards, h shards,
+hess_count, clip_fraction), the clip state and the rng.  The launcher
+records the engine layout under ``extra``.
+
+Two leaves need care, because numpy and JAX hold them differently:
+
+  * bf16.  numpy has no bf16, and the reference's ``np.save`` of an
+    ml_dtypes bf16 array writes 2-byte void (``V2``) with "bfloat16" in
+    the manifest.  A save here writes the same: the 16 bits as ``V2``.  A
+    restore reads a "bfloat16" leaf's void bits back as bf16.
+  * the rng.  The reference keeps its JAX key, two uint32 words,
+    ``split(PRNGKey(seed))[1]``; so does the port's TrainState
+    (``train_state.train_key`` computes it with a numpy Threefry), and a
+    save writes it as the reference's (2,) uint32 leaf.  The port cannot
+    reproduce JAX's key stream: it seeds its own refresh noise from the
+    key's two words (``trainer.hess_seed``), so a restored key, the
+    port's or the reference's, continues the port's stream exactly where
+    it left off, and a reference checkpoint continues the reference's
+    trajectory wherever the refresh noise is passed in.
+
+Multi-process and asynchronous saves are not ported.
 """
 from __future__ import annotations
 
@@ -59,9 +76,10 @@ def read_manifest(ckpt_dir: str, step: Optional[int] = None) -> dict:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The leaf as the reference's ``np.save`` writes it: bf16 as ``V2``."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy()
+        return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
 
 
@@ -77,7 +95,7 @@ def _state_leaves(state: TrainState):
     for t in (opt.count, *opt.m, *opt.h, opt.hess_count, opt.clip_fraction,
               *state.clip_state):
         out.append((_to_numpy(t), dtype_name(t.dtype)))
-    out.append((np.asarray(state.rng, np.int64), "int64"))
+    out.append((np.asarray(state.rng, np.uint32), "uint32"))
     return out
 
 
@@ -113,7 +131,12 @@ def save(ckpt_dir: str, step: int, state: TrainState, *, keep: int = 3,
 def _load(path: str, dtype: str, device) -> torch.Tensor:
     arr = np.load(path)
     if dtype == "bfloat16":
-        return torch.from_numpy(arr).view(torch.bfloat16).to(device)
+        if arr.dtype.kind != "V" or arr.dtype.itemsize != 2:
+            raise ValueError(f"{path}: a bfloat16 leaf stored as {arr.dtype}")
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    if dtype == "uint32":     # the rng key: int64 holds every word
+        return torch.from_numpy(arr.astype(np.int64))
     return torch.from_numpy(arr).to(device)
 
 
@@ -152,7 +175,11 @@ def restore(ckpt_dir: str, like: TrainState, *,
     opt_state = EngineState(count=count, m=m, h=h, hess_count=next(vals),
                             clip_fraction=next(vals))
     clip_state = ClipState(next(vals), next(vals), next(vals))
-    rng = int(next(vals))
+    key = next(vals)
+    if tuple(key.shape) != (2,):
+        raise ValueError(f"the rng leaf has shape {tuple(key.shape)}, not "
+                         "the key's (2,)")
+    rng = (int(key[0]), int(key[1]))
     return TrainState(step=saved_step, params=like.params,
                       opt_state=opt_state, clip_state=clip_state,
                       rng=rng), step

@@ -32,15 +32,18 @@ parameters and folds into the Hessian EMA with its scale.
 The reference makes this one compiled program under a traced flag; the
 port runs eagerly and branches in Python on the same flag.
 
-The reference draws the refresh's randomness from its JAX key stream
-(``fold_in(fold_in(rng, RNG_TAG_HESS), step)``), which PyTorch cannot
-reproduce; the port derives its own from ``(seed, RNG_TAG_HESS, step)``
-with numpy: GNB's noise seed of the fused sweep (:func:`hess_seed`), and a
-``torch.Generator`` seeded from it (:func:`hess_generator`) for
-Hutchinson's probe (:func:`hess_probe`) and the Gumbel noise of the
-chunked GNB sweep.  ``hess_seed_fn(step)``, ``probe_fn(step, layout)`` and
-``noise_fn(step, shape)`` replace those draws; the parity tests use them
-to pass in the reference's.
+The state's ``rng`` is the reference's key, ``split(PRNGKey(seed))[1]``
+(``train_state.train_key``), so that the two packages' checkpoints carry
+the same leaf.  The reference draws the refresh's randomness from its JAX
+key stream (``fold_in(fold_in(rng, RNG_TAG_HESS), step)``), which PyTorch
+cannot reproduce; the port derives its own from ``(rng, RNG_TAG_HESS,
+step)`` with numpy, the key's two words as the seed: GNB's noise seed of
+the fused sweep (:func:`hess_seed`), and a ``torch.Generator`` seeded from
+it (:func:`hess_generator`) for Hutchinson's probe (:func:`hess_probe`) and
+the Gumbel noise of the chunked GNB sweep.  A restored key (the port's or
+the reference's) continues that stream.  ``hess_seed_fn(step)``,
+``probe_fn(step, layout)`` and ``noise_fn(step, shape)`` replace those
+draws; the parity tests use them to pass in the reference's.
 
 Options of the reference trainer this slice does not port raise
 ``NotImplementedError`` (:func:`check_ported`).
@@ -63,7 +66,7 @@ from ..models import ModelConfig, get_model
 from ..models.layers import TRAIN_ATTN_IMPLS
 from ..models.transformer import REMATS
 from ..serve.engine import resolve_device
-from .train_state import TrainState
+from .train_state import TrainState, train_key
 
 RNG_TAG_HESS = 1           # estimator label sampling (the reference's tag)
 ESTIMATORS = ("gnb", "hutchinson", "empirical_fisher")
@@ -162,28 +165,34 @@ def make_engine(tc: TrainerConfig) -> OptimizerEngine:
                            else "reference", state_dtype=sdt)
 
 
-def hess_seed(seed: int, step: int):
+def _stream(rng, step: int) -> np.random.Generator:
+    """numpy's generator of the refresh at ``step``, seeded with ``(rng,
+    RNG_TAG_HESS, step)``; ``rng`` an int seed or a key's two words."""
+    words = tuple(int(w) for w in np.atleast_1d(np.asarray(rng)))
+    return np.random.default_rng(words + (RNG_TAG_HESS, step))
+
+
+def hess_seed(rng, step: int):
     """The port's noise seed of the refresh at ``step``: two uint32 values
-    from numpy's generator seeded with ``(seed, RNG_TAG_HESS, step)``."""
-    bits = np.random.default_rng((seed, RNG_TAG_HESS, step)).integers(
-        0, 1 << 32, size=2, dtype=np.uint64)
+    from numpy's generator seeded with ``(rng, RNG_TAG_HESS, step)``,
+    ``rng`` an int seed or the state's key words."""
+    bits = _stream(rng, step).integers(0, 1 << 32, size=2, dtype=np.uint64)
     return int(bits[0]), int(bits[1])
 
 
-def hess_generator(seed: int, step: int, device) -> torch.Generator:
+def hess_generator(rng, step: int, device) -> torch.Generator:
     """The port's generator of the refresh at ``step``: a
-    ``torch.Generator`` on ``device`` seeded from numpy with ``(seed,
+    ``torch.Generator`` on ``device`` seeded from numpy with ``(rng,
     RNG_TAG_HESS, step)``."""
-    gen_seed = int(np.random.default_rng((seed, RNG_TAG_HESS, step))
-                   .integers(0, 1 << 63, dtype=np.int64))
+    gen_seed = int(_stream(rng, step).integers(0, 1 << 63, dtype=np.int64))
     return torch.Generator(device=device).manual_seed(gen_seed)
 
 
-def hess_probe(seed: int, step: int, layout, device):
+def hess_probe(rng, step: int, layout, device):
     """The port's Hutchinson probe u ~ N(0, I) of the refresh at ``step``:
     one fp32 draw per flat shard (as the reference draws it, per shard)
     from :func:`hess_generator`."""
-    gen = hess_generator(seed, step, device)
+    gen = hess_generator(rng, step, device)
     return tuple(torch.randn((n,), generator=gen, dtype=torch.float32,
                              device=device) for n in layout.shard_sizes)
 
@@ -202,22 +211,20 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
     Hutchinson's probe shards (:func:`hess_seed`, :func:`hess_probe`) and
     ``noise_fn(step, shape)`` the Gumbel noise of the chunked GNB sweep
     (``fused_loss=False``): the whole (B, S, Vp) tensor of the sub-batch's
-    logits, in place of draws from :func:`hess_generator`.
+    logits, in place of draws from :func:`hess_generator` on the state's
+    key.
 
     ``init_fn(params=None) -> TrainState``: random parameters from a
     ``torch.Generator`` seeded with ``tc.seed`` on the device, or the given
-    ``Transformer``.  ``train_step(state, batch, do_refresh) -> (state,
-    metrics)``: one step on a batch of device tensors; the parameters are
-    updated in place."""
+    ``Transformer``; the key ``train_key(tc.seed)``.
+    ``train_step(state, batch, do_refresh) -> (state, metrics)``: one step
+    on a batch of device tensors; the parameters are updated in place."""
     check_ported(tc)
     device = resolve_device(device)
     model = get_model(cfg)
     engine = make_engine(tc)
     schedule = make_schedule(tc)
     clipper = clip_by_global_norm(tc.grad_clip)
-    seed_of = hess_seed_fn or (lambda step: hess_seed(tc.seed, step))
-    probe_of = probe_fn or (lambda step, layout:
-                            hess_probe(tc.seed, step, layout, device))
     # fused_attn applies only while attn_impl is "auto"; an explicit impl
     # wins (the reference's mapping, trainer.py:216-221)
     attn_impl = (tc.attn_impl if tc.attn_impl != "auto"
@@ -234,7 +241,8 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
             params = model.init_params(cfg, gen)
         tree = params.param_tree()
         return TrainState(step=0, params=params, opt_state=engine.init(tree),
-                          clip_state=clipper.init(tree), rng=tc.seed)
+                          clip_state=clipper.init(tree),
+                          rng=train_key(tc.seed))
 
     def grads_of(params, batch):
         """(loss, metrics, grads as a flat tensor list): the mean over
@@ -263,16 +271,19 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         return (loss_sum * inv, {k: v * inv for k, v in met_sum.items()},
                 [g * inv for g in g_sum])
 
-    def estimate_flat(params, batch, step):
+    def estimate_flat(params, batch, step, rng):
         """(estimate shards, scale) on the estimator sub-batch, dispatched
-        on ``tc.estimator`` (the reference's ``_estimate_flat``)."""
+        on ``tc.estimator`` (the reference's ``_estimate_flat``), with the
+        refresh's randomness from the key ``rng``."""
         tree = params.param_tree()
         lay = engine.layout(tree)
         sub = (subsample_batch(batch, tc.hess_subbatch) if tc.hess_subbatch
                else batch)
         if tc.estimator == "gnb" and tc.fused_loss:
             def sampled_loss():
-                return model.sampled_loss_fn(cfg, params, sub, seed_of(step),
+                seed = (hess_seed_fn(step) if hess_seed_fn
+                        else hess_seed(rng, step))
+                return model.sampled_loss_fn(cfg, params, sub, seed,
                                              attn_impl=attn_impl,
                                              remat=tc.remat)
 
@@ -287,7 +298,7 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
             shape = tuple(sub["tokens"].shape) + (cfg.padded_vocab,)
             noise = noise_fn(step, shape) if noise_fn else None
             gen = (None if noise_fn else
-                   hess_generator(tc.seed, step, device))
+                   hess_generator(rng, step, device))
             g_sh, scale = gnb_ghat_flat(logits, tree, gen, lay,
                                         mask=sub.get("mask"), noise=noise)
             return tuple(g * g for g in g_sh), scale
@@ -298,8 +309,9 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
                 lambda m: model.loss_fn(cfg, m, sub, attn_impl=hvp_attn_impl,
                                         remat="none",
                                         loss_impl=hvp_loss_impl)[0])
-            return hutchinson_estimator_flat(loss, tree, probe_of(step, lay),
-                                             lay), 1.0
+            probe = (probe_fn(step, lay) if probe_fn
+                     else hess_probe(rng, step, lay, device))
+            return hutchinson_estimator_flat(loss, tree, probe, lay), 1.0
         # empirical Fisher: B counts the sub-batch's positions
         def loss():
             return model.loss_fn(cfg, params, sub, attn_impl=attn_impl,
@@ -316,10 +328,16 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         loss, metrics, g_flat = grads_of(params, batch)
         grads, clip_state = clipper.update(tree_unflatten(tree, g_flat),
                                            state.clip_state)
+        del g_flat
         g_sh = engine.ravel_grads(tree, grads)
+        # the shards carry the gradient from here: the trees go before the
+        # refresh and the update allocate theirs (two parameter-sized
+        # buffers, ~12 GB at 1.5 B parameters)
+        del grads
         lr = schedule(state.opt_state.count)
         if do_refresh and engine.hessian_aware:
-            est_sh, scale = estimate_flat(params, batch, state.step)
+            est_sh, scale = estimate_flat(params, batch, state.step,
+                                          state.rng)
             _, opt_state = engine.step_with_refresh(
                 state.opt_state, tree, g_sh, lr, est_sh, scale, True)
         else:

@@ -20,7 +20,7 @@ from repro_torch.core.types import flat_tensors, tree_unflatten
 from repro_torch.data import DataConfig, make_source
 from repro_torch.models import get_model
 from repro_torch.train import (TrainerConfig, hess_generator, make_schedule,
-                               train_loop)
+                               train_key, train_loop)
 from repro_torch.train.trainer import to_device_batch
 
 torch.set_num_threads(1)
@@ -203,7 +203,7 @@ def test_per_leaf_api_follows_the_trainer():
             sub = {k: v[:tc.hess_subbatch] for k, v in batch.items()}
             est = gnb_estimator(
                 lambda _: model.logits_fn(cfg, params, sub, attn_impl="flash"),
-                tree, hess_generator(tc.seed, t, "cpu"))
+                tree, hess_generator(train_key(tc.seed), t, "cpu"))
             opt_state = opt.update_hessian(est, opt_state)
         loss, _ = model.loss_fn(cfg, params, batch, attn_impl="flash",
                                 loss_impl="chunked")

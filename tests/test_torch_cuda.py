@@ -51,6 +51,8 @@ def cuda_device():
     (3, 12, 12, 64, 64, None, None, [-1, -7, 3]),
     # splits_past_rows: most of the S = 4 splits have no rows
     (4, 12, 12, 512, 64, None, None, [0, 1, 2, 3]),
+    # NeoX-6.6B's serving heads: hd 128, 32 heads
+    (8, 32, 32, 512, 128, None, None, None),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, dt, quant, N, H,
                                                Hkv, C, hd, window, softcap,
@@ -278,6 +280,7 @@ def test_hutchinson_hvp_launches_no_backward_kernel(cuda_device):
     (2, 2, 1, 100, 100, 32, False, None, None, 0),    # off the tile
     (2, 4, 4, 192, 192, 128, True, None, None, 0),    # hd 128
     (2, 8, 2, 256, 256, 64, True, None, None, 0),     # GQA 8/2
+    (1, 32, 32, 2048, 2048, 128, True, None, None, 0),  # NeoX-6.6B, S 2048
 ])
 def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
                                              Sk, hd, causal, window, softcap,
@@ -683,3 +686,50 @@ def test_per_leaf_sophia_matches_the_engine_on_card(cuda_device):
         assert float(s_leaf[1].clip_fraction) == float(e_state.clip_fraction)
     for a, b in zip(flat_tensors(p_leaf), flat_tensors(p_eng)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def _chip_smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("h", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1536, 2048, 4096])
+def test_fused_ce_kernels_at_the_rope_widths(cuda_device, D, h, tied):
+    """The four CE kernels at NeoX-1.5B's, stablelm's and NeoX-6.6B's
+    widths against their plain versions (``chip_smoke.check_ce_case``:
+    the forwards within 1e-5 fp32 or 2e-2 bf16; dh and dW within 1e-5 of
+    their largest element in fp32 and element by element against their
+    absolute sums in bf16; the draws equal off near-ties), ragged rows,
+    a padded vocab, untied with softcap 30 and a mask.  fp32 h runs the
+    backward in D-slabs (2, 2 and 4 of them), bf16 h the tensor cores."""
+    cs = _chip_smoke()
+    spec = dict(cs.CE_MAIN, N=130 if h == "float32" else 1000, D=D, V=2000,
+                Vp=2048, tied=tied, h=h, softcap=None if tied else 30.0,
+                mask=not tied)
+    reset_launch_counts()
+    cs.check_ce_case(torch, f"D{D}", spec)
+    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 1, "ce_forward_sampled": 1,
+                                     "ce_backward_dh": 1, "ce_backward_dw": 1}
+
+
+@pytest.mark.parametrize("name", ["neox-1.5b", "stablelm-1.6b", "neox-6.6b"])
+def test_rope_model_step0_matches_cpu(cuda_device, name):
+    """Each rope model at full width and 2 layers, fp32: the step-0 loss
+    within 1e-5 relative and every gradient within 1e-4 of its leaf's
+    largest element against the CPU's plain path
+    (``chip_smoke.model_step0_against_cpu``: flash attention with rope,
+    the untied CE kernels, SwiGLU for stablelm)."""
+    cs = _chip_smoke()
+    cfg = {run[0]: run[1] for run in cs._model_runs()}[name]
+    reset_launch_counts()
+    _, rel = cs.model_step0_against_cpu(torch, name, cfg)
+    assert rel <= 1e-4
+    for kernel in ("ce_forward", "ce_backward_dh", "ce_backward_dw",
+                   "attn_fwd", "attn_bwd_dq", "attn_bwd_dkv"):
+        assert KERNEL_LAUNCHES.get(kernel), kernel
