@@ -15,8 +15,10 @@ it fails and prints no result.  Phases, in order:
      attention at the serving shape and its edge cases (GQA, window +
      softcap, ring wraparound, an unwritten ring, a ring length off the
      kernel's tile, GPT-2's full 1024-token context over 8 and over 64
-     slots, negative positions, positions below the split count); the
-     fused CE kernels (forward, sampled forward, dh,
+     slots, negative positions, positions below the split count, the
+     dense configs' heads: yi's and qwen1.5's group of 8 at hd 128,
+     gemma2's hd 256 with its softcap, and its window in a ring of 8192);
+     the fused CE kernels (forward, sampled forward, dh,
      dW) at GPT-2 small's loss shape (D=768, Vp=50304, tied, ln fused,
      bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
      4096, and its edge cases (untied, softcap 30, rms, no norm, padded
@@ -25,7 +27,11 @@ it fails and prints no result.  Phases, in order:
      NeoX-1.5B N=8192 D=1536 Vp=50432, stablelm-1.6b N=8192 D=2048
      Vp=100352, NeoX-6.6B N=4096 D=4096 Vp=50432) and D=1536, 2048 and
      4096 tied and untied with bf16 h and with fp32 h (whose backward
-     runs in D-slabs).  The forwards within 1e-5 (fp32) or 2e-2 (bf16);
+     runs in D-slabs), and the dense configs' loss shapes with RMSNorm
+     fused (yi N=4096 D=4096 Vp=64000 untied, qwen1.5 N=2048 D=8192
+     Vp=152064 untied, gemma2 N=8192 D=3584 Vp=256000 tied with softcap
+     30; and each width with fp32 h at 130 rows).  The forwards within
+     1e-5 (fp32) or 2e-2 (bf16);
      dh and dW within 1e-5 of their largest element in fp32 and, with bf16
      h or W, element by element against each element's sum of absolute
      terms (``check_bf16_grad``; bf16 h takes the tensor-core kernels,
@@ -36,23 +42,28 @@ it fails and prints no result.  Phases, in order:
      H=12, S=1024, hd=64, causal) and the refresh's B=4, and the edge
      cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
      non-causal, S=1000 off the tile, hd=128, rows with no key) and the
-     rope models' S=2048 (hd 64, 24 heads; hd 128, 32 heads), fp32 and
-     bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2 (bf16) of
-     their largest element, and in bf16 (all three on the tensor cores)
-     every element of o, dq, dk and dv within 2^-7 of its absolute sum
-     (the share beyond 2^-9 logged); the engine kernels (the Sophia
-     step, the Hessian EMA with square off and on, the refresh-fused step
-     with flag 0 and 1, AdamW at steps 1, 2 and 1000, the AdaHessian
-     refresh-fused step with flag 0 and 1 at steps 1, 2 and 1000, the
-     AdaHessian step at those steps, Lion, SignGD and SGD, the last three
-     also with m = g = 0 on every 7th element, where the sign argument is
-     exactly 0, and Lion and SignGD with NaN in g and m, NaN exactly where
-     their plain versions put it) at GPT-2 small's flat shard
-     (n=124,518,400, block 131072) with fp32 and with bf16 state, and the
-     edge cases (3 blocks of 128, one block, h with zeros and negative
-     entries, rho=1e9, bf16 p, the zero tail pad),
-     every output and every per-block clip count bit-identical to the
-     plain version;
+     rope models' S=2048 (hd 64, 24 heads; hd 128, 32 heads), hd 256
+     (gemma2's training shape, B=1 H=16 Hkv=8 S=8192 softcap 50, a local
+     layer with its window of 4096 and a global one; and GQA 2 with window
+     and softcap off the tile, q_offset, non-causal, a row with no key),
+     fp32 and bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2
+     (bf16) of their largest element, and in bf16 (all three on the
+     tensor cores) every element of o, dq, dk and dv within 2^-7 of its
+     absolute sum (the share beyond 2^-9 logged); the engine kernels (the
+     Sophia step, the Hessian EMA with square off and on, the
+     refresh-fused step with flag 0 and 1, AdamW at steps 1, 2 and 1000,
+     the AdaHessian refresh-fused step with flag 0 and 1 at steps 1, 2 and
+     1000, the AdaHessian step at those steps, Lion, SignGD and SGD, the
+     last three also with m = g = 0 on every 7th element, where the sign
+     argument is exactly 0, and Lion and SignGD with NaN in g and m, NaN
+     exactly where their plain versions put it) at GPT-2 small's flat
+     shard (n=124,518,400, block 131072) with fp32 and with bf16 state,
+     and the edge cases (3 blocks of 128, one block, h with zeros and
+     negative entries, rho=1e9, bf16 p, the zero tail pad), every output
+     and every per-block clip count bit-identical to the plain version;
+     and rows 2-4 launched on the shard of each dense config phase 4d
+     trains (yi-6b at 8 layers, 1,908,539,392 elements; gemma2-9b at 4,
+     1,710,358,528), the plain versions over slices;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -124,6 +135,22 @@ it fails and prints no result.  Phases, in order:
      Counts are zeroed before each model's runs and read after: decode
      attention, the Sophia step and the refresh-fused step, the four CE
      kernels and the three flash kernels must each have launched;
+  4d. the dense configs (``get_config``: yi-6b, RMSNorm and GQA 32/4;
+     qwen1.5-110b, RMSNorm and QKV bias; gemma2-9b, RMSNorm with sandwich
+     norms, GeGLU, the embedding scale, hd 256, the alternating window of
+     4096 and the softcaps 50 and 30), random weights from a seed: each
+     one's step-0 loss and gradients at full width, fp32, B=1 x S=64 on
+     the card against the CPU (2 layers; qwen1.5 at 1 layer, 3.85 B
+     parameters, with the host's memory logged); Sophia-G trained for 7
+     steps as in 4c, yi-6b at 8 of 32 layers (B=2 x S=2048) and gemma2-9b
+     at 4 of 42 (B=1 x S=8192, its context, where the local layers'
+     window masks keys); qwen1.5-110b not trained (its embeddings alone,
+     2.49 B parameters, take ~80 GB at the ~32 bytes a parameter a step
+     needs); served (bf16 and int8 caches) at full depth, qwen1.5 at 6 of
+     80 layers.  Each cut and its reason is logged.  Counts are zeroed
+     before each run and read after: the step-0 check launches the CE and
+     flash kernels, training the path's kernels exactly, serving decode
+     attention once a layer a step;
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -146,9 +173,12 @@ it fails and prints no result.  Phases, in order:
      kernels at N=8192, the sampled forward also at the refresh's
      N=4096; under each CE and flash row's ``shapes`` the rope models'
      shapes, and under decode attention's NeoX-6.6B's heads (hd 128,
-     32 heads); each row's ``launches_models`` the launches of each rope
-     model's runs.  A JSON line of the rope models' step times, memory
-     and served tok/s comes before it.
+     32 heads) and the dense configs' heads; the CE kernels also at the
+     dense configs' loss shapes, the flash kernels at gemma2's local and
+     global layers (SDPA beside them without the softcap); each row's
+     ``launches_models`` the launches of each model's runs.  A JSON line
+     of the models' step times, memory, served tok/s and cuts comes
+     before it.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -304,7 +334,13 @@ DECODE_SHAPES = {
     "batch64_c1024": ((64, 12, 12, 1024, 64),
                       [1023 + 37 * i for i in range(64)]),
     "neox66_hd128_c512": ((8, 32, 32, 512, 128), MAIN_POS),
+    "yi_hd128_c512": ((8, 32, 4, 512, 128), MAIN_POS),
+    "qwen_hd128_c512": ((8, 64, 8, 512, 128), MAIN_POS),
+    "gemma2_hd256_c512": ((8, 16, 8, 512, 256), MAIN_POS),
 }
+# the options a timed shape's model calls the kernel with (gemma2: its
+# softcap and window, which a ring of 512 never reaches)
+DECODE_KW = {"gemma2_hd256_c512": {"window": 4096, "softcap": 50.0}}
 
 
 def phase_kernels(torch):
@@ -338,6 +374,19 @@ def phase_kernels(torch):
         ("stablelm_hd64_H32", (8, 32, 32, 512, 64), MAIN_POS, {}),
         ("neox66_hd128_H32", DECODE_SHAPES["neox66_hd128_c512"][0],
          DECODE_SHAPES["neox66_hd128_c512"][1], {}),
+        # the dense configs' serving shapes (phase 4d): yi (hd 128, 32
+        # heads over 4 KV heads) and qwen1.5 (64 over 8), group 8; gemma2
+        # (hd 256, 16 over 8) with its softcap 50, and its window 4096
+        # binding in a ring of 8192 with positions past 4096
+        ("yi_hd128_H32_Hkv4", DECODE_SHAPES["yi_hd128_c512"][0],
+         DECODE_SHAPES["yi_hd128_c512"][1], {}),
+        ("qwen_hd128_H64_Hkv8", DECODE_SHAPES["qwen_hd128_c512"][0],
+         DECODE_SHAPES["qwen_hd128_c512"][1], {}),
+        ("gemma2_hd256_H16_Hkv8_softcap50", DECODE_SHAPES[
+            "gemma2_hd256_c512"][0], DECODE_SHAPES["gemma2_hd256_c512"][1],
+         DECODE_KW["gemma2_hd256_c512"]),
+        ("gemma2_hd256_window4096_C8192", (4, 16, 8, 8192, 256),
+         [4095, 5000, 8191, 12000], DECODE_KW["gemma2_hd256_c512"]),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -378,6 +427,18 @@ CE_MODEL_SHAPES = (
                            tied=False)),
     ("neox-6.6b", dict(N=4096, D=4096, V=50432, Vp=50432, tied=False)),
 )
+# the dense configs' loss shapes (phase 4d), RMSNorm fused: yi's training
+# batch (B 2 x S 2048, untied), qwen1.5's width and vocab at one 2048-token
+# row (untied; it is not trained on the card), gemma2's training batch (B 1
+# x S 8192, tied, final softcap 30)
+CE_DENSE_SHAPES = (
+    ("yi-6b", dict(N=4096, D=4096, V=64000, Vp=64000, tied=False,
+                   norm="rms")),
+    ("qwen1.5-110b", dict(N=2048, D=8192, V=152064, Vp=152064, tied=False,
+                          norm="rms")),
+    ("gemma2-9b", dict(N=8192, D=3584, V=256000, Vp=256000, tied=True,
+                       norm="rms", softcap=30.0)),
+)
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
 CE_CASES = [
@@ -416,7 +477,15 @@ CE_CASES = [
           h="bfloat16" if h == "bf16" else "float32",
           softcap=None if tied else 30.0, mask=not tied))
     for D in (1536, 2048, 4096) for h in ("bf16", "fp32")
-    for tied in (True, False)]
+    for tied in (True, False)] + [
+    # the dense configs' loss shapes (bf16 h, the training path), and
+    # their widths and vocabularies with fp32 h at 130 ragged rows (the
+    # step-0 checks' route; the backward in 4, 7 and 3 D-slabs)
+    (f"{name}_N{sp['N']}_D{sp['D']}_Vp{sp['Vp']}_rms", sp)
+    for name, sp in CE_DENSE_SHAPES] + [
+    (f"fp32_{name}_D{sp['D']}_Vp{sp['Vp']}_rms_masked",
+     dict(sp, N=130, h="float32", mask=True))
+    for name, sp in CE_DENSE_SHAPES]
 CE_SEED = (1234567, 89101112)      # the sampled forward's noise seed
 NEAR_TIE = 1e-5
 
@@ -471,12 +540,13 @@ def _draw_gaps(torch, h2, w, normp, opts):
     return top[:, 0] - top[:, 1]
 
 
-def _abs_sums(torch, h, w, normp, labels, rs, lse, opts):
+def _abs_sums(torch, h, w, normp, labels, rs, lse, opts, stats=None):
     """(S_dh, S_dW): each gradient element's sum of absolute terms,
-    |d|.|W| and |d|^T.|h_n|, by the plain sweep's chunks."""
+    |d|.|W| and |d|^T.|h_n|, by the plain sweep's chunks (h_n normalized
+    with ``stats`` when given, as ``fused_ce.apply_norm``)."""
     from repro_torch.kernels.fused_ce import _chunk_logits, apply_norm
 
-    hn = apply_norm(h, normp, opts["norm"], opts["eps"]).float()
+    hn = apply_norm(h, normp, opts["norm"], opts["eps"], stats).float()
     tw = opts["transpose_w"]
     Vp = w.shape[1] if tw else w.shape[0]
     s_dh = torch.zeros(hn.shape, device="cuda")
@@ -500,29 +570,64 @@ def _abs_sums(torch, h, w, normp, labels, rs, lse, opts):
 BF16_TIGHT_SHARE = 1e-3
 
 
-def check_bf16_grad(torch, name, got, want, sums):
+def check_bf16_grad(torch, name, got, want, sums, tight=None):
     """dh or dW against the plain version where h or W is bf16, element by
     element.  Both round h_n to bf16; where the two sides' norm statistics
     differ in the last bit, an element of h_n may land one bf16 ulp (at
     most 2^-7 of it) apart, so each term of a gradient element may move by
     2^-7 of itself: every element must lie within 2^-7 of its sum of
     absolute terms S (plus one ulp of a bf16 output, plus 2^-24 max S).
-    Such flips are rare, so at most 0.1% of the elements may lie beyond
-    2^-16 S; fp32 sums in another order stay well inside that.  Dropping
-    the softmax term, skipping the rounding of h_n or rounding W in d.W
-    puts 0.4-100% of the elements beyond it.  Returns (elements beyond
-    2^-7 S, share beyond 2^-16 S)."""
+    ``tight``, (want, sums) of the plain version normalizing with the
+    kernels' own row statistics (``fused_ce.row_stats``), removes those
+    flips: against it only fp32 sums in another order remain, and at most
+    0.1% of the elements may lie beyond 2^-16 S.  (Against the plain
+    statistics the flips alone put 0.16% of dW beyond it at qwen1.5's D
+    8192, and up to 1.3e-4 at D <= 4096.)  Dropping the softmax term,
+    skipping the rounding of h_n or rounding W in d.W puts 0.4-100% of
+    the elements beyond it.  Returns (elements beyond 2^-7 S, share
+    beyond 2^-16 S)."""
     diff = (got.float() - want.float()).abs()
     mag = want.float().abs()
     base = ((2 ** -7 if want.dtype == torch.bfloat16 else 0.0) * mag
             + 2 ** -24 * sums.max())
     n_hard = int((diff > 2 ** -7 * sums + base).sum())
+    if tight is not None:
+        want, sums = tight
+        diff = (got.float() - want.float()).abs()
+        base = ((2 ** -7 if want.dtype == torch.bfloat16 else 0.0)
+                * want.float().abs() + 2 ** -24 * sums.max())
     share = float((diff > 2 ** -16 * sums + base).float().mean())
     if n_hard or not share <= BF16_TIGHT_SHARE:
         raise AssertionError(
             f"{name}: {n_hard} elements beyond 2^-7 of their absolute sum, "
             f"{share:.3g} of them beyond 2^-16 (limit {BF16_TIGHT_SHARE})")
     return n_hard, share
+
+
+STATS_ULPS = 16
+
+
+def _kernel_row_stats(torch, h, opts):
+    """The norm statistics the CE kernels normalize with, held against the
+    plain version's: 1/sqrt(var + eps) (and ln's mean, relative to the
+    row's largest |x|) within STATS_ULPS fp32 ulps (the two sum D terms in
+    other orders, and torch's rsqrt is approximate).  Returns (stats, the
+    largest difference in ulps)."""
+    from repro_torch.kernels import fused_ce as ce
+
+    got = ce.row_stats(h, norm=opts["norm"], eps=opts["eps"])
+    want = torch.cat(ce._row_stats_plain(h.float(), opts["norm"],
+                                         opts["eps"]), dim=-1)
+    ulp = 2.0 ** -23
+    rstd = ((got[:, 1] - want[:, 1]).abs() / (want[:, 1].abs() * ulp))
+    scale = h.float().abs().amax(-1)
+    mu = (got[:, 0] - want[:, 0]).abs() / (scale * ulp)
+    worst = max(rstd.max().item(), mu.max().item())
+    if not worst <= STATS_ULPS:
+        raise AssertionError(f"CE row statistics differ from the plain "
+                             f"ones by {worst:.3g} fp32 ulps (> "
+                             f"{STATS_ULPS})")
+    return got, worst
 
 
 def check_ce_case(torch, name, spec):
@@ -591,12 +696,23 @@ def check_ce_case(torch, name, spec):
     else:
         sums = dict(zip(grads, _abs_sums(torch, h, w, normp, labels, rs,
                                          lse_p, opts)))
+        tight, stats_note = {k: None for k in grads}, ""
+        if opts["norm"] is not None:
+            stats, stats_ulps = _kernel_row_stats(torch, h, opts)
+            tight = dict(zip(grads, zip(
+                ce.ce_backward_plain(h, w, normp, labels, rs, lse_p,
+                                     **opts, stats=stats),
+                _abs_sums(torch, h, w, normp, labels, rs, lse_p, opts,
+                          stats))))
+            stats_note = (f"; the kernels' row statistics within "
+                          f"{stats_ulps:.3g} fp32 ulps of the plain ones, "
+                          f"the share against the plain version fed them")
         shares = {k: check_bf16_grad(torch, f"{k} {name}", *grads[k],
-                                     sums[k])[1] for k in grads}
+                                     sums[k], tight[k])[1] for k in grads}
         grad_note = ("dh/dW element by element: none beyond 2^-7 of the "
                      "absolute sum, share beyond 2^-16 "
                      + ", ".join(f"{s:.3g}" for s in shares.values())
-                     + f" (limit {BF16_TIGHT_SHARE})")
+                     + f" (limit {BF16_TIGHT_SHARE}){stats_note}")
     log(f"[kernels] fused_ce {name} N={spec['N']} D={spec['D']} "
         f"V={spec['V']} Vp={spec['Vp']} tied={spec['tied']} "
         f"norm={spec['norm']} softcap={spec['softcap']} h={spec['h']} "
@@ -628,6 +744,14 @@ ATTN_MODEL_SHAPES = (
     ("stablelm-1.6b", dict(B=4, H=32, Hkv=32, Sq=2048, Sk=2048)),
     ("neox-6.6b", dict(B=2, H=32, Hkv=32, Sq=2048, Sk=2048, hd=128)),
 )
+# gemma2's training attention (phase 4d: B 1 x S 8192, hd 256, GQA 16/8,
+# softcap 50): its local layers' window of 4096 and its global layers
+GEMMA2_ATTN = dict(B=1, H=16, Hkv=8, Sq=8192, Sk=8192, hd=256,
+                   softcap=50.0)
+ATTN_DENSE_SHAPES = (
+    ("gemma2-9b-local", dict(GEMMA2_ATTN, window=4096)),
+    ("gemma2-9b-global", GEMMA2_ATTN),
+)
 ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
                  window=None, softcap=None, q_offset=0)
 ATTN_CASES = [
@@ -643,7 +767,18 @@ ATTN_CASES = [
     ("row_with_no_key", dict(B=2, H=4, Hkv=4, Sq=64, Sk=96, window=16,
                              q_offset=64)),
 ] + [(f"{name}_S2048_hd{sp.get('hd', 64)}", sp)
-     for name, sp in ATTN_MODEL_SHAPES]
+     for name, sp in ATTN_MODEL_SHAPES] + [
+    # hd 256 (gemma2): its two layer kinds at its training shape, and the
+    # edges at small sizes
+    (f"{name}_S8192_hd256", sp) for name, sp in ATTN_DENSE_SHAPES] + [
+    ("hd256_gqa2_window40_softcap50_S300_off_tile",
+     dict(B=2, H=4, Hkv=2, Sq=300, Sk=300, hd=256, window=40, softcap=50.0)),
+    ("hd256_q_offset96_Sq160_Sk256", dict(B=1, H=4, Hkv=2, Sq=160, Sk=256,
+                                          hd=256, q_offset=96)),
+    ("hd256_noncausal_Sq100_Sk130", dict(B=1, H=2, Hkv=1, Sq=100, Sk=130,
+                                         hd=256, causal=False)),
+    ("hd256_row_with_no_key", dict(B=1, H=2, Hkv=2, Sq=64, Sk=96, hd=256,
+                                   window=16, q_offset=64))]
 
 
 def _attn_inputs(torch, spec, dtype, seed=0):
@@ -917,6 +1052,90 @@ def check_sign_nan(torch, sdt):
         "are bit-identical elsewhere")
 
 
+def param_count(cfg) -> int:
+    """Parameters of a dense config (the port's ``init_params`` leaves):
+    the engine's one fp32 shard is this rounded up to its block."""
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    norm = D * (2 if cfg.norm_type == "ln" else 1)
+    attn = 2 * D * H * hd + 2 * D * Hkv * hd
+    attn += (H + 2 * Hkv) * hd if cfg.qkv_bias else 0
+    mlp = (3 * D * F if cfg.activation in ("swiglu", "geglu")
+           else 2 * D * F + F + D)
+    layer = attn + mlp + norm * (4 if cfg.post_norms else 2)
+    embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
+    embed += cfg.max_position_embeddings * D if cfg.learned_pos else 0
+    return embed + norm + cfg.n_layers * layer
+
+
+def shard_size(cfg) -> int:
+    from repro_torch.core.engine import BLOCK
+
+    return -(-param_count(cfg) // BLOCK) * BLOCK
+
+
+# the engine's rows 2-4 on the dense configs' trained shards (phase 4d:
+# yi-6b at 8 layers, gemma2-9b at 4), 1.7-1.9 B elements of fp32 state
+SLICE = 1 << 27                     # elements of a plain slice, 1024 blocks
+
+
+def check_engine_shard(torch, name, n):
+    """Rows 2 (the Sophia step), 3 (the Hessian EMA, square off and on)
+    and 4 (the refresh-fused step, flag 1) launched once each on a whole
+    shard of ``n`` elements at a trained model's scales, against their
+    plain versions bit for bit.  The plain versions run over block-aligned
+    slices of SLICE elements (each output element and each block's clip
+    count depends on its own block only), so that the inputs, the
+    kernel's outputs and one slice's plain outputs fit the card
+    together."""
+    from repro_torch.kernels import sophia_update as su
+
+    f32 = torch.float32
+    p, m, h, g, e = _engine_operands(torch, n, f32, f32, seed=2)
+    lr = torch.tensor(6e-4, device="cuda")
+    scale = torch.tensor(2048.0, device="cuda")
+    sk = dict(SOPHIA_HP, clip_threshold=1.0, block=SHARD_BLOCK)
+    calls = [("sophia_step", su.sophia_fused_block,
+              su.sophia_fused_block_plain, (p, m, h, g, lr), sk)]
+    calls += [("hessian_ema", su.hessian_ema_block,
+               su.hessian_ema_block_plain, (h, e),
+               dict(beta2=0.99, scale=scale, square=sq, block=SHARD_BLOCK))
+              for sq in (False, True)]
+    calls += [("sophia_refresh", su.sophia_refresh_fused_block,
+               su.sophia_refresh_fused_block_plain,
+               (p, m, h, g, e, lr, 1, scale),
+               dict(sk, beta2=0.99))]
+    clips = []
+    for kname, kernel, plain, args, kw in calls:
+        got = kernel(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        for a in range(0, n, SLICE):
+            b = min(n, a + SLICE)
+            part = tuple(t[a:b] if isinstance(t, torch.Tensor)
+                         and t.numel() == n else t for t in args)
+            want = plain(*part, **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            for out, ref in zip(got, want):
+                lo, hi = ((a, b) if out.numel() == n else
+                          (a // SHARD_BLOCK, b // SHARD_BLOCK))
+                if not torch.equal(_bits(torch, out[lo:hi]),
+                                   _bits(torch, ref)):
+                    raise AssertionError(
+                        f"engine kernel {kname} on {name}'s shard (n={n}) "
+                        f"is not bit-identical to its plain version in "
+                        f"elements {a}..{b}")
+            del want
+        if kname in ("sophia_step", "sophia_refresh"):
+            clips.append(int(got[-1].sum()))
+        del got
+    del p, m, h, g, e
+    torch.cuda.empty_cache()
+    log(f"[kernels] sophia_update {name}_shard n={n} block={SHARD_BLOCK} "
+        f"fp32: rows 2, 3 (square 0/1) and 4 (flag 1) launched on the whole "
+        f"shard, bit-identical to their plain versions over slices of "
+        f"{SLICE}; clip counts {clips}")
+
+
 def phase_engine_kernels(torch):
     """Returns {kernel name: max abs error at GPT-2 small's shard with
     fp32 state, the training run's}."""
@@ -944,6 +1163,10 @@ def phase_engine_kernels(torch):
                           spec.pop("pdt"), spec.pop("sdt"), **spec)
     for sdt in (f32, bf16):
         check_sign_nan(torch, sdt)
+    for name, cfg, _, layers, _, _ in _dense_runs():
+        if layers:
+            check_engine_shard(torch, name, shard_size(
+                dataclasses.replace(cfg, n_layers=layers)))
     return out
 
 
@@ -1885,21 +2108,37 @@ def _model_runs():
             ("neox-6.6b", NEOX_6_6B, NEOX66_TRAIN_LAYERS, 2))
 
 
-def model_step0_against_cpu(torch, name, cfg):
-    """The step-0 loss and gradients at full width and 2 layers, fp32,
-    B=1 x S=64: the card (the flash kernels, the fused CE's fp32 kernels,
-    whose backward runs in D-slabs at these widths) against the CPU's
-    plain path on the same weights.  The loss within 1e-5 relative and
-    every leaf's gradient within 1e-4 of its largest element (fp32 sums
-    in other orders on each side).  Returns (the 2-layer card params,
+def host_memory() -> str:
+    """The host's available and total memory (/proc/meminfo) and this
+    process's peak resident set."""
+    import resource
+
+    info = {}
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            key, val = ln.split(":", 1)
+            info[key] = int(val.split()[0]) / 2 ** 20        # kB -> GiB
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    return (f"host {info['MemAvailable']:.1f} of {info['MemTotal']:.1f} GiB "
+            f"available, peak resident {peak:.1f} GiB")
+
+
+def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS):
+    """The step-0 loss and gradients at full width and ``layers`` layers,
+    fp32, B=1 x S=64: the card (the flash kernels, the fused CE's fp32
+    kernels, whose backward runs in D-slabs at these widths) against the
+    CPU's plain path on the same weights.  The loss within 1e-5 relative
+    and every leaf's gradient within 1e-4 of its largest element (fp32
+    sums in other orders on each side).  The card's gradients stay on the
+    card and cross to the host one leaf at a time, so the host holds one
+    copy of the weights and of the gradients.  Returns (the card params,
     max relative gradient error)."""
     import numpy as np
 
     from repro_torch.core.types import flat_tensors
     from repro_torch.models import get_model
 
-    cfg2 = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS,
-                               dtype="float32")
+    cfg2 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
     model = get_model(cfg2)
     params = model.init_params(
         cfg2, torch.Generator(device="cuda").manual_seed(1))
@@ -1912,29 +2151,35 @@ def model_step0_against_cpu(torch, name, cfg):
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         loss, _ = model.loss_fn(cfg2, p, b, attn_impl="flash")
         grads = torch.autograd.grad(loss, flat_tensors(p.param_tree()))
-        out[dev] = (loss.item(), [g.cpu() for g in grads])
+        out[dev] = (loss.item(), grads)
     del cpu_params
-    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    (l_card, g_card), (l_cpu, g_cpu) = out.pop("cuda"), out.pop("cpu")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+    rel = max((a.cpu() - b).abs().max().item()
+              / max(b.abs().max().item(), 1e-30)
               for a, b in zip(g_card, g_cpu))
+    mem = host_memory()
+    del g_card, g_cpu
     if not (np.isfinite(l_card) and loss_rel <= 1e-5 and rel <= 1e-4):
         raise AssertionError(f"{name} step 0 card vs CPU: loss {l_card} vs "
                              f"{l_cpu} ({loss_rel:.3g} relative), gradients "
                              f"{rel:.3g} of their largest element")
-    log(f"[models] {name} step 0 at full width, {CPU_CHECK_LAYERS} layers, "
-        f"fp32, B=1 x S={CPU_CHECK_S}: card loss {l_card:.6f}, CPU "
-        f"{l_cpu:.6f} ({loss_rel:.3g} relative, within 1e-5); gradients "
-        f"within {rel:.3g} of each leaf's largest element (limit 1e-4)")
+    log(f"[models] {name} step 0 at full width, {layers} layers "
+        f"({param_count(cfg2):,} parameters), fp32, B=1 x S={CPU_CHECK_S}: "
+        f"card loss {l_card:.6f}, CPU {l_cpu:.6f} ({loss_rel:.3g} relative, "
+        f"within 1e-5); gradients within {rel:.3g} of each leaf's largest "
+        f"element (limit 1e-4); {mem}")
     return params, rel
 
 
-def train_model(torch, name, cfg, B, peak_lr=MODEL_LR):
+def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S):
     """Sophia-G (bf16 compute, engine kernels, peak lr MODEL_LR after 2
     warmup steps, GNB refresh every MODEL_K steps from step 0 on half the
-    batch) at B x S=2048 for MODEL_STEPS steps through the trainer.
-    Launch counts zeroed just before, read just after, held exactly; the
-    loss finite and falling.  Returns the report."""
+    batch, at least one row) at B x S for MODEL_STEPS steps through the
+    trainer.  Launch counts zeroed just before, read just after, held
+    exactly; the loss finite and falling; the parameters and the engine's
+    shard the sizes ``param_count`` and ``shard_size`` give (phase 2
+    checked the engine kernels at that shard).  Returns the report."""
     import numpy as np
 
     from repro_torch.data import DataConfig, make_source
@@ -1942,13 +2187,19 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR):
     from repro_torch.train import TrainerConfig
     from repro_torch.train.trainer import to_device_batch
 
-    sub = B // 2
+    sub = max(1, B // 2)
     tc = TrainerConfig(peak_lr=peak_lr, total_steps=MODEL_STEPS,
                        warmup_steps=2, hess_interval=MODEL_K,
                        hess_subbatch=sub, seed=0, fused_kernel=True)
     state, train_step = _train_fns(torch, cfg, tc, "cuda")
     n_params = sum(p.numel() for p in state.params.parameters())
-    src = make_source(DataConfig(seq_len=MODEL_S, global_batch=B,
+    shard = tuple(t.numel() for t in state.opt_state.m)
+    if n_params != param_count(cfg) or shard != (shard_size(cfg),):
+        raise AssertionError(f"{name}: {n_params} parameters in shards "
+                             f"{shard}; param_count gives "
+                             f"{param_count(cfg)}, shard_size "
+                             f"{shard_size(cfg)}")
+    src = make_source(DataConfig(seq_len=S, global_batch=B,
                                  vocab_size=cfg.vocab_size, seed=0))
     batches = [to_device_batch(src.batch_at(t), "cuda")
                for t in range(MODEL_STEPS)]
@@ -1983,9 +2234,9 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR):
                              f"{int(state.opt_state.hess_count)} != {n_ref}")
     plain = [dt for t, dt in enumerate(times) if t % MODEL_K]
     refresh = [dt for t, dt in enumerate(times) if t and t % MODEL_K == 0]
-    tokens = B * MODEL_S
+    tokens = B * S
     p50 = statistics.median(plain)
-    report = dict(layers=cfg.n_layers, params=n_params, B=B, S=MODEL_S,
+    report = dict(layers=cfg.n_layers, params=n_params, B=B, S=S,
                   launches=launches, losses=losses, plain_p50_ms=p50 * 1e3,
                   refresh_p50_ms=statistics.median(refresh) * 1e3,
                   step0_ms=times[0] * 1e3,
@@ -1994,7 +2245,7 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR):
                   peak_mem_gib=peak / 2 ** 30,
                   resident_gib=resident / 2 ** 30)
     log(f"[models] {name} trained: {cfg.n_layers} layers, {n_params:,} "
-        f"parameters, bf16 B={B} x S={MODEL_S} Sophia-G lr {peak_lr:g} "
+        f"parameters, bf16 B={B} x S={S} Sophia-G lr {peak_lr:g} "
         f"fused_kernel=True "
         f"k={MODEL_K} sub={sub}: {MODEL_STEPS} steps, loss "
         + " -> ".join(f"{x:.4f}" for x in losses)
@@ -2018,15 +2269,16 @@ def serve_model(torch, name, cfg, small):
     """``cfg`` served at its depth with random weights from a seed: 8
     mixed requests over 8 slots with a bf16 and an int8 KV cache (every
     decode step launching the decode kernel once a layer), then the
-    2-layer params of the step-0 check (``small``, held on the CPU while
-    the model trains) decoded on the card against the CPU's plain path.
+    params of the step-0 check (``small``, 1-2 layers, held on the CPU
+    while the model trains) decoded on the card against the CPU's plain
+    path.
     Returns the report."""
     from repro_torch.models import get_model
 
     params = get_model(cfg).init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0))
     report = {}
-    cfg2 = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS)
+    cfg2 = dataclasses.replace(cfg, n_layers=len(small.layers))
     small.cuda()
     for kv_dtype in ("bf16", "int8"):
         eng, secs, launches = serve_once(torch, cfg, params, kv_dtype,
@@ -2045,7 +2297,7 @@ def serve_model(torch, name, cfg, small):
             f"{secs:.3f}s = {st['tokens_emitted'] / secs:.1f} tok/s; token "
             f"p50 {st['token_lat_p50_s'] * 1e3:.3f} ms; tpot p50 "
             f"{st['tpot_p50_s'] * 1e3:.3f} ms; launches {launches}; card "
-            f"vs CPU logits ({CPU_CHECK_LAYERS} layers, fp32) err "
+            f"vs CPU logits ({cfg2.n_layers} layers, fp32) err "
             f"{ref_err:.3g}")
         del eng
     del params, small
@@ -2091,6 +2343,87 @@ def phase_models(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the dense configs (yi-6b, qwen1.5-110b, gemma2-9b)
+
+
+# the kernels a step-0 check (fp32, the fused loss, flash) must launch
+STEP0_KERNELS = ("ce_forward", "ce_backward_dh", "ce_backward_dw",
+                 "attn_fwd", "attn_bwd_dq", "attn_bwd_dkv")
+# Each config's cuts and the reason: 16 bytes a parameter of fp32 weight,
+# gradient, m and h, and ~32-34 a parameter at a step's peak (NeoX-6.6B's
+# 67.93 GiB for 2.02 B parameters, PR 21's phase 4c)
+DENSE_CUTS = {
+    "yi-6b": "trained at 8 of 32 layers (full depth ~97 GB of fp32 weight, "
+             "gradient, m and h), B=2 as NeoX-6.6B; served at full depth",
+    "gemma2-9b": "trained at 4 of 42 layers (full depth ~148 GB of state) "
+                 "at B=1 x S=8192, its context; served at full depth",
+    "qwen1.5-110b": "not trained on the card (its embedding and unembedding "
+                    "alone, 2.49 B parameters, take ~80 GB at ~32 bytes a "
+                    "parameter); served at 6 of 80 layers (10.6 B "
+                    "parameters, 42.6 GB fp32); step 0 at 1 layer (3.85 B)",
+}
+
+
+def _dense_runs():
+    """(name, config, step-0 layers, layers trained or None, (B, S),
+    layers served) of each dense config."""
+    from repro_torch.configs import get_config
+
+    return (("yi-6b", get_config("yi-6b"), 2, 8, (2, 2048), 32),
+            ("gemma2-9b", get_config("gemma2-9b"), 2, 4, (1, 8192), 42),
+            ("qwen1.5-110b", get_config("qwen1.5-110b"), 1, None, None, 6))
+
+
+def phase_dense_models(torch):
+    """Each dense config: the step-0 card-vs-CPU check, Sophia-G training
+    (where it fits), serving (bf16 and int8 caches).  Counts are zeroed
+    before each run and read after: the step-0 check must launch the
+    fp32 CE and flash kernels, training every kernel of the path exactly
+    as ``train_model`` holds it, serving the decode kernel once a layer a
+    step.  Returns {model: report}."""
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+
+    reports = {}
+    for name, cfg, l0, layers, shape, served_layers in _dense_runs():
+        log(f"[models] {name}: {DENSE_CUTS[name]}")
+        reset_launch_counts()
+        small, rel = model_step0_against_cpu(torch, name, cfg, layers=l0)
+        launches = dict(KERNEL_LAUNCHES)
+        missing = [k for k in STEP0_KERNELS if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{name} step 0: kernels not launched: "
+                                 f"{missing}")
+        small.cpu()
+        torch.cuda.empty_cache()
+        trained = None
+        if layers:
+            B, S = shape
+            trained = train_model(torch, name,
+                                  dataclasses.replace(cfg, n_layers=layers),
+                                  B, S=S)
+            launches = dict(trained["launches"])
+        served = serve_model(torch, name,
+                             dataclasses.replace(cfg, n_layers=served_layers),
+                             small)
+        del small
+        launches["decode_attention"] = served["bf16"]["launches"]
+        launches["decode_attention_q8"] = served["int8"]["launches"]
+        path = PATH_KERNELS if layers else (
+            ("decode_attention", "decode_attention_q8") + STEP0_KERNELS)
+        missing = [k for k in path if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{name}: kernels of the path not launched: "
+                                 f"{missing}")
+        reports[name] = dict(step0_grad_rel=rel, step0_layers=l0,
+                             train=trained, serve=served, launches=launches,
+                             served_layers=served_layers,
+                             full_layers=cfg.n_layers, cuts=DENSE_CUTS[name])
+        log(f"[models] {name}: launches on its path {launches}; "
+            f"{host_memory()}")
+    return reports
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timings
 
 
@@ -2125,10 +2458,11 @@ def host_ms(torch, fn, reps=200):
     return statistics.median(times)
 
 
-def time_decode(torch, quant, shape, positions, flush):
-    """One decode-attention kernel (bf16 q; bf16 or int8 cache) at one
-    shape: its device and host-issue time, its plain version's and SDPA's
-    (bf16 cache only) device time, its bound, the split count S and
+def time_decode(torch, quant, shape, positions, flush, opts=None):
+    """One decode-attention kernel (bf16 q; bf16 or int8 cache; ``opts``
+    the model's window and softcap) at one shape: its device and
+    host-issue time, its plain version's and SDPA's (bf16 cache without a
+    softcap only) device time, its bound, the split count S and
     ``cudaOccupancyMaxActiveClusters`` at that launch."""
     import torch.nn.functional as F
 
@@ -2139,7 +2473,8 @@ def time_decode(torch, quant, shape, positions, flush):
     N, H, Hkv, C, hd = shape
     a = _decode_inputs(torch, N, H, Hkv, C, hd, torch.bfloat16, positions,
                        quant, seed=0)
-    kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"], scale=1.0)
+    opts = opts or {}
+    kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"], scale=1.0, **opts)
 
     def call():
         return decode_attention(a["q"], a["k_cache"], a["v_cache"],
@@ -2150,24 +2485,26 @@ def time_decode(torch, quant, shape, positions, flush):
     plain_ms = time_ms(torch, lambda: decode_attention_plain(
         a["q"], a["k_cache"], a["v_cache"], a["positions"], **kw), flush)
     library_ms = None
-    if not quant:
+    if not quant and opts.get("softcap") is None:
         q4 = a["q"][:, :, None, :]
         k4 = a["k_cache"].permute(0, 2, 1, 3)
         v4 = a["v_cache"].permute(0, 2, 1, 3)
-        mask = ring_mask(a["positions"], C)[:, None, None, :]
+        mask = ring_mask(a["positions"], C,
+                         opts.get("window"))[:, None, None, :]
         sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                              scale=1.0)
+                                              scale=1.0, enable_gqa=H != Hkv)
         sdpa_err = (sdpa[:, :, 0].float() - call().float()).abs().max().item()
         log(f"[timing] SDPA yardstick vs kernel at N={N} C={C}: max abs err "
             f"{sdpa_err:.3g}")
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, scale=1.0), flush)
+            q4, k4, v4, attn_mask=mask, scale=1.0, enable_gqa=H != Hkv),
+            flush)
     # the bound counts what this call's data needs: q read and the output
     # written once, the positions, and only the ring rows the positions make
     # valid (K and V, int8: plus their two fp32 scales), with 4 flops per
     # element per query head (q.k and p.v); a masked row cannot change the
     # output
-    valid_rows = int(ring_mask(a["positions"], C).sum())
+    valid_rows = int(ring_mask(a["positions"], C, opts.get("window")).sum())
     row_bytes = 2 * Hkv * hd * a["k_cache"].element_size() + 8 * quant
     nbytes = (2 * a["q"].numel() * a["q"].element_size()
               + a["positions"].numel() * 4 + valid_rows * row_bytes)
@@ -2194,17 +2531,19 @@ def time_decode(torch, quant, shape, positions, flush):
             "splits": splits, "max_active_clusters": clusters,
             "shape": f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} q=bf16 "
                      f"kv={'int8' if quant else 'bf16'} positions="
-                     f"{positions if N <= 8 else 'every one >= 1023'}"}
+                     f"{positions if N <= 8 else 'every one >= 1023'}"
+                     + "".join(f" {k}={v}" for k, v in opts.items())}
 
 
 def phase_timings(torch, main_err, served):
-    """Both decode kernels at the three ``DECODE_SHAPES``: the serving
-    shape is the row, the other two go under its ``shapes``."""
+    """Both decode kernels at the ``DECODE_SHAPES``: the serving shape is
+    the row, the others go under its ``shapes``."""
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
     rows = []
     for name, replaces in DECODE_ATTN[1].items():
         quant = name.endswith("q8")
-        timed = [time_decode(torch, quant, *DECODE_SHAPES[key], flush)
+        timed = [time_decode(torch, quant, *DECODE_SHAPES[key], flush,
+                             DECODE_KW.get(key))
                  for key in DECODE_SHAPES]
         rows.append({
             "name": name, "route": "cuda", "source": DECODE_ATTN[0],
@@ -2220,10 +2559,11 @@ CE_UNITS = dict.fromkeys(FUSED_CE[1], "tensor cores")
 CE_REFRESH_N = 4096        # the sampled forward's rows in a GNB refresh
 
 
-def _ce_timed(torch, spec, label):
+def _ce_timed(torch, spec, label, reps=20):
     """The four CE kernels at ``spec`` (bf16 h, fp32 W): {kernel: entry}
     with the kernel's time, its plain version's, its bound and the library
-    composition's (not one call) beside it."""
+    composition's (not one call) beside it; ``reps`` launches each (a
+    quarter of that for the plain versions)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as ce
@@ -2252,15 +2592,18 @@ def _ce_timed(torch, spec, label):
     }
 
     # the library composition: F.linear on the normed bf16 rows and W cast
-    # to bf16 (bf16 logits), logsumexp and a gather in fp32; its autograd
-    # backward gives dh and dW together
-    hn = ce.apply_norm(h, normp, "ln", opts["eps"]).detach()
+    # to bf16 (bf16 logits), the softcap, logsumexp and a gather in fp32;
+    # its autograd backward gives dh and dW together
+    hn = ce.apply_norm(h, normp, spec["norm"], opts["eps"]).detach()
+    cap = spec["softcap"]
 
     def composition(requires_grad=False):
         x = hn.clone().requires_grad_(requires_grad)
         wp = w.detach().clone().requires_grad_(requires_grad)
         wl = wp.T if opts["transpose_w"] else wp
         logits = F.linear(x, wl.to(x.dtype)).float()
+        if cap:
+            logits = cap * torch.tanh(logits / cap)
         loss = torch.sum(rs * (torch.logsumexp(logits, -1)
                                - logits.gather(1, labels.long()[:, None])[:, 0]))
         return loss, x, wp
@@ -2275,9 +2618,9 @@ def _ce_timed(torch, spec, label):
     comp_backward()
     torch.cuda.synchronize()
     comp_peak = torch.cuda.max_memory_allocated() - base
-    lib_fwd = time_ms(torch, lambda: composition(False), flush, reps=20,
+    lib_fwd = time_ms(torch, lambda: composition(False), flush, reps=reps,
                       warmup=2)
-    lib_fb = time_ms(torch, comp_backward, flush, reps=20, warmup=2)
+    lib_fb = time_ms(torch, comp_backward, flush, reps=reps, warmup=2)
     log(f"[timing] library composition (not one call) {label} at N={N} "
         f"D={D} Vp={Vp}: forward {lib_fwd:.3f} ms, forward + autograd "
         f"backward {lib_fb:.3f} ms, backward alone {lib_fb - lib_fwd:.3f} "
@@ -2289,8 +2632,9 @@ def _ce_timed(torch, spec, label):
     out = {}
     for name in FUSED_CE[1]:
         kernel, plain = calls[name]
-        ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
-        plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
+        ms = time_ms(torch, kernel, flush, reps=reps, warmup=2)
+        plain_ms = time_ms(torch, plain, flush, reps=max(3, reps // 4),
+                           warmup=1)
         flops = ce.ce_flops(N, D, Vp, name)
         nbytes = ce.ce_bytes(N, D, Vp, name, bytes_h=h.element_size(),
                              bytes_w=w.element_size())
@@ -2307,7 +2651,8 @@ def _ce_timed(torch, spec, label):
                                 "; its autograd backward, dh and dW "
                                 "together")),
             "shape": f"{label}: N={N} D={D} Vp={Vp} h=bf16 W=fp32 "
-                     f"{layout} ln"}
+                     f"{layout} {spec['norm']}"
+                     + (f" softcap {cap:g}" if cap else "")}
         log(f"[timing] {name} ({CE_UNITS[name]}) {label}: kernel {ms:.3f} "
             f"ms, plain {plain_ms:.3f} ms, library {library[name]}, bound "
             f"{bound_ms:.4f} ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, "
@@ -2343,12 +2688,16 @@ def phase_ce_timings(torch, ce_err, trained):
     """The CE kernels at the training loss shape beside their bound, their
     plain versions and the library composition (not one call); the
     sampled forward also at the refresh's N=4096; under each row's
-    ``shapes`` the same at the rope models' loss shapes.  Each row names
-    the units its products run on (``CE_UNITS``)."""
+    ``shapes`` the same at the rope models' and the dense configs' loss
+    shapes.  Each row names the units its products run on
+    (``CE_UNITS``)."""
     main = _ce_timed(torch, CE_TIME, "gpt2-small")
     models = [(name, spec, _ce_timed(torch, spec, name))
               for name, spec in ((n, dict(CE_TIME, **sp))
                                  for n, sp in CE_MODEL_SHAPES)]
+    dense = [(name, spec, _ce_timed(torch, spec, name, reps=10))
+             for name, spec in ((n, dict(CE_TIME, **sp))
+                                for n, sp in CE_DENSE_SHAPES)]
     rows = []
     for name, replaces in FUSED_CE[1].items():
         rows.append({
@@ -2356,13 +2705,19 @@ def phase_ce_timings(torch, ce_err, trained):
             "replaces": replaces,
             "launches": trained["launches"].get(name, 0),
             "max_abs_err": ce_err[name], **main[name],
-            "shapes": [t[name] for _, _, t in models]})
+            "shapes": [t[name] for _, _, t in models + dense]})
     row = next(r for r in rows if r["name"] == "ce_forward_sampled")
     row["ms_N4096"], row["bound_ms_N4096"] = _ce_sampled_timed(
         torch, dict(CE_TIME, N=CE_REFRESH_N), "gpt2-small")
     for (name, spec, _), entry in zip(models, row["shapes"]):
         entry["ms_refresh"], entry["bound_ms_refresh"] = _ce_sampled_timed(
             torch, dict(spec, N=spec["N"] // 2), name)
+    # yi's refresh draws on one of its two rows; gemma2's batch is its one
+    # row (the entry above); qwen1.5 is not trained on the card
+    for (name, spec, _), entry in zip(dense, row["shapes"][len(models):]):
+        if name == "yi-6b":
+            entry["ms_refresh"], entry["bound_ms_refresh"] = \
+                _ce_sampled_timed(torch, dict(spec, N=spec["N"] // 2), name)
     return rows
 
 
@@ -2371,10 +2726,12 @@ FLASH_UNITS = {"attn_fwd": "tensor cores", "attn_bwd_dq": "tensor cores",
                "attn_bwd_dkv": "tensor cores"}
 
 
-def _flash_timed(torch, spec, label):
-    """The three flash kernels at ``spec`` in bf16: {kernel: entry} with
-    the kernel's time, its plain version's, its bound and SDPA's beside
-    it."""
+def _flash_timed(torch, spec, label, reps=20):
+    """The three flash kernels at ``spec`` in bf16 (causal, with its window
+    and softcap): {kernel: entry} with the kernel's time, its plain
+    version's, its bound and SDPA's beside it.  SDPA takes no softcap: with
+    one it computes the same pairs (``is_causal``, or the window as a
+    boolean mask) without it, the nearest function it has."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2396,26 +2753,36 @@ def _flash_timed(torch, spec, label):
             lambda: fa.flash_backward_dkv_plain(q, k, v, g, lse, delta,
                                                 **kw)),
     }
+    window, cap = spec["window"], spec["softcap"]
+    band = fa.band_mask(S, S, causal=True, window=window, q_offset=0,
+                        device="cuda")
+    sdpa_kw = (dict(attn_mask=band) if window is not None
+               else dict(is_causal=True))
+    sdpa_kw["enable_gqa"] = H != Hkv
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_o = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
     sdpa_err = (sdpa_o.float() - o.float()).abs().max().item()
     lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), flush, reps=20, warmup=2)
+        q, k, v, **sdpa_kw), flush, reps=reps, warmup=2)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_o, leaves, g, retain_graph=True), flush, reps=20, warmup=2)
-    log(f"[timing] SDPA yardstick (is_causal=True) {label} at B={B} H={H} "
-        f"S={S} hd={hd} bf16: forward {lib_fwd:.3f} ms, backward (dq, dk, "
-        f"dv together) {lib_bwd:.3f} ms; max abs err vs the kernel's o "
-        f"{sdpa_err:.3g}")
+        sdpa_o, leaves, g, retain_graph=True), flush, reps=reps, warmup=2)
+    sdpa_how = ("is_causal=True" if window is None else
+                f"the window {window} as a boolean mask") + (
+        f", no softcap (the kernel's is {cap:g})" if cap else "")
+    log(f"[timing] SDPA yardstick ({sdpa_how}) {label} at B={B} H={H} "
+        f"Hkv={Hkv} S={S} hd={hd} bf16: forward {lib_fwd:.3f} ms, backward "
+        f"(dq, dk, dv together) {lib_bwd:.3f} ms; max abs err vs the "
+        f"kernel's o {sdpa_err:.3g}")
     library = {"attn_fwd": lib_fwd, "attn_bwd_dq": lib_bwd,
                "attn_bwd_dkv": lib_bwd}
-    pairs = int(fa.band_mask(S, S, causal=True, window=None,
-                             q_offset=0).sum())
+    pairs = int(band.sum())
+    del band
     out = {}
     for name in FLASH_ATTN[1]:
         kernel, plain = calls[name]
-        ms = time_ms(torch, kernel, flush, reps=20, warmup=2)
-        plain_ms = time_ms(torch, plain, flush, reps=5, warmup=1)
+        ms = time_ms(torch, kernel, flush, reps=reps, warmup=2)
+        plain_ms = time_ms(torch, plain, flush, reps=max(3, reps // 4),
+                           warmup=1)
         flops = fa.attn_flops(B, H, hd, pairs, name)
         nbytes = fa.attn_bytes(B, H, Hkv, S, S, hd, name,
                                itemsize=q.element_size())
@@ -2428,9 +2795,12 @@ def _flash_timed(torch, spec, label):
             "library_note": ("F.scaled_dot_product_attention forward"
                              if name == "attn_fwd" else
                              "F.scaled_dot_product_attention's autograd "
-                             "backward, dq, dk and dv together"),
+                             "backward, dq, dk and dv together")
+                            + f" ({sdpa_how})",
             "shape": f"{label}: B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 "
-                     f"causal"}
+                     f"causal"
+                     + (f" window {window}" if window is not None else "")
+                     + (f" softcap {cap:g}" if cap else "")}
         log(f"[timing] {name} ({FLASH_UNITS[name]}) {label}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
             f"{library[name]:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
@@ -2446,11 +2816,15 @@ def phase_flash_timings(torch, attn_err, trained):
     their bound, their plain versions, and SDPA (``is_causal=True``; its
     forward for row 16, its autograd backward, dq, dk and dv together, for
     rows 17 and 18), which the port never calls; under each row's
-    ``shapes`` the same at the rope models' training shapes.  Each row
-    names the units its products run on (``FLASH_UNITS``)."""
+    ``shapes`` the same at the rope models' training shapes and at
+    gemma2's (hd 256, S 8192: a local layer with its window of 4096 and a
+    global one, both with the softcap 50).  Each row names the units its
+    products run on (``FLASH_UNITS``)."""
     main = _flash_timed(torch, ATTN_MAIN, "gpt2-small")
     models = [_flash_timed(torch, dict(ATTN_MAIN, **sp), name)
               for name, sp in ATTN_MODEL_SHAPES]
+    models += [_flash_timed(torch, dict(ATTN_MAIN, **sp), name, reps=10)
+               for name, sp in ATTN_DENSE_SHAPES]
     return [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
              "replaces": replaces,
              "launches": trained["launches"].get(name, 0),
@@ -2626,25 +3000,28 @@ def main() -> int:
     trained = phase_train(torch)
     phase_routes(torch)
     models = phase_models(torch)
+    models.update(phase_dense_models(torch))
     rows = (phase_timings(torch, main_err, served)
             + phase_engine_timings(torch, engine_err, trained)
             + phase_ce_timings(torch, ce_err, trained)
             + phase_flash_timings(torch, attn_err, trained))
-    for row in rows:     # each rope model's own run, counted apart
+    for row in rows:     # each model's own runs, counted apart
         row["launches_models"] = {m: r["launches"].get(row["name"], 0)
                                   for m, r in models.items()}
-    summary = {m: dict(layers_trained=r["train"]["layers"],
-                       layers=r["full_layers"], params_trained=r["train"][
-                           "params"],
-                       plain_p50_ms=r["train"]["plain_p50_ms"],
-                       refresh_p50_ms=r["train"]["refresh_p50_ms"],
-                       tokens_per_s=r["train"]["tokens_per_s"],
-                       peak_mem_gib=r["train"]["peak_mem_gib"],
-                       losses=r["train"]["losses"],
-                       served_tok_per_s={kv: x["tok_per_s"]
-                                         for kv, x in r["serve"].items()},
-                       step0_grad_rel=r["step0_grad_rel"])
-               for m, r in models.items()}
+    summary = {}
+    for m, r in models.items():
+        t = r["train"] or {}
+        summary[m] = dict(
+            layers=r["full_layers"], layers_trained=t.get("layers"),
+            params_trained=t.get("params"), B=t.get("B"), S=t.get("S"),
+            plain_p50_ms=t.get("plain_p50_ms"),
+            refresh_p50_ms=t.get("refresh_p50_ms"),
+            tokens_per_s=t.get("tokens_per_s"),
+            peak_mem_gib=t.get("peak_mem_gib"), losses=t.get("losses"),
+            layers_served=r.get("served_layers", r["full_layers"]),
+            served_tok_per_s={kv: x["tok_per_s"]
+                              for kv, x in r["serve"].items()},
+            step0_grad_rel=r["step0_grad_rel"], cuts=r.get("cuts"))
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)

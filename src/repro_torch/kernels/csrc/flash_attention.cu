@@ -49,6 +49,9 @@
 //     banks); each of the 256 threads computes a 4x4 block of a (64, 64)
 //     score tile (rows ty + 16 i, columns tx + 16 j) and owns 4 rows x
 //     hd / 16 columns of each accumulator;
+//   * at hd 256 four (64, 257) fp32 planes would take 263 KB, over the
+//     227 KB of a block: dQ blocks own 32 query rows (a 2x4 block of a
+//     (32, 64) tile a thread) and dK/dV blocks 32 keys (4x2 of (64, 32));
 //   * the forward's row max and row sum reduce over the 16 threads of a
 //     row by shuffles (the 16 lanes of a half warp);
 //   * sequence lengths need not divide the tile: rows and keys past the
@@ -87,8 +90,15 @@
 //   * under causal masking start the longest q tiles first (blockIdx.z
 //     reversed); dQ keeps its sum in fp32 registers across the key tiles;
 //     dK/dV blocks own 64 keys of one KV head and keep dK and dV in fp32
-//     registers across the q tiles (64 rows; 32 at hd 128) of every head
-//     of the group.
+//     registers across the q tiles (64 rows; 32 at hd 128 and 256) of
+//     every head of the group;
+//   * at hd 256 (gemma2): the forward's and dQ's m64n256 accumulators take
+//     128 registers a thread, so their K and V tiles hold 32 keys (the
+//     score products m64n32, the four-stage ring 128 KB); dK and dV
+//     together would take 256, past the 255 a thread may have, so each key
+//     tile gets two blocks that each sum half of the head dims (m64n128)
+//     and both recompute S^T and dP^T (1.5 times the operations of one
+//     block).
 //   TMA and a producer warp would replace the cp.async rings; they are not
 //   used yet.
 // Accuracy contract of the bf16 route: P (forward, and dV's product) and
@@ -120,8 +130,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;     // 16 x 16: tx the column, ty the row
-constexpr int kTile = 64;         // query rows and keys of one tile
-constexpr int kPS = kTile + 1;    // padded row stride of a (64, 64) tile
 constexpr float kNegInf = -1e30f; // the reference's masked-score sentinel
 constexpr float kMinL = 1e-30f;   // floor of the softmax denominator
 
@@ -159,8 +167,8 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-__host__ __device__ __forceinline__ int n_tiles(int n) {
-  return (n + kTile - 1) / kTile;
+__host__ __device__ __forceinline__ int n_tiles(int n, int tile) {
+  return (n + tile - 1) / tile;
 }
 
 // The key-tile band of query rows [r0, r1] and the q-tile band of keys
@@ -198,38 +206,39 @@ __device__ __forceinline__ bool attends(const Args& a, int r, int c) {
   return c > qpos - a.window;
 }
 
-// Rows [row0, row0 + 64) of a (rows, HD) plane into shared memory as fp32
-// with row stride HD + 1; rows past the end read as zeros.
-template <typename T, int HD>
+// Rows [row0, row0 + ROWS) of a (rows, HD) plane into shared memory as
+// fp32 with row stride HD + 1; rows past the end read as zeros.
+template <typename T, int HD, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
                                           int rows) {
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int g = row0 + r;
     dst[r * (HD + 1) + d] = g < rows ? to_float(src[(size_t)g * HD + d]) : 0.f;
   }
 }
 
-// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over HD, both tiles (64, HD + 1).
-template <int HD>
+// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over HD, the tiles (16 RI, HD + 1)
+// and (16 RJ, HD + 1).
+template <int HD, int RI, int RJ>
 __device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
-                                         int tx, int ty, float s[4][4]) {
+                                         int tx, int ty, float (&s)[RI][RJ]) {
   constexpr int LS = HD + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float av[4], bv[4];
+    float av[RI], bv[RJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = A[(ty + 16 * i) * LS + d];
+    for (int i = 0; i < RI; ++i) av[i] = A[(ty + 16 * i) * LS + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = Bm[(tx + 16 * j) * LS + d];
+    for (int j = 0; j < RJ; ++j) bv[j] = Bm[(tx + 16 * j) * LS + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 
@@ -261,54 +270,62 @@ __device__ __forceinline__ float score(const Args& a, float dot,
 }
 
 // ---------------------------------------------------------------------------
+// The FMA kernels' tiles: RQ query rows and RK keys a thread in a score
+// tile of BQ = 16 RQ query rows and BK = 16 RK keys (thread (tx, ty) owns
+// rows ty + 16 i and keys tx + 16 j).  64 x 64 up to hd 128; at hd 256 the
+// four fp32 planes of (64, 257) would take 263 KB of shared memory, over
+// the 227 KB a block may have, so dQ takes query tiles of 32 rows and
+// dK/dV blocks own 32 keys (the forward's three planes fit at 64).
+
 // forward: grid (q tiles, H, B)
 
-template <typename T, int HD>
+template <typename T, int HD, int RQ, int RK>
 __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
-  constexpr int LS = HD + 1, ND = HD / 16;
+  constexpr int LS = HD + 1, ND = HD / 16, BQ = 16 * RQ, BK = 16 * RK;
+  constexpr int PS = BK + 1;  // padded row stride of a (BQ, BK) tile
   extern __shared__ float smem[];
   float* sq = smem;
-  float* sk = sq + kTile * LS;
-  float* sv = sk + kTile * LS;
-  float* sp = sv + kTile * LS;
+  float* sk = sq + BQ * LS;
+  float* sv = sk + BK * LS;
+  float* sp = sv + BK * LS;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
-  const int q0 = qt * kTile;
+  const int q0 = qt * BQ;
   const size_t qrow = ((size_t)b * a.H + h) * a.Sq;
   const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
   const T* k = static_cast<const T*>(a.k) + krow * HD;
   const T* v = static_cast<const T*>(a.v) + krow * HD;
-  load_tile<T, HD>(sq, static_cast<const T*>(a.q) + qrow * HD, q0, a.Sq);
+  load_tile<T, HD, BQ>(sq, static_cast<const T*>(a.q) + qrow * HD, q0, a.Sq);
 
-  float m[4], l[4], acc[4][ND];
+  float m[RQ], l[RQ], acc[RQ][ND];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int d = 0; d < ND; ++d) acc[i][d] = 0.f;
   }
   int lo, hi;
-  key_band(a, (long long)q0, (long long)min(a.Sq, q0 + kTile) - 1, kTile,
-           &lo, &hi);
+  key_band(a, (long long)q0, (long long)min(a.Sq, q0 + BQ) - 1, BK, &lo,
+           &hi);
   for (int j = lo; j <= hi; ++j) {
     __syncthreads();  // the previous tile's sk, sv and sp are read
-    load_tile<T, HD>(sk, k, j * kTile, a.Sk);
-    load_tile<T, HD>(sv, v, j * kTile, a.Sk);
+    load_tile<T, HD, BK>(sk, k, j * BK, a.Sk);
+    load_tile<T, HD, BK>(sv, v, j * BK, a.Sk);
     __syncthreads();
-    float s[4][4];
+    float s[RQ][RK];
     tile_dot<HD>(sq, sk, tx, ty, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RQ; ++i) {
       const int r = q0 + ty + 16 * i;
-      bool ok[4];
+      bool ok[RK];
       float rmax = kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < RK; ++jj) {
         float dcap;
         const float z = score(a, s[i][jj], &dcap);
-        ok[jj] = attends(a, r, j * kTile + tx + 16 * jj);
+        ok[jj] = attends(a, r, j * BK + tx + 16 * jj);
         s[i][jj] = ok[jj] ? z : kNegInf;
         rmax = fmaxf(rmax, s[i][jj]);
       }
@@ -316,9 +333,9 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
       const float alpha = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < RK; ++jj) {
         const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
-        sp[(ty + 16 * i) * kPS + tx + 16 * jj] = p;
+        sp[(ty + 16 * i) * PS + tx + 16 * jj] = p;
         psum += p;
       }
       l[i] = l[i] * alpha + row_sum(psum);
@@ -328,13 +345,13 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
+    for (int c = 0; c < BK; ++c) {
       float vv[ND];
 #pragma unroll
       for (int d = 0; d < ND; ++d) vv[d] = sv[c * LS + tx + 16 * d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sp[(ty + 16 * i) * kPS + c];
+      for (int i = 0; i < RQ; ++i) {
+        const float p = sp[(ty + 16 * i) * PS + c];
 #pragma unroll
         for (int d = 0; d < ND; ++d) acc[i][d] = fmaf(p, vv[d], acc[i][d]);
       }
@@ -342,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
   }
   T* o = static_cast<T*>(a.o) + qrow * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= a.Sq) continue;
     const float lf = fmaxf(l[i], kMinL);
@@ -356,28 +373,30 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 // dQ: grid (q tiles, H, B)
 
-template <typename T, int HD>
+template <typename T, int HD, int RQ, int RK>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  constexpr int LS = HD + 1, ND = HD / 16;
+  constexpr int LS = HD + 1, ND = HD / 16, BQ = 16 * RQ, BK = 16 * RK;
+  constexpr int PS = BK + 1;
   extern __shared__ float smem[];
   float* sq = smem;
-  float* sdo = sq + kTile * LS;
-  float* sk = sdo + kTile * LS;
-  float* sv = sk + kTile * LS;
-  float* sds = sv + kTile * LS;
+  float* sdo = sq + BQ * LS;
+  float* sk = sdo + BQ * LS;
+  float* sv = sk + BK * LS;
+  float* sds = sv + BK * LS;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
-  const int q0 = qt * kTile;
+  const int q0 = qt * BQ;
   const size_t qrow = ((size_t)b * a.H + h) * a.Sq;
   const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
   const T* k = static_cast<const T*>(a.k) + krow * HD;
   const T* v = static_cast<const T*>(a.v) + krow * HD;
-  load_tile<T, HD>(sq, static_cast<const T*>(a.q) + qrow * HD, q0, a.Sq);
-  load_tile<T, HD>(sdo, static_cast<const T*>(a.dout) + qrow * HD, q0, a.Sq);
-  float lse[4], delta[4], acc[4][ND];
+  load_tile<T, HD, BQ>(sq, static_cast<const T*>(a.q) + qrow * HD, q0, a.Sq);
+  load_tile<T, HD, BQ>(sdo, static_cast<const T*>(a.dout) + qrow * HD, q0,
+                       a.Sq);
+  float lse[RQ], delta[RQ], acc[RQ][ND];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     const int r = q0 + ty + 16 * i;
     lse[i] = r < a.Sq ? a.lse_in[qrow + r] : 0.f;
     delta[i] = r < a.Sq ? a.delta[qrow + r] : 0.f;
@@ -385,56 +404,56 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     for (int d = 0; d < ND; ++d) acc[i][d] = 0.f;
   }
   int lo, hi;
-  key_band(a, (long long)q0, (long long)min(a.Sq, q0 + kTile) - 1, kTile,
-           &lo, &hi);
+  key_band(a, (long long)q0, (long long)min(a.Sq, q0 + BQ) - 1, BK, &lo,
+           &hi);
   for (int j = lo; j <= hi; ++j) {
     __syncthreads();
-    load_tile<T, HD>(sk, k, j * kTile, a.Sk);
-    load_tile<T, HD>(sv, v, j * kTile, a.Sk);
+    load_tile<T, HD, BK>(sk, k, j * BK, a.Sk);
+    load_tile<T, HD, BK>(sv, v, j * BK, a.Sk);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[RQ][RK], dp[RQ][RK];
     tile_dot<HD>(sq, sk, tx, ty, s);
     tile_dot<HD>(sdo, sv, tx, ty, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RQ; ++i) {
       const int r = q0 + ty + 16 * i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < RK; ++jj) {
         float dcap;
         const float z = score(a, s[i][jj], &dcap);
-        const bool ok = attends(a, r, j * kTile + tx + 16 * jj);
+        const bool ok = attends(a, r, j * BK + tx + 16 * jj);
         const float p = ok ? expf(z - lse[i]) : 0.f;
         float ds = p * (dp[i][jj] - delta[i]);
         if (a.softcap != 0.f) ds *= dcap;
-        sds[(ty + 16 * i) * kPS + tx + 16 * jj] = ds;
+        sds[(ty + 16 * i) * PS + tx + 16 * jj] = ds;
       }
     }
     __syncthreads();
-    float t[4][ND];
+    float t[RQ][ND];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int d = 0; d < ND; ++d) t[i][d] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
+    for (int c = 0; c < BK; ++c) {
       float kv[ND];
 #pragma unroll
       for (int d = 0; d < ND; ++d) kv[d] = sk[c * LS + tx + 16 * d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = sds[(ty + 16 * i) * kPS + c];
+      for (int i = 0; i < RQ; ++i) {
+        const float ds = sds[(ty + 16 * i) * PS + c];
 #pragma unroll
         for (int d = 0; d < ND; ++d) t[i][d] = fmaf(ds, kv[d], t[i][d]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int d = 0; d < ND; ++d) acc[i][d] += t[i][d] * a.scale;
   }
   T* dq = static_cast<T*>(a.dq) + qrow * HD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= a.Sq) continue;
 #pragma unroll
@@ -446,76 +465,77 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 // dK/dV: grid (key tiles, Hkv, B)
 
-template <typename T, int HD>
+template <typename T, int HD, int RQ, int RK>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
-  constexpr int LS = HD + 1, ND = HD / 16;
+  constexpr int LS = HD + 1, ND = HD / 16, BQ = 16 * RQ, BK = 16 * RK;
+  constexpr int PS = BK + 1;
   extern __shared__ float smem[];
   float* sk = smem;
-  float* sv = sk + kTile * LS;
-  float* sq = sv + kTile * LS;
-  float* sdo = sq + kTile * LS;
-  float* sp = sdo + kTile * LS;
-  float* sds = sp + kTile * kPS;
-  float* slse = sds + kTile * kPS;
-  float* sdelta = slse + kTile;
+  float* sv = sk + BK * LS;
+  float* sq = sv + BK * LS;
+  float* sdo = sq + BQ * LS;
+  float* sp = sdo + BQ * LS;
+  float* sds = sp + BQ * PS;
+  float* slse = sds + BQ * PS;
+  float* sdelta = slse + BQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.Hkv;
-  const int k0 = kt * kTile;
+  const int k0 = kt * BK;
   const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
-  load_tile<T, HD>(sk, static_cast<const T*>(a.k) + krow * HD, k0, a.Sk);
-  load_tile<T, HD>(sv, static_cast<const T*>(a.v) + krow * HD, k0, a.Sk);
-  // thread rows ty + 16 i are keys of the tile; columns tx + 16 d
-  float dk[4][ND], dv[4][ND];
+  load_tile<T, HD, BK>(sk, static_cast<const T*>(a.k) + krow * HD, k0, a.Sk);
+  load_tile<T, HD, BK>(sv, static_cast<const T*>(a.v) + krow * HD, k0, a.Sk);
+  // thread rows ty + 16 c are keys of the block; columns tx + 16 d
+  float dk[RK][ND], dv[RK][ND];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < RK; ++c)
 #pragma unroll
-    for (int d = 0; d < ND; ++d) dk[i][d] = dv[i][d] = 0.f;
+    for (int d = 0; d < ND; ++d) dk[c][d] = dv[c][d] = 0.f;
   int lo, hi;
-  query_band(a, (long long)k0, (long long)min(a.Sk, k0 + kTile) - 1, kTile,
-             &lo, &hi);
+  query_band(a, (long long)k0, (long long)min(a.Sk, k0 + BK) - 1, BQ, &lo,
+             &hi);
   for (int g = 0; g < G; ++g) {
     const size_t qrow = ((size_t)b * a.H + hk * G + g) * a.Sq;
     const T* q = static_cast<const T*>(a.q) + qrow * HD;
     const T* dout = static_cast<const T*>(a.dout) + qrow * HD;
     for (int i = lo; i <= hi; ++i) {
-      const int q0 = i * kTile;
+      const int q0 = i * BQ;
       __syncthreads();
-      load_tile<T, HD>(sq, q, q0, a.Sq);
-      load_tile<T, HD>(sdo, dout, q0, a.Sq);
-      if (threadIdx.x < kTile) {
+      load_tile<T, HD, BQ>(sq, q, q0, a.Sq);
+      load_tile<T, HD, BQ>(sdo, dout, q0, a.Sq);
+      if (threadIdx.x < BQ) {
         const int r = q0 + threadIdx.x;
         slse[threadIdx.x] = r < a.Sq ? a.lse_in[qrow + r] : 0.f;
         sdelta[threadIdx.x] = r < a.Sq ? a.delta[qrow + r] : 0.f;
       }
       __syncthreads();
       // score tile: rows ty + 16 ii are queries, columns tx + 16 jj keys
-      float s[4][4], dp[4][4];
+      float s[RQ][RK], dp[RQ][RK];
       tile_dot<HD>(sq, sk, tx, ty, s);
       tile_dot<HD>(sdo, sv, tx, ty, dp);
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
+      for (int ii = 0; ii < RQ; ++ii) {
         const int rl = ty + 16 * ii;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < RK; ++jj) {
           float dcap;
           const float z = score(a, s[ii][jj], &dcap);
           const bool ok = attends(a, q0 + rl, k0 + tx + 16 * jj);
           const float p = ok ? expf(z - slse[rl]) : 0.f;
           float ds = p * (dp[ii][jj] - sdelta[rl]);
           if (a.softcap != 0.f) ds *= dcap;
-          sp[rl * kPS + tx + 16 * jj] = p;
-          sds[rl * kPS + tx + 16 * jj] = ds;
+          sp[rl * PS + tx + 16 * jj] = p;
+          sds[rl * PS + tx + 16 * jj] = ds;
         }
       }
       __syncthreads();
-      float t[4][ND];
+      float t[RK][ND];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < RK; ++c)
 #pragma unroll
         for (int d = 0; d < ND; ++d) t[c][d] = 0.f;
 #pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
+      for (int r = 0; r < BQ; ++r) {
         float dov[ND], qv[ND];
 #pragma unroll
         for (int d = 0; d < ND; ++d) {
@@ -523,9 +543,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
           qv[d] = sq[r * LS + tx + 16 * d];
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float p = sp[r * kPS + ty + 16 * c];
-          const float ds = sds[r * kPS + ty + 16 * c];
+        for (int c = 0; c < RK; ++c) {
+          const float p = sp[r * PS + ty + 16 * c];
+          const float ds = sds[r * PS + ty + 16 * c];
 #pragma unroll
           for (int d = 0; d < ND; ++d) {
             dv[c][d] = fmaf(p, dov[d], dv[c][d]);
@@ -534,7 +554,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
         }
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < RK; ++c)
 #pragma unroll
         for (int d = 0; d < ND; ++d) dk[c][d] += t[c][d] * a.scale;
     }
@@ -542,7 +562,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
   T* dkp = static_cast<T*>(a.dk) + krow * HD;
   T* dvp = static_cast<T*>(a.dv) + krow * HD;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < RK; ++c) {
     const int kr = k0 + ty + 16 * c;
     if (kr >= a.Sk) continue;
 #pragma unroll
@@ -559,8 +579,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 // wgmma (warpgroup products, bf16 operands, fp32 accumulate) on tiles that
 // cp.async rings stage in shared memory in the swizzled layouts wgmma
 // reads without bank conflicts: a (rows, HD) tile is cut into atoms of
-// kSw-byte rows (128 bytes, 64 columns, at hd 64 and 128; 64 bytes at hd
-// 32), atom after atom, and within an atom the 16-byte piece c of row r
+// kSw-byte rows (128 bytes, 64 columns, at hd 64, 128 and 256; 64 bytes at
+// hd 32), atom after atom, and within an atom the 16-byte piece c of row r
 // sits at piece c ^ (r % 8) (128-byte swizzle; c ^ (r / 2 % 4) for 64
 // bytes).  Read along its columns (K-major: Q and K in S = Q K^T, K and V
 // with Q and dO in S^T = K Q^T and dP^T = V dO^T) a descriptor steps 32
@@ -569,7 +589,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 // dV += P^T dO and dK += dS^T Q) it steps 16 kSw bytes per 16 rows, 8 kSw
 // per 8 rows (SBO) and one atom (rows kSw bytes, LBO) per 64 columns.
 
-constexpr int kKeys = 64;  // keys of a forward K/V tile and of a dK/dV block
+constexpr int kKeys = 64;  // keys of a dK/dV block
+
+// Keys of a forward or dQ K/V tile: 64, and 32 at hd 256, where the
+// m64n256 accumulator (O, dQ) already takes 128 registers a thread and a
+// four-stage ring of 64-key K and V tiles would take 256 KB.
+template <int HD>
+__host__ __device__ constexpr int key_tile() {
+  return HD == 256 ? 32 : 64;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -789,8 +817,67 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64n256) += A B, A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The products for N = 32, 64 (S = A B, dispatching wgmma_ss_n*) and 32, 64,
-// 128 (wgmma_rs_n*): the accumulator holds N / 2 floats a thread.
+// 128, 256 (wgmma_rs_n*): the accumulator holds N / 2 floats a thread.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
@@ -803,7 +890,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 // Registers that wgmma reads (A fragments, accumulators) were last written
@@ -918,8 +1006,8 @@ __device__ __forceinline__ void online_softmax(const Args& a, float (&s)[N],
 // while the second is in flight.
 template <int HD>
 __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
-  constexpr int NT = 128, BM = 64, kStages = 4;
-  constexpr int kTile = kKeys * HD * 2;  // bytes of one K or V tile
+  constexpr int NT = 128, BM = 64, kStages = 4, BN = key_tile<HD>();
+  constexpr int kTile = BN * HD * 2;  // bytes of one K or V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sq = smem_raw;
   unsigned char* skv = sq + BM * HD * 2;  // stage s: K at 2 s tiles, V next
@@ -933,11 +1021,11 @@ __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
   const bf16* kg = static_cast<const bf16*>(a.k) + krow * HD;
   const bf16* vg = static_cast<const bf16*>(a.v) + krow * HD;
   int lo, hi;
-  key_band(a, q0, (long long)min(a.Sq, q0 + BM) - 1, kKeys, &lo, &hi);
+  key_band(a, q0, (long long)min(a.Sq, q0 + BM) - 1, BN, &lo, &hi);
   auto load_tile = [&](int j) {
     unsigned char* t = skv + (j - lo) % kStages * 2 * kTile;
-    load_rows<HD, kKeys, NT>(t, kg, j * kKeys, a.Sk);
-    load_rows<HD, kKeys, NT>(t + kTile, vg, j * kKeys, a.Sk);
+    load_rows<HD, BN, NT>(t, kg, j * BN, a.Sk);
+    load_rows<HD, BN, NT>(t + kTile, vg, j * BN, a.Sk);
   };
   auto stage_k = [&](int j) { return skv + (j - lo) % kStages * 2 * kTile; };
 
@@ -945,9 +1033,9 @@ __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
   // + 8 (s[4 n + 2], s[4 n + 3]); columns 8 n + 2 (lane % 4) + {0, 1}
   const int w0 = q0 + warp * 16;
   const int rq = w0 + lane / 4;
-  float o[HD / 2], s[kKeys / 2], m[2] = {kNegInf, kNegInf};
+  float o[HD / 2], s[BN / 2], m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f}, alpha[2];
-  uint32_t pa[kKeys / 16][4];
+  uint32_t pa[BN / 16][4];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
@@ -968,20 +1056,20 @@ __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<kKeys>(s, desc_k<HD, BM>(sq, kk), desc_k<HD, kKeys>(sk, kk),
+      wgmma_ss<BN>(s, desc_k<HD, BM>(sq, kk), desc_k<HD, BN>(sk, kk),
                       kk > 0);
     wgmma_commit();
     if (j > lo) {
       const unsigned char* sv = stage_k(j - 1) + kTile;
 #pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk)
-        wgmma_rs<HD>(o, pa[kk], desc_mn<HD, kKeys>(sv, kk));
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk], desc_mn<HD, BN>(sv, kk));
     }
     wgmma_commit();
     wgmma_wait<1>();  // S of tile j; O += P V of tile j - 1 may run on
     hold(s);
-    const int c0 = j * kKeys;
-    const bool full = cover(a, w0, 16, c0, kKeys) == kAll;
+    const int c0 = j * BN;
+    const bool full = cover(a, w0, 16, c0, BN) == kAll;
     if (a.softcap != 0.f) {
       if (full) online_softmax<false, true>(a, s, m, l, alpha, rq, c0);
       else online_softmax<true, true>(a, s, m, l, alpha, rq, c0);
@@ -994,7 +1082,7 @@ __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[i >> 1 & 1];
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       acc_to_a(pa[kk], s, kk);
       hold(pa[kk]);
     }
@@ -1004,8 +1092,8 @@ __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
     hold(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_rs<HD>(o, pa[kk], desc_mn<HD, kKeys>(sv, kk));
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<HD>(o, pa[kk], desc_mn<HD, BN>(sv, kk));
     wgmma_commit();
     wgmma_wait<0>();
     hold(o);
@@ -1059,16 +1147,22 @@ __device__ __forceinline__ void probs_t(const Args& a, float (&s)[N],
   }
 }
 
-// dK/dV: grid (Hkv, B, key tiles of 64); one warpgroup, its 64 keys the M
-// rows of every product.  The block walks the q tiles of BQ rows of every
-// query head of its group, fed by a three-stage cp.async ring (Q, dO, lse,
-// delta): S^T = K Q^T and dP^T = V dO^T (m64nBQ), then dV += P^T dO and
-// dK += dS^T Q (m64nHD, dO and Q MN-major) with P^T and dS^T rounded to
-// bf16 once, the dK and dV sums in fp32 registers throughout.
-template <int HD, int BQ>
+// dK/dV: grid (Hkv, B, key tiles of 64 x HD / HO column blocks); one
+// warpgroup, its 64 keys the M rows of every product.  The block walks the
+// q tiles of BQ rows of every query head of its group, fed by a
+// three-stage cp.async ring (Q, dO, lse, delta): S^T = K Q^T and dP^T = V
+// dO^T (m64nBQ, over all HD), then dV += P^T dO and dK += dS^T Q (m64nHO,
+// dO and Q MN-major) with P^T and dS^T rounded to bf16 once, the dK and
+// dV sums in fp32 registers throughout.  HO, the head dims whose dK and
+// dV the block sums, is HD up to hd 128; at hd 256 two m64n256 fp32
+// accumulators would take 256 registers a thread, past the 255 a thread
+// may have, so each block sums half the columns (HO 128) and the two
+// blocks of a key tile both recompute P^T and dS^T.
+template <int HD, int BQ, int HO>
 __global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
-  constexpr int NT = 128;
+  constexpr int NT = 128, NH = HD / HO;
   constexpr int kKV = kKeys * HD * 2, kQ = BQ * HD * 2;  // tile bytes
+  constexpr int kAtomCols = sw_bytes<HD>() / 2;  // columns of one atom
   // Q, dO, lse and delta; a multiple of the swizzle's 1024-byte period
   constexpr int kStage = (2 * kQ + 2 * BQ * 4 + 1023) / 1024 * 1024;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -1076,7 +1170,8 @@ __global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
   unsigned char* sv = sk + kKV;
   unsigned char* stages = sv + kKV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z / NH;
+  const int col0 = blockIdx.z % NH * HO;  // this block's dK, dV columns
   const int G = a.H / a.Hkv;
   const int k0 = kt * kKeys;
   const size_t krow = ((size_t)b * a.Hkv + hk) * a.Sk;
@@ -1118,9 +1213,11 @@ __global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
   // of dK and dV head dims
   const int kw = k0 + warp * 16;
   const int rk = kw + lane / 4;
-  float dk[HD / 2], dv[HD / 2];
+  float dk[HO / 2], dv[HO / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < HO / 2; ++i) dk[i] = dv[i] = 0.f;
+  // byte offset of column col0 in a Q or dO tile: its atom's start
+  const int col_off = col0 / kAtomCols * BQ * sw_bytes<HD>();
 
   for (int t = 0; t < total; ++t) {
     const int st = t % 3;
@@ -1171,8 +1268,8 @@ __global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      wgmma_rs<HD>(dv, pa[kk], desc_mn<HD, BQ>(sdo, kk));
-      wgmma_rs<HD>(dk, da[kk], desc_mn<HD, BQ>(sq, kk));
+      wgmma_rs<HO>(dv, pa[kk], desc_mn<HD, BQ>(sdo + col_off, kk));
+      wgmma_rs<HO>(dk, da[kk], desc_mn<HD, BQ>(sq + col_off, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1188,8 +1285,8 @@ __global__ void __launch_bounds__(128) dkv_wgmma_kernel(const Args a) {
     const int r = rk + hh * 8;
     if (r >= a.Sk) continue;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const size_t at = (size_t)r * HD + n * 8 + 2 * (lane % 4);
+    for (int n = 0; n < HO / 8; ++n) {
+      const size_t at = (size_t)r * HD + col0 + n * 8 + 2 * (lane % 4);
       *reinterpret_cast<uint32_t*>(dkg + at) = pack_bf16(
           dk[4 * n + 2 * hh] * a.scale, dk[4 * n + 2 * hh + 1] * a.scale);
       *reinterpret_cast<uint32_t*>(dvg + at) =
@@ -1237,8 +1334,8 @@ __device__ __forceinline__ void probs(const Args& a, const float (&s)[N],
 // once; the dQ sum stays in fp32 registers and takes the scale at the end.
 template <int HD>
 __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
-  constexpr int NT = 128, BM = 64, kStages = 4;
-  constexpr int kTile = kKeys * HD * 2;  // bytes of one K or V tile
+  constexpr int NT = 128, BM = 64, kStages = 4, BN = key_tile<HD>();
+  constexpr int kTile = BN * HD * 2;  // bytes of one K or V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sq = smem_raw;
   unsigned char* sdo = sq + BM * HD * 2;
@@ -1253,12 +1350,12 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
   const bf16* kg = static_cast<const bf16*>(a.k) + krow * HD;
   const bf16* vg = static_cast<const bf16*>(a.v) + krow * HD;
   int lo, hi;
-  key_band(a, q0, (long long)min(a.Sq, q0 + BM) - 1, kKeys, &lo, &hi);
+  key_band(a, q0, (long long)min(a.Sq, q0 + BM) - 1, BN, &lo, &hi);
   auto stage_k = [&](int j) { return skv + (j - lo) % kStages * 2 * kTile; };
   auto load_tile = [&](int j) {
     unsigned char* t = stage_k(j);
-    load_rows<HD, kKeys, NT>(t, kg, j * kKeys, a.Sk);
-    load_rows<HD, kKeys, NT>(t + kTile, vg, j * kKeys, a.Sk);
+    load_rows<HD, BN, NT>(t, kg, j * BN, a.Sk);
+    load_rows<HD, BN, NT>(t + kTile, vg, j * BN, a.Sk);
   };
 
   // this thread's rows: w0 + lane / 4 and + 8, as in the forward
@@ -1271,8 +1368,8 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
     lb[hh] = r < a.Sq ? a.lse_in[qrow + r] * kLog2e : 0.f;
     dl[hh] = r < a.Sq ? a.delta[qrow + r] : 0.f;
   }
-  float dq[HD / 2], s[kKeys / 2], dp[kKeys / 2];
-  uint32_t da[kKeys / 16][4];
+  float dq[HD / 2], s[BN / 2], dp[BN / 2];
+  uint32_t da[BN / 16][4];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
 
@@ -1296,24 +1393,24 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      wgmma_ss<kKeys>(s, desc_k<HD, BM>(sq, kk), desc_k<HD, kKeys>(sk, kk),
+      wgmma_ss<BN>(s, desc_k<HD, BM>(sq, kk), desc_k<HD, BN>(sk, kk),
                       kk > 0);
-      wgmma_ss<kKeys>(dp, desc_k<HD, BM>(sdo, kk),
-                      desc_k<HD, kKeys>(sk + kTile, kk), kk > 0);
+      wgmma_ss<BN>(dp, desc_k<HD, BM>(sdo, kk),
+                      desc_k<HD, BN>(sk + kTile, kk), kk > 0);
     }
     wgmma_commit();
     if (j > lo) {
       const unsigned char* skp = stage_k(j - 1);
 #pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk)
-        wgmma_rs<HD>(dq, da[kk], desc_mn<HD, kKeys>(skp, kk));
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<HD>(dq, da[kk], desc_mn<HD, BN>(skp, kk));
     }
     wgmma_commit();
     wgmma_wait<1>();  // S and dP of tile j; dQ += dS K of tile j - 1 runs on
     hold(s);
     hold(dp);
-    const int c0 = j * kKeys;
-    const bool full = cover(a, w0, 16, c0, kKeys) == kAll;
+    const int c0 = j * BN;
+    const bool full = cover(a, w0, 16, c0, BN) == kAll;
     if (a.softcap != 0.f) {
       if (full) probs<false, true>(a, s, dp, lb, dl, rq, c0);
       else probs<true, true>(a, s, dp, lb, dl, rq, c0);
@@ -1324,7 +1421,7 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
     wgmma_wait<0>();
     hold(dq);
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       acc_to_a(da[kk], dp, kk);
       hold(da[kk]);
     }
@@ -1334,8 +1431,8 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
     hold(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_rs<HD>(dq, da[kk], desc_mn<HD, kKeys>(sk, kk));
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<HD>(dq, da[kk], desc_mn<HD, BN>(sk, kk));
     wgmma_commit();
     wgmma_wait<0>();
     hold(dq);
@@ -1361,36 +1458,46 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
 
 enum Which { kForward = 0, kDq = 1, kDkv = 2 };
 
-template <int HD>
-size_t smem_bytes(Which w) {
-  const size_t plane = (size_t)kTile * (HD + 1), tile = (size_t)kTile * kPS;
-  switch (w) {
-    case kForward: return sizeof(float) * (3 * plane + tile);
-    case kDq: return sizeof(float) * (4 * plane + tile);
-    default: return sizeof(float) * (4 * plane + 2 * tile + 2 * kTile);
-  }
-}
+// fp32: the FMA kernels' score tiles, (RQ, RK) per thread (see the
+// kernels): 64 x 64, and at hd 256 32 query rows for dQ and 32 keys for
+// dK/dV, so that their shared memory stays within a block's 227 KB.
+template <int HD, Which W>
+struct FmaTiles {
+  static constexpr int RQ = W == kDq && HD == 256 ? 2 : 4;
+  static constexpr int RK = W == kDkv && HD == 256 ? 2 : 4;
+  static constexpr int BQ = 16 * RQ, BK = 16 * RK;
+  // bytes of shared memory: the fp32 planes of rows padded to HD + 1, the
+  // (BQ, BK + 1) tiles of p or dS, and dK/dV's lse and delta rows
+  static constexpr size_t kSmem =
+      sizeof(float) *
+      ((W == kForward ? BQ + 2 * BK : 2 * BQ + 2 * BK) * (HD + 1) +
+       (W == kDkv ? 2 : 1) * BQ * (BK + 1) + (W == kDkv ? 2 * BQ : 0));
+};
 
 // bf16: the tensor-core kernels, one warpgroup a block.  The forward and
-// dQ own q tiles of 64 rows and walk a four-stage K/V ring (dQ also keeps
-// its dO tile); dK/dV walks q tiles of 64 rows (32 at hd 128, where dK and
-// dV take twice the registers) through a three-stage ring.
+// dQ own q tiles of 64 rows and walk a four-stage K/V ring of key_tile<HD>
+// keys (dQ also keeps its dO tile); dK/dV walks q tiles of 64 rows (32 at
+// hd 128 and 256, where dK and dV take twice the registers) through a
+// three-stage ring, and at hd 256 each key tile has two blocks, one for
+// each half of the head dims.
 template <int HD>
 cudaError_t launch_tc(Which w, const Args& a, cudaStream_t stream) {
   void (*kern)(Args);
   size_t smem;
-  int tiles, heads;
+  long long tiles;
+  int heads;
   if (w != kDkv) {
     kern = w == kForward ? forward_wgmma_kernel<HD> : dq_wgmma_kernel<HD>;
-    smem = (size_t)((w == kForward ? 64 : 128) + 4 * 2 * kKeys) * HD * 2;
+    smem = (size_t)((w == kForward ? 64 : 128) + 4 * 2 * key_tile<HD>()) *
+           HD * 2;
     tiles = (a.Sq + 63) / 64;
     heads = a.H;
   } else {
-    constexpr int BQ = HD == 128 ? 32 : 64;
-    kern = dkv_wgmma_kernel<HD, BQ>;
+    constexpr int BQ = HD >= 128 ? 32 : 64, HO = HD == 256 ? 128 : HD;
+    kern = dkv_wgmma_kernel<HD, BQ, HO>;
     smem = (size_t)2 * kKeys * HD * 2 +
            3 * ((2 * BQ * HD * 2 + 2 * BQ * 4 + 1023) / 1024 * 1024);
-    tiles = (a.Sk + kKeys - 1) / kKeys;
+    tiles = (long long)(a.Sk + kKeys - 1) / kKeys * (HD / HO);
     heads = a.Hkv;
   }
   if (tiles > 65535 || a.B > 65535) return cudaErrorInvalidValue;
@@ -1398,7 +1505,24 @@ cudaError_t launch_tc(Which w, const Args& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (tiles == 0 || a.B == 0) return cudaSuccess;
-  kern<<<dim3(heads, a.B, tiles), 128, smem, stream>>>(a);
+  kern<<<dim3(heads, a.B, (unsigned)tiles), 128, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, Which W>
+cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
+  using F = FmaTiles<HD, W>;
+  void (*kern)(Args);
+  if constexpr (W == kForward) kern = forward_kernel<T, HD, F::RQ, F::RK>;
+  else if constexpr (W == kDq) kern = dq_kernel<T, HD, F::RQ, F::RK>;
+  else kern = dkv_kernel<T, HD, F::RQ, F::RK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = W == kDkv ? n_tiles(a.Sk, F::BK) : n_tiles(a.Sq, F::BQ);
+  const dim3 grid(tiles, W == kDkv ? a.Hkv : a.H, a.B);
+  if (tiles == 0 || a.B == 0) return cudaSuccess;
+  kern<<<grid, kThreads, F::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1408,18 +1532,11 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
   if constexpr (sizeof(T) == sizeof(bf16)) {
     return launch_tc<HD>(w, a, stream);
   } else {
-    void (*kern)(Args) = w == kForward ? forward_kernel<T, HD>
-                         : w == kDq    ? dq_kernel<T, HD>
-                                       : dkv_kernel<T, HD>;
-    const size_t smem = smem_bytes<HD>(w);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const int tiles = w == kDkv ? n_tiles(a.Sk) : n_tiles(a.Sq);
-    const dim3 grid(tiles, w == kDkv ? a.Hkv : a.H, a.B);
-    if (tiles == 0 || a.B == 0) return cudaSuccess;
-    kern<<<grid, kThreads, smem, stream>>>(a);
-    return cudaGetLastError();
+    switch (w) {
+      case kForward: return launch_fma<T, HD, kForward>(a, stream);
+      case kDq: return launch_fma<T, HD, kDq>(a, stream);
+      default: return launch_fma<T, HD, kDkv>(a, stream);
+    }
   }
 }
 
@@ -1429,6 +1546,7 @@ cudaError_t dispatch(Which w, const Args& a, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32>(w, a, stream);
     case 64: return launch<T, 64>(w, a, stream);
     case 128: return launch<T, 128>(w, a, stream);
+    case 256: return launch<T, 256>(w, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -278,7 +278,10 @@ row_stats_kernel(const T* __restrict__ h, float* __restrict__ stats, int N,
 }
 
 // acc[i][j] += h_n[r0 + ty + 16 i] . wc[c0 + tx + 16 j] over the whole of
-// D, with wc = W cast to T; products and sums in fp32.  A 16 x 16 grid of
+// D, with wc = W cast to T; products and sums in fp32, each kBK-deep chunk
+// summed apart and then added to acc (one long chain of fp32 FMAs over D
+// drifts by ~sqrt(D) roundings of the running sum: ~1e-5 on a logit at D
+// 8192; chunks keep it to ~sqrt(D / kBK) of them).  A 16 x 16 grid of
 // threads, each with TM x TN outputs strided by 16 (conflict-free shared
 // reads).  As is [kBK][BM + 1], Bs [kBK][BN + 1]; rows past N read 0.
 template <typename T, typename TW, bool TRANSW, int BM, int BN, int TM,
@@ -299,6 +302,11 @@ __device__ __forceinline__ void logits_tile(const CeArgs& a, int r0, int c0,
       Bs[k * (BN + 1) + c] = round_to<T>(w_at<TW, TRANSW>(a, c0 + c, k0 + k));
     }
     __syncthreads();
+    float part[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
 #pragma unroll 4
     for (int k = 0; k < kBK; ++k) {
       float av[TM], bv[TN];
@@ -309,8 +317,13 @@ __device__ __forceinline__ void logits_tile(const CeArgs& a, int r0, int c0,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j)
+          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
     __syncthreads();
   }
 }
@@ -1465,6 +1478,17 @@ int ce_forward_launch(const void* h, const void* w, const float* normp,
   return (int)fn(a, stats, splits, tiles_per_split, part, part_idx, lse, ll,
                  yhat, static_cast<unsigned char*>(ws),
                  static_cast<cudaStream_t>(stream));
+}
+
+// The norm's statistics of each row, stats (N, 2): what the kernels
+// normalize with (for checking them against the plain version).
+int ce_row_stats_launch(const void* h, float* stats, int N, int D,
+                        int h_bf16, int norm, float eps, void* stream) {
+  const CeArgs a = make_args(h, nullptr, nullptr, stats, nullptr, nullptr,
+                             nullptr, N, D, 0, 0, norm, eps, 0.0f, 0u, 0u);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(h_bf16 ? launch_row_stats<bf16>(a, stats, st)
+                      : launch_row_stats<float>(a, stats, st));
 }
 
 // Workspace bytes the backward asks for (0 with fp32 h).

@@ -51,8 +51,13 @@ the plain version's own.
 On a CPU tensor a wrapper computes the plain version beside it, the
 closed form of the ``kernels/ref.py`` oracles with the kernels' fp32
 rounding points.  A CUDA tensor the kernels do not take (a head dim other
-than 32, 64 or 128, another dtype than fp32 or bf16, a bf16 operand off a
-16-byte boundary) raises ``ValueError``; there is no other route.
+than 32, 64, 128 or 256, another dtype than fp32 or bf16, a bf16 operand
+off a 16-byte boundary) raises ``ValueError``; there is no other route.
+At hd 256 (gemma2) the kernels take smaller tiles: the bf16 forward and dQ
+walk key tiles of 32, the bf16 dK/dV splits the head dims over two blocks
+a key tile, and the fp32 dQ and dK/dV own 32 query rows or keys a block
+(``csrc/flash_attention.cu``); the function and its rounding points are
+the same.
 
 Masking is the reference's: causal, a sliding window by key distance (the
 sentinel ``1 << 30`` means none), ``q_offset`` shifting the query
@@ -84,7 +89,7 @@ from . import KERNEL_LAUNCHES, _build
 
 NEG_INF = -1e30           # masked-score sentinel of the reference
 WINDOW_NONE = 1 << 30     # window value that masks nothing
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _f32 = torch.float32
 
 

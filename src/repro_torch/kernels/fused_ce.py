@@ -156,22 +156,40 @@ def rowscale(n_rows: int, mask, device=None):
     return m / n_valid, n_valid
 
 
-def apply_norm(x, normp, norm, eps):
-    """The fused final norm, the reference's convention: fp32 statistics
-    over the last axis, cast back to x's dtype.  ``normp`` is the (2, D)
-    fp32 [scale; bias] pair: ln is ``scale * xhat + bias``, rms ``x *
-    rsqrt(mean(x^2) + eps) * (1 + scale)`` (no bias)."""
-    if norm is None:
-        return x
-    x32 = x.to(_f32)
-    scale = normp[0]
+def _row_stats_plain(x32, norm, eps):
+    """(mean, 1/sqrt(var + eps)) of each row, (..., 1) fp32 each; rms: 0
+    and 1/sqrt(mean(x^2) + eps)."""
     if norm == "ln":
         mu = x32.mean(dim=-1, keepdim=True)
         var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-        out = (x32 - mu) * torch.rsqrt(var + eps) * scale + normp[1]
     elif norm == "rms":
+        mu = torch.zeros_like(x32[..., :1])
         var = x32.square().mean(dim=-1, keepdim=True)
-        out = x32 * torch.rsqrt(var + eps) * (1.0 + scale)
+    else:
+        raise ValueError(f"norm {norm!r} is not ln or rms")
+    return mu, torch.rsqrt(var + eps)
+
+
+def apply_norm(x, normp, norm, eps, stats=None):
+    """The fused final norm, the reference's convention: fp32 statistics
+    over the last axis, cast back to x's dtype.  ``normp`` is the (2, D)
+    fp32 [scale; bias] pair: ln is ``scale * xhat + bias``, rms ``x *
+    rsqrt(mean(x^2) + eps) * (1 + scale)`` (no bias).  ``stats``, an (N,
+    2) fp32 [mean, 1/sqrt(var + eps)] per row (:func:`row_stats`),
+    replaces the statistics this version would compute: with the kernels'
+    own, it normalizes the rows as they do."""
+    if norm is None:
+        return x
+    x32 = x.to(_f32)
+    if stats is None:
+        mu, rstd = _row_stats_plain(x32, norm, eps)
+    else:
+        mu, rstd = stats[..., :1], stats[..., 1:]
+    scale = normp[0]
+    if norm == "ln":
+        out = (x32 - mu) * rstd * scale + normp[1]
+    elif norm == "rms":
+        out = x32 * rstd * (1.0 + scale)
     else:
         raise ValueError(f"norm {norm!r} is not ln or rms")
     return out.to(x.dtype)
@@ -256,10 +274,11 @@ def ce_forward_sampled_plain(h2, w, normp, seed, *, vocab,
 
 def ce_backward_plain(h2, w, normp, labels, rs, lse, *, vocab,
                       transpose_w=False, softcap=None, norm=None, eps=1e-6,
-                      chunk=CHUNK):
+                      chunk=CHUNK, stats=None):
     """(d normed hidden, dW): dh fp32 with a norm (the caller pulls it
-    back), else h's dtype; dW in W's dtype and layout."""
-    hn = apply_norm(h2, normp, norm, eps)
+    back), else h's dtype; dW in W's dtype and layout.  ``stats`` as in
+    :func:`apply_norm`."""
+    hn = apply_norm(h2, normp, norm, eps, stats)
     N, D = hn.shape
     Vp = _vp_of(w, transpose_w)
     bv = vocab_chunk(Vp, chunk, 128)
@@ -309,6 +328,7 @@ _SIGNATURES = {
     "ce_backward_dw_launch": [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT,
                                                          _PTR],
     "ce_backward_ws_bytes": [_INT] * 6,
+    "ce_row_stats_launch": [_PTR, _PTR] + [_INT] * 4 + [_FLOAT, _PTR],
 }
 
 
@@ -462,6 +482,28 @@ def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
     return out
+
+
+def row_stats(h2, *, norm, eps=1e-6):
+    """(N, 2) fp32: each row's mean and 1/sqrt(var + eps) (rms: 0 and
+    1/sqrt(mean(x^2) + eps)), the statistics the kernels normalize with.
+    On a CUDA tensor the first kernel every CE wrapper launches computes
+    them (a checking aid, so it counts no launch: the card's check holds
+    them against the plain ones and the plain backward fed them against
+    the kernels); on the CPU the plain version's."""
+    if _route(h2) == "cpu":
+        return torch.cat(_row_stats_plain(h2.to(_f32), norm, eps), dim=-1)
+    if norm not in ("ln", "rms") or h2.dim() != 2 or not h2.is_contiguous():
+        raise ValueError("fused_ce.row_stats: a contiguous (N, D) h and "
+                         "norm ln or rms")
+    N, D = h2.shape
+    stats = torch.empty((N, 2), dtype=_f32, device=h2.device)
+    err = _launch_fn("ce_row_stats_launch")(
+        h2.data_ptr(), stats.data_ptr(), N, D,
+        int(h2.dtype == torch.bfloat16), _NORM_CODE[norm], float(eps),
+        torch.cuda.current_stream(h2.device).cuda_stream)
+    _raise_on(err, "row_stats")
+    return stats
 
 
 def _route(t: torch.Tensor) -> str:

@@ -1,5 +1,6 @@
 """Model configuration shared by every architecture family (a copy of
-``repro.models.common.ModelConfig`` with torch dtypes)."""
+``repro.models.common.ModelConfig`` with torch dtypes), and the check of
+which of its fields the port implements."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +13,7 @@ import torch
 class ModelConfig:
     """The reference's config type, field for field, so a config converts
     between the two packages by ``dataclasses.asdict``.  The port implements
-    the dense GPT-2 subset; :func:`check_supported` names the fields it
+    the dense family; :func:`check_supported` names the fields it
     refuses."""
     name: str
     family: str                       # dense | moe | rwkv | griffin | encdec
@@ -85,23 +86,25 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config field the port does not
     implement yet, so that no such field is silently ignored.  The port
-    implements the dense family with LayerNorm, learned positions or rope
-    (without M-RoPE), GELU or SwiGLU, tied or untied embeddings."""
+    implements the dense family with LayerNorm or RMSNorm (sandwich norms
+    included), learned positions or rope (without M-RoPE), QKV bias, GELU,
+    SwiGLU or GeGLU, tied or untied embeddings and the embedding scale;
+    token inputs only (no patch embeddings)."""
     refused = {
         "family": cfg.family != "dense",
         "mrope_sections": cfg.mrope_sections is not None,
-        "norm_type": cfg.norm_type != "ln",
-        "activation": cfg.activation not in ("gelu", "swiglu"),
-        "post_norms": cfg.post_norms,
-        "qkv_bias": cfg.qkv_bias,
-        "embed_scale": cfg.embed_scale,
         "patch_embed_input": cfg.patch_embed_input,
     }
     bad = [name for name, hit in refused.items() if hit]
     if bad:
         raise NotImplementedError(
             f"config {cfg.name!r}: the port implements the dense family "
-            f"with LayerNorm, learned positions or rope, GELU or SwiGLU; "
-            f"unsupported fields: {', '.join(bad)}")
+            f"with token inputs and rope without M-RoPE; unsupported "
+            f"fields: {', '.join(bad)}")
+    if cfg.norm_type not in ("ln", "rms"):
+        raise ValueError(f"norm_type {cfg.norm_type!r} is not ln or rms")
+    if cfg.activation not in ("gelu", "swiglu", "geglu"):
+        raise ValueError(f"activation {cfg.activation!r} is not gelu, "
+                         f"swiglu or geglu")
     if cfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")

@@ -1,6 +1,6 @@
-"""Shared layers of the dense family (LayerNorm; learned positions or
-rope; GELU or SwiGLU; tied or untied embeddings), as plain functions on
-tensors.
+"""Shared layers of the dense family (LayerNorm or RMSNorm; learned
+positions or rope; QKV bias; GELU, SwiGLU or GeGLU; tied or untied
+embeddings, the embedding scale), as plain functions on tensors.
 
 The counterpart of ``repro/models/layers.py``, with its conventions:
 
@@ -61,6 +61,15 @@ def embed_init(gen: torch.Generator, shape):
 # norms
 
 
+def rms_norm(x, scale, eps=1e-6):
+    """RMSNorm in fp32, ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``, cast
+    back to x's dtype (the scale is stored as an offset from 1)."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
 def layer_norm(x, scale, bias, eps=1e-5):
     """LayerNorm in fp32 with the population variance, cast back to x's
     dtype."""
@@ -115,21 +124,34 @@ def _train_positions(x, positions):
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig):
+    """``wq``, ``wk``, ``wv``, ``wo``; with QKV bias also ``bq``, ``bk``,
+    ``bv``, zeros (the reference's leaves)."""
     D, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    return {"wq": dense_init(gen, (D, H * hd)),
-            "wk": dense_init(gen, (D, Hkv * hd)),
-            "wv": dense_init(gen, (D, Hkv * hd)),
-            "wo": dense_init(gen, (H * hd, D), in_axis=0)}
+    p = {"wq": dense_init(gen, (D, H * hd)),
+         "wk": dense_init(gen, (D, Hkv * hd)),
+         "wv": dense_init(gen, (D, Hkv * hd)),
+         "wo": dense_init(gen, (H * hd, D), in_axis=0)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", Hkv * hd),
+                            ("bv", Hkv * hd)):
+            p[name] = torch.zeros((width,), device=gen.device)
+    return p
 
 
 def _qkv(p, x, cfg: ModelConfig, positions=None):
-    """q, k, v (B, S, heads, hd) in x's dtype; under rope q and k rotated
-    by ``positions`` (B, S)."""
+    """q, k, v (B, S, heads, hd) in x's dtype: the projections, plus the
+    biases in x's dtype with QKV bias; under rope q and k rotated by
+    ``positions`` (B, S).  Every attention route (training, decode,
+    prefill) projects here."""
     dt = x.dtype
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = (t + p[b].to(dt) for t, b in ((q, "bq"), (k, "bk"),
+                                                (v, "bv")))
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -386,11 +408,11 @@ def prefill_chunk_attention(p, h, cfg: ModelConfig, kv, slot: int,
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig):
-    """GELU: ``w_up``, ``b_up``, ``w_down``, ``b_down``; SwiGLU:
+    """GELU: ``w_up``, ``b_up``, ``w_down``, ``b_down``; SwiGLU and GeGLU:
     ``w_gate``, ``w_up``, ``w_down`` without biases (the reference's
     leaves)."""
     D, F_ = cfg.d_model, cfg.d_ff
-    if cfg.activation == "swiglu":
+    if cfg.activation in ("swiglu", "geglu"):
         return {"w_gate": dense_init(gen, (D, F_)),
                 "w_up": dense_init(gen, (D, F_)),
                 "w_down": dense_init(gen, (F_, D), in_axis=0)}
@@ -401,11 +423,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
 
 
 def mlp(p, x, cfg: ModelConfig):
-    """SwiGLU ``(silu(x Wg) * (x Wu)) Wd``, or the GELU MLP (the tanh
-    approximation, ``jax.nn.gelu``'s default), in x's dtype."""
+    """SwiGLU ``(silu(x Wg) * (x Wu)) Wd``, GeGLU ``(gelu(x Wg) * (x Wu))
+    Wd`` or the GELU MLP, in x's dtype; every GELU is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
     dt = x.dtype
-    if cfg.activation == "swiglu":
-        g = F.silu(x @ p["w_gate"].to(dt))
+    if cfg.activation in ("swiglu", "geglu"):
+        g = x @ p["w_gate"].to(dt)
+        g = F.silu(g) if cfg.activation == "swiglu" else F.gelu(
+            g, approximate="tanh")
         return (g * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
     h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
     return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
@@ -429,12 +454,17 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig):
 
 
 def embed(p, tokens, cfg: ModelConfig, positions=None):
-    """Gather from the fp32 table, cast to the compute dtype, then, with
+    """Gather from the fp32 table, cast to the compute dtype; with the
+    embedding scale multiply by sqrt(d_model) rounded to that dtype first
+    (the reference's ``jnp.asarray(sqrt(d), x.dtype)``); then, with
     learned positions, add the position row in that dtype.  A position
     past the table (only the zero-padded tail of a last prefill chunk,
     whose queries nothing reads) takes the last row instead of indexing
     out of bounds."""
     x = p["tok"][tokens.to(torch.int64)].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
     if not cfg.learned_pos:
         return x
     pos = positions.to(torch.int64).clamp(max=p["pos"].shape[0] - 1)

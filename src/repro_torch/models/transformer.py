@@ -1,14 +1,18 @@
-"""Decoder-only transformer LM, dense family (GPT-2, GPT-NeoX, stablelm):
-parameters, the training forward and losses, and the serve engine's slot
-protocol.
+"""Decoder-only transformer LM, dense family (GPT-2, GPT-NeoX, stablelm,
+yi, qwen1.5, gemma2): parameters, the training forward and losses, and the
+serve engine's slot protocol.
 
 The counterpart of ``repro/models/transformer.py``.  The parameters are an
 ``nn.Module`` whose names follow the reference's params dict
 (``embed.tok``, ``embed.pos`` with learned positions, ``embed.unembed``
-when untied, ``final_norm.scale``, and per layer ``layers.<i>.ln1``,
-``attn.wq/wk/wv/wo``, ``ln2``, ``mlp.w_up/b_up/w_down/b_down`` (GELU) or
-``mlp.w_gate/w_up/w_down`` (SwiGLU)); the reference's scan over stacked layers
-is a Python loop over ``layers``.  The parameters take gradients; the
+when untied, ``final_norm.scale`` (and ``.bias`` for LayerNorm), and per
+layer ``layers.<i>.ln1``, ``attn.wq/wk/wv/wo`` (and ``bq/bk/bv`` with QKV
+bias), ``ln2``, ``ln1_post`` and ``ln2_post`` with sandwich norms,
+``mlp.w_up/b_up/w_down/b_down`` (GELU) or ``mlp.w_gate/w_up/w_down``
+(SwiGLU, GeGLU)); the reference's scan over stacked layers is a Python
+loop over ``layers``.  A layer is the reference's ``_dense_block``: with
+sandwich norms the attention and MLP outputs are normed before each
+residual add.  The parameters take gradients; the
 serving entry points run under ``torch.inference_mode()``, which records
 no autograd graph and skips autograd's per-op bookkeeping.  :meth:`Transformer.param_tree` is the reference's params dict
 with each stacked leaf as a list of per-layer tensors (``core/types.py``),
@@ -41,7 +45,8 @@ from ..kernels.decode_attention import GLOBAL_WINDOW
 from .common import ModelConfig, check_supported
 from .layers import (decode_attention_slots, embed, init_attention,
                      init_embedding, init_mlp, layer_norm, mlp,
-                     prefill_chunk_attention, train_attention, unembed)
+                     prefill_chunk_attention, rms_norm, train_attention,
+                     unembed)
 
 # ---------------------------------------------------------------------------
 # params
@@ -52,13 +57,18 @@ def _params(tree) -> nn.ParameterDict:
                              for name, t in tree.items()})
 
 
+_LAYER_GROUPS = ("ln1", "attn", "ln2", "mlp", "ln1_post", "ln2_post")
+
+
 class _Layer(nn.Module):
+    """One layer's groups; ``ln1_post`` and ``ln2_post`` only with sandwich
+    norms (``groups`` lists the ones present)."""
+
     def __init__(self, tree):
         super().__init__()
-        self.ln1 = _params(tree["ln1"])
-        self.attn = _params(tree["attn"])
-        self.ln2 = _params(tree["ln2"])
-        self.mlp = _params(tree["mlp"])
+        self.groups = tuple(g for g in _LAYER_GROUPS if g in tree)
+        for g in self.groups:
+            setattr(self, g, _params(tree[g]))
 
 
 class Transformer(nn.Module):
@@ -79,7 +89,7 @@ class Transformer(nn.Module):
     def param_tree(self) -> dict:
         """The reference's params dict over this module's parameters; each
         leaf under ``"layers"`` is a list of the per-layer tensors."""
-        groups = ("ln1", "attn", "ln2", "mlp")
+        groups = self.layers[0].groups
         return {
             "embed": dict(self.embed.items()),
             "final_norm": dict(self.final_norm.items()),
@@ -91,21 +101,50 @@ class Transformer(nn.Module):
 
 
 def _init_norm(cfg: ModelConfig, device):
-    return {"scale": torch.ones((cfg.d_model,), device=device),
-            "bias": torch.zeros((cfg.d_model,), device=device)}
+    """LayerNorm: scale ones, bias zeros; RMSNorm: scale zeros (it
+    multiplies by 1 + scale) and no bias."""
+    if cfg.norm_type == "ln":
+        return {"scale": torch.ones((cfg.d_model,), device=device),
+                "bias": torch.zeros((cfg.d_model,), device=device)}
+    return {"scale": torch.zeros((cfg.d_model,), device=device)}
 
 
 def _norm(p, x, cfg: ModelConfig):
-    return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    if cfg.norm_type == "ln":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    dev = gen.device
+    p = {"ln1": _init_norm(cfg, dev), "attn": init_attention(gen, cfg),
+         "ln2": _init_norm(cfg, dev), "mlp": init_mlp(gen, cfg)}
+    if cfg.post_norms:
+        p["ln1_post"] = _init_norm(cfg, dev)
+        p["ln2_post"] = _init_norm(cfg, dev)
+    return p
+
+
+def _attn_residual(layer, x, a, cfg: ModelConfig):
+    """x + a, the attention output normed first with sandwich norms."""
+    if cfg.post_norms:
+        a = _norm(layer.ln1_post, a, cfg)
+    return x + a
+
+
+def _mlp_residual(layer, x, cfg: ModelConfig):
+    """x + mlp(ln2(x)), the MLP output normed first with sandwich norms."""
+    f = mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+    if cfg.post_norms:
+        f = _norm(layer.ln2_post, f, cfg)
+    return x + f
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     """Random parameters drawn from ``gen``, on ``gen``'s device."""
     check_supported(cfg)
     dev = gen.device
-    layers = [{"ln1": _init_norm(cfg, dev), "attn": init_attention(gen, cfg),
-               "ln2": _init_norm(cfg, dev), "mlp": init_mlp(gen, cfg)}
-              for _ in range(cfg.n_layers)]
+    layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
     return Transformer(cfg, {"embed": init_embedding(gen, cfg),
                              "final_norm": _init_norm(cfg, dev),
                              "layers": layers})
@@ -203,10 +242,10 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
 
         def run(x):
             h = _norm(layer.ln1, x, cfg)
-            x = x + train_attention(layer.attn, h, cfg, positions=positions,
-                                    window=windows[i], layer_scale=scales[i],
-                                    impl=attn_impl)
-            return x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+            a = train_attention(layer.attn, h, cfg, positions=positions,
+                                window=windows[i], layer_scale=scales[i],
+                                impl=attn_impl)
+            return _mlp_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
         return run
 
     n = len(params.layers)
@@ -319,9 +358,9 @@ def _slot_layer_sweep(cfg: ModelConfig, params: Transformer, cache, x,
     scales = layer_scales(cfg)
     for i, layer in enumerate(params.layers):
         kv_l = {name: leaf[i] for name, leaf in cache.items()}
-        x = x + attn_fn(layer.attn, _norm(layer.ln1, x, cfg), kv_l,
-                        windows[i], scales[i])
-        x = x + mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+        a = attn_fn(layer.attn, _norm(layer.ln1, x, cfg), kv_l, windows[i],
+                    scales[i])
+        x = _mlp_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
     return x
 
 

@@ -2,8 +2,11 @@
 trainer saved restores in the port, leaf for leaf, and the port continues
 the reference's trajectory from it; one that the port saved restores in
 the reference (fp32 state) and continues there, and its bf16 leaves are
-the files the reference's own save writes.  GPT2_TINY and a NeoX-shaped
-config with untied embeddings and rope, fp32 and bf16 optimizer state."""
+the files the reference's own save writes.  GPT2_TINY, a NeoX-shaped
+config with untied embeddings and rope, and the smoke configs of
+qwen1.5-110b (RMSNorm, QKV bias) and gemma2-9b (sandwich norms, GeGLU,
+the embedding scale), whose extra leaves must sit in the reference's
+sorted order; fp32 and bf16 optimizer state."""
 import dataclasses
 import functools
 import json
@@ -15,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs.gpt2 import GPT2_TINY, NEOX_1_5B
 from repro.data import DataConfig as JDataConfig
 from repro.data import make_source as jax_make_source
@@ -33,7 +37,11 @@ NEOX_TINY = dataclasses.replace(NEOX_1_5B, name="neox-tiny", d_model=128,
                                 n_layers=2, n_heads=4, n_kv_heads=4,
                                 d_ff=512, vocab_size=512)
 CFGS = {"gpt2_tiny": dataclasses.replace(GPT2_TINY, dtype="float32"),
-        "neox_tiny": dataclasses.replace(NEOX_TINY, dtype="float32")}
+        "neox_tiny": dataclasses.replace(NEOX_TINY, dtype="float32"),
+        "qwen_smoke": dataclasses.replace(
+            jax_get_config("qwen1.5-110b", smoke=True), dtype="float32"),
+        "gemma2_smoke": dataclasses.replace(
+            jax_get_config("gemma2-9b", smoke=True), dtype="float32")}
 # materialized attention and the fused loss (the reference's Pallas CE in
 # interpret mode), a refresh at steps 0 and 4: one on each side of the cut
 TRAIN = dict(optimizer="sophia_g", peak_lr=5e-4, total_steps=64,

@@ -53,6 +53,11 @@ def cuda_device():
     (4, 12, 12, 512, 64, None, None, [0, 1, 2, 3]),
     # NeoX-6.6B's serving heads: hd 128, 32 heads
     (8, 32, 32, 512, 128, None, None, None),
+    # yi-6b's (32 over 4) and qwen1.5-110b's (64 over 8): group 8
+    (8, 32, 4, 512, 128, None, None, None),
+    (8, 64, 8, 512, 128, None, None, None),
+    # gemma2-9b's: hd 256, 16 over 8, softcap 50, its window binding
+    (4, 16, 8, 8192, 256, 4096, 50.0, [4095, 5000, 8191, 12000]),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, dt, quant, N, H,
                                                Hkv, C, hd, window, softcap,
@@ -281,6 +286,12 @@ def test_hutchinson_hvp_launches_no_backward_kernel(cuda_device):
     (2, 4, 4, 192, 192, 128, True, None, None, 0),    # hd 128
     (2, 8, 2, 256, 256, 64, True, None, None, 0),     # GQA 8/2
     (1, 32, 32, 2048, 2048, 128, True, None, None, 0),  # NeoX-6.6B, S 2048
+    # hd 256 (gemma2): GQA 2 with window and softcap off the tile, a
+    # q_offset, non-causal, and a 2048-token slice of its local layer
+    (2, 4, 2, 300, 300, 256, True, 40, 50.0, 0),
+    (1, 4, 2, 160, 256, 256, True, None, None, 96),
+    (1, 2, 1, 100, 130, 256, False, None, None, 0),
+    (1, 16, 8, 2048, 2048, 256, True, 1024, 50.0, 0),
 ])
 def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
                                              Sk, hd, causal, window, softcap,
@@ -324,7 +335,7 @@ def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
                                                    s)[0] == 0, name
 
 
-@pytest.mark.parametrize("hd", [48, 256])
+@pytest.mark.parametrize("hd", [48, 512])
 def test_flash_attention_kernel_refuses_head_dim(cuda_device, hd):
     """A head dim without a kernel instance raises on the card: no plain
     fallback."""
@@ -732,4 +743,39 @@ def test_rope_model_step0_matches_cpu(cuda_device, name):
     assert rel <= 1e-4
     for kernel in ("ce_forward", "ce_backward_dh", "ce_backward_dw",
                    "attn_fwd", "attn_bwd_dq", "attn_bwd_dkv"):
+        assert KERNEL_LAUNCHES.get(kernel), kernel
+
+
+@pytest.mark.parametrize("h", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["yi-6b", "qwen1.5-110b", "gemma2-9b"])
+def test_fused_ce_kernels_at_the_dense_shapes(cuda_device, name, h):
+    """The four CE kernels at yi's, qwen1.5's and gemma2's widths and
+    vocabularies with RMSNorm fused (gemma2 tied with its softcap 30)
+    against their plain versions (``chip_smoke.check_ce_case``), at 130
+    (fp32 h: the backward in 4, 7 and 3 D-slabs) or 1000 ragged rows."""
+    cs = _chip_smoke()
+    spec = dict(cs.CE_MAIN, **dict(cs.CE_DENSE_SHAPES)[name])
+    spec.update(N=130 if h == "float32" else 1000, h=h, mask=True)
+    reset_launch_counts()
+    cs.check_ce_case(torch, f"{name}_rms", spec)
+    assert dict(KERNEL_LAUNCHES) == {"ce_forward": 1, "ce_forward_sampled": 1,
+                                     "ce_backward_dh": 1, "ce_backward_dw": 1}
+
+
+@pytest.mark.parametrize("name", ["yi-6b", "gemma2-9b"])
+def test_dense_model_step0_matches_cpu(cuda_device, name):
+    """yi-6b and gemma2-9b at full width and 2 layers, fp32: the step-0
+    loss within 1e-5 relative and every gradient within 1e-4 of its
+    leaf's largest element against the CPU's plain path
+    (``chip_smoke.model_step0_against_cpu``: RMSNorm, GQA, GeGLU, the
+    sandwich norms, the embedding scale, hd 256 flash with its window and
+    softcap, the tied CE with its softcap).  qwen1.5-110b's check (1 layer,
+    ~31 GB of weights and gradients each side) runs in chip_smoke.py
+    phase 4d only."""
+    cs = _chip_smoke()
+    cfg = {run[0]: run[1] for run in cs._dense_runs()}[name]
+    reset_launch_counts()
+    _, rel = cs.model_step0_against_cpu(torch, name, cfg)
+    assert rel <= 1e-4
+    for kernel in cs.STEP0_KERNELS:
         assert KERNEL_LAUNCHES.get(kernel), kernel

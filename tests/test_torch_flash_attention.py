@@ -54,9 +54,11 @@ CASES = [
     (1, 2, 2, 128, 192, 32, 32, 64, True, 80, 8.0, 64, "skip"),
     (1, 4, 1, 96, 160, 32, 32, 32, False, None, None, 0, "dense"),
     (2, 2, 1, 128, 128, 64, 64, 64, True, None, None, 0, "dense"),
+    # gemma2's head dim and group (GQA 2), a window and its softcap of 50
+    (1, 4, 2, 128, 128, 256, 64, 64, True, 48, 50.0, 0, "skip"),
 ]
 IDS = ["causal", "window48", "softcap20", "gqa_window_softcap_qoffset",
-       "noncausal_gqa4", "batch2_hd64"]
+       "noncausal_gqa4", "batch2_hd64", "hd256_gqa2_window48_softcap50"]
 
 
 def _inputs(B, H, Hkv, Sq, Sk, hd, seed=0):
@@ -137,9 +139,10 @@ def _against_pallas(case, dtype, atol, rtol):
                                    atol=atol, rtol=rtol, err_msg=name)
 
 
-@pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4]],
+@pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4], CASES[6]],
                          ids=["window48", "gqa_window_softcap_qoffset",
-                              "noncausal_gqa4"])
+                              "noncausal_gqa4",
+                              "hd256_gqa2_window48_softcap50"])
 def test_matches_reference_pallas_kernels(case):
     """o and (dq, dk, dv) against the reference's Pallas forward and its
     custom_vjp backward under jax.grad, fp32, within 6e-6."""
@@ -279,29 +282,30 @@ def _bf16_route_emulated(q, k, v, do, lse, delta, *, causal, scale, window,
         t = torch.tanh(s / softcap)
         return softcap * t, 1.0 - t * t
 
+    bk = 32 if hd == 256 else 64
     m = torch.full((B, H, Sq), NEG_INF)
     l = torch.zeros(B, H, Sq)
     acc = torch.zeros(B, H, Sq, hd)
-    for c0 in range(0, Sk, 64):
-        mc = mask[:, c0:c0 + 64]
-        z = torch.where(mc, scores(q32, kh[:, :, c0:c0 + 64])[0], NEG_INF)
+    for c0 in range(0, Sk, bk):
+        mc = mask[:, c0:c0 + bk]
+        z = torch.where(mc, scores(q32, kh[:, :, c0:c0 + bk])[0], NEG_INF)
         m_new = torch.maximum(m, z.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.where(mc, torch.exp(z - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(-1)
-        acc = acc_rnd(acc * alpha[..., None] + rnd(p) @ vh[:, :, c0:c0 + 64])
+        acc = acc_rnd(acc * alpha[..., None] + rnd(p) @ vh[:, :, c0:c0 + bk])
         m = m_new
     o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
 
     dq = torch.zeros(B, H, Sq, hd)
-    for c0 in range(0, Sk, 64):
-        mc = mask[:, c0:c0 + 64]
-        kt = kh[:, :, c0:c0 + 64]
+    for c0 in range(0, Sk, bk):
+        mc = mask[:, c0:c0 + bk]
+        kt = kh[:, :, c0:c0 + bk]
         z, dcap = scores(q32, kt)
         p = torch.where(mc, torch.exp(z - lse[..., None]), 0.0)
         # dP in k-steps of 16 head dims, as wgmma sums it: another order
         # than the plain version's
-        vt = vh[:, :, c0:c0 + 64]
+        vt = vh[:, :, c0:c0 + bk]
         dp = sum(do32[..., d:d + 16] @ vt[..., d:d + 16].transpose(-1, -2)
                  for d in range(0, hd, 16))
         ds = rnd(p * (dp - delta[..., None]) * dcap)
@@ -309,7 +313,7 @@ def _bf16_route_emulated(q, k, v, do, lse, delta, *, causal, scale, window,
             dq = acc_rnd(dq + ds[..., k0:k0 + 16] @ kt[:, :, k0:k0 + 16])
     dq = (dq * scale).to(torch.bfloat16)
 
-    bq = 32 if hd == 128 else 64
+    bq = 32 if hd >= 128 else 64
     qg = q32.reshape(B, Hkv, G, Sq, hd)
     dog = do32.reshape(B, Hkv, G, Sq, hd)
     lseg, deltag = lse.reshape(B, Hkv, G, Sq), delta.reshape(B, Hkv, G, Sq)
@@ -377,6 +381,8 @@ BF16_CASES = {
     "noncausal": (1, 2, 1, 96, 128, 32, False, None, None, 0),
     "S100_off_tile": (1, 2, 2, 100, 100, 64, True, None, None, 0),
     "hd128": (1, 2, 2, 96, 96, 128, True, None, None, 0),
+    "hd256_gqa2_window40_softcap50": (1, 4, 2, 96, 96, 256, True, 40, 50.0,
+                                      0),
     "row_with_no_key": (1, 2, 2, 64, 96, 32, True, 16, None, 64),
 }
 

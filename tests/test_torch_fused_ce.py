@@ -320,6 +320,35 @@ def test_backward_pieces_agree_with_the_whole():
 # what the CUDA route accepts
 
 
+@pytest.mark.parametrize("norm", ["ln", "rms"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_given_row_stats_normalize_as_computed_ones(norm, dtype):
+    """``apply_norm`` fed ``row_stats`` (on the CPU the plain statistics;
+    on the card the kernels', which chip_smoke.py feeds the plain backward)
+    gives its own output bit for bit, and the plain backward fed them its
+    own dh and dW: the statistics are the only thing ``stats`` replaces."""
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy((2.0 * rng.standard_normal((6, 256)) + 0.5)
+                         .astype(np.float32)).to(dtype)
+    normp = torch.from_numpy((0.1 * rng.standard_normal((2, 256)))
+                             .astype(np.float32))
+    normp[0] += 1.0 if norm == "ln" else 0.0
+    stats = ce.row_stats(h, norm=norm, eps=1e-6)
+    assert stats.shape == (6, 2) and stats.dtype == torch.float32
+    assert torch.equal(ce.apply_norm(h, normp, norm, 1e-6, stats),
+                       ce.apply_norm(h, normp, norm, 1e-6))
+    w = torch.from_numpy((0.05 * rng.standard_normal((384, 256)))
+                         .astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 300, 6).astype(np.int32))
+    kw = dict(vocab=300, norm=norm, eps=1e-6)
+    lse, _ = ce.ce_forward_plain(h, w, normp, labels, **kw)
+    rs = torch.full((6,), 1 / 6)
+    for a, b in zip(ce.ce_backward_plain(h, w, normp, labels, rs, lse, **kw,
+                                         stats=stats),
+                    ce.ce_backward_plain(h, w, normp, labels, rs, lse, **kw)):
+        assert torch.equal(a, b)
+
+
 def test_kernel_argument_checks():
     h = torch.zeros(4, 96)
     with pytest.raises(ValueError, match="multiple of 128"):

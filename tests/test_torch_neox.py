@@ -5,31 +5,17 @@ GPT-NeoX-shaped config and stablelm-1.6b's smoke config
 chunked and unfused loss routes, the attention routes under rope,
 Sophia-G trainer steps under the trajectory contract and Sophia-H's
 Hutchinson refresh through rope."""
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _rope_models import ATTN, CFGS, model, tcfg as _t  # noqa: F401
-from repro.core.engine import ravel_shards as jax_ravel_shards
-from repro.data import DataConfig as JDataConfig
-from repro.data import make_source as jax_make_source
-from repro.kernels.fused_ce import seed_from_key
+from _rope_models import ATTN, CFGS, model, trajectories  # noqa: F401
+from _rope_models import tcfg as _t
 from repro.models import get_model as jax_get_model
-from repro.train import TrainerConfig as JTrainerConfig
-from repro.train import make_engine as jax_make_engine
-from repro.train import make_train_fns as jax_make_train_fns
-from repro.train import train_loop as jax_train_loop
-from repro.train.trainer import RNG_TAG_HESS
-from repro_torch.convert import params_from_jax
-from repro_torch.core import build_layout, ravel_shards
 from repro_torch.core.types import flat_tensors, tree_leaves
-from repro_torch.data import DataConfig, make_source
 from repro_torch.models import get_model
-from repro_torch.train import TrainerConfig, make_train_fns, train_loop
 
 torch.set_num_threads(1)
 
@@ -81,46 +67,8 @@ def test_attention_routes_agree_under_rope(model):
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
 
-TRAIN = dict(peak_lr=5e-4, total_steps=64, warmup_steps=4, hess_interval=4,
-             hess_subbatch=2, seed=0)
-
-
 def _trajectories(name, over, steps):
-    """``steps`` steps of the reference trainer and of the port on its
-    weights, batches, noise seeds and Hutchinson probes: (port history,
-    reference history, the two parameter vectors, the two states)."""
-    cfg = CFGS[name]
-    over = dict(TRAIN, fused_loss=True, attn_impl=ATTN[name], **over)
-    jtc = JTrainerConfig(**over)
-    src_cfg = JDataConfig(seq_len=16, global_batch=4,
-                          vocab_size=cfg.vocab_size)
-    s0 = jax_make_train_fns(cfg, jtc)[0](jax.random.PRNGKey(0))
-    s_ref, hist_ref = jax_train_loop(cfg, jtc, jax_make_source(src_cfg),
-                                     num_steps=steps)
-
-    def rng(step):
-        return jax.random.fold_in(jax.random.fold_in(s0.rng, RNG_TAG_HESS),
-                                  step)
-
-    def probe(step, layout):
-        keys = jax.random.split(rng(step), layout.n_shards)
-        return tuple(torch.from_numpy(np.array(jax.random.normal(
-            k, (n,), jnp.float32))) for k, n in zip(keys, layout.shard_sizes))
-
-    tc = TrainerConfig(**over)
-    params = params_from_jax(jax.tree.map(np.asarray, s0.params), _t(cfg))
-    state = make_train_fns(_t(cfg), tc, device="cpu")[0](params)
-    s_port, hist = train_loop(
-        _t(cfg), tc, make_source(DataConfig(**dataclasses.asdict(src_cfg))),
-        num_steps=steps, state=state, device="cpu",
-        hess_seed_fn=lambda step: np.asarray(seed_from_key(rng(step))),
-        probe_fn=probe)
-    lay = jax_make_engine(jtc).layout(s_ref.params)
-    a = np.asarray(jax_ravel_shards(lay, s_ref.params)[0])[:lay.n_params]
-    tree = s_port.params.param_tree()
-    b = ravel_shards(build_layout(tree), tree)[0].detach().numpy()[
-        :lay.n_params]
-    return hist, hist_ref, a, b, s_port, s_ref
+    return trajectories(CFGS[name], ATTN[name], over, steps)
 
 
 @pytest.mark.parametrize("name", sorted(CFGS))

@@ -183,9 +183,10 @@ def test_unported_options_raise(weights):
     with pytest.raises(NotImplementedError):
         ServeEngine(tcfg, params_from_jax(np_params, tcfg), device="cpu",
                     prefix_cache=True)
-    yi = ModelConfig(**dataclasses.asdict(jax_get_config("yi-6b", smoke=True)))
+    vl = ModelConfig(**dataclasses.asdict(jax_get_config("qwen2-vl-7b",
+                                                         smoke=True)))
     with pytest.raises(NotImplementedError, match="rope"):
-        check_supported(yi)
+        check_supported(vl)
 
 
 def test_launcher_runs_on_cpu(capsys):
