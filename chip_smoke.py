@@ -17,7 +17,9 @@ it fails and prints no result.  Phases, in order:
      kernel's tile, GPT-2's full 1024-token context over 8 and over 64
      slots, negative positions, positions below the split count, the
      dense configs' heads: yi's and qwen1.5's group of 8 at hd 128,
-     gemma2's hd 256 with its softcap, and its window in a ring of 8192);
+     gemma2's hd 256 with its softcap, and its window in a ring of 8192;
+     qwen2-vl's group of 7 in the engine's ring and in the lockstep
+     decode's 32,776-row linear cache);
      the fused CE kernels (forward, sampled forward, dh,
      dW) at GPT-2 small's loss shape (D=768, Vp=50304, tied, ln fused,
      bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
@@ -30,8 +32,9 @@ it fails and prints no result.  Phases, in order:
      runs in D-slabs), and the dense configs' loss shapes with RMSNorm
      fused (yi N=4096 D=4096 Vp=64000 untied, qwen1.5 N=2048 D=8192
      Vp=152064 untied, gemma2 N=8192 D=3584 Vp=256000 tied with softcap
-     30; and each width with fp32 h at 130 rows).  The forwards within
-     1e-5 (fp32) or 2e-2 (bf16);
+     30, qwen2-vl N=4096 D=3584 Vp=152064 untied with each sequence's 256
+     patch rows masked; and each width with fp32 h at 130 rows).  The
+     forwards within 1e-5 (fp32) or 2e-2 (bf16);
      dh and dW within 1e-5 of their largest element in fp32 and, with bf16
      h or W, element by element against each element's sum of absolute
      terms (``check_bf16_grad``; bf16 h takes the tensor-core kernels,
@@ -46,10 +49,19 @@ it fails and prints no result.  Phases, in order:
      (gemma2's training shape, B=1 H=16 Hkv=8 S=8192 softcap 50, a local
      layer with its window of 4096 and a global one; and GQA 2 with window
      and softcap off the tile, q_offset, non-causal, a row with no key),
+     qwen2-vl's group of 7 (B=2 H=28 Hkv=4 S=2048 hd=128, and its prefill
+     heads at B=1 S=4096),
      fp32 and bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2
      (bf16) of their largest element, and in bf16 (all three on the
      tensor cores) every element of o, dq, dk and dv within 2^-7 of its
-     absolute sum (the share beyond 2^-9 logged); the engine kernels (the
+     absolute sum (the share beyond 2^-9 logged); the forward alone at
+     the 32k prefill's shape (B=1 H=28 Hkv=4 S=32768 hd=128, bf16,
+     causal), held over its first, a middle and its last 256 query rows
+     (the plain version over each slice, ``q_offset`` at its first row):
+     o within 2e-2 of its largest element and every element within 2^-7
+     of its absolute sum, and lse, fp32 arithmetic on both sides, within
+     1e-5 of its largest element, a bound a dropped or doubled key tile
+     breaks (the engine kernels (the
      Sophia step, the Hessian EMA with square off and on, the
      refresh-fused step with flag 0 and 1, AdamW at steps 1, 2 and 1000,
      the AdaHessian refresh-fused step with flag 0 and 1 at steps 1, 2 and
@@ -61,9 +73,10 @@ it fails and prints no result.  Phases, in order:
      and the edge cases (3 blocks of 128, one block, h with zeros and
      negative entries, rho=1e9, bf16 p, the zero tail pad), every output
      and every per-block clip count bit-identical to the plain version;
-     and rows 2-4 launched on the shard of each dense config phase 4d
-     trains (yi-6b at 8 layers, 1,908,539,392 elements; gemma2-9b at 4,
-     1,710,358,528), the plain versions over slices;
+     and rows 2-4 launched on the shard of each dense config phases 4d
+     and 4e train (yi-6b at 8 layers, 1,908,539,392 elements; gemma2-9b
+     at 4, 1,710,358,528; qwen2-vl-7b at 4), the plain versions over
+     slices;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -126,11 +139,13 @@ it fails and prints no result.  Phases, in order:
      1e-5 relative, every gradient within 1e-4 of its leaf's largest
      element); Sophia-G trained at B x S=2048 (B=4; NeoX-6.6B B=2 at 8
      of its 32 layers: its full depth's ~110 GB of state does not fit
-     one card) for 7 steps, bf16, engine kernels, peak lr 1e-5, GNB
+     one card; NeoX-1.5B at 12 of its 48, for the script's time) for 7
+     steps, bf16, engine kernels, peak lr 1e-5, GNB
      refresh at steps 0, 3 and 6 on half the batch, exact launch counts,
      the loss finite and falling, plain and refresh p50, tokens/s, peak
      memory; served at
-     full depth (8 mixed requests over 8 slots, bf16 and int8 KV
+     full depth (NeoX-1.5B at 12 layers; 8 mixed requests over 8 slots,
+     bf16 and int8 KV
      caches), the 2-layer model's decode on the card against the CPU.
      Counts are zeroed before each model's runs and read after: decode
      attention, the Sophia step and the refresh-fused step, the four CE
@@ -151,6 +166,27 @@ it fails and prints no result.  Phases, in order:
      before each run and read after: the step-0 check launches the CE and
      flash kernels, training the path's kernels exactly, serving decode
      attention once a layer a step;
+  4e. qwen2-vl-7b (M-RoPE sections 16/24/24, 256 patch embeddings a
+     sequence, QKV bias, GQA 28/4, untied vocab 152,064), random weights
+     from a seed, on batches in Qwen2-VL's layout (``vlm_batch``: the
+     patches first at t=0 with (h, w) on a 16 x 16 lattice, masked out of
+     the loss, then text from position 16 in all three streams): step 0
+     at 2 layers, fp32, B=1 x S=320 against the CPU (loss within 1e-5
+     relative, every gradient, ``patch_proj``'s included, within 1e-4 of
+     its leaf's largest element); Sophia-G trained as in 4c at 4 of 28
+     layers, B=2 x S=2048; served at full depth (bf16 and int8 caches);
+     the prefix cache at full depth, cold and warm engines over 8
+     requests behind a 4-page prefix on 4 slots (the tokens identical, a
+     hit rate above 0, at least 4 pages reused; TTFT p50 of each); and
+     ``prefill`` of a 32,768-token prompt (the flash forward kernel once
+     a layer; wall time and peak memory) with ``generate_lockstep`` for 8
+     tokens (the decode kernel on the padded linear cache), held against
+     the chunked prefill of the same prompt (chunks of 1024; the logits
+     through ``init_slots`` and ``prefill_into_slot``, the tokens from the
+     engine): the last-token logits within ``PREFILL_LOGIT_TOL`` and the
+     tokens equal unless the lockstep's top-2 gap at the first difference
+     is below it.
+     Each cut and its reason is logged (``VLM_CUTS``);
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -175,7 +211,11 @@ it fails and prints no result.  Phases, in order:
      shapes, and under decode attention's NeoX-6.6B's heads (hd 128,
      32 heads) and the dense configs' heads; the CE kernels also at the
      dense configs' loss shapes, the flash kernels at gemma2's local and
-     global layers (SDPA beside them without the softcap); each row's
+     global layers (SDPA beside them without the softcap), at
+     qwen2-vl's training shape and prefill heads, and the forward alone
+     at the 32k prefill (B=1 H=28 Hkv=4 S=32768, SDPA beside it; its
+     plain version cannot run over every row there), decode attention also at
+     qwen2-vl's two shapes, the CE kernels at its loss shape; each row's
      ``launches_models`` the launches of each model's runs.  A JSON line
      of the models' step times, memory, served tok/s and cuts comes
      before it.
@@ -337,6 +377,10 @@ DECODE_SHAPES = {
     "yi_hd128_c512": ((8, 32, 4, 512, 128), MAIN_POS),
     "qwen_hd128_c512": ((8, 64, 8, 512, 128), MAIN_POS),
     "gemma2_hd256_c512": ((8, 16, 8, 512, 256), MAIN_POS),
+    # qwen2-vl-7b: group 7 (28 over 4) in the engine's ring, and the
+    # lockstep decode's one row over the 32k prompt's linear cache
+    "qwen2vl_hd128_c512": ((8, 28, 4, 512, 128), MAIN_POS),
+    "qwen2vl_lockstep_c32776": ((1, 28, 4, 32776, 128), [32770]),
 }
 # the options a timed shape's model calls the kernel with (gemma2: its
 # softcap and window, which a ring of 512 never reaches)
@@ -387,6 +431,15 @@ def phase_kernels(torch):
          DECODE_KW["gemma2_hd256_c512"]),
         ("gemma2_hd256_window4096_C8192", (4, 16, 8, 8192, 256),
          [4095, 5000, 8191, 12000], DECODE_KW["gemma2_hd256_c512"]),
+        # qwen2-vl-7b (phase 4e): group 7, the first that is not a power
+        # of two at hd 128, in the engine's ring (C 512) and in the
+        # lockstep decode's linear cache of the 32k prompt (one row, S 8
+        # splits of a 32,776-row walk over 4 KV heads)
+        ("qwen2vl_hd128_H28_Hkv4", DECODE_SHAPES["qwen2vl_hd128_c512"][0],
+         DECODE_SHAPES["qwen2vl_hd128_c512"][1], {}),
+        ("qwen2vl_lockstep_C32776", DECODE_SHAPES[
+            "qwen2vl_lockstep_c32776"][0],
+         DECODE_SHAPES["qwen2vl_lockstep_c32776"][1], {}),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -438,6 +491,10 @@ CE_DENSE_SHAPES = (
                           norm="rms")),
     ("gemma2-9b", dict(N=8192, D=3584, V=256000, Vp=256000, tied=True,
                        norm="rms", softcap=30.0)),
+    # qwen2-vl-7b's training batch (phase 4e: B 2 x S 2048, untied), the
+    # first 256 rows of each sequence (its patches) masked out
+    ("qwen2-vl-7b", dict(N=4096, D=3584, V=152064, Vp=152064, tied=False,
+                         norm="rms", mask="patches")),
 )
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
@@ -508,8 +565,11 @@ def _ce_inputs(torch, *, N, D, V, Vp, tied, norm, softcap, h, w, mask,
                              0.1 * randn(D)])
     labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
-    m = ((torch.rand((N,), generator=gen, device="cuda") > 0.3).float()
-         if mask else None)
+    if mask == "patches":      # Qwen2-VL's rows: each sequence's patches
+        m = (torch.arange(N, device="cuda") % VLM_SEQ >= VLM_PATCHES).float()
+    else:
+        m = ((torch.rand((N,), generator=gen, device="cuda") > 0.3).float()
+             if mask else None)
     rs, _ = rowscale(N, m, device="cuda")
     opts = dict(vocab=V, transpose_w=not tied, softcap=softcap, norm=norm,
                 eps=1e-6)
@@ -752,8 +812,21 @@ ATTN_DENSE_SHAPES = (
     ("gemma2-9b-local", dict(GEMMA2_ATTN, window=4096)),
     ("gemma2-9b-global", GEMMA2_ATTN),
 )
+# qwen2-vl-7b (phase 4e): its training attention (B 2 x S 2048, GQA 28/4,
+# group 7, hd 128), and its prefill's heads at S 4096 (all three kernels);
+# the prefill runs the forward alone at S 32768, held over slices of its
+# query rows (check_flash_forward_long)
+QWEN2VL_ATTN = dict(B=2, H=28, Hkv=4, Sq=2048, Sk=2048, hd=128)
+ATTN_VLM_SHAPES = (
+    ("qwen2-vl-7b", QWEN2VL_ATTN),
+    ("qwen2-vl-7b-prefill-heads", dict(QWEN2VL_ATTN, B=1, Sq=4096,
+                                       Sk=4096)),
+)
+PREFILL_S = 32768           # the prefill_32k serve path (configs/shapes.py)
 ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
                  window=None, softcap=None, q_offset=0)
+PREFILL_ATTN = dict(ATTN_MAIN, **dict(QWEN2VL_ATTN, B=1, Sq=PREFILL_S,
+                                      Sk=PREFILL_S))
 ATTN_CASES = [
     ("train_step", {}),
     ("refresh_B4", dict(B=4)),
@@ -771,6 +844,8 @@ ATTN_CASES = [
     # hd 256 (gemma2): its two layer kinds at its training shape, and the
     # edges at small sizes
     (f"{name}_S8192_hd256", sp) for name, sp in ATTN_DENSE_SHAPES] + [
+    (f"{name}_B{sp['B']}_S{sp['Sq']}_H28_Hkv4", sp)
+    for name, sp in ATTN_VLM_SHAPES] + [
     ("hd256_gqa2_window40_softcap50_S300_off_tile",
      dict(B=2, H=4, Hkv=2, Sq=300, Sk=300, hd=256, window=40, softcap=50.0)),
     ("hd256_q_offset96_Sq160_Sk256", dict(B=1, H=4, Hkv=2, Sq=160, Sk=256,
@@ -871,8 +946,76 @@ def check_flash_case(torch, name, spec, dtype):
             "attn_bwd_dkv": max(errs["dk"], errs["dv"])}
 
 
+LONG_ROWS = 256
+
+
+def check_flash_forward_long(torch, name, spec):
+    """The forward kernel at a prefill's length in bf16, where the plain
+    version's scores over every row would take B*H*S^2*4 bytes: held over
+    LONG_ROWS query rows at the start, the middle and the end, each
+    against the plain version of that slice (``q_offset`` its first row,
+    every key): o within TOL of its largest element and each element
+    within 2^-7 of its absolute sum (``contract_sums``); lse within the
+    fp32 TOL of its largest element, since both sides compute it in fp32
+    from the same bf16 q and k (the tensor cores' bf16 products are exact
+    in their fp32 accumulator).  One 64-key tile dropped at S 32768 moves
+    lse by 3.5e-4-8.2e-4 of its largest element and o by 10-23% of its
+    largest (``tests/_flash_long_sensitivity.py``: the plain version
+    without keys 8192-8255 on inputs of this kind): both bounds catch it.
+    Returns the largest errors {"o", "lse"}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _, kw = _attn_inputs(torch, spec, torch.bfloat16)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    S, tol = spec["Sq"], TOL["bfloat16"]
+    errs, rel, shares = {"o": 0.0, "lse": 0.0}, {"o": 0.0, "lse": 0.0}, []
+    starts = (0, S // 2 - LONG_ROWS // 2, S - LONG_ROWS)
+    for r0 in starts:
+        rows = slice(r0, r0 + LONG_ROWS)
+        q_s, kw_s = q[:, :, rows], dict(kw, q_offset=kw["q_offset"] + r0)
+        o_p, lse_p = fa.flash_forward_plain(q_s, k, v, **kw_s)
+        pairs = {"o": (o[:, :, rows], o_p), "lse": (lse[:, :, rows], lse_p)}
+        for key, (got, want) in pairs.items():
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash {name}: {key} not finite in "
+                                     f"rows {r0}..{r0 + LONG_ROWS - 1}")
+            e = (got.float() - want.float()).abs().max().item()
+            errs[key] = max(errs[key], e)
+            rel[key] = max(rel[key],
+                           e / max(want.float().abs().max().item(), 1e-30))
+        zeros = torch.zeros_like(q_s)
+        sums = fa.contract_sums(q_s, k, v, zeros, pairs["lse"][0],
+                                zeros[..., 0].float(), **kw_s)["o"]
+        n_hard, share = fa.contract_misses(*pairs["o"], sums)
+        del sums, o_p, lse_p
+        if n_hard:
+            raise AssertionError(f"flash {name} bf16: {n_hard} elements of o "
+                                 f"in rows {r0}..{r0 + LONG_ROWS - 1} beyond "
+                                 f"2^-7 of their absolute sum")
+        shares.append(share)
+    if not (rel["o"] <= tol and rel["lse"] <= TOL["float32"]):
+        raise AssertionError(f"flash forward differs from its plain version "
+                             f"({name}, bf16): errors relative to the "
+                             f"largest element o {rel['o']} (limit {tol}), "
+                             f"lse {rel['lse']} (limit {TOL['float32']})")
+    log(f"[kernels] flash_attention {name} bfloat16 forward "
+        + " ".join(f"{n}={spec[n]}" for n in ATTN_MAIN)
+        + f", query rows {', '.join(f'{r}..{r + LONG_ROWS - 1}' for r in starts)}"
+        f" against the plain version of each slice: max abs errors o "
+        f"{errs['o']:.3g}, lse {errs['lse']:.3g}; relative to the largest "
+        f"element o {rel['o']:.3g} (within {tol}), lse {rel['lse']:.3g} "
+        f"(within {TOL['float32']}); every element of o within 2^-7 of its "
+        f"absolute sum, share beyond 2^-9: "
+        + ", ".join(f"{x:.3g}" for x in shares))
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return errs
+
+
 def phase_flash_kernels(torch):
-    """Returns {kernel name: max abs error at the training shape, bf16}."""
+    """Returns {kernel name: max abs error at the training shape, bf16},
+    and under "attn_fwd_long" the forward's {"o", "lse"} errors at the
+    32k prefill's shape."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, over in ATTN_CASES:
@@ -880,6 +1023,9 @@ def phase_flash_kernels(torch):
                                     dtype)
             if name == "train_step" and dtype == torch.bfloat16:
                 out = errs
+    out["attn_fwd_long"] = check_flash_forward_long(
+        torch, f"qwen2-vl-7b-prefill_B1_S{PREFILL_S}_H28_Hkv4",
+        PREFILL_ATTN)
     return out
 
 
@@ -1065,6 +1211,7 @@ def param_count(cfg) -> int:
     layer = attn + mlp + norm * (4 if cfg.post_norms else 2)
     embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
     embed += cfg.max_position_embeddings * D if cfg.learned_pos else 0
+    embed += D * D if cfg.patch_embed_input else 0         # patch_proj
     return embed + norm + cfg.n_layers * layer
 
 
@@ -1163,7 +1310,10 @@ def phase_engine_kernels(torch):
                           spec.pop("pdt"), spec.pop("sdt"), **spec)
     for sdt in (f32, bf16):
         check_sign_nan(torch, sdt)
-    for name, cfg, _, layers, _, _ in _dense_runs():
+    from repro_torch.configs import get_config
+    runs = [(name, cfg, layers) for name, cfg, _, layers, _, _
+            in _dense_runs()] + [(VLM, get_config(VLM), VLM_TRAIN_LAYERS)]
+    for name, cfg, layers in runs:
         if layers:
             check_engine_shard(torch, name, shard_size(
                 dataclasses.replace(cfg, n_layers=layers)))
@@ -2095,15 +2245,20 @@ MODEL_LR = 1e-5
 # (~2.0 B parameters, ~32 GB of state, B = 2 x S = 2048) and serves it at
 # full depth (27.4 GB of fp32 weights)
 NEOX66_TRAIN_LAYERS = 8
+# NeoX-1.5B trained and served at 12 of its 48 layers: at its full depth,
+# with phase 4e, the script's [total] passed 900 s of its 1200 s limit on
+# the H100; its kernels' shapes are the same at any depth
+NEOX15_LAYERS = 12
 CPU_CHECK_LAYERS, CPU_CHECK_S = 2, 64
 
 
 def _model_runs():
-    """(name, config, layers trained, batch rows) of each rope model."""
+    """(name, config, layers trained and served, batch rows) of each rope
+    model; NeoX-6.6B is served at full depth."""
     from repro_torch.configs import get_config
     from repro_torch.configs.gpt2 import NEOX_1_5B, NEOX_6_6B
 
-    return (("neox-1.5b", NEOX_1_5B, NEOX_1_5B.n_layers, 4),
+    return (("neox-1.5b", NEOX_1_5B, NEOX15_LAYERS, 4),
             ("stablelm-1.6b", get_config("stablelm-1.6b"), 24, 4),
             ("neox-6.6b", NEOX_6_6B, NEOX66_TRAIN_LAYERS, 2))
 
@@ -2123,9 +2278,11 @@ def host_memory() -> str:
             f"available, peak resident {peak:.1f} GiB")
 
 
-def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS):
+def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
+                            batch=None):
     """The step-0 loss and gradients at full width and ``layers`` layers,
-    fp32, B=1 x S=64: the card (the flash kernels, the fused CE's fp32
+    fp32, on ``batch`` (numpy; by default B=1 x S=64 random tokens and
+    labels): the card (the flash kernels, the fused CE's fp32
     kernels, whose backward runs in D-slabs at these widths) against the
     CPU's plain path on the same weights.  The loss within 1e-5 relative
     and every leaf's gradient within 1e-4 of its largest element (fp32
@@ -2143,9 +2300,10 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS):
     params = model.init_params(
         cfg2, torch.Generator(device="cuda").manual_seed(1))
     cpu_params = copy.deepcopy(params).cpu()
-    rng = np.random.default_rng(4)
-    batch = {k: rng.integers(0, cfg.vocab_size, (1, CPU_CHECK_S))
-             .astype(np.int32) for k in ("tokens", "labels")}
+    if batch is None:
+        rng = np.random.default_rng(4)
+        batch = {k: rng.integers(0, cfg.vocab_size, (1, CPU_CHECK_S))
+                 .astype(np.int32) for k in ("tokens", "labels")}
     out = {}
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -2164,22 +2322,29 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS):
         raise AssertionError(f"{name} step 0 card vs CPU: loss {l_card} vs "
                              f"{l_cpu} ({loss_rel:.3g} relative), gradients "
                              f"{rel:.3g} of their largest element")
+    shape = " x ".join(f"{k}={n}" for k, n in zip(
+        "BS", batch["tokens"].shape))
+    extra = "".join(f", {k} {tuple(batch[k].shape)}" for k in
+                    ("patch_embeds", "positions", "mask") if k in batch)
     log(f"[models] {name} step 0 at full width, {layers} layers "
-        f"({param_count(cfg2):,} parameters), fp32, B=1 x S={CPU_CHECK_S}: "
+        f"({param_count(cfg2):,} parameters), fp32, {shape}{extra}: "
         f"card loss {l_card:.6f}, CPU {l_cpu:.6f} ({loss_rel:.3g} relative, "
         f"within 1e-5); gradients within {rel:.3g} of each leaf's largest "
         f"element (limit 1e-4); {mem}")
     return params, rel
 
 
-def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S):
+def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
+                source=None):
     """Sophia-G (bf16 compute, engine kernels, peak lr MODEL_LR after 2
     warmup steps, GNB refresh every MODEL_K steps from step 0 on half the
     batch, at least one row) at B x S for MODEL_STEPS steps through the
     trainer.  Launch counts zeroed just before, read just after, held
     exactly; the loss finite and falling; the parameters and the engine's
     shard the sizes ``param_count`` and ``shard_size`` give (phase 2
-    checked the engine kernels at that shard).  Returns the report."""
+    checked the engine kernels at that shard).  Batches from ``source``
+    (numpy, ``batch_at``), by default the synthetic token stream.  Returns
+    the report."""
     import numpy as np
 
     from repro_torch.data import DataConfig, make_source
@@ -2199,8 +2364,8 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S):
                              f"{shard}; param_count gives "
                              f"{param_count(cfg)}, shard_size "
                              f"{shard_size(cfg)}")
-    src = make_source(DataConfig(seq_len=S, global_batch=B,
-                                 vocab_size=cfg.vocab_size, seed=0))
+    src = source or make_source(DataConfig(seq_len=S, global_batch=B,
+                                           vocab_size=cfg.vocab_size, seed=0))
     batches = [to_device_batch(src.batch_at(t), "cuda")
                for t in range(MODEL_STEPS)]
     torch.cuda.synchronize()
@@ -2265,8 +2430,9 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S):
 MODEL_REQUESTS = 8
 
 
-def serve_model(torch, name, cfg, small):
-    """``cfg`` served at its depth with random weights from a seed: 8
+def serve_model(torch, name, cfg, small, params=None):
+    """``cfg`` served at its depth with random weights from a seed (or
+    ``params``, which the caller keeps): 8
     mixed requests over 8 slots with a bf16 and an int8 KV cache (every
     decode step launching the decode kernel once a layer), then the
     params of the step-0 check (``small``, 1-2 layers, held on the CPU
@@ -2275,8 +2441,10 @@ def serve_model(torch, name, cfg, small):
     Returns the report."""
     from repro_torch.models import get_model
 
-    params = get_model(cfg).init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0))
+    owned = params is None
+    if owned:
+        params = get_model(cfg).init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
     report = {}
     cfg2 = dataclasses.replace(cfg, n_layers=len(small.layers))
     small.cuda()
@@ -2300,7 +2468,9 @@ def serve_model(torch, name, cfg, small):
             f"vs CPU logits ({cfg2.n_layers} layers, fp32) err "
             f"{ref_err:.3g}")
         del eng
-    del params, small
+    del small
+    if owned:
+        del params
     torch.cuda.empty_cache()
     return report
 
@@ -2315,7 +2485,8 @@ PATH_KERNELS = ("decode_attention", "decode_attention_q8", "sophia_step",
 
 def phase_models(torch):
     """Each rope model: the step-0 card-vs-CPU check, Sophia-G training
-    (NeoX-6.6B at NEOX66_TRAIN_LAYERS layers), serving at full depth.
+    (NeoX-6.6B at NEOX66_TRAIN_LAYERS layers), serving at full depth
+    (NeoX-1.5B trained and served at NEOX15_LAYERS).
     Every row of the path (decode attention, the Sophia step and the
     refresh-fused step, the four CE kernels, the three flash kernels)
     must launch.  Returns {model: report}."""
@@ -2326,7 +2497,14 @@ def phase_models(torch):
         torch.cuda.empty_cache()
         trained = train_model(torch, name,
                               dataclasses.replace(cfg, n_layers=layers), B)
-        served = serve_model(torch, name, cfg, small)
+        served_layers = NEOX15_LAYERS if name == "neox-1.5b" else \
+            cfg.n_layers
+        if served_layers < cfg.n_layers:
+            log(f"[models] {name}: trained and served at {served_layers} "
+                f"of {cfg.n_layers} layers (NEOX15_LAYERS: the script's "
+                f"time limit)")
+        served = serve_model(torch, name, dataclasses.replace(
+            cfg, n_layers=served_layers), small)
         del small
         launches = dict(trained["launches"])
         launches["decode_attention"] = served["bf16"]["launches"]
@@ -2337,6 +2515,7 @@ def phase_models(torch):
                                  f"{missing}")
         reports[name] = dict(step0_grad_rel=rel, train=trained,
                              serve=served, launches=launches,
+                             served_layers=served_layers,
                              full_layers=cfg.n_layers)
         log(f"[models] {name}: launches on its path {launches}")
     return reports
@@ -2421,6 +2600,375 @@ def phase_dense_models(torch):
         log(f"[models] {name}: launches on its path {launches}; "
             f"{host_memory()}")
     return reports
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: qwen2-vl-7b (M-RoPE, patch embeddings), the prefix cache, and
+# the whole-prompt prefill with the lockstep decode at 32k
+
+
+VLM_PATCHES, VLM_GRID = 256, 16     # one 16 x 16-patch image a sequence
+VLM_B, VLM_SEQ = 2, 2048            # the training batch
+
+
+def vlm_positions(S, n_patches=VLM_PATCHES, grid=VLM_GRID):
+    """Qwen2-VL's M-RoPE position streams of one row, (3, S) int32
+    (arXiv:2409.12191 §2.1): the image's patches first, at temporal
+    position 0 with (height, width) on a ``grid``-wide lattice, then the
+    text from the largest patch position + 1 in all three streams."""
+    import numpy as np
+
+    i = np.arange(n_patches)
+    patch = np.stack([np.zeros_like(i), i // grid, i % grid])
+    text = patch.max() + 1 + np.arange(S - n_patches)
+    return np.concatenate([patch, np.broadcast_to(text, (3, text.size))],
+                          axis=1).astype(np.int32)
+
+
+def vlm_batch(cfg, B, S, seed, n_patches=VLM_PATCHES, grid=VLM_GRID,
+              text=None):
+    """A numpy training batch in Qwen2-VL's layout: the tokens and labels
+    of ``text`` (a batch of the token stream; by default random ones),
+    ``patch_embeds`` (B, P, D) fp32 standing in for the vision tower's
+    output over the first P positions, the loss mask 0 there, and the
+    (B, 3, S) positions of :func:`vlm_positions`, whose three streams
+    differ over the patches (with three equal streams M-RoPE is plain
+    rope)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if text is None:
+        text = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+                for k in ("tokens", "labels")}
+    mask = np.ones((B, S), np.float32)
+    mask[:, :n_patches] = 0.0
+    pos = vlm_positions(S, n_patches, grid)
+    return {"tokens": text["tokens"], "labels": text["labels"], "mask": mask,
+            "patch_embeds": rng.standard_normal(
+                (B, n_patches, cfg.d_model)).astype(np.float32),
+            "positions": np.broadcast_to(pos, (B, 3, S)).copy()}
+
+
+class VLMSource:
+    """``batch_at(t)``: :func:`vlm_batch` of step t over the synthetic
+    token stream's batch t (the trainer's source protocol)."""
+
+    def __init__(self, cfg, B, S, seed=0, n_patches=VLM_PATCHES,
+                 grid=VLM_GRID):
+        from repro_torch.data import DataConfig, make_source
+
+        self.cfg, self.B, self.S, self.seed = cfg, B, S, seed
+        self.n_patches, self.grid = n_patches, grid
+        self.text = make_source(DataConfig(seq_len=S, global_batch=B,
+                                           vocab_size=cfg.vocab_size,
+                                           seed=seed))
+
+    def batch_at(self, t):
+        return vlm_batch(self.cfg, self.B, self.S, (self.seed, t),
+                         self.n_patches, self.grid, self.text.batch_at(t))
+
+
+VLM = "qwen2-vl-7b"
+VLM_TRAIN_LAYERS = 4
+VLM_STEP0_S = 320                   # 256 patches and 64 text tokens
+# the cuts and their reasons: 16 bytes a parameter of fp32 weight,
+# gradient, m and h (full depth, 7.63 B parameters: ~122 GB), ~32-34 at a
+# step's peak (NeoX-6.6B's 67.93 GiB for 2.02 B parameters at 8 layers)
+VLM_CUTS = ("trained at 4 of 28 layers (2.04 B parameters, 1.09 B of them "
+            "the untied embeddings; full depth would hold ~122 GB of fp32 "
+            "weight, gradient, m and h, ~244 GB at a step's peak) at B=2 x "
+            "S=2048; step 0 vs the CPU at 2 layers (1.57 B, fp32) on one "
+            "320-token row; served, the prefix cache and the 32k prefill "
+            "at full depth (28 layers, 7.63 B parameters, 30.5 GB fp32)")
+PREFIX_PAGE, PREFIX_SLOTS, PREFIX_REQUESTS = 16, 4, 8
+PREFILL_NEW, PREFILL_PAGE = 8, 1024
+# the whole-prompt prefill (flash forward, one pass) against the engine's
+# chunked prefill (32 chunks of 1024, plain softmax attention over each
+# slot's ring), both in bf16 through 28 layers: the routes round the
+# attention differently (one bf16 rounding of o against the softmax
+# weights rounded before w.v, ~2^-8 relative a layer) and their K/V
+# products run at other shapes.  Each bf16 route lies ~0.07 from the fp32
+# logits at 28 layers and widths 512-1024 (tests/_bf16_prefill_spread.py
+# on the CPU), and so ~0.07 from the other; the random-weight model's
+# logits reach ~4-5, where a bf16 ulp is 2^-6.  The last token's logits
+# within 0.25 absolute, 3.5x that spread
+PREFILL_LOGIT_TOL = 0.25
+
+
+def _shared_prefix_requests(cfg, seed=11):
+    """PREFIX_REQUESTS requests behind one prefix of 4 full pages and 3
+    tokens (the reference's ``tests/test_prefix_cache.py`` stream), tails
+    of 8..36 tokens, 8 new tokens each."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, 4 * PREFIX_PAGE + 3)
+    return [Request(uid=i, tokens=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab_size, 8 + 4 * i)]).astype(
+            np.int32), max_new=8) for i in range(PREFIX_REQUESTS)]
+
+
+def vlm_prefix_cache(torch, cfg, params):
+    """Cold and warm (prefix cache on) engines at full depth, bf16 and
+    int8 caches, over the shared-prefix stream on PREFIX_SLOTS slots (the
+    second wave of requests finds the first wave's pages): the greedy
+    tokens identical, a hit rate above 0 and at least 4 pages reused,
+    TTFT p50 of each; decode attention launched once a layer a step.
+    Returns the report."""
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.serve import ServeEngine
+
+    report = {}
+    for kv_dtype in ("bf16", "int8"):
+        def engine(prefix):
+            return ServeEngine(cfg, params, n_slots=PREFIX_SLOTS,
+                               cache_len=512, page_len=PREFIX_PAGE,
+                               steps_per_tick=8, seed=0, kv_dtype=kv_dtype,
+                               prefix_cache=prefix, device="cuda")
+
+        warm_up = engine(True)               # first calls off the clock
+        for r in _shared_prefix_requests(cfg, seed=12)[:2]:
+            warm_up.submit(r)
+        warm_up.run()
+        out, stats, launches, engines = {}, {}, {}, {}
+        for mode in ("cold", "warm"):
+            eng = engines[mode] = engine(mode == "warm")
+            for r in _shared_prefix_requests(cfg):
+                eng.submit(r)
+            reset_launch_counts()
+            out[mode] = {r.uid: r.tokens for r in eng.run()}
+            torch.cuda.synchronize()
+            launches[mode] = dict(KERNEL_LAUNCHES)
+            stats[mode] = eng.stats()
+            want = (cfg.n_layers * eng.decode_ticks * eng.steps_per_tick)
+            key = ("decode_attention_q8" if kv_dtype == "int8"
+                   else "decode_attention")
+            if launches[mode] != {key: want}:
+                raise AssertionError(f"prefix cache {mode} {kv_dtype}: "
+                                     f"launches {launches[mode]} != "
+                                     f"{ {key: want} }")
+        st = stats["warm"]
+        if out["cold"] != out["warm"]:
+            bad = [u for u in out["cold"] if out["cold"][u] != out["warm"][u]]
+            raise AssertionError(f"prefix cache {kv_dtype}: warm tokens "
+                                 f"differ from cold for requests {bad}")
+        if not (st["prefix_hit_rate"] > 0 and st["prefix_pages_reused"] >= 4):
+            raise AssertionError(f"prefix cache {kv_dtype}: no reuse: {st}")
+        hit_ttft = [r.ttft_s for r in engines["warm"].results
+                    if r.uid >= PREFIX_SLOTS]
+        report[kv_dtype] = dict(
+            ttft_p50_cold_ms=stats["cold"]["ttft_p50_s"] * 1e3,
+            ttft_p50_warm_ms=st["ttft_p50_s"] * 1e3,
+            ttft_hits_p50_warm_ms=statistics.median(hit_ttft) * 1e3,
+            hit_rate=st["prefix_hit_rate"],
+            pages_reused=st["prefix_pages_reused"],
+            inserts=st["prefix_inserts"], pool=st["prefix_pool_used"],
+            launches=launches["warm"])
+        log(f"[vlm] prefix cache kv={kv_dtype}: {PREFIX_REQUESTS} requests "
+            f"over {PREFIX_SLOTS} slots behind a {4 * PREFIX_PAGE + 3}-token "
+            f"prefix, {cfg.n_layers} layers: warm tokens identical to cold; "
+            f"hit rate {st['prefix_hit_rate']:.2f}, pages reused "
+            f"{st['prefix_pages_reused']}, inserts {st['prefix_inserts']}, "
+            f"pool {st['prefix_pool_used']}/{st['prefix_pool_pages']}; TTFT "
+            f"p50 cold {report[kv_dtype]['ttft_p50_cold_ms']:.1f} ms, warm "
+            f"{report[kv_dtype]['ttft_p50_warm_ms']:.1f} ms (the second "
+            f"wave's, which hit: "
+            f"{report[kv_dtype]['ttft_hits_p50_warm_ms']:.1f} ms); launches "
+            f"{launches['warm']}")
+    return report
+
+
+def chunked_prefill_logits(torch, model, cfg, params, prompt, page):
+    """The last token's logits (V,) fp32 after the engine's chunked
+    prefill of ``prompt`` (S,) int32 into a fresh one-slot cache, ``page``
+    tokens a chunk, driven through the model's slot protocol
+    (``init_slots``, ``prefill_into_slot``) as the engine drives it."""
+    S = prompt.shape[0]
+    cache = model.init_slots(cfg, 1, -(-S // page) * page, "cuda")
+    tokens = torch.from_numpy(prompt).cuda()
+    for start in range(0, S, page):
+        chunk = tokens[start:start + page]
+        n_valid = chunk.shape[0]
+        chunk = torch.nn.functional.pad(chunk, (0, page - n_valid))
+        logits = model.prefill_into_slot(cfg, params, cache, 0, chunk[None],
+                                         start, n_valid)
+    return logits.float()
+
+
+def _top2_gap(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).min().item()
+
+
+def vlm_prefill_32k(torch, cfg, params):
+    """The whole-prompt path at PREFILL_S tokens, B=1, full depth, bf16:
+    ``prefill`` (the flash forward kernel once a layer; its wall time and
+    peak memory), then ``generate_lockstep`` for PREFILL_NEW tokens (the
+    prefill again, then decode steps through the decode kernel on the
+    padded linear cache), held against the chunked prefill of the same
+    prompt (PREFILL_PAGE-token chunks; the logits from
+    :func:`chunked_prefill_logits`, the tokens from the engine, which
+    prefills so and decodes): the last token's logits within
+    PREFILL_LOGIT_TOL and the tokens equal, unless
+    the lockstep's own top-2 gap at the first differing step is below the
+    tolerance.  Returns the report."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine, generate_lockstep
+
+    model = get_model(cfg)
+    S, L = PREFILL_S, cfg.n_layers
+    prompt = np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32)
+    tokens = torch.from_numpy(prompt).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    if launches != {"attn_fwd": L}:
+        raise AssertionError(f"prefill launches {launches} != "
+                             f"{ {'attn_fwd': L} }")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+            1, 1, cfg.padded_vocab):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lock = generate_lockstep(cfg, params, prompt, max_new=PREFILL_NEW)
+    torch.cuda.synchronize()
+    lock_s = time.perf_counter() - t0
+    lock_launches = dict(KERNEL_LAUNCHES)
+    want = {"attn_fwd": L, "decode_attention": L * (PREFILL_NEW - 1)}
+    if lock_launches != want:
+        raise AssertionError(f"lockstep launches {lock_launches} != {want}")
+
+    eng = ServeEngine(cfg, params, n_slots=1, cache_len=S + PREFILL_NEW,
+                      page_len=PREFILL_PAGE, steps_per_tick=PREFILL_NEW - 1,
+                      seed=0, device="cuda")
+    eng.submit(Request(uid=0, tokens=prompt[0], max_new=PREFILL_NEW))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng_tokens = eng.run()[0].tokens
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    eng_launches = dict(KERNEL_LAUNCHES)
+    steps = eng.decode_ticks * eng.steps_per_tick
+    if eng_launches != {"decode_attention": L * steps}:
+        raise AssertionError(f"engine launches {eng_launches}")
+    del eng
+    chunked = chunked_prefill_logits(torch, model, cfg, params, prompt[0],
+                                     PREFILL_PAGE)
+    err = (logits[0, 0].float() - chunked).abs().max().item()
+    scale = logits.float().abs().max().item()
+    if not err <= PREFILL_LOGIT_TOL:
+        raise AssertionError(f"32k prefill vs the engine's chunked prefill: "
+                             f"last-token logits differ by {err} > "
+                             f"{PREFILL_LOGIT_TOL} (largest |logit| {scale})")
+    lock = lock[0].tolist()
+    gap_note = "tokens equal"
+    if lock != eng_tokens:
+        i = next(j for j, (a, b) in enumerate(zip(lock, eng_tokens))
+                 if a != b)
+        # the lockstep's logits at step i: the prefill's, then i decode
+        # steps over the lockstep's own tokens
+        cache = {k: F.pad(v, (0, 0, 0, 0, 0, PREFILL_NEW))
+                 for k, v in cache.items()}
+        lg = logits[:, -1]
+        for j in range(i):
+            lg = model.decode_step(cfg, params, cache, torch.tensor(
+                [[lock[j]]], dtype=torch.int32, device="cuda"), S + j)[:, -1]
+        gap = _top2_gap(lg)
+        if not gap < PREFILL_LOGIT_TOL:
+            raise AssertionError(f"lockstep tokens {lock} != the engine's "
+                                 f"{eng_tokens} from step {i}, where the "
+                                 f"lockstep's top-2 gap {gap} >= "
+                                 f"{PREFILL_LOGIT_TOL}")
+        gap_note = (f"tokens differ from step {i}, where the lockstep's "
+                    f"top-2 gap is {gap:.4g} < {PREFILL_LOGIT_TOL}")
+    del cache
+    torch.cuda.empty_cache()
+    report = dict(S=S, prefill_s=prefill_s,
+                  prefill_peak_gib=peak / 2 ** 30,
+                  prefill_peak_above_weights_gib=(peak - base) / 2 ** 30,
+                  lockstep_s=lock_s, engine_chunked_s=eng_s,
+                  logit_err=err, logit_scale=scale,
+                  top2_gap_first=_top2_gap(logits[:, -1]),
+                  tokens_equal=lock == eng_tokens,
+                  launches={"prefill": launches, "lockstep": lock_launches,
+                            "engine": eng_launches})
+    log(f"[vlm] prefill at S={S}, B=1, {L} layers, bf16: "
+        f"{prefill_s * 1e3:.1f} ms ({S / prefill_s:.0f} tok/s), peak "
+        f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} above the "
+        f"weights); generate_lockstep {PREFILL_NEW} tokens "
+        f"{lock_s * 1e3:.1f} ms (its own prefill included); the engine's "
+        f"chunked prefill ({S // PREFILL_PAGE} chunks of {PREFILL_PAGE}) and "
+        f"decode {eng_s * 1e3:.1f} ms; last-token logits vs the engine's "
+        f"within {err:.4g} (limit {PREFILL_LOGIT_TOL}; largest |logit| "
+        f"{scale:.3f}, top-2 gap {report['top2_gap_first']:.4g}); "
+        f"{gap_note}: lockstep {lock}, engine {eng_tokens}; launches "
+        f"{report['launches']}")
+    return report
+
+
+def phase_vlm(torch):
+    """qwen2-vl-7b (``get_config``: M-RoPE, patch embeddings, QKV bias,
+    GQA 28/4, untied vocab 152,064), random weights from a seed: the
+    step-0 check against the CPU on a patch batch, Sophia-G training on
+    patch batches (``VLMSource``), serving (bf16 and int8 caches), the
+    prefix cache, and the 32k prefill with the lockstep decode, with the
+    cuts of ``VLM_CUTS``.  Counts are zeroed before each run and read
+    after.  Returns {model: report}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+
+    cfg = get_config(VLM)
+    log(f"[vlm] {VLM}: {VLM_CUTS}")
+    reset_launch_counts()
+    small, rel = model_step0_against_cpu(
+        torch, VLM, cfg, layers=CPU_CHECK_LAYERS,
+        batch=vlm_batch(cfg, 1, VLM_STEP0_S, 4))
+    missing = [k for k in STEP0_KERNELS if not KERNEL_LAUNCHES.get(k)]
+    if missing:
+        raise AssertionError(f"{VLM} step 0: kernels not launched: "
+                             f"{missing}")
+    small.cpu()
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, n_layers=VLM_TRAIN_LAYERS)
+    trained = train_model(torch, VLM, tcfg, VLM_B, S=VLM_SEQ,
+                          source=VLMSource(tcfg, VLM_B, VLM_SEQ))
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    served = serve_model(torch, VLM, cfg, small, params=params)
+    del small
+    prefix = vlm_prefix_cache(torch, cfg, params)
+    long = vlm_prefill_32k(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    launches = dict(trained["launches"])
+    launches["decode_attention"] = served["bf16"]["launches"]
+    launches["decode_attention_q8"] = served["int8"]["launches"]
+    missing = [k for k in PATH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{VLM}: kernels of the path not launched: "
+                             f"{missing}")
+    log(f"[vlm] {VLM}: launches on its path {launches}; {host_memory()}")
+    return {VLM: dict(step0_grad_rel=rel, step0_layers=CPU_CHECK_LAYERS,
+                      train=trained, serve=served, prefix_cache=prefix,
+                      prefill_32k=long, launches=launches,
+                      full_layers=cfg.n_layers, cuts=VLM_CUTS)}
 
 
 # ---------------------------------------------------------------------------
@@ -2712,10 +3260,11 @@ def phase_ce_timings(torch, ce_err, trained):
     for (name, spec, _), entry in zip(models, row["shapes"]):
         entry["ms_refresh"], entry["bound_ms_refresh"] = _ce_sampled_timed(
             torch, dict(spec, N=spec["N"] // 2), name)
-    # yi's refresh draws on one of its two rows; gemma2's batch is its one
-    # row (the entry above); qwen1.5 is not trained on the card
+    # yi's and qwen2-vl's refreshes draw on one of their two rows;
+    # gemma2's batch is its one row (the entry above); qwen1.5 is not
+    # trained on the card
     for (name, spec, _), entry in zip(dense, row["shapes"][len(models):]):
-        if name == "yi-6b":
+        if name in ("yi-6b", VLM):
             entry["ms_refresh"], entry["bound_ms_refresh"] = \
                 _ce_sampled_timed(torch, dict(spec, N=spec["N"] // 2), name)
     return rows
@@ -2811,6 +3360,66 @@ def _flash_timed(torch, spec, label, reps=20):
 
 
 
+def _flash_forward_long_timed(torch, spec, label, check_err, reps=5):
+    """The forward kernel alone at a prefill's length, where its plain
+    version cannot run over every row (its fp32 scores would take
+    B*H*S^2*4 bytes): the kernel's time beside its bound and SDPA's
+    forward (``is_causal``, ``enable_gqa``, restricted to its fused
+    backends so that it cannot fall back to materializing the scores).
+    ``check_err``: phase 2's errors over slices of the rows
+    (:func:`check_flash_forward_long`)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
+    q, k, v, _, kw = _attn_inputs(torch, spec, torch.bfloat16)
+    B, H, Hkv, S, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "hd"))
+    ms = time_ms(torch, lambda: fa.flash_forward(q, k, v, **kw), flush,
+                 reps=reps, warmup=1)
+    o, _ = fa.flash_forward(q, k, v, **kw)
+    library_ms, note = None, None
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=H != Hkv)
+            err = (sdpa().float() - o.float()).abs().max().item()
+            library_ms = time_ms(torch, sdpa, flush, reps=reps, warmup=1)
+        note = (f"F.scaled_dot_product_attention forward (is_causal=True, "
+                f"enable_gqa), max abs err vs the kernel's o {err:.3g}")
+    except RuntimeError as e:        # no fused backend takes these inputs
+        note = f"SDPA's fused backends refused: {str(e).splitlines()[0]}"
+    pairs = S * (S + 1) // 2
+    flops = fa.attn_flops(B, H, hd, pairs, "attn_fwd")
+    nbytes = fa.attn_bytes(B, H, Hkv, S, S, hd, "attn_fwd",
+                           itemsize=q.element_size())
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[timing] attn_fwd (tensor cores) {label}: kernel {ms:.3f} ms, "
+        f"plain not run (its scores would take "
+        f"{B * H * S * S * 4 / 1e9:.0f} GB), library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'} "
+        f"({note}), bound {max(t_ops, t_bytes):.4f} ms ({flops} flops, "
+        f"{nbytes} bytes); {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "plain_ms": None,
+            "plain_note": "not run: the plain version's fp32 scores would "
+                          f"take {B * H * S * S * 4 / 1e9:.0f} GB; held in "
+                          f"phase 2 over three slices of {LONG_ROWS} query "
+                          "rows, and end to end by the 32k prefill of "
+                          "phase 4e",
+            "max_abs_err": max(check_err.values()),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "library_note": note,
+            "units": FLASH_UNITS["attn_fwd"],
+            "shape": f"{label}: B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 "
+                     "causal"}
+
+
 def phase_flash_timings(torch, attn_err, trained):
     """The flash kernels at GPT-2 small's training shape in bf16 beside
     their bound, their plain versions, and SDPA (``is_causal=True``; its
@@ -2824,13 +3433,17 @@ def phase_flash_timings(torch, attn_err, trained):
     models = [_flash_timed(torch, dict(ATTN_MAIN, **sp), name)
               for name, sp in ATTN_MODEL_SHAPES]
     models += [_flash_timed(torch, dict(ATTN_MAIN, **sp), name, reps=10)
-               for name, sp in ATTN_DENSE_SHAPES]
-    return [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
+               for name, sp in ATTN_DENSE_SHAPES + ATTN_VLM_SHAPES]
+    rows = [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
              "replaces": replaces,
              "launches": trained["launches"].get(name, 0),
              "max_abs_err": attn_err[name], **main[name],
              "shapes": [t[name] for t in models]}
             for name, replaces in FLASH_ATTN[1].items()]
+    rows[0]["shapes"].append(_flash_forward_long_timed(
+        torch, PREFILL_ATTN, "qwen2-vl-7b-prefill-32k",
+        attn_err["attn_fwd_long"]))
+    return rows
 
 
 # fp32 operations per element (the bound's second term; the bytes bound
@@ -2991,20 +3604,31 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    phase_build()
-    main_err = phase_kernels(torch)
-    ce_err = phase_ce_kernels(torch)
-    attn_err = phase_flash_kernels(torch)
-    engine_err = phase_engine_kernels(torch)
-    served = phase_serve(torch)
-    trained = phase_train(torch)
-    phase_routes(torch)
-    models = phase_models(torch)
-    models.update(phase_dense_models(torch))
-    rows = (phase_timings(torch, main_err, served)
-            + phase_engine_timings(torch, engine_err, trained)
-            + phase_ce_timings(torch, ce_err, trained)
-            + phase_flash_timings(torch, attn_err, trained))
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall time logged as the phase's."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+        return out
+
+    timed("1 build", phase_build)
+    main_err = timed("2 decode", phase_kernels, torch)
+    ce_err = timed("2 ce", phase_ce_kernels, torch)
+    attn_err = timed("2 flash", phase_flash_kernels, torch)
+    engine_err = timed("2 engine", phase_engine_kernels, torch)
+    served = timed("3 serve", phase_serve, torch)
+    trained = timed("4 train", phase_train, torch)
+    timed("4b routes", phase_routes, torch)
+    models = timed("4c rope models", phase_models, torch)
+    models.update(timed("4d dense models", phase_dense_models, torch))
+    models.update(timed("4e qwen2-vl", phase_vlm, torch))
+    rows = (timed("5 decode", phase_timings, torch, main_err, served)
+            + timed("5 engine", phase_engine_timings, torch, engine_err,
+                    trained)
+            + timed("5 ce", phase_ce_timings, torch, ce_err, trained)
+            + timed("5 flash", phase_flash_timings, torch, attn_err,
+                    trained))
     for row in rows:     # each model's own runs, counted apart
         row["launches_models"] = {m: r["launches"].get(row["name"], 0)
                                   for m, r in models.items()}
@@ -3022,6 +3646,9 @@ def main() -> int:
             served_tok_per_s={kv: x["tok_per_s"]
                               for kv, x in r["serve"].items()},
             step0_grad_rel=r["step0_grad_rel"], cuts=r.get("cuts"))
+        if "prefix_cache" in r:
+            summary[m].update(prefix_cache=r["prefix_cache"],
+                              prefill_32k=r["prefill_32k"])
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)

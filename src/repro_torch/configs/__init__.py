@@ -1,13 +1,15 @@
 """Architecture registry: --arch <id> -> (CONFIG, SMOKE_CONFIG).  Only the
 architectures the port implements are listed, under the reference's
 keys."""
-from . import gemma2_9b, gpt2, qwen1_5_110b, stablelm_1_6b, yi_6b
+from . import (gemma2_9b, gpt2, qwen1_5_110b, qwen2_vl_7b, stablelm_1_6b,
+               yi_6b)
 
 ARCHS = {
     "qwen1.5-110b": qwen1_5_110b,
     "yi-6b": yi_6b,
     "gemma2-9b": gemma2_9b,
     "stablelm-1.6b": stablelm_1_6b,
+    "qwen2-vl-7b": qwen2_vl_7b,
     # paper's own family
     "gpt2-small": gpt2,
 }

@@ -5,7 +5,8 @@ the port through numpy.
 hold the port against the reference build the weights once with the
 reference's ``init_params`` and hand them over as numpy arrays, whatever
 leaves the config gives the tree (``embed/pos`` with learned positions,
-``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU).  The engine's
+``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU, the top-level
+``patch_proj`` with patch-embedding inputs).  The engine's
 flat shards share the reference's layout (``core/engine.py:build_layout``
 over the same sorted leaves), so its state carries over as a plain copy.
 """
@@ -17,6 +18,9 @@ import torch
 from .core.engine import EngineState, ShardLayout, dtype_name
 from .models.common import ModelConfig
 from .models.transformer import Transformer
+
+# the dense family's top-level parameter groups, in the reference's order
+TOP_LEVEL_KEYS = ("embed", "final_norm", "layers", "patch_proj")
 
 
 def _array_to_torch(arr, device) -> torch.Tensor:
@@ -39,16 +43,19 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cpu") -> Transformer:
     """The reference's ``init_params`` tree as numpy arrays (for example
     ``jax.tree.map(np.asarray, params)``) -> the port's module.  The stacked
     leaves under ``"layers"`` carry a leading ``n_layers`` axis; they are
-    split into one parameter set per layer."""
+    split into one parameter set per layer.  A top-level key the port does
+    not know raises, rather than being dropped."""
+    unknown = sorted(set(np_params) - set(TOP_LEVEL_KEYS))
+    if unknown:
+        raise ValueError(f"reference params have top-level keys the port "
+                         f"does not carry: {unknown}")
     stacked = np_params["layers"]
 
     def layer(i):
         return {group: {name: leaf[i] for name, leaf in leaves.items()}
                 for group, leaves in stacked.items()}
 
-    tree = {"embed": np_params["embed"],
-            "final_norm": np_params["final_norm"],
-            "layers": [layer(i) for i in range(cfg.n_layers)]}
+    tree = dict(np_params, layers=[layer(i) for i in range(cfg.n_layers)])
     return Transformer(cfg, _to_torch(tree, device))
 
 

@@ -66,7 +66,9 @@ def gnb_ghat_flat_from_loss(
     ``params``, raveled to flat fp32 shards; B is ``n_valid`` in fp32."""
     loss, n_valid = sampled_loss_fn()
     tensors = flat_tensors(params)
-    grads = torch.autograd.grad(loss, tensors)
+    # a parameter the loss does not reach (patch_proj on a text-only
+    # batch) gets zeros, as from jax.grad
+    grads = torch.autograd.grad(loss, tensors, materialize_grads=True)
     g_sh = ravel_shards(layout, tree_unflatten(params, grads),
                         dtype=torch.float32)
     return g_sh, n_valid.to(torch.float32)
@@ -150,7 +152,8 @@ def empirical_fisher_ghat_flat(loss_fn: Callable[[], torch.Tensor],
                                ) -> Tuple[torch.Tensor, ...]:
     """The gradient of the TRUE-label loss ``loss_fn()`` as flat fp32
     shards, before squaring."""
-    grads = torch.autograd.grad(loss_fn(), flat_tensors(params))
+    grads = torch.autograd.grad(loss_fn(), flat_tensors(params),
+                                materialize_grads=True)
     return ravel_shards(layout, tree_unflatten(params, grads), dtype=_f32)
 
 

@@ -5,9 +5,11 @@
 
 The counterpart of ``repro/launch/serve.py``, with its flags except
 ``--decode-kernel`` (the device decides the route: the CUDA kernel on the
-GPU, its plain version on the CPU) and ``--prefix-pool-pages`` (the prefix
-cache is not ported; ``--prefix-cache`` raises).  ``--device`` defaults to
-the GPU; ``--device cpu`` runs the plain path.  Prompts are drawn with
+GPU, its plain version on the CPU).  ``--prefix-cache`` turns on the
+shared-prefix page reuse (pair it with ``--shared-prefix N`` to give the
+stream a common preamble; ``--prefix-pool-pages`` sizes the pool, 4 pages
+a slot by default).  ``--device`` defaults to the GPU; ``--device cpu``
+runs the plain path.  Prompts are drawn with
 numpy from ``--seed``.  A warmup pass is timed separately, so first-call
 costs never enter tok/s; latency percentiles and slot utilization come
 from the engine's telemetry.
@@ -54,6 +56,7 @@ def _new_engine(cfg, params, args, device):
                        page_len=args.page_len,
                        steps_per_tick=args.steps_per_tick, seed=args.seed,
                        prefix_cache=args.prefix_cache,
+                       prefix_pool_pages=args.prefix_pool_pages,
                        kv_dtype=args.kv_dtype, device=device)
 
 
@@ -73,8 +76,9 @@ def main(argv=None):
     ap.add_argument("--steps-per-tick", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
-                    default=False, help="shared-prefix KV page reuse "
-                    "(not ported: raises)")
+                    default=False, help="shared-prefix KV page reuse")
+    ap.add_argument("--prefix-pool-pages", type=int, default=0,
+                    help="device pool size in pages (0 = 4 * slots)")
     ap.add_argument("--kv-dtype", default=None, choices=["bf16", "int8"],
                     help="KV cache dtype; int8 stores 1-byte payloads "
                          "with fp32 per-token scales")
@@ -136,6 +140,13 @@ def main(argv=None):
           f"tpot p50/p99 {stats['tpot_p50_s'] * 1e3:.2f}/"
           f"{stats['tpot_p99_s'] * 1e3:.2f}ms  "
           f"queue wait p99 {stats['queue_wait_p99_s']:.3f}s")
+    if args.prefix_cache:
+        print(f"prefix cache: hit_rate={stats['prefix_hit_rate']:.2f} "
+              f"pages_reused={stats['prefix_pages_reused']} "
+              f"inserts={stats['prefix_inserts']} "
+              f"evictions={stats['prefix_evictions']} "
+              f"pool={stats['prefix_pool_used']}/"
+              f"{stats['prefix_pool_pages']}")
     by_uid = {r.uid: r for r in results}
     print("sample (uid 0):", by_uid[0].tokens[:16])
     return results

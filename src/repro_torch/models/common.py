@@ -84,23 +84,17 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config field the port does not
-    implement yet, so that no such field is silently ignored.  The port
-    implements the dense family with LayerNorm or RMSNorm (sandwich norms
-    included), learned positions or rope (without M-RoPE), QKV bias, GELU,
-    SwiGLU or GeGLU, tied or untied embeddings and the embedding scale;
-    token inputs only (no patch embeddings)."""
-    refused = {
-        "family": cfg.family != "dense",
-        "mrope_sections": cfg.mrope_sections is not None,
-        "patch_embed_input": cfg.patch_embed_input,
-    }
-    bad = [name for name, hit in refused.items() if hit]
-    if bad:
+    """Raise ``NotImplementedError`` for a config the port does not
+    implement yet, so that no such config is silently run as another.  The
+    port implements the whole dense family: LayerNorm or RMSNorm (sandwich
+    norms included), learned positions, rope or M-RoPE, QKV bias, GELU,
+    SwiGLU or GeGLU, tied or untied embeddings, the embedding scale, and
+    token or patch-embedding inputs.  The other families (moe, rwkv,
+    griffin, encdec) are refused."""
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port implements the dense family "
-            f"with token inputs and rope without M-RoPE; unsupported "
-            f"fields: {', '.join(bad)}")
+            f"config {cfg.name!r}: the port implements the dense family; "
+            f"unsupported field: family ({cfg.family!r})")
     if cfg.norm_type not in ("ln", "rms"):
         raise ValueError(f"norm_type {cfg.norm_type!r} is not ln or rms")
     if cfg.activation not in ("gelu", "swiglu", "geglu"):
@@ -108,3 +102,7 @@ def check_supported(cfg: ModelConfig) -> None:
                          f"swiglu or geglu")
     if cfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")
+    if (cfg.mrope_sections is not None
+            and 2 * sum(cfg.mrope_sections) != cfg.hd):
+        raise ValueError(f"mrope_sections {cfg.mrope_sections} do not cover "
+                         f"the rotary half of head dim {cfg.hd}")

@@ -1,5 +1,5 @@
 """Shared layers of the dense family (LayerNorm or RMSNorm; learned
-positions or rope; QKV bias; GELU, SwiGLU or GeGLU; tied or untied
+positions, rope or M-RoPE; QKV bias; GELU, SwiGLU or GeGLU; tied or untied
 embeddings, the embedding scale), as plain functions on tensors.
 
 The counterpart of ``repro/models/layers.py``, with its conventions:
@@ -25,7 +25,10 @@ the CPU's plain version compute one function.
 Under rope every attention route rotates q and k by their absolute
 positions before the scores (training: the (B, S) ``positions``, by
 default 0..S-1; decode: each slot's position; prefill: the chunk's),
-and the slot cache holds rotated keys, as the reference's does.
+and the slot cache holds rotated keys, as the reference's does.  M-RoPE
+(Qwen2-VL) rotates each section of the frequency half by its own
+position stream: training takes (B, 3, S) positions, and serving, whose
+tokens are text, gives all three streams the token's position.
 """
 from __future__ import annotations
 
@@ -96,14 +99,25 @@ def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
                             / head_dim))
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """x (B, S, H, hd) rotated by positions (B, S): the angles, cos and sin
-    in fp32, the halves ``[x1 cos - x2 sin, x2 cos + x1 sin]`` in fp32,
-    cast back to x's dtype (the reference's ``apply_rope`` without
-    M-RoPE).  The frequencies are computed once on the CPU and cached on
-    each device, so every device rotates by the same fp32 values."""
+def apply_rope(x, positions, theta: float = 10000.0, mrope_sections=None):
+    """x (B, S, H, hd) rotated by positions (B, S), or with M-RoPE
+    (Qwen2-VL) by (B, 3, S): section i of the frequency half takes its
+    angles from position stream i (temporal, height, width), the sections
+    concatenated in order.  The angles, cos and sin in fp32, the halves
+    ``[x1 cos - x2 sin, x2 cos + x1 sin]`` in fp32, cast back to x's dtype
+    (the reference's ``apply_rope``).  The frequencies are computed once on
+    the CPU and cached on each device, so every device rotates by the same
+    fp32 values."""
     freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
-    angles = positions[..., None].to(torch.float32) * freqs   # (B, S, hd/2)
+    if mrope_sections is None:
+        angles = positions[..., None].to(torch.float32) * freqs  # (B,S,hd/2)
+    else:
+        parts, off = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[:, i, :, None].to(torch.float32)
+                         * freqs[off:off + sec])
+            off += sec
+        angles = torch.cat(parts, dim=-1)                      # (B,S,hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
@@ -111,12 +125,24 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def _train_positions(x, positions):
-    """The training routes' positions: the given (B, S), else 0..S-1."""
+def rope_positions(cfg: ModelConfig, positions):
+    """The rope positions of text tokens at ``positions`` (N, S): as they
+    are, or with M-RoPE the same stream in all three (N, 3, S), as the
+    reference's decode, prefill and default training positions are."""
+    if cfg.mrope_sections is None:
+        return positions
+    N, S = positions.shape
+    return positions[:, None].expand(N, 3, S)
+
+
+def _train_positions(cfg: ModelConfig, x, positions):
+    """The training routes' positions: the given (B, S) or, with M-RoPE,
+    (B, 3, S); else 0..S-1 (in all three streams with M-RoPE)."""
     if positions is not None:
         return positions
     B, S = x.shape[0], x.shape[1]
-    return torch.arange(S, device=x.device)[None].expand(B, S)
+    return rope_positions(cfg, torch.arange(S, device=x.device)[None]
+                          .expand(B, S))
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +167,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig):
 def _qkv(p, x, cfg: ModelConfig, positions=None):
     """q, k, v (B, S, heads, hd) in x's dtype: the projections, plus the
     biases in x's dtype with QKV bias; under rope q and k rotated by
-    ``positions`` (B, S).  Every attention route (training, decode,
-    prefill) projects here."""
+    ``positions`` (B, S), or (B, 3, S) with M-RoPE.  Every attention route
+    (training, decode, prefill) projects here."""
     dt = x.dtype
     B, S, _ = x.shape
     q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
@@ -153,8 +179,8 @@ def _qkv(p, x, cfg: ModelConfig, positions=None):
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
     if cfg.rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -197,11 +223,12 @@ def full_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
     ``full_attention``: fp32 scores ``q.k * layer_scale / sqrt(hd)``,
     softcap, the causal (and window) mask at the -1e30 sentinel, fp32
     softmax cast to x's dtype, then ``w . v`` and the output projection.
-    x (B, S, D) -> (B, S, D); ``positions`` (B, S) rotate q and k under
-    rope (the training routes' default: 0..S-1)."""
+    x (B, S, D) -> (B, S, D); ``positions`` (B, S), or (B, 3, S) with
+    M-RoPE, rotate q and k under rope (the training routes' default:
+    0..S-1)."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, _train_positions(x, positions))
+    q, k, v = _qkv(p, x, cfg, _train_positions(cfg, x, positions))
     scale = attention_scale(cfg, layer_scale)
     scores = attention_scores_block(q, k, cfg, scale)      # (B,Hkv,G,S,S)
     mask = _causal_window_mask(S, window, x.device)
@@ -213,17 +240,22 @@ def full_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
 
 
 def _flash_attention_proj(p, x, cfg: ModelConfig, *, positions=None,
-                          window=None, layer_scale=1.0, use_jvp=False):
+                          window=None, layer_scale=1.0, use_jvp=False,
+                          qkv=None):
     """The reference's flash route (``layers.py:_flash_attention_proj``):
     qkv, heads to (B, H, S, hd), the flash kernels, back, then the output
     projection.  Its scale is ``layer_scale / sqrt(hd)`` in Python double
     (the kernel rounds it to fp32 once), and p stays in fp32 until o is
     rounded: in bf16 this route and :func:`full_attention`, which rounds
     the softmax weights before ``w . v``, differ by about an ulp.  Under
-    rope q and k are rotated before the kernels."""
+    rope q and k are rotated before the kernels.  ``qkv``: :func:`_qkv`'s
+    q, k, v of x, when the caller has them (the prefill, which also writes
+    k and v into its cache)."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, _train_positions(x, positions))
+    if qkv is None:
+        qkv = _qkv(p, x, cfg, _train_positions(cfg, x, positions))
+    q, k, v = qkv
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True,
                         scale=float(layer_scale) / math.sqrt(cfg.hd),
@@ -246,7 +278,7 @@ def chunked_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
     in :func:`full_attention`."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, _train_positions(x, positions))
+    q, k, v = _qkv(p, x, cfg, _train_positions(cfg, x, positions))
     scale = layer_scale / math.sqrt(cfg.hd)
     Hkv, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     qg = q.reshape(B, S, Hkv, G, hd).to(torch.float32)
@@ -292,7 +324,7 @@ def train_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
     differentiate again), "chunked" :func:`chunked_attention`, "full"
     :func:`full_attention`; "auto" (and None) takes the chunked route above
     4096 tokens and the full one up to there, the reference's heuristic.
-    ``positions`` (B, S) go to the route (rope)."""
+    ``positions`` (B, S) or (B, 3, S) go to the route (rope)."""
     impl = impl or "auto"
     if impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -340,7 +372,7 @@ def decode_attention_slots(p, x, cfg: ModelConfig, kv, positions, *,
     output (N, 1, D)."""
     dt = x.dtype
     N = x.shape[0]
-    q, k, v = _qkv(p, x, cfg, positions[:, None])
+    q, k, v = _qkv(p, x, cfg, rope_positions(cfg, positions[:, None]))
     if kv_is_quantized(kv):
         k8, ks = quantize_kv(k)                          # (N,1,Hkv,hd),(N,1)
         v8, vs = quantize_kv(v)
@@ -376,7 +408,7 @@ def prefill_chunk_attention(p, h, cfg: ModelConfig, kv, slot: int,
     P = h.shape[1]
     C = kv["k"].shape[1]
     quant = kv_is_quantized(kv)
-    q, k, v = _qkv(p, h, cfg, qpos[None])
+    q, k, v = _qkv(p, h, cfg, rope_positions(cfg, qpos[None]))
     rows = slice(start, start + P)
     if quant:
         k8, ks = quantize_kv(k)                          # (1,P,Hkv,hd),(1,P)

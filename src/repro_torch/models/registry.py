@@ -10,8 +10,14 @@ from .common import ModelConfig
 def get_model(cfg: ModelConfig) -> SimpleNamespace:
     """The family's training functions (``forward_hidden``, ``forward``,
     ``loss_fn``, ``sampled_loss_fn``, ``logits_fn``, as in
-    ``models/transformer.py``) and
-    its serve-engine slot protocol:
+    ``models/transformer.py``), its whole-prompt serving path:
+
+        init_cache(cfg, batch, max_len, device)         -> linear cache dict
+        prefill(cfg, params, tokens, patch_embeds=None) -> logits (B, 1, V),
+                                                           cache
+        decode_step(cfg, params, cache, tok, position)  -> logits (B, 1, V)
+
+    and its serve-engine slot protocol:
 
         init_params(cfg, generator)                     -> Transformer
         init_slots(cfg, n_slots, cache_len, device)     -> slot cache dict
@@ -21,7 +27,8 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
                      active=None)                       -> logits (N, 1, V)
         reset_slot(cfg, cache, slot)                    -> cache
 
-    Prefill and decode update the cache in place.  Only the dense family
+    ``prefill`` returns a new cache; the other prefill and decode
+    functions update theirs in place.  Only the dense family
     is ported; the others raise ``NotImplementedError``."""
     if cfg.family == "dense":
         return SimpleNamespace(
@@ -31,6 +38,9 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
             loss_fn=transformer.loss_fn,
             sampled_loss_fn=transformer.sampled_loss_fn,
             logits_fn=transformer.logits_fn,
+            init_cache=transformer.init_cache,
+            prefill=transformer.prefill,
+            decode_step=transformer.decode_step,
             init_slots=transformer.init_slots,
             prefill_into_slot=transformer.prefill_into_slot,
             decode_slots=transformer.decode_slots,

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM, dense family (GPT-2, GPT-NeoX, stablelm,
-yi, qwen1.5, gemma2): parameters, the training forward and losses, and the
-serve engine's slot protocol.
+yi, qwen1.5, gemma2, qwen2-vl's backbone): parameters, the training
+forward and losses, the whole-prompt serving path and the serve engine's
+slot protocol.
 
 The counterpart of ``repro/models/transformer.py``.  The parameters are an
 ``nn.Module`` whose names follow the reference's params dict
@@ -9,8 +10,9 @@ when untied, ``final_norm.scale`` (and ``.bias`` for LayerNorm), and per
 layer ``layers.<i>.ln1``, ``attn.wq/wk/wv/wo`` (and ``bq/bk/bv`` with QKV
 bias), ``ln2``, ``ln1_post`` and ``ln2_post`` with sandwich norms,
 ``mlp.w_up/b_up/w_down/b_down`` (GELU) or ``mlp.w_gate/w_up/w_down``
-(SwiGLU, GeGLU)); the reference's scan over stacked layers is a Python
-loop over ``layers``.  A layer is the reference's ``_dense_block``: with
+(SwiGLU, GeGLU)), and ``patch_proj`` (D, D) with patch-embedding inputs;
+the reference's scan over stacked layers is a Python loop over
+``layers``.  A layer is the reference's ``_dense_block``: with
 sandwich norms the attention and MLP outputs are normed before each
 residual add.  The parameters take gradients; the
 serving entry points run under ``torch.inference_mode()``, which records
@@ -22,7 +24,18 @@ Training (``forward_hidden``, ``forward``, ``loss_fn``,
 ``sampled_loss_fn``, ``logits_fn``): the reference's trunk on every
 training-attention route (``models/layers.py:train_attention``) and remat
 policy, and the LM loss on every route (``models/loss.py``; the fused one
-with the final norm fused into the sweep).
+with the final norm fused into the sweep).  With patch-embedding inputs
+(qwen2-vl, whose vision tower is a stub as in the reference) the first P
+rows of the embedded sequence are ``patch_embeds @ patch_proj``; with
+M-RoPE the positions are (B, 3, S).
+
+Whole-prompt serving (``init_cache``, ``prefill``, ``decode_step``; the
+reference's lockstep path, ``serve/decode.py:generate_lockstep``): a
+linear cache k/v (L, B, max_len, Hkv, hd) in the compute dtype;
+``prefill`` runs the training attention over the whole prompt and fills
+it, ``decode_step`` writes one token at a shared position and attends
+``cache[:position + 1]`` through the decode kernel, whose ring mask is
+that causal prefix while the position is below the cache length.
 
 Slot protocol (continuous-batching engine, ``serve/engine.py``): the cache
 is the reference's slot-major ring, a dict of leaves with a leading layer
@@ -43,10 +56,10 @@ from torch import nn
 
 from ..kernels.decode_attention import GLOBAL_WINDOW
 from .common import ModelConfig, check_supported
-from .layers import (decode_attention_slots, embed, init_attention,
-                     init_embedding, init_mlp, layer_norm, mlp,
-                     prefill_chunk_attention, rms_norm, train_attention,
-                     unembed)
+from .layers import (_flash_attention_proj, _qkv, decode_attention_slots,
+                     dense_init, embed, init_attention, init_embedding,
+                     init_mlp, layer_norm, mlp, prefill_chunk_attention,
+                     rms_norm, rope_positions, train_attention, unembed)
 
 # ---------------------------------------------------------------------------
 # params
@@ -81,16 +94,23 @@ class Transformer(nn.Module):
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(tree['layers'])} layers for a config "
                              f"of {cfg.n_layers}")
+        has = "patch_proj" in tree
+        if has != cfg.patch_embed_input:
+            raise ValueError(f"a tree {'with' if has else 'without'} "
+                             f"patch_proj for a config with "
+                             f"patch_embed_input={cfg.patch_embed_input}")
         self.cfg = cfg
         self.embed = _params(tree["embed"])
         self.final_norm = _params(tree["final_norm"])
         self.layers = nn.ModuleList(_Layer(t) for t in tree["layers"])
+        self.patch_proj = (nn.Parameter(tree["patch_proj"])
+                           if cfg.patch_embed_input else None)
 
     def param_tree(self) -> dict:
         """The reference's params dict over this module's parameters; each
         leaf under ``"layers"`` is a list of the per-layer tensors."""
         groups = self.layers[0].groups
-        return {
+        tree = {
             "embed": dict(self.embed.items()),
             "final_norm": dict(self.final_norm.items()),
             "layers": {g: {name: [getattr(layer, g)[name]
@@ -98,6 +118,9 @@ class Transformer(nn.Module):
                            for name in getattr(self.layers[0], g).keys()}
                        for g in groups},
         }
+        if self.patch_proj is not None:
+            tree["patch_proj"] = self.patch_proj
+        return tree
 
 
 def _init_norm(cfg: ModelConfig, device):
@@ -144,10 +167,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     """Random parameters drawn from ``gen``, on ``gen``'s device."""
     check_supported(cfg)
     dev = gen.device
+    # the layers draw first, then the embedding and patch_proj: a seed
+    # gives the weights it gave before patch_proj existed
     layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
-    return Transformer(cfg, {"embed": init_embedding(gen, cfg),
-                             "final_norm": _init_norm(cfg, dev),
-                             "layers": layers})
+    tree = {"embed": init_embedding(gen, cfg),
+            "final_norm": _init_norm(cfg, dev), "layers": layers}
+    if cfg.patch_embed_input:
+        tree["patch_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model))
+    return Transformer(cfg, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +236,34 @@ def _scan_groups(n: int) -> int:
     return next(d for d in (8, 5, 4, 2) if n % d == 0)
 
 
+def _embed_inputs(cfg: ModelConfig, params: Transformer, tokens, positions,
+                  patch_embeds):
+    """(embedded inputs (B, S, D), rope positions), the reference's
+    ``_embed_inputs``: positions default to 0..S-1, broadcast to (B, 3, S)
+    with M-RoPE; the learned position table reads the first stream; with
+    patch-embedding inputs the first P rows become ``patch_embeds`` (B, P,
+    D) @ ``patch_proj``, both cast to the compute dtype."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = rope_positions(
+            cfg, torch.arange(S, device=tokens.device)[None].expand(B, S))
+    emb_pos = positions if positions.dim() == 2 else positions[:, 0]
+    x = embed(params.embed, tokens, cfg, emb_pos)
+    if cfg.patch_embed_input and patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        pe = patch_embeds.to(x.dtype) @ params.patch_proj.to(x.dtype)
+        x = torch.cat([pe, x[:, P:]], dim=1)
+    return x, positions
+
+
 def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
-                   positions=None, attn_impl: str = "auto",
+                   positions=None, patch_embeds=None, attn_impl: str = "auto",
                    remat: str = "none", final_norm: bool = True):
     """tokens (B, S) -> (hidden (B, S, D), aux): the trunk shared by
-    :func:`forward` and the losses.  ``positions`` (B, S), by default
-    0..S-1, feed the learned position table or rope in every layer.
+    :func:`forward` and the losses.  ``positions`` (B, S), or (B, 3, S)
+    with M-RoPE, by default 0..S-1, feed the learned position table or
+    rope in every layer; ``patch_embeds`` (B, P, D) replace the first P
+    embedded rows with patch-embedding inputs (:func:`_embed_inputs`).
     ``final_norm=False`` returns the PRE-norm hidden, which the fused loss
     normalizes inside its sweep.  ``aux`` is the MoE load-balance term, 0
     for the dense family.
@@ -230,10 +279,7 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
     layers launch the forward kernel again."""
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r} (one of {REMATS})")
-    B, S = tokens.shape
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = embed(params.embed, tokens, cfg, positions)
+    x, positions = _embed_inputs(cfg, params, tokens, positions, patch_embeds)
     windows = layer_windows(cfg)
     scales = layer_scales(cfg)
 
@@ -276,20 +322,23 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens, *, positions=None,
-            attn_impl: str = "auto", remat: str = "none"):
+            patch_embeds=None, attn_impl: str = "auto", remat: str = "none"):
     """tokens (B, S) -> (logits (B, S, V) fp32, aux)."""
     x, aux = forward_hidden(cfg, params, tokens, positions=positions,
-                            attn_impl=attn_impl, remat=remat)
+                            patch_embeds=patch_embeds, attn_impl=attn_impl,
+                            remat=remat)
     return unembed(params.embed, x, cfg), aux
 
 
 def loss_fn(cfg: ModelConfig, params: Transformer, batch, *,
             attn_impl="auto", remat="none", loss_impl=None):
-    """batch {tokens, labels, [mask], [positions]} -> (loss, metrics), the
-    CE through the logits-free fused loss with the final norm fused."""
+    """batch {tokens, labels, [mask], [positions], [patch_embeds]} ->
+    (loss, metrics), the CE through the logits-free fused loss with the
+    final norm fused."""
     from .loss import lm_loss
     hidden, aux = forward_hidden(cfg, params, batch["tokens"],
                                  positions=batch.get("positions"),
+                                 patch_embeds=batch.get("patch_embeds"),
                                  attn_impl=attn_impl, remat=remat,
                                  final_norm=False)
     ce, _ = lm_loss(cfg, params, hidden, batch["labels"], batch.get("mask"),
@@ -307,6 +356,7 @@ def sampled_loss_fn(cfg: ModelConfig, params: Transformer, batch, seed, *,
     from .loss import lm_loss_sampled
     hidden, _ = forward_hidden(cfg, params, batch["tokens"],
                                positions=batch.get("positions"),
+                               patch_embeds=batch.get("patch_embeds"),
                                attn_impl=attn_impl, remat=remat,
                                final_norm=False)
     return lm_loss_sampled(cfg, params, hidden, seed, batch.get("mask"),
@@ -318,7 +368,8 @@ def logits_fn(cfg: ModelConfig, params: Transformer, batch, **kw):
     GNB estimator from materialized logits (Algorithm 2 line 3)."""
     kw.pop("loss_impl", None)
     logits, _ = forward(cfg, params, batch["tokens"],
-                        positions=batch.get("positions"), **kw)
+                        positions=batch.get("positions"),
+                        patch_embeds=batch.get("patch_embeds"), **kw)
     return logits
 
 
@@ -401,3 +452,61 @@ def prefill_into_slot(cfg: ModelConfig, params: Transformer, cache,
     x = _slot_layer_sweep(cfg, params, cache, x, attn_fn)
     last = _norm(params.final_norm, x[:, n_valid - 1:n_valid], cfg)
     return unembed(params.embed, last, cfg)[0, 0]
+
+
+# ---------------------------------------------------------------------------
+# whole-prompt serving: prefill + linear-cache decode (the lockstep path)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device="cpu") -> dict:
+    """Zeroed linear cache k/v (L, B, max_len, Hkv, hd) in the compute
+    dtype, the reference's ``init_cache`` (which has no int8 form)."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for name in ("k", "v")}
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, params: Transformer, tokens, *,
+            patch_embeds=None):
+    """The whole prompt in one forward, filling a linear cache: tokens
+    (B, S) -> (logits (B, 1, V) fp32 of the last token, cache {"k", "v"}
+    (L, B, S, Hkv, hd) in the compute dtype).  Every layer attends on the
+    flash route (the forward kernel on the card; the reference's
+    ``attn_impl`` is not taken: the other routes materialize more than a
+    long prompt allows) and writes its rotated K and V.  Only the last
+    token is unembedded: the (B, S, V) logits of a 32k prompt at a 152k
+    vocabulary cannot exist (the reference's ``prefill``)."""
+    B, S = tokens.shape
+    x, positions = _embed_inputs(cfg, params, tokens, None, patch_embeds)
+    windows = layer_windows(cfg)
+    scales = layer_scales(cfg)
+    cache = init_cache(cfg, B, S, tokens.device)
+    for i, layer in enumerate(params.layers):
+        h = _norm(layer.ln1, x, cfg)
+        qkv = _qkv(layer.attn, h, cfg, positions)
+        cache["k"][i], cache["v"][i] = qkv[1], qkv[2]
+        a = _flash_attention_proj(layer.attn, h, cfg, window=windows[i],
+                                  layer_scale=scales[i], qkv=qkv)
+        x = _mlp_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
+    x = _norm(params.final_norm, x[:, -1:], cfg)
+    return unembed(params.embed, x, cfg), cache
+
+
+def decode_step(cfg: ModelConfig, params: Transformer, cache, tokens,
+                position: int):
+    """One decode step of every row at one position: tokens (B, 1) ->
+    logits (B, 1, V) fp32, writing each row's K/V at ``position`` of the
+    linear cache in place.  It is :func:`decode_slots` with every slot at
+    ``position``: on a cache longer than the position the ring mask is
+    the causal prefix ``cache[:position + 1]``, the reference's
+    ``decode_step``."""
+    C = cache["k"].shape[2]
+    position = int(position)
+    if not 0 <= position < C:
+        raise ValueError(f"position {position} outside the cache of {C}")
+    positions = torch.full((tokens.shape[0],), position, dtype=torch.int32,
+                           device=tokens.device)
+    return decode_slots(cfg, params, cache, tokens, positions)

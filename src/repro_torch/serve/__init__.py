@@ -1,2 +1,4 @@
-from .decode import generate, make_decode_burst, sample_tokens
+from .decode import (generate, generate_lockstep, make_decode_burst,
+                     make_serve_step, sample_tokens)
 from .engine import Request, RequestResult, ServeEngine
+from .prefix_cache import PrefixCache

@@ -1,20 +1,44 @@
-"""Serving decode: the engine's burst loop, sampling, and ``generate``.
+"""Serving decode: the engine's burst loop, sampling, ``generate``, and
+the lockstep baseline.
 
 The counterpart of ``repro/serve/decode.py``.  ``make_decode_burst`` is the
 engine's hot loop: ``n_steps`` decode steps over all slots with per-slot
 position, remaining-token budget, EOS and greedy/temperature sampling, all
 on the device — the loop issues work and never reads a value back, so the
-host does not wait on the device inside a burst.
+host does not wait on the device inside a burst.  ``generate_lockstep`` is
+the reference's pre-engine path, kept as the baseline of the serving
+benchmark: the whole prompt prefilled at once, then a Python token loop in
+which every row decodes at one shared position.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models import ModelConfig, get_model
 
 NO_EOS = -1  # sentinel: no EOS id for this slot
+
+
+def make_serve_step(cfg: ModelConfig, *, temperature: float = 0.0):
+    """Returns serve_step(params, cache, tokens, position, gen) ->
+    (next_tokens (B, 1) int32, logits (B, V), cache): one
+    ``decode_step`` at ``position`` (the cache updated in place), then
+    greedy or, with a positive temperature, a draw from ``gen``."""
+    model = get_model(cfg)
+
+    def serve_step(params, cache, tokens, position, gen):
+        logits = model.decode_step(cfg, params, cache, tokens,
+                                   position)[:, -1, :]
+        temps = torch.full((logits.shape[0],), float(temperature),
+                           device=logits.device)
+        nxt = sample_tokens(gen, logits, temps)
+        return nxt[:, None], logits, cache
+
+    return serve_step
 
 
 def sample_tokens(gen: torch.Generator, logits, temps):
@@ -95,3 +119,32 @@ def generate(cfg: ModelConfig, params, prompt_tokens, *, max_new: int,
         toks = results[i].tokens
         out[i, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
     return out
+
+
+def generate_lockstep(cfg: ModelConfig, params, prompt_tokens, *,
+                      max_new: int, temperature: float = 0.0, seed: int = 0,
+                      max_len: Optional[int] = None):
+    """Fixed-batch generation, every request in lockstep: prompt (B, S_p)
+    int -> (B, max_new) int32 on the CPU.  The whole prompt goes through
+    ``prefill`` (the flash route), its cache is padded to ``max_len``
+    (default S_p + max_new) and the first token is the prefill logits'
+    argmax; then ``max_new - 1`` steps of :func:`make_serve_step` at the
+    shared position, drawing from a generator seeded with ``seed`` on the
+    parameters' device.  The reference's ``generate_lockstep`` (its
+    recurrent-family branch is not ported: ``get_model`` raises for those
+    families)."""
+    model = get_model(cfg)
+    device = params.embed["tok"].device
+    prompt = torch.as_tensor(np.asarray(prompt_tokens)).to(device)
+    B, Sp = prompt.shape
+    max_len = max_len or (Sp + max_new)
+    serve_step = make_serve_step(cfg, temperature=temperature)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits, cache = model.prefill(cfg, params, prompt)
+    pad = max_len - Sp
+    cache = {name: F.pad(c, (0, 0, 0, 0, 0, pad)) for name, c in cache.items()}
+    toks = [torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]]
+    for pos in range(Sp, Sp + max_new - 1):
+        last, _, cache = serve_step(params, cache, toks[-1], pos, gen)
+        toks.append(last)
+    return torch.cat(toks, dim=1).cpu()

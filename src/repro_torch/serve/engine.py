@@ -2,10 +2,11 @@
 
 The counterpart of ``repro/serve/engine.py``.  Requests stream in through
 :meth:`ServeEngine.submit`; the engine admits them into free slots,
-chunk-prefills (one ``page_len`` chunk per admitted request per tick, so
-in-flight decodes never stall behind a long prompt), decodes every active
-slot in bursts of ``steps_per_tick`` tokens, and evicts finished sequences,
-freeing their slots for the queue.  Slots are independent rows of the ring
+chunk-prefills (``prefill_chunks_per_tick`` chunks of ``page_len`` tokens
+per admitted request per tick, one by default, so in-flight decodes never
+stall behind a long prompt), decodes every active slot in bursts of
+``steps_per_tick`` tokens, and evicts finished sequences, freeing their
+slots for the queue.  Slots are independent rows of the ring
 KV cache, so a *greedy* request's tokens do not depend on what else shares
 the batch.  Temperature sampling draws from the engine's one device
 generator, so sampled tokens depend on scheduling.
@@ -15,8 +16,16 @@ per-tick slot utilization, aggregated by :meth:`stats`.  Each decode
 tick's time covers its device work: reading the burst's tokens back to the
 host waits for the device.
 
-Not ported yet: the shared-prefix page cache (``prefix_cache=True``
-raises) and encoder-decoder requests.
+``prefix_cache=True`` reuses shared prompt prefixes: each completed
+page-aligned prefill chunk is copied into a pool of pages on the device
+and indexed by :class:`~repro_torch.serve.prefix_cache.PrefixCache`;
+admission copies the longest cached prefix back into the slot and starts
+the chunked prefill at its boundary.  The copies are in-place ``copy_``
+of views on the engine's device (the reference's ``_page_copy_fns``), so
+restored pages are bit-copies and the chunk boundaries are unchanged:
+greedy tokens are those of a cold prefill.
+
+Not ported: encoder-decoder requests.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 
 from ..models import ModelConfig, get_model
 from .decode import NO_EOS, make_decode_burst, sample_tokens
+from .prefix_cache import ROOT, PrefixCache
 
 FREE, PREFILL, ACTIVE = 0, 1, 2
 
@@ -89,10 +99,9 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  cache_len: int = 256, page_len: int = 32,
                  steps_per_tick: int = 8, seed: int = 0,
-                 prefix_cache: bool = False,
+                 prefill_chunks_per_tick: int = 1,
+                 prefix_cache: bool = False, prefix_pool_pages: int = 0,
                  kv_dtype: Optional[str] = None, device=None):
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache is not ported yet")
         if kv_dtype is not None and kv_dtype != cfg.kv_dtype:
             cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
         self.device = resolve_device(device)
@@ -108,10 +117,23 @@ class ServeEngine:
         # fits (start + page_len <= cache_len)
         self.cache_len = -(-cache_len // page_len) * page_len
         self.steps_per_tick = steps_per_tick
+        self.prefill_chunks_per_tick = prefill_chunks_per_tick
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.state = self.model.init_slots(cfg, n_slots, self.cache_len,
                                            self.device)
         self._burst = make_decode_burst(cfg, steps_per_tick)
+
+        # shared-prefix page pool: the slot cache's layout with the slot
+        # axis replaced by pool pages of one page_len each
+        self._prefix: Optional[PrefixCache] = None
+        self._pool = None
+        if prefix_cache:
+            pool_pages = prefix_pool_pages or 4 * n_slots
+            self._prefix = PrefixCache(pool_pages, page_len)
+            self._pool = {name: torch.zeros(
+                (leaf.shape[0], pool_pages, page_len) + leaf.shape[3:],
+                dtype=leaf.dtype, device=self.device)
+                for name, leaf in self.state.items()}
 
         # host-side slot table
         self.slot_mode = [FREE] * n_slots
@@ -119,6 +141,10 @@ class ServeEngine:
         self.slot_cursor = [0] * n_slots          # prefill progress (tokens)
         self.slot_out: List[List[int]] = [[] for _ in range(n_slots)]
         self.slot_meta: List[Optional[dict]] = [None] * n_slots
+        # per-slot prefix-cache chain: held nodes + tail key for inserts
+        # (None tail = pool exhausted mid-chain, stop inserting)
+        self.slot_prefix_nodes: List[list] = [[] for _ in range(n_slots)]
+        self.slot_chain_key: List[Optional[str]] = [ROOT] * n_slots
         self._last_tok = np.zeros((n_slots,), np.int32)
         self._pos = np.zeros((n_slots,), np.int32)
         self._rem = np.zeros((n_slots,), np.int32)
@@ -155,6 +181,16 @@ class ServeEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _copy_page(self, dst, dst_row: int, dst_start: int, src,
+                   src_row: int, src_start: int) -> None:
+        """One page of every leaf, src -> dst in place: the slot cache and
+        the pool both lead with (layer, row, position), a row being a slot
+        or a pool page."""
+        P = self.page_len
+        for name, leaf in dst.items():
+            leaf[:, dst_row, dst_start:dst_start + P].copy_(
+                src[name][:, src_row, src_start:src_start + P])
+
     def _admit(self) -> None:
         for slot in range(self.n_slots):
             if self.slot_mode[slot] != FREE or not self.queue:
@@ -165,6 +201,23 @@ class ServeEngine:
             self.slot_req[slot] = req
             self.slot_cursor[slot] = 0
             self.slot_out[slot] = []
+            self.slot_prefix_nodes[slot] = []
+            self.slot_chain_key[slot] = ROOT
+            if self._prefix is not None:
+                prompt = np.asarray(req.tokens, np.int32).reshape(-1)
+                # cap below prompt_len so >= one real chunk still runs and
+                # gives the last-token logits _activate samples from
+                max_pages = min((prompt.shape[0] - 1) // self.page_len,
+                                self.cache_len // self.page_len)
+                chain = self._prefix.lookup(prompt, max_pages)
+                self._prefix.acquire(chain)
+                for i, node in enumerate(chain):
+                    self._copy_page(self.state, slot, i * self.page_len,
+                                    self._pool, node.pool_idx, 0)
+                self.slot_prefix_nodes[slot] = list(chain)
+                if chain:
+                    self.slot_chain_key[slot] = chain[-1].key
+                    self.slot_cursor[slot] = len(chain) * self.page_len
             self.slot_meta[slot] = {"submitted_t": submitted_t,
                                     "admitted_t": time.perf_counter()}
             self._temps[slot] = req.temperature
@@ -177,17 +230,37 @@ class ServeEngine:
                 continue
             prompt = np.asarray(self.slot_req[slot].tokens,
                                 np.int32).reshape(-1)
-            start = self.slot_cursor[slot]
-            chunk = prompt[start:start + P]
-            n_valid = chunk.shape[0]
-            if n_valid < P:
-                chunk = np.pad(chunk, (0, P - n_valid))
-            logits = self.model.prefill_into_slot(
-                self.cfg, self.params, self.state, slot,
-                self._to_device(chunk)[None], start, n_valid)
-            self.slot_cursor[slot] = start + n_valid
-            if self.slot_cursor[slot] >= prompt.shape[0]:
-                self._activate(slot, logits)
+            for _ in range(self.prefill_chunks_per_tick):
+                start = self.slot_cursor[slot]
+                chunk = prompt[start:start + P]
+                n_valid = chunk.shape[0]
+                if n_valid < P:
+                    chunk = np.pad(chunk, (0, P - n_valid))
+                logits = self.model.prefill_into_slot(
+                    self.cfg, self.params, self.state, slot,
+                    self._to_device(chunk)[None], start, n_valid)
+                self.slot_cursor[slot] = start + n_valid
+                if (self._prefix is not None
+                        and self.slot_chain_key[slot] is not None
+                        and n_valid == P and start % P == 0):
+                    self._insert_page(slot, prompt, start)
+                if self.slot_cursor[slot] >= prompt.shape[0]:
+                    self._activate(slot, logits)
+                    break
+
+    def _insert_page(self, slot: int, prompt, start: int) -> None:
+        """Index the slot's full page at ``start`` under its chain, copying
+        it into the pool when no identical chain holds it already."""
+        node, fresh = self._prefix.insert(self.slot_chain_key[slot],
+                                          prompt[start:start + self.page_len])
+        if node is None:
+            self.slot_chain_key[slot] = None
+            return
+        if fresh:
+            self._copy_page(self._pool, node.pool_idx, 0, self.state, slot,
+                            start)
+        self.slot_prefix_nodes[slot].append(node)
+        self.slot_chain_key[slot] = node.key
 
     def _activate(self, slot: int, logits) -> None:
         """Prefill done: sample the first token and open the slot."""
@@ -246,6 +319,10 @@ class ServeEngine:
             done_t=time.perf_counter()))
         self.slot_mode[slot] = FREE
         self.slot_req[slot] = None
+        if self._prefix is not None:
+            self._prefix.release(self.slot_prefix_nodes[slot])
+            self.slot_prefix_nodes[slot] = []
+            self.slot_chain_key[slot] = ROOT
         self._rem[slot] = 0
         self._temps[slot] = 0.0
         self._eos[slot] = NO_EOS
@@ -279,7 +356,7 @@ class ServeEngine:
         tpot = [(r.done_t - r.first_token_t) / max(1, len(r.tokens) - 1)
                 for r in self.results]
         qwait = [r.admitted_t - r.submitted_t for r in self.results]
-        return {
+        out = {
             "tokens_emitted": self.tokens_emitted,
             "decode_ticks": self.decode_ticks,
             "slot_utilization": float(np.mean(util)),
@@ -299,3 +376,6 @@ class ServeEngine:
             "queue_wait_p95_s": _pct(qwait, 0.95),
             "queue_wait_p99_s": _pct(qwait, 0.99),
         }
+        if self._prefix is not None:
+            out.update(self._prefix.stats())
+        return out

@@ -256,7 +256,9 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         for mb in micro:
             loss, met = model.loss_fn(cfg, params, mb, attn_impl=attn_impl,
                                       remat=tc.remat, loss_impl=loss_impl)
-            g = torch.autograd.grad(loss, tensors)
+            # zeros for a parameter the batch does not reach (patch_proj
+            # on a text-only batch), as from jax.grad
+            g = torch.autograd.grad(loss, tensors, materialize_grads=True)
             loss = loss.detach()
             met = {k: v.detach() for k, v in met.items()}
             if loss_sum is None:

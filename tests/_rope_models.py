@@ -59,11 +59,13 @@ TRAIN = dict(peak_lr=5e-4, total_steps=64, warmup_steps=4, hess_interval=4,
              hess_subbatch=2, seed=0)
 
 
-def trajectories(cfg, attn, over, steps, params=None):
+def trajectories(cfg, attn, over, steps, params=None, source=None):
     """``steps`` steps of the reference trainer and of the port on its
     weights (``params``, a reference tree, replaces the initial ones when
-    given), batches, noise seeds and Hutchinson probes: (port history,
-    reference history, the two parameter vectors, the two states)."""
+    given), batches (``source``, whose ``batch_at`` gives numpy batches to
+    both, else the synthetic stream of 4 x 16 tokens), noise seeds and
+    Hutchinson probes: (port history, reference history, the two parameter
+    vectors, the two states)."""
     over = dict(TRAIN, fused_loss=True, attn_impl=attn, **over)
     jtc = JTrainerConfig(**over)
     src_cfg = JDataConfig(seq_len=16, global_batch=4,
@@ -71,8 +73,9 @@ def trajectories(cfg, attn, over, steps, params=None):
     s0 = jax_make_train_fns(cfg, jtc)[0](jax.random.PRNGKey(0))
     if params is not None:
         s0 = s0._replace(params=params)
-    s_ref, hist_ref = jax_train_loop(cfg, jtc, jax_make_source(src_cfg),
-                                     num_steps=steps, state=s0)
+    s_ref, hist_ref = jax_train_loop(
+        cfg, jtc, source or jax_make_source(src_cfg), num_steps=steps,
+        state=s0)
 
     def rng(step):
         return jax.random.fold_in(jax.random.fold_in(s0.rng, RNG_TAG_HESS),
@@ -88,7 +91,7 @@ def trajectories(cfg, attn, over, steps, params=None):
     state = make_train_fns(tcfg(cfg), tc, device="cpu")[0](tparams)
     s_port, hist = train_loop(
         tcfg(cfg), tc,
-        make_source(DataConfig(**dataclasses.asdict(src_cfg))),
+        source or make_source(DataConfig(**dataclasses.asdict(src_cfg))),
         num_steps=steps, state=state, device="cpu",
         hess_seed_fn=lambda step: np.asarray(seed_from_key(rng(step))),
         probe_fn=probe)

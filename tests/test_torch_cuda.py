@@ -58,6 +58,10 @@ def cuda_device():
     (8, 64, 8, 512, 128, None, None, None),
     # gemma2-9b's: hd 256, 16 over 8, softcap 50, its window binding
     (4, 16, 8, 8192, 256, 4096, 50.0, [4095, 5000, 8191, 12000]),
+    # qwen2-vl-7b's group of 7 (28 over 4): the engine's ring, and the
+    # lockstep decode's one row over a 32k prompt's linear cache
+    (8, 28, 4, 512, 128, None, None, None),
+    (1, 28, 4, 32776, 128, None, None, [32770]),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, dt, quant, N, H,
                                                Hkv, C, hd, window, softcap,
@@ -292,6 +296,8 @@ def test_hutchinson_hvp_launches_no_backward_kernel(cuda_device):
     (1, 4, 2, 160, 256, 256, True, None, None, 96),
     (1, 2, 1, 100, 130, 256, False, None, None, 0),
     (1, 16, 8, 2048, 2048, 256, True, 1024, 50.0, 0),
+    # qwen2-vl-7b's group of 7 at hd 128: its training shape
+    (2, 28, 4, 2048, 2048, 128, True, None, None, 0),
 ])
 def test_flash_attention_kernels_match_plain(cuda_device, dt, B, H, Hkv, Sq,
                                              Sk, hd, causal, window, softcap,

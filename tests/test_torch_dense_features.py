@@ -152,22 +152,23 @@ def test_embedding_scale_rounds_the_constant_first(dtype):
         assert (fp32_const.float().numpy() != want).any()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "deepseek-moe-16b",
-                                  "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b"])
 def test_check_supported_still_refuses(arch):
-    """M-RoPE and patch-embedding inputs (qwen2-vl) and the other families
-    stay refused; the three new configs are in ``ARCHS`` and pass."""
+    """The other families stay refused, by their family."""
     cfg = tcfg(jax_get_config(arch, smoke=True))
     with pytest.raises(NotImplementedError) as err:
         check_supported(cfg)
-    if arch == "qwen2-vl-7b":
-        assert "mrope_sections" in str(err.value)
-        assert "patch_embed_input" in str(err.value)
-    else:
-        assert "family" in str(err.value)
-    for name in NAMES:
-        check_supported(tcfg(jax_get_config(name)))
-        assert name in ARCHS
+    assert "family" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", *NAMES])
+def test_check_supported_accepts_the_dense_configs(arch):
+    """Every dense config passes, full and smoke, and is in ``ARCHS``:
+    qwen2-vl's M-RoPE and patch-embedding inputs since the dense family
+    was finished, and the three configs of this file."""
+    for smoke in (False, True):
+        check_supported(tcfg(jax_get_config(arch, smoke=smoke)))
+    assert arch in ARCHS
 
 
 # ---------------------------------------------------------------------------

@@ -177,16 +177,17 @@ def test_engine_without_device_raises_on_cpu_only_machine(weights):
         ServeEngine(tcfg, params_from_jax(np_params, tcfg))
 
 
-def test_unported_options_raise(weights):
-    _, np_params = weights
-    _, tcfg = _cfgs("gpt2-tiny", dtype="float32")
-    with pytest.raises(NotImplementedError):
-        ServeEngine(tcfg, params_from_jax(np_params, tcfg), device="cpu",
-                    prefix_cache=True)
-    vl = ModelConfig(**dataclasses.asdict(jax_get_config("qwen2-vl-7b",
-                                                         smoke=True)))
-    with pytest.raises(NotImplementedError, match="rope"):
-        check_supported(vl)
+def test_unported_options_raise():
+    """Since the port serves the whole dense family (the prefix cache,
+    M-RoPE and patch embeddings included), what it refuses is the other
+    families: ``check_supported`` raises for deepseek-moe-16b's (moe) and
+    rwkv6-7b's (rwkv) smoke configs by their family."""
+    for arch in ("deepseek-moe-16b", "rwkv6-7b"):
+        cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch,
+                                                              smoke=True)))
+        with pytest.raises(NotImplementedError, match="family") as err:
+            check_supported(cfg)
+        assert repr(cfg.family) in str(err.value)
 
 
 def test_launcher_runs_on_cpu(capsys):
