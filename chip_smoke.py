@@ -19,7 +19,8 @@ it fails and prints no result.  Phases, in order:
      dense configs' heads: yi's and qwen1.5's group of 8 at hd 128,
      gemma2's hd 256 with its softcap, and its window in a ring of 8192;
      qwen2-vl's group of 7 in the engine's ring and in the lockstep
-     decode's 32,776-row linear cache);
+     decode's 32,776-row linear cache; deepseek-moe-16b's group 1 at hd
+     128 with 16 heads);
      the fused CE kernels (forward, sampled forward, dh,
      dW) at GPT-2 small's loss shape (D=768, Vp=50304, tied, ln fused,
      bf16 h, fp32 W) with N=2048 and with the training run's N=8192 and
@@ -33,7 +34,8 @@ it fails and prints no result.  Phases, in order:
      fused (yi N=4096 D=4096 Vp=64000 untied, qwen1.5 N=2048 D=8192
      Vp=152064 untied, gemma2 N=8192 D=3584 Vp=256000 tied with softcap
      30, qwen2-vl N=4096 D=3584 Vp=152064 untied with each sequence's 256
-     patch rows masked; and each width with fp32 h at 130 rows).  The
+     patch rows masked, deepseek-moe-16b N=4096 D=2048 Vp=102400 untied;
+     and each width with fp32 h at 130 rows).  The
      forwards within 1e-5 (fp32) or 2e-2 (bf16);
      dh and dW within 1e-5 of their largest element in fp32 and, with bf16
      h or W, element by element against each element's sum of absolute
@@ -50,7 +52,8 @@ it fails and prints no result.  Phases, in order:
      layer with its window of 4096 and a global one; and GQA 2 with window
      and softcap off the tile, q_offset, non-causal, a row with no key),
      qwen2-vl's group of 7 (B=2 H=28 Hkv=4 S=2048 hd=128, and its prefill
-     heads at B=1 S=4096),
+     heads at B=1 S=4096), deepseek-moe-16b's training shape (B=2 H=16
+     Hkv=16 S=2048 hd=128),
      fp32 and bf16, o, lse, dq, dk and dv within 1e-5 (fp32) or 2e-2
      (bf16) of their largest element, and in bf16 (all three on the
      tensor cores) every element of o, dq, dk and dv within 2^-7 of its
@@ -74,9 +77,9 @@ it fails and prints no result.  Phases, in order:
      negative entries, rho=1e9, bf16 p, the zero tail pad), every output
      and every per-block clip count bit-identical to the plain version;
      and rows 2-4 launched on the shard of each dense config phases 4d
-     and 4e train (yi-6b at 8 layers, 1,908,539,392 elements; gemma2-9b
-     at 4, 1,710,358,528; qwen2-vl-7b at 4), the plain versions over
-     slices;
+     and 4e-4f train (yi-6b at 8 layers, 1,908,539,392 elements;
+     gemma2-9b at 4, 1,710,358,528; qwen2-vl-7b at 4; deepseek-moe-16b
+     at 3, 2,183,135,232), the plain versions over slices;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -187,6 +190,24 @@ it fails and prints no result.  Phases, in order:
      tokens equal unless the lockstep's top-2 gap at the first difference
      is below it.
      Each cut and its reason is logged (``VLM_CUTS``);
+  4f. deepseek-moe-16b (64 routed experts of d_ff 1408, top 6, and 2
+     shared in all 28 layers; MHA 16 heads of hd 128; untied vocab
+     102,400), random weights from a seed: one MoE FFN at full width,
+     fp32, on 8,192 rows (two dispatch groups of 4,096, capacity binding)
+     against the port's same function on the CPU (the expert choices
+     equal but for near ties, the dropped entries as many, the output
+     within 1e-5 of its largest element, aux within 1e-6); step 0 at 2
+     layers against the CPU as in 4c, the expert sets of every token
+     compared; Sophia-G trained as in 4c at 3 of 28 layers, B=2 x S=2048
+     (aux, and the share of dropped token-expert entries at the first and
+     the last step), and ``torch.profiler`` over one MoE FFN's forward and
+     backward at that shape (its device time by kind, its share of the
+     plain step); served at full depth (bf16 and int8 caches; the decode
+     kernel held on the engine's own cache; the card-vs-CPU decode check
+     compares every call's routing and leaves out a slot whose token took
+     other experts at a near tie), a profile window of one decode burst,
+     and the prefix cache cold against warm at full depth.  Each cut and
+     its reason is logged (``MOE_CUTS``);
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -215,7 +236,8 @@ it fails and prints no result.  Phases, in order:
      qwen2-vl's training shape and prefill heads, and the forward alone
      at the 32k prefill (B=1 H=28 Hkv=4 S=32768, SDPA beside it; its
      plain version cannot run over every row there), decode attention also at
-     qwen2-vl's two shapes, the CE kernels at its loss shape; each row's
+     qwen2-vl's two shapes, the CE kernels at its loss shape, and all
+     three at deepseek-moe-16b's shapes; each row's
      ``launches_models`` the launches of each model's runs.  A JSON line
      of the models' step times, memory, served tok/s and cuts comes
      before it.
@@ -381,6 +403,8 @@ DECODE_SHAPES = {
     # lockstep decode's one row over the 32k prompt's linear cache
     "qwen2vl_hd128_c512": ((8, 28, 4, 512, 128), MAIN_POS),
     "qwen2vl_lockstep_c32776": ((1, 28, 4, 32776, 128), [32770]),
+    # deepseek-moe-16b (phase 4f): 16 heads over 16 (group 1) at hd 128
+    "deepseek_hd128_c512": ((8, 16, 16, 512, 128), MAIN_POS),
 }
 # the options a timed shape's model calls the kernel with (gemma2: its
 # softcap and window, which a ring of 512 never reaches)
@@ -440,6 +464,10 @@ def phase_kernels(torch):
         ("qwen2vl_lockstep_C32776", DECODE_SHAPES[
             "qwen2vl_lockstep_c32776"][0],
          DECODE_SHAPES["qwen2vl_lockstep_c32776"][1], {}),
+        # deepseek-moe-16b (phase 4f): multi-head attention (group 1) at
+        # hd 128 with 16 heads
+        ("deepseek_hd128_H16_Hkv16", DECODE_SHAPES["deepseek_hd128_c512"][0],
+         DECODE_SHAPES["deepseek_hd128_c512"][1], {}),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -495,6 +523,9 @@ CE_DENSE_SHAPES = (
     # first 256 rows of each sequence (its patches) masked out
     ("qwen2-vl-7b", dict(N=4096, D=3584, V=152064, Vp=152064, tied=False,
                          norm="rms", mask="patches")),
+    # deepseek-moe-16b's training batch (phase 4f: B 2 x S 2048, untied)
+    ("deepseek-moe-16b", dict(N=4096, D=2048, V=102400, Vp=102400,
+                              tied=False, norm="rms")),
 )
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
@@ -822,6 +853,11 @@ ATTN_VLM_SHAPES = (
     ("qwen2-vl-7b-prefill-heads", dict(QWEN2VL_ATTN, B=1, Sq=4096,
                                        Sk=4096)),
 )
+# deepseek-moe-16b (phase 4f): its training attention, B 2 x S 2048, 16
+# heads over 16 at hd 128
+ATTN_MOE_SHAPES = (
+    ("deepseek-moe-16b", dict(B=2, H=16, Hkv=16, Sq=2048, Sk=2048, hd=128)),
+)
 PREFILL_S = 32768           # the prefill_32k serve path (configs/shapes.py)
 ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
                  window=None, softcap=None, q_offset=0)
@@ -846,6 +882,8 @@ ATTN_CASES = [
     (f"{name}_S8192_hd256", sp) for name, sp in ATTN_DENSE_SHAPES] + [
     (f"{name}_B{sp['B']}_S{sp['Sq']}_H28_Hkv4", sp)
     for name, sp in ATTN_VLM_SHAPES] + [
+    (f"{name}_B{sp['B']}_S{sp['Sq']}_H16_hd128", sp)
+    for name, sp in ATTN_MOE_SHAPES] + [
     ("hd256_gqa2_window40_softcap50_S300_off_tile",
      dict(B=2, H=4, Hkv=2, Sq=300, Sk=300, hd=256, window=40, softcap=50.0)),
     ("hd256_q_offset96_Sq160_Sk256", dict(B=1, H=4, Hkv=2, Sq=160, Sk=256,
@@ -1199,20 +1237,36 @@ def check_sign_nan(torch, sdt):
 
 
 def param_count(cfg) -> int:
-    """Parameters of a dense config (the port's ``init_params`` leaves):
-    the engine's one fp32 shard is this rounded up to its block."""
+    """Parameters of a dense or MoE config (the port's ``init_params``
+    leaves, norms and the padded vocabulary included, unlike the config's
+    own ``param_count``): the engine's one fp32 shard is this rounded up to
+    its block.  A MoE layer holds the router (D, E), E experts and the
+    shared experts (SwiGLU, 3 D F each) in place of the MLP; with
+    ``moe_every == 2`` every other layer is dense, ``dense_d_ff`` wide."""
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     norm = D * (2 if cfg.norm_type == "ln" else 1)
     attn = 2 * D * H * hd + 2 * D * Hkv * hd
     attn += (H + 2 * Hkv) * hd if cfg.qkv_bias else 0
-    mlp = (3 * D * F if cfg.activation in ("swiglu", "geglu")
-           else 2 * D * F + F + D)
-    layer = attn + mlp + norm * (4 if cfg.post_norms else 2)
+
+    def mlp(width):
+        return (3 * D * width if cfg.activation in ("swiglu", "geglu")
+                else 2 * D * width + width + D)
+
+    base = attn + norm * (4 if cfg.post_norms else 2)
+    if cfg.family == "moe":
+        moe = D * cfg.n_experts + 3 * D * F * (cfg.n_experts
+                                               + cfg.n_shared_experts)
+        n_moe = cfg.n_layers // cfg.moe_every
+        dense = mlp(cfg.dense_d_ff or F if cfg.moe_every > 1 else F)
+        layers = (cfg.n_layers * base + n_moe * moe
+                  + (cfg.n_layers - n_moe) * dense)
+    else:
+        layers = cfg.n_layers * (base + mlp(F))
     embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
     embed += cfg.max_position_embeddings * D if cfg.learned_pos else 0
     embed += D * D if cfg.patch_embed_input else 0         # patch_proj
-    return embed + norm + cfg.n_layers * layer
+    return embed + norm + layers
 
 
 def shard_size(cfg) -> int:
@@ -1312,7 +1366,8 @@ def phase_engine_kernels(torch):
         check_sign_nan(torch, sdt)
     from repro_torch.configs import get_config
     runs = [(name, cfg, layers) for name, cfg, _, layers, _, _
-            in _dense_runs()] + [(VLM, get_config(VLM), VLM_TRAIN_LAYERS)]
+            in _dense_runs()] + [(VLM, get_config(VLM), VLM_TRAIN_LAYERS),
+                                 (MOE, get_config(MOE), MOE_TRAIN_LAYERS)]
     for name, cfg, layers in runs:
         if layers:
             check_engine_shard(torch, name, shard_size(
@@ -1401,6 +1456,14 @@ def check_engine_cache(torch, eng):
     return check_decode_attention(torch, args, scale=1.0)[0]
 
 
+# router probability gaps under which a MoE token may take another expert
+# on the other device: with a float cache only the fp32 sums' order
+# differs (~2e-8 of a probability of ~1/64, MOE_NEAR_TIE); an int8 cache
+# element that rounds the other way moves by one quantization step, ~1e-3
+# of the attention output, ~2e-5 of a router probability (10x: 2e-4)
+CACHE_NEAR_TIE = {"bf16": 1e-6, "int8": 2e-4}
+
+
 def check_against_cpu(torch, cfg, params, kv_dtype):
     """Decode on the card (kernel route) against the port's plain path on
     the CPU, same weights, fp32 compute: 3 slots prefilled with 24-token
@@ -1408,10 +1471,15 @@ def check_against_cpu(torch, cfg, params, kv_dtype):
     difference.  Tolerance: 1e-3 for an fp32 cache (12 layers of fp32 sums
     in another order on each side), 2e-2 for int8 (a K/V element that
     lands on the other side of a rounding boundary on one device moves by
-    one quantization step)."""
+    one quantization step).  With MoE layers the routing of every call is
+    compared: a slot whose token took another expert set on the card, at
+    a near tie (gap below ``CACHE_NEAR_TIE``), leaves the logit check from
+    then on (slots do not mix, so the others stay exact), and at least one
+    slot must stay in it; a wider gap fails, and the flips are logged."""
     import numpy as np
 
     from repro_torch.models import get_model
+    from repro_torch.models.moe import record_routing
 
     cfg32 = dataclasses.replace(cfg, dtype="float32", kv_dtype=kv_dtype)
     model = get_model(cfg32)
@@ -1421,39 +1489,65 @@ def check_against_cpu(torch, cfg, params, kv_dtype):
               "cpu": model.init_slots(cfg32, N, C, "cpu")}
     rng = np.random.default_rng(5)
     prompts = rng.integers(0, cfg.vocab_size, (N, 24)).astype(np.int32)
-    err = 0.0
+    err = np.zeros(N)
+    flipped, flips = set(), []
+
+    def both(fn):
+        """fn(device, params) on each device, its routing recorded; the
+        flips between the two."""
+        out, calls = {}, {}
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            with record_routing() as calls[dev]:
+                out[dev] = fn(dev, p).float().cpu()
+        return out, expert_set_flips(torch, calls["cuda"], calls["cpu"])
+
     last = {}
-    for dev, p in (("cuda", params), ("cpu", cpu_params)):
-        for s in range(N):
-            for start in range(0, 24, P):
-                chunk = prompts[s, start:start + P]
-                n_valid = len(chunk)
-                chunk = np.pad(chunk, (0, P - n_valid))
-                lg = model.prefill_into_slot(
-                    cfg32, p, caches[dev], s,
-                    torch.from_numpy(chunk)[None].to(dev), start, n_valid)
-            last[(dev, s)] = lg.float().cpu()
     for s in range(N):
-        err = max(err, (last[("cuda", s)] - last[("cpu", s)]).abs().max().item())
-    tokens = np.array([[int(last[("cpu", s)].argmax())] for s in range(N)],
-                      np.int32)
+        for start in range(0, 24, P):
+            chunk = prompts[s, start:start + P]
+            n_valid = len(chunk)
+            chunk = torch.from_numpy(np.pad(chunk, (0, P - n_valid)))[None]
+            last, f = both(lambda dev, p: model.prefill_into_slot(
+                cfg32, p, caches[dev], s, chunk.to(dev), start, n_valid))
+            if f:
+                flipped.add(s)
+                flips += f
+        err[s] = (last["cuda"] - last["cpu"]).abs().max().item()
+        if s == 0:
+            first = np.zeros((N, 1), np.int32)
+        first[s, 0] = int(last["cpu"].argmax())
+    tokens = first
     pos = np.full((N,), 24, np.int32)
     for _ in range(6):
-        out = {}
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
-            out[dev] = model.decode_slots(
-                cfg32, p, caches[dev], torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(pos).to(dev))[:, 0].float().cpu()
+        out, f = both(lambda dev, p: model.decode_slots(
+            cfg32, p, caches[dev], torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(pos).to(dev))[:, 0])
+        for _, t, _ in f:
+            flipped.add(t)
+        flips += f
         if not torch.isfinite(out["cuda"]).all():
             raise AssertionError("non-finite logits on the card")
-        err = max(err, (out["cuda"] - out["cpu"]).abs().max().item())
+        err = np.maximum(err, (out["cuda"] - out["cpu"]).abs().amax(-1)
+                         .numpy())
         tokens = out["cpu"].argmax(-1).numpy().astype(np.int32)[:, None]
         pos = pos + 1
+    wide = [f for f in flips if not f[2] < CACHE_NEAR_TIE[kv_dtype]]
+    kept = [s for s in range(N) if s not in flipped]
+    if wide or not kept:
+        raise AssertionError(f"card vs CPU ({kv_dtype} cache): expert sets "
+                             f"differ beyond near ties: {flips}")
+    if flips:
+        log(f"[models] card vs CPU ({kv_dtype} cache): {len(flips)} "
+            f"token-layers took other experts on the card at near ties "
+            f"(gaps {[round(g, 7) for _, _, g in flips]}, limit "
+            f"{CACHE_NEAR_TIE[kv_dtype]}); slots {sorted(flipped)} left out "
+            f"of the logit check (their err {err.max():.3g})")
     tol = 2e-2 if kv_dtype == "int8" else 1e-3
-    if not err <= tol:
+    worst = float(err[kept].max())
+    if not worst <= tol:
         raise AssertionError(f"card vs CPU logits ({kv_dtype} cache): max "
-                             f"abs err {err} > {tol}")
-    return err
+                             f"abs err {worst} > {tol}")
+    return worst
 
 
 def phase_serve(torch):
@@ -2278,6 +2372,24 @@ def host_memory() -> str:
             f"available, peak resident {peak:.1f} GiB")
 
 
+def expert_set_flips(torch, calls_a, calls_b):
+    """The tokens whose expert set differs between two recordings of the
+    same MoE calls (``models.moe.record_routing``), each with the gap
+    between its k-th and (k+1)-th router probabilities in ``calls_b``:
+    [(call, token, gap)]."""
+    flips = []
+    for i, (a, b) in enumerate(zip(calls_a, calls_b)):
+        ea = a["expert_idx"].cpu().sort(dim=1).values
+        eb = b["expert_idx"].cpu().sort(dim=1).values
+        k = eb.shape[1]
+        top = b["probs"].cpu().sort(dim=-1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k] if k < top.shape[1]
+               else torch.full_like(top[:, 0], float("inf")))
+        for t in torch.nonzero((ea != eb).any(dim=1))[:, 0].tolist():
+            flips.append((i, t, gap[t].item()))
+    return flips
+
+
 def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
                             batch=None):
     """The step-0 loss and gradients at full width and ``layers`` layers,
@@ -2288,12 +2400,15 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
     and every leaf's gradient within 1e-4 of its largest element (fp32
     sums in other orders on each side).  The card's gradients stay on the
     card and cross to the host one leaf at a time, so the host holds one
-    copy of the weights and of the gradients.  Returns (the card params,
-    max relative gradient error)."""
+    copy of the weights and of the gradients.  With MoE layers the expert
+    sets of every token on the two devices are compared and the count of
+    tokens that differ is logged.  Returns (the card params, max relative
+    gradient error)."""
     import numpy as np
 
     from repro_torch.core.types import flat_tensors
     from repro_torch.models import get_model
+    from repro_torch.models.moe import record_routing
 
     cfg2 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
     model = get_model(cfg2)
@@ -2304,13 +2419,18 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
         rng = np.random.default_rng(4)
         batch = {k: rng.integers(0, cfg.vocab_size, (1, CPU_CHECK_S))
                  .astype(np.int32) for k in ("tokens", "labels")}
-    out = {}
+    out, routing = {}, {}
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        loss, _ = model.loss_fn(cfg2, p, b, attn_impl="flash")
+        with record_routing() as routing[dev]:
+            loss, _ = model.loss_fn(cfg2, p, b, attn_impl="flash")
         grads = torch.autograd.grad(loss, flat_tensors(p.param_tree()))
         out[dev] = (loss.item(), grads)
     del cpu_params
+    flips = expert_set_flips(torch, routing["cuda"], routing["cpu"])
+    route_note = (f"; expert sets of {len(flips)} token-layers differ "
+                  f"(gaps {[round(g, 9) for _, _, g in flips]})"
+                  if routing["cpu"] else "")
     (l_card, g_card), (l_cpu, g_cpu) = out.pop("cuda"), out.pop("cpu")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     rel = max((a.cpu() - b).abs().max().item()
@@ -2321,7 +2441,8 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
     if not (np.isfinite(l_card) and loss_rel <= 1e-5 and rel <= 1e-4):
         raise AssertionError(f"{name} step 0 card vs CPU: loss {l_card} vs "
                              f"{l_cpu} ({loss_rel:.3g} relative), gradients "
-                             f"{rel:.3g} of their largest element")
+                             f"{rel:.3g} of their largest element"
+                             f"{route_note}")
     shape = " x ".join(f"{k}={n}" for k, n in zip(
         "BS", batch["tokens"].shape))
     extra = "".join(f", {k} {tuple(batch[k].shape)}" for k in
@@ -2330,7 +2451,7 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
         f"({param_count(cfg2):,} parameters), fp32, {shape}{extra}: "
         f"card loss {l_card:.6f}, CPU {l_cpu:.6f} ({loss_rel:.3g} relative, "
         f"within 1e-5); gradients within {rel:.3g} of each leaf's largest "
-        f"element (limit 1e-4); {mem}")
+        f"element (limit 1e-4){route_note}; {mem}")
     return params, rel
 
 
@@ -2343,12 +2464,14 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     exactly; the loss finite and falling; the parameters and the engine's
     shard the sizes ``param_count`` and ``shard_size`` give (phase 2
     checked the engine kernels at that shard).  Batches from ``source``
-    (numpy, ``batch_at``), by default the synthetic token stream.  Returns
-    the report."""
+    (numpy, ``batch_at``), by default the synthetic token stream.  With MoE
+    layers the share of the loss's token-expert entries dropped at the
+    first and the last step goes in the report.  Returns the report."""
     import numpy as np
 
     from repro_torch.data import DataConfig, make_source
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models.moe import record_routing
     from repro_torch.train import TrainerConfig
     from repro_torch.train.trainer import to_device_batch
 
@@ -2372,11 +2495,20 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    times, losses = [], []
+    times, losses, aux, dropped = [], [], [], []
     for t in range(MODEL_STEPS):
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batches[t], t % MODEL_K == 0)
+        with record_routing() as calls:
+            state, metrics = train_step(state, batches[t], t % MODEL_K == 0)
+        # the loss's forward (B x S rows; not the refresh's sub-batch)
+        keep = [c["keep"] for c in calls
+                if c["expert_idx"].shape[0] == B * S]
+        if keep and t in (0, MODEL_STEPS - 1):
+            dropped.append(sum(int((~k).sum()) for k in keep)
+                           / sum(k.numel() for k in keep))
+        del calls, keep
         losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["aux"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(KERNEL_LAUNCHES)
@@ -2402,7 +2534,9 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     tokens = B * S
     p50 = statistics.median(plain)
     report = dict(layers=cfg.n_layers, params=n_params, B=B, S=S,
-                  launches=launches, losses=losses, plain_p50_ms=p50 * 1e3,
+                  launches=launches, losses=losses, aux=aux,
+                  dropped_share=dropped,
+                  plain_p50_ms=p50 * 1e3,
                   refresh_p50_ms=statistics.median(refresh) * 1e3,
                   step0_ms=times[0] * 1e3,
                   tokens_per_s=tokens * MODEL_STEPS / sum(times),
@@ -2437,8 +2571,8 @@ def serve_model(torch, name, cfg, small, params=None):
     decode step launching the decode kernel once a layer), then the
     params of the step-0 check (``small``, 1-2 layers, held on the CPU
     while the model trains) decoded on the card against the CPU's plain
-    path.
-    Returns the report."""
+    path, and the decode kernel against its plain version on the engine's
+    own cache (``check_engine_cache``).  Returns the report."""
     from repro_torch.models import get_model
 
     owned = params is None
@@ -2452,6 +2586,7 @@ def serve_model(torch, name, cfg, small, params=None):
         eng, secs, launches = serve_once(torch, cfg, params, kv_dtype,
                                          n_requests=MODEL_REQUESTS)
         st = eng.stats()
+        cache_err = check_engine_cache(torch, eng)
         ref_err = check_against_cpu(torch, cfg2, small, kv_dtype)
         key = "decode_attention_q8" if kv_dtype == "int8" else \
             "decode_attention"
@@ -2459,14 +2594,17 @@ def serve_model(torch, name, cfg, small, params=None):
             launches=launches[key],
             tok_per_s=st["tokens_emitted"] / secs,
             token_p50_ms=st["token_lat_p50_s"] * 1e3,
-            tpot_p50_ms=st["tpot_p50_s"] * 1e3, cpu_logit_err=ref_err)
+            ttft_p50_ms=st["ttft_p50_s"] * 1e3,
+            tpot_p50_ms=st["tpot_p50_s"] * 1e3, cpu_logit_err=ref_err,
+            engine_cache_err=cache_err)
         log(f"[models] {name} served: {cfg.n_layers} layers, kv={kv_dtype}: "
             f"{len(eng.results)} requests, {st['tokens_emitted']} tokens in "
             f"{secs:.3f}s = {st['tokens_emitted'] / secs:.1f} tok/s; token "
-            f"p50 {st['token_lat_p50_s'] * 1e3:.3f} ms; tpot p50 "
+            f"p50 {st['token_lat_p50_s'] * 1e3:.3f} ms; ttft p50 "
+            f"{st['ttft_p50_s'] * 1e3:.1f} ms; tpot p50 "
             f"{st['tpot_p50_s'] * 1e3:.3f} ms; launches {launches}; card "
             f"vs CPU logits ({cfg2.n_layers} layers, fp32) err "
-            f"{ref_err:.3g}")
+            f"{ref_err:.3g}; engine-cache kernel err {cache_err:.3g}")
         del eng
     del small
     if owned:
@@ -2710,7 +2848,7 @@ def _shared_prefix_requests(cfg, seed=11):
             np.int32), max_new=8) for i in range(PREFIX_REQUESTS)]
 
 
-def vlm_prefix_cache(torch, cfg, params):
+def vlm_prefix_cache(torch, cfg, params, tag="vlm"):
     """Cold and warm (prefix cache on) engines at full depth, bf16 and
     int8 caches, over the shared-prefix stream on PREFIX_SLOTS slots (the
     second wave of requests finds the first wave's pages): the greedy
@@ -2766,7 +2904,7 @@ def vlm_prefix_cache(torch, cfg, params):
             pages_reused=st["prefix_pages_reused"],
             inserts=st["prefix_inserts"], pool=st["prefix_pool_used"],
             launches=launches["warm"])
-        log(f"[vlm] prefix cache kv={kv_dtype}: {PREFIX_REQUESTS} requests "
+        log(f"[{tag}] prefix cache kv={kv_dtype}: {PREFIX_REQUESTS} requests "
             f"over {PREFIX_SLOTS} slots behind a {4 * PREFIX_PAGE + 3}-token "
             f"prefix, {cfg.n_layers} layers: warm tokens identical to cold; "
             f"hit rate {st['prefix_hit_rate']:.2f}, pages reused "
@@ -2969,6 +3107,292 @@ def phase_vlm(torch):
                       train=trained, serve=served, prefix_cache=prefix,
                       prefill_32k=long, launches=launches,
                       full_layers=cfg.n_layers, cuts=VLM_CUTS)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: deepseek-moe-16b (the MoE family: top 6 of 64 routed experts and
+# 2 shared ones in every layer)
+
+
+MOE = "deepseek-moe-16b"
+MOE_TRAIN_LAYERS = 3
+MOE_B, MOE_SEQ = 2, 2048
+MOE_ROUTE_ROWS = 8192       # two dispatch groups of GROUP_SIZE = 4096
+# a token whose k-th and (k+1)-th router probabilities lie this close may
+# take the other expert on the other device: the fp32 router logits, sums
+# over D = 2048 in other orders, differ by ~1e-6, which moves probabilities
+# of ~1/64 by ~2e-8; 1e-6 is 50x that
+MOE_NEAR_TIE = 1e-6
+# the cuts and their reasons: 16 bytes a parameter of fp32 weight,
+# gradient, m and h, ~36 at a step's peak (NeoX-6.6B's 67.93 GiB for 2.02 B
+# parameters); each MoE layer holds 605 M parameters, 571 M of them experts
+MOE_CUTS = ("trained at 3 of 28 layers (2.18 B parameters, 0.42 B of them "
+            "the untied embeddings; full depth would hold ~270 GB of fp32 "
+            "weight, gradient, m and h) at B=2 x S=2048; step 0 vs the CPU "
+            "at 2 layers (1.60 B, fp32) on one 64-token row; served and the "
+            "prefix cache at full depth (28 layers, 16.88 B parameters, "
+            "67.5 GB fp32)")
+# the ops of a MoE FFN's forward and backward by what they do (the
+# profile of one layer at the training shape, where every op is the FFN's)
+MOE_OP_KINDS = {
+    "expert products": ("aten::bmm",),
+    "router": ("aten::mm", "aten::_softmax", "aten::_softmax_backward_data"),
+    "sort and slots": ("aten::sort", "aten::searchsorted", "aten::bincount",
+                       "aten::scatter_", "aten::scatter", "aten::arange"),
+    "dispatch and combine": ("aten::index_put_", "aten::_index_put_impl_",
+                             "aten::index", "aten::gather",
+                             "aten::scatter_add_", "aten::index_select",
+                             "aten::where"),
+}
+
+
+def _moe_params(torch, p, device):
+    return {k: (_moe_params(torch, v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in p.items()}
+
+
+def moe_routing_against_cpu(torch, cfg):
+    """One MoE FFN at full width (64 experts at 2048 x 1408, top 6, 2
+    shared), fp32, on MOE_ROUTE_ROWS rows (two dispatch groups, the card's
+    only G > 1 case): the card against the port's same function on the
+    CPU, same weights and inputs (N(0, 1) rows plus half of one shared
+    N(0, 1) vector, which skews the load so that capacity binds).  The
+    expert choices equal but for near ties (their gap below MOE_NEAR_TIE
+    on the CPU, counted), the dropped entries as many, the output within
+    1e-5 of its largest element on the tokens routed alike, aux within
+    1e-6.  Returns the report."""
+    import numpy as np
+
+    from repro_torch.models import moe as tmoe
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = tmoe.init_moe(torch.Generator().manual_seed(5), cfg32)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, MOE_ROUTE_ROWS // 2, cfg.d_model)).astype(
+        np.float32)
+    x += 0.5 * rng.standard_normal(cfg.d_model).astype(np.float32)
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        pd = _moe_params(torch, p, dev)
+        xd = torch.from_numpy(x).to(dev)
+        if dev == "cuda":           # first calls off the clock
+            tmoe.moe_ffn(pd, xd, cfg32)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), tmoe.record_routing() as calls:
+            o, aux = tmoe.moe_ffn(pd, xd, cfg32)
+            o, aux = o.cpu(), aux.item()
+        secs[dev] = time.perf_counter() - t0
+        out[dev] = (o, aux, calls)
+        del pd, xd
+    (o_card, aux_card, r_card), (o_cpu, aux_cpu, r_cpu) = \
+        out["cuda"], out["cpu"]
+    flips = expert_set_flips(torch, r_card, r_cpu)
+    wide = [f for f in flips if not f[2] < MOE_NEAR_TIE]
+    if wide:
+        raise AssertionError(f"MoE routing: {len(wide)} tokens choose other "
+                             f"experts on the card, gaps {wide[:8]} >= "
+                             f"{MOE_NEAR_TIE}")
+    drops = {d: int((~r[0]["keep"]).sum()) for d, r in (("cuda", r_card),
+                                                       ("cpu", r_cpu))}
+    if not flips and drops["cuda"] != drops["cpu"]:
+        raise AssertionError(f"MoE routing: dropped entries {drops}")
+    alike = torch.ones(o_cpu.shape[0] * o_cpu.shape[1], dtype=torch.bool)
+    alike[[t for _, t, _ in flips]] = False
+    a = o_card.reshape(-1, cfg.d_model)[alike]
+    b = o_cpu.reshape(-1, cfg.d_model)[alike]
+    scale = b.abs().max().item()
+    err = (a - b).abs().max().item()
+    aux_err = abs(aux_card - aux_cpu)
+    if not (torch.isfinite(o_card).all() and err <= 1e-5 * scale
+            and aux_err <= 1e-6):
+        raise AssertionError(f"MoE FFN card vs CPU: output err {err} "
+                             f"(largest {scale}), aux {aux_card} vs "
+                             f"{aux_cpu}")
+    n = MOE_ROUTE_ROWS * cfg.moe_top_k
+    report = dict(rows=MOE_ROUTE_ROWS, groups=MOE_ROUTE_ROWS // 4096,
+                  dropped=drops, dropped_share=drops["cpu"] / n,
+                  flips=len(flips), out_err_rel=err / scale,
+                  aux=aux_cpu, aux_err=aux_err,
+                  card_ms=secs["cuda"] * 1e3, cpu_ms=secs["cpu"] * 1e3)
+    log(f"[moe] routing at full width ({cfg.n_experts} experts of "
+        f"{cfg.d_model} x {cfg.d_ff}, top {cfg.moe_top_k}, "
+        f"{cfg.n_shared_experts} shared), fp32, {MOE_ROUTE_ROWS} rows in "
+        f"{report['groups']} groups: expert sets of {len(flips)} tokens "
+        f"differ from the CPU's (near ties, gaps "
+        f"{[round(g, 10) for _, _, g in flips]}); dropped entries card "
+        f"{drops['cuda']}, CPU {drops['cpu']} of {n} "
+        f"({report['dropped_share']:.4f}); output within "
+        f"{report['out_err_rel']:.3g} of its largest element (limit 1e-5); "
+        f"aux {aux_card:.8f} vs {aux_cpu:.8f} (err {aux_err:.3g}, limit "
+        f"1e-6); one call {secs['cuda'] * 1e3:.1f} ms on the card, "
+        f"{secs['cpu'] * 1e3:.0f} ms on the CPU")
+    return report
+
+
+def moe_ffn_profile(torch, cfg, T=MOE_B * MOE_SEQ):
+    """torch.profiler over one MoE FFN's forward and backward at the
+    training shape (T rows, bf16, full width, gradients of x and of every
+    weight): its device time by op, summed into MOE_OP_KINDS (the rest:
+    casts and elementwise ops).  Returns {kind: device us}, the total and
+    the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe as tmoe
+
+    p = tmoe.init_moe(torch.Generator(device="cuda").manual_seed(7), cfg)
+    for t in (p["router"], p["w_gate"], p["w_up"], p["w_down"],
+              *p["shared"].values()):
+        t.requires_grad_(True)
+    x = torch.randn((1, T, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8)
+                    ).to(torch.bfloat16).requires_grad_(True)
+
+    leaves = [p["router"], p["w_gate"], p["w_up"], p["w_down"],
+              *p["shared"].values(), x]
+
+    def fwd_bwd():          # torch.autograd.grad, as the trainer takes them
+        out, aux = tmoe.moe_ffn(p, x, cfg)
+        torch.autograd.grad(out.float().square().mean() + aux, leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if getattr(e, attr, None):
+                return getattr(e, attr)
+        return 0.0
+
+    # the ops' own device time (the kernels they launched); the kernels'
+    # entries of key_averages() carry the same time again, so leave them out
+    by_op = {e.key: dev_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU}
+    total = sum(by_op.values())
+    kinds = {k: sum(by_op.get(op, 0.0) for op in ops)
+             for k, ops in MOE_OP_KINDS.items()}
+    kinds["casts and elementwise"] = total - sum(kinds.values())
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+    del p, x
+    torch.cuda.empty_cache()
+    return dict(T=T, total_us=total, wall_us=wall * 1e6, kinds_us=kinds,
+                top_ops_us=[[k, v] for k, v in top])
+
+
+def moe_train(torch, cfg):
+    """Sophia-G at MOE_TRAIN_LAYERS layers through ``train_model`` (its
+    exact launch counts, the loss finite and falling), the routing of the
+    loss's forward recorded at the first and the last step (the share of
+    token-expert entries dropped), and the MoE FFN's share of a plain step
+    (``moe_ffn_profile`` x the layers against the plain step's p50).
+    Returns the report."""
+    tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    trained = train_model(torch, MOE, tcfg, MOE_B, S=MOE_SEQ)
+    prof = moe_ffn_profile(torch, cfg)
+    step_us = trained["plain_p50_ms"] * 1e3
+    moe_us = prof["total_us"] * MOE_TRAIN_LAYERS
+    trained.update(moe_ffn_profile=prof,
+                   moe_share_of_plain_step=moe_us / step_us)
+    first, last = trained["dropped_share"]
+    log(f"[moe] {MOE} trained: aux {trained['aux'][0]:.6f} -> "
+        f"{trained['aux'][-1]:.6f}; dropped token-expert entries "
+        f"{first:.4f} at step 0, {last:.4f} at step {MODEL_STEPS - 1}")
+    log(f"[moe] MoE FFN forward + backward at T={prof['T']} bf16 (one "
+        f"layer, torch.profiler): device {prof['total_us']:.0f} us, wall "
+        f"{prof['wall_us']:.0f} us; by kind "
+        + ", ".join(f"{k} {v:.0f} us ({v / prof['total_us']:.1%})"
+                    for k, v in prof["kinds_us"].items())
+        + f"; x {MOE_TRAIN_LAYERS} layers = {moe_us / 1e3:.1f} ms, "
+        f"{trained['moe_share_of_plain_step']:.1%} of the plain step's p50 "
+        f"{trained['plain_p50_ms']:.1f} ms; top ops {prof['top_ops_us']}")
+    return trained
+
+
+def moe_decode_profile(torch, cfg, params, n_slots=8, prompt=64):
+    """torch.profiler over one decode burst (``steps_per_tick`` 8 steps of
+    ``n_slots`` slots, bf16 cache) of the served model at its depth, every
+    slot decoding (``launch/profile_serve.py``'s window): wall, device busy
+    and idle share, the decode kernel's and the expert products' device
+    time, the top kernels.  Returns the window."""
+    import numpy as np
+
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(9)
+    eng = ServeEngine(cfg, params, n_slots=n_slots, cache_len=512,
+                      page_len=16, steps_per_tick=8, seed=0, device="cuda")
+    for i in range(n_slots):
+        eng.submit(Request(uid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                                      prompt), max_new=64))
+    while eng.tokens_emitted < n_slots:
+        eng.tick()
+    eng.tick()
+    win = profile_window(f"decode burst ({MOE}, {cfg.n_layers} layers, 8 "
+                         f"steps x {n_slots} slots, kv=bf16)", eng.tick,
+                         match="decode_attention", also=("gemm", "elementwise",
+                                                         "copy"))
+    del eng
+    torch.cuda.empty_cache()
+    log("[profile] " + json.dumps(win))
+    return win
+
+
+def phase_moe(torch):
+    """deepseek-moe-16b (``get_config``: 64 routed experts top 6 and 2
+    shared in all 28 layers, MHA 16 heads of hd 128, untied vocab 102,400),
+    random weights from a seed: the MoE FFN's routing against the CPU at
+    full width over two dispatch groups, the step-0 check against the CPU
+    at 2 layers (the expert sets of every token compared), Sophia-G
+    training at MOE_TRAIN_LAYERS layers (``moe_train``), serving at full
+    depth (bf16 and int8 caches, the decode kernel on the engine's own
+    cache) and the prefix cache cold against warm at full depth, with the
+    cuts of ``MOE_CUTS``.  Counts are zeroed before each run and read
+    after.  Returns {model: report}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+
+    cfg = get_config(MOE)
+    log(f"[moe] {MOE}: {MOE_CUTS}")
+    routing = moe_routing_against_cpu(torch, cfg)
+    reset_launch_counts()
+    small, rel = model_step0_against_cpu(torch, MOE, cfg,
+                                         layers=CPU_CHECK_LAYERS)
+    missing = [k for k in STEP0_KERNELS if not KERNEL_LAUNCHES.get(k)]
+    if missing:
+        raise AssertionError(f"{MOE} step 0: kernels not launched: "
+                             f"{missing}")
+    small.cpu()
+    torch.cuda.empty_cache()
+    trained = moe_train(torch, cfg)
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    served = serve_model(torch, MOE, cfg, small, params=params)
+    del small
+    decode_profile = moe_decode_profile(torch, cfg, params)
+    prefix = vlm_prefix_cache(torch, cfg, params, tag="moe")
+    del params
+    torch.cuda.empty_cache()
+    launches = dict(trained["launches"])
+    launches["decode_attention"] = served["bf16"]["launches"]
+    launches["decode_attention_q8"] = served["int8"]["launches"]
+    missing = [k for k in PATH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{MOE}: kernels of the path not launched: "
+                             f"{missing}")
+    log(f"[moe] {MOE}: launches on its path {launches}; {host_memory()}")
+    return {MOE: dict(step0_grad_rel=rel, step0_layers=CPU_CHECK_LAYERS,
+                      routing=routing, train=trained, serve=served,
+                      decode_profile=decode_profile,
+                      prefix_cache=prefix, launches=launches,
+                      full_layers=cfg.n_layers, cuts=MOE_CUTS)}
 
 
 # ---------------------------------------------------------------------------
@@ -3260,11 +3684,11 @@ def phase_ce_timings(torch, ce_err, trained):
     for (name, spec, _), entry in zip(models, row["shapes"]):
         entry["ms_refresh"], entry["bound_ms_refresh"] = _ce_sampled_timed(
             torch, dict(spec, N=spec["N"] // 2), name)
-    # yi's and qwen2-vl's refreshes draw on one of their two rows;
-    # gemma2's batch is its one row (the entry above); qwen1.5 is not
+    # yi's, qwen2-vl's and deepseek's refreshes draw on one of their two
+    # rows; gemma2's batch is its one row (the entry above); qwen1.5 is not
     # trained on the card
     for (name, spec, _), entry in zip(dense, row["shapes"][len(models):]):
-        if name in ("yi-6b", VLM):
+        if name in ("yi-6b", VLM, MOE):
             entry["ms_refresh"], entry["bound_ms_refresh"] = \
                 _ce_sampled_timed(torch, dict(spec, N=spec["N"] // 2), name)
     return rows
@@ -3433,7 +3857,8 @@ def phase_flash_timings(torch, attn_err, trained):
     models = [_flash_timed(torch, dict(ATTN_MAIN, **sp), name)
               for name, sp in ATTN_MODEL_SHAPES]
     models += [_flash_timed(torch, dict(ATTN_MAIN, **sp), name, reps=10)
-               for name, sp in ATTN_DENSE_SHAPES + ATTN_VLM_SHAPES]
+               for name, sp in ATTN_DENSE_SHAPES + ATTN_VLM_SHAPES
+               + ATTN_MOE_SHAPES]
     rows = [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
              "replaces": replaces,
              "launches": trained["launches"].get(name, 0),
@@ -3623,6 +4048,7 @@ def main() -> int:
     models = timed("4c rope models", phase_models, torch)
     models.update(timed("4d dense models", phase_dense_models, torch))
     models.update(timed("4e qwen2-vl", phase_vlm, torch))
+    models.update(timed("4f moe", phase_moe, torch))
     rows = (timed("5 decode", phase_timings, torch, main_err, served)
             + timed("5 engine", phase_engine_timings, torch, engine_err,
                     trained)
@@ -3648,7 +4074,16 @@ def main() -> int:
             step0_grad_rel=r["step0_grad_rel"], cuts=r.get("cuts"))
         if "prefix_cache" in r:
             summary[m].update(prefix_cache=r["prefix_cache"],
-                              prefill_32k=r["prefill_32k"])
+                              prefill_32k=r.get("prefill_32k"))
+        if "routing" in r:
+            summary[m].update(
+                routing=r["routing"], aux=t.get("aux"),
+                dropped_share=t.get("dropped_share"),
+                moe_share_of_plain_step=t.get("moe_share_of_plain_step"),
+                moe_ffn_profile=t.get("moe_ffn_profile"),
+                serve={kv: {k: x[k] for k in ("tok_per_s", "ttft_p50_ms",
+                                              "tpot_p50_ms")}
+                       for kv, x in r["serve"].items()})
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)

@@ -6,7 +6,8 @@ hold the port against the reference build the weights once with the
 reference's ``init_params`` and hand them over as numpy arrays, whatever
 leaves the config gives the tree (``embed/pos`` with learned positions,
 ``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU, the top-level
-``patch_proj`` with patch-embedding inputs).  The engine's
+``patch_proj`` with patch-embedding inputs, the nested ``moe`` group of a
+MoE layer).  The engine's
 flat shards share the reference's layout (``core/engine.py:build_layout``
 over the same sorted leaves), so its state carries over as a plain copy.
 """
@@ -17,9 +18,9 @@ import torch
 
 from .core.engine import EngineState, ShardLayout, dtype_name
 from .models.common import ModelConfig
-from .models.transformer import Transformer
+from .models.transformer import Transformer, unstack_layers
 
-# the dense family's top-level parameter groups, in the reference's order
+# the transformer's top-level parameter groups, in the reference's order
 TOP_LEVEL_KEYS = ("embed", "final_norm", "layers", "patch_proj")
 
 
@@ -43,19 +44,15 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cpu") -> Transformer:
     """The reference's ``init_params`` tree as numpy arrays (for example
     ``jax.tree.map(np.asarray, params)``) -> the port's module.  The stacked
     leaves under ``"layers"`` carry a leading ``n_layers`` axis; they are
-    split into one parameter set per layer.  A top-level key the port does
-    not know raises, rather than being dropped."""
+    split into one parameter set per layer (``transformer.unstack_layers``:
+    with ``moe_every == 2`` they are stacked over the (dense, MoE) groups).
+    A top-level key the port does not know raises, rather than being
+    dropped."""
     unknown = sorted(set(np_params) - set(TOP_LEVEL_KEYS))
     if unknown:
         raise ValueError(f"reference params have top-level keys the port "
                          f"does not carry: {unknown}")
-    stacked = np_params["layers"]
-
-    def layer(i):
-        return {group: {name: leaf[i] for name, leaf in leaves.items()}
-                for group, leaves in stacked.items()}
-
-    tree = dict(np_params, layers=[layer(i) for i in range(cfg.n_layers)])
+    tree = dict(np_params, layers=unstack_layers(cfg, np_params["layers"]))
     return Transformer(cfg, _to_torch(tree, device))
 
 

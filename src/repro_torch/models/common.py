@@ -13,7 +13,7 @@ import torch
 class ModelConfig:
     """The reference's config type, field for field, so a config converts
     between the two packages by ``dataclasses.asdict``.  The port implements
-    the dense family; :func:`check_supported` names the fields it
+    the dense and MoE families; :func:`check_supported` names the fields it
     refuses."""
     name: str
     family: str                       # dense | moe | rwkv | griffin | encdec
@@ -82,6 +82,50 @@ class ModelConfig:
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's ``param_count`` (every
+        family's, so that a config of either package counts the same)."""
+        D, H, Hkv, hd, F, V, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                                  self.hd, self.d_ff, self.vocab_size,
+                                  self.n_layers)
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "rwkv":
+            per = 5 * D * D + 2 * (D * 64 + 64 * D) + 2 * D * F + 4 * D
+            return emb + L * per
+        if self.family == "griffin":
+            W = self.rnn_width or D
+            rec = 2 * D * W + W * D + 2 * W * self.conv_width + 4 * W
+            att = D * (H * hd) + 2 * D * (Hkv * hd) + (H * hd) * D
+            n_attn = L // 3
+            return emb + (L - n_attn) * (rec + 3 * D * F) \
+                + n_attn * (att + 3 * D * F)
+        att = D * (H * hd) + 2 * D * (Hkv * hd) + (H * hd) * D
+        mlp = (3 if self.activation in ("swiglu", "geglu") else 2) * D * F
+        if self.family == "moe":
+            n_moe = L // self.moe_every
+            experts = (self.n_experts + self.n_shared_experts) * 3 * D * F
+            dense = 3 * D * (self.dense_d_ff or F)
+            return (emb + L * att + (L - n_moe) * dense
+                    + n_moe * (experts + D * self.n_experts))
+        if self.family == "encdec":
+            return emb + self.n_encoder_layers * (att + mlp) \
+                + L * (2 * att + mlp)
+        return emb + L * (att + mlp)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (the routed experts' top-k
+        only), the reference's ``active_param_count``."""
+        if self.family != "moe":
+            return self.param_count()
+        D, F, L, hd = self.d_model, self.d_ff, self.n_layers, self.hd
+        att = (D * (self.n_heads * hd) + 2 * D * (self.n_kv_heads * hd)
+               + (self.n_heads * hd) * D)
+        emb = self.vocab_size * D * (1 if self.tie_embeddings else 2)
+        n_moe = L // self.moe_every
+        active_mlp = (self.moe_top_k + self.n_shared_experts) * 3 * D * F
+        return (emb + L * att + (L - n_moe) * 3 * D * (self.dense_d_ff or F)
+                + n_moe * (active_mlp + D * self.n_experts))
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port does not
@@ -89,12 +133,28 @@ def check_supported(cfg: ModelConfig) -> None:
     port implements the whole dense family: LayerNorm or RMSNorm (sandwich
     norms included), learned positions, rope or M-RoPE, QKV bias, GELU,
     SwiGLU or GeGLU, tied or untied embeddings, the embedding scale, and
-    token or patch-embedding inputs.  The other families (moe, rwkv,
-    griffin, encdec) are refused."""
-    if cfg.family != "dense":
+    token or patch-embedding inputs; and the MoE family on that trunk
+    (``models/moe.py``: top-k routing, shared experts, a MoE layer in every
+    layer or, with ``moe_every == 2``, every other one).  The other
+    families (rwkv, griffin, encdec) are refused.  A ``ValueError`` names
+    a field the reference would fail on later."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port implements the dense family; "
-            f"unsupported field: family ({cfg.family!r})")
+            f"config {cfg.name!r}: the port implements the dense and moe "
+            f"families; unsupported field: family ({cfg.family!r})")
+    if cfg.family == "moe":
+        if cfg.n_experts < 1:
+            raise ValueError(f"n_experts {cfg.n_experts} is below 1")
+        if not 1 <= cfg.moe_top_k <= cfg.n_experts:
+            raise ValueError(f"moe_top_k {cfg.moe_top_k} is outside "
+                             f"1..{cfg.n_experts}")
+        # the reference's grouped layers are one dense and one MoE layer
+        # (transformer.py: one_group), so only 1 and 2 give n_layers layers
+        if cfg.moe_every not in (1, 2):
+            raise ValueError(f"moe_every {cfg.moe_every} is not 1 or 2")
+        if cfg.n_layers % cfg.moe_every:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                             f"moe_every {cfg.moe_every}")
     if cfg.norm_type not in ("ln", "rms"):
         raise ValueError(f"norm_type {cfg.norm_type!r} is not ln or rms")
     if cfg.activation not in ("gelu", "swiglu", "geglu"):

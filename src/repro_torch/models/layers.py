@@ -439,11 +439,11 @@ def prefill_chunk_attention(p, h, cfg: ModelConfig, kv, slot: int,
 # MLP
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig):
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff=None):
     """GELU: ``w_up``, ``b_up``, ``w_down``, ``b_down``; SwiGLU and GeGLU:
     ``w_gate``, ``w_up``, ``w_down`` without biases (the reference's
-    leaves)."""
-    D, F_ = cfg.d_model, cfg.d_ff
+    leaves); ``d_ff`` wide, by default ``cfg.d_ff``."""
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
     if cfg.activation in ("swiglu", "geglu"):
         return {"w_gate": dense_init(gen, (D, F_)),
                 "w_up": dense_init(gen, (D, F_)),

@@ -28,9 +28,10 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
         reset_slot(cfg, cache, slot)                    -> cache
 
     ``prefill`` returns a new cache; the other prefill and decode
-    functions update theirs in place.  Only the dense family
-    is ported; the others raise ``NotImplementedError``."""
-    if cfg.family == "dense":
+    functions update theirs in place.  The dense and MoE families share
+    the transformer's functions, as in the reference; the others are not
+    ported and raise ``NotImplementedError``."""
+    if cfg.family in ("dense", "moe"):
         return SimpleNamespace(
             init_params=transformer.init_params,
             forward_hidden=transformer.forward_hidden,

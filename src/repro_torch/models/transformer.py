@@ -1,7 +1,7 @@
 """Decoder-only transformer LM, dense family (GPT-2, GPT-NeoX, stablelm,
-yi, qwen1.5, gemma2, qwen2-vl's backbone): parameters, the training
-forward and losses, the whole-prompt serving path and the serve engine's
-slot protocol.
+yi, qwen1.5, gemma2, qwen2-vl's backbone) and MoE family (deepseek-moe,
+llama4-maverick): parameters, the training forward and losses, the
+whole-prompt serving path and the serve engine's slot protocol.
 
 The counterpart of ``repro/models/transformer.py``.  The parameters are an
 ``nn.Module`` whose names follow the reference's params dict
@@ -14,11 +14,23 @@ bias), ``ln2``, ``ln1_post`` and ``ln2_post`` with sandwich norms,
 the reference's scan over stacked layers is a Python loop over
 ``layers``.  A layer is the reference's ``_dense_block``: with
 sandwich norms the attention and MLP outputs are normed before each
-residual add.  The parameters take gradients; the
-serving entry points run under ``torch.inference_mode()``, which records
-no autograd graph and skips autograd's per-op bookkeeping.  :meth:`Transformer.param_tree` is the reference's params dict
-with each stacked leaf as a list of per-layer tensors (``core/types.py``),
-the view the optimizer engine ravels.
+residual add.
+
+A MoE layer holds a ``moe`` group (``router``, ``w_gate``/``w_up``/
+``w_down`` with a leading expert axis, and a nested ``shared`` group with
+shared experts; ``models/moe.py``) in place of ``mlp``.  With
+``moe_every == 2`` (llama4) layer 2g is group g's dense layer, its MLP
+``dense_d_ff`` wide, and layer 2g + 1 its MoE layer; both share the
+group's window and attention temperature, as the reference's scan over
+groups gives them.  ``layers`` stays one entry per attention layer, so
+the caches and the layer loops are the dense family's.  The training
+forward sums the MoE layers' load-balance losses in fp32 (``aux``).
+
+The parameters take gradients; the serving entry points run under
+``torch.inference_mode()``, which records no autograd graph and skips
+autograd's per-op bookkeeping. :meth:`Transformer.param_tree` is the
+reference's params dict with each stacked leaf as a list of per-layer
+tensors (``core/types.py``), the view the optimizer engine ravels.
 
 Training (``forward_hidden``, ``forward``, ``loss_fn``,
 ``sampled_loss_fn``, ``logits_fn``): the reference's trunk on every
@@ -60,6 +72,7 @@ from .layers import (_flash_attention_proj, _qkv, decode_attention_slots,
                      dense_init, embed, init_attention, init_embedding,
                      init_mlp, layer_norm, mlp, prefill_chunk_attention,
                      rms_norm, rope_positions, train_attention, unembed)
+from .moe import init_moe, moe_ffn
 
 # ---------------------------------------------------------------------------
 # params
@@ -70,18 +83,82 @@ def _params(tree) -> nn.ParameterDict:
                              for name, t in tree.items()})
 
 
-_LAYER_GROUPS = ("ln1", "attn", "ln2", "mlp", "ln1_post", "ln2_post")
+class _Tree(nn.Module):
+    """A group of parameters with nested groups (the MoE group and its
+    ``shared`` experts), read like a dict: ``p["router"]``,
+    ``p["shared"]["w_up"]``."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._names = tuple(tree)
+        for name, value in tree.items():
+            setattr(self, name, _Tree(value) if isinstance(value, dict)
+                    else nn.Parameter(value))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name):
+        return name in self._names
+
+    def keys(self):
+        return self._names
+
+
+_LAYER_GROUPS = ("ln1", "attn", "ln2", "mlp", "moe", "ln1_post", "ln2_post")
 
 
 class _Layer(nn.Module):
-    """One layer's groups; ``ln1_post`` and ``ln2_post`` only with sandwich
-    norms (``groups`` lists the ones present)."""
+    """One layer's groups: ``mlp`` or, in a MoE layer, ``moe``;
+    ``ln1_post`` and ``ln2_post`` only with sandwich norms (``groups``
+    lists the ones present)."""
 
     def __init__(self, tree):
         super().__init__()
         self.groups = tuple(g for g in _LAYER_GROUPS if g in tree)
         for g in self.groups:
-            setattr(self, g, _params(tree[g]))
+            setattr(self, g, _Tree(tree[g]) if g == "moe"
+                    else _params(tree[g]))
+
+
+def _is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """Whether attention layer ``i`` has the MoE FFN: every layer of a MoE
+    config, or with ``moe_every == 2`` the second of each group."""
+    return cfg.family == "moe" and (cfg.moe_every == 1 or i % 2 == 1)
+
+
+def _grouped(cfg: ModelConfig) -> bool:
+    """The reference's (dense, MoE) scan groups (llama4)."""
+    return cfg.family == "moe" and cfg.moe_every > 1
+
+
+def _stack(groups) -> dict:
+    """The per-layer groups (of one kind) as one tree of stacked leaves."""
+    first = groups[0]
+    return {name: (_stack([g[name] for g in groups])
+                   if isinstance(first[name], _Tree)
+                   else [g[name] for g in groups])
+            for name in first.keys()}
+
+
+def _stacked_layers(layers) -> dict:
+    return {g: _stack([getattr(layer, g) for layer in layers])
+            for g in layers[0].groups}
+
+
+def unstack_layers(cfg: ModelConfig, stacked) -> list:
+    """The inverse of ``param_tree()["layers"]`` over arrays with a leading
+    stacked axis: one tree per attention layer.  With ``moe_every == 2``
+    group g's ``dense`` and ``moe`` trees give layers 2g and 2g + 1."""
+    def take(tree, i):
+        return {name: take(leaf, i) if isinstance(leaf, dict) else leaf[i]
+                for name, leaf in tree.items()}
+
+    if _grouped(cfg):
+        return [take(stacked[kind], g)
+                for g in range(cfg.n_layers // cfg.moe_every)
+                for kind in ("dense", "moe")]
+    return [take(stacked, i) for i in range(cfg.n_layers)]
 
 
 class Transformer(nn.Module):
@@ -94,6 +171,11 @@ class Transformer(nn.Module):
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(tree['layers'])} layers for a config "
                              f"of {cfg.n_layers}")
+        for i, layer in enumerate(tree["layers"]):
+            if ("moe" in layer) != _is_moe_layer(cfg, i):
+                raise ValueError(f"layer {i} of config {cfg.name!r} "
+                                 f"{'has' if 'moe' in layer else 'lacks'} "
+                                 f"a moe group")
         has = "patch_proj" in tree
         if has != cfg.patch_embed_input:
             raise ValueError(f"a tree {'with' if has else 'without'} "
@@ -108,15 +190,16 @@ class Transformer(nn.Module):
 
     def param_tree(self) -> dict:
         """The reference's params dict over this module's parameters; each
-        leaf under ``"layers"`` is a list of the per-layer tensors."""
-        groups = self.layers[0].groups
+        leaf under ``"layers"`` is a list of the per-layer tensors, or with
+        ``moe_every == 2`` of the per-group ones, under ``"dense"`` and
+        ``"moe"``."""
+        layers = list(self.layers)
         tree = {
             "embed": dict(self.embed.items()),
             "final_norm": dict(self.final_norm.items()),
-            "layers": {g: {name: [getattr(layer, g)[name]
-                                  for layer in self.layers]
-                           for name in getattr(self.layers[0], g).keys()}
-                       for g in groups},
+            "layers": ({"dense": _stacked_layers(layers[0::2]),
+                        "moe": _stacked_layers(layers[1::2])}
+                       if _grouped(self.cfg) else _stacked_layers(layers)),
         }
         if self.patch_proj is not None:
             tree["patch_proj"] = self.patch_proj
@@ -138,10 +221,15 @@ def _norm(p, x, cfg: ModelConfig):
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, i: int) -> dict:
     dev = gen.device
     p = {"ln1": _init_norm(cfg, dev), "attn": init_attention(gen, cfg),
-         "ln2": _init_norm(cfg, dev), "mlp": init_mlp(gen, cfg)}
+         "ln2": _init_norm(cfg, dev)}
+    if _is_moe_layer(cfg, i):
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, d_ff=cfg.dense_d_ff
+                            if _grouped(cfg) else None)
     if cfg.post_norms:
         p["ln1_post"] = _init_norm(cfg, dev)
         p["ln2_post"] = _init_norm(cfg, dev)
@@ -155,12 +243,19 @@ def _attn_residual(layer, x, a, cfg: ModelConfig):
     return x + a
 
 
-def _mlp_residual(layer, x, cfg: ModelConfig):
-    """x + mlp(ln2(x)), the MLP output normed first with sandwich norms."""
-    f = mlp(layer.mlp, _norm(layer.ln2, x, cfg), cfg)
+def _ffn_residual(layer, x, cfg: ModelConfig, aux=None):
+    """(x + ffn(ln2(x)), aux): the MLP, or in a MoE layer the MoE FFN with
+    its load-balance loss added to ``aux`` (fp32); the FFN output normed
+    first with sandwich norms."""
+    h = _norm(layer.ln2, x, cfg)
+    if "moe" in layer.groups:
+        f, a = moe_ffn(layer.moe, h, cfg)
+        aux = a if aux is None else aux + a
+    else:
+        f = mlp(layer.mlp, h, cfg)
     if cfg.post_norms:
         f = _norm(layer.ln2_post, f, cfg)
-    return x + f
+    return x + f, aux
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
@@ -169,7 +264,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     dev = gen.device
     # the layers draw first, then the embedding and patch_proj: a seed
     # gives the weights it gave before patch_proj existed
-    layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
+    layers = [_init_layer(cfg, gen, i) for i in range(cfg.n_layers)]
     tree = {"embed": init_embedding(gen, cfg),
             "final_norm": _init_norm(cfg, dev), "layers": layers}
     if cfg.patch_embed_input:
@@ -181,23 +276,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
 # per-layer flags (sliding-window pattern, attention temperature)
 
 
+def _per_layer(cfg: ModelConfig, value) -> list:
+    """``value(g)`` of each attention layer's scan group g, as the
+    reference's per-group flags: both layers of a (dense, MoE) group take
+    the group's."""
+    per = cfg.moe_every if _grouped(cfg) else 1
+    return [value(i // per) for i in range(cfg.n_layers)]
+
+
 def layer_windows(cfg: ModelConfig) -> List[int]:
     """Per-layer effective window (``GLOBAL_WINDOW`` = global)."""
-    n = cfg.n_layers
     if cfg.local_global_pattern == "alternating" and cfg.local_window:
-        return [cfg.local_window if i % 2 == 0 else GLOBAL_WINDOW
-                for i in range(n)]
-    if cfg.local_window:
-        return [cfg.local_window] * n
-    return [GLOBAL_WINDOW] * n
+        return _per_layer(cfg, lambda g: cfg.local_window if g % 2 == 0
+                          else GLOBAL_WINDOW)
+    return [cfg.local_window or GLOBAL_WINDOW] * cfg.n_layers
 
 
 def layer_scales(cfg: ModelConfig) -> List[float]:
-    """Per-layer attention temperature, fp32 values as the reference's."""
-    n = cfg.n_layers
+    """Per-layer attention temperature, fp32 values as the reference's:
+    1 / (1 + g) for scan group g with ``attn_temperature_by_layer``."""
     if cfg.attn_temperature_by_layer:
-        return [float(np.float32(1.0) / np.float32(1.0 + i)) for i in range(n)]
-    return [1.0] * n
+        return _per_layer(cfg, lambda g: float(np.float32(1.0)
+                                               / np.float32(1.0 + g)))
+    return [1.0] * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +329,7 @@ def _checkpointed(fn, remat: str):
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_weight_products)
-    return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _scan_groups(n: int) -> int:
@@ -265,8 +366,8 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
     rope in every layer; ``patch_embeds`` (B, P, D) replace the first P
     embedded rows with patch-embedding inputs (:func:`_embed_inputs`).
     ``final_norm=False`` returns the PRE-norm hidden, which the fused loss
-    normalizes inside its sweep.  ``aux`` is the MoE load-balance term, 0
-    for the dense family.
+    normalizes inside its sweep.  ``aux`` is the sum of the MoE layers'
+    load-balance losses in layer order (fp32), 0 for the dense family.
 
     ``remat`` trades the backward's memory for a second forward, the
     reference's policies: "full" recomputes every layer
@@ -275,23 +376,26 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
     of g layers (g the first of 8, 5, 4, 2 that divides the layer count)
     and every layer inside a group again, so that the backward holds g
     layer inputs at a time; with fewer than 4 layers "scan2" is the plain
-    loop, as in the reference.  Values do not change, and recomputed flash
-    layers launch the forward kernel again."""
+    loop, as in the reference.  A checkpointed function takes and returns
+    (x, aux), so the losses add in the same order.  Values do not change,
+    and recomputed flash layers launch the forward kernel again."""
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r} (one of {REMATS})")
     x, positions = _embed_inputs(cfg, params, tokens, positions, patch_embeds)
     windows = layer_windows(cfg)
     scales = layer_scales(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer_fn(i):
         layer = params.layers[i]
 
-        def run(x):
+        def run(x, aux):
             h = _norm(layer.ln1, x, cfg)
             a = train_attention(layer.attn, h, cfg, positions=positions,
                                 window=windows[i], layer_scale=scales[i],
                                 impl=attn_impl)
-            return _mlp_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
+            return _ffn_residual(layer, _attn_residual(layer, x, a, cfg),
+                                 cfg, aux)
         return run
 
     n = len(params.layers)
@@ -302,23 +406,23 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
             inner = [_checkpointed(layer_fn(i), "full")
                      for i in range(start, start + g)]
 
-            def run(x):
+            def run(x, aux):
                 for f in inner:
-                    x = f(x)
-                return x
+                    x, aux = f(x, aux)
+                return x, aux
             return run
 
         for start in range(0, n, g):
-            x = _checkpointed(group_fn(start), "full")(x)
+            x, aux = _checkpointed(group_fn(start), "full")(x, aux)
     else:
         for i in range(n):
             run = layer_fn(i)
             if remat in ("full", "dots"):
                 run = _checkpointed(run, remat)
-            x = run(x)
+            x, aux = run(x, aux)
     if final_norm:
         x = _norm(params.final_norm, x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens, *, positions=None,
@@ -334,7 +438,7 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch, *,
             attn_impl="auto", remat="none", loss_impl=None):
     """batch {tokens, labels, [mask], [positions], [patch_embeds]} ->
     (loss, metrics), the CE through the logits-free fused loss with the
-    final norm fused."""
+    final norm fused; the loss is the CE plus the MoE load-balance term."""
     from .loss import lm_loss
     hidden, aux = forward_hidden(cfg, params, batch["tokens"],
                                  positions=batch.get("positions"),
@@ -352,7 +456,8 @@ def sampled_loss_fn(cfg: ModelConfig, params: Transformer, batch, seed, *,
     """GNB's sampled-label NLL (Algorithm 2): ``(nll, n_valid)`` with the
     labels drawn from the model's own softmax inside the loss sweep, from
     the hash noise of ``seed`` (two uint32 values) on the fused route
-    (``models/loss.py:lm_loss_sampled`` for the others and ``draws``)."""
+    (``models/loss.py:lm_loss_sampled`` for the others and ``draws``).  The
+    MoE load-balance term is left out, as in the reference."""
     from .loss import lm_loss_sampled
     hidden, _ = forward_hidden(cfg, params, batch["tokens"],
                                positions=batch.get("positions"),
@@ -411,7 +516,7 @@ def _slot_layer_sweep(cfg: ModelConfig, params: Transformer, cache, x,
         kv_l = {name: leaf[i] for name, leaf in cache.items()}
         a = attn_fn(layer.attn, _norm(layer.ln1, x, cfg), kv_l, windows[i],
                     scales[i])
-        x = _mlp_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
+        x, _ = _ffn_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
     return x
 
 
@@ -490,7 +595,7 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, *,
         cache["k"][i], cache["v"][i] = qkv[1], qkv[2]
         a = _flash_attention_proj(layer.attn, h, cfg, window=windows[i],
                                   layer_scale=scales[i], qkv=qkv)
-        x = _mlp_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
+        x, _ = _ffn_residual(layer, _attn_residual(layer, x, a, cfg), cfg)
     x = _norm(params.final_norm, x[:, -1:], cfg)
     return unembed(params.embed, x, cfg), cache
 

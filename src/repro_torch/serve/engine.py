@@ -8,7 +8,9 @@ stall behind a long prompt), decodes every active slot in bursts of
 ``steps_per_tick`` tokens, and evicts finished sequences, freeing their
 slots for the queue.  Slots are independent rows of the ring
 KV cache, so a *greedy* request's tokens do not depend on what else shares
-the batch.  Temperature sampling draws from the engine's one device
+the batch, except in a MoE model whose experts' capacity binds: every
+row of a decode step is routed together, the idle ones included, as in
+the reference.  Temperature sampling draws from the engine's one device
 generator, so sampled tokens depend on scheduling.
 
 Telemetry: per-request queue/prefill/first-token/total latency and

@@ -785,3 +785,77 @@ def test_dense_model_step0_matches_cpu(cuda_device, name):
     assert rel <= 1e-4
     for kernel in cs.STEP0_KERNELS:
         assert KERNEL_LAUNCHES.get(kernel), kernel
+
+
+def _moe_on(device, p, x, cfg):
+    from repro_torch.models import moe as tmoe
+
+    pd = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+              if isinstance(v, dict) else v.to(device)) for k, v in p.items()}
+    with torch.no_grad(), tmoe.record_routing() as calls:
+        out, aux = tmoe.moe_ffn(pd, x.to(device), cfg)
+    (rec,) = calls
+    return out.cpu(), aux.item(), {k: v.cpu() for k, v in rec.items()}
+
+
+@pytest.mark.parametrize("T,skew", [(80, 0.0), (8192, 1.0)])
+def test_moe_ffn_matches_cpu_on_card(cuda_device, T, skew):
+    """``models.moe.moe_ffn`` (fp32, deepseek's routing at a narrow width:
+    16 experts of 256 x 128, top 4, 2 shared) on the card against the CPU,
+    same weights and inputs: one group of 80 rows, and two groups of 4096
+    whose skewed load makes capacity bind.  The expert choices and the
+    dropped entries equal (the router's fp32 logits over D = 256 differ by
+    ~1e-7 across devices; a token whose k-th and (k+1)-th probabilities
+    are closer than 1e-6 may flip and is left out), the output within 1e-5
+    of its largest element, aux within 1e-6."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    cfg = dc.replace(get_config("deepseek-moe-16b"), d_model=256, d_ff=128,
+                     n_experts=16, moe_top_k=4, dtype="float32")
+    p = tmoe.init_moe(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.randn((2, T // 2, cfg.d_model), generator=gen)
+         + skew * torch.randn((cfg.d_model,), generator=gen))
+    o_card, aux_card, r_card = _moe_on(cuda_device, p, x, cfg)
+    o_cpu, aux_cpu, r_cpu = _moe_on("cpu", p, x, cfg)
+    top = r_cpu["probs"].sort(dim=-1, descending=True).values
+    gap = top[:, cfg.moe_top_k - 1] - top[:, cfg.moe_top_k]
+    same = (r_card["expert_idx"] == r_cpu["expert_idx"]).all(dim=1)
+    assert bool((same | (gap < 1e-6)).all())
+    if bool(same.all()):
+        assert int((~r_card["keep"]).sum()) == int((~r_cpu["keep"]).sum())
+    if skew:
+        assert int((~r_cpu["keep"]).sum()) > 0
+    a = o_card.reshape(T, -1)[same]
+    b = o_cpu.reshape(T, -1)[same]
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=1e-5 * b.abs().max().item())
+    assert abs(aux_card - aux_cpu) <= 1e-6
+
+
+def test_moe_ffn_bf16_gradients_on_card(cuda_device):
+    """The bf16 MoE FFN's forward and backward run on the card and give
+    finite gradients for x and every weight, the router's included."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    cfg = dc.replace(get_config("deepseek-moe-16b"), d_model=256, d_ff=128,
+                     n_experts=16, moe_top_k=4)
+    p = tmoe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    leaves = [p["router"], p["w_gate"], p["w_up"], p["w_down"],
+              *p["shared"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.randn((2, 64, cfg.d_model), device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    out, aux = tmoe.moe_ffn(p, x, cfg)
+    grads = torch.autograd.grad(out.float().square().mean() + aux,
+                                leaves + [x])
+    assert out.dtype == torch.bfloat16
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0

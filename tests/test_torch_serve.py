@@ -177,17 +177,18 @@ def test_engine_without_device_raises_on_cpu_only_machine(weights):
         ServeEngine(tcfg, params_from_jax(np_params, tcfg))
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b",
+                                  "seamless-m4t-medium"])
+def test_unported_options_raise(arch):
     """Since the port serves the whole dense family (the prefix cache,
-    M-RoPE and patch embeddings included), what it refuses is the other
-    families: ``check_supported`` raises for deepseek-moe-16b's (moe) and
-    rwkv6-7b's (rwkv) smoke configs by their family."""
-    for arch in ("deepseek-moe-16b", "rwkv6-7b"):
-        cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch,
-                                                              smoke=True)))
-        with pytest.raises(NotImplementedError, match="family") as err:
-            check_supported(cfg)
-        assert repr(cfg.family) in str(err.value)
+    M-RoPE and patch embeddings included) and the MoE family, what it
+    refuses is the other families: ``check_supported`` raises for
+    rwkv6-7b's (rwkv), recurrentgemma-2b's (griffin) and
+    seamless-m4t-medium's (encdec) smoke configs by their family."""
+    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch, smoke=True)))
+    with pytest.raises(NotImplementedError, match="family") as err:
+        check_supported(cfg)
+    assert repr(cfg.family) in str(err.value)
 
 
 def test_launcher_runs_on_cpu(capsys):
