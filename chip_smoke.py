@@ -79,7 +79,8 @@ it fails and prints no result.  Phases, in order:
      and rows 2-4 launched on the shard of each dense config phases 4d
      and 4e-4f train (yi-6b at 8 layers, 1,908,539,392 elements;
      gemma2-9b at 4, 1,710,358,528; qwen2-vl-7b at 4; deepseek-moe-16b
-     at 3, 2,183,135,232), the plain versions over slices;
+     at 3, 2,183,135,232; rwkv6-7b at 6), the plain versions over
+     slices;
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -164,8 +165,9 @@ it fails and prints no result.  Phases, in order:
      at 4 of 42 (B=1 x S=8192, its context, where the local layers'
      window masks keys); qwen1.5-110b not trained (its embeddings alone,
      2.49 B parameters, take ~80 GB at the ~32 bytes a parameter a step
-     needs); served (bf16 and int8 caches) at full depth, qwen1.5 at 6 of
-     80 layers.  Each cut and its reason is logged.  Counts are zeroed
+     needs); served (bf16 and int8 caches), yi-6b at 8 of 32 layers,
+     gemma2-9b at 10 of 42 (both fit at full depth; cut for the script's
+     time since phase 4g joined it) and qwen1.5 at 6 of 80 layers.  Each cut and its reason is logged.  Counts are zeroed
      before each run and read after: the step-0 check launches the CE and
      flash kernels, training the path's kernels exactly, serving decode
      attention once a layer a step;
@@ -202,12 +204,38 @@ it fails and prints no result.  Phases, in order:
      (aux, and the share of dropped token-expert entries at the first and
      the last step), and ``torch.profiler`` over one MoE FFN's forward and
      backward at that shape (its device time by kind, its share of the
-     plain step); served at full depth (bf16 and int8 caches; the decode
+     plain step); served at 7 of 28 layers (bf16 and int8 caches; cut
+     for the script's time since phase 4g joined it; the decode
      kernel held on the engine's own cache; the card-vs-CPU decode check
      compares every call's routing and leaves out a slot whose token took
      other experts at a near tie), a profile window of one decode burst,
-     and the prefix cache cold against warm at full depth.  Each cut and
+     and the prefix cache cold against warm at that depth.  Each cut and
      its reason is logged (``MOE_CUTS``);
+  4g. rwkv6-7b (the RWKV-6 family: no attention; 32 layers of the
+     chunked WKV with a data-dependent decay per channel, token shift and
+     the channel mix; d 4096, 64 heads of 64, d_ff 14,336, untied vocab
+     65,536), random weights from a seed: step 0 at full width, 2 layers,
+     fp32, B=1 x S=64 against the CPU (the CE kernels and no attention
+     kernel launched; the loss, every gradient, and the recurrent state
+     after the forward within 1e-5 of each leaf's largest element), the
+     serving route at that depth against the CPU (chunked prefill into 3
+     slots, 6 decode steps with an inactive slot) and ``generate_lockstep``
+     against the engine there in fp32 (the greedy tokens equal, the two
+     routes' teacher-forced logits within ``RWKV_ROUTE_TOL_F32`` of the
+     largest), the smoke config (d 128) likewise; Sophia-G trained as in 4c at 6 of 32 layers, B=2 x
+     S=2048, with a profile of one plain step (CE kernels, projections,
+     engine, the rest, idle) and of the chunked WKV's forward and
+     backward alone at that shape; served at full depth, bf16, 8 mixed
+     requests over 8 slots (tok/s, TTFT and TPOT p50, a profile of one
+     decode burst), a reused slot against a fresh engine (the greedy
+     tokens equal), and ``generate_lockstep`` on 2 prompts against the
+     engine in fp64 (the greedy tokens equal, the routes within
+     ``RWKV_ROUTE_TOL_F64``: in fp32 the random-init model amplifies the
+     two routes' rounding to ~6% of the largest logit at 32 layers).
+     Each cut and its
+     reason is logged (``RWKV_CUTS``); phase 2 also holds the CE kernels
+     at rwkv's loss shape (N 4096, D 4096, Vp 65,536, untied, rms) and
+     rows 2-4 on its 1,849,032,704-element shard;
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -526,6 +554,9 @@ CE_DENSE_SHAPES = (
     # deepseek-moe-16b's training batch (phase 4f: B 2 x S 2048, untied)
     ("deepseek-moe-16b", dict(N=4096, D=2048, V=102400, Vp=102400,
                               tied=False, norm="rms")),
+    # rwkv6-7b's training batch (phase 4g: B 2 x S 2048, untied)
+    ("rwkv6-7b", dict(N=4096, D=4096, V=65536, Vp=65536, tied=False,
+                      norm="rms")),
 )
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
@@ -1237,13 +1268,21 @@ def check_sign_nan(torch, sdt):
 
 
 def param_count(cfg) -> int:
-    """Parameters of a dense or MoE config (the port's ``init_params``
-    leaves, norms and the padded vocabulary included, unlike the config's
-    own ``param_count``): the engine's one fp32 shard is this rounded up to
-    its block.  A MoE layer holds the router (D, E), E experts and the
-    shared experts (SwiGLU, 3 D F each) in place of the MLP; with
-    ``moe_every == 2`` every other layer is dense, ``dense_d_ff`` wide."""
+    """Parameters of a dense, MoE or RWKV config (the port's
+    ``init_params`` leaves, norms and the padded vocabulary included,
+    unlike the config's own ``param_count``): the engine's one fp32 shard
+    is this rounded up to its block.  A MoE layer holds the router (D, E),
+    E experts and the shared experts (SwiGLU, 3 D F each) in place of the
+    MLP; with ``moe_every == 2`` every other layer is dense, ``dense_d_ff``
+    wide.  An RWKV layer holds six D x D products (wr, wk, wv, wg, wo and
+    the channel mix's wr, which the config's own count leaves out), the
+    channel mix's D x F and F x D, the decay LoRA (2 x 64 D) and 12 D of
+    mixes, norms, decays and bonuses."""
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    if cfg.family == "rwkv":
+        layer = 6 * D * D + 2 * D * F + 2 * 64 * D + 12 * D
+        embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
+        return embed + D + cfg.n_layers * layer
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     norm = D * (2 if cfg.norm_type == "ln" else 1)
     attn = 2 * D * H * hd + 2 * D * Hkv * hd
@@ -1365,9 +1404,10 @@ def phase_engine_kernels(torch):
     for sdt in (f32, bf16):
         check_sign_nan(torch, sdt)
     from repro_torch.configs import get_config
-    runs = [(name, cfg, layers) for name, cfg, _, layers, _, _
+    runs = [(name, cfg, layers) for name, cfg, _, layers, _
             in _dense_runs()] + [(VLM, get_config(VLM), VLM_TRAIN_LAYERS),
-                                 (MOE, get_config(MOE), MOE_TRAIN_LAYERS)]
+                                 (MOE, get_config(MOE), MOE_TRAIN_LAYERS),
+                                 (RWKV, get_config(RWKV), RWKV_TRAIN_LAYERS)]
     for name, cfg, layers in runs:
         if layers:
             check_engine_shard(torch, name, shard_size(
@@ -2343,12 +2383,29 @@ NEOX66_TRAIN_LAYERS = 8
 # with phase 4e, the script's [total] passed 900 s of its 1200 s limit on
 # the H100; its kernels' shapes are the same at any depth
 NEOX15_LAYERS = 12
+# the depth each model is served at where it is cut; every model not
+# named here is served at full depth.  qwen1.5-110b's 80 layers (421 GB of
+# fp32 weights) do not fit the card; yi-6b, gemma2-9b and deepseek-moe-16b
+# fit at full depth and were cut for the script's time limit when phase 4g
+# joined it (deepseek's host-bound decode at ~110-140 ms a step took ~120
+# s at full depth)
+SERVE_LAYERS = {"neox-1.5b": NEOX15_LAYERS, "yi-6b": 8, "gemma2-9b": 10,
+                "qwen1.5-110b": 6, "deepseek-moe-16b": 7}
 CPU_CHECK_LAYERS, CPU_CHECK_S = 2, 64
 
 
+def serve_config(name, cfg):
+    """``cfg`` at the depth ``name`` is served at (``SERVE_LAYERS``); a cut
+    is logged."""
+    layers = SERVE_LAYERS.get(name, cfg.n_layers)
+    if layers < cfg.n_layers:
+        log(f"[models] {name}: served at {layers} of {cfg.n_layers} layers "
+            f"(SERVE_LAYERS)")
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
 def _model_runs():
-    """(name, config, layers trained and served, batch rows) of each rope
-    model; NeoX-6.6B is served at full depth."""
+    """(name, config, layers trained, batch rows) of each rope model."""
     from repro_torch.configs import get_config
     from repro_torch.configs.gpt2 import NEOX_1_5B, NEOX_6_6B
 
@@ -2456,7 +2513,7 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
 
 
 def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
-                source=None):
+                source=None, after=None):
     """Sophia-G (bf16 compute, engine kernels, peak lr MODEL_LR after 2
     warmup steps, GNB refresh every MODEL_K steps from step 0 on half the
     batch, at least one row) at B x S for MODEL_STEPS steps through the
@@ -2466,7 +2523,10 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     checked the engine kernels at that shard).  Batches from ``source``
     (numpy, ``batch_at``), by default the synthetic token stream.  With MoE
     layers the share of the loss's token-expert entries dropped at the
-    first and the last step goes in the report.  Returns the report."""
+    first and the last step goes in the report.  ``after(state,
+    train_step, batches)``, when given, runs on the trained state once the
+    checks have passed and its dict joins the report.  Returns the
+    report."""
     import numpy as np
 
     from repro_torch.data import DataConfig, make_source
@@ -2514,12 +2574,15 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     launches = dict(KERNEL_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_ref = len(range(0, MODEL_STEPS, MODEL_K))
-    attn = cfg.n_layers * (MODEL_STEPS + n_ref)
+    # RWKV has no attention: no flash kernel may launch
+    attn = (0 if cfg.family == "rwkv"
+            else cfg.n_layers * (MODEL_STEPS + n_ref))
     want = {"ce_forward": MODEL_STEPS, "ce_forward_sampled": n_ref,
             "ce_backward_dh": MODEL_STEPS + n_ref,
             "ce_backward_dw": MODEL_STEPS + n_ref,
             "attn_fwd": attn, "attn_bwd_dq": attn, "attn_bwd_dkv": attn,
             "sophia_step": MODEL_STEPS - n_ref, "sophia_refresh": n_ref}
+    want = {k: n for k, n in want.items() if n}
     if launches != want:
         raise AssertionError(f"{name} training launches {launches} != "
                              f"{want}")
@@ -2556,6 +2619,8 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
         f"p50); peak memory {report['peak_mem_gib']:.2f} GiB "
         f"({report['resident_gib']:.2f} GiB resident at the start); "
         f"launches {launches}")
+    if after is not None:
+        report.update(after(state, train_step, batches))
     del state, batches
     torch.cuda.empty_cache()
     return report
@@ -2624,7 +2689,7 @@ PATH_KERNELS = ("decode_attention", "decode_attention_q8", "sophia_step",
 def phase_models(torch):
     """Each rope model: the step-0 card-vs-CPU check, Sophia-G training
     (NeoX-6.6B at NEOX66_TRAIN_LAYERS layers), serving at full depth
-    (NeoX-1.5B trained and served at NEOX15_LAYERS).
+    (NeoX-1.5B trained and served at NEOX15_LAYERS, ``SERVE_LAYERS``).
     Every row of the path (decode attention, the Sophia step and the
     refresh-fused step, the four CE kernels, the three flash kernels)
     must launch.  Returns {model: report}."""
@@ -2635,14 +2700,8 @@ def phase_models(torch):
         torch.cuda.empty_cache()
         trained = train_model(torch, name,
                               dataclasses.replace(cfg, n_layers=layers), B)
-        served_layers = NEOX15_LAYERS if name == "neox-1.5b" else \
-            cfg.n_layers
-        if served_layers < cfg.n_layers:
-            log(f"[models] {name}: trained and served at {served_layers} "
-                f"of {cfg.n_layers} layers (NEOX15_LAYERS: the script's "
-                f"time limit)")
-        served = serve_model(torch, name, dataclasses.replace(
-            cfg, n_layers=served_layers), small)
+        scfg = serve_config(name, cfg)
+        served = serve_model(torch, name, scfg, small)
         del small
         launches = dict(trained["launches"])
         launches["decode_attention"] = served["bf16"]["launches"]
@@ -2653,7 +2712,7 @@ def phase_models(torch):
                                  f"{missing}")
         reports[name] = dict(step0_grad_rel=rel, train=trained,
                              serve=served, launches=launches,
-                             served_layers=served_layers,
+                             served_layers=scfg.n_layers,
                              full_layers=cfg.n_layers)
         log(f"[models] {name}: launches on its path {launches}")
     return reports
@@ -2671,9 +2730,13 @@ STEP0_KERNELS = ("ce_forward", "ce_backward_dh", "ce_backward_dw",
 # 67.93 GiB for 2.02 B parameters, PR 21's phase 4c)
 DENSE_CUTS = {
     "yi-6b": "trained at 8 of 32 layers (full depth ~97 GB of fp32 weight, "
-             "gradient, m and h), B=2 as NeoX-6.6B; served at full depth",
+             "gradient, m and h), B=2 as NeoX-6.6B; served at 8 of 32 "
+             "layers (full depth fits the card; cut for the script's time "
+             "limit since phase 4g joined it)",
     "gemma2-9b": "trained at 4 of 42 layers (full depth ~148 GB of state) "
-                 "at B=1 x S=8192, its context; served at full depth",
+                 "at B=1 x S=8192, its context; served at 10 of 42 layers "
+                 "(5 local and 5 global; full depth fits the card; cut for "
+                 "the script's time limit since phase 4g joined it)",
     "qwen1.5-110b": "not trained on the card (its embedding and unembedding "
                     "alone, 2.49 B parameters, take ~80 GB at ~32 bytes a "
                     "parameter); served at 6 of 80 layers (10.6 B "
@@ -2682,13 +2745,13 @@ DENSE_CUTS = {
 
 
 def _dense_runs():
-    """(name, config, step-0 layers, layers trained or None, (B, S),
-    layers served) of each dense config."""
+    """(name, config, step-0 layers, layers trained or None, (B, S)) of
+    each dense config; ``SERVE_LAYERS`` gives the layers served."""
     from repro_torch.configs import get_config
 
-    return (("yi-6b", get_config("yi-6b"), 2, 8, (2, 2048), 32),
-            ("gemma2-9b", get_config("gemma2-9b"), 2, 4, (1, 8192), 42),
-            ("qwen1.5-110b", get_config("qwen1.5-110b"), 1, None, None, 6))
+    return (("yi-6b", get_config("yi-6b"), 2, 8, (2, 2048)),
+            ("gemma2-9b", get_config("gemma2-9b"), 2, 4, (1, 8192)),
+            ("qwen1.5-110b", get_config("qwen1.5-110b"), 1, None, None))
 
 
 def phase_dense_models(torch):
@@ -2701,7 +2764,7 @@ def phase_dense_models(torch):
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
 
     reports = {}
-    for name, cfg, l0, layers, shape, served_layers in _dense_runs():
+    for name, cfg, l0, layers, shape in _dense_runs():
         log(f"[models] {name}: {DENSE_CUTS[name]}")
         reset_launch_counts()
         small, rel = model_step0_against_cpu(torch, name, cfg, layers=l0)
@@ -2719,9 +2782,8 @@ def phase_dense_models(torch):
                                   dataclasses.replace(cfg, n_layers=layers),
                                   B, S=S)
             launches = dict(trained["launches"])
-        served = serve_model(torch, name,
-                             dataclasses.replace(cfg, n_layers=served_layers),
-                             small)
+        scfg = serve_config(name, cfg)
+        served = serve_model(torch, name, scfg, small)
         del small
         launches["decode_attention"] = served["bf16"]["launches"]
         launches["decode_attention_q8"] = served["int8"]["launches"]
@@ -2733,7 +2795,7 @@ def phase_dense_models(torch):
                                  f"{missing}")
         reports[name] = dict(step0_grad_rel=rel, step0_layers=l0,
                              train=trained, serve=served, launches=launches,
-                             served_layers=served_layers,
+                             served_layers=scfg.n_layers,
                              full_layers=cfg.n_layers, cuts=DENSE_CUTS[name])
         log(f"[models] {name}: launches on its path {launches}; "
             f"{host_memory()}")
@@ -2849,7 +2911,7 @@ def _shared_prefix_requests(cfg, seed=11):
 
 
 def vlm_prefix_cache(torch, cfg, params, tag="vlm"):
-    """Cold and warm (prefix cache on) engines at full depth, bf16 and
+    """Cold and warm (prefix cache on) engines at ``cfg``'s depth, bf16 and
     int8 caches, over the shared-prefix stream on PREFIX_SLOTS slots (the
     second wave of requests finds the first wave's pages): the greedy
     tokens identical, a hit rate above 0 and at least 4 pages reused,
@@ -2941,7 +3003,7 @@ def _top2_gap(logits):
 
 
 def vlm_prefill_32k(torch, cfg, params):
-    """The whole-prompt path at PREFILL_S tokens, B=1, full depth, bf16:
+    """The whole-prompt path at PREFILL_S tokens, B=1, ``cfg``'s depth, bf16:
     ``prefill`` (the flash forward kernel once a layer; its wall time and
     peak memory), then ``generate_lockstep`` for PREFILL_NEW tokens (the
     prefill again, then decode steps through the decode kernel on the
@@ -3087,12 +3149,13 @@ def phase_vlm(torch):
     tcfg = dataclasses.replace(cfg, n_layers=VLM_TRAIN_LAYERS)
     trained = train_model(torch, VLM, tcfg, VLM_B, S=VLM_SEQ,
                           source=VLMSource(tcfg, VLM_B, VLM_SEQ))
-    params = get_model(cfg).init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0))
-    served = serve_model(torch, VLM, cfg, small, params=params)
+    scfg = serve_config(VLM, cfg)
+    params = get_model(scfg).init_params(
+        scfg, torch.Generator(device="cuda").manual_seed(0))
+    served = serve_model(torch, VLM, scfg, small, params=params)
     del small
-    prefix = vlm_prefix_cache(torch, cfg, params)
-    long = vlm_prefill_32k(torch, cfg, params)
+    prefix = vlm_prefix_cache(torch, scfg, params)
+    long = vlm_prefill_32k(torch, scfg, params)
     del params
     torch.cuda.empty_cache()
     launches = dict(trained["launches"])
@@ -3106,6 +3169,7 @@ def phase_vlm(torch):
     return {VLM: dict(step0_grad_rel=rel, step0_layers=CPU_CHECK_LAYERS,
                       train=trained, serve=served, prefix_cache=prefix,
                       prefill_32k=long, launches=launches,
+                      served_layers=scfg.n_layers,
                       full_layers=cfg.n_layers, cuts=VLM_CUTS)}
 
 
@@ -3130,8 +3194,10 @@ MOE_CUTS = ("trained at 3 of 28 layers (2.18 B parameters, 0.42 B of them "
             "the untied embeddings; full depth would hold ~270 GB of fp32 "
             "weight, gradient, m and h) at B=2 x S=2048; step 0 vs the CPU "
             "at 2 layers (1.60 B, fp32) on one 64-token row; served and the "
-            "prefix cache at full depth (28 layers, 16.88 B parameters, "
-            "67.5 GB fp32)")
+            "prefix cache at 7 of 28 layers (4.53 B parameters, 18.1 GB "
+            "fp32; full depth, 16.88 B, fits the card, but its host-bound "
+            "decode at ~110-140 ms a step took ~120 s of the script's time "
+            "limit, which phase 4g needs)")
 # the ops of a MoE FFN's forward and backward by what they do (the
 # profile of one layer at the training shape, where every op is the FFN's)
 MOE_OP_KINDS = {
@@ -3350,10 +3416,10 @@ def phase_moe(torch):
     random weights from a seed: the MoE FFN's routing against the CPU at
     full width over two dispatch groups, the step-0 check against the CPU
     at 2 layers (the expert sets of every token compared), Sophia-G
-    training at MOE_TRAIN_LAYERS layers (``moe_train``), serving at full
-    depth (bf16 and int8 caches, the decode kernel on the engine's own
-    cache) and the prefix cache cold against warm at full depth, with the
-    cuts of ``MOE_CUTS``.  Counts are zeroed before each run and read
+    training at MOE_TRAIN_LAYERS layers (``moe_train``), serving at
+    ``SERVE_LAYERS`` (bf16 and int8 caches, the decode kernel on the
+    engine's own cache) and the prefix cache cold against warm there, with
+    the cuts of ``MOE_CUTS``.  Counts are zeroed before each run and read
     after.  Returns {model: report}."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
@@ -3372,12 +3438,13 @@ def phase_moe(torch):
     small.cpu()
     torch.cuda.empty_cache()
     trained = moe_train(torch, cfg)
-    params = get_model(cfg).init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0))
-    served = serve_model(torch, MOE, cfg, small, params=params)
+    scfg = serve_config(MOE, cfg)
+    params = get_model(scfg).init_params(
+        scfg, torch.Generator(device="cuda").manual_seed(0))
+    served = serve_model(torch, MOE, scfg, small, params=params)
     del small
-    decode_profile = moe_decode_profile(torch, cfg, params)
-    prefix = vlm_prefix_cache(torch, cfg, params, tag="moe")
+    decode_profile = moe_decode_profile(torch, scfg, params)
+    prefix = vlm_prefix_cache(torch, scfg, params, tag="moe")
     del params
     torch.cuda.empty_cache()
     launches = dict(trained["launches"])
@@ -3392,7 +3459,501 @@ def phase_moe(torch):
                       routing=routing, train=trained, serve=served,
                       decode_profile=decode_profile,
                       prefix_cache=prefix, launches=launches,
+                      served_layers=scfg.n_layers,
                       full_layers=cfg.n_layers, cuts=MOE_CUTS)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: rwkv6-7b (the RWKV-6 family: the chunked WKV with a
+# data-dependent decay, the bounded-state slot protocol)
+
+
+RWKV = "rwkv6-7b"
+RWKV_TRAIN_LAYERS = 6
+RWKV_B, RWKV_SEQ = 2, 2048
+# the cuts and their reasons: 16 bytes a parameter of fp32 weight,
+# gradient, m and h, ~32-34 at a step's peak (deepseek-moe-16b's 73.27 GiB
+# for 2.18 B parameters); each layer holds 218.7 M parameters
+RWKV_CUTS = ("trained at 6 of 32 layers (1.85 B parameters, 0.54 B of them "
+             "the untied embeddings; full depth, 7.53 B, would hold ~120 GB "
+             "of fp32 weight, gradient, m and h, ~250 GB at a step's peak) "
+             "at B=2 x S=2048; step 0 vs the CPU at 2 layers (0.97 B, fp32) "
+             "on one 64-token row; served at full depth (32 layers, 7.53 B "
+             "parameters, 30.1 GB fp32)")
+# the kernels of RWKV's path: rows 2, 4, 11, 12, 14 and 15 (no attention)
+RWKV_PATH_KERNELS = ("sophia_step", "sophia_refresh", "ce_forward",
+                     "ce_forward_sampled", "ce_backward_dh", "ce_backward_dw")
+RWKV_STEP0_KERNELS = ("ce_forward", "ce_backward_dh", "ce_backward_dw")
+# The engine's serving route (``prefill_into_slot``, each chunk's
+# projections batched over its tokens, then ``decode_slots``) and the
+# lockstep's (``decode_step``, one token at a time) compute one function
+# and round it differently: their products run at other shapes.  At 32
+# random-init layers the model multiplies that rounding by ~1e5-1e6: in
+# fp32 the two routes' logits differed by 2.5-6% of the largest on the
+# H100, and an fp32 bound gave way each time it was set from a measured
+# spread.  So the routes are held to each other twice, each time with
+# their greedy tokens equal: at CPU_CHECK_LAYERS in fp32, within
+# RWKV_ROUTE_TOL_F32 of the largest logit (the card's serving route lies
+# ~2e-6 from the CPU's there), and at full depth in fp64 (``dtype=
+# "float64"``, every fp32 of the routes in fp64), within
+# RWKV_ROUTE_TOL_F64: the fp32 gap at 32 layers, <= 0.06, times the ratio
+# of the two formats' epsilons, 2^-29, is 1.1e-10; the bound is ~100x
+# that.  A wrong state or a token absorbed twice moves the logits by O(1).
+RWKV_ROUTE_TOL_F32 = 1e-4
+RWKV_ROUTE_TOL_F64 = 1e-8
+
+
+def rwkv_step0_against_cpu(torch, name, cfg):
+    """The step-0 check of ``model_step0_against_cpu`` (the CE kernels, no
+    attention kernel) and, on the same weights and row, the recurrent state
+    after the forward (the chunked WKV at S 64): each leaf on the card
+    within 1e-5 of its largest element on the CPU.  Returns (the card
+    params, max relative gradient error, max relative state error)."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+
+    rng = np.random.default_rng(4)
+    batch = {k: rng.integers(0, cfg.vocab_size, (1, CPU_CHECK_S))
+             .astype(np.int32) for k in ("tokens", "labels")}
+    reset_launch_counts()
+    params, rel = model_step0_against_cpu(torch, name, cfg, batch=batch)
+    launched = dict(KERNEL_LAUNCHES)
+    missing = [k for k in RWKV_STEP0_KERNELS if not launched.get(k)]
+    if missing or any(k.startswith("attn") for k in launched):
+        raise AssertionError(f"{name} step 0 launches {launched}")
+    cfg2 = dataclasses.replace(cfg, n_layers=len(params.layers),
+                               dtype="float32")
+    model = get_model(cfg2)
+    states = {}
+    for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+        with torch.no_grad():
+            _, _, st = model.forward_hidden(
+                cfg2, p, torch.from_numpy(batch["tokens"]).to(dev))
+        states[dev] = {k: v.cpu() for k, v in st.items()}
+        del p
+    state_rel = max((states["cuda"][k] - v).abs().max().item()
+                    / v.abs().max().item() for k, v in states["cpu"].items())
+    if not state_rel <= 1e-5:
+        raise AssertionError(f"{name} state after step 0's forward: "
+                             f"{state_rel:.3g} of its largest element")
+    log(f"[rwkv] {name} step 0: launches {launched} (no attention); the "
+        f"state after the forward (tm_shift, cm_shift, wkv) within "
+        f"{state_rel:.3g} of each leaf's largest element on the CPU (limit "
+        f"1e-5)")
+    return params, rel, state_rel
+
+
+def wkv_profile(torch, cfg, B=RWKV_B, S=RWKV_SEQ):
+    """torch.profiler over one layer's chunked WKV forward and backward at
+    the training shape (fp32 r, k, v, log-decays (B, S, H, 64), the bonus
+    u and a zero state, gradients of all of them, as the trainer takes
+    them): its device time, kernel count and wall.  Returns the report."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _busy_us, _device_events
+    from repro_torch.models import rwkv as trwkv
+
+    H, K = cfg.d_model // trwkv.HEAD_DIM, trwkv.HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rand(*shape, scale=0.5):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).requires_grad_(True)
+
+    r, k, v = (rand(B, S, H, K) for _ in range(3))
+    logw = (-4.0 * torch.rand((B, S, H, K), generator=gen, device="cuda")
+            ).clamp(-4.0, -1e-6).requires_grad_(True)
+    u = rand(H, K, scale=0.1)
+    state = torch.zeros((B, H, K, K), device="cuda")
+    leaves = [r, k, v, logw, u]
+
+    def fwd_bwd():
+        o, s = trwkv.wkv_chunked(r, k, v, logw, u, state)
+        torch.autograd.grad(o.square().mean() + s.square().mean(), leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _device_events(prof)
+    total = sum(e - s for _, s, e in kernels)
+    busy = _busy_us([(s, e) for _, s, e in kernels])
+    del r, k, v, logw, u, state, leaves
+    torch.cuda.empty_cache()
+    return dict(B=B, S=S, H=H, chunks=S // trwkv.CHUNK,
+                device_us=total, busy_us=busy, wall_us=wall * 1e6,
+                kernels=len(kernels))
+
+
+def rwkv_step_profile(torch, state, train_step, batches):
+    """torch.profiler over one plain step of the trained model: wall,
+    device busy and idle, and the device time of the CE kernels
+    (``::ce_``), the engine (``sophia_update::``), the projections (the
+    kernels of ``aten::mm`` and ``aten::addmm``, forward and backward: every
+    x @ W of a (B, S, D) x lowers to mm) and the rest (the WKV, token
+    shifts, norms, gates, casts).  Returns {"profile": window}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _busy_us, _device_events
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batches[1], False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    kernels = _device_events(prof)
+    busy = _busy_us([(s, e) for _, s, e in kernels])
+
+    def named(part):
+        return sum(e - s for n, s, e in kernels if part in n)
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if getattr(e, attr, None):
+                return getattr(e, attr)
+        return 0.0
+
+    mm = sum(dev_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.key in ("aten::mm", "aten::addmm"))
+    total = sum(e - s for _, s, e in kernels)
+    ce, engine = named("::ce_"), named("sophia_update::")
+    win = dict(wall_us=wall, device_busy_us=busy,
+               device_idle_share=1.0 - busy / wall, kernels=len(kernels),
+               device_total_us=total, ce_us=ce, engine_us=engine,
+               projections_us=mm, rest_us=total - ce - engine - mm)
+    if not (ce and engine):
+        raise AssertionError(f"profile of an RWKV plain step: CE {ce} us, "
+                             f"engine {engine} us")
+    return {"profile": win}
+
+
+def rwkv_serve_against_cpu(torch, cfg, params):
+    """The serving route at full width and the step-0 check's depth, fp32,
+    on the card (``params``) against the CPU (a copy): 3 slots prefilled
+    with 24-token prompts in chunks of 16 (a full and a ragged chunk), then
+    6 teacher-forced decode steps with slot 1 inactive in every other one.
+    Every logit within 1e-4 of the largest and every state leaf within
+    1e-4 of its largest element.  Returns the two errors."""
+    import numpy as np
+
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(cfg, n_layers=len(params.layers),
+                              dtype="float32")
+    model = get_model(cfg)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 24)).astype(np.int32)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))
+                             .astype(np.int32)) for _ in range(6)]
+    out = []
+    for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+        st = model.init_slots(cfg, 3, 0, dev)
+        logits = []
+        for s in range(3):
+            for start in (0, 16):
+                chunk = prompts[s, start:start + 16]
+                n = len(chunk)
+                chunk = torch.from_numpy(np.pad(chunk, (0, 16 - n)))[None]
+                logits.append(model.prefill_into_slot(
+                    cfg, p, st, s, chunk.to(dev), start, n).cpu())
+        pos = torch.zeros(3, dtype=torch.int32, device=dev)
+        for step, tok in enumerate(toks):
+            active = torch.tensor([True, step % 2 == 0, True], device=dev)
+            logits.append(model.decode_slots(cfg, p, st, tok.to(dev), pos,
+                                             active=active)[:, 0].cpu())
+        out.append((torch.cat([x.reshape(-1) for x in logits]),
+                    {k: v.cpu() for k, v in st.items()}))
+        del p
+    (got, st_got), (want, st_want) = out
+    logit_rel = ((got - want).abs().max() / want.abs().max()).item()
+    state_rel = max((st_got[k].float() - v.float()).abs().max().item()
+                    / v.float().abs().max().item()
+                    for k, v in st_want.items())
+    if not (logit_rel <= 1e-4 and state_rel <= 1e-4):
+        raise AssertionError(f"RWKV serving card vs CPU: logits "
+                             f"{logit_rel:.3g}, state {state_rel:.3g} of "
+                             f"their largest (limit 1e-4)")
+    log(f"[rwkv] serving route card vs CPU ({cfg.n_layers} layers, full "
+        f"width, fp32; 3 slots, chunked prefill and 6 decode steps, slot 1 "
+        f"inactive in 3): logits within {logit_rel:.3g} of the largest, "
+        f"the slot state within {state_rel:.3g} of each leaf's largest "
+        f"(limit 1e-4)")
+    return logit_rel, state_rel
+
+
+def rwkv_routes(torch, cfg, params, prompts, tokens, page=16,
+                device="cuda"):
+    """The two serving routes teacher-forced over ``prompts`` (N, S) then
+    ``tokens`` (N, T): the engine's (``prefill_into_slot`` in chunks of
+    ``page`` into slot i, then ``decode_slots`` of all N) and the
+    lockstep's (``decode_step`` of all N rows one token at a time from
+    ``init_cache``).  Returns, (N, T) each, over each row's largest
+    logit: the largest difference of the two routes' logits and the
+    lockstep route's top-2 gap."""
+    import numpy as np
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    N, S = prompts.shape
+    tokens = np.asarray(tokens, np.int32)
+    seq = torch.from_numpy(np.concatenate([prompts, tokens], axis=1)).to(
+        device)
+    cache = model.init_cache(cfg, N, 0, device)
+    lock = []
+    for t in range(seq.shape[1] - 1):
+        lg = model.decode_step(cfg, params, cache, seq[:, t:t + 1], t)
+        if t >= S - 1:
+            lock.append(lg[:, 0])
+    lock = torch.stack(lock, dim=1)                     # (N, T, V)
+    st = model.init_slots(cfg, N, 0, device)
+    first = []
+    for i in range(N):
+        for start in range(0, S, page):
+            chunk = prompts[i, start:start + page].astype(np.int32)
+            n = len(chunk)
+            chunk = torch.from_numpy(np.pad(chunk, (0, page - n)))[None]
+            lg = model.prefill_into_slot(cfg, params, st, i,
+                                         chunk.to(device), start, n)
+        first.append(lg)
+    eng = [torch.stack(first)]
+    pos = torch.zeros(N, dtype=torch.int32, device=device)
+    for t in range(tokens.shape[1] - 1):
+        eng.append(model.decode_slots(cfg, params, st,
+                                      seq[:, S + t:S + t + 1], pos)[:, 0])
+    eng = torch.stack(eng, dim=1)
+    scale = lock.abs().amax(-1)
+    top = lock.topk(2, dim=-1).values
+    return (((eng - lock).abs().amax(-1) / scale).cpu().numpy(),
+            ((top[..., 0] - top[..., 1]) / scale).cpu().numpy())
+
+
+def rwkv_lockstep_against_engine(torch, cfg, params, tol, seed, n=2, S=24,
+                                 new=8):
+    """``generate_lockstep`` and a ServeEngine of ``n`` slots on ``n``
+    prompts of ``S`` tokens, ``new`` greedy tokens each, in ``cfg``'s
+    dtype on the card: the tokens equal, and the two routes
+    (``rwkv_routes``, teacher-forced on the lockstep's tokens) within
+    ``tol`` of the largest logit at every position.  Returns the
+    report."""
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeEngine, generate_lockstep
+
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (n, S)).astype(np.int32)
+    t0 = time.perf_counter()
+    lock = generate_lockstep(cfg, params, prompts, max_new=new).tolist()
+    lock_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, n_slots=n, cache_len=512, page_len=16,
+                      steps_per_tick=8, seed=0, device="cuda")
+    for i in range(n):
+        eng.submit(Request(uid=i, tokens=prompts[i], max_new=new))
+    served = {r.uid: r.tokens for r in eng.run()}
+    del eng
+    diff, gap = rwkv_routes(torch, cfg, params, prompts, lock)
+    worst = float(diff.max())
+    where = np.unravel_index(int(diff.argmax()), diff.shape)
+    equal = all(served[i] == lock[i] for i in range(n))
+    what = (f"{cfg.n_layers} layers, {cfg.dtype}: generate_lockstep ({n} "
+            f"prompts of {S}, {new} new, {lock_s:.2f}s) against the engine")
+    if not (equal and worst <= tol):
+        raise AssertionError(
+            f"{what}: tokens {lock} vs {[served[i] for i in range(n)]}; the "
+            f"routes' logits differ by up to {worst:.3g} of the largest at "
+            f"(prompt, position) {tuple(map(int, where))} (limit {tol})")
+    log(f"[rwkv] {what}: the greedy tokens equal; teacher-forced, the "
+        f"routes' logits within {worst:.3g} of the largest (limit {tol}; "
+        f"the smallest top-2 gap {float(gap.min()):.3g} of it)")
+    return dict(layers=cfg.n_layers, dtype=cfg.dtype, tokens_equal=equal,
+                route_rel=worst, route_rel_by_position=diff.tolist(),
+                min_top2_gap=float(gap.min()), lockstep_s=lock_s)
+
+
+def rwkv_serve(torch, cfg, params):
+    """``cfg`` served at its depth, bf16: MODEL_REQUESTS mixed requests
+    over 8 slots after a warm engine (every request its full budget of
+    in-vocabulary tokens; no kernel of the port on this path), a profile
+    window of one decode burst with every slot decoding; a slot reused
+    (one slot, two requests) against a fresh engine for the second (the
+    greedy tokens equal: the slot was zeroed); and
+    ``rwkv_lockstep_against_engine`` in fp64 within RWKV_ROUTE_TOL_F64.
+    Returns the report."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.serve import Request, ServeEngine
+
+    def engine(n_slots=8):
+        return ServeEngine(cfg, params, n_slots=n_slots, cache_len=512,
+                           page_len=16, steps_per_tick=8, seed=0,
+                           device="cuda")
+
+    def run(eng, reqs):
+        for r in reqs:
+            eng.submit(r)
+        return {r.uid: r.tokens for r in eng.run()}
+
+    run(engine(), _requests(cfg, n=2, seed=7))     # first calls off the clock
+    torch.cuda.synchronize()
+    eng = engine()
+    reqs = _requests(cfg, n=MODEL_REQUESTS)
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    budget = {r.uid: r.max_new for r in reqs}
+    for r in results:
+        if len(r.tokens) != budget[r.uid] or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: {len(r.tokens)} tokens "
+                                 f"for a budget of {budget[r.uid]}")
+    if len(results) != len(reqs) or launches:
+        raise AssertionError(f"{len(results)} of {len(reqs)} requests; "
+                             f"launches {launches}")
+    st = eng.stats()
+    report = dict(layers=cfg.n_layers, tok_per_s=st["tokens_emitted"] / secs,
+                  token_p50_ms=st["token_lat_p50_s"] * 1e3,
+                  ttft_p50_ms=st["ttft_p50_s"] * 1e3,
+                  tpot_p50_ms=st["tpot_p50_s"] * 1e3,
+                  decode_steps=eng.decode_ticks * eng.steps_per_tick)
+    log(f"[rwkv] {RWKV} served: {cfg.n_layers} layers, bf16, "
+        f"{len(results)} requests over 8 slots, {st['tokens_emitted']} "
+        f"tokens in {secs:.3f}s = {report['tok_per_s']:.1f} tok/s; token "
+        f"p50 {report['token_p50_ms']:.3f} ms; ttft p50 "
+        f"{report['ttft_p50_ms']:.1f} ms; tpot p50 "
+        f"{report['tpot_p50_ms']:.3f} ms; {report['decode_steps']} decode "
+        f"steps; launches {launches} (no kernel of the port on this path)")
+    del eng
+
+    # one decode burst, every slot decoding
+    rng = np.random.default_rng(9)
+    eng = engine()
+    for i in range(8):
+        eng.submit(Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, 16),
+                           max_new=64))
+    while eng.tokens_emitted < 8:
+        eng.tick()
+    eng.tick()
+    win = profile_window(f"decode burst ({RWKV}, {cfg.n_layers} layers, 8 "
+                         f"steps x 8 slots, bf16)", eng.tick, match="gemm",
+                         also=("elementwise", "copy", "reduce"))
+    log("[profile] " + json.dumps(win))
+    report["decode_profile"] = win
+    del eng
+
+    # slot reuse: one slot, a request, then a second
+    first, second = (Request(uid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                                        n), max_new=8)
+                     for i, n in enumerate((40, 24)))
+    reused = run(engine(n_slots=1), [first, second])
+    fresh = run(engine(n_slots=1), [second])
+    if reused[1] != fresh[1]:
+        raise AssertionError(f"slot reuse: the second request's tokens "
+                             f"{reused[1]} != a fresh engine's {fresh[1]}")
+    report["reuse_tokens_equal"] = True
+    log(f"[rwkv] slot reuse (a 40-token then a 24-token prompt, 8 new "
+        f"each, one slot): the second request's {len(fresh[1])} greedy "
+        f"tokens equal a fresh engine's")
+    report["lockstep"] = rwkv_lockstep_against_engine(
+        torch, dataclasses.replace(cfg, dtype="float64"), params,
+        RWKV_ROUTE_TOL_F64, seed=10)
+    return report
+
+
+def phase_rwkv(torch):
+    """rwkv6-7b (``get_config``: 32 layers, d 4096, 64 heads of 64, d_ff
+    14,336, untied vocab 65,536), random weights from a seed: step 0 at
+    full width, 2 layers, fp32 against the CPU (the loss, every gradient
+    and the state after the forward; then the serving route,
+    ``rwkv_serve_against_cpu``, and the two serving routes against each
+    other, ``rwkv_lockstep_against_engine``), the smoke config (d 128)
+    likewise;
+    Sophia-G at RWKV_TRAIN_LAYERS layers, B=2 x S=2048, with the engine
+    and CE kernels (exact launch counts; one profiled plain step split
+    into CE kernels, projections, engine and the rest, beside the chunked
+    WKV's own forward and backward x the layers); served at full depth
+    (``rwkv_serve``).  Each cut and its reason is logged (``RWKV_CUTS``).
+    Counts are zeroed before each run and read after.  Returns {model:
+    report}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(RWKV)
+    log(f"[rwkv] {RWKV}: {RWKV_CUTS}")
+    t0 = time.perf_counter()
+
+    def lap(what):
+        log(f"[rwkv] {what}: {time.perf_counter() - t0:.1f}s into 4g")
+
+    small, rel, state_rel = rwkv_step0_against_cpu(torch, RWKV, cfg)
+    serve_cpu = rwkv_serve_against_cpu(torch, cfg, small)
+    routes = rwkv_lockstep_against_engine(
+        torch, dataclasses.replace(cfg, n_layers=len(small.layers),
+                                   dtype="float32"), small,
+        RWKV_ROUTE_TOL_F32, seed=6)
+    del small
+    torch.cuda.empty_cache()
+    smoke = get_config(RWKV, smoke=True)
+    _, smoke_rel, smoke_state_rel = rwkv_step0_against_cpu(
+        torch, smoke.name, smoke)
+    lap("checks against the CPU done")
+    tcfg = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
+    trained = train_model(torch, RWKV, tcfg, RWKV_B, S=RWKV_SEQ,
+                          after=lambda *a: rwkv_step_profile(torch, *a))
+    wkv = wkv_profile(torch, cfg)
+    lap("training and its profiles done")
+    prof = trained["profile"]
+    wkv_us = wkv["device_us"] * RWKV_TRAIN_LAYERS
+    step_us = trained["plain_p50_ms"] * 1e3
+    trained.update(wkv_profile=wkv, wkv_share_of_plain_step=wkv_us / step_us)
+    log(f"[rwkv] plain step profile (6 layers, B={RWKV_B} x S={RWKV_SEQ}, "
+        f"bf16): wall {prof['wall_us'] / 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_us'] / 1e3:.1f} ms, idle "
+        f"{prof['device_idle_share']:.1%}, {prof['kernels']} kernels; CE "
+        f"kernels {prof['ce_us'] / 1e3:.2f} ms, projections (mm) "
+        f"{prof['projections_us'] / 1e3:.2f} ms, engine "
+        f"{prof['engine_us'] / 1e3:.2f} ms, the rest "
+        f"{prof['rest_us'] / 1e3:.2f} ms; the chunked WKV's forward + "
+        f"backward alone (one layer, {wkv['chunks']} chunks): device "
+        f"{wkv['device_us'] / 1e3:.2f} ms in {wkv['kernels']} kernels, wall "
+        f"{wkv['wall_us'] / 1e3:.2f} ms; x {RWKV_TRAIN_LAYERS} layers = "
+        f"{wkv_us / 1e3:.1f} ms, {trained['wkv_share_of_plain_step']:.1%} of "
+        f"the plain step's p50 {trained['plain_p50_ms']:.1f} ms")
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    served = rwkv_serve(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    lap("serving done")
+    launches = dict(trained["launches"])
+    missing = [k for k in RWKV_PATH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{RWKV}: kernels of the path not launched: "
+                             f"{missing}")
+    log(f"[rwkv] {RWKV}: launches on its path {launches}; {host_memory()}")
+    return {RWKV: dict(step0_grad_rel=rel, step0_state_rel=state_rel,
+                       serve_cpu_rel=serve_cpu, routes_step0=routes,
+                       smoke_step0_grad_rel=smoke_rel,
+                       smoke_step0_state_rel=smoke_state_rel,
+                       step0_layers=CPU_CHECK_LAYERS, train=trained,
+                       serve={"bf16": served}, launches=launches,
+                       served_layers=cfg.n_layers, full_layers=cfg.n_layers,
+                       cuts=RWKV_CUTS)}
 
 
 # ---------------------------------------------------------------------------
@@ -3684,11 +4245,11 @@ def phase_ce_timings(torch, ce_err, trained):
     for (name, spec, _), entry in zip(models, row["shapes"]):
         entry["ms_refresh"], entry["bound_ms_refresh"] = _ce_sampled_timed(
             torch, dict(spec, N=spec["N"] // 2), name)
-    # yi's, qwen2-vl's and deepseek's refreshes draw on one of their two
-    # rows; gemma2's batch is its one row (the entry above); qwen1.5 is not
-    # trained on the card
+    # yi's, qwen2-vl's, deepseek's and rwkv's refreshes draw on one of
+    # their two rows; gemma2's batch is its one row (the entry above);
+    # qwen1.5 is not trained on the card
     for (name, spec, _), entry in zip(dense, row["shapes"][len(models):]):
-        if name in ("yi-6b", VLM, MOE):
+        if name in ("yi-6b", VLM, MOE, RWKV):
             entry["ms_refresh"], entry["bound_ms_refresh"] = \
                 _ce_sampled_timed(torch, dict(spec, N=spec["N"] // 2), name)
     return rows
@@ -4049,6 +4610,7 @@ def main() -> int:
     models.update(timed("4d dense models", phase_dense_models, torch))
     models.update(timed("4e qwen2-vl", phase_vlm, torch))
     models.update(timed("4f moe", phase_moe, torch))
+    models.update(timed("4g rwkv", phase_rwkv, torch))
     rows = (timed("5 decode", phase_timings, torch, main_err, served)
             + timed("5 engine", phase_engine_timings, torch, engine_err,
                     trained)
@@ -4068,7 +4630,7 @@ def main() -> int:
             refresh_p50_ms=t.get("refresh_p50_ms"),
             tokens_per_s=t.get("tokens_per_s"),
             peak_mem_gib=t.get("peak_mem_gib"), losses=t.get("losses"),
-            layers_served=r.get("served_layers", r["full_layers"]),
+            layers_served=r["served_layers"],
             served_tok_per_s={kv: x["tok_per_s"]
                               for kv, x in r["serve"].items()},
             step0_grad_rel=r["step0_grad_rel"], cuts=r.get("cuts"))
@@ -4084,6 +4646,17 @@ def main() -> int:
                 serve={kv: {k: x[k] for k in ("tok_per_s", "ttft_p50_ms",
                                               "tpot_p50_ms")}
                        for kv, x in r["serve"].items()})
+        if m == RWKV:
+            summary[m].update(
+                step0_state_rel=r["step0_state_rel"],
+                serve_cpu_rel=r["serve_cpu_rel"],
+                routes_step0=r["routes_step0"],
+                smoke_step0_grad_rel=r["smoke_step0_grad_rel"],
+                smoke_step0_state_rel=r["smoke_step0_state_rel"],
+                step_profile=t.get("profile"),
+                wkv_profile=t.get("wkv_profile"),
+                wkv_share_of_plain_step=t.get("wkv_share_of_plain_step"),
+                serve=r["serve"])
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)

@@ -7,7 +7,7 @@ reference's ``init_params`` and hand them over as numpy arrays, whatever
 leaves the config gives the tree (``embed/pos`` with learned positions,
 ``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU, the top-level
 ``patch_proj`` with patch-embedding inputs, the nested ``moe`` group of a
-MoE layer).  The engine's
+MoE layer, the RWKV family's ``tm``/``cm`` groups).  The engine's
 flat shards share the reference's layout (``core/engine.py:build_layout``
 over the same sorted leaves), so its state carries over as a plain copy.
 """
@@ -18,10 +18,13 @@ import torch
 
 from .core.engine import EngineState, ShardLayout, dtype_name
 from .models.common import ModelConfig
+from .models.rwkv import RWKV
 from .models.transformer import Transformer, unstack_layers
 
-# the transformer's top-level parameter groups, in the reference's order
-TOP_LEVEL_KEYS = ("embed", "final_norm", "layers", "patch_proj")
+# each family's top-level parameter groups, in the reference's order
+TOP_LEVEL_KEYS = {"dense": ("embed", "final_norm", "layers", "patch_proj"),
+                  "moe": ("embed", "final_norm", "layers", "patch_proj"),
+                  "rwkv": ("embed", "final_norm", "layers")}
 
 
 def _array_to_torch(arr, device) -> torch.Tensor:
@@ -40,20 +43,23 @@ def _to_torch(tree, device):
     return _array_to_torch(tree, device)
 
 
-def params_from_jax(np_params, cfg: ModelConfig, device="cpu") -> Transformer:
+def params_from_jax(np_params, cfg: ModelConfig, device="cpu"):
     """The reference's ``init_params`` tree as numpy arrays (for example
-    ``jax.tree.map(np.asarray, params)``) -> the port's module.  The stacked
-    leaves under ``"layers"`` carry a leading ``n_layers`` axis; they are
-    split into one parameter set per layer (``transformer.unstack_layers``:
-    with ``moe_every == 2`` they are stacked over the (dense, MoE) groups).
-    A top-level key the port does not know raises, rather than being
-    dropped."""
-    unknown = sorted(set(np_params) - set(TOP_LEVEL_KEYS))
+    ``jax.tree.map(np.asarray, params)``) -> the port's module of the
+    config's family (``Transformer``, or ``RWKV``).  The stacked leaves
+    under ``"layers"`` carry a leading ``n_layers`` axis; they are split
+    into one parameter set per layer (``transformer.unstack_layers``: with
+    ``moe_every == 2`` they are stacked over the (dense, MoE) groups).  A
+    key the port does not know raises, rather than being dropped: a
+    top-level one here, one inside a layer in the module."""
+    keys = TOP_LEVEL_KEYS.get(cfg.family, ())
+    unknown = sorted(set(np_params) - set(keys))
     if unknown:
         raise ValueError(f"reference params have top-level keys the port "
                          f"does not carry: {unknown}")
     tree = dict(np_params, layers=unstack_layers(cfg, np_params["layers"]))
-    return Transformer(cfg, _to_torch(tree, device))
+    module = RWKV if cfg.family == "rwkv" else Transformer
+    return module(cfg, _to_torch(tree, device))
 
 
 def engine_state_from_jax(np_state, layout: ShardLayout,

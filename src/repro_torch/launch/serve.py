@@ -8,7 +8,10 @@ The counterpart of ``repro/launch/serve.py``, with its flags except
 GPU, its plain version on the CPU).  ``--prefix-cache`` turns on the
 shared-prefix page reuse (pair it with ``--shared-prefix N`` to give the
 stream a common preamble; ``--prefix-pool-pages`` sizes the pool, 4 pages
-a slot by default).  ``--device`` defaults to the GPU; ``--device cpu``
+a slot by default).  An RWKV arch (``--arch rwkv6-7b``) keeps a bounded
+recurrent state and no KV cache: with ``--kv-dtype int8`` or
+``--prefix-cache`` it raises the reference's ``ValueError`` when the
+engine is built.  ``--device`` defaults to the GPU; ``--device cpu``
 runs the plain path.  Prompts are drawn with
 numpy from ``--seed``.  A warmup pass is timed separately, so first-call
 costs never enter tok/s; latency percentiles and slot utilization come

@@ -1,3 +1,4 @@
 from .common import ModelConfig, check_supported
 from .registry import get_model
+from .rwkv import RWKV
 from .transformer import Transformer

@@ -13,8 +13,8 @@ import torch
 class ModelConfig:
     """The reference's config type, field for field, so a config converts
     between the two packages by ``dataclasses.asdict``.  The port implements
-    the dense and MoE families; :func:`check_supported` names the fields it
-    refuses."""
+    the dense, MoE and RWKV families; :func:`check_supported` names the
+    fields it refuses."""
     name: str
     family: str                       # dense | moe | rwkv | griffin | encdec
     n_layers: int
@@ -80,7 +80,10 @@ class ModelConfig:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        """bf16, fp64 for "float64" (a check of rounding, not a training
+        dtype), fp32 otherwise."""
+        return {"bfloat16": torch.bfloat16,
+                "float64": torch.float64}.get(self.dtype, torch.float32)
 
     def param_count(self) -> int:
         """Analytic parameter count, the reference's ``param_count`` (every
@@ -133,15 +136,26 @@ def check_supported(cfg: ModelConfig) -> None:
     port implements the whole dense family: LayerNorm or RMSNorm (sandwich
     norms included), learned positions, rope or M-RoPE, QKV bias, GELU,
     SwiGLU or GeGLU, tied or untied embeddings, the embedding scale, and
-    token or patch-embedding inputs; and the MoE family on that trunk
+    token or patch-embedding inputs; the MoE family on that trunk
     (``models/moe.py``: top-k routing, shared experts, a MoE layer in every
-    layer or, with ``moe_every == 2``, every other one).  The other
-    families (rwkv, griffin, encdec) are refused.  A ``ValueError`` names
-    a field the reference would fail on later."""
-    if cfg.family not in ("dense", "moe"):
+    layer or, with ``moe_every == 2``, every other one); and the RWKV-6
+    family (``models/rwkv.py``), whose trunk takes none of the dense
+    trunk's norm, activation or rope fields.  The other families (griffin,
+    encdec) are refused.  A ``ValueError`` names a field the reference
+    would fail on later."""
+    if cfg.family not in ("dense", "moe", "rwkv"):
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port implements the dense and moe "
-            f"families; unsupported field: family ({cfg.family!r})")
+            f"config {cfg.name!r}: the port implements the dense, moe and "
+            f"rwkv families; unsupported field: family ({cfg.family!r})")
+    if cfg.kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")
+    if cfg.family == "rwkv":
+        # the reference takes d_model // 64 heads of 64 (rwkv.py:39-40)
+        # and ignores n_heads
+        if cfg.d_model % 64:
+            raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
+                             f"the RWKV head dim 64")
+        return
     if cfg.family == "moe":
         if cfg.n_experts < 1:
             raise ValueError(f"n_experts {cfg.n_experts} is below 1")
@@ -160,8 +174,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.activation not in ("gelu", "swiglu", "geglu"):
         raise ValueError(f"activation {cfg.activation!r} is not gelu, "
                          f"swiglu or geglu")
-    if cfg.kv_dtype not in ("bf16", "int8"):
-        raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")
     if (cfg.mrope_sections is not None
             and 2 * sum(cfg.mrope_sections) != cfg.hd):
         raise ValueError(f"mrope_sections {cfg.mrope_sections} do not cover "

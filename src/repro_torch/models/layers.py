@@ -64,12 +64,19 @@ def embed_init(gen: torch.Generator, shape):
 # norms
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of norms and accumulations for activations of ``dtype``:
+    fp32, or ``dtype`` itself where it is wider (fp64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x, scale, eps=1e-6):
-    """RMSNorm in fp32, ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``, cast
-    back to x's dtype (the scale is stored as an offset from 1)."""
-    x32 = x.to(torch.float32)
+    """RMSNorm in fp32 (:func:`wide`), ``x * rsqrt(mean(x^2) + eps) * (1 +
+    scale)``, cast back to x's dtype (the scale is stored as an offset
+    from 1)."""
+    x32 = x.to(wide(x.dtype))
     var = x32.square().mean(dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(x32.dtype))
     return out.to(x.dtype)
 
 
@@ -506,14 +513,15 @@ def embed(p, tokens, cfg: ModelConfig, positions=None):
 def unembed(p, x, cfg: ModelConfig):
     """hidden -> fp32 logits over ``padded_vocab``, the padding columns
     masked to -1e30: ``x . tok^T`` tied, ``x . unembed`` untied.  The
-    weight is cast to x's dtype and the product accumulates in fp32:
-    products of bf16 values are exact in fp32, as with the reference's
-    ``preferred_element_type``."""
+    weight is cast to x's dtype and the product accumulates in fp32
+    (:func:`wide`): products of bf16 values are exact in fp32, as with the
+    reference's ``preferred_element_type``."""
+    acc = wide(x.dtype)
     if cfg.tie_embeddings:
-        w = p["tok"].to(x.dtype).to(torch.float32).T
+        w = p["tok"].to(x.dtype).to(acc).T
     else:
-        w = p["unembed"].to(x.dtype).to(torch.float32)
-    logits = x.to(torch.float32) @ w
+        w = p["unembed"].to(x.dtype).to(acc)
+    logits = x.to(acc) @ w
     logits = _softcap(logits, cfg.final_logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         cols = torch.arange(cfg.padded_vocab, device=logits.device)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from . import transformer
+from . import rwkv, transformer
 from .common import ModelConfig
 
 
@@ -29,8 +29,13 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
 
     ``prefill`` returns a new cache; the other prefill and decode
     functions update theirs in place.  The dense and MoE families share
-    the transformer's functions, as in the reference; the others are not
-    ported and raise ``NotImplementedError``."""
+    the transformer's functions, as in the reference.  The RWKV family
+    (``models/rwkv.py``) has no ``prefill``: its cache is the bounded
+    recurrent state (``init_cache`` is ``init_state``; the lockstep path
+    feeds the prompt one token at a time), ``init_slots`` ignores the
+    cache length and refuses an int8 cache, and ``reset_slot`` zeroes the
+    slot.  The others (griffin, encdec) are not ported and raise
+    ``NotImplementedError``."""
     if cfg.family in ("dense", "moe"):
         return SimpleNamespace(
             init_params=transformer.init_params,
@@ -46,5 +51,21 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
             prefill_into_slot=transformer.prefill_into_slot,
             decode_slots=transformer.decode_slots,
             reset_slot=transformer.reset_slot,
+        )
+    if cfg.family == "rwkv":
+        return SimpleNamespace(
+            init_params=rwkv.init_params,
+            forward_hidden=rwkv.forward_hidden,
+            forward=rwkv.forward,
+            loss_fn=rwkv.loss_fn,
+            sampled_loss_fn=rwkv.sampled_loss_fn,
+            logits_fn=rwkv.logits_fn,
+            init_cache=lambda c, b, _len=None, device="cpu":
+                rwkv.init_state(c, b, device),
+            decode_step=rwkv.decode_step,
+            init_slots=rwkv.init_slots,
+            prefill_into_slot=rwkv.prefill_into_slot,
+            decode_slots=rwkv.decode_slots,
+            reset_slot=rwkv.reset_slot,
         )
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

@@ -125,14 +125,16 @@ def generate_lockstep(cfg: ModelConfig, params, prompt_tokens, *,
                       max_new: int, temperature: float = 0.0, seed: int = 0,
                       max_len: Optional[int] = None):
     """Fixed-batch generation, every request in lockstep: prompt (B, S_p)
-    int -> (B, max_new) int32 on the CPU.  The whole prompt goes through
-    ``prefill`` (the flash route), its cache is padded to ``max_len``
-    (default S_p + max_new) and the first token is the prefill logits'
-    argmax; then ``max_new - 1`` steps of :func:`make_serve_step` at the
-    shared position, drawing from a generator seeded with ``seed`` on the
-    parameters' device.  The reference's ``generate_lockstep`` (its
-    recurrent-family branch is not ported: ``get_model`` raises for those
-    families)."""
+    int -> (B, max_new) int32 on the CPU, drawing from a generator seeded
+    with ``seed`` on the parameters' device.  The dense and MoE families
+    put the whole prompt through ``prefill`` (the flash route), pad its
+    cache to ``max_len`` (default S_p + max_new) and take the prefill
+    logits' argmax as the first token; the recurrent family (RWKV) feeds
+    the prompt one token at a time through :func:`make_serve_step` at
+    positions 0..S_p - 1 from ``init_cache``, the last of those steps'
+    token being the first generated one.  Then ``max_new - 1`` steps of
+    :func:`make_serve_step` at the shared position.  The reference's
+    ``generate_lockstep``."""
     model = get_model(cfg)
     device = params.embed["tok"].device
     prompt = torch.as_tensor(np.asarray(prompt_tokens)).to(device)
@@ -140,10 +142,19 @@ def generate_lockstep(cfg: ModelConfig, params, prompt_tokens, *,
     max_len = max_len or (Sp + max_new)
     serve_step = make_serve_step(cfg, temperature=temperature)
     gen = torch.Generator(device=device).manual_seed(seed)
-    logits, cache = model.prefill(cfg, params, prompt)
-    pad = max_len - Sp
-    cache = {name: F.pad(c, (0, 0, 0, 0, 0, pad)) for name, c in cache.items()}
-    toks = [torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]]
+    if cfg.family in ("dense", "moe"):
+        logits, cache = model.prefill(cfg, params, prompt)
+        pad = max_len - Sp
+        cache = {name: F.pad(c, (0, 0, 0, 0, 0, pad))
+                 for name, c in cache.items()}
+        toks = [torch.argmax(logits[:, -1, :], dim=-1).to(
+            torch.int32)[:, None]]
+    else:
+        cache = model.init_cache(cfg, B, max_len, device)
+        for t in range(Sp):
+            last, _, cache = serve_step(params, cache, prompt[:, t:t + 1],
+                                        t, gen)
+        toks = [last]
     for pos in range(Sp, Sp + max_new - 1):
         last, _, cache = serve_step(params, cache, toks[-1], pos, gen)
         toks.append(last)

@@ -7,7 +7,7 @@ per admitted request per tick, one by default, so in-flight decodes never
 stall behind a long prompt), decodes every active slot in bursts of
 ``steps_per_tick`` tokens, and evicts finished sequences, freeing their
 slots for the queue.  Slots are independent rows of the ring
-KV cache, so a *greedy* request's tokens do not depend on what else shares
+KV cache (of the recurrent state in the RWKV family), so a *greedy* request's tokens do not depend on what else shares
 the batch, except in a MoE model whose experts' capacity binds: every
 row of a decode step is routed together, the idle ones included, as in
 the reference.  Temperature sampling draws from the engine's one device
@@ -25,7 +25,9 @@ admission copies the longest cached prefix back into the slot and starts
 the chunked prefill at its boundary.  The copies are in-place ``copy_``
 of views on the engine's device (the reference's ``_page_copy_fns``), so
 restored pages are bit-copies and the chunk boundaries are unchanged:
-greedy tokens are those of a cold prefill.
+greedy tokens are those of a cold prefill.  It needs a paged KV cache:
+the RWKV family's bounded recurrent state has none, and the engine
+refuses it there, as the reference's does.
 
 Not ported: encoder-decoder requests.
 """
@@ -130,6 +132,10 @@ class ServeEngine:
         self._prefix: Optional[PrefixCache] = None
         self._pool = None
         if prefix_cache:
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    "prefix cache needs a paged KV cache; family "
+                    f"{cfg.family!r} has none")
             pool_pages = prefix_pool_pages or 4 * n_slots
             self._prefix = PrefixCache(pool_pages, page_len)
             self._pool = {name: torch.zeros(

@@ -859,3 +859,43 @@ def test_moe_ffn_bf16_gradients_on_card(cuda_device):
     assert out.dtype == torch.bfloat16
     for g in grads:
         assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def test_wkv_chunked_matches_cpu_on_card(cuda_device):
+    """``models.rwkv.wkv_chunked`` (fp32, 4 chunks of 32, 4 heads of 64,
+    decays down to the -4 clamp, a random state) and its gradients on the
+    card against the CPU: within 1e-5 of each output's largest element."""
+    from repro_torch.models import rwkv as trwkv
+
+    gen = torch.Generator().manual_seed(3)
+    B, S, H, K = 2, 128, 4, 64
+    r, k, v = (0.5 * torch.randn((B, S, H, K), generator=gen)
+               for _ in range(3))
+    logw = (-4.0 * torch.rand((B, S, H, K), generator=gen)).clamp(-4, -1e-6)
+    u = 0.1 * torch.randn((H, K), generator=gen)
+    st = 0.5 * torch.randn((B, H, K, K), generator=gen)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_(True) for t in (r, k, v, logw, u,
+                                                          st)]
+        o, s = trwkv.wkv_chunked(*leaves)
+        grads = torch.autograd.grad(o.square().mean() + s.square().mean(),
+                                    leaves)
+        outs.append([t.detach().cpu() for t in (o, s, *grads)])
+    for got, want in zip(*outs):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_rwkv_step0_matches_cpu(cuda_device, smoke):
+    """rwkv6-7b at full width and 2 layers, and its smoke config (d 128),
+    fp32: the step-0 loss and gradients through the CE kernels against the
+    CPU's plain path, the state after the forward within 1e-5 of its
+    largest element (``chip_smoke.rwkv_step0_against_cpu``); no attention
+    kernel launches."""
+    from repro_torch.configs import get_config
+
+    cs = _chip_smoke()
+    cfg = get_config("rwkv6-7b", smoke=smoke)
+    _, rel, state_rel = cs.rwkv_step0_against_cpu(torch, cfg.name, cfg)
+    assert rel <= 1e-4 and state_rel <= 1e-5

@@ -177,14 +177,14 @@ def test_engine_without_device_raises_on_cpu_only_machine(weights):
         ServeEngine(tcfg, params_from_jax(np_params, tcfg))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
                                   "seamless-m4t-medium"])
 def test_unported_options_raise(arch):
     """Since the port serves the whole dense family (the prefix cache,
-    M-RoPE and patch embeddings included) and the MoE family, what it
-    refuses is the other families: ``check_supported`` raises for
-    rwkv6-7b's (rwkv), recurrentgemma-2b's (griffin) and
-    seamless-m4t-medium's (encdec) smoke configs by their family."""
+    M-RoPE and patch embeddings included), the MoE family and the RWKV
+    family, what it refuses is the other families: ``check_supported``
+    raises for recurrentgemma-2b's (griffin) and seamless-m4t-medium's
+    (encdec) smoke configs by their family."""
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch, smoke=True)))
     with pytest.raises(NotImplementedError, match="family") as err:
         check_supported(cfg)
