@@ -147,10 +147,10 @@ it fails and prints no result.  Phases, in order:
      steps, bf16, engine kernels, peak lr 1e-5, GNB
      refresh at steps 0, 3 and 6 on half the batch, exact launch counts,
      the loss finite and falling, plain and refresh p50, tokens/s, peak
-     memory; served at
-     full depth (NeoX-1.5B at 12 layers; 8 mixed requests over 8 slots,
-     bf16 and int8 KV
-     caches), the 2-layer model's decode on the card against the CPU.
+     memory; served (NeoX-1.5B at 12 layers, stablelm-1.6b and NeoX-6.6B
+     at 8, for the script's time since phase 4h joined it; 8 mixed
+     requests over 8 slots, bf16 and int8 KV caches), the 2-layer
+     model's decode on the card against the CPU.
      Counts are zeroed before each model's runs and read after: decode
      attention, the Sophia step and the refresh-fused step, the four CE
      kernels and the three flash kernels must each have launched;
@@ -165,9 +165,10 @@ it fails and prints no result.  Phases, in order:
      at 4 of 42 (B=1 x S=8192, its context, where the local layers'
      window masks keys); qwen1.5-110b not trained (its embeddings alone,
      2.49 B parameters, take ~80 GB at the ~32 bytes a parameter a step
-     needs); served (bf16 and int8 caches), yi-6b at 8 of 32 layers,
-     gemma2-9b at 10 of 42 (both fit at full depth; cut for the script's
-     time since phase 4g joined it) and qwen1.5 at 6 of 80 layers.  Each cut and its reason is logged.  Counts are zeroed
+     needs); served (bf16 and int8 caches), yi-6b at 4 of 32 layers,
+     gemma2-9b at 6 of 42 (both fit at full depth; cut for the script's
+     time since phases 4g and 4h joined it) and qwen1.5 at 6 of 80
+     layers.  Each cut and its reason is logged.  Counts are zeroed
      before each run and read after: the step-0 check launches the CE and
      flash kernels, training the path's kernels exactly, serving decode
      attention once a layer a step;
@@ -179,8 +180,9 @@ it fails and prints no result.  Phases, in order:
      at 2 layers, fp32, B=1 x S=320 against the CPU (loss within 1e-5
      relative, every gradient, ``patch_proj``'s included, within 1e-4 of
      its leaf's largest element); Sophia-G trained as in 4c at 4 of 28
-     layers, B=2 x S=2048; served at full depth (bf16 and int8 caches);
-     the prefix cache at full depth, cold and warm engines over 8
+     layers, B=2 x S=2048; served at 8 of 28 layers (bf16 and int8
+     caches; for the script's time since phase 4h joined it); the prefix
+     cache at that depth, cold and warm engines over 8
      requests behind a 4-page prefix on 4 slots (the tokens identical, a
      hit rate above 0, at least 4 pages reused; TTFT p50 of each); and
      ``prefill`` of a 32,768-token prompt (the flash forward kernel once
@@ -204,8 +206,8 @@ it fails and prints no result.  Phases, in order:
      (aux, and the share of dropped token-expert entries at the first and
      the last step), and ``torch.profiler`` over one MoE FFN's forward and
      backward at that shape (its device time by kind, its share of the
-     plain step); served at 7 of 28 layers (bf16 and int8 caches; cut
-     for the script's time since phase 4g joined it; the decode
+     plain step); served at 4 of 28 layers (bf16 and int8 caches; cut
+     for the script's time since phases 4g and 4h joined it; the decode
      kernel held on the engine's own cache; the card-vs-CPU decode check
      compares every call's routing and leaves out a slot whose token took
      other experts at a near tie), a profile window of one decode burst,
@@ -235,7 +237,34 @@ it fails and prints no result.  Phases, in order:
      Each cut and its
      reason is logged (``RWKV_CUTS``); phase 2 also holds the CE kernels
      at rwkv's loss shape (N 4096, D 4096, Vp 65,536, untied, rms) and
-     rows 2-4 on its 1,849,032,704-element shard;
+     rows 2-4 on its 1,849,032,704-element shard; and, served at full
+     depth in bf16, the time to first token of 2 prompts of 32 tokens on
+     the engine's batched prefill and on a per-token absorption
+     (``rwkv_ttft_routes``);
+  4h. recurrentgemma-2b (the Griffin family: 8 groups of two RG-LRU
+     recurrent layers and one local-attention layer, window 2048, plus 2
+     recurrent tail layers; d 2560, 10 query heads over one KV head of
+     256, d_ff 7,680, tied vocab 256,000 with the embedding scale), random
+     weights from a seed: step 0 at full width, one group and one tail
+     layer, fp32, B=1 x S=64 against the CPU (the CE and flash kernels;
+     the loss, every gradient and the recurrent state after the
+     forward); Sophia-G trained as in 4c at the largest depth 3g + 2 that
+     ``griffin_train_layers`` plans (11 of 26), B=2 x S=4096 (the window
+     masks), with a profile of one plain step (CE, flash, engine,
+     projections, the rest, idle) and of the RG-LRU's forward and
+     backward alone; served at full depth, bf16, 8 requests over 8 slots
+     each decoding past position 2048 (the ring wraps; the decode kernel
+     at group 10 in two head tiles, its launches counted exactly, and
+     held against its plain version on the engine's wrapped ring), a
+     profile of one decode burst, a reused slot against a fresh engine
+     (the greedy tokens equal), and ``generate_lockstep`` on 2 prompts
+     against the engine in fp32 (the greedy tokens equal, the routes
+     within ``GRIFFIN_ROUTE_TOL_F32``).  Phase 2 also holds the decode
+     kernel at its shape (N 8, C 2048, H 10, Hkv 1, hd 256, positions
+     around the wrap) and at groups 9, 12 and 16, the CE kernels at its
+     loss shape (N 8192, D 2560, Vp 256,000, tied, rms) and flash at its
+     attention (B 2, H 10 over 1, S 4096, hd 256, window 2048); phase 5
+     times them there.  The cuts and their reasons are logged;
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -414,6 +443,8 @@ def check_decode_attention(torch, args, **kw):
 
 
 MAIN_POS = [0, 5, 100, 511, 512, 700, 1023, 1500]   # wraps past C = 512
+# recurrentgemma-2b's ring (C 2048): before, at and after its wrap
+GRIFFIN_POS = [100, 2047, 2048, 5000, 0, 1500, 4095, 2100]
 # decode attention's timed shapes, (N, H, Hkv, C, hd) and positions: (a) the
 # serving shape, the kernels line's row; (b) GPT-2's full 1024-token context
 # over 8 slots; (c) 64 slots at that context, every position >= 1023
@@ -433,6 +464,10 @@ DECODE_SHAPES = {
     "qwen2vl_lockstep_c32776": ((1, 28, 4, 32776, 128), [32770]),
     # deepseek-moe-16b (phase 4f): 16 heads over 16 (group 1) at hd 128
     "deepseek_hd128_c512": ((8, 16, 16, 512, 128), MAIN_POS),
+    # recurrentgemma-2b (phase 4h): 10 query heads over one KV head of 256
+    # (two head tiles of 5) in the 2048-entry ring of its window, before
+    # and after the ring wraps
+    "recurrentgemma_hd256_c2048": ((8, 10, 1, 2048, 256), GRIFFIN_POS),
 }
 # the options a timed shape's model calls the kernel with (gemma2: its
 # softcap and window, which a ring of 512 never reaches)
@@ -441,7 +476,7 @@ DECODE_KW = {"gemma2_hd256_c512": {"window": 4096, "softcap": 50.0}}
 
 def phase_kernels(torch):
     """Returns {kernel name: max abs err at the main bf16 shape}."""
-    from repro_torch.kernels.decode_attention import split_count
+    from repro_torch.kernels.decode_attention import head_tiles, split_count
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
@@ -496,6 +531,18 @@ def phase_kernels(torch):
         # hd 128 with 16 heads
         ("deepseek_hd128_H16_Hkv16", DECODE_SHAPES["deepseek_hd128_c512"][0],
          DECODE_SHAPES["deepseek_hd128_c512"][1], {}),
+        # recurrentgemma-2b (phase 4h): group 10 at hd 256 in two head
+        # tiles of 5 over its window's ring of 2048, positions around the
+        # wrap; and groups of 9 (tiles of 5 and 4), 12 and 16 at hd 64,
+        # 128 and 256
+        ("recurrentgemma_hd256_H10_Hkv1_C2048", DECODE_SHAPES[
+            "recurrentgemma_hd256_c2048"][0],
+         DECODE_SHAPES["recurrentgemma_hd256_c2048"][1], {}),
+        ("g9_hd64_C2048", (4, 18, 2, 2048, 64), [100, 2047, 2048, 5000], {}),
+        ("g12_hd128_C2048", (4, 24, 2, 2048, 128), [100, 2047, 2048, 5000],
+         {}),
+        ("g16_hd256_C2048", (4, 32, 2, 2048, 256), [100, 2047, 2048, 5000],
+         {}),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -507,7 +554,8 @@ def phase_kernels(torch):
                 err, _ = check_decode_attention(torch, args, **kw)
                 log(f"[kernels] {name} {case} {str(dtype)[6:]} "
                     f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} "
-                    f"S={split_count(N, Hkv, C, sms)} {kw or ''}: "
+                    f"S={split_count(N, Hkv, C, sms, head_tiles(H // Hkv))}"
+                    f" tiles={head_tiles(H // Hkv)} {kw or ''}: "
                     f"max abs err {err:.3g}")
                 if case == "main" and dtype == torch.bfloat16:
                     main_err[name] = err
@@ -557,6 +605,9 @@ CE_DENSE_SHAPES = (
     # rwkv6-7b's training batch (phase 4g: B 2 x S 2048, untied)
     ("rwkv6-7b", dict(N=4096, D=4096, V=65536, Vp=65536, tied=False,
                       norm="rms")),
+    # recurrentgemma-2b's training batch (phase 4h: B 2 x S 4096, tied)
+    ("recurrentgemma-2b", dict(N=8192, D=2560, V=256000, Vp=256000,
+                               tied=True, norm="rms")),
 )
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
@@ -889,6 +940,12 @@ ATTN_VLM_SHAPES = (
 ATTN_MOE_SHAPES = (
     ("deepseek-moe-16b", dict(B=2, H=16, Hkv=16, Sq=2048, Sk=2048, hd=128)),
 )
+# recurrentgemma-2b (phase 4h): its local attention, B 2 x S 4096, 10
+# query heads over one KV head of 256, window 2048
+ATTN_GRIFFIN_SHAPES = (
+    ("recurrentgemma-2b", dict(B=2, H=10, Hkv=1, Sq=4096, Sk=4096, hd=256,
+                               window=2048)),
+)
 PREFILL_S = 32768           # the prefill_32k serve path (configs/shapes.py)
 ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
                  window=None, softcap=None, q_offset=0)
@@ -915,6 +972,8 @@ ATTN_CASES = [
     for name, sp in ATTN_VLM_SHAPES] + [
     (f"{name}_B{sp['B']}_S{sp['Sq']}_H16_hd128", sp)
     for name, sp in ATTN_MOE_SHAPES] + [
+    (f"{name}_B{sp['B']}_S{sp['Sq']}_H10_Hkv1_hd256_w2048", sp)
+    for name, sp in ATTN_GRIFFIN_SHAPES] + [
     ("hd256_gqa2_window40_softcap50_S300_off_tile",
      dict(B=2, H=4, Hkv=2, Sq=300, Sk=300, hd=256, window=40, softcap=50.0)),
     ("hd256_q_offset96_Sq160_Sk256", dict(B=1, H=4, Hkv=2, Sq=160, Sk=256,
@@ -1268,7 +1327,7 @@ def check_sign_nan(torch, sdt):
 
 
 def param_count(cfg) -> int:
-    """Parameters of a dense, MoE or RWKV config (the port's
+    """Parameters of a dense, MoE, RWKV or Griffin config (the port's
     ``init_params`` leaves, norms and the padded vocabulary included,
     unlike the config's own ``param_count``): the engine's one fp32 shard
     is this rounded up to its block.  A MoE layer holds the router (D, E),
@@ -1277,7 +1336,11 @@ def param_count(cfg) -> int:
     wide.  An RWKV layer holds six D x D products (wr, wk, wv, wg, wo and
     the channel mix's wr, which the config's own count leaves out), the
     channel mix's D x F and F x D, the decay LoRA (2 x 64 D) and 12 D of
-    mixes, norms, decays and bonuses."""
+    mixes, norms, decays and bonuses.  A Griffin recurrent layer holds
+    w_in, w_gate (D x W) and w_out, w_a and w_x (W x W, which the config's
+    own count leaves out), the conv (cw x W), 4 W of biases and decays,
+    two norms and the MLP; an attention layer (every third) the
+    attention, two norms and the MLP."""
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
     if cfg.family == "rwkv":
         layer = 6 * D * D + 2 * D * F + 2 * 64 * D + 12 * D
@@ -1291,6 +1354,15 @@ def param_count(cfg) -> int:
     def mlp(width):
         return (3 * D * width if cfg.activation in ("swiglu", "geglu")
                 else 2 * D * width + width + D)
+
+    if cfg.family == "griffin":
+        W = cfg.rnn_width or D
+        rec = (3 * D * W + 2 * W * W + cfg.conv_width * W + 4 * W + 2 * D
+               + mlp(F))
+        n_attn = cfg.n_layers // 3
+        embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
+        return (embed + D + (cfg.n_layers - n_attn) * rec
+                + n_attn * (attn + 2 * D + mlp(F)))
 
     base = attn + norm * (4 if cfg.post_norms else 2)
     if cfg.family == "moe":
@@ -2376,8 +2448,9 @@ MODEL_S, MODEL_STEPS, MODEL_K = 2048, 7, 3
 MODEL_LR = 1e-5
 # NeoX-6.6B at full depth holds ~110 GB of fp32 weight, gradient, m and h
 # (16 bytes a parameter): one 80 GB card trains it at 8 of its 32 layers
-# (~2.0 B parameters, ~32 GB of state, B = 2 x S = 2048) and serves it at
-# full depth (27.4 GB of fp32 weights)
+# (~2.0 B parameters, ~32 GB of state, B = 2 x S = 2048); its full depth
+# (27.4 GB of fp32 weights) fits the card for serving, which
+# ``SERVE_LAYERS`` cuts to 8 layers for the script's time
 NEOX66_TRAIN_LAYERS = 8
 # NeoX-1.5B trained and served at 12 of its 48 layers: at its full depth,
 # with phase 4e, the script's [total] passed 900 s of its 1200 s limit on
@@ -2388,9 +2461,17 @@ NEOX15_LAYERS = 12
 # fp32 weights) do not fit the card; yi-6b, gemma2-9b and deepseek-moe-16b
 # fit at full depth and were cut for the script's time limit when phase 4g
 # joined it (deepseek's host-bound decode at ~110-140 ms a step took ~120
-# s at full depth)
-SERVE_LAYERS = {"neox-1.5b": NEOX15_LAYERS, "yi-6b": 8, "gemma2-9b": 10,
-                "qwen1.5-110b": 6, "deepseek-moe-16b": 7}
+# s at full depth), and cut again when phase 4h joined it (~175 s on the
+# H100, 111 s of it recurrentgemma-2b's 2,096 host-bound decode steps past
+# its ring's wrap): yi-6b from 8 to 4, gemma2-9b from 10 to 6 (3 local and
+# 3 global), deepseek-moe-16b from 7 to 4; those cuts saved ~10 s of the
+# [total], 1100.4 s on the H100 with them, so stablelm-1.6b (24 layers),
+# NeoX-6.6B (32) and qwen2-vl-7b (28; its prefix cache and 32k prefill
+# too) are served at 8.  Decode is host-bound, so a served depth's cost
+# is its layers; the kernels' shapes do not change
+SERVE_LAYERS = {"neox-1.5b": NEOX15_LAYERS, "yi-6b": 4, "gemma2-9b": 6,
+                "qwen1.5-110b": 6, "deepseek-moe-16b": 4,
+                "stablelm-1.6b": 8, "neox-6.6b": 8, "qwen2-vl-7b": 8}
 CPU_CHECK_LAYERS, CPU_CHECK_S = 2, 64
 
 
@@ -2574,9 +2655,11 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     launches = dict(KERNEL_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_ref = len(range(0, MODEL_STEPS, MODEL_K))
-    # RWKV has no attention: no flash kernel may launch
-    attn = (0 if cfg.family == "rwkv"
-            else cfg.n_layers * (MODEL_STEPS + n_ref))
+    # RWKV has no attention: no flash kernel may launch; Griffin attends
+    # in every third layer
+    attn_layers = {"rwkv": 0, "griffin": cfg.n_layers // 3}.get(
+        cfg.family, cfg.n_layers)
+    attn = attn_layers * (MODEL_STEPS + n_ref)
     want = {"ce_forward": MODEL_STEPS, "ce_forward_sampled": n_ref,
             "ce_backward_dh": MODEL_STEPS + n_ref,
             "ce_backward_dw": MODEL_STEPS + n_ref,
@@ -2688,8 +2771,9 @@ PATH_KERNELS = ("decode_attention", "decode_attention_q8", "sophia_step",
 
 def phase_models(torch):
     """Each rope model: the step-0 card-vs-CPU check, Sophia-G training
-    (NeoX-6.6B at NEOX66_TRAIN_LAYERS layers), serving at full depth
-    (NeoX-1.5B trained and served at NEOX15_LAYERS, ``SERVE_LAYERS``).
+    (NeoX-6.6B at NEOX66_TRAIN_LAYERS layers), serving at the depth
+    ``SERVE_LAYERS`` gives (NeoX-1.5B trained and served at
+    NEOX15_LAYERS).
     Every row of the path (decode attention, the Sophia step and the
     refresh-fused step, the four CE kernels, the three flash kernels)
     must launch.  Returns {model: report}."""
@@ -2730,13 +2814,15 @@ STEP0_KERNELS = ("ce_forward", "ce_backward_dh", "ce_backward_dw",
 # 67.93 GiB for 2.02 B parameters, PR 21's phase 4c)
 DENSE_CUTS = {
     "yi-6b": "trained at 8 of 32 layers (full depth ~97 GB of fp32 weight, "
-             "gradient, m and h), B=2 as NeoX-6.6B; served at 8 of 32 "
-             "layers (full depth fits the card; cut for the script's time "
-             "limit since phase 4g joined it)",
+             "gradient, m and h), B=2 as NeoX-6.6B; served at 4 of 32 "
+             "layers (1.22 B; full depth fits the card; cut for the "
+             "script's time limit, to 8 when phase 4g joined it and to 4 "
+             "when 4h did)",
     "gemma2-9b": "trained at 4 of 42 layers (full depth ~148 GB of state) "
-                 "at B=1 x S=8192, its context; served at 10 of 42 layers "
-                 "(5 local and 5 global; full depth fits the card; cut for "
-                 "the script's time limit since phase 4g joined it)",
+                 "at B=1 x S=8192, its context; served at 6 of 42 layers "
+                 "(3 local and 3 global, 2.11 B; full depth fits the card; "
+                 "cut for the script's time limit, to 10 when phase 4g "
+                 "joined it and to 6 when 4h did)",
     "qwen1.5-110b": "not trained on the card (its embedding and unembedding "
                     "alone, 2.49 B parameters, take ~80 GB at ~32 bytes a "
                     "parameter); served at 6 of 80 layers (10.6 B "
@@ -2879,7 +2965,9 @@ VLM_CUTS = ("trained at 4 of 28 layers (2.04 B parameters, 1.09 B of them "
             "weight, gradient, m and h, ~244 GB at a step's peak) at B=2 x "
             "S=2048; step 0 vs the CPU at 2 layers (1.57 B, fp32) on one "
             "320-token row; served, the prefix cache and the 32k prefill "
-            "at full depth (28 layers, 7.63 B parameters, 30.5 GB fp32)")
+            "at 8 of 28 layers (2.97 B parameters; full depth, 7.63 B, "
+            "30.5 GB fp32, fits the card: cut for the script's time limit "
+            "when phase 4h joined it)")
 PREFIX_PAGE, PREFIX_SLOTS, PREFIX_REQUESTS = 16, 4, 8
 PREFILL_NEW, PREFILL_PAGE = 8, 1024
 # the whole-prompt prefill (flash forward, one pass) against the engine's
@@ -3194,10 +3282,11 @@ MOE_CUTS = ("trained at 3 of 28 layers (2.18 B parameters, 0.42 B of them "
             "the untied embeddings; full depth would hold ~270 GB of fp32 "
             "weight, gradient, m and h) at B=2 x S=2048; step 0 vs the CPU "
             "at 2 layers (1.60 B, fp32) on one 64-token row; served and the "
-            "prefix cache at 7 of 28 layers (4.53 B parameters, 18.1 GB "
+            "prefix cache at 4 of 28 layers (2.77 B parameters, 11.1 GB "
             "fp32; full depth, 16.88 B, fits the card, but its host-bound "
             "decode at ~110-140 ms a step took ~120 s of the script's time "
-            "limit, which phase 4g needs)")
+            "limit: cut to 7 when phase 4g joined it and to 4 when 4h "
+            "did)")
 # the ops of a MoE FFN's forward and backward by what they do (the
 # profile of one layer at the training shape, where every op is the FFN's)
 MOE_OP_KINDS = {
@@ -3591,13 +3680,15 @@ def wkv_profile(torch, cfg, B=RWKV_B, S=RWKV_SEQ):
                 kernels=len(kernels))
 
 
-def rwkv_step_profile(torch, state, train_step, batches):
+def step_profile(torch, state, train_step, batches):
     """torch.profiler over one plain step of the trained model: wall,
     device busy and idle, and the device time of the CE kernels
-    (``::ce_``), the engine (``sophia_update::``), the projections (the
-    kernels of ``aten::mm`` and ``aten::addmm``, forward and backward: every
-    x @ W of a (B, S, D) x lowers to mm) and the rest (the WKV, token
-    shifts, norms, gates, casts).  Returns {"profile": window}."""
+    (``::ce_``), the flash kernels (``flash_attn::``, none in RWKV), the
+    engine (``sophia_update::``), the projections (the kernels of
+    ``aten::mm`` and ``aten::addmm``, forward and backward: every x @ W of a
+    (B, S, D) x lowers to mm) and the rest (the WKV or the RG-LRU, token
+    shifts or convs, norms, gates, casts).  Returns {"profile":
+    window}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile_serve import _busy_us, _device_events
@@ -3626,12 +3717,14 @@ def rwkv_step_profile(torch, state, train_step, batches):
              and e.key in ("aten::mm", "aten::addmm"))
     total = sum(e - s for _, s, e in kernels)
     ce, engine = named("::ce_"), named("sophia_update::")
+    flash = named("flash_attn::")
     win = dict(wall_us=wall, device_busy_us=busy,
                device_idle_share=1.0 - busy / wall, kernels=len(kernels),
-               device_total_us=total, ce_us=ce, engine_us=engine,
-               projections_us=mm, rest_us=total - ce - engine - mm)
+               device_total_us=total, ce_us=ce, flash_us=flash,
+               engine_us=engine, projections_us=mm,
+               rest_us=total - ce - flash - engine - mm)
     if not (ce and engine):
-        raise AssertionError(f"profile of an RWKV plain step: CE {ce} us, "
+        raise AssertionError(f"profile of a plain step: CE {ce} us, "
                              f"engine {engine} us")
     return {"profile": win}
 
@@ -3690,13 +3783,13 @@ def rwkv_serve_against_cpu(torch, cfg, params):
     return logit_rel, state_rel
 
 
-def rwkv_routes(torch, cfg, params, prompts, tokens, page=16,
+def serving_routes(torch, cfg, params, prompts, tokens, page=16,
                 device="cuda"):
     """The two serving routes teacher-forced over ``prompts`` (N, S) then
     ``tokens`` (N, T): the engine's (``prefill_into_slot`` in chunks of
-    ``page`` into slot i, then ``decode_slots`` of all N) and the
-    lockstep's (``decode_step`` of all N rows one token at a time from
-    ``init_cache``).  Returns, (N, T) each, over each row's largest
+    ``page`` into slot i, then ``decode_slots`` of all N at positions S,
+    S + 1, ...) and the lockstep's (``decode_step`` of all N rows one
+    token at a time from ``init_cache``).  Returns, (N, T) each, over each row's largest
     logit: the largest difference of the two routes' logits and the
     lockstep route's top-2 gap."""
     import numpy as np
@@ -3726,8 +3819,8 @@ def rwkv_routes(torch, cfg, params, prompts, tokens, page=16,
                                          chunk.to(device), start, n)
         first.append(lg)
     eng = [torch.stack(first)]
-    pos = torch.zeros(N, dtype=torch.int32, device=device)
     for t in range(tokens.shape[1] - 1):
+        pos = torch.full((N,), S + t, dtype=torch.int32, device=device)
         eng.append(model.decode_slots(cfg, params, st,
                                       seq[:, S + t:S + t + 1], pos)[:, 0])
     eng = torch.stack(eng, dim=1)
@@ -3737,12 +3830,12 @@ def rwkv_routes(torch, cfg, params, prompts, tokens, page=16,
             ((top[..., 0] - top[..., 1]) / scale).cpu().numpy())
 
 
-def rwkv_lockstep_against_engine(torch, cfg, params, tol, seed, n=2, S=24,
-                                 new=8):
+def lockstep_against_engine(torch, cfg, params, tol, seed, n=2, S=24,
+                                 new=8, tag="rwkv"):
     """``generate_lockstep`` and a ServeEngine of ``n`` slots on ``n``
     prompts of ``S`` tokens, ``new`` greedy tokens each, in ``cfg``'s
     dtype on the card: the tokens equal, and the two routes
-    (``rwkv_routes``, teacher-forced on the lockstep's tokens) within
+    (``serving_routes``, teacher-forced on the lockstep's tokens) within
     ``tol`` of the largest logit at every position.  Returns the
     report."""
     import numpy as np
@@ -3760,7 +3853,7 @@ def rwkv_lockstep_against_engine(torch, cfg, params, tol, seed, n=2, S=24,
         eng.submit(Request(uid=i, tokens=prompts[i], max_new=new))
     served = {r.uid: r.tokens for r in eng.run()}
     del eng
-    diff, gap = rwkv_routes(torch, cfg, params, prompts, lock)
+    diff, gap = serving_routes(torch, cfg, params, prompts, lock)
     worst = float(diff.max())
     where = np.unravel_index(int(diff.argmax()), diff.shape)
     equal = all(served[i] == lock[i] for i in range(n))
@@ -3771,7 +3864,7 @@ def rwkv_lockstep_against_engine(torch, cfg, params, tol, seed, n=2, S=24,
             f"{what}: tokens {lock} vs {[served[i] for i in range(n)]}; the "
             f"routes' logits differ by up to {worst:.3g} of the largest at "
             f"(prompt, position) {tuple(map(int, where))} (limit {tol})")
-    log(f"[rwkv] {what}: the greedy tokens equal; teacher-forced, the "
+    log(f"[{tag}] {what}: the greedy tokens equal; teacher-forced, the "
         f"routes' logits within {worst:.3g} of the largest (limit {tol}; "
         f"the smallest top-2 gap {float(gap.min()):.3g} of it)")
     return dict(layers=cfg.n_layers, dtype=cfg.dtype, tokens_equal=equal,
@@ -3786,7 +3879,7 @@ def rwkv_serve(torch, cfg, params):
     window of one decode burst with every slot decoding; a slot reused
     (one slot, two requests) against a fresh engine for the second (the
     greedy tokens equal: the slot was zeroed); and
-    ``rwkv_lockstep_against_engine`` in fp64 within RWKV_ROUTE_TOL_F64.
+    ``lockstep_against_engine`` in fp64 within RWKV_ROUTE_TOL_F64.
     Returns the report."""
     import numpy as np
 
@@ -3869,10 +3962,64 @@ def rwkv_serve(torch, cfg, params):
     log(f"[rwkv] slot reuse (a 40-token then a 24-token prompt, 8 new "
         f"each, one slot): the second request's {len(fresh[1])} greedy "
         f"tokens equal a fresh engine's")
-    report["lockstep"] = rwkv_lockstep_against_engine(
+    report["lockstep"] = lockstep_against_engine(
         torch, dataclasses.replace(cfg, dtype="float64"), params,
         RWKV_ROUTE_TOL_F64, seed=10)
+    report["ttft_routes"] = rwkv_ttft_routes(torch, cfg, params)
     return report
+
+
+def rwkv_ttft_routes(torch, cfg, params, n=2, S=32, page=16):
+    """Time to first token of ``n`` prompts of ``S`` tokens, each alone,
+    on two routes over the same prompts: the engine's (one slot,
+    ``prefill_into_slot`` batched over each ``page``-token chunk, its
+    ``ttft_s``) and a per-token absorption (``prefill_into_slot`` fed one
+    token per call from a zeroed slot, then the first token's argmax,
+    timed on the host to its read-back).  Each route once off the clock
+    first.  Returns {"engine_ms": [...], "per_token_ms": [...], ...}."""
+    import numpy as np
+
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    model = get_model(cfg)
+    prompts = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (n, S)).astype(np.int32)
+
+    def engine_ttft(prompt):
+        eng = ServeEngine(cfg, params, n_slots=1, cache_len=512,
+                          page_len=page, steps_per_tick=8, seed=0,
+                          device="cuda")
+        eng.submit(Request(uid=0, tokens=prompt, max_new=1))
+        res = eng.run()[0]
+        return res.ttft_s * 1e3, res.tokens[0]
+
+    def per_token_ttft(prompt):
+        st = model.init_slots(cfg, 1, 0, "cuda")
+        toks = torch.from_numpy(prompt).cuda()[None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(S):
+            logits = model.prefill_into_slot(cfg, params, st, 0,
+                                             toks[:, t:t + 1], t, 1)
+        first = int(torch.argmax(logits))
+        return (time.perf_counter() - t0) * 1e3, first
+
+    engine_ttft(prompts[0])
+    per_token_ttft(prompts[0])
+    eng = [engine_ttft(p) for p in prompts]
+    tok = [per_token_ttft(p) for p in prompts]
+    out = dict(prompts=n, prompt_len=S, page=page,
+               engine_ms=[t for t, _ in eng],
+               per_token_ms=[t for t, _ in tok],
+               first_tokens_equal=[a == b for (_, a), (_, b) in
+                                   zip(eng, tok)])
+    log(f"[rwkv] C7: TTFT of {n} prompts of {S} tokens, each alone, "
+        f"{cfg.n_layers} layers, bf16: the engine's batched prefill "
+        f"(chunks of {page}) {[round(t, 1) for t in out['engine_ms']]} ms; "
+        f"per-token absorption {[round(t, 1) for t in out['per_token_ms']]}"
+        f" ms; first tokens equal {out['first_tokens_equal']}")
+    return out
 
 
 def phase_rwkv(torch):
@@ -3881,7 +4028,7 @@ def phase_rwkv(torch):
     full width, 2 layers, fp32 against the CPU (the loss, every gradient
     and the state after the forward; then the serving route,
     ``rwkv_serve_against_cpu``, and the two serving routes against each
-    other, ``rwkv_lockstep_against_engine``), the smoke config (d 128)
+    other, ``lockstep_against_engine``), the smoke config (d 128)
     likewise;
     Sophia-G at RWKV_TRAIN_LAYERS layers, B=2 x S=2048, with the engine
     and CE kernels (exact launch counts; one profiled plain step split
@@ -3902,7 +4049,7 @@ def phase_rwkv(torch):
 
     small, rel, state_rel = rwkv_step0_against_cpu(torch, RWKV, cfg)
     serve_cpu = rwkv_serve_against_cpu(torch, cfg, small)
-    routes = rwkv_lockstep_against_engine(
+    routes = lockstep_against_engine(
         torch, dataclasses.replace(cfg, n_layers=len(small.layers),
                                    dtype="float32"), small,
         RWKV_ROUTE_TOL_F32, seed=6)
@@ -3914,7 +4061,7 @@ def phase_rwkv(torch):
     lap("checks against the CPU done")
     tcfg = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
     trained = train_model(torch, RWKV, tcfg, RWKV_B, S=RWKV_SEQ,
-                          after=lambda *a: rwkv_step_profile(torch, *a))
+                          after=lambda *a: step_profile(torch, *a))
     wkv = wkv_profile(torch, cfg)
     lap("training and its profiles done")
     prof = trained["profile"]
@@ -3954,6 +4101,359 @@ def phase_rwkv(torch):
                        serve={"bf16": served}, launches=launches,
                        served_layers=cfg.n_layers, full_layers=cfg.n_layers,
                        cuts=RWKV_CUTS)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the Griffin family (recurrentgemma-2b)
+
+
+GRIFFIN = "recurrentgemma-2b"
+GRIFFIN_STEP0_LAYERS = 4           # one (rec, rec, attn) group + one tail
+GRIFFIN_B, GRIFFIN_SEQ = 2, 4096   # the window of 2048 masks
+# the training depth: the largest 3g + 2 (g groups and the config's two
+# tail layers) whose parameters, at a step's peak of ~34 bytes each
+# (rwkv6-7b's 62.06 GiB for 1.85 B parameters in phase 4g), hold at most
+# GRIFFIN_PLAN_BYTES, leaving the rest of the card's 80 GB to the
+# activations of B 2 x S 4096 (~2.5 GB a recurrent layer: its fp32 gates
+# and RG-LRU terms; ~1.1 GB an attention layer).  ``param_count`` counts
+# the module's leaves; ``train_model`` holds it to their numel.
+GRIFFIN_BYTES_PER_PARAM = 34
+GRIFFIN_PLAN_BYTES = 60e9
+# the served requests all decode past position GRIFFIN_WRAP - 1 = 2111:
+# the ring of 2048 wraps for each of them
+GRIFFIN_WRAP = 2112
+# The engine's serving route (``prefill_into_slot`` token by token through
+# ``decode_slots``, the decode kernel; one row while a prompt is absorbed,
+# N rows in a burst) and the lockstep's (``decode_step``, plain rolling
+# attention, every row at once) compute one function in fp32 and round it
+# differently.  On the CPU, at 26 layers and d 256 / 512, the two routes
+# lie 4.3e-6 / 3.4e-6 of the largest logit apart and a one-ulp move of
+# every weight moves the logits by 5.0e-6 / 3.5e-6
+# (``tests/_griffin_spread.py --routes``): the random-init
+# Griffin does not amplify rounding as RWKV's ``ln_x`` does, nor more with
+# width.  The bound, set before the first run on the card, is ~10x the
+# prediction (3e-6 to 3e-5); a token absorbed twice or a stale ring entry
+# moves the logits by O(1).
+GRIFFIN_ROUTE_TOL_F32 = 1e-4
+# every kernel on recurrentgemma-2b's path: rows 1 (a bf16 ring; no int8
+# cache), 2, 4, 11, 12, 14, 15 and 16-18
+GRIFFIN_PATH_KERNELS = ("decode_attention", "sophia_step", "sophia_refresh",
+                        "ce_forward", "ce_forward_sampled", "ce_backward_dh",
+                        "ce_backward_dw", "attn_fwd", "attn_bwd_dq",
+                        "attn_bwd_dkv")
+
+
+def griffin_train_layers(cfg) -> int:
+    """The largest depth 3g + 2 (g >= 1) that the plan fits."""
+    g = 1
+    while (param_count(dataclasses.replace(cfg, n_layers=3 * (g + 1) + 2))
+           * GRIFFIN_BYTES_PER_PARAM <= GRIFFIN_PLAN_BYTES):
+        g += 1
+    return 3 * g + 2
+
+
+def griffin_cuts(cfg, layers) -> str:
+    return (f"trained at {layers} of {cfg.n_layers} layers "
+            f"({(layers - 2) // 3} groups + 2 tail; "
+            f"{param_count(dataclasses.replace(cfg, n_layers=layers)) / 1e9:.2f}"
+            f" B parameters, 0.66 B of them the tied embedding; full depth, "
+            f"{param_count(cfg) / 1e9:.2f} B, would hold ~"
+            f"{param_count(cfg) * GRIFFIN_BYTES_PER_PARAM / 1e9:.0f} GB at a "
+            f"step's peak) at B={GRIFFIN_B} x S={GRIFFIN_SEQ}; step 0 vs the "
+            f"CPU at {GRIFFIN_STEP0_LAYERS} layers (one group + one tail, "
+            f"fp32) on one {CPU_CHECK_S}-token row; served at full depth "
+            f"({cfg.n_layers} layers, {param_count(cfg) / 1e9:.2f} B "
+            f"parameters, {param_count(cfg) * 4 / 1e9:.1f} GB fp32)")
+
+
+def griffin_step0_against_cpu(torch, cfg):
+    """The step-0 check of ``model_step0_against_cpu`` at one group and one
+    tail layer (the CE and flash kernels) and, on the same weights and
+    row, the recurrent state after the forward (every recurrent layer's
+    conv tail and h): each leaf on the card within 1e-5 of its largest
+    element on the CPU.  Returns (the card params, max relative gradient
+    error, max relative state error)."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.models.griffin import flat_state
+
+    rng = np.random.default_rng(4)
+    batch = {k: rng.integers(0, cfg.vocab_size, (1, CPU_CHECK_S))
+             .astype(np.int32) for k in ("tokens", "labels")}
+    reset_launch_counts()
+    params, rel = model_step0_against_cpu(
+        torch, GRIFFIN, cfg, layers=GRIFFIN_STEP0_LAYERS, batch=batch)
+    launched = dict(KERNEL_LAUNCHES)
+    missing = [k for k in STEP0_KERNELS if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"{GRIFFIN} step 0: kernels not launched: "
+                             f"{missing} ({launched})")
+    cfg2 = dataclasses.replace(cfg, n_layers=GRIFFIN_STEP0_LAYERS,
+                               dtype="float32")
+    model = get_model(cfg2)
+    states = {}
+    for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+        with torch.no_grad():
+            _, _, st = model.forward_hidden(
+                cfg2, p, torch.from_numpy(batch["tokens"]).to(dev),
+                attn_impl="flash")
+        states[dev] = {k: v.cpu() for k, v in flat_state(st).items()}
+        del p
+    state_rel = max((states["cuda"][k] - v).abs().max().item()
+                    / v.abs().max().item() for k, v in states["cpu"].items())
+    if not state_rel <= 1e-5:
+        raise AssertionError(f"{GRIFFIN} state after step 0's forward: "
+                             f"{state_rel:.3g} of its largest element")
+    log(f"[griffin] {GRIFFIN} step 0: launches {launched}; the recurrent "
+        f"state after the forward ({sorted(states['cpu'])}) within "
+        f"{state_rel:.3g} of each leaf's largest element on the CPU (limit "
+        f"1e-5)")
+    return params, rel, state_rel
+
+
+def rglru_profile(torch, cfg, B=GRIFFIN_B, S=GRIFFIN_SEQ):
+    """torch.profiler over one recurrent layer's RG-LRU forward and
+    backward at the training shape: fp32 u and the two gates (B, S, W) and
+    lam, the scan's 12 doubling passes forward and back, gradients of all
+    of them, as the trainer takes them: its device time, kernel count and
+    wall.  Returns the report."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _busy_us, _device_events
+    from repro_torch.models import griffin as tg
+
+    W = cfg.rnn_width or cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    u = torch.randn((B, S, W), generator=gen, device="cuda")
+    r, i = (torch.rand((B, S, W), generator=gen, device="cuda")
+            for _ in range(2))
+    lam = torch.linspace(2.0, 5.0, W, device="cuda")
+    leaves = [t.requires_grad_(True) for t in (u, r, i, lam)]
+
+    def fwd_bwd():
+        h, last = tg.rg_lru(u, r, i, lam)
+        torch.autograd.grad(h.square().mean() + last.square().mean(),
+                            leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _device_events(prof)
+    total = sum(e - s for _, s, e in kernels)
+    busy = _busy_us([(s, e) for _, s, e in kernels])
+    del u, r, i, lam, leaves
+    torch.cuda.empty_cache()
+    return dict(B=B, S=S, W=W, device_us=total, busy_us=busy,
+                wall_us=wall * 1e6, kernels=len(kernels))
+
+
+def griffin_serve(torch, cfg, params):
+    """``cfg`` served at its depth, bf16: MODEL_REQUESTS requests over 8
+    slots after a warm engine, every request decoding past position
+    GRIFFIN_WRAP - 1 (the ring of 2048 wraps), the decode kernel launched
+    exactly once a group for every token a slot absorbs or decodes; the
+    kernel against its plain version on the engine's own ring after the
+    wrap; a profile window of one decode burst with every slot decoding;
+    a slot reused (one slot, two requests) against a fresh engine for the
+    second (the greedy tokens equal: the recurrent state was zeroed and
+    the mask hides the old ring); ``generate_lockstep`` against the engine
+    in fp32 within GRIFFIN_ROUTE_TOL_F32.  Returns the report."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.models.griffin import n_groups
+    from repro_torch.serve import Request, ServeEngine
+
+    def engine(n_slots=8):
+        return ServeEngine(cfg, params, n_slots=n_slots,
+                           cache_len=GRIFFIN_WRAP, page_len=16,
+                           steps_per_tick=8, seed=0, device="cuda")
+
+    def run(eng, reqs):
+        for r in reqs:
+            eng.submit(r)
+        return {r.uid: r.tokens for r in eng.run()}
+
+    rng = np.random.default_rng(1)
+    run(engine(), [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, 16),
+                           max_new=8) for i in range(2)])  # off the clock
+    torch.cuda.synchronize()
+    reqs = []
+    for i in range(MODEL_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(16, 49)))
+        reqs.append(Request(uid=i, tokens=prompt.astype(np.int32),
+                            max_new=GRIFFIN_WRAP - len(prompt)))
+    eng = engine()
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    for r in results:
+        if len(r.tokens) != GRIFFIN_WRAP - len(reqs[r.uid].tokens) or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: {len(r.tokens)} tokens")
+    absorbed = sum(len(r.tokens) for r in reqs)
+    steps = eng.decode_ticks * eng.steps_per_tick
+    want = {"decode_attention": n_groups(cfg) * (steps + absorbed)}
+    if len(results) != len(reqs) or launches != want:
+        raise AssertionError(f"{len(results)} of {len(reqs)} requests; "
+                             f"launches {launches} != {want} ({n_groups(cfg)}"
+                             f" groups x ({steps} decode steps + {absorbed} "
+                             f"prompt tokens))")
+    # the last position each request wrote into its ring
+    written = [len(reqs[r.uid].tokens) + len(r.tokens) - 2 for r in results]
+    last = min(written)
+    if not last >= cfg.local_window:
+        raise AssertionError(f"the requests' last positions {written} do "
+                             f"not pass the ring of {cfg.local_window}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((eng.n_slots, cfg.n_heads, cfg.hd), generator=gen,
+                    device="cuda").to(cfg.compute_dtype)
+    ring_err = check_decode_attention(torch, dict(
+        q=q, k_cache=eng.state["kv"]["k"][0], v_cache=eng.state["kv"]["v"][0],
+        positions=torch.from_numpy(eng._pos).cuda(), k_scale=None,
+        v_scale=None), scale=1.0)[0]
+    st = eng.stats()
+    report = dict(layers=cfg.n_layers, tok_per_s=st["tokens_emitted"] / secs,
+                  token_p50_ms=st["token_lat_p50_s"] * 1e3,
+                  ttft_p50_ms=st["ttft_p50_s"] * 1e3,
+                  tpot_p50_ms=st["tpot_p50_s"] * 1e3,
+                  decode_steps=steps, launches=launches["decode_attention"],
+                  last_position=last, engine_ring_err=ring_err)
+    log(f"[griffin] {GRIFFIN} served: {cfg.n_layers} layers, bf16, "
+        f"{len(results)} requests over 8 slots, each to position {last} "
+        f"(the ring of {cfg.local_window} wrapped), {st['tokens_emitted']} "
+        f"tokens in {secs:.3f}s = {report['tok_per_s']:.1f} tok/s; token "
+        f"p50 {report['token_p50_ms']:.3f} ms; ttft p50 "
+        f"{report['ttft_p50_ms']:.1f} ms; tpot p50 "
+        f"{report['tpot_p50_ms']:.3f} ms; {steps} decode steps; launches "
+        f"{launches} (= {n_groups(cfg)} groups x (decode steps + {absorbed} "
+        f"prompt tokens)); the kernel on the engine's wrapped layer-0 ring "
+        f"vs its plain version: max abs err {ring_err:.3g}")
+    del eng
+
+    # one decode burst, every slot decoding (4-token prompts: each prompt
+    # token is a decode step of one row)
+    eng = engine()
+    for i in range(8):
+        eng.submit(Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, 4),
+                           max_new=64))
+    while eng.tokens_emitted < 8:
+        eng.tick()
+    eng.tick()
+    win = profile_window(f"decode burst ({GRIFFIN}, {cfg.n_layers} layers, "
+                         f"8 steps x 8 slots, bf16)", eng.tick,
+                         also=("gemm", "elementwise", "copy", "reduce",
+                               "cat"))
+    log("[profile] " + json.dumps(win))
+    report["decode_profile"] = win
+    del eng
+
+    # slot reuse: one slot, a request, then a second
+    first, second = (Request(uid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                                        n), max_new=8)
+                     for i, n in enumerate((40, 24)))
+    reused = run(engine(n_slots=1), [first, second])
+    fresh = run(engine(n_slots=1), [second])
+    if reused[1] != fresh[1]:
+        raise AssertionError(f"slot reuse: the second request's tokens "
+                             f"{reused[1]} != a fresh engine's {fresh[1]}")
+    report["reuse_tokens_equal"] = True
+    log(f"[griffin] slot reuse (a 40-token then a 24-token prompt, 8 new "
+        f"each, one slot): the second request's {len(fresh[1])} greedy "
+        f"tokens equal a fresh engine's")
+    report["lockstep"] = lockstep_against_engine(
+        torch, dataclasses.replace(cfg, dtype="float32"), params,
+        GRIFFIN_ROUTE_TOL_F32, seed=10, tag="griffin")
+    return report
+
+
+def phase_griffin(torch):
+    """recurrentgemma-2b (``get_config``: 26 layers, 8 (rec, rec, attn)
+    groups + 2 tail, d 2560, RG-LRU width 2560, 10 query heads over one KV
+    head of 256, window 2048, d_ff 7,680, tied vocab 256,000), random
+    weights from a seed: step 0 at full width, one group and one tail
+    layer, fp32, against the CPU (the loss, every gradient and the
+    recurrent state after the forward); Sophia-G at the depth
+    ``griffin_train_layers`` plans, B=2 x S=4096, on the flash, CE and
+    engine kernels (exact launch counts; one profiled plain step split
+    into CE, flash, engine, projections and the rest, beside the RG-LRU's
+    own forward and backward x the recurrent layers); served at full
+    depth (``griffin_serve``).  Each cut and its reason is logged.
+    Counts are zeroed before each run and read after.  Returns {model:
+    report}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(GRIFFIN)
+    layers = griffin_train_layers(cfg)
+    cuts = griffin_cuts(cfg, layers)
+    log(f"[griffin] {GRIFFIN}: {cuts}")
+    t0 = time.perf_counter()
+
+    def lap(what):
+        log(f"[griffin] {what}: {time.perf_counter() - t0:.1f}s into 4h")
+
+    small, rel, state_rel = griffin_step0_against_cpu(torch, cfg)
+    del small
+    torch.cuda.empty_cache()
+    lap("step 0 against the CPU done")
+    tcfg = dataclasses.replace(cfg, n_layers=layers)
+    trained = train_model(torch, GRIFFIN, tcfg, GRIFFIN_B, S=GRIFFIN_SEQ,
+                          after=lambda *a: step_profile(torch, *a))
+    scan = rglru_profile(torch, cfg)
+    lap("training and its profiles done")
+    prof = trained["profile"]
+    n_rec = layers - layers // 3
+    scan_us = scan["device_us"] * n_rec
+    trained.update(rglru_profile=scan,
+                   rglru_share_of_plain_step=scan_us
+                   / (trained["plain_p50_ms"] * 1e3))
+    log(f"[griffin] plain step profile ({layers} layers, B={GRIFFIN_B} x "
+        f"S={GRIFFIN_SEQ}, bf16): wall {prof['wall_us'] / 1e3:.1f} ms, "
+        f"device busy {prof['device_busy_us'] / 1e3:.1f} ms, idle "
+        f"{prof['device_idle_share']:.1%}, {prof['kernels']} kernels; CE "
+        f"kernels {prof['ce_us'] / 1e3:.2f} ms, flash "
+        f"{prof['flash_us'] / 1e3:.2f} ms, projections (mm) "
+        f"{prof['projections_us'] / 1e3:.2f} ms, engine "
+        f"{prof['engine_us'] / 1e3:.2f} ms, the rest "
+        f"{prof['rest_us'] / 1e3:.2f} ms; the RG-LRU's forward + backward "
+        f"alone (one layer): device {scan['device_us'] / 1e3:.2f} ms in "
+        f"{scan['kernels']} kernels, wall {scan['wall_us'] / 1e3:.2f} ms; x "
+        f"{n_rec} recurrent layers = {scan_us / 1e3:.1f} ms, "
+        f"{trained['rglru_share_of_plain_step']:.1%} of the plain step's "
+        f"p50 {trained['plain_p50_ms']:.1f} ms")
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    served = griffin_serve(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    lap("serving done")
+    launches = dict(trained["launches"])
+    launches["decode_attention"] = served["launches"]
+    missing = [k for k in GRIFFIN_PATH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{GRIFFIN}: kernels of the path not launched: "
+                             f"{missing}")
+    log(f"[griffin] {GRIFFIN}: launches on its path {launches}; "
+        f"{host_memory()}")
+    return {GRIFFIN: dict(step0_grad_rel=rel, step0_state_rel=state_rel,
+                          step0_layers=GRIFFIN_STEP0_LAYERS, train=trained,
+                          serve={"bf16": served}, launches=launches,
+                          served_layers=cfg.n_layers,
+                          full_layers=cfg.n_layers, cuts=cuts)}
 
 
 # ---------------------------------------------------------------------------
@@ -4000,8 +4500,8 @@ def time_decode(torch, quant, shape, positions, flush, opts=None):
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain, max_active_clusters,
-        ring_mask, split_count)
+        decode_attention, decode_attention_plain, head_tiles,
+        max_active_clusters, ring_mask, split_count)
 
     N, H, Hkv, C, hd = shape
     a = _decode_inputs(torch, N, H, Hkv, C, hd, torch.bfloat16, positions,
@@ -4046,7 +4546,8 @@ def time_decode(torch, quant, shape, positions, flush, opts=None):
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = split_count(N, Hkv, C, sms)
+    tiles = head_tiles(H // Hkv)
+    splits = split_count(N, Hkv, C, sms, tiles)
     clusters = max_active_clusters(N, H, Hkv, C, hd, torch.bfloat16, quant,
                                    splits)
     name = "decode_attention_q8" if quant else "decode_attention"
@@ -4055,13 +4556,14 @@ def time_decode(torch, quant, shape, positions, flush, opts=None):
         f"{'n/a' if library_ms is None else f'{library_ms * 1e3:.2f} us'}, "
         f"bound {bound_ms * 1e3:.2f} us ({nbytes} bytes, {flops} flops; "
         f"{valid_rows} valid rows of {N * C}), host issue "
-        f"{issue_ms * 1e3:.2f} us; S={splits}, {N * Hkv * splits} blocks, "
-        f"max active clusters {clusters}")
+        f"{issue_ms * 1e3:.2f} us; S={splits}, {tiles} head tiles, "
+        f"{N * Hkv * tiles * splits} blocks, max active clusters {clusters}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "host_issue_ms": issue_ms,
-            "splits": splits, "max_active_clusters": clusters,
+            "splits": splits, "head_tiles": tiles,
+            "max_active_clusters": clusters,
             "shape": f"N={N} H={H} Hkv={Hkv} C={C} hd={hd} q=bf16 "
                      f"kv={'int8' if quant else 'bf16'} positions="
                      f"{positions if N <= 8 else 'every one >= 1023'}"
@@ -4245,11 +4747,11 @@ def phase_ce_timings(torch, ce_err, trained):
     for (name, spec, _), entry in zip(models, row["shapes"]):
         entry["ms_refresh"], entry["bound_ms_refresh"] = _ce_sampled_timed(
             torch, dict(spec, N=spec["N"] // 2), name)
-    # yi's, qwen2-vl's, deepseek's and rwkv's refreshes draw on one of
-    # their two rows; gemma2's batch is its one row (the entry above);
-    # qwen1.5 is not trained on the card
+    # yi's, qwen2-vl's, deepseek's, rwkv's and recurrentgemma's refreshes
+    # draw on one of their two rows; gemma2's batch is its one row (the
+    # entry above); qwen1.5 is not trained on the card
     for (name, spec, _), entry in zip(dense, row["shapes"][len(models):]):
-        if name in ("yi-6b", VLM, MOE, RWKV):
+        if name in ("yi-6b", VLM, MOE, RWKV, GRIFFIN):
             entry["ms_refresh"], entry["bound_ms_refresh"] = \
                 _ce_sampled_timed(torch, dict(spec, N=spec["N"] // 2), name)
     return rows
@@ -4419,7 +4921,7 @@ def phase_flash_timings(torch, attn_err, trained):
               for name, sp in ATTN_MODEL_SHAPES]
     models += [_flash_timed(torch, dict(ATTN_MAIN, **sp), name, reps=10)
                for name, sp in ATTN_DENSE_SHAPES + ATTN_VLM_SHAPES
-               + ATTN_MOE_SHAPES]
+               + ATTN_MOE_SHAPES + ATTN_GRIFFIN_SHAPES]
     rows = [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
              "replaces": replaces,
              "launches": trained["launches"].get(name, 0),
@@ -4611,6 +5113,7 @@ def main() -> int:
     models.update(timed("4e qwen2-vl", phase_vlm, torch))
     models.update(timed("4f moe", phase_moe, torch))
     models.update(timed("4g rwkv", phase_rwkv, torch))
+    models.update(timed("4h griffin", phase_griffin, torch))
     rows = (timed("5 decode", phase_timings, torch, main_err, served)
             + timed("5 engine", phase_engine_timings, torch, engine_err,
                     trained)
@@ -4656,6 +5159,14 @@ def main() -> int:
                 step_profile=t.get("profile"),
                 wkv_profile=t.get("wkv_profile"),
                 wkv_share_of_plain_step=t.get("wkv_share_of_plain_step"),
+                serve=r["serve"])
+        if m == GRIFFIN:
+            summary[m].update(
+                step0_state_rel=r["step0_state_rel"],
+                step0_layers=r["step0_layers"],
+                step_profile=t.get("profile"),
+                rglru_profile=t.get("rglru_profile"),
+                rglru_share_of_plain_step=t.get("rglru_share_of_plain_step"),
                 serve=r["serve"])
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")

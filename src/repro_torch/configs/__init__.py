@@ -3,7 +3,7 @@ architectures the port implements are listed, under the reference's
 keys."""
 from . import (deepseek_moe_16b, gemma2_9b, gpt2,
                llama4_maverick_400b_a17b, qwen1_5_110b, qwen2_vl_7b,
-               rwkv6_7b, stablelm_1_6b, yi_6b)
+               recurrentgemma_2b, rwkv6_7b, stablelm_1_6b, yi_6b)
 
 ARCHS = {
     "qwen1.5-110b": qwen1_5_110b,
@@ -12,6 +12,7 @@ ARCHS = {
     "stablelm-1.6b": stablelm_1_6b,
     "qwen2-vl-7b": qwen2_vl_7b,
     "rwkv6-7b": rwkv6_7b,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
     "deepseek-moe-16b": deepseek_moe_16b,
     # paper's own family

@@ -7,7 +7,8 @@ reference's ``init_params`` and hand them over as numpy arrays, whatever
 leaves the config gives the tree (``embed/pos`` with learned positions,
 ``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU, the top-level
 ``patch_proj`` with patch-embedding inputs, the nested ``moe`` group of a
-MoE layer, the RWKV family's ``tm``/``cm`` groups).  The engine's
+MoE layer, the RWKV family's ``tm``/``cm`` groups, the Griffin family's
+``groups`` and ``tail``).  The engine's
 flat shards share the reference's layout (``core/engine.py:build_layout``
 over the same sorted leaves), so its state carries over as a plain copy.
 """
@@ -18,13 +19,15 @@ import torch
 
 from .core.engine import EngineState, ShardLayout, dtype_name
 from .models.common import ModelConfig
+from .models.griffin import Griffin, n_groups, n_tail
 from .models.rwkv import RWKV
 from .models.transformer import Transformer, unstack_layers
 
 # each family's top-level parameter groups, in the reference's order
 TOP_LEVEL_KEYS = {"dense": ("embed", "final_norm", "layers", "patch_proj"),
                   "moe": ("embed", "final_norm", "layers", "patch_proj"),
-                  "rwkv": ("embed", "final_norm", "layers")}
+                  "rwkv": ("embed", "final_norm", "layers"),
+                  "griffin": ("embed", "final_norm", "groups", "tail")}
 
 
 def _array_to_torch(arr, device) -> torch.Tensor:
@@ -43,20 +46,38 @@ def _to_torch(tree, device):
     return _array_to_torch(tree, device)
 
 
+def unstack(stacked, n: int) -> list:
+    """A tree of arrays with a leading axis of ``n`` -> ``n`` trees."""
+    def take(tree, i):
+        return {name: take(leaf, i) if isinstance(leaf, dict) else leaf[i]
+                for name, leaf in tree.items()}
+    return [take(stacked, i) for i in range(n)]
+
+
 def params_from_jax(np_params, cfg: ModelConfig, device="cpu"):
     """The reference's ``init_params`` tree as numpy arrays (for example
     ``jax.tree.map(np.asarray, params)``) -> the port's module of the
-    config's family (``Transformer``, or ``RWKV``).  The stacked leaves
-    under ``"layers"`` carry a leading ``n_layers`` axis; they are split
-    into one parameter set per layer (``transformer.unstack_layers``: with
-    ``moe_every == 2`` they are stacked over the (dense, MoE) groups).  A
-    key the port does not know raises, rather than being dropped: a
-    top-level one here, one inside a layer in the module."""
+    config's family (``Transformer``, ``RWKV`` or ``Griffin``).  The
+    stacked leaves under ``"layers"`` carry a leading ``n_layers`` axis;
+    they are split into one parameter set per layer
+    (``transformer.unstack_layers``: with ``moe_every == 2`` they are
+    stacked over the (dense, MoE) groups).  Griffin's ``groups`` lead with
+    the group axis and ``tail`` with the tail layers': each is split into
+    a list, one tree a group or tail layer (``Griffin.param_tree`` stacks
+    them back as lists, the checkpoint as arrays).  A key the port does
+    not know raises, rather than being dropped: a top-level one here, one
+    inside a layer in the module."""
     keys = TOP_LEVEL_KEYS.get(cfg.family, ())
     unknown = sorted(set(np_params) - set(keys))
     if unknown:
         raise ValueError(f"reference params have top-level keys the port "
                          f"does not carry: {unknown}")
+    if cfg.family == "griffin":
+        tree = dict(np_params,
+                    groups=unstack(np_params["groups"], n_groups(cfg)),
+                    tail=(unstack(np_params["tail"], n_tail(cfg))
+                          if "tail" in np_params else []))
+        return Griffin(cfg, _to_torch(tree, device))
     tree = dict(np_params, layers=unstack_layers(cfg, np_params["layers"]))
     module = RWKV if cfg.family == "rwkv" else Transformer
     return module(cfg, _to_torch(tree, device))

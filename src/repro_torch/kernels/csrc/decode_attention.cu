@@ -10,6 +10,16 @@
 // GQA h -> h / G, output acc / max(l, 1e-30) in q's dtype.  An int8 entry
 // dequantizes as fp32(q8) * scale, rounded once into q's dtype.
 //
+// Query-head tiles.  A block holds each of its query heads' fp32 query
+// slice and accumulator in registers, GMAX x EPL of each a lane: at hd 256
+// a lane holds 8 elements of a row, so a group of 16 would need 256
+// registers before the scores (the limit is 255).  A KV head's G query
+// heads are therefore split into T = ceil(G / 8) tiles of ceil(G / T)
+// heads each (recurrentgemma-2b's G 10: two tiles of 5 on the GMAX 8
+// instantiation; G 16: two of 8), each tile its own blocks, walking the
+// same ring: the ring is read once a tile (at 8 slots x 2048 rows x hd 256
+// in bf16, 16.8 MB a tile, which the 50 MB L2 can hold across them).
+//
 // Bound: device-memory bytes.  Each query token reads the K/V rows of its
 // slot that can be valid once and does 4 flops per cache element, far below
 // the ~20 flops per byte where the card's fp32 units would limit.  Until the
@@ -19,14 +29,16 @@
 // reference's softmax averages them).  A memory-bound call is fast when
 // enough bytes are in flight: 3.35 TB/s times ~0.7 us of latency is ~2.3 MB
 // across the card, ~18 KB per SM.  Design:
-//   * the ring walk of one (slot, kv-head) is split across S blocks, each
+//   * the ring walk of one (slot, kv-head, head tile) is split across S
+//     blocks, each
 //     taking rows [ceil(i n / S), ceil((i + 1) n / S)) of the slot's n_rows
 //     walkable rows, computed on the device from positions[n].  One block
-//     serves all G query heads of its group, so each K/V byte is read from
-//     device memory once.  The S blocks form one thread-block cluster;
-//   * S is chosen on the host from static shapes only (N, Hkv, C;
+//     serves all the query heads of its tile, so each K/V byte is read from
+//     device memory once a tile.  The S blocks form one thread-block
+//     cluster;
+//   * S is chosen on the host from static shapes only (N, Hkv, T, C;
 //     kernels/decode_attention.py:split_count): the smallest power of two
-//     up to 8 (the portable cluster size) with N * Hkv * S at least one
+//     up to 8 (the portable cluster size) with N * Hkv * T * S at least one
 //     block per SM, and no split under 16 ring rows.  At 8 slots x 12
 //     heads that is S = 2 (192 blocks).  Measured on the H100
 //     (tests/_decode_compare.py): at C = 512 and 1024 S = 2, 4 and 8 take
@@ -242,8 +254,8 @@ decode_attention_kernel(const QT* __restrict__ q, const KV* __restrict__ k,
                         const float* __restrict__ v_scale,
                         const int* __restrict__ positions,
                         QT* __restrict__ out, int H, int Hkv, int C,
-                        int splits, int depth, float scale, int window,
-                        float softcap) {
+                        int splits, int tiles, int depth, float scale,
+                        int window, float softcap) {
   using L = Layout<KV, HD, GMAX>;
   using W = typename L::W;
   constexpr bool kQuant = sizeof(KV) == 1;
@@ -254,11 +266,16 @@ decode_attention_kernel(const QT* __restrict__ q, const KV* __restrict__ k,
   if (splits > 1)
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const int G = H / Hkv;
   const int split = static_cast<int>(cluster.block_rank());
-  const int head = blockIdx.x / splits;               // n * Hkv + hk
+  const int unit = blockIdx.x / splits;      // (n * Hkv + hk) * tiles + tile
+  const int head = unit / tiles;                      // n * Hkv + hk
   const int n = head / Hkv;
   const int hk = head % Hkv;
+  // this tile's query heads: G of the tile from q row n * H + q0
+  const int per_tile = (H / Hkv + tiles - 1) / tiles;
+  const int g_lo = (unit % tiles) * per_tile;
+  const int G = min(per_tile, H / Hkv - g_lo);
+  const size_t q0 = (size_t)n * H + (size_t)hk * (H / Hkv) + g_lo;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int sub = lane / L::LPK;                      // row slot in the warp
@@ -282,7 +299,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < L::NLD; ++i) {
       if (g < G)
-        load_float<QT, L::EPW>(q + ((size_t)n * H + hk * G + g) * HD +
+        load_float<QT, L::EPW>(q + (q0 + g) * HD +
                                    (i * L::LPK + li) * L::EPW,
                                qf[g] + i * L::EPW);
       else
@@ -491,8 +508,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KV* __restrict__ k,
       a += sm_acc[w * G * HD + i] * c;
     }
     if (splits == 1) {
-      out[((size_t)n * H + hk * G) * HD + i] =
-          static_cast<QT>(a / fmaxf(lsum, 1e-30f));
+      out[q0 * HD + i] = static_cast<QT>(a / fmaxf(lsum, 1e-30f));
       continue;
     }
     cluster.map_shared_rank(slots, i / chunk)[split * slot + i % chunk] = a;
@@ -522,8 +538,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KV* __restrict__ k,
       lsum += slots[r * slot + chunk + G + g] * c;
       a += slots[r * slot + j] * c;
     }
-    out[((size_t)n * H + hk * G) * HD + i] =
-        static_cast<QT>(a / fmaxf(lsum, 1e-30f));
+    out[q0 * HD + i] = static_cast<QT>(a / fmaxf(lsum, 1e-30f));
   }
 }
 
@@ -532,7 +547,7 @@ struct Args {
   const float *ks, *vs;
   const int* pos;
   void* out;
-  int N, H, Hkv, C, splits;
+  int N, H, Hkv, C, splits, tiles;
   float scale;
   int window;
   float softcap;
@@ -544,7 +559,7 @@ template <typename QT, typename KV, int HD, int GMAX>
 cudaError_t run(const Args& a) {
   using L = Layout<KV, HD, GMAX>;
   auto kern = decode_attention_kernel<QT, KV, HD, GMAX>;
-  const int G = a.H / a.Hkv;
+  const int G = (a.H / a.Hkv + a.tiles - 1) / a.tiles;    // heads a tile
   // ring depth: every stage of the longest split where four hold it
   const int rows_max = (a.C + a.splits - 1) / a.splits;
   const int stages = (rows_max + L::ROWS - 1) / L::ROWS;
@@ -564,7 +579,7 @@ cudaError_t run(const Args& a) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits * a.N * a.Hkv);
+  cfg.gridDim = dim3(a.splits * a.N * a.Hkv * a.tiles);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -575,11 +590,13 @@ cudaError_t run(const Args& a) {
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const QT*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), a.ks, a.vs, a.pos, static_cast<QT*>(a.out),
-      a.H, a.Hkv, a.C, a.splits, depth, a.scale, a.window, a.softcap);
+      a.H, a.Hkv, a.C, a.splits, a.tiles, depth, a.scale, a.window,
+      a.softcap);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// G: the query heads of one tile.
 template <typename QT, typename KV, int HD>
 cudaError_t by_group(int G, const Args& a) {
   if (G == 1) return run<QT, KV, HD, 1>(a);
@@ -599,9 +616,11 @@ cudaError_t by_head_dim(int hd, int G, const Args& a) {
 
 int dispatch(int hd, int q_bf16, int kv_int8, const Args& a) {
   if (a.N <= 0 || a.C <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0 ||
-      a.splits < 1 || a.splits > kMaxSplits)
+      a.splits < 1 || a.splits > kMaxSplits || a.tiles < 1)
     return cudaErrorInvalidValue;
-  const int G = a.H / a.Hkv;
+  // every tile holds at least one head
+  const int G = (a.H / a.Hkv + a.tiles - 1) / a.tiles;
+  if ((a.tiles - 1) * G >= a.H / a.Hkv) return cudaErrorInvalidValue;
   if (q_bf16) {
     if (kv_int8) return by_head_dim<__nv_bfloat16, int8_t>(hd, G, a);
     return by_head_dim<__nv_bfloat16, __nv_bfloat16>(hd, G, a);
@@ -616,19 +635,21 @@ int dispatch(int hd, int q_bf16, int kv_int8, const Args& a) {
 // q/out (N, H, hd); k/v (N, C, Hkv, hd); k_scale/v_scale (N, C) fp32 or
 // null; positions (N,) int32.  q_bf16: 1 for bf16 q/out, 0 for fp32.
 // kv_int8: 1 for an int8 cache with scales, 0 for a cache in q's dtype.
-// splits: blocks per (slot, kv-head), the cluster size, 1 to 8.  window:
+// splits: blocks per (slot, kv-head, tile), the cluster size, 1 to 8.
+// tiles: tiles of each kv-head's H / Hkv query heads, ceil(H / Hkv / tiles)
+// heads a tile (at most 8), every tile non-empty.  window:
 // 1 << 30 for global attention; softcap <= 0: none.  Returns the
 // cudaError_t of the launch (0 = launched).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* positions, void* out, int N, int H,
-    int Hkv, int C, int hd, int q_bf16, int kv_int8, int splits, float scale,
-    int window, float softcap, void* stream) {
+    int Hkv, int C, int hd, int q_bf16, int kv_int8, int splits, int tiles,
+    float scale, int window, float softcap, void* stream) {
   const Args a{q, k, v, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(positions), out, N, H, Hkv, C, splits,
-               scale, window, softcap, static_cast<cudaStream_t>(stream),
-               nullptr};
+               tiles, scale, window, softcap,
+               static_cast<cudaStream_t>(stream), nullptr};
   return dispatch(hd, q_bf16, kv_int8, a);
 }
 
@@ -636,9 +657,9 @@ extern "C" int decode_attention_launch(
 // would make at these shapes, into *max_clusters; returns its cudaError_t.
 extern "C" int decode_attention_max_active_clusters(
     int N, int H, int Hkv, int C, int hd, int q_bf16, int kv_int8,
-    int splits, int* max_clusters) {
+    int splits, int tiles, int* max_clusters) {
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               nullptr, N, H, Hkv, C, splits, 1.f, 1 << 30, 0.f, nullptr,
-               max_clusters};
+               nullptr, N, H, Hkv, C, splits, tiles, 1.f, 1 << 30, 0.f,
+               nullptr, max_clusters};
   return dispatch(hd, q_bf16, kv_int8, a);
 }

@@ -18,6 +18,11 @@ when one is set.  An int8 cache passes ``k_scale``/``v_scale`` (N, C) fp32
 per-token scales and dequantizes as fp32(q8) * scale, rounded once into q's
 dtype.  The serve path pre-scales q (``models/layers.decode_attention_slots``)
 and calls with ``scale=1.0``, as the reference's Pallas route does.
+
+A KV head's G query heads run in :func:`head_tiles` tiles of at most
+``TILE_HEADS`` heads, each tile its own blocks over the same ring (its
+registers hold a query slice and an accumulator per head of the tile);
+``MAX_GROUP`` bounds G at two tiles, two reads of the ring.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from . import KERNEL_LAUNCHES, _build
 NEG_INF = -1e30           # masked-score sentinel of the reference
 GLOBAL_WINDOW = 1 << 30   # window value that masks nothing
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8             # query heads per KV head the kernel takes
+TILE_HEADS = 8            # query heads a block holds in registers
+MAX_GROUP = 16            # query heads per KV head the kernel takes
 MAX_SPLITS = 8            # blocks per ring walk: the portable cluster size
 BLOCKS_PER_SM = 1         # the split's target: this many blocks an SM
 MIN_SPLIT_ROWS = 16       # ring rows a split takes at least
@@ -124,28 +130,37 @@ def check_kernel_args(q, k_cache, v_cache, positions, k_scale=None,
             raise ValueError("decode_attention: q/k/v must be 16-byte aligned")
 
 
-def split_count(N: int, Hkv: int, C: int, sms: int = 132) -> int:
-    """Blocks S that split one (slot, KV head) ring walk, from static shapes
-    only: the smallest power of two up to ``MAX_SPLITS`` with ``N * Hkv *
-    S`` at least ``BLOCKS_PER_SM`` blocks on each of the card's ``sms``
-    SMs, and no split shorter than ``MIN_SPLIT_ROWS`` ring rows.  Where
-    ``N * Hkv`` alone fills the card it is 1 (``csrc/decode_attention.cu``'s
-    header note gives the reason)."""
+def head_tiles(G: int) -> int:
+    """Tiles T of a KV head's G query heads: ceil(G / TILE_HEADS), each of
+    ceil(G / T) heads, the last of what is left (G 10: two of 5; G 9: 5
+    and 4; G 16: two of 8)."""
+    return -(-G // TILE_HEADS)
+
+
+def split_count(N: int, Hkv: int, C: int, sms: int = 132,
+                tiles: int = 1) -> int:
+    """Blocks S that split one (slot, KV head, head tile) ring walk, from
+    static shapes only: the smallest power of two up to ``MAX_SPLITS``
+    with ``N * Hkv * tiles * S`` at least ``BLOCKS_PER_SM`` blocks on each
+    of the card's ``sms`` SMs, and no split shorter than
+    ``MIN_SPLIT_ROWS`` ring rows.  Where ``N * Hkv * tiles`` alone fills
+    the card it is 1 (``csrc/decode_attention.cu``'s header note gives the
+    reason)."""
     s = 1
-    while (s < MAX_SPLITS and N * Hkv * s < BLOCKS_PER_SM * sms
+    while (s < MAX_SPLITS and N * Hkv * tiles * s < BLOCKS_PER_SM * sms
            and C // (2 * s) >= MIN_SPLIT_ROWS):
         s *= 2
     return s
 
 
 @functools.cache
-def _splits_on(index: int, N: int, Hkv: int, C: int) -> int:
+def _splits_on(index: int, N: int, Hkv: int, C: int, tiles: int) -> int:
     """:func:`split_count` on card ``index``, once per shape."""
     return split_count(N, Hkv, C, torch.cuda.get_device_properties(
-        index).multi_processor_count)
+        index).multi_processor_count, tiles)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -159,13 +174,13 @@ def _launch_fn():
 
 def max_active_clusters(N, H, Hkv, C, hd, q_dtype, quant, splits) -> int:
     """``cudaOccupancyMaxActiveClusters`` of a launch of the kernel at these
-    shapes with ``splits`` blocks per (slot, KV head)."""
+    shapes with ``splits`` blocks per (slot, KV head, head tile)."""
     fn = _build.load("decode_attention").decode_attention_max_active_clusters
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     err = fn(N, H, Hkv, C, hd, int(q_dtype == torch.bfloat16), int(quant),
-             splits, ctypes.byref(n))
+             splits, head_tiles(H // Hkv), ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
                            f"cudaError {err}")
@@ -178,7 +193,8 @@ def decode_attention(q, k_cache, v_cache, positions, *, scale=None,
 
     A CPU tensor takes :func:`decode_attention_plain`; a CUDA tensor
     launches the kernel on the current stream, one cluster launch of
-    :func:`split_count` blocks per (slot, KV head), and adds one to
+    :func:`split_count` blocks per (slot, KV head, :func:`head_tiles`
+    tile), and adds one to
     ``KERNEL_LAUNCHES["decode_attention"]`` (``"decode_attention_q8"`` for
     an int8 cache), or raises.  Nothing is read back from the device."""
     if q.device.type == "cpu":
@@ -192,7 +208,8 @@ def decode_attention(q, k_cache, v_cache, positions, *, scale=None,
     N, H, hd = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     quant = k_scale is not None
-    splits = _splits_on(q.device.index, N, Hkv, C)
+    tiles = head_tiles(H // Hkv)
+    splits = _splits_on(q.device.index, N, Hkv, C, tiles)
     out = torch.empty_like(q)
     err = _launch_fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -200,7 +217,7 @@ def decode_attention(q, k_cache, v_cache, positions, *, scale=None,
         v_scale.data_ptr() if quant else None,
         positions.data_ptr(), out.data_ptr(),
         N, H, Hkv, C, hd, int(q.dtype == torch.bfloat16), int(quant), splits,
-        float(scale if scale is not None else 1.0 / math.sqrt(hd)),
+        tiles, float(scale if scale is not None else 1.0 / math.sqrt(hd)),
         int(GLOBAL_WINDOW if window is None else window),
         float(softcap if softcap is not None else 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)

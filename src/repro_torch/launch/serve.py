@@ -9,9 +9,10 @@ GPU, its plain version on the CPU).  ``--prefix-cache`` turns on the
 shared-prefix page reuse (pair it with ``--shared-prefix N`` to give the
 stream a common preamble; ``--prefix-pool-pages`` sizes the pool, 4 pages
 a slot by default).  An RWKV arch (``--arch rwkv6-7b``) keeps a bounded
-recurrent state and no KV cache: with ``--kv-dtype int8`` or
-``--prefix-cache`` it raises the reference's ``ValueError`` when the
-engine is built.  ``--device`` defaults to the GPU; ``--device cpu``
+recurrent state and no KV cache, a Griffin arch (``--arch
+recurrentgemma-2b``) a bounded recurrent state and a ring KV cache of its
+attention window: with ``--kv-dtype int8`` or ``--prefix-cache`` either
+raises the reference's ``ValueError`` when the engine is built.  ``--device`` defaults to the GPU; ``--device cpu``
 runs the plain path.  Prompts are drawn with
 numpy from ``--seed``.  A warmup pass is timed separately, so first-call
 costs never enter tok/s; latency percentiles and slot utilization come

@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
         --steps 400 --global-batch 8 --seq-len 1024 --ckpt-dir /tmp/run1
 
+``--arch`` takes every architecture of ``configs.ARCHS`` (the dense, MoE,
+RWKV and Griffin families; ``--smoke`` their small configurations).
+
 Trains with ``--opt`` sophia_g (the default), sophia_h, adamw, lion,
 signgd, sgd or adahessian, the hessian-aware ones (Sophia, AdaHessian)
 with ``--estimator`` gnb (the default), hutchinson or empirical_fisher,

@@ -13,8 +13,8 @@ import torch
 class ModelConfig:
     """The reference's config type, field for field, so a config converts
     between the two packages by ``dataclasses.asdict``.  The port implements
-    the dense, MoE and RWKV families; :func:`check_supported` names the
-    fields it refuses."""
+    the dense, MoE, RWKV and Griffin families; :func:`check_supported`
+    names the fields it refuses."""
     name: str
     family: str                       # dense | moe | rwkv | griffin | encdec
     n_layers: int
@@ -96,6 +96,8 @@ class ModelConfig:
             per = 5 * D * D + 2 * (D * 64 + 64 * D) + 2 * D * F + 4 * D
             return emb + L * per
         if self.family == "griffin":
+            # the reference's count leaves out each recurrent layer's w_a
+            # and w_x (2 W^2); kept as it is, so both packages count alike
             W = self.rnn_width or D
             rec = 2 * D * W + W * D + 2 * W * self.conv_width + 4 * W
             att = D * (H * hd) + 2 * D * (Hkv * hd) + (H * hd) * D
@@ -138,15 +140,18 @@ def check_supported(cfg: ModelConfig) -> None:
     SwiGLU or GeGLU, tied or untied embeddings, the embedding scale, and
     token or patch-embedding inputs; the MoE family on that trunk
     (``models/moe.py``: top-k routing, shared experts, a MoE layer in every
-    layer or, with ``moe_every == 2``, every other one); and the RWKV-6
+    layer or, with ``moe_every == 2``, every other one); the RWKV-6
     family (``models/rwkv.py``), whose trunk takes none of the dense
-    trunk's norm, activation or rope fields.  The other families (griffin,
-    encdec) are refused.  A ``ValueError`` names a field the reference
-    would fail on later."""
-    if cfg.family not in ("dense", "moe", "rwkv"):
+    trunk's norm, activation or rope fields; and the Griffin family
+    (``models/griffin.py``: RG-LRU recurrent layers and local attention,
+    whose norms are RMSNorm whatever ``norm_type`` says).  The encoder-
+    decoder family is refused.  A ``ValueError`` names a field the
+    reference would fail on later."""
+    if cfg.family not in ("dense", "moe", "rwkv", "griffin"):
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port implements the dense, moe and "
-            f"rwkv families; unsupported field: family ({cfg.family!r})")
+            f"config {cfg.name!r}: the port implements the dense, moe, rwkv "
+            f"and griffin families; unsupported field: family "
+            f"({cfg.family!r})")
     if cfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")
     if cfg.family == "rwkv":
@@ -156,6 +161,26 @@ def check_supported(cfg: ModelConfig) -> None:
             raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
                              f"the RWKV head dim 64")
         return
+    if cfg.family == "griffin":
+        # the rolling window is the decode state's ring (griffin.py:
+        # init_state), so it must exist; the conv carries its last
+        # conv_width - 1 inputs, and at conv_width 1 the reference's
+        # ``xp[:, -(cw - 1):]`` keeps the whole segment and its decode scan
+        # fails on the shape
+        if cfg.local_window is None or cfg.local_window < 1:
+            raise ValueError(f"local_window {cfg.local_window} is below 1: "
+                             f"griffin's decode ring needs a window")
+        if cfg.conv_width < 2:
+            raise ValueError(f"conv_width {cfg.conv_width} is below 2")
+        # rnn_width None or 0 takes d_model, as the reference's rnn_width
+        if cfg.rnn_width is not None and cfg.rnn_width < 0:
+            raise ValueError(f"rnn_width {cfg.rnn_width} is below 0")
+        if cfg.n_layers < 1:
+            raise ValueError(f"n_layers {cfg.n_layers} is below 1")
+        # griffin's embed passes no positions, which the reference's
+        # learned-position table asserts on (layers.py:embed)
+        if cfg.learned_pos:
+            raise ValueError("learned_pos: griffin embeds no positions")
     if cfg.family == "moe":
         if cfg.n_experts < 1:
             raise ValueError(f"n_experts {cfg.n_experts} is below 1")
@@ -169,7 +194,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if cfg.n_layers % cfg.moe_every:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"moe_every {cfg.moe_every}")
-    if cfg.norm_type not in ("ln", "rms"):
+    if cfg.family != "griffin" and cfg.norm_type not in ("ln", "rms"):
         raise ValueError(f"norm_type {cfg.norm_type!r} is not ln or rms")
     if cfg.activation not in ("gelu", "swiglu", "geglu"):
         raise ValueError(f"activation {cfg.activation!r} is not gelu, "

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from . import rwkv, transformer
+from . import griffin, rwkv, transformer
 from .common import ModelConfig
 
 
@@ -34,8 +34,13 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
     recurrent state (``init_cache`` is ``init_state``; the lockstep path
     feeds the prompt one token at a time), ``init_slots`` ignores the
     cache length and refuses an int8 cache, and ``reset_slot`` zeroes the
-    slot.  The others (griffin, encdec) are not ported and raise
-    ``NotImplementedError``."""
+    slot.  The Griffin family (``models/griffin.py``) has no ``prefill``
+    either: its state is the recurrent layers' plus a ring KV cache of the
+    attention window's size, which ``init_cache`` and ``init_slots`` build
+    whatever the cache length; ``prefill_into_slot`` feeds a chunk one
+    token at a time through ``decode_slots``, ``reset_slot`` zeroes the
+    recurrent state and leaves the ring to its mask.  The encoder-decoder
+    family is not ported and raises ``NotImplementedError``."""
     if cfg.family in ("dense", "moe"):
         return SimpleNamespace(
             init_params=transformer.init_params,
@@ -67,5 +72,21 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
             prefill_into_slot=rwkv.prefill_into_slot,
             decode_slots=rwkv.decode_slots,
             reset_slot=rwkv.reset_slot,
+        )
+    if cfg.family == "griffin":
+        return SimpleNamespace(
+            init_params=griffin.init_params,
+            forward_hidden=griffin.forward_hidden,
+            forward=griffin.forward,
+            loss_fn=griffin.loss_fn,
+            sampled_loss_fn=griffin.sampled_loss_fn,
+            logits_fn=griffin.logits_fn,
+            init_cache=lambda c, b, _len=None, device="cpu":
+                griffin.init_state(c, b, device),
+            decode_step=griffin.decode_step,
+            init_slots=griffin.init_slots,
+            prefill_into_slot=griffin.prefill_into_slot,
+            decode_slots=griffin.decode_slots,
+            reset_slot=griffin.reset_slot,
         )
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

@@ -129,8 +129,8 @@ def generate_lockstep(cfg: ModelConfig, params, prompt_tokens, *,
     with ``seed`` on the parameters' device.  The dense and MoE families
     put the whole prompt through ``prefill`` (the flash route), pad its
     cache to ``max_len`` (default S_p + max_new) and take the prefill
-    logits' argmax as the first token; the recurrent family (RWKV) feeds
-    the prompt one token at a time through :func:`make_serve_step` at
+    logits' argmax as the first token; the recurrent families (RWKV,
+    Griffin) feed the prompt one token at a time through :func:`make_serve_step` at
     positions 0..S_p - 1 from ``init_cache``, the last of those steps'
     token being the first generated one.  Then ``max_new - 1`` steps of
     :func:`make_serve_step` at the shared position.  The reference's

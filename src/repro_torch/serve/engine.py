@@ -7,7 +7,9 @@ per admitted request per tick, one by default, so in-flight decodes never
 stall behind a long prompt), decodes every active slot in bursts of
 ``steps_per_tick`` tokens, and evicts finished sequences, freeing their
 slots for the queue.  Slots are independent rows of the ring
-KV cache (of the recurrent state in the RWKV family), so a *greedy* request's tokens do not depend on what else shares
+KV cache (of the recurrent state in the RWKV family, of the recurrent
+state and a ring of the attention window in the Griffin family), so a
+*greedy* request's tokens do not depend on what else shares
 the batch, except in a MoE model whose experts' capacity binds: every
 row of a decode step is routed together, the idle ones included, as in
 the reference.  Temperature sampling draws from the engine's one device
@@ -26,7 +28,7 @@ the chunked prefill at its boundary.  The copies are in-place ``copy_``
 of views on the engine's device (the reference's ``_page_copy_fns``), so
 restored pages are bit-copies and the chunk boundaries are unchanged:
 greedy tokens are those of a cold prefill.  It needs a paged KV cache:
-the RWKV family's bounded recurrent state has none, and the engine
+the RWKV and Griffin families' bounded states have none, and the engine
 refuses it there, as the reference's does.
 
 Not ported: encoder-decoder requests.

@@ -87,8 +87,8 @@ def with_splits(torch, da, a, splits):
             a["k_scale"].data_ptr() if quant else None,
             a["v_scale"].data_ptr() if quant else None,
             a["positions"].data_ptr(), out.data_ptr(), N, H, Hkv, C, hd,
-            int(a["q"].dtype == torch.bfloat16), int(quant), splits, 1.0,
-            da.GLOBAL_WINDOW, 0.0, stream)
+            int(a["q"].dtype == torch.bfloat16), int(quant), splits,
+            da.head_tiles(H // Hkv), 1.0, da.GLOBAL_WINDOW, 0.0, stream)
 
     def go():
         err = fn(*args)

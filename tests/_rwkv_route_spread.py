@@ -1,7 +1,7 @@
 """How far apart rounding puts the two RWKV serving routes: the engine's
 (``prefill_into_slot`` in chunks of 16, then ``decode_slots``) and the
 lockstep's (``decode_step`` one token at a time), teacher-forced over 2
-prompts of 24 tokens and 8 more (``chip_smoke.rwkv_routes``), on
+prompts of 24 tokens and 8 more (``chip_smoke.serving_routes``), on
 rwkv6-7b's layout with random weights from a seed, in each dtype given.
 The largest difference of the two routes' logits, over the largest logit,
 at each position.  The fp32 and fp64 gaps at 32 layers set
@@ -24,7 +24,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import rwkv_routes  # noqa: E402
+from chip_smoke import serving_routes  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
@@ -53,7 +53,7 @@ def main(argv=None):
     np.set_printoptions(precision=3, linewidth=120)
     for dtype in args.dtypes.split(","):
         t0 = time.perf_counter()
-        diff, gap = rwkv_routes(torch, dataclasses.replace(cfg, dtype=dtype),
+        diff, gap = serving_routes(torch, dataclasses.replace(cfg, dtype=dtype),
                                 params, prompts, tokens, device=args.device)
         print(f"[route spread] {cfg.n_layers} layers, d {cfg.d_model}, "
               f"{dtype} on {args.device} ({time.perf_counter() - t0:.1f}s): "

@@ -91,6 +91,40 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dt, quant, N, H,
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("dt,quant", [(torch.float32, False),
+                                      (torch.bfloat16, False),
+                                      (torch.float32, True),
+                                      (torch.bfloat16, True)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [9, 10, 12, 16])
+def test_decode_attention_head_tiles_match_plain(cuda_device, dt, quant, hd,
+                                                 G):
+    """Groups above 8 query heads per KV head run in two tiles of heads
+    (recurrentgemma-2b's 10 over 1 at hd 256 among them): against the
+    plain version at C 2048 with positions before and after the ring
+    wraps, over 2 KV heads, fp32 within 1e-5 and bf16 within 2e-2."""
+    N, Hkv, C = 4, 2, 2048
+    gen = torch.Generator(device=cuda_device).manual_seed(G * hd)
+    q = torch.randn((N, G * Hkv, hd), generator=gen, device=cuda_device).to(dt)
+    k = torch.randn((N, C, Hkv, hd), generator=gen, device=cuda_device)
+    v = torch.randn((N, C, Hkv, hd), generator=gen, device=cuda_device)
+    pos = torch.tensor([100, 2047, 2048, 5000], dtype=torch.int32,
+                       device=cuda_device)
+    kw = {}
+    if quant:
+        k, kw["k_scale"] = quantize_kv(k)
+        v, kw["v_scale"] = quantize_kv(v)
+    else:
+        k, v = k.to(dt), v.to(dt)
+    reset_launch_counts()
+    got = decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert sum(KERNEL_LAUNCHES.values()) == 1
+    want = decode_attention_plain(q, k, v, pos, **kw)
+    atol = 1e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 def test_engine_on_card_matches_cpu_and_launches_per_layer(cuda_device,
                                                            kv_dtype):

@@ -19,7 +19,7 @@ from repro.quant import quantize_kv as jax_quantize_kv
 from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
 from repro_torch.kernels.decode_attention import (
     check_kernel_args, decode_attention, decode_attention_hbm_bytes,
-    decode_attention_plain, split_count)
+    decode_attention_plain, head_tiles, split_count)
 
 from _decode_split import decode_attention_split, split_bounds, walk_rows
 
@@ -140,7 +140,7 @@ def test_cpu_tensor_takes_plain_route_and_counts_nothing():
 
 @pytest.mark.parametrize("change,match", [
     (dict(hd=32), "head dim"),
-    (dict(H=36, Hkv=4), "exceeds"),
+    (dict(H=68, Hkv=4), "exceeds"),         # 17 heads a KV head: 3 tiles
     (dict(k_dtype=torch.bfloat16), "cache dtype"),
     (dict(pos_shape=(3,)), "positions"),
     (dict(noncontig=True), "contiguous"),
@@ -229,3 +229,21 @@ def test_split_schedule_matches_reference(case, S):
 ])
 def test_split_count_rule(N, Hkv, C, want):
     assert split_count(N, Hkv, C, sms=132) == want
+
+
+@pytest.mark.parametrize("G,tiles,per_tile,N,C,splits", [
+    (1, 1, 1, 8, 512, 8),
+    (8, 1, 8, 8, 512, 8),     # yi-6b's group: one tile
+    (9, 2, 5, 8, 2048, 8),    # 5 and 4
+    (10, 2, 5, 8, 2048, 8),   # recurrentgemma-2b: 8 x 1 x 2 x 8 = 128 blocks
+    (12, 2, 6, 32, 2048, 4),
+    (16, 2, 8, 64, 2048, 2),  # 128 blocks before the split
+])
+def test_head_tile_rule(G, tiles, per_tile, N, C, splits):
+    """A KV head's G query heads run in ceil(G / 8) tiles of ceil(G / T)
+    heads, the last tile non-empty; the split count counts N * Hkv * T
+    blocks (one KV head here)."""
+    assert head_tiles(G) == tiles
+    assert -(-G // tiles) == per_tile
+    assert (tiles - 1) * per_tile < G <= tiles * per_tile <= 8 * tiles
+    assert split_count(N, 1, C, sms=132, tiles=tiles) == splits

@@ -152,11 +152,9 @@ def test_embedding_scale_rounds_the_constant_first(dtype):
         assert (fp32_const.float().numpy() != want).any()
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
-                                  "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_check_supported_still_refuses(arch):
-    """The families not ported (griffin, encdec) stay refused, by their
-    family."""
+    """The family not ported (encdec) stays refused, by its family."""
     cfg = tcfg(jax_get_config(arch, smoke=True))
     with pytest.raises(NotImplementedError) as err:
         check_supported(cfg)
@@ -164,13 +162,15 @@ def test_check_supported_still_refuses(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", *NAMES, "deepseek-moe-16b",
-                                  "llama4-maverick-400b-a17b", "rwkv6-7b"])
+                                  "llama4-maverick-400b-a17b", "rwkv6-7b",
+                                  "recurrentgemma-2b"])
 def test_check_supported_accepts_the_dense_configs(arch):
     """Every dense config passes, full and smoke, and is in ``ARCHS``:
     qwen2-vl's M-RoPE and patch-embedding inputs since the dense family
     was finished, the three configs of this file, the two MoE configs
-    on the same trunk since the MoE family was ported, and rwkv6-7b since
-    the RWKV family was."""
+    on the same trunk since the MoE family was ported, rwkv6-7b since
+    the RWKV family was, and recurrentgemma-2b since the Griffin family
+    was."""
     for smoke in (False, True):
         check_supported(tcfg(jax_get_config(arch, smoke=smoke)))
     assert arch in ARCHS

@@ -177,18 +177,31 @@ def test_engine_without_device_raises_on_cpu_only_machine(weights):
         ServeEngine(tcfg, params_from_jax(np_params, tcfg))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
-                                  "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_unported_options_raise(arch):
     """Since the port serves the whole dense family (the prefix cache,
-    M-RoPE and patch embeddings included), the MoE family and the RWKV
-    family, what it refuses is the other families: ``check_supported``
-    raises for recurrentgemma-2b's (griffin) and seamless-m4t-medium's
-    (encdec) smoke configs by their family."""
+    M-RoPE and patch embeddings included), the MoE, RWKV and Griffin
+    families, what it refuses is the encoder-decoder family:
+    ``check_supported`` raises for seamless-m4t-medium's smoke config by
+    its family."""
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch, smoke=True)))
     with pytest.raises(NotImplementedError, match="family") as err:
         check_supported(cfg)
     assert repr(cfg.family) in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b"])
+def test_ported_families_build_an_engine(arch):
+    """recurrentgemma-2b's smoke config (griffin), refused until its family
+    was ported, passes ``check_supported`` and builds a serve engine on
+    the CPU whose slot state is the family's (a ring of the window's
+    size, whatever the cache length)."""
+    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch, smoke=True)))
+    check_supported(cfg)
+    params = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0))
+    eng = ServeEngine(cfg, params, n_slots=2, cache_len=256, device="cpu")
+    assert tuple(eng.state["kv"]["k"].shape[2:]) == (
+        cfg.local_window, cfg.n_kv_heads, cfg.hd)
 
 
 def test_launcher_runs_on_cpu(capsys):
