@@ -110,7 +110,8 @@ it fails and prints no result.  Phases, in order:
      times (the refresh p50 over the refresh steps after step 0, which
      carries the first-call costs and is logged on its own), peak memory
      and a profile window of a Sophia-H refresh step;
-     then fp32 steps at B=2 x S=128 held against the port's plain path on
+     then fp32 steps at 2 of its 12 layers, B=2 x S=128, held against
+     the port's plain path on
      the CPU seven ways: the flash route with the engine kernels, the
      materialized-scores route (``fused_attn=False``) on the reference
      backend, AdamW, Sophia-H (Hutchinson, the same probe on both sides)
@@ -252,7 +253,8 @@ it fails and prints no result.  Phases, in order:
      ``griffin_train_layers`` plans (11 of 26), B=2 x S=4096 (the window
      masks), with a profile of one plain step (CE, flash, engine,
      projections, the rest, idle) and of the RG-LRU's forward and
-     backward alone; served at full depth, bf16, 8 requests over 8 slots
+     backward alone; served (at 11 of 26 layers since phase 4i joined
+     the script, for its time), bf16, 8 requests over 8 slots
      each decoding past position 2048 (the ring wraps; the decode kernel
      at group 10 in two head tiles, its launches counted exactly, and
      held against its plain version on the engine's wrapped ring), a
@@ -265,6 +267,34 @@ it fails and prints no result.  Phases, in order:
      loss shape (N 8192, D 2560, Vp 256,000, tied, rms) and flash at its
      attention (B 2, H 10 over 1, S 4096, hd 256, window 2048); phase 5
      times them there.  The cuts and their reasons are logged;
+  4i. seamless-m4t-medium (the encoder-decoder family: 12 bidirectional
+     encoder layers over frame embeddings, 12 decoder layers with causal
+     self-attention and cross-attention; d 1024, 16 heads of 64, GELU
+     d_ff 4096, tied vocab 256,206 padded to 256,256), random weights from
+     a seed: step 0 at 1 + 1 layers, fp32, B=1 x S_tgt=256 over 300
+     frames against the CPU (the loss and every gradient, frame_proj's
+     and the encoder's, which arrive only through the cross-attention's
+     dK/dV, non-zero); Sophia-G trained at full depth (615,962,624
+     parameters), B=4 x S_tgt=2048 over 3000 frames (the cross kernels at
+     Sq != Sk, off the 64-row tile), exact launch counts, a profile of one
+     plain step (CE, flash, engine, projections, the rest, idle) and the
+     flash time split by CUDA events into the encoder's, the decoder's
+     self- and the cross-attention; the serving routes against the CPU at
+     2 + 2 layers in fp32; served at full depth, bf16, 9 requests of 1024
+     frames over 8 slots (one with a 9-token prefix over two chunks, one
+     in a freed slot), the encoder's flash forward and the decode kernel
+     counted exactly, a profile of one decode burst, and in fp32 the
+     engine's greedy tokens equal to ``prefill_encoder`` +
+     ``decode_step``'s with the routes' logits within
+     ``SM_ROUTE_TOL_F32``; ``prefill_encoder`` over 32,768 frames (wall,
+     peak) and 8 decode steps against its 1.6 GB cross cache.  Phase 2
+     also holds the CE kernels at its loss shape (N 8192, D 1024, V
+     256,206, Vp 256,256, tied, rms: no padded column sampled, none with
+     gradient), flash at the encoder's (B 4, S 3000, non-causal) and the
+     cross-attention's shapes (Sq 2048, Sk 3000), the bidirectional
+     forward at 32k over slices of its rows, and decode at its serving
+     shape (N 8, H 16/16, hd 64, C 80); phase 5 times them there, and the
+     decoder's self-attention (causal, S 2048);
   5. numbers: serving throughput and latency, and a JSON line of kernel
      times (CUDA events, median over 200 launches for decode attention,
      at the serving shape and under ``shapes`` at 8 and 64 slots of a
@@ -445,6 +475,9 @@ def check_decode_attention(torch, args, **kw):
 MAIN_POS = [0, 5, 100, 511, 512, 700, 1023, 1500]   # wraps past C = 512
 # recurrentgemma-2b's ring (C 2048): before, at and after its wrap
 GRIFFIN_POS = [100, 2047, 2048, 5000, 0, 1500, 4095, 2100]
+# seamless-m4t-medium's served slots (phase 4i): positions of a ring that
+# never wraps
+SEAMLESS_POS = [0, 9, 20, 33, 50, 64, 72, 71]
 # decode attention's timed shapes, (N, H, Hkv, C, hd) and positions: (a) the
 # serving shape, the kernels line's row; (b) GPT-2's full 1024-token context
 # over 8 slots; (c) 64 slots at that context, every position >= 1023
@@ -468,6 +501,10 @@ DECODE_SHAPES = {
     # (two head tiles of 5) in the 2048-entry ring of its window, before
     # and after the ring wraps
     "recurrentgemma_hd256_c2048": ((8, 10, 1, 2048, 256), GRIFFIN_POS),
+    # seamless-m4t-medium (phase 4i): the decoder's 16 heads over 16 at hd
+    # 64 in the engine's ring of 80 (a 9-token prefix + 64 new, in pages
+    # of 8), every position below it
+    "seamless_hd64_c80": ((8, 16, 16, 80, 64), SEAMLESS_POS),
 }
 # the options a timed shape's model calls the kernel with (gemma2: its
 # softcap and window, which a ring of 512 never reaches)
@@ -543,6 +580,9 @@ def phase_kernels(torch):
          {}),
         ("g16_hd256_C2048", (4, 32, 2, 2048, 256), [100, 2047, 2048, 5000],
          {}),
+        # seamless-m4t-medium (phase 4i): 16 heads over 16 at hd 64
+        ("seamless_hd64_H16_Hkv16_C80", DECODE_SHAPES["seamless_hd64_c80"][0],
+         DECODE_SHAPES["seamless_hd64_c80"][1], {}),
     ]
     main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -608,6 +648,11 @@ CE_DENSE_SHAPES = (
     # recurrentgemma-2b's training batch (phase 4h: B 2 x S 4096, tied)
     ("recurrentgemma-2b", dict(N=8192, D=2560, V=256000, Vp=256000,
                                tied=True, norm="rms")),
+    # seamless-m4t-medium's target batch (phase 4i: B 4 x S 2048, tied):
+    # 256,206 rows padded to 256,256, whose 50 padded columns no loss,
+    # sampled label or dW may touch
+    ("seamless-m4t-medium", dict(N=8192, D=1024, V=256206, Vp=256256,
+                                 tied=True, norm="rms")),
 )
 CE_MAIN = dict(N=2048, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                softcap=None, h="bfloat16", w="float32", mask=False)
@@ -946,11 +991,30 @@ ATTN_GRIFFIN_SHAPES = (
     ("recurrentgemma-2b", dict(B=2, H=10, Hkv=1, Sq=4096, Sk=4096, hd=256,
                                window=2048)),
 )
+# seamless-m4t-medium's decoder self-attention (phase 4i: causal, S 2048),
+# timed in phase 5 beside the two below
+SEAMLESS_SELF_SHAPES = (
+    ("seamless-m4t-medium-self", dict(B=4, H=16, Hkv=16, hd=64, Sq=2048,
+                                      Sk=2048)),
+)
+# seamless-m4t-medium (phase 4i): 16 heads over 16 at hd 64, B 4; the
+# encoder's bidirectional attention over 3000 frames (off the 64-row tile)
+# and the cross-attention of 2048 target rows over them (Sq != Sk); the
+# decoder's self-attention (causal, S 2048) is timed in phase 5
+SEAMLESS_ATTN = dict(B=4, H=16, Hkv=16, hd=64, causal=False)
+ATTN_SEAMLESS_SHAPES = (
+    ("seamless-m4t-medium-encoder", dict(SEAMLESS_ATTN, Sq=3000, Sk=3000)),
+    ("seamless-m4t-medium-cross", dict(SEAMLESS_ATTN, Sq=2048, Sk=3000)),
+)
 PREFILL_S = 32768           # the prefill_32k serve path (configs/shapes.py)
 ATTN_MAIN = dict(B=8, H=12, Hkv=12, Sq=1024, Sk=1024, hd=64, causal=True,
                  window=None, softcap=None, q_offset=0)
 PREFILL_ATTN = dict(ATTN_MAIN, **dict(QWEN2VL_ATTN, B=1, Sq=PREFILL_S,
                                       Sk=PREFILL_S))
+# seamless-m4t-medium's encoder over the 32k frames of prefill_32k:
+# bidirectional, every row attends every key
+SEAMLESS_LONG_ATTN = dict(ATTN_MAIN, **dict(SEAMLESS_ATTN, B=1, Sq=PREFILL_S,
+                                            Sk=PREFILL_S))
 ATTN_CASES = [
     ("train_step", {}),
     ("refresh_B4", dict(B=4)),
@@ -974,6 +1038,8 @@ ATTN_CASES = [
     for name, sp in ATTN_MOE_SHAPES] + [
     (f"{name}_B{sp['B']}_S{sp['Sq']}_H10_Hkv1_hd256_w2048", sp)
     for name, sp in ATTN_GRIFFIN_SHAPES] + [
+    (f"{name}_B{sp['B']}_Sq{sp['Sq']}_Sk{sp['Sk']}_H16_noncausal", sp)
+    for name, sp in ATTN_SEAMLESS_SHAPES] + [
     ("hd256_gqa2_window40_softcap50_S300_off_tile",
      dict(B=2, H=4, Hkv=2, Sq=300, Sk=300, hd=256, window=40, softcap=50.0)),
     ("hd256_q_offset96_Sq160_Sk256", dict(B=1, H=4, Hkv=2, Sq=160, Sk=256,
@@ -1082,7 +1148,8 @@ def check_flash_forward_long(torch, name, spec):
     version's scores over every row would take B*H*S^2*4 bytes: held over
     LONG_ROWS query rows at the start, the middle and the end, each
     against the plain version of that slice (``q_offset`` its first row,
-    every key): o within TOL of its largest element and each element
+    every key; causal, or bidirectional with ``causal=False`` as the
+    encoder's): o within TOL of its largest element and each element
     within 2^-7 of its absolute sum (``contract_sums``); lse within the
     fp32 TOL of its largest element, since both sides compute it in fp32
     from the same bf16 q and k (the tensor cores' bf16 products are exact
@@ -1143,7 +1210,8 @@ def check_flash_forward_long(torch, name, spec):
 def phase_flash_kernels(torch):
     """Returns {kernel name: max abs error at the training shape, bf16},
     and under "attn_fwd_long" the forward's {"o", "lse"} errors at the
-    32k prefill's shape."""
+    32k prefill's shape (causal), under "attn_fwd_long_noncausal" at the
+    32k encoder's (bidirectional)."""
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, over in ATTN_CASES:
@@ -1154,6 +1222,9 @@ def phase_flash_kernels(torch):
     out["attn_fwd_long"] = check_flash_forward_long(
         torch, f"qwen2-vl-7b-prefill_B1_S{PREFILL_S}_H28_Hkv4",
         PREFILL_ATTN)
+    out["attn_fwd_long_noncausal"] = check_flash_forward_long(
+        torch, f"seamless-m4t-medium-encoder_B1_S{PREFILL_S}_H16_noncausal",
+        SEAMLESS_LONG_ATTN)
     return out
 
 
@@ -1327,7 +1398,8 @@ def check_sign_nan(torch, sdt):
 
 
 def param_count(cfg) -> int:
-    """Parameters of a dense, MoE, RWKV or Griffin config (the port's
+    """Parameters of a dense, MoE, RWKV, Griffin or encoder-decoder config
+    (the port's
     ``init_params`` leaves, norms and the padded vocabulary included,
     unlike the config's own ``param_count``): the engine's one fp32 shard
     is this rounded up to its block.  A MoE layer holds the router (D, E),
@@ -1340,7 +1412,11 @@ def param_count(cfg) -> int:
     w_in, w_gate (D x W) and w_out, w_a and w_x (W x W, which the config's
     own count leaves out), the conv (cw x W), 4 W of biases and decays,
     two norms and the MLP; an attention layer (every third) the
-    attention, two norms and the MLP."""
+    attention, two norms and the MLP.  An encoder-decoder holds
+    ``frame_proj`` (D x D, which the config's own count leaves out, as it
+    does the norms and the GELU MLP's biases), encoder layers of one
+    attention, two norms and the MLP, decoder layers of two attentions,
+    three norms and the MLP, and two final norms."""
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
     if cfg.family == "rwkv":
         layer = 6 * D * D + 2 * D * F + 2 * 64 * D + 12 * D
@@ -1363,6 +1439,12 @@ def param_count(cfg) -> int:
         embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
         return (embed + D + (cfg.n_layers - n_attn) * rec
                 + n_attn * (attn + 2 * D + mlp(F)))
+
+    if cfg.family == "encdec":
+        embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
+        return (embed + D * D + 2 * D
+                + cfg.n_encoder_layers * (attn + 2 * D + mlp(F))
+                + cfg.n_layers * (2 * attn + 3 * D + mlp(F)))
 
     base = attn + norm * (4 if cfg.post_norms else 2)
     if cfg.family == "moe":
@@ -2042,9 +2124,19 @@ def _cpu_probe(torch, seed, device):
     return probe
 
 
+# the seven card-vs-CPU runs of phase 4 at GPT-2 small's width and
+# CPU_TRAIN_LAYERS of its 12 layers (all 12 until phase 4i joined the
+# script, cut for its time: on the H100's host they took 102 s at 12
+# layers, most of it parameter-sized work on the CPU (the optimizer, the
+# Hutchinson HVP), 7-25 s a run, whatever the tokens (S 64 saved none);
+# every route, kernel and comparison is the same at any depth)
+CPU_TRAIN_LAYERS = 2
+
+
 def check_train_against_cpu(torch, cfg, name, over, steps=3):
-    """``steps`` fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) on
-    the card (the kernels) and on the CPU (their plain versions), same
+    """``steps`` fp32 steps at B=2 x S=128 (refresh every 2 on 1 row) at
+    CPU_TRAIN_LAYERS of the config's layers on the card (the kernels) and
+    on the CPU (their plain versions), same
     weights, batches and Hutchinson probes, with the trainer options
     ``over`` (the attention route, the engine backend, the optimizer, the
     estimator): the losses must agree within 1e-4 relative, and the card
@@ -2060,7 +2152,9 @@ def check_train_against_cpu(torch, cfg, name, over, steps=3):
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
     from repro_torch.train import TrainerConfig, train_loop
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=CPU_TRAIN_LAYERS)
     tc = TrainerConfig(peak_lr=6e-4, total_steps=3, warmup_steps=1,
                        hess_interval=2, hess_subbatch=1, seed=0, **over)
     state, _ = _train_fns(torch, cfg32, tc, "cuda")
@@ -2092,11 +2186,13 @@ def check_train_against_cpu(torch, cfg, name, over, steps=3):
         if not h_rel <= 1e-4:
             raise AssertionError(f"card vs CPU refreshed h differs by "
                                  f"{h_rel} of its largest element ({name})")
-    log(f"[train] card vs CPU plain path, {name}, fp32 B=2 S=128, {steps} "
+    log(f"[train] card vs CPU plain path, {name}, fp32 {CPU_TRAIN_LAYERS} "
+        f"layers, B=2 S=128, {steps} "
         f"step(s) (refresh at 0, 2 for the hessian-aware): losses {card} vs "
         f"{cpu}, max relative diff {rel:.3g}"
         + ("" if h_rel is None else
-           f"; refreshed h within {h_rel:.3g} of its largest element"))
+           f"; refreshed h within {h_rel:.3g} of its largest element")
+        + f"; {time.perf_counter() - t0:.1f}s")
     if not rel <= 1e-4:
         raise AssertionError(f"card vs CPU training losses differ by {rel} "
                              f"({name})")
@@ -2467,11 +2563,15 @@ NEOX15_LAYERS = 12
 # 3 global), deepseek-moe-16b from 7 to 4; those cuts saved ~10 s of the
 # [total], 1100.4 s on the H100 with them, so stablelm-1.6b (24 layers),
 # NeoX-6.6B (32) and qwen2-vl-7b (28; its prefix cache and 32k prefill
-# too) are served at 8.  Decode is host-bound, so a served depth's cost
-# is its layers; the kernels' shapes do not change
+# too) are served at 8.  When phase 4i joined it the [total] read 1151.1 s
+# on a slow host (1041.7 on another), 144 s of it recurrentgemma-2b's
+# wrapped run at 26 layers: it is served at 11 (3 groups + 2 tail, its
+# trained depth; the ring still wraps).  Decode is host-bound, so a
+# served depth's cost is its layers; the kernels' shapes do not change
 SERVE_LAYERS = {"neox-1.5b": NEOX15_LAYERS, "yi-6b": 4, "gemma2-9b": 6,
                 "qwen1.5-110b": 6, "deepseek-moe-16b": 4,
-                "stablelm-1.6b": 8, "neox-6.6b": 8, "qwen2-vl-7b": 8}
+                "stablelm-1.6b": 8, "neox-6.6b": 8, "qwen2-vl-7b": 8,
+                "recurrentgemma-2b": 11}
 CPU_CHECK_LAYERS, CPU_CHECK_S = 2, 64
 
 
@@ -2528,8 +2628,23 @@ def expert_set_flips(torch, calls_a, calls_b):
     return flips
 
 
+def leaf_names(tree, prefix=""):
+    """The names of ``flat_tensors(tree)``'s tensors, in its order (a
+    stacked leaf's layers as ``name[i]``)."""
+    out = []
+    for key in sorted(tree):
+        leaf = tree[key]
+        if isinstance(leaf, dict):
+            out += leaf_names(leaf, f"{prefix}{key}.")
+        elif isinstance(leaf, (list, tuple)):
+            out += [f"{prefix}{key}[{i}]" for i in range(len(leaf))]
+        else:
+            out.append(prefix + key)
+    return out
+
+
 def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
-                            batch=None):
+                            batch=None, detail=None):
     """The step-0 loss and gradients at full width and ``layers`` layers,
     fp32, on ``batch`` (numpy; by default B=1 x S=64 random tokens and
     labels): the card (the flash kernels, the fused CE's fp32
@@ -2540,14 +2655,17 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
     card and cross to the host one leaf at a time, so the host holds one
     copy of the weights and of the gradients.  With MoE layers the expert
     sets of every token on the two devices are compared and the count of
-    tokens that differ is logged.  Returns (the card params, max relative
-    gradient error)."""
+    tokens that differ is logged.  ``detail``, a dict when given, receives
+    each leaf's relative error (``leaf_rel``) and the largest magnitude of
+    its CPU gradient (``leaf_scale``) by name.  Returns (the card params,
+    max relative gradient error)."""
     import numpy as np
 
     from repro_torch.core.types import flat_tensors
     from repro_torch.models import get_model
     from repro_torch.models.moe import record_routing
 
+    t0 = time.perf_counter()
     cfg2 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
     model = get_model(cfg2)
     params = model.init_params(
@@ -2571,9 +2689,15 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
                   if routing["cpu"] else "")
     (l_card, g_card), (l_cpu, g_cpu) = out.pop("cuda"), out.pop("cpu")
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    rel = max((a.cpu() - b).abs().max().item()
-              / max(b.abs().max().item(), 1e-30)
-              for a, b in zip(g_card, g_cpu))
+    rels = [(a.cpu() - b).abs().max().item()
+            / max(b.abs().max().item(), 1e-30)
+            for a, b in zip(g_card, g_cpu)]
+    rel = max(rels)
+    if detail is not None:
+        names = leaf_names(params.param_tree())
+        detail["leaf_rel"] = dict(zip(names, rels))
+        detail["leaf_scale"] = {n: b.abs().max().item()
+                                for n, b in zip(names, g_cpu)}
     mem = host_memory()
     del g_card, g_cpu
     if not (np.isfinite(l_card) and loss_rel <= 1e-5 and rel <= 1e-4):
@@ -2584,12 +2708,14 @@ def model_step0_against_cpu(torch, name, cfg, layers=CPU_CHECK_LAYERS,
     shape = " x ".join(f"{k}={n}" for k, n in zip(
         "BS", batch["tokens"].shape))
     extra = "".join(f", {k} {tuple(batch[k].shape)}" for k in
-                    ("patch_embeds", "positions", "mask") if k in batch)
+                    ("patch_embeds", "positions", "mask", "frames")
+                    if k in batch)
     log(f"[models] {name} step 0 at full width, {layers} layers "
         f"({param_count(cfg2):,} parameters), fp32, {shape}{extra}: "
         f"card loss {l_card:.6f}, CPU {l_cpu:.6f} ({loss_rel:.3g} relative, "
         f"within 1e-5); gradients within {rel:.3g} of each leaf's largest "
-        f"element (limit 1e-4){route_note}; {mem}")
+        f"element (limit 1e-4){route_note}; {mem}; "
+        f"{time.perf_counter() - t0:.1f}s")
     return params, rel
 
 
@@ -2657,7 +2783,8 @@ def train_model(torch, name, cfg, B, peak_lr=MODEL_LR, S=MODEL_S,
     n_ref = len(range(0, MODEL_STEPS, MODEL_K))
     # RWKV has no attention: no flash kernel may launch; Griffin attends
     # in every third layer
-    attn_layers = {"rwkv": 0, "griffin": cfg.n_layers // 3}.get(
+    attn_layers = {"rwkv": 0, "griffin": cfg.n_layers // 3,
+                   "encdec": cfg.n_encoder_layers + 2 * cfg.n_layers}.get(
         cfg.family, cfg.n_layers)
     attn = attn_layers * (MODEL_STEPS + n_ref)
     want = {"ce_forward": MODEL_STEPS, "ce_forward_sampled": n_ref,
@@ -4161,9 +4288,11 @@ def griffin_cuts(cfg, layers) -> str:
             f"{param_count(cfg) * GRIFFIN_BYTES_PER_PARAM / 1e9:.0f} GB at a "
             f"step's peak) at B={GRIFFIN_B} x S={GRIFFIN_SEQ}; step 0 vs the "
             f"CPU at {GRIFFIN_STEP0_LAYERS} layers (one group + one tail, "
-            f"fp32) on one {CPU_CHECK_S}-token row; served at full depth "
-            f"({cfg.n_layers} layers, {param_count(cfg) / 1e9:.2f} B "
-            f"parameters, {param_count(cfg) * 4 / 1e9:.1f} GB fp32)")
+            f"fp32) on one {CPU_CHECK_S}-token row; served at "
+            f"{SERVE_LAYERS[GRIFFIN]} of {cfg.n_layers} layers for the "
+            f"script's time (full depth, {param_count(cfg) / 1e9:.2f} B "
+            f"parameters, {param_count(cfg) * 4 / 1e9:.1f} GB fp32, fits "
+            f"the card and was served until phase 4i joined the script)")
 
 
 def griffin_step0_against_cpu(torch, cfg):
@@ -4390,8 +4519,9 @@ def phase_griffin(torch):
     ``griffin_train_layers`` plans, B=2 x S=4096, on the flash, CE and
     engine kernels (exact launch counts; one profiled plain step split
     into CE, flash, engine, projections and the rest, beside the RG-LRU's
-    own forward and backward x the recurrent layers); served at full
-    depth (``griffin_serve``).  Each cut and its reason is logged.
+    own forward and backward x the recurrent layers); served at the depth
+    ``SERVE_LAYERS`` gives (``griffin_serve``).  Each cut and its reason
+    is logged.
     Counts are zeroed before each run and read after.  Returns {model:
     report}."""
     from repro_torch.configs import get_config
@@ -4435,9 +4565,10 @@ def phase_griffin(torch):
         f"{n_rec} recurrent layers = {scan_us / 1e3:.1f} ms, "
         f"{trained['rglru_share_of_plain_step']:.1%} of the plain step's "
         f"p50 {trained['plain_p50_ms']:.1f} ms")
-    params = get_model(cfg).init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0))
-    served = griffin_serve(torch, cfg, params)
+    scfg = serve_config(GRIFFIN, cfg)
+    params = get_model(scfg).init_params(
+        scfg, torch.Generator(device="cuda").manual_seed(0))
+    served = griffin_serve(torch, scfg, params)
     del params
     torch.cuda.empty_cache()
     lap("serving done")
@@ -4452,8 +4583,599 @@ def phase_griffin(torch):
     return {GRIFFIN: dict(step0_grad_rel=rel, step0_state_rel=state_rel,
                           step0_layers=GRIFFIN_STEP0_LAYERS, train=trained,
                           serve={"bf16": served}, launches=launches,
-                          served_layers=cfg.n_layers,
+                          served_layers=scfg.n_layers,
                           full_layers=cfg.n_layers, cuts=cuts)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the encoder-decoder family (seamless-m4t-medium)
+
+
+SEAMLESS = "seamless-m4t-medium"
+# training at full depth: B 4 target rows of 2048 tokens over frame
+# streams of 3000, off the flash kernels' 64-row tile and unlike the
+# target's length, so that the cross-attention kernels run Sq != Sk
+SM_B, SM_TGT, SM_SRC = 4, 2048, 3000
+# step 0 against the CPU: one encoder and one decoder layer at full width
+SM_STEP0_TGT, SM_STEP0_SRC = 256, 300
+# serving at full depth: 8 requests over 8 slots of SM_SERVE_SRC frames
+# each, greedy, SM_NEW new tokens; the first has a decoder prefix of
+# SM_PREFIX tokens, two chunks of a page of SM_PAGE; a 9th request takes a
+# slot another left (its cross rows overwritten)
+SM_SERVE_SRC, SM_NEW, SM_PAGE, SM_PREFIX = 1024, 64, 8, 9
+SM_CACHE = SM_PREFIX + SM_NEW            # the engine's prompt + max_new
+SM_LONG_SRC, SM_LONG_DECODE = 32768, 8    # the reference's prefill_32k cell
+# The engine's route (prefill_encoder_slot, prefill_into_slot in chunks,
+# decode_slots over every slot) and the whole-prompt route
+# (prefill_encoder, decode_step one row at a time) compute one function
+# and round it differently: in bf16 a one-ulp difference of the residual
+# stream moves the logits by ~1e-2, while the top-2 gap of 256,206 random
+# logits is ~0.1, so bf16 greedy tokens part at near ties (logged, not
+# held).  In fp32 at full depth the two routes lie ~1e-6 of the largest
+# logit apart (sums in other orders: the decode kernel's split walk
+# against the chunk prefill's materialized softmax, cuBLAS at other row
+# counts); the bound is 100x that.  The card against the CPU at 2 + 2
+# layers in fp32 holds the same bound.
+SM_ROUTE_TOL_F32 = 1e-4
+SM_BF16_NEW = 16          # the bf16 routes' tokens compared (64 in call 7)
+# what the script's time limit cut when phase 4i joined it (logged first)
+TIME_CUTS = (f"phase 4's seven card-vs-CPU runs at {CPU_TRAIN_LAYERS} of "
+             f"GPT-2 small's 12 layers (12 before phase 4i); phase 5 times "
+             f"each CE kernel's plain version once at the models' loss "
+             f"shapes (4-6 calls before; GPT-2's row keeps its 5 after a "
+             f"warm-up), the kernels and the library composition there "
+             f"after one warm-up launch (two before), over 6 launches at "
+             f"the dense configs' shapes (10 before); phase 4i compares "
+             f"the bf16 routes' greedy tokens over {SM_BF16_NEW} of "
+             f"{SM_NEW}; recurrentgemma-2b is served at "
+             f"{SERVE_LAYERS[GRIFFIN]} of 26 layers (SERVE_LAYERS)")
+SEAMLESS_PATH_KERNELS = GRIFFIN_PATH_KERNELS
+
+
+def seamless_cuts(cfg) -> str:
+    return (f"trained at full depth ({cfg.n_encoder_layers} + "
+            f"{cfg.n_layers} layers, {param_count(cfg):,} parameters) at "
+            f"B={SM_B} x S_tgt={SM_TGT}, S_src={SM_SRC}; step 0 vs the CPU "
+            f"at 1 + 1 layers (fp32, B=1 x S_tgt={SM_STEP0_TGT}, "
+            f"S_src={SM_STEP0_SRC}); served at full depth "
+            f"({param_count(cfg) * 4 / 1e9:.1f} GB fp32), {SM_SERVE_SRC} "
+            f"frames a request; the routes held in fp32 at full depth and "
+            f"against the CPU at 2 + 2 layers")
+
+
+class FrameSource:
+    """The synthetic token stream's batches with frames beside them: (B,
+    S_src, D) fp32 normals seeded from (``seed``, step), the stub
+    frontend's embeddings."""
+
+    def __init__(self, cfg, B, S, S_src, seed=0):
+        from repro_torch.data import DataConfig, make_source
+
+        self.tokens = make_source(DataConfig(seq_len=S, global_batch=B,
+                                             vocab_size=cfg.vocab_size,
+                                             seed=seed))
+        self.shape, self.seed = (B, S_src, cfg.d_model), seed
+
+    def batch_at(self, t):
+        import numpy as np
+
+        batch = dict(self.tokens.batch_at(t))
+        batch["frames"] = np.random.default_rng(
+            (self.seed, t)).standard_normal(self.shape, dtype=np.float32)
+        return batch
+
+
+def seamless_step0_against_cpu(torch, cfg):
+    """The step-0 check of ``model_step0_against_cpu`` at one encoder and
+    one decoder layer, B=1 x S_tgt=SM_STEP0_TGT over SM_STEP0_SRC frames:
+    the loss and every gradient, ``frame_proj``'s and the encoder's (which
+    reach them only through the cross-attention's K and V: the dK/dV
+    kernel) each non-zero and within 1e-4 of its largest element; the
+    three attentions' kernels launched once each way.  Returns (max
+    relative gradient error, {leaf: error} of the encoder side)."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+
+    rng = np.random.default_rng(4)
+    batch = {k: rng.integers(0, cfg.vocab_size, (1, SM_STEP0_TGT))
+             .astype(np.int32) for k in ("tokens", "labels")}
+    batch["frames"] = rng.standard_normal(
+        (1, SM_STEP0_SRC, cfg.d_model), dtype=np.float32)
+    detail = {}
+    reset_launch_counts()
+    params, rel = model_step0_against_cpu(
+        torch, SEAMLESS, dataclasses.replace(cfg, n_encoder_layers=1),
+        layers=1, batch=batch, detail=detail)
+    launched = dict(KERNEL_LAUNCHES)
+    del params
+    want = dict.fromkeys(("attn_fwd", "attn_bwd_dq", "attn_bwd_dkv"), 3)
+    if ({k: launched.get(k) for k in want} != want
+            or any(not launched.get(k) for k in STEP0_KERNELS)):
+        raise AssertionError(f"{SEAMLESS} step 0: launches {launched}; want "
+                             f"{want} and each of {STEP0_KERNELS}")
+    enc = {n: r for n, r in detail["leaf_rel"].items()
+           if n.startswith(("frame_proj", "encoder", "enc_norm"))}
+    dead = [n for n in enc if not detail["leaf_scale"][n] > 0]
+    if dead:
+        raise AssertionError(f"{SEAMLESS} step 0: no gradient reaches {dead}")
+    worst = max(enc, key=enc.get)
+    log(f"[seamless] step 0: launches {launched}; the encoder side's "
+        f"gradients ({len(enc)} leaves: frame_proj, the encoder layer, "
+        f"enc_norm; they arrive only through the cross-attention's dK/dV) "
+        f"non-zero, within {enc[worst]:.3g} of their largest element on "
+        f"the CPU at worst ({worst}); frame_proj {enc['frame_proj']:.3g}")
+    return rel, enc
+
+
+def flash_split(torch, state, train_step, batches):
+    """One more plain step with a pair of CUDA events around each flash
+    kernel launch, summed by the attention it serves (the encoder's:
+    non-causal over Sq = Sk; the decoder's self-attention: causal; the
+    cross-attention: non-causal, Sq != Sk) and by kernel.  Returns
+    {"flash_split_ms": {attention: {kernel: ms}}, "flash_split_launches":
+    {attention: {kernel: n}}}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    names = {"_forward_kernel": "attn_fwd", "_dq_kernel": "attn_bwd_dq",
+             "_dkv_kernel": "attn_bwd_dkv"}
+    orig = {n: getattr(fa, n) for n in names}
+    events = []
+
+    def timed(name, fn):
+        def run(q, k, v, *args, **opts):
+            kind = ("decoder self" if opts["causal"] else
+                    "encoder" if q.shape[2] == k.shape[2] else "cross")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(q, k, v, *args, **opts)
+            ev[1].record()
+            events.append((kind, names[name], ev))
+            return out
+        return run
+
+    try:
+        for n, fn in orig.items():
+            setattr(fa, n, timed(n, fn))
+        train_step(state, batches[2], False)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in orig.items():
+            setattr(fa, n, fn)
+    ms, count = {}, {}
+    for kind, name, (a, b) in events:
+        ms.setdefault(kind, {}).setdefault(name, 0.0)
+        ms[kind][name] += a.elapsed_time(b)
+        count.setdefault(kind, {}).setdefault(name, 0)
+        count[kind][name] += 1
+    return {"flash_split_ms": ms, "flash_split_launches": count}
+
+
+def seamless_routes(torch, cfg, params, frames, prefixes, new, device):
+    """The engine's route and the whole-prompt route over requests of
+    ``frames`` (n, S_src, D) numpy and decoder ``prefixes`` (lists), in
+    ``cfg``'s dtype on ``device``.  The whole-prompt route, one request at
+    a time: ``prefill_encoder`` into ``init_cache``, ``decode_step``
+    through the prefix and ``new`` greedy tokens.  The engine's,
+    teacher-forced on those tokens: every slot's ``prefill_encoder_slot``,
+    its prefix through ``prefill_into_slot`` in chunks of SM_PAGE, then
+    ``decode_slots`` of all n slots at their own positions, the last
+    slot inactive in every other step until its turn.  Returns (the
+    greedy tokens [n][new], the two routes' logits (n, new, V) each, the
+    slot cache)."""
+    import numpy as np
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    n, S_src = len(prefixes), frames.shape[1]
+    C = max(len(p) for p in prefixes) + new
+    toks, whole = [], []
+    for i, prefix in enumerate(prefixes):
+        cache = model.init_cache(cfg, 1, C, 0, device)
+        cache = model.prefill_encoder(
+            cfg, params, torch.from_numpy(frames[i:i + 1]).to(device), cache)
+        seq = list(prefix)
+        out = []
+        for t in range(len(prefix) + new - 1):
+            lg = model.decode_step(cfg, params, cache, torch.tensor(
+                [[seq[t]]], dtype=torch.int32, device=device), t)[0, 0]
+            if t >= len(prefix) - 1:
+                out.append(lg)
+                if len(seq) == t + 1:
+                    seq.append(int(lg.argmax()))
+        toks.append(seq[len(prefix):])
+        whole.append(torch.stack(out))
+        del cache
+    st = model.init_slots(cfg, n, C, S_src, device)
+    first = []
+    for i, prefix in enumerate(prefixes):
+        model.prefill_encoder_slot(
+            cfg, params, st, i, torch.from_numpy(frames[i:i + 1]).to(device))
+        for start in range(0, len(prefix), SM_PAGE):
+            chunk = np.asarray(prefix[start:start + SM_PAGE], np.int32)
+            m = len(chunk)
+            chunk = torch.from_numpy(np.pad(chunk, (0, SM_PAGE - m)))[None]
+            lg = model.prefill_into_slot(cfg, params, st, i,
+                                         chunk.to(device), start, m)
+        first.append(lg)
+    eng = [[x] for x in first]
+    pos = torch.tensor([len(p) for p in prefixes], dtype=torch.int32,
+                       device=device)
+    last = torch.tensor([[t[0]] for t in toks], dtype=torch.int32,
+                        device=device)
+    for j in range(new - 1):
+        active = torch.ones(n, dtype=torch.bool, device=device)
+        active[-1] = j % 2 == 0
+        lg = model.decode_slots(cfg, params, st, last, pos, active=active)
+        for i in range(n):
+            if active[i]:
+                eng[i].append(lg[i, 0])
+        nxt = [toks[i][len(eng[i]) - 1] if active[i] else int(last[i, 0])
+               for i in range(n)]
+        pos = pos + active.to(torch.int32)
+        last = torch.tensor([[t] for t in nxt], dtype=torch.int32,
+                            device=device)
+    while len(eng[-1]) < new:               # the last slot catches up
+        i = n - 1
+        p = torch.tensor([len(prefixes[i]) + len(eng[i]) - 1],
+                         dtype=torch.int32, device=device)
+        sub = {k: v[:, i:i + 1] for k, v in st.items()}
+        lg = model.decode_slots(cfg, params, sub, torch.tensor(
+            [[toks[i][len(eng[i]) - 1]]], dtype=torch.int32,
+            device=device), p)
+        eng[i].append(lg[0, 0])
+    eng = torch.stack([torch.stack(x) for x in eng])
+    return toks, eng, torch.stack(whole), st
+
+
+def _route_report(vocab, got, want):
+    """The largest difference of two routes' logits over each row's
+    largest, and the smallest top-2 gap of ``want`` on that scale, both
+    over the ``vocab`` real columns (the padded ones sit at -1e30)."""
+    got, want = got[..., :vocab], want[..., :vocab]
+    scale = want.abs().amax(-1)
+    top = want.topk(2, dim=-1).values
+    return (float(((got - want).abs().amax(-1) / scale).max()),
+            float(((top[..., 0] - top[..., 1]) / scale).min()))
+
+
+def seamless_serve_against_cpu(torch, cfg):
+    """The serving routes at 2 + 2 layers, full width, fp32, on the card
+    against the CPU (a copy of the same weights): 3 requests of 64 frames,
+    the first with a prefix of SM_PREFIX tokens (two chunks), 8 tokens
+    each (``seamless_routes``): every logit of both routes within
+    SM_ROUTE_TOL_F32 of the largest, the slot caches (k, v, xk, xv)
+    within it of each leaf's largest.  Returns the errors."""
+    import numpy as np
+
+    from repro_torch.models import get_model
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, n_encoder_layers=2,
+                               dtype="float32")
+    params = get_model(cfg2).init_params(
+        cfg2, torch.Generator(device="cuda").manual_seed(2))
+    rng = np.random.default_rng(6)
+    frames = rng.standard_normal((3, 64, cfg.d_model), dtype=np.float32)
+    prefixes = [[0] + rng.integers(0, cfg.vocab_size, SM_PREFIX - 1)
+                .tolist(), [0], [0]]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+        toks, eng, whole, st = seamless_routes(torch, cfg2, p, frames,
+                                               prefixes, 8, dev)
+        out[dev] = (toks, eng.cpu(), whole.cpu(),
+                    {k: v.cpu() for k, v in st.items()})
+        del p
+    del params
+    torch.cuda.empty_cache()
+    (t_card, e_card, w_card, st_card), (t_cpu, e_cpu, w_cpu, st_cpu) = (
+        out["cuda"], out["cpu"])
+    errs = {"engine": _route_report(cfg.vocab_size, e_card, e_cpu)[0],
+            "whole_prompt": _route_report(cfg.vocab_size, w_card, w_cpu)[0],
+            "cache": max((st_card[k] - v).abs().max().item()
+                         / v.abs().max().item() for k, v in st_cpu.items())}
+    if not (t_card == t_cpu and max(errs.values()) <= SM_ROUTE_TOL_F32):
+        raise AssertionError(f"{SEAMLESS} serving card vs CPU at 2 + 2 "
+                             f"layers: tokens {t_card} vs {t_cpu}; errors "
+                             f"{errs} (limit {SM_ROUTE_TOL_F32})")
+    log(f"[seamless] serving routes card vs CPU (2 + 2 layers, full width, "
+        f"fp32; 3 requests of 64 frames, a {SM_PREFIX}-token prefix in "
+        f"chunks of {SM_PAGE}, 8 tokens each, one slot inactive in every "
+        f"other decode step): greedy tokens equal; logits within "
+        f"{errs['engine']:.3g} (engine route) and "
+        f"{errs['whole_prompt']:.3g} (prefill_encoder + decode_step) of "
+        f"the largest, the slot cache within {errs['cache']:.3g} (limit "
+        f"{SM_ROUTE_TOL_F32})")
+    return errs
+
+
+def seamless_requests(cfg, n, seed, S_src=SM_SERVE_SRC, new=SM_NEW):
+    """n requests of S_src frames (seeded normals), BOS prefixes but the
+    first's SM_PREFIX tokens, ``new`` tokens each."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        prefix = (np.concatenate([[0], rng.integers(0, cfg.vocab_size,
+                                                    SM_PREFIX - 1)])
+                  if i == 0 else np.zeros((1,)))
+        reqs.append(Request(
+            uid=i, tokens=prefix.astype(np.int32), max_new=new,
+            frames=rng.standard_normal((S_src, cfg.d_model),
+                                       dtype=np.float32)))
+    return reqs
+
+
+def seamless_serve(torch, cfg, params):
+    """``cfg`` served at full depth, bf16: a warm engine off the clock,
+    then MODEL_REQUESTS + 1 requests (``seamless_requests``) over
+    MODEL_REQUESTS slots, the last taking a freed slot: each request's
+    encoder on the flash forward (n_encoder_layers launches a request),
+    every decode step the decode kernel once a decoder layer (exact
+    counts); the decode kernel against its plain version on the engine's
+    own ring; a profile window of one decode burst; the greedy tokens
+    against the whole-prompt route's in bf16 (logged: they part at near
+    ties) and, in fp32 at full depth, 3 requests over 2 slots through the
+    engine and both routes (``seamless_routes``): the engine's tokens
+    equal the whole-prompt route's and the routes' logits lie within
+    SM_ROUTE_TOL_F32 of the largest.  Returns the report."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.serve import ServeEngine
+
+    def engine(c, n_slots, src=SM_SERVE_SRC):
+        return ServeEngine(c, params, n_slots=n_slots, cache_len=SM_CACHE,
+                           page_len=SM_PAGE, steps_per_tick=8, seed=0,
+                           src_len=src, device="cuda")
+
+    def run(eng, reqs):
+        for r in reqs:
+            eng.submit(r)
+        return {r.uid: r.tokens for r in eng.run()}
+
+    run(engine(cfg, 2), seamless_requests(cfg, 2, seed=99, new=8))
+    torch.cuda.synchronize()
+    reqs = seamless_requests(cfg, MODEL_REQUESTS + 1, seed=7)
+    eng = engine(cfg, MODEL_REQUESTS)
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    served = {r.uid: r.tokens for r in results}
+    steps = eng.decode_ticks * eng.steps_per_tick
+    want = {"attn_fwd": cfg.n_encoder_layers * len(reqs),
+            "decode_attention": cfg.n_layers * steps}
+    if (len(results) != len(reqs) or launches != want
+            or any(len(t) != SM_NEW or not all(0 <= x < cfg.vocab_size
+                                               for x in t)
+                   for t in served.values())):
+        raise AssertionError(f"{len(results)} of {len(reqs)} requests, "
+                             f"lengths {[len(t) for t in served.values()]}; "
+                             f"launches {launches} != {want}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((eng.n_slots, cfg.n_heads, cfg.hd), generator=gen,
+                    device="cuda").to(cfg.compute_dtype)
+    ring_err = check_decode_attention(torch, dict(
+        q=q, k_cache=eng.state["k"][0], v_cache=eng.state["v"][0],
+        positions=torch.from_numpy(eng._pos).cuda(), k_scale=None,
+        v_scale=None), scale=1.0)[0]
+    st = eng.stats()
+    report = dict(layers=cfg.n_layers, src_len=SM_SERVE_SRC,
+                  requests=len(reqs), tok_per_s=st["tokens_emitted"] / secs,
+                  token_p50_ms=st["token_lat_p50_s"] * 1e3,
+                  ttft_p50_ms=st["ttft_p50_s"] * 1e3,
+                  tpot_p50_ms=st["tpot_p50_s"] * 1e3, decode_steps=steps,
+                  launches=launches["decode_attention"],
+                  encoder_launches=launches["attn_fwd"],
+                  engine_ring_err=ring_err)
+    log(f"[seamless] {SEAMLESS} served: {cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers, bf16, {len(results)} requests over "
+        f"{eng.n_slots} slots ({SM_SERVE_SRC} frames each, the first with a "
+        f"{SM_PREFIX}-token prefix; the last in a freed slot), "
+        f"{st['tokens_emitted']} tokens in {secs:.3f}s = "
+        f"{report['tok_per_s']:.1f} tok/s; token p50 "
+        f"{report['token_p50_ms']:.3f} ms; ttft p50 "
+        f"{report['ttft_p50_ms']:.1f} ms; tpot p50 "
+        f"{report['tpot_p50_ms']:.3f} ms; {steps} decode steps; launches "
+        f"{launches}; the kernel on the engine's layer-0 ring vs its plain "
+        f"version: max abs err {ring_err:.3g}")
+    del eng
+
+    # one decode burst, every slot decoding
+    eng = engine(cfg, MODEL_REQUESTS)
+    for r in seamless_requests(cfg, MODEL_REQUESTS, seed=8):
+        eng.submit(r)
+    while eng.tokens_emitted < MODEL_REQUESTS:
+        eng.tick()
+    eng.tick()
+    win = profile_window(f"decode burst ({SEAMLESS}, {cfg.n_layers} "
+                         f"decoder layers, 8 steps x {MODEL_REQUESTS} slots, "
+                         f"{SM_SERVE_SRC} frames, bf16)", eng.tick,
+                         also=("gemm", "elementwise", "copy", "reduce"))
+    log("[profile] " + json.dumps(win))
+    report["decode_profile"] = win
+    del eng
+
+    # bf16: the whole-prompt route's greedy tokens beside the engine's
+    frames = np.stack([r.frames for r in reqs])
+    prefixes = [r.tokens.tolist() for r in reqs]
+    toks, _, _, st16 = seamless_routes(torch, cfg, params, frames[:3],
+                                       prefixes[:3], SM_BF16_NEW, "cuda")
+    del st16
+    agree = [next((j for j, (a, b) in enumerate(zip(toks[i], served[i]))
+                   if a != b), SM_BF16_NEW) for i in range(3)]
+    report["bf16_tokens_agree"] = agree
+    log(f"[seamless] bf16, {cfg.n_layers} layers: the whole-prompt route's "
+        f"greedy tokens equal the engine's for the first {agree} of "
+        f"{SM_BF16_NEW} (requests 0-2; not held: bf16 rounds the two routes "
+        f"apart and 256,206 random logits lie close)")
+
+    # fp32 at full depth: the engine's tokens = the whole-prompt route's
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    new32 = 16
+    reqs32 = seamless_requests(cfg, 3, seed=9, new=new32)
+    t0 = time.perf_counter()
+    eng = engine(cfg32, 2)
+    served32 = run(eng, reqs32)
+    del eng
+    toks32, eng32, whole32, st32 = seamless_routes(
+        torch, cfg32, params, np.stack([r.frames for r in reqs32]),
+        [r.tokens.tolist() for r in reqs32], new32, "cuda")
+    del st32
+    worst, gap = _route_report(cfg.vocab_size, eng32, whole32)
+    equal = all(served32[i] == toks32[i] for i in range(3))
+    if not (equal and worst <= SM_ROUTE_TOL_F32):
+        raise AssertionError(f"{SEAMLESS} fp32 routes: the engine's tokens "
+                             f"{served32} vs the whole-prompt route's "
+                             f"{toks32}; logits {worst:.3g} of the largest "
+                             f"(limit {SM_ROUTE_TOL_F32})")
+    report["fp32_routes"] = dict(tokens_equal=equal, route_rel=worst,
+                                 min_top2_gap=gap,
+                                 secs=time.perf_counter() - t0)
+    log(f"[seamless] fp32, {cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+        f"3 requests over 2 slots (one reused), {new32} tokens each: the "
+        f"engine's greedy tokens equal prefill_encoder + decode_step's; "
+        f"teacher-forced, the engine route's logits within {worst:.3g} of "
+        f"the largest (limit {SM_ROUTE_TOL_F32}; the smallest top-2 gap "
+        f"{gap:.3g} of it); {report['fp32_routes']['secs']:.1f}s")
+    return report
+
+
+def seamless_encoder_32k(torch, cfg, params):
+    """``prefill_encoder`` at B 1 over SM_LONG_SRC frames (the reference's
+    prefill_32k cell for this family: the flash forward, non-causal, once
+    an encoder layer), its wall time and peak memory, then SM_LONG_DECODE
+    greedy ``decode_step``s against that cross cache.  Returns the
+    report."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    frames = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1, SM_LONG_SRC, cfg.d_model), dtype=np.float32)).cuda()
+    cache = model.init_cache(cfg, 1, SM_LONG_DECODE, 0, "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cache = model.prefill_encoder(cfg, params, frames, cache)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = dict(KERNEL_LAUNCHES)
+    xkv_gb = 2 * cache["xk"].numel() * cache["xk"].element_size() / 1e9
+    tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    toks = []
+    t0 = time.perf_counter()
+    for pos in range(SM_LONG_DECODE):
+        lg = model.decode_step(cfg, params, cache, tok, pos)
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(int(tok))
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    ok = (launched == {"attn_fwd": cfg.n_encoder_layers}
+          and bool(torch.isfinite(cache["xk"]).all())
+          and all(0 <= t < cfg.vocab_size for t in toks))
+    if not ok:
+        raise AssertionError(f"{SEAMLESS} 32k encoder: launches {launched}, "
+                             f"tokens {toks}")
+    log(f"[seamless] prefill_encoder B=1 S_src={SM_LONG_SRC}: "
+        f"{enc_s * 1e3:.1f} ms, peak {peak / 2 ** 30:.2f} GiB above what was "
+        f"held, launches {launched}; cross cache {xkv_gb:.2f} GB; "
+        f"{SM_LONG_DECODE} greedy decode steps against it {dec_s * 1e3:.1f} "
+        f"ms: {toks}")
+    del cache, frames
+    torch.cuda.empty_cache()
+    return dict(S_src=SM_LONG_SRC, encoder_ms=enc_s * 1e3,
+                encoder_peak_gib=peak / 2 ** 30, cross_cache_gb=xkv_gb,
+                decode_steps=SM_LONG_DECODE, decode_ms=dec_s * 1e3,
+                tokens=toks, launches=launched)
+
+
+def phase_seamless(torch):
+    """seamless-m4t-medium (``get_config``: 12 encoder + 12 decoder layers,
+    d 1024, 16 heads of 64, GELU d_ff 4096, tied vocab 256,206 padded to
+    256,256, rope), random weights from a seed: step 0 at 1 + 1 layers,
+    fp32, against the CPU (``seamless_step0_against_cpu``); Sophia-G at
+    full depth, B=4 x S_tgt=2048 over 3000 frames, on the flash, CE and
+    engine kernels (exact launch counts; one profiled plain step split
+    into CE, flash, engine, projections and the rest, and the flash time
+    split into the encoder's, the decoder's self- and the
+    cross-attention by CUDA events); the serving routes against the CPU
+    at 2 + 2 layers; served at full depth (``seamless_serve``); the
+    encoder at 32k frames (``seamless_encoder_32k``).  Counts are zeroed
+    before each run and read after.  Returns {model: report}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(SEAMLESS)
+    cuts = seamless_cuts(cfg)
+    log(f"[seamless] {SEAMLESS}: {cuts}")
+    t0 = time.perf_counter()
+
+    def lap(what):
+        log(f"[seamless] {what}: {time.perf_counter() - t0:.1f}s into 4i")
+
+    rel, enc_rel = seamless_step0_against_cpu(torch, cfg)
+    torch.cuda.empty_cache()
+    lap("step 0 against the CPU done")
+    trained = train_model(
+        torch, SEAMLESS, cfg, SM_B, S=SM_TGT,
+        source=FrameSource(cfg, SM_B, SM_TGT, SM_SRC),
+        after=lambda *a: {**step_profile(torch, *a),
+                          **flash_split(torch, *a)})
+    trained["S_src"] = SM_SRC
+    prof, split = trained["profile"], trained["flash_split_ms"]
+    log(f"[seamless] plain step profile ({cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers, B={SM_B} x S_tgt={SM_TGT}, "
+        f"S_src={SM_SRC}, bf16): wall {prof['wall_us'] / 1e3:.1f} ms, "
+        f"device busy {prof['device_busy_us'] / 1e3:.1f} ms, idle "
+        f"{prof['device_idle_share']:.1%}, {prof['kernels']} kernels; CE "
+        f"{prof['ce_us'] / 1e3:.2f} ms, flash {prof['flash_us'] / 1e3:.2f} "
+        f"ms, projections (mm) {prof['projections_us'] / 1e3:.2f} ms, "
+        f"engine {prof['engine_us'] / 1e3:.2f} ms, the rest "
+        f"{prof['rest_us'] / 1e3:.2f} ms; flash by attention (CUDA events, "
+        f"one more plain step): "
+        + "; ".join(f"{kind} " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in ms.items())
+                    + f" ms ({trained['flash_split_launches'][kind]})"
+                    for kind, ms in split.items()))
+    lap("training and its profiles done")
+    serve_cpu = seamless_serve_against_cpu(torch, cfg)
+    lap("serving against the CPU done")
+    params = get_model(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    served = seamless_serve(torch, cfg, params)
+    lap("serving done")
+    long = seamless_encoder_32k(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    lap("the 32k encoder done")
+    launches = dict(trained["launches"])
+    launches["decode_attention"] = served["launches"]
+    missing = [k for k in SEAMLESS_PATH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{SEAMLESS}: kernels of the path not "
+                             f"launched: {missing}")
+    log(f"[seamless] {SEAMLESS}: launches on its path {launches}; "
+        f"{host_memory()}")
+    return {SEAMLESS: dict(step0_grad_rel=rel, step0_encoder_rel=enc_rel,
+                           train=trained, serve={"bf16": served},
+                           serve_cpu_rel=serve_cpu, encoder_32k=long,
+                           launches=launches, served_layers=cfg.n_layers,
+                           full_layers=cfg.n_layers, cuts=cuts)}
 
 
 # ---------------------------------------------------------------------------
@@ -4594,11 +5316,13 @@ CE_UNITS = dict.fromkeys(FUSED_CE[1], "tensor cores")
 CE_REFRESH_N = 4096        # the sampled forward's rows in a GNB refresh
 
 
-def _ce_timed(torch, spec, label, reps=20):
+def _ce_timed(torch, spec, label, reps=20, plain_once=False):
     """The four CE kernels at ``spec`` (bf16 h, fp32 W): {kernel: entry}
     with the kernel's time, its plain version's, its bound and the library
     composition's (not one call) beside it; ``reps`` launches each (a
-    quarter of that for the plain versions)."""
+    quarter of that for the plain versions after a warm-up, or with
+    ``plain_once``, at the models' shapes, one call and one warm-up
+    launch of the others: ``TIME_CUTS``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as ce
@@ -4653,9 +5377,10 @@ def _ce_timed(torch, spec, label, reps=20):
     comp_backward()
     torch.cuda.synchronize()
     comp_peak = torch.cuda.max_memory_allocated() - base
+    warm = 1 if plain_once else 2
     lib_fwd = time_ms(torch, lambda: composition(False), flush, reps=reps,
-                      warmup=2)
-    lib_fb = time_ms(torch, comp_backward, flush, reps=reps, warmup=2)
+                      warmup=warm)
+    lib_fb = time_ms(torch, comp_backward, flush, reps=reps, warmup=warm)
     log(f"[timing] library composition (not one call) {label} at N={N} "
         f"D={D} Vp={Vp}: forward {lib_fwd:.3f} ms, forward + autograd "
         f"backward {lib_fb:.3f} ms, backward alone {lib_fb - lib_fwd:.3f} "
@@ -4667,9 +5392,10 @@ def _ce_timed(torch, spec, label, reps=20):
     out = {}
     for name in FUSED_CE[1]:
         kernel, plain = calls[name]
-        ms = time_ms(torch, kernel, flush, reps=reps, warmup=2)
-        plain_ms = time_ms(torch, plain, flush, reps=max(3, reps // 4),
-                           warmup=1)
+        ms = time_ms(torch, kernel, flush, reps=reps, warmup=warm)
+        plain_ms = time_ms(torch, plain, flush,
+                           reps=1 if plain_once else max(3, reps // 4),
+                           warmup=0 if plain_once else 1)
         flops = ce.ce_flops(N, D, Vp, name)
         nbytes = ce.ce_bytes(N, D, Vp, name, bytes_h=h.element_size(),
                              bytes_w=w.element_size())
@@ -4727,10 +5453,11 @@ def phase_ce_timings(torch, ce_err, trained):
     shapes.  Each row names the units its products run on
     (``CE_UNITS``)."""
     main = _ce_timed(torch, CE_TIME, "gpt2-small")
-    models = [(name, spec, _ce_timed(torch, spec, name))
+    models = [(name, spec, _ce_timed(torch, spec, name, plain_once=True))
               for name, spec in ((n, dict(CE_TIME, **sp))
                                  for n, sp in CE_MODEL_SHAPES)]
-    dense = [(name, spec, _ce_timed(torch, spec, name, reps=10))
+    dense = [(name, spec, _ce_timed(torch, spec, name, reps=6,
+                                    plain_once=True))
              for name, spec in ((n, dict(CE_TIME, **sp))
                                 for n, sp in CE_DENSE_SHAPES)]
     rows = []
@@ -4751,7 +5478,7 @@ def phase_ce_timings(torch, ce_err, trained):
     # draw on one of their two rows; gemma2's batch is its one row (the
     # entry above); qwen1.5 is not trained on the card
     for (name, spec, _), entry in zip(dense, row["shapes"][len(models):]):
-        if name in ("yi-6b", VLM, MOE, RWKV, GRIFFIN):
+        if name in ("yi-6b", VLM, MOE, RWKV, GRIFFIN, SEAMLESS):
             entry["ms_refresh"], entry["bound_ms_refresh"] = \
                 _ce_sampled_timed(torch, dict(spec, N=spec["N"] // 2), name)
     return rows
@@ -4763,18 +5490,21 @@ FLASH_UNITS = {"attn_fwd": "tensor cores", "attn_bwd_dq": "tensor cores",
 
 
 def _flash_timed(torch, spec, label, reps=20):
-    """The three flash kernels at ``spec`` in bf16 (causal, with its window
-    and softcap): {kernel: entry} with the kernel's time, its plain
-    version's, its bound and SDPA's beside it.  SDPA takes no softcap: with
-    one it computes the same pairs (``is_causal``, or the window as a
-    boolean mask) without it, the nearest function it has."""
+    """The three flash kernels at ``spec`` in bf16 (causal with its window
+    and softcap, or bidirectional over Sq queries and Sk keys):
+    {kernel: entry} with the kernel's time, its plain version's, its bound
+    and SDPA's beside it.  SDPA takes no softcap: with one it computes the
+    same pairs (``is_causal``, or the window as a boolean mask) without
+    it, the nearest function it has."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
     q, k, v, g, kw = _attn_inputs(torch, spec, torch.bfloat16)
-    B, H, Hkv, S, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "hd"))
+    B, H, Hkv, S, Sk, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "Sk",
+                                              "hd"))
+    causal = spec["causal"]
     o, lse = fa.flash_forward(q, k, v, **kw)
     delta = (g.float() * o.float()).sum(-1)
     calls = {
@@ -4790,10 +5520,10 @@ def _flash_timed(torch, spec, label, reps=20):
                                                 **kw)),
     }
     window, cap = spec["window"], spec["softcap"]
-    band = fa.band_mask(S, S, causal=True, window=window, q_offset=0,
+    band = fa.band_mask(S, Sk, causal=causal, window=window, q_offset=0,
                         device="cuda")
     sdpa_kw = (dict(attn_mask=band) if window is not None
-               else dict(is_causal=True))
+               else dict(is_causal=causal))
     sdpa_kw["enable_gqa"] = H != Hkv
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     sdpa_o = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
@@ -4802,11 +5532,12 @@ def _flash_timed(torch, spec, label, reps=20):
         q, k, v, **sdpa_kw), flush, reps=reps, warmup=2)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         sdpa_o, leaves, g, retain_graph=True), flush, reps=reps, warmup=2)
-    sdpa_how = ("is_causal=True" if window is None else
+    sdpa_how = (f"is_causal={causal}" if window is None else
                 f"the window {window} as a boolean mask") + (
         f", no softcap (the kernel's is {cap:g})" if cap else "")
     log(f"[timing] SDPA yardstick ({sdpa_how}) {label} at B={B} H={H} "
-        f"Hkv={Hkv} S={S} hd={hd} bf16: forward {lib_fwd:.3f} ms, backward "
+        f"Hkv={Hkv} Sq={S} Sk={Sk} hd={hd} bf16: forward {lib_fwd:.3f} ms, "
+        f"backward "
         f"(dq, dk, dv together) {lib_bwd:.3f} ms; max abs err vs the "
         f"kernel's o {sdpa_err:.3g}")
     library = {"attn_fwd": lib_fwd, "attn_bwd_dq": lib_bwd,
@@ -4820,7 +5551,7 @@ def _flash_timed(torch, spec, label, reps=20):
         plain_ms = time_ms(torch, plain, flush, reps=max(3, reps // 4),
                            warmup=1)
         flops = fa.attn_flops(B, H, hd, pairs, name)
-        nbytes = fa.attn_bytes(B, H, Hkv, S, S, hd, name,
+        nbytes = fa.attn_bytes(B, H, Hkv, S, Sk, hd, name,
                                itemsize=q.element_size())
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4833,8 +5564,10 @@ def _flash_timed(torch, spec, label, reps=20):
                              "F.scaled_dot_product_attention's autograd "
                              "backward, dq, dk and dv together")
                             + f" ({sdpa_how})",
-            "shape": f"{label}: B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 "
-                     f"causal"
+            "shape": f"{label}: B={B} H={H} Hkv={Hkv} "
+                     + (f"S={S}" if S == Sk else f"Sq={S} Sk={Sk}")
+                     + f" hd={hd} bf16 "
+                     + ("causal" if causal else "bidirectional")
                      + (f" window {window}" if window is not None else "")
                      + (f" softcap {cap:g}" if cap else "")}
         log(f"[timing] {name} ({FLASH_UNITS[name]}) {label}: kernel "
@@ -4863,6 +5596,7 @@ def _flash_forward_long_timed(torch, spec, label, check_err, reps=5):
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
     q, k, v, _, kw = _attn_inputs(torch, spec, torch.bfloat16)
     B, H, Hkv, S, hd = (spec[n] for n in ("B", "H", "Hkv", "Sq", "hd"))
+    causal = spec["causal"]
     ms = time_ms(torch, lambda: fa.flash_forward(q, k, v, **kw), flush,
                  reps=reps, warmup=1)
     o, _ = fa.flash_forward(q, k, v, **kw)
@@ -4873,14 +5607,15 @@ def _flash_forward_long_timed(torch, spec, label, check_err, reps=5):
                           SDPBackend.EFFICIENT_ATTENTION]):
             def sdpa():
                 return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=H != Hkv)
+                    q, k, v, is_causal=causal, enable_gqa=H != Hkv)
             err = (sdpa().float() - o.float()).abs().max().item()
             library_ms = time_ms(torch, sdpa, flush, reps=reps, warmup=1)
-        note = (f"F.scaled_dot_product_attention forward (is_causal=True, "
-                f"enable_gqa), max abs err vs the kernel's o {err:.3g}")
+        note = (f"F.scaled_dot_product_attention forward (is_causal="
+                f"{causal}, enable_gqa={H != Hkv}), max abs err vs the "
+                f"kernel's o {err:.3g}")
     except RuntimeError as e:        # no fused backend takes these inputs
         note = f"SDPA's fused backends refused: {str(e).splitlines()[0]}"
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     flops = fa.attn_flops(B, H, hd, pairs, "attn_fwd")
     nbytes = fa.attn_bytes(B, H, Hkv, S, S, hd, "attn_fwd",
                            itemsize=q.element_size())
@@ -4897,14 +5632,15 @@ def _flash_forward_long_timed(torch, spec, label, check_err, reps=5):
                           f"take {B * H * S * S * 4 / 1e9:.0f} GB; held in "
                           f"phase 2 over three slices of {LONG_ROWS} query "
                           "rows, and end to end by the 32k prefill of "
-                          "phase 4e",
+                          "phase 4e (causal) or the 32k encoder of phase "
+                          "4i (bidirectional)",
             "max_abs_err": max(check_err.values()),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "library_note": note,
             "units": FLASH_UNITS["attn_fwd"],
             "shape": f"{label}: B={B} H={H} Hkv={Hkv} S={S} hd={hd} bf16 "
-                     "causal"}
+                     + ("causal" if causal else "bidirectional")}
 
 
 def phase_flash_timings(torch, attn_err, trained):
@@ -4921,7 +5657,8 @@ def phase_flash_timings(torch, attn_err, trained):
               for name, sp in ATTN_MODEL_SHAPES]
     models += [_flash_timed(torch, dict(ATTN_MAIN, **sp), name, reps=10)
                for name, sp in ATTN_DENSE_SHAPES + ATTN_VLM_SHAPES
-               + ATTN_MOE_SHAPES + ATTN_GRIFFIN_SHAPES]
+               + ATTN_MOE_SHAPES + ATTN_GRIFFIN_SHAPES
+               + ATTN_SEAMLESS_SHAPES + SEAMLESS_SELF_SHAPES]
     rows = [{"name": name, "route": "cuda", "source": FLASH_ATTN[0],
              "replaces": replaces,
              "launches": trained["launches"].get(name, 0),
@@ -4931,6 +5668,9 @@ def phase_flash_timings(torch, attn_err, trained):
     rows[0]["shapes"].append(_flash_forward_long_timed(
         torch, PREFILL_ATTN, "qwen2-vl-7b-prefill-32k",
         attn_err["attn_fwd_long"]))
+    rows[0]["shapes"].append(_flash_forward_long_timed(
+        torch, SEAMLESS_LONG_ATTN, "seamless-m4t-medium-encoder-32k",
+        attn_err["attn_fwd_long_noncausal"]))
     return rows
 
 
@@ -5100,6 +5840,7 @@ def main() -> int:
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
         return out
 
+    log(f"[cuts] for the script's time: {TIME_CUTS}")
     timed("1 build", phase_build)
     main_err = timed("2 decode", phase_kernels, torch)
     ce_err = timed("2 ce", phase_ce_kernels, torch)
@@ -5114,6 +5855,7 @@ def main() -> int:
     models.update(timed("4f moe", phase_moe, torch))
     models.update(timed("4g rwkv", phase_rwkv, torch))
     models.update(timed("4h griffin", phase_griffin, torch))
+    models.update(timed("4i seamless", phase_seamless, torch))
     rows = (timed("5 decode", phase_timings, torch, main_err, served)
             + timed("5 engine", phase_engine_timings, torch, engine_err,
                     trained)
@@ -5159,6 +5901,14 @@ def main() -> int:
                 step_profile=t.get("profile"),
                 wkv_profile=t.get("wkv_profile"),
                 wkv_share_of_plain_step=t.get("wkv_share_of_plain_step"),
+                serve=r["serve"])
+        if m == SEAMLESS:
+            summary[m].update(
+                S_src=t.get("S_src"),
+                step0_encoder_rel=max(r["step0_encoder_rel"].values()),
+                step_profile=t.get("profile"),
+                flash_split_ms=t.get("flash_split_ms"),
+                serve_cpu_rel=r["serve_cpu_rel"], encoder_32k=r["encoder_32k"],
                 serve=r["serve"])
         if m == GRIFFIN:
             summary[m].update(

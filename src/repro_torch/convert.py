@@ -8,7 +8,8 @@ leaves the config gives the tree (``embed/pos`` with learned positions,
 ``embed/unembed`` when untied, ``mlp/w_gate`` with SwiGLU, the top-level
 ``patch_proj`` with patch-embedding inputs, the nested ``moe`` group of a
 MoE layer, the RWKV family's ``tm``/``cm`` groups, the Griffin family's
-``groups`` and ``tail``).  The engine's
+``groups`` and ``tail``, the encoder-decoder's ``frame_proj``,
+``encoder``, ``enc_norm`` and ``decoder``).  The engine's
 flat shards share the reference's layout (``core/engine.py:build_layout``
 over the same sorted leaves), so its state carries over as a plain copy.
 """
@@ -19,6 +20,7 @@ import torch
 
 from .core.engine import EngineState, ShardLayout, dtype_name
 from .models.common import ModelConfig
+from .models.encdec import EncDec
 from .models.griffin import Griffin, n_groups, n_tail
 from .models.rwkv import RWKV
 from .models.transformer import Transformer, unstack_layers
@@ -27,7 +29,9 @@ from .models.transformer import Transformer, unstack_layers
 TOP_LEVEL_KEYS = {"dense": ("embed", "final_norm", "layers", "patch_proj"),
                   "moe": ("embed", "final_norm", "layers", "patch_proj"),
                   "rwkv": ("embed", "final_norm", "layers"),
-                  "griffin": ("embed", "final_norm", "groups", "tail")}
+                  "griffin": ("embed", "final_norm", "groups", "tail"),
+                  "encdec": ("embed", "frame_proj", "encoder", "enc_norm",
+                             "decoder", "final_norm")}
 
 
 def _array_to_torch(arr, device) -> torch.Tensor:
@@ -46,8 +50,18 @@ def _to_torch(tree, device):
     return _array_to_torch(tree, device)
 
 
+def _leading(tree) -> set:
+    return {n for v in tree.values()
+            for n in (_leading(v) if isinstance(v, dict) else {v.shape[0]})}
+
+
 def unstack(stacked, n: int) -> list:
-    """A tree of arrays with a leading axis of ``n`` -> ``n`` trees."""
+    """A tree of arrays with a leading axis of ``n`` -> ``n`` trees; a
+    leaf with another leading axis raises."""
+    if _leading(stacked) - {n}:
+        raise ValueError(f"stacked leaves lead with {sorted(_leading(stacked))}"
+                         f" layers, not {n}")
+
     def take(tree, i):
         return {name: take(leaf, i) if isinstance(leaf, dict) else leaf[i]
                 for name, leaf in tree.items()}
@@ -57,16 +71,18 @@ def unstack(stacked, n: int) -> list:
 def params_from_jax(np_params, cfg: ModelConfig, device="cpu"):
     """The reference's ``init_params`` tree as numpy arrays (for example
     ``jax.tree.map(np.asarray, params)``) -> the port's module of the
-    config's family (``Transformer``, ``RWKV`` or ``Griffin``).  The
+    config's family (``Transformer``, ``RWKV``, ``Griffin`` or
+    ``EncDec``).  The
     stacked leaves under ``"layers"`` carry a leading ``n_layers`` axis;
     they are split into one parameter set per layer
     (``transformer.unstack_layers``: with ``moe_every == 2`` they are
     stacked over the (dense, MoE) groups).  Griffin's ``groups`` lead with
     the group axis and ``tail`` with the tail layers': each is split into
     a list, one tree a group or tail layer (``Griffin.param_tree`` stacks
-    them back as lists, the checkpoint as arrays).  A key the port does
-    not know raises, rather than being dropped: a top-level one here, one
-    inside a layer in the module."""
+    them back as lists, the checkpoint as arrays); so are the
+    encoder-decoder's ``encoder`` and ``decoder``, by their layer counts.
+    A key the port does not know raises, rather than being dropped: a
+    top-level one here, one inside a layer (or a shape) in the module."""
     keys = TOP_LEVEL_KEYS.get(cfg.family, ())
     unknown = sorted(set(np_params) - set(keys))
     if unknown:
@@ -78,6 +94,12 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cpu"):
                     tail=(unstack(np_params["tail"], n_tail(cfg))
                           if "tail" in np_params else []))
         return Griffin(cfg, _to_torch(tree, device))
+    if cfg.family == "encdec":
+        tree = dict(np_params,
+                    encoder=unstack(np_params["encoder"],
+                                    cfg.n_encoder_layers),
+                    decoder=unstack(np_params["decoder"], cfg.n_layers))
+        return EncDec(cfg, _to_torch(tree, device))
     tree = dict(np_params, layers=unstack_layers(cfg, np_params["layers"]))
     module = RWKV if cfg.family == "rwkv" else Transformer
     return module(cfg, _to_torch(tree, device))

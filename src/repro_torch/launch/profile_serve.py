@@ -13,7 +13,8 @@ device busy time (the union of kernel intervals), the device's idle share
 of the wall time, the number of kernels launched, the device time of the
 port's decode-attention kernel, and the kernels that took the most device
 time.  Needs a GPU; weights are random from
-``--seed``.
+``--seed``.  An encoder-decoder arch's requests carry ``ENC_SRC_LEN``
+frames beside the prompt (its decoder prefix), as ``launch.serve``'s.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import ARCHS, get_config
 from ..models import get_model
 from ..serve import Request, ServeEngine
+from .serve import ENC_SRC_LEN
 
 
 def _device_events(prof):
@@ -128,14 +130,21 @@ def main(argv=None):
         raise SystemExit("--prompt-len must exceed two pages: the profiled "
                          "prefill tick is a prompt's second chunk")
 
+    src_len = ENC_SRC_LEN if cfg.family == "encdec" else 0
+
     def engine(n_slots):
         eng = ServeEngine(cfg, params, n_slots=n_slots,
                           cache_len=args.cache_len, page_len=args.page_len,
                           steps_per_tick=args.steps_per_tick, seed=args.seed,
-                          kv_dtype=args.kv_dtype, device="cuda")
+                          src_len=src_len, kv_dtype=args.kv_dtype,
+                          device="cuda")
         for i in range(n_slots):
+            frames = (rng.standard_normal((src_len, cfg.d_model),
+                                          dtype=np.float32)
+                      if src_len else None)
             eng.submit(Request(uid=i, tokens=rng.integers(
-                0, cfg.vocab_size, args.prompt_len), max_new=args.max_new))
+                0, cfg.vocab_size, args.prompt_len), max_new=args.max_new,
+                frames=frames))
         return eng
 
     # every slot prefilled and decoding; one more tick warms the burst, and

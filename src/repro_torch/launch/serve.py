@@ -12,9 +12,13 @@ a slot by default).  An RWKV arch (``--arch rwkv6-7b``) keeps a bounded
 recurrent state and no KV cache, a Griffin arch (``--arch
 recurrentgemma-2b``) a bounded recurrent state and a ring KV cache of its
 attention window: with ``--kv-dtype int8`` or ``--prefix-cache`` either
-raises the reference's ``ValueError`` when the engine is built.  ``--device`` defaults to the GPU; ``--device cpu``
-runs the plain path.  Prompts are drawn with
-numpy from ``--seed``.  A warmup pass is timed separately, so first-call
+raises the reference's ``ValueError`` when the engine is built.  An
+encoder-decoder arch (``--arch seamless-m4t-medium``) serves requests of
+``ENC_SRC_LEN`` frames (normals of width d_model) and a one-token decoder
+prefix (BOS, 0), as the reference's launcher; it too refuses
+``--kv-dtype int8`` and ``--prefix-cache``.  ``--device`` defaults to the
+GPU; ``--device cpu`` runs the plain path.  Prompts and frames are drawn
+with numpy from ``--seed``.  A warmup pass is timed separately, so first-call
 costs never enter tok/s; latency percentiles and slot utilization come
 from the engine's telemetry.
 """
@@ -31,11 +35,14 @@ from ..models import get_model
 from ..serve import Request, ServeEngine
 from ..serve.engine import resolve_device
 
+ENC_SRC_LEN = 16  # synthetic frame-stream length for encdec requests
+
 
 def _make_requests(cfg, n, prompt_len, max_new, mixed, seed,
                    shared_prefix=0):
     """Deterministic request stream; --mixed varies both lengths;
-    ``shared_prefix`` prepends a common preamble."""
+    ``shared_prefix`` prepends a common preamble.  An encdec request is
+    ``ENC_SRC_LEN`` frames and the BOS prefix."""
     prefix = (np.random.default_rng(seed + 7).integers(
         0, cfg.vocab_size, shared_prefix) if shared_prefix else None)
     reqs = []
@@ -45,6 +52,12 @@ def _make_requests(cfg, n, prompt_len, max_new, mixed, seed,
             mn = max(1, max_new // 2 + (i * 5) % max_new)
         else:
             sp, mn = prompt_len, max_new
+        if cfg.family == "encdec":
+            frames = np.random.default_rng(seed + 100 + i).standard_normal(
+                (ENC_SRC_LEN, cfg.d_model)).astype(np.float32)
+            reqs.append(Request(uid=i, tokens=np.zeros((1,), np.int32),
+                                max_new=mn, frames=frames))
+            continue
         toks = np.random.default_rng(seed + 100 + i).integers(
             0, cfg.vocab_size, sp).astype(np.int32)
         if prefix is not None:
@@ -59,6 +72,7 @@ def _new_engine(cfg, params, args, device):
                                       + args.max_new),
                        page_len=args.page_len,
                        steps_per_tick=args.steps_per_tick, seed=args.seed,
+                       src_len=ENC_SRC_LEN if cfg.family == "encdec" else 0,
                        prefix_cache=args.prefix_cache,
                        prefix_pool_pages=args.prefix_pool_pages,
                        kv_dtype=args.kv_dtype, device=device)

@@ -5,7 +5,12 @@
         --steps 400 --global-batch 8 --seq-len 1024 --ckpt-dir /tmp/run1
 
 ``--arch`` takes every architecture of ``configs.ARCHS`` (the dense, MoE,
-RWKV and Griffin families; ``--smoke`` their small configurations).
+RWKV and Griffin families; ``--smoke`` their small configurations) but the
+encoder-decoder's: its loss needs ``frames`` beside the tokens, which the
+data pipeline does not yield (the reference's launcher has no frame source
+either and fails inside its ``loss_fn``), so ``--arch
+seamless-m4t-medium`` raises ``ValueError`` before the first step; train
+it through ``train.train_loop`` with a source whose batches carry frames.
 
 Trains with ``--opt`` sophia_g (the default), sophia_h, adamw, lion,
 signgd, sgd or adahessian, the hessian-aware ones (Sophia, AdaHessian)
@@ -90,8 +95,15 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"--arch {args.arch}: the encoder-decoder's loss needs frames "
+            f"beside the tokens, and the data pipeline yields tokens and "
+            f"labels only (so does the reference's, whose launcher fails "
+            f"inside loss_fn); train it through train.train_loop with a "
+            f"source whose batches carry frames")
+    device = resolve_device(args.device)
     tc = TrainerConfig(
         optimizer=args.opt, estimator=args.estimator, peak_lr=args.peak_lr,
         total_steps=args.steps, warmup_steps=max(2, args.steps // 20),

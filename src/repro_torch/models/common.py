@@ -13,8 +13,9 @@ import torch
 class ModelConfig:
     """The reference's config type, field for field, so a config converts
     between the two packages by ``dataclasses.asdict``.  The port implements
-    the dense, MoE, RWKV and Griffin families; :func:`check_supported`
-    names the fields it refuses."""
+    every family of the reference (dense, MoE, RWKV, Griffin and
+    encoder-decoder); :func:`check_supported` names the fields it
+    refuses."""
     name: str
     family: str                       # dense | moe | rwkv | griffin | encdec
     n_layers: int
@@ -113,6 +114,9 @@ class ModelConfig:
             return (emb + L * att + (L - n_moe) * dense
                     + n_moe * (experts + D * self.n_experts))
         if self.family == "encdec":
+            # the reference's count leaves out frame_proj (D^2), the GELU
+            # MLP's biases, the norms and the padded vocabulary rows; kept
+            # as it is, so both packages count alike
             return emb + self.n_encoder_layers * (att + mlp) \
                 + L * (2 * att + mlp)
         return emb + L * (att + mlp)
@@ -144,13 +148,15 @@ def check_supported(cfg: ModelConfig) -> None:
     family (``models/rwkv.py``), whose trunk takes none of the dense
     trunk's norm, activation or rope fields; and the Griffin family
     (``models/griffin.py``: RG-LRU recurrent layers and local attention,
-    whose norms are RMSNorm whatever ``norm_type`` says).  The encoder-
-    decoder family is refused.  A ``ValueError`` names a field the
-    reference would fail on later."""
-    if cfg.family not in ("dense", "moe", "rwkv", "griffin"):
+    whose norms are RMSNorm whatever ``norm_type`` says); and the
+    encoder-decoder family (``models/encdec.py``: a bidirectional encoder
+    over frame embeddings and a decoder with cross-attention, every norm
+    RMSNorm).  A ``ValueError`` names a field the reference would fail on
+    later."""
+    if cfg.family not in ("dense", "moe", "rwkv", "griffin", "encdec"):
         raise NotImplementedError(
-            f"config {cfg.name!r}: the port implements the dense, moe, rwkv "
-            f"and griffin families; unsupported field: family "
+            f"config {cfg.name!r}: the port implements the dense, moe, "
+            f"rwkv, griffin and encdec families; unsupported field: family "
             f"({cfg.family!r})")
     if cfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype {cfg.kv_dtype!r} is not bf16 or int8")
@@ -181,6 +187,24 @@ def check_supported(cfg: ModelConfig) -> None:
         # learned-position table asserts on (layers.py:embed)
         if cfg.learned_pos:
             raise ValueError("learned_pos: griffin embeds no positions")
+    if cfg.family == "encdec":
+        # the encoder and the decoder are stacked trees of layers, which
+        # the port carries as lists of at least one layer each
+        for field in ("n_encoder_layers", "n_layers"):
+            if getattr(cfg, field) < 1:
+                raise ValueError(f"{field} {getattr(cfg, field)} is below "
+                                 f"1: an encoder-decoder needs both stacks")
+        # the decoder embeds no positions, which the reference's
+        # learned-position table asserts on (layers.py:embed); its encoder
+        # rotates by (B, S) positions, which M-RoPE's sections index as
+        # (B, 3, S)
+        if cfg.learned_pos:
+            raise ValueError("learned_pos: the encoder-decoder embeds no "
+                             "positions")
+        if cfg.mrope_sections is not None:
+            raise ValueError(f"mrope_sections {cfg.mrope_sections}: the "
+                             f"encoder-decoder rotates by one position "
+                             f"stream")
     if cfg.family == "moe":
         if cfg.n_experts < 1:
             raise ValueError(f"n_experts {cfg.n_experts} is below 1")
@@ -194,7 +218,8 @@ def check_supported(cfg: ModelConfig) -> None:
         if cfg.n_layers % cfg.moe_every:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"moe_every {cfg.moe_every}")
-    if cfg.family != "griffin" and cfg.norm_type not in ("ln", "rms"):
+    if (cfg.family not in ("griffin", "encdec")
+            and cfg.norm_type not in ("ln", "rms")):
         raise ValueError(f"norm_type {cfg.norm_type!r} is not ln or rms")
     if cfg.activation not in ("gelu", "swiglu", "geglu"):
         raise ValueError(f"activation {cfg.activation!r} is not gelu, "

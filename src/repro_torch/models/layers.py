@@ -15,7 +15,12 @@ Training attention takes the flash kernels (``kernels/flash_attention.py``,
 the reference's default route, ``fused_attn=True``), :func:`full_attention`,
 which materializes the (S, S) scores in fp32 (the reference's
 ``fused_attn=False``), or :func:`chunked_attention`, the reference's online
-softmax over KV blocks in plain PyTorch (above 4096 tokens on "auto").  Serving attention writes the slot cache
+softmax over KV blocks in plain PyTorch (above 4096 tokens on "auto").
+Every training route is causal by default; ``causal=False`` attends every
+key (the encoder-decoder's encoder), and ``kv_override=(k, v)`` makes a
+call cross-attention over the given keys, q projected and never rotated
+(the reference's ``_qkv`` under an override; the chunked route has none
+and takes the materialized one).  Serving attention writes the slot cache
 in place (the reference returns a new cache): decode writes one token per active slot, prefill one chunk of
 one slot.  Decode attention goes through ``kernels/decode_attention.py``
 with q pre-scaled in fp32 and rounded to its dtype, the convention of the
@@ -191,6 +196,27 @@ def _qkv(p, x, cfg: ModelConfig, positions=None):
     return q, k, v
 
 
+def cross_q(p, x, cfg: ModelConfig):
+    """Cross-attention's q (B, S, H, hd) in x's dtype: the query
+    projection (plus ``bq`` with QKV bias), never rotated, as the
+    reference's ``_qkv`` leaves q under ``kv_override``."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    q = x @ p["wq"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    return q.reshape(B, S, cfg.n_heads, cfg.hd)
+
+
+def _attn_qkv(p, x, cfg: ModelConfig, positions, kv_override):
+    """(q, k, v) of one attention call: :func:`_qkv` of x (rotated under
+    rope), or with ``kv_override`` (k, v) (B, Sk, Hkv, hd), the
+    cross-attention's, q from :func:`cross_q` and the given k and v."""
+    if kv_override is None:
+        return _qkv(p, x, cfg, _train_positions(cfg, x, positions))
+    return (cross_q(p, x, cfg),) + tuple(kv_override)
+
+
 def _softcap(scores, cap):
     if cap is None:
         return scores
@@ -225,21 +251,24 @@ def _causal_window_mask(S, window, device):
 
 
 def full_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
-                   layer_scale=1.0):
-    """Causal training attention with materialized scores, the reference's
+                   layer_scale=1.0, causal=True, kv_override=None):
+    """Training attention with materialized scores, the reference's
     ``full_attention``: fp32 scores ``q.k * layer_scale / sqrt(hd)``,
-    softcap, the causal (and window) mask at the -1e30 sentinel, fp32
-    softmax cast to x's dtype, then ``w . v`` and the output projection.
-    x (B, S, D) -> (B, S, D); ``positions`` (B, S), or (B, 3, S) with
-    M-RoPE, rotate q and k under rope (the training routes' default:
-    0..S-1)."""
+    softcap, with ``causal`` the causal (and window) mask at the -1e30
+    sentinel, fp32 softmax cast to x's dtype, then ``w . v`` and the
+    output projection.  x (B, S, D) -> (B, S, D); ``positions`` (B, S),
+    or (B, 3, S) with M-RoPE, rotate q and k under rope (the training
+    routes' default: 0..S-1).  ``kv_override`` (k, v) (B, Sk, Hkv, hd)
+    makes it cross-attention: q unrotated (:func:`cross_q`), k and v as
+    given (``causal=False`` with it)."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, _train_positions(cfg, x, positions))
+    q, k, v = _attn_qkv(p, x, cfg, positions, kv_override)
     scale = attention_scale(cfg, layer_scale)
-    scores = attention_scores_block(q, k, cfg, scale)      # (B,Hkv,G,S,S)
-    mask = _causal_window_mask(S, window, x.device)
-    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    scores = attention_scores_block(q, k, cfg, scale)     # (B,Hkv,G,S,Sk)
+    if causal:
+        mask = _causal_window_mask(S, window, x.device)
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bkgst,btkh->bskgh", w, v)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
@@ -248,7 +277,7 @@ def full_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
 
 def _flash_attention_proj(p, x, cfg: ModelConfig, *, positions=None,
                           window=None, layer_scale=1.0, use_jvp=False,
-                          qkv=None):
+                          qkv=None, causal=True, kv_override=None):
     """The reference's flash route (``layers.py:_flash_attention_proj``):
     qkv, heads to (B, H, S, hd), the flash kernels, back, then the output
     projection.  Its scale is ``layer_scale / sqrt(hd)`` in Python double
@@ -257,32 +286,35 @@ def _flash_attention_proj(p, x, cfg: ModelConfig, *, positions=None,
     the softmax weights before ``w . v``, differ by about an ulp.  Under
     rope q and k are rotated before the kernels.  ``qkv``: :func:`_qkv`'s
     q, k, v of x, when the caller has them (the prefill, which also writes
-    k and v into its cache)."""
+    k and v into its cache).  ``causal=False`` attends every key (the
+    window is dropped, as in the reference); ``kv_override`` (k, v) (B,
+    Sk, Hkv, hd) is cross-attention over Sk keys, q unrotated."""
     dt = x.dtype
     B, S, _ = x.shape
     if qkv is None:
-        qkv = _qkv(p, x, cfg, _train_positions(cfg, x, positions))
+        qkv = _attn_qkv(p, x, cfg, positions, kv_override)
     q, k, v = qkv
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True,
+                        v.transpose(1, 2), causal=causal,
                         scale=float(layer_scale) / math.sqrt(cfg.hd),
-                        window=window, softcap=cfg.attn_logit_softcap,
-                        use_jvp=use_jvp)
+                        window=window if causal else None,
+                        softcap=cfg.attn_logit_softcap, use_jvp=use_jvp)
     out = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(dt)
 
 
 def chunked_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
-                      layer_scale=1.0, kv_block: int = 1024):
-    """Causal training attention as an online softmax over KV blocks, the
+                      layer_scale=1.0, kv_block: int = 1024, causal=True):
+    """Training attention as an online softmax over KV blocks, the
     reference's ``chunked_attention``: the (S, S) scores never exist, the
     largest temporary is (B, Hkv, G, S, kv_block).  ``kv_block`` shrinks to
     the largest divisor of S at most the request; scores ``q.k * scale``
     in fp32 (scale ``layer_scale / sqrt(hd)`` in Python double, as the
-    reference's), softcap, the causal (and window) mask at the -1e30
-    sentinel, a running max from -inf, the block's weights cast to x's
-    dtype before ``p . v``.  x (B, S, D) -> (B, S, D); ``positions`` as
-    in :func:`full_attention`."""
+    reference's), softcap, with ``causal`` the causal (and window) mask at
+    the -1e30 sentinel (bidirectional without: the encoder), a running max
+    from -inf, the block's weights cast to x's dtype before ``p . v``.
+    x (B, S, D) -> (B, S, D); ``positions`` as in :func:`full_attention`.
+    It has no cross-attention route (the reference's neither)."""
     dt = x.dtype
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, _train_positions(cfg, x, positions))
@@ -303,11 +335,12 @@ def chunked_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
         scores = torch.einsum("bskgh,btkh->bkgst", qg,
                               kb.to(torch.float32)) * scale
         scores = _softcap(scores, cfg.attn_logit_softcap)
-        kpos = start + torch.arange(kv_block, device=x.device)[None, :]
-        mask = kpos <= qpos
-        if window is not None:
-            mask = mask & (kpos > qpos - window)
-        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+        if causal:
+            kpos = start + torch.arange(kv_block, device=x.device)[None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+            scores = torch.where(mask[None, None, None], scores, NEG_INF)
         m_new = torch.maximum(m_run, scores.amax(-1))
         alpha = torch.exp(m_run - m_new)
         pexp = torch.exp(scores - m_new[..., None])
@@ -324,26 +357,32 @@ TRAIN_ATTN_IMPLS = ("auto", "full", "chunked", "flash", "flash_jvp")
 
 
 def train_attention(p, x, cfg: ModelConfig, *, positions=None, window=None,
-                    layer_scale=1.0, impl="auto"):
+                    layer_scale=1.0, impl="auto", causal=True,
+                    kv_override=None):
     """Route one training attention call: "flash" takes the flash kernels
     (:func:`_flash_attention_proj`), "flash_jvp" their twin of the
     Hutchinson HVP (the forward kernel, a backward that autograd can
     differentiate again), "chunked" :func:`chunked_attention`, "full"
     :func:`full_attention`; "auto" (and None) takes the chunked route above
     4096 tokens and the full one up to there, the reference's heuristic.
-    ``positions`` (B, S) or (B, 3, S) go to the route (rope)."""
+    ``positions`` (B, S) or (B, 3, S) go to the route (rope).
+    ``causal=False`` attends every key (the encoder); ``kv_override``
+    (k, v) makes it cross-attention, which the chunked route does not
+    have: off the flash routes it takes :func:`full_attention`, as the
+    reference does."""
     impl = impl or "auto"
     if impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
+    kw = dict(positions=positions, window=window, layer_scale=layer_scale,
+              causal=causal)
     if impl in ("flash", "flash_jvp"):
-        return _flash_attention_proj(p, x, cfg, positions=positions,
-                                     window=window, layer_scale=layer_scale,
-                                     use_jvp=impl == "flash_jvp")
+        return _flash_attention_proj(p, x, cfg, kv_override=kv_override,
+                                     use_jvp=impl == "flash_jvp", **kw)
+    if kv_override is not None:
+        return full_attention(p, x, cfg, kv_override=kv_override, **kw)
     if impl == "chunked" or (impl == "auto" and x.shape[1] > 4096):
-        return chunked_attention(p, x, cfg, positions=positions,
-                                 window=window, layer_scale=layer_scale)
-    return full_attention(p, x, cfg, positions=positions, window=window,
-                          layer_scale=layer_scale)
+        return chunked_attention(p, x, cfg, **kw)
+    return full_attention(p, x, cfg, **kw)
 
 
 def ring_write(cache, val, positions, active=None):

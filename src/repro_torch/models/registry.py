@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from . import griffin, rwkv, transformer
+from . import encdec, griffin, rwkv, transformer
 from .common import ModelConfig
 
 
@@ -40,7 +40,16 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
     whatever the cache length; ``prefill_into_slot`` feeds a chunk one
     token at a time through ``decode_slots``, ``reset_slot`` zeroes the
     recurrent state and leaves the ring to its mask.  The encoder-decoder
-    family is not ported and raises ``NotImplementedError``."""
+    family (``models/encdec.py``) takes ``frames`` (B, S_src, D) beside
+    the tokens in training; its caches add each slot's cross-attention
+    rows, so ``init_cache`` and ``init_slots`` take the source length
+    (``init_cache(cfg, batch, max_len, src_len, device)``,
+    ``init_slots(cfg, n_slots, cache_len, src_len, device)``), the encoder
+    runs once a request (``prefill_encoder(cfg, params, frames, cache)``
+    for the whole-prompt path, ``prefill_encoder_slot(cfg, params, cache,
+    slot, frames)`` for the engine, before the decoder prefix's chunks),
+    ``reset_slot`` is the identity and there is no ``prefill``.  Another
+    family raises ``NotImplementedError``."""
     if cfg.family in ("dense", "moe"):
         return SimpleNamespace(
             init_params=transformer.init_params,
@@ -89,4 +98,21 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
             decode_slots=griffin.decode_slots,
             reset_slot=griffin.reset_slot,
         )
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "encdec":
+        return SimpleNamespace(
+            init_params=encdec.init_params,
+            forward_hidden=encdec.forward_hidden,
+            forward=encdec.forward,
+            loss_fn=encdec.loss_fn,
+            sampled_loss_fn=encdec.sampled_loss_fn,
+            logits_fn=encdec.logits_fn,
+            init_cache=encdec.init_cache,
+            prefill_encoder=encdec.prefill_encoder,
+            decode_step=encdec.decode_step,
+            init_slots=encdec.init_slots,
+            prefill_encoder_slot=encdec.prefill_encoder_slot,
+            prefill_into_slot=encdec.prefill_into_slot,
+            decode_slots=encdec.decode_slots,
+            reset_slot=encdec.reset_slot,
+        )
+    raise NotImplementedError(f"family {cfg.family!r} is not ported")

@@ -134,7 +134,13 @@ def generate_lockstep(cfg: ModelConfig, params, prompt_tokens, *,
     positions 0..S_p - 1 from ``init_cache``, the last of those steps'
     token being the first generated one.  Then ``max_new - 1`` steps of
     :func:`make_serve_step` at the shared position.  The reference's
-    ``generate_lockstep``."""
+    ``generate_lockstep``, which has no encoder-decoder route: an encdec
+    config raises ``ValueError`` (serve it through the engine, or
+    ``prefill_encoder`` and ``decode_step``)."""
+    if cfg.family not in ("dense", "moe", "rwkv", "griffin"):
+        raise ValueError(f"generate_lockstep has no route for family "
+                         f"{cfg.family!r} (the reference asserts dense, "
+                         f"moe, rwkv or griffin)")
     model = get_model(cfg)
     device = params.embed["tok"].device
     prompt = torch.as_tensor(np.asarray(prompt_tokens)).to(device)

@@ -31,7 +31,14 @@ greedy tokens are those of a cold prefill.  It needs a paged KV cache:
 the RWKV and Griffin families' bounded states have none, and the engine
 refuses it there, as the reference's does.
 
-Not ported: encoder-decoder requests.
+An encoder-decoder request (seamless-m4t-medium) carries ``frames``
+(S_src, D), the encoder's input, beside its decoder prefix (``tokens``,
+usually just BOS): the engine's ``src_len`` sizes every slot's
+cross-attention rows, ``submit`` refuses frames of another length (the
+cross-attention has no source-length mask, so a shorter stream would
+leave rows of an earlier request attendable), and admission runs the
+encoder (``prefill_encoder_slot``) before the prefix's chunks.  The
+family has no prefix cache and no int8 cache.
 """
 from __future__ import annotations
 
@@ -73,13 +80,16 @@ def _pct(xs, q: float) -> float:
 
 @dataclasses.dataclass
 class Request:
-    """One generation request: ``tokens`` is the prompt (1-D int);
-    ``temperature <= 0`` decodes greedily."""
+    """One generation request: ``tokens`` is the prompt (1-D int; for
+    encdec the decoder prefix, usually just BOS, with ``frames`` (S_src,
+    D) or (1, S_src, D) carrying the encoder input); ``temperature <= 0``
+    decodes greedily."""
     uid: Any
     tokens: Any
     max_new: int
     temperature: float = 0.0
     eos_id: Optional[int] = None
+    frames: Any = None
 
 
 @dataclasses.dataclass
@@ -104,7 +114,7 @@ class RequestResult:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  cache_len: int = 256, page_len: int = 32,
-                 steps_per_tick: int = 8, seed: int = 0,
+                 steps_per_tick: int = 8, seed: int = 0, src_len: int = 0,
                  prefill_chunks_per_tick: int = 1,
                  prefix_cache: bool = False, prefix_pool_pages: int = 0,
                  kv_dtype: Optional[str] = None, device=None):
@@ -124,9 +134,14 @@ class ServeEngine:
         self.cache_len = -(-cache_len // page_len) * page_len
         self.steps_per_tick = steps_per_tick
         self.prefill_chunks_per_tick = prefill_chunks_per_tick
+        self.src_len = src_len
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = self.model.init_slots(cfg, n_slots, self.cache_len,
-                                           self.device)
+        if cfg.family == "encdec":
+            self.state = self.model.init_slots(cfg, n_slots, self.cache_len,
+                                               src_len, self.device)
+        else:
+            self.state = self.model.init_slots(cfg, n_slots, self.cache_len,
+                                               self.device)
         self._burst = make_decode_burst(cfg, steps_per_tick)
 
         # shared-prefix page pool: the slot cache's layout with the slot
@@ -182,6 +197,18 @@ class ServeEngine:
                 f"request {req.uid}: prompt {prompt_len} + max_new "
                 f"{req.max_new} exceeds the model's "
                 f"{self.cfg.max_position_embeddings} learned positions")
+        if self.cfg.family == "encdec":
+            # frames must fill the slot's cross-K/V rows exactly: a shorter
+            # stream would leave a previous occupant's (or zero-init) rows
+            # attendable -- cross-attention has no source-length mask
+            if req.frames is None:
+                raise ValueError(f"request {req.uid}: an encdec request "
+                                 f"needs frames")
+            frames_len = np.asarray(req.frames).shape[-2]
+            if frames_len != self.src_len:
+                raise ValueError(
+                    f"request {req.uid}: frames length {frames_len} != "
+                    f"engine src_len {self.src_len}")
         self.queue.append((req, time.perf_counter()))
 
     def idle(self) -> bool:
@@ -207,6 +234,11 @@ class ServeEngine:
                 continue
             req, submitted_t = self.queue.popleft()
             self.state = self.model.reset_slot(self.cfg, self.state, slot)
+            if self.cfg.family == "encdec":
+                frames = self._to_device(np.array(req.frames, np.float32))
+                self.state = self.model.prefill_encoder_slot(
+                    self.cfg, self.params, self.state, slot,
+                    frames[None] if frames.dim() == 2 else frames)
             self.slot_mode[slot] = PREFILL
             self.slot_req[slot] = req
             self.slot_cursor[slot] = 0

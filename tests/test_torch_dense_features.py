@@ -154,11 +154,17 @@ def test_embedding_scale_rounds_the_constant_first(dtype):
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_check_supported_still_refuses(arch):
-    """The family not ported (encdec) stays refused, by its family."""
+    """What the port still refuses: a family the reference does not have,
+    by its family.  The encoder-decoder family, refused until it was
+    ported, passes, and refuses what its reference fails on (learned
+    positions, which its decoder does not embed)."""
     cfg = tcfg(jax_get_config(arch, smoke=True))
+    check_supported(cfg)
     with pytest.raises(NotImplementedError) as err:
-        check_supported(cfg)
+        check_supported(dataclasses.replace(cfg, family="other"))
     assert "family" in str(err.value)
+    with pytest.raises(ValueError, match="learned_pos"):
+        check_supported(dataclasses.replace(cfg, learned_pos=True))
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", *NAMES, "deepseek-moe-16b",

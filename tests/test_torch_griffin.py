@@ -389,14 +389,18 @@ def test_check_supported_refuses_what_the_reference_fails_on(field, value):
     tap (the reference's conv state keeps the whole segment), a negative
     recurrence width or learned positions (which its embed asserts on)
     raises ``ValueError``; ``norm_type`` is not read (every norm is
-    RMSNorm); the encoder-decoder family stays refused by its family, in
-    ``check_supported`` and ``get_model``."""
+    RMSNorm); the encoder-decoder family, refused until it was ported,
+    passes ``check_supported`` and ``get_model``, and a family the
+    reference does not have is refused by its family in both."""
     cfg = get_config("recurrentgemma-2b", smoke=True)
     check_supported(dataclasses.replace(cfg, norm_type="other"))
     with pytest.raises(ValueError, match=field):
         check_supported(dataclasses.replace(cfg, **{field: value}))
     encdec = tcfg(jax_get_config("seamless-m4t-medium", smoke=True))
+    check_supported(encdec)
+    assert get_model(encdec).prefill_encoder_slot is not None
+    other = dataclasses.replace(encdec, family="other")
     with pytest.raises(NotImplementedError, match="family"):
-        check_supported(encdec)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        get_model(encdec)
+        check_supported(other)
+    with pytest.raises(NotImplementedError, match="other"):
+        get_model(other)

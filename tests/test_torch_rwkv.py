@@ -342,16 +342,16 @@ def test_layout_and_state_match_reference(model, block):
 def test_check_supported_takes_rwkv_by_its_own_fields():
     """The dense trunk's norm, activation and rope fields do not refuse an
     RWKV config; a width that is not a multiple of the head dim 64 raises
-    the ``ValueError`` the reference's head count implies; the encoder-
-    decoder family stays refused, and a Griffin config is taken by its own
-    fields (here its window)."""
+    the ``ValueError`` the reference's head count implies; an encoder-
+    decoder config and a Griffin config are each taken by their own fields
+    (here the encoder's depth and the window)."""
     cfg = get_config("rwkv6-7b", smoke=True)
     check_supported(dataclasses.replace(cfg, norm_type="other",
                                         activation="other", n_heads=3))
     with pytest.raises(ValueError, match="64"):
         check_supported(dataclasses.replace(cfg, d_model=96))
     assert "rwkv6-7b" in ARCHS
-    with pytest.raises(NotImplementedError, match="family"):
+    with pytest.raises(ValueError, match="n_encoder_layers"):
         check_supported(dataclasses.replace(cfg, family="encdec"))
     with pytest.raises(ValueError, match="local_window"):
         check_supported(dataclasses.replace(cfg, family="griffin"))

@@ -179,15 +179,22 @@ def test_engine_without_device_raises_on_cpu_only_machine(weights):
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_unported_options_raise(arch):
-    """Since the port serves the whole dense family (the prefix cache,
-    M-RoPE and patch embeddings included), the MoE, RWKV and Griffin
-    families, what it refuses is the encoder-decoder family:
-    ``check_supported`` raises for seamless-m4t-medium's smoke config by
-    its family."""
+    """Since the port serves every family of the reference (the
+    encoder-decoder family last), what it refuses in serving are the
+    options the reference refuses there: for seamless-m4t-medium's smoke
+    config an int8 cache and the prefix cache, each with the reference's
+    ``ValueError``; and a family the reference does not have, by its
+    family."""
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch, smoke=True)))
+    check_supported(cfg)
+    params = get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0))
+    for kw in (dict(kv_dtype="int8"), dict(prefix_cache=True)):
+        with pytest.raises(ValueError):
+            ServeEngine(cfg, params, device="cpu", src_len=4, **kw)
+    other = dataclasses.replace(cfg, family="other")
     with pytest.raises(NotImplementedError, match="family") as err:
-        check_supported(cfg)
-    assert repr(cfg.family) in str(err.value)
+        check_supported(other)
+    assert repr(other.family) in str(err.value)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b"])
