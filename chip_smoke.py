@@ -42,7 +42,9 @@ it fails and prints no result.  Phases, in order:
      terms (``check_bf16_grad``; bf16 h takes the tensor-core kernels,
      forward and backward, and each case logs its share beyond 2^-16);
      the sampled labels identical except on rows whose two best perturbed
-     logits lie within 1e-5, never a padded column; the flash-attention
+     logits lie within 1e-5, never a padded column, and the sampled
+     forward on every other row with ``row_ids`` (a data-parallel rank's
+     rows) drawing the whole call's labels bit for bit; the flash-attention
      kernels (forward, dQ, dK/dV) at GPT-2 small's training shape (B=8,
      H=12, S=1024, hd=64, causal) and the refresh's B=4, and the edge
      cases (GQA 8/2, window 48 + softcap 20, q_offset with Sq < Sk,
@@ -328,6 +330,22 @@ it fails and prints no result.  Phases, in order:
      ``launches_models`` the launches of each model's runs.  A JSON line
      of the models' step times, memory, served tok/s and cuts comes
      before it.
+
+  6. data parallel (``distributed/``, ``train/elastic.py``): the NCCL
+     all-gather of 64 bytes at world size 1 timed (the launch time behind
+     ``launch/roofline.py``); ``_quantize`` on the card against the CPU
+     bit for bit over 2^24 elements at a seed past 2^31 and an offset near
+     2^32; the compressed reduction over GPT-2 small's whole shard in 8
+     buckets against one bucket bit for bit, timed and profiled; then
+     ``python -m repro_torch.launch.train`` as a subprocess through NCCL
+     at world size 1: GPT-2 small 12 steps at B=8 x S=1024, Sophia-G +
+     GNB on the engine kernels, ``--compress-grads --compress-hess
+     --comm-telemetry`` in 8 buckets, ``--elastic`` with an asynchronous
+     checkpoint at step 8; the same command after step 12's checkpoint is
+     removed, which must resume at step 8 and log the first run's losses
+     bit for bit; the 12 steps uncompressed.  Each run's launch counts
+     (its own process's) are exact.  A JSON line ``{"dp": ...}`` holds
+     the step p50s, peaks and the compression's cost.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -882,6 +900,8 @@ def check_ce_case(torch, name, spec):
     errs["ce_forward_sampled"] = max(
         (lse_s - lse_sp).abs().max().item(),
         (ll_s - ll_sp)[same].abs().max().item())
+    rows_note = sampled_rows_check(torch, name, h, w, normp, opts,
+                                   (lse_s, ll_s, y_k), tol)
 
     dh_k = ce.ce_backward_dh(h, w, normp, labels, rs, lse_p, **opts)
     dw_k = ce.ce_backward_dw(h, w, normp, labels, rs, lse_p, **opts)
@@ -939,8 +959,35 @@ def check_ce_case(torch, name, spec):
         + f" (forwards within {tol}); dh/dW relative to their largest "
         f"element " + ", ".join(f"{e:.3g}" for e in rel.values())
         + f"; {grad_note}; sampled labels: {n_diff} differ, {n_near} rows "
-        f"near a tie (< {NEAR_TIE})")
+        f"near a tie (< {NEAR_TIE}); {rows_note}")
     return errs
+
+
+def sampled_rows_check(torch, name, h, w, normp, opts, whole, tol):
+    """The sampled forward kernel on every other row with ``row_ids`` (a
+    data-parallel rank's rows, the hash keyed on each row's index in the
+    whole batch) against the same kernel's ``whole`` call at those rows:
+    the drawn labels and their logits bit for bit, the log-sum-exp within
+    ``tol`` (its vocab splits follow the row count).  Returns the log
+    note."""
+    from repro_torch.kernels import fused_ce as ce
+
+    sel = torch.arange(1, h.shape[0], 2, device=h.device)
+    lse, ll, y = ce.ce_forward_sampled(h[sel].contiguous(), w, normp,
+                                       CE_SEED, row_ids=sel, **opts)
+    torch.cuda.synchronize()
+    lse_w, ll_w, y_w = (t[sel] for t in whole)
+    if not (torch.equal(y, y_w) and torch.equal(ll, ll_w)):
+        bad = int((y != y_w).sum())
+        raise AssertionError(f"ce_forward_sampled {name}: with row_ids, "
+                             f"{bad} of {sel.numel()} drawn labels (or "
+                             f"their logits) differ from the whole call's")
+    err = (lse - lse_w).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"ce_forward_sampled {name}: with row_ids, "
+                             f"lse {err:.3g} from the whole call's > {tol}")
+    return (f"with row_ids on {sel.numel()} rows: labels and logits bit "
+            f"for bit, lse within {err:.3g}")
 
 
 def phase_ce_kernels(torch):
@@ -5816,6 +5863,313 @@ def phase_engine_timings(torch, engine_err, trained):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 6: data-parallel training through the launcher (NCCL at world size
+# 1): GPT-2 small with the int8 error-feedback reduction in 8 buckets,
+# telemetry, an asynchronous checkpoint and a resume
+
+DP_SHARD = 124_518_400                   # GPT-2 small's flat shard
+DP_BUCKETS = 8
+DP_BUCKET_ELEMS = DP_SHARD // DP_BUCKETS  # 15,564,800, 256-aligned
+DP_STEPS, DP_K, DP_CKPT = 12, 4, 8
+DP_QUANT_N = 1 << 24                     # the card-vs-CPU _quantize slice
+DP_QUANT_SEED, DP_QUANT_OFFSET = 2 ** 31 + 12345, 2 ** 32 - (1 << 20)
+DP_ARGS = ["--arch", "gpt2-small", "--opt", "sophia_g", "--estimator",
+           "gnb", "--fused-kernel", "--steps", str(DP_STEPS), "--seq-len",
+           str(TRAIN_S), "--global-batch", str(TRAIN_B), "--hess-interval",
+           str(DP_K), "--hess-subbatch", str(TRAIN_SUB), "--peak-lr", "6e-4",
+           "--log-every", "1", "--device", "cuda", "--comm-telemetry"]
+DP_COMPRESS = ["--compress-grads", "--compress-hess", "--comm-bucket-elems",
+               str(DP_BUCKET_ELEMS)]
+# the kernels of phase 6's path: rows 2 and 4, 11-15 (by 14 and 15) and
+# 16-18
+DP_PATH_KERNELS = ("sophia_step", "sophia_refresh", "ce_forward",
+                   "ce_forward_sampled", "ce_backward_dh", "ce_backward_dw",
+                   "attn_fwd", "attn_bwd_dq", "attn_bwd_dkv")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_launch_us(torch, reps=500):
+    """{collective: (device µs, host µs)} per call of an NCCL all-gather
+    and an all-reduce of 64 bytes at world size 1, CUDA events over
+    ``reps`` back-to-back calls after 50 warm-up calls: the collectives
+    one card can time, behind ``launch.roofline.COLLECTIVE_LAUNCH_S``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        x = torch.ones(16, device="cuda")
+        out = torch.empty(16, device="cuda")
+        calls = {"all_gather": lambda: dist.all_gather_into_tensor(out, x),
+                 "all_reduce": lambda: dist.all_reduce(x)}
+        res = {}
+        for name, fn in calls.items():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            host = (time.perf_counter() - t0) / reps * 1e6
+            torch.cuda.synchronize()
+            res[name] = (start.elapsed_time(end) / reps * 1e3, host)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def quantize_against_cpu(torch):
+    """``_quantize`` of a 2^24-element slice on the card and on the CPU at
+    a seed past 2^31 and an offset near 2^32 (the hash wraps): q, scales
+    and deq bit for bit."""
+    from repro_torch.quant import _quantize
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(DP_QUANT_N, generator=gen) * torch.rand(
+        DP_QUANT_N, generator=gen) * 3
+    want = _quantize(x, 256, DP_QUANT_SEED, offset=DP_QUANT_OFFSET)
+    got = _quantize(x.cuda(), 256, DP_QUANT_SEED, offset=DP_QUANT_OFFSET)
+    for name, a, b in zip(("q", "scales", "deq"), got, want):
+        if not torch.equal(a.cpu(), b):
+            bad = int((a.cpu() != b).sum())
+            raise AssertionError(f"_quantize on the card differs from the "
+                                 f"CPU in {name}: {bad} elements")
+    log(f"[dp] _quantize of {DP_QUANT_N:,} elements at seed "
+        f"{DP_QUANT_SEED}, offset {DP_QUANT_OFFSET}: card == CPU bit for "
+        f"bit (q, scales, deq)")
+
+
+def compression_on_the_shard(torch):
+    """The compressed reduction over GPT-2 small's whole shard at world
+    size 1 (no process group: every bucket quantized in place): bucketed
+    in DP_BUCKETS against monolithic bit for bit (deq and error), then
+    one bucketed call timed (CUDA events, median of 5) and profiled (its
+    kernels and device time).  Returns the report."""
+    from repro_torch.distributed import FlatCompressionState, GradCompressor
+    from repro_torch.launch.profile_serve import profile_window
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(DP_SHARD, device="cuda", generator=gen) * 1e-2
+    e0 = torch.randn(DP_SHARD, device="cuda", generator=gen) * 1e-4
+    comp = GradCompressor()
+    outs = []
+    for be in (0, DP_BUCKET_ELEMS):
+        st = FlatCompressionState(error=(e0.clone(),))
+        deq, st = comp.allreduce_shards((g,), st, 7, bucket_elems=be)
+        outs.append((deq[0], st.error[0]))
+    for name, a, b in zip(("deq", "error"), *outs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"bucketed compression differs from "
+                                 f"monolithic in {name}")
+    del outs
+    st = FlatCompressionState(error=(e0,))
+
+    def call():
+        comp.allreduce_shards((g,), st, 7, bucket_elems=DP_BUCKET_ELEMS)
+
+    times = []
+    for _ in range(6):
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        call()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    prof = profile_window("compression", call, match="")
+    # at least: g and e read, e and deq written (fp32), q and the scales
+    # written once
+    nbytes = DP_SHARD * (4 * 4 + 1) + DP_SHARD // 256 * 4
+    report = dict(ms=statistics.median(times[1:]),
+                  device_busy_ms=prof["device_busy_us"] / 1e3,
+                  kernels=prof["kernels_launched"],
+                  bound_ms=nbytes / 3.35e12 * 1e3, bytes=nbytes,
+                  top_kernels_us=prof["top_kernels_us"][:6])
+    log(f"[dp] compression over the {DP_SHARD:,}-element shard in "
+        f"{DP_BUCKETS} buckets: bucketed == monolithic bit for bit (deq, "
+        f"error); one call {report['ms']:.2f} ms (events, median of 5), "
+        f"device busy {report['device_busy_ms']:.2f} ms in "
+        f"{report['kernels']} kernels (profiler); bytes bound "
+        f"{report['bound_ms']:.3f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s)")
+    del g, e0, st
+    torch.cuda.empty_cache()
+    return report
+
+
+def dp_launch(tag, extra, workdir, timeout=300):
+    """``python -m repro_torch.launch.train`` on the card through NCCL at
+    world size 1 (its own rendezvous port): (stdout, per-step metrics,
+    the last record: peak memory, launch counts)."""
+    out = os.path.join(workdir, f"{tag}.jsonl")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *DP_ARGS,
+           "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes",
+           "1", "--process-id", "0", "--metrics-out", out, *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[dp] {tag}: the launcher exited "
+                             f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    with open(out) as f:
+        records = [json.loads(ln) for ln in f]
+    steps = [rec for rec in records if "step" in rec]
+    last = records[-1]
+    log(f"[dp] {tag}: {len(steps)} steps from step {last['start']} in "
+        f"{secs:.1f}s (process included); peak "
+        f"{last['peak_bytes'] / 2 ** 30:.2f} GiB; launches "
+        f"{last['launches']}")
+    return r.stdout, steps, last
+
+
+def _dp_want(steps, first):
+    refs = sum(1 for t in range(first, first + steps) if t % DP_K == 0)
+    attn = 12 * (steps + refs)
+    return {"ce_forward": steps, "ce_forward_sampled": refs,
+            "ce_backward_dh": steps + refs, "ce_backward_dw": steps + refs,
+            "attn_fwd": attn, "attn_bwd_dq": attn, "attn_bwd_dkv": attn,
+            "sophia_step": steps - refs, "sophia_refresh": refs}
+
+
+def _dp_times(steps):
+    """(plain p50 s, refresh p50 s) of a run's steps, step 0 left out."""
+    plain = [r["wall_s"] for r in steps if r["step"] % DP_K and r["step"]]
+    refresh = [r["wall_s"] for r in steps
+               if r["step"] % DP_K == 0 and r["step"]]
+    return (statistics.median(plain),
+            statistics.median(refresh) if refresh else None)
+
+
+def phase_dp(torch):
+    """Data-parallel training (``distributed/``, ``train/elastic.py``,
+    ``launch/train.py``): the NCCL launch time at world size 1; in this
+    process ``_quantize`` card against CPU and the compressed reduction
+    bucketed against monolithic over the whole shard (timed, profiled);
+    then the launcher as a subprocess: GPT-2 small 12 steps compressed
+    (8 buckets, telemetry, the asynchronous checkpoint at step 8), the
+    same command again after step 12's checkpoint is removed (it must
+    resume at step 8 and log the first run's losses bit for bit, or,
+    if the card is not deterministic, within two uninterrupted runs'
+    spread) and the 12 steps uncompressed.  Each launcher run's launch
+    counts are its own process's: exact, as phase 4's.  Returns the
+    report."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.roofline import (COLLECTIVE_LAUNCH_S,
+                                             choose_bucket_elems)
+
+    report = {}
+    launch = nccl_launch_us(torch)
+    report["nccl_64B_us"] = {k: dict(device=d, host=h)
+                             for k, (d, h) in launch.items()}
+    log(f"[dp] nccl launch at world size 1, 64 bytes: "
+        + "; ".join(f"{k} {d:.2f} µs a call on the card, {h:.2f} µs to "
+                    f"issue" for k, (d, h) in launch.items())
+        + f" (roofline.COLLECTIVE_LAUNCH_S = {COLLECTIVE_LAUNCH_S * 1e6:g} "
+          f"µs; choose_bucket_elems at 8 ranks over the shard: "
+          f"{choose_bucket_elems(DP_SHARD, 8):,})")
+    quantize_against_cpu(torch)
+    report["compression"] = compression_on_the_shard(torch)
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="dp-", dir=os.path.join(ROOT, "build"))
+    try:
+        ck = os.path.join(work, "ckpt")
+        run = DP_COMPRESS + ["--elastic", "--ckpt-dir", ck, "--ckpt-every",
+                             str(DP_CKPT)]
+        _, first, last1 = dp_launch("compressed", run, work)
+        if last1["launches"] != _dp_want(DP_STEPS, 0):
+            raise AssertionError(f"[dp] compressed run launches "
+                                 f"{last1['launches']} != "
+                                 f"{_dp_want(DP_STEPS, 0)}")
+        # as if the run had died after step 8's checkpoint
+        shutil.rmtree(os.path.join(ck, f"step_{DP_STEPS:08d}"))
+        out, resumed, last2 = dp_launch("resumed", run, work)
+        if f"[resume] restored step {DP_CKPT}" not in out:
+            raise AssertionError(f"[dp] the second run did not resume at "
+                                 f"step {DP_CKPT}:\n{out[-2000:]}")
+        if last2["launches"] != _dp_want(DP_STEPS - DP_CKPT, DP_CKPT):
+            raise AssertionError(f"[dp] resumed run launches "
+                                 f"{last2['launches']}")
+        a = [r["loss"] for r in first[DP_CKPT:]]
+        b = [r["loss"] for r in resumed]
+        resume = dict(first=a, resumed=b, bitwise=a == b)
+        if a != b:
+            _, again, _ = dp_launch("compressed-again", DP_COMPRESS, work)
+            spread = max(abs(x["loss"] - y["loss"])
+                         for x, y in zip(first, again))
+            gap = max(abs(x - y) for x, y in zip(a, b))
+            resume.update(spread=spread, gap=gap)
+            if gap > spread:
+                raise AssertionError(f"[dp] resumed losses {b} vs {a}: gap "
+                                     f"{gap:.3g} > two runs' spread "
+                                     f"{spread:.3g}")
+        log(f"[dp] resume at step {DP_CKPT}: losses of steps "
+            f"{DP_CKPT}-{DP_STEPS - 1} {b} against the first run's {a}: "
+            + ("bit for bit" if a == b else
+               f"within {resume['gap']:.3g} (two uninterrupted runs "
+               f"{resume['spread']:.3g} apart)"))
+        _, plain, last3 = dp_launch("uncompressed", [], work)
+        if last3["launches"] != _dp_want(DP_STEPS, 0):
+            raise AssertionError(f"[dp] uncompressed run launches "
+                                 f"{last3['launches']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for steps in (first, resumed, plain):
+        if not all(np.isfinite([r["loss"] for r in steps])):
+            raise AssertionError(f"[dp] non-finite loss: {steps}")
+    missing = [k for k in DP_PATH_KERNELS if not last1["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"[dp] kernels of the path not launched: "
+                             f"{missing}")
+    c_plain, c_ref = _dp_times(first)
+    u_plain, u_ref = _dp_times(plain)
+    comm = [r["comm_seconds"] for r in first[1:]]
+    frac = [r["exposed_comm_fraction"] for r in first[1:]]
+    report.update(
+        launches=last1["launches"], resume=resume,
+        compressed=dict(plain_p50_ms=c_plain * 1e3,
+                        refresh_p50_ms=c_ref * 1e3,
+                        peak_gib=last1["peak_bytes"] / 2 ** 30,
+                        comm_p50_ms=statistics.median(comm) * 1e3,
+                        exposed_comm_fraction_p50=statistics.median(frac),
+                        losses=[r["loss"] for r in first]),
+        uncompressed=dict(plain_p50_ms=u_plain * 1e3,
+                          refresh_p50_ms=u_ref * 1e3,
+                          peak_gib=last3["peak_bytes"] / 2 ** 30,
+                          losses=[r["loss"] for r in plain]))
+    log(f"[dp] GPT-2 small B={TRAIN_B} x S={TRAIN_S}, Sophia-G + GNB, "
+        f"engine kernels, NCCL at world size 1: compressed plain p50 "
+        f"{c_plain * 1e3:.1f} ms, refresh p50 {c_ref * 1e3:.1f} ms, peak "
+        f"{report['compressed']['peak_gib']:.2f} GiB, comm window p50 "
+        f"{report['compressed']['comm_p50_ms']:.2f} ms (exposed fraction "
+        f"p50 {report['compressed']['exposed_comm_fraction_p50']:.3f}: at "
+        f"world size 1 every bucket is quantized in place, no collective); "
+        f"uncompressed plain p50 {u_plain * 1e3:.1f} ms, refresh p50 "
+        f"{u_ref * 1e3:.1f} ms, peak "
+        f"{report['uncompressed']['peak_gib']:.2f} GiB")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -5862,6 +6216,7 @@ def main() -> int:
             + timed("5 ce", phase_ce_timings, torch, ce_err, trained)
             + timed("5 flash", phase_flash_timings, torch, attn_err,
                     trained))
+    dp = timed("6 dp", phase_dp, torch)
     for row in rows:     # each model's own runs, counted apart
         row["launches_models"] = {m: r["launches"].get(row["name"], 0)
                                   for m, r in models.items()}
@@ -5919,6 +6274,7 @@ def main() -> int:
                 rglru_share_of_plain_step=t.get("rglru_share_of_plain_step"),
                 serve=r["serve"])
     name, power = [s.strip() for s in card.split(",", 1)]
+    log(json.dumps({"dp": dp, "card": name, "power_limit": power}))
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)
     log(json.dumps({"models": summary, "card": name, "power_limit": power}))

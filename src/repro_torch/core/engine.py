@@ -93,6 +93,16 @@ class ShardLayout:
     def n_params(self) -> int:
         return sum(self.shard_used)
 
+    def bucket_slices(self, bucket_elems: int, *,
+                      align: int = 256) -> Tuple[Tuple[Tuple[int, int], ...],
+                                                 ...]:
+        """Per-shard bucket views (:func:`bucket_slices`): the static
+        slice table the bucketed compressed all-reduce
+        (``distributed/overlap.py``) iterates, one tuple of (start, stop)
+        pairs per flat shard."""
+        return tuple(bucket_slices(int(n), bucket_elems, align=align)
+                     for n in self.shard_sizes)
+
     def manifest(self) -> dict:
         """JSON summary (stored in checkpoint manifests), field for field
         the reference's."""
@@ -105,6 +115,28 @@ class ShardLayout:
                        for d, s, u in zip(self.shard_dtypes, self.shard_sizes,
                                           self.shard_used)],
         }
+
+
+def bucket_slices(n: int, bucket_elems: int, *,
+                  align: int = 256) -> Tuple[Tuple[int, int], ...]:
+    """Static (start, stop) views partitioning a flat shard into buckets.
+
+    ``bucket_elems`` is rounded up to a multiple of ``align`` (the
+    quantization block, times the number of ranks so that every rank's
+    segment stays block-aligned); the last bucket takes the remainder.
+    ``bucket_elems <= 0`` means one bucket, the monolithic view, and so
+    does a shard that ``align`` does not divide.  Every boundary is a
+    multiple of ``align``, which keeps bucketed quantization bit-identical
+    to whole-shard quantization."""
+    if n <= 0:
+        return ()
+    if bucket_elems <= 0 or bucket_elems >= n:
+        return ((0, n),)
+    b = -(-bucket_elems // align) * align
+    if b <= 0 or n % align != 0:
+        return ((0, n),)
+    edges = list(range(0, n, b)) + [n]
+    return tuple((edges[i], edges[i + 1]) for i in range(len(edges) - 1))
 
 
 def build_layout(params: Tree, *, block: int = BLOCK) -> ShardLayout:

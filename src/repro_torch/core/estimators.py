@@ -247,7 +247,8 @@ class _SampledStats(torch.autograd.Function):
 def chunked_sampled_stats(logits: torch.Tensor,
                           generator: Optional[torch.Generator] = None, *,
                           chunk: int = _DEFAULT_VCHUNK,
-                          noise: Optional[torch.Tensor] = None):
+                          noise: Optional[torch.Tensor] = None,
+                          draw_rows=None):
     """One online vocab-chunk sweep over ``logits`` (..., V): ``(lse,
     logit_at_yhat, yhat)``, each shaped like ``logits[..., 0]``.
 
@@ -257,7 +258,10 @@ def chunked_sampled_stats(logits: torch.Tensor,
     Differentiating ``lse - logit_at_yhat`` gives ``softmax - onehot(ŷ)``.
     The noise of each chunk is drawn from ``generator`` in chunk order; a
     full ``noise`` tensor shaped like ``logits`` replaces the draws, which
-    makes ŷ ``argmax(logits + noise)`` exactly (exactly one of the two)."""
+    makes ŷ ``argmax(logits + noise)`` exactly (exactly one of the two).
+    ``draw_rows = (n, index)``: the generator draws each chunk for ``n``
+    rows and these logits' rows are rows ``index`` of them (a data-
+    parallel rank's rows of the single process's draws)."""
     if (generator is None) == (noise is None):
         raise ValueError("exactly one of generator / noise")
     V = logits.shape[-1]
@@ -270,8 +274,12 @@ def chunked_sampled_stats(logits: torch.Tensor,
         def draw(c0, width):
             return nflat[:, c0:c0 + width]
     else:
+        n_draw, keep = ((flat.shape[0], None) if draw_rows is None
+                        else draw_rows)
+
         def draw(c0, width):
-            return gumbel((flat.shape[0], width), generator, flat.device)
+            g = gumbel((n_draw, width), generator, flat.device)
+            return g if keep is None else g[keep]
     lse, ll, yhat = _SampledStats.apply(flat, draw, bv)
     return lse.reshape(lead), ll.reshape(lead), yhat.reshape(lead)
 
@@ -279,14 +287,14 @@ def chunked_sampled_stats(logits: torch.Tensor,
 def _gnb_ghat(logits_fn: Callable[[Tree], torch.Tensor], params: Tree,
               generator: Optional[torch.Generator],
               mask: Optional[torch.Tensor], *, chunk: int = _DEFAULT_VCHUNK,
-              noise: Optional[torch.Tensor] = None):
+              noise: Optional[torch.Tensor] = None, draw_rows=None):
     """Shared GNB core: ``(ghat, B)``, the gradient tree of the mean CE
     against the model's sampled labels and the batch factor B (fp32; the
     valid positions when ``mask`` is given)."""
     tree, tensors = _requiring_grad(params)
     logits = logits_fn(tree)
     lse, ll, _ = chunked_sampled_stats(logits, generator, chunk=chunk,
-                                       noise=noise)
+                                       noise=noise, draw_rows=draw_rows)
     nll = lse - ll
     if mask is not None:
         count = torch.clamp_min(mask.to(_f32).sum(), 1)
@@ -309,11 +317,11 @@ def gnb_estimator_sq(logits_fn, params: Tree, generator=None, *, mask=None,
 
 
 def gnb_ghat_flat(logits_fn, params: Tree, generator, layout: ShardLayout, *,
-                  mask=None, noise=None):
+                  mask=None, noise=None, draw_rows=None):
     """GNB's pieces before squaring as flat fp32 shards: ``(ĝ shards,
-    B)``."""
+    B)``; ``draw_rows`` as in :func:`chunked_sampled_stats`."""
     ghat, batch_size = _gnb_ghat(logits_fn, params, generator, mask,
-                                 noise=noise)
+                                 noise=noise, draw_rows=draw_rows)
     return ravel_shards(layout, ghat, dtype=_f32), batch_size
 
 

@@ -1,1 +1,2 @@
-from .pipeline import DataConfig, MemmapTokens, SyntheticLM, iterate, make_source
+from .pipeline import (DataConfig, MemmapTokens, SyntheticLM, host_slice,
+                       iterate, make_source)

@@ -78,6 +78,12 @@ def make_source(cfg: DataConfig):
     return SyntheticLM(cfg)
 
 
+def host_slice(batch: dict, process_index: int, process_count: int) -> dict:
+    """This rank's strided slice of the global batch: rows
+    ``process_index::process_count`` of every array."""
+    return {k: v[process_index::process_count] for k, v in batch.items()}
+
+
 def iterate(source, start_step: int = 0) -> Iterator[dict]:
     step = start_step
     while True:

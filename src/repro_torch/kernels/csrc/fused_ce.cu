@@ -28,7 +28,9 @@
 //   forward:  lse = m + log(max(l, 1e-37)) by the online max / sum-exp,
 //             and the logit at the label, or, sampled, the first argmax
 //             of s + g over valid columns with g = hash_gumbel(seed, row,
-//             col) and the raw logit there.  Only (N,) vectors are
+//             col) and the raw logit there; ``row`` is the row's index, or
+//             row_ids[row] where the caller gives each row its index in a
+//             larger batch (a data-parallel rank's rows).  Only (N,) vectors are
 //             written; the (N, Vp) logits never exist.
 //   backward: d = (exp(s - lse) - onehot(label)) * rs * dcap, rs the
 //             rowscale times the loss cotangent; dh = d . W (W in fp32)
@@ -152,6 +154,7 @@ struct CeArgs {
   const int* labels;    // (N,): labels, or the sampled labels (backward)
   const float* rs;      // (N,): rowscale times the cotangent (backward)
   const float* lse;     // (N,): saved log-sum-exp (backward)
+  const int* row_ids;   // (N,): the hash's row of each row, or null: r
   int N, D, V, Vp;
   int norm;
   float eps, softcap;   // softcap 0: none
@@ -233,7 +236,14 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// ``row_mix`` is mix32(row ^ seed0), computed once per row.
+// The hash's row word of row r, mix32(row ^ seed0), with row = r or the
+// caller's row_ids[r]; computed once per row.
+__device__ __forceinline__ uint32_t row_word(const CeArgs& a, int r) {
+  const int row = a.row_ids != nullptr && r < a.N ? a.row_ids[r] : r;
+  return mix32((uint32_t)row ^ a.seed0);
+}
+
+// ``row_mix`` is a row's row_word.
 __device__ __forceinline__ float hash_gumbel(uint32_t row_mix, uint32_t col,
                                              uint32_t seed1) {
   const uint32_t x = mix32(row_mix ^ (col * 0x9E3779B9u) ^ seed1);
@@ -360,7 +370,7 @@ ce_forward_kernel(CeArgs a, int tiles_per_split, float* __restrict__ part,
     zm[i] = kNegInf;
     zi[i] = 0;
     lab[i] = !SAMPLE && r < a.N ? a.labels[r] : -1;
-    rmix[i] = mix32((uint32_t)r ^ a.seed0);
+    rmix[i] = row_word(a, r);
   }
 
   for (int tile = t0; tile < t1; ++tile) {
@@ -852,7 +862,7 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[4][4][4],
       float l = 0.0f, ll = 0.0f, zm = kNegInf;
       int zi = 0;
       const int lab = !SAMPLE && r < a.N ? a.labels[r] : -1;
-      const uint32_t rmix = mix32((uint32_t)r ^ a.seed0);
+      const uint32_t rmix = row_word(a, r);
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int c = cl + 8 * (k >> 1) + (k & 1);
@@ -1423,7 +1433,7 @@ CeArgs make_args(const void* h, const void* w, const float* normp,
                  const float* stats, const int* labels, const float* rs,
                  const float* lse, int N, int D, int V, int Vp, int norm,
                  float eps, float softcap, unsigned int seed0,
-                 unsigned int seed1) {
+                 unsigned int seed1, const int* row_ids = nullptr) {
   CeArgs a;
   a.h = h;
   a.w = w;
@@ -1441,6 +1451,7 @@ CeArgs make_args(const void* h, const void* w, const float* normp,
   a.softcap = softcap;
   a.seed0 = seed0;
   a.seed1 = seed1;
+  a.row_ids = row_ids;
   return a;
 }
 
@@ -1458,20 +1469,24 @@ long long ce_forward_ws_bytes(int N, int D, int Vp, int h_bf16, int w_bf16) {
   return (long long)fwd_plan(N, D, Vp, w_bf16).bytes;
 }
 
-// lse, ll (and, sampled, yhat) of every row.  stats: (N, 2) fp32 scratch;
+// lse, ll (and, sampled, yhat) of every row.  row_ids: (N,) int32, the
+// hash's row of each row (sampled only), or null for the row's index.
+// stats: (N, 2) fp32 scratch;
 // part: (4, splits, N) fp32 and part_idx (splits, N) int32 scratch, with
 // splits = Vp / 128 and one tile each for bf16 h; ws: the workspace of
 // ce_forward_ws_bytes.
 int ce_forward_launch(const void* h, const void* w, const float* normp,
-                      float* stats, const int* labels, float* part,
-                      int* part_idx, float* lse, float* ll, int* yhat, int N,
+                      float* stats, const int* labels, const int* row_ids,
+                      float* part, int* part_idx, float* lse, float* ll,
+                      int* yhat, int N,
                       int D, int V, int Vp, int h_bf16, int w_bf16,
                       int transpose_w, int norm, float eps, float softcap,
                       int sample, unsigned int seed0, unsigned int seed1,
                       int splits, int tiles_per_split, void* ws,
                       void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, nullptr, nullptr, N,
-                             D, V, Vp, norm, eps, softcap, seed0, seed1);
+                             D, V, Vp, norm, eps, softcap, seed0, seed1,
+                             row_ids);
   const int idx = table_index(h_bf16, w_bf16, transpose_w);
   const ForwardFn fn = sample ? pick_forward<true>(idx)
                               : pick_forward<false>(idx);

@@ -222,7 +222,7 @@ def _chunk_logits(h32, w, cdt, c0, bv, transpose_w, softcap, vocab):
 
 
 def _sweep_plain(h2, w, normp, labels, seed, *, vocab, transpose_w, softcap,
-                 norm, eps, chunk):
+                 norm, eps, chunk, row_ids=None):
     hn = apply_norm(h2, normp, norm, eps)
     N = hn.shape[0]
     Vp = _vp_of(w, transpose_w)
@@ -234,7 +234,8 @@ def _sweep_plain(h2, w, normp, labels, seed, *, vocab, transpose_w, softcap,
     ll = torch.zeros((N,), dtype=_f32, device=dev)
     zm = torch.full((N,), NEG_INF, dtype=_f32, device=dev)
     zi = torch.zeros((N,), dtype=torch.int32, device=dev)
-    rows = torch.arange(N, device=dev)[:, None]
+    rows = (torch.arange(N, device=dev) if row_ids is None
+            else row_ids.to(dev))[:, None]
     for c0 in range(0, Vp, bv):
         s, valid, cols, _ = _chunk_logits(h32, w, hn.dtype, c0, bv,
                                           transpose_w, softcap, vocab)
@@ -262,14 +263,15 @@ def ce_forward_plain(h2, w, normp, labels, *, vocab, transpose_w=False,
 
 def ce_forward_sampled_plain(h2, w, normp, seed, *, vocab,
                              transpose_w=False, softcap=None, norm=None,
-                             eps=1e-6, chunk=CHUNK):
+                             eps=1e-6, chunk=CHUNK, row_ids=None):
     """(lse, drawn logit, ŷ int32) per row.  ``seed`` is two uint32
     values (the hash noise) or ``draw(c0, width) -> (N, width)`` fp32
     Gumbel noise of the chunk of columns from ``c0``, called in chunk
-    order."""
+    order.  ``row_ids`` (N,) gives each row the hash's row index (its
+    place in a larger batch); None: ``arange(N)``."""
     return _sweep_plain(h2, w, normp, None, seed, vocab=vocab,
                         transpose_w=transpose_w, softcap=softcap, norm=norm,
-                        eps=eps, chunk=chunk)
+                        eps=eps, chunk=chunk, row_ids=row_ids)
 
 
 def ce_backward_plain(h2, w, normp, labels, rs, lse, *, vocab,
@@ -319,7 +321,7 @@ def ce_backward_dw_plain(*args, **kw):
 _PTR, _INT, _FLOAT, _UINT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                              ctypes.c_uint)
 _SIGNATURES = {
-    "ce_forward_launch": [_PTR] * 10 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT,
+    "ce_forward_launch": [_PTR] * 11 + [_INT] * 8 + [_FLOAT, _FLOAT, _INT,
                                                       _UINT, _UINT, _INT,
                                                       _INT, _PTR, _PTR],
     "ce_forward_ws_bytes": [_INT] * 5,
@@ -406,7 +408,7 @@ def forward_splits(N: int, Vp: int) -> Tuple[int, int]:
 
 
 def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
-                    softcap, norm, eps):
+                    softcap, norm, eps, row_ids=None):
     c = _common(h2, w, normp, vocab=vocab, transpose_w=transpose_w,
                 softcap=softcap, norm=norm, eps=eps)
     N = h2.shape[0]
@@ -423,9 +425,16 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
     lse = torch.empty((N,), dtype=_f32, device=dev)
     ll = torch.empty((N,), dtype=_f32, device=dev)
     yhat = torch.empty((N,), dtype=torch.int32, device=dev)
+    rid_ptr = None
     if sample:
         s0, s1 = (int(v) & _M32 for v in seed)
         lab_ptr = None
+        if row_ids is not None:
+            row_ids = row_ids.to(device=dev, dtype=torch.int32).contiguous()
+            if row_ids.shape != (N,):
+                raise ValueError(f"fused_ce: row_ids "
+                                 f"{tuple(row_ids.shape)} must be ({N},)")
+            rid_ptr = row_ids.data_ptr()
     else:
         labels = labels.to(device=dev, dtype=torch.int32).contiguous()
         if labels.shape != (N,):
@@ -435,7 +444,8 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
         lab_ptr = labels.data_ptr()
     err = _launch_fn("ce_forward_launch")(
         h2.data_ptr(), w.data_ptr(), normp.data_ptr(),
-        c["stats"].data_ptr(), lab_ptr, part.data_ptr(), part_idx.data_ptr(),
+        c["stats"].data_ptr(), lab_ptr, rid_ptr, part.data_ptr(),
+        part_idx.data_ptr(),
         lse.data_ptr(), ll.data_ptr(), yhat.data_ptr(), *c["dims"],
         *c["cfg"], int(sample), s0, s1, splits, per, ws.data_ptr(),
         c["stream"])
@@ -531,15 +541,17 @@ def ce_forward(h2, w, normp, labels, *, vocab, transpose_w=False,
 
 
 def ce_forward_sampled(h2, w, normp, seed, *, vocab, transpose_w=False,
-                       softcap=None, norm=None, eps=1e-6):
-    """The forward sweep with the draw: (lse, drawn logit, ŷ int32)."""
+                       softcap=None, norm=None, eps=1e-6, row_ids=None):
+    """The forward sweep with the draw: (lse, drawn logit, ŷ int32);
+    ``row_ids`` as in :func:`ce_forward_sampled_plain`."""
     if _route(h2) == "cpu":
         return ce_forward_sampled_plain(h2, w, normp, seed, vocab=vocab,
                                         transpose_w=transpose_w,
-                                        softcap=softcap, norm=norm, eps=eps)
+                                        softcap=softcap, norm=norm, eps=eps,
+                                        row_ids=row_ids)
     return _forward_kernel(h2, w, normp, None, seed, vocab=vocab,
                            transpose_w=transpose_w, softcap=softcap,
-                           norm=norm, eps=eps)
+                           norm=norm, eps=eps, row_ids=row_ids)
 
 
 def ce_backward_dh(h2, w, normp, labels, rs, lse, *, vocab,
@@ -614,8 +626,9 @@ class _FusedSampledNLL(torch.autograd.Function):
     """The same loss against ŷ drawn inside the forward sweep."""
 
     @staticmethod
-    def forward(ctx, h2, w, normp, rowscale, seed, opts):
-        lse, ll, yhat = ce_forward_sampled(h2, w, normp, seed, **opts)
+    def forward(ctx, h2, w, normp, rowscale, seed, row_ids, opts):
+        lse, ll, yhat = ce_forward_sampled(h2, w, normp, seed,
+                                           row_ids=row_ids, **opts)
         ctx.save_for_backward(h2, w, normp, yhat, rowscale, lse, ll)
         ctx.opts = opts
         return torch.sum(rowscale * (lse - ll))
@@ -624,7 +637,7 @@ class _FusedSampledNLL(torch.autograd.Function):
     def backward(ctx, g):
         h2, w, normp, yhat, rowscale, lse, ll = ctx.saved_tensors
         return _backward(ctx.opts, h2, w, normp, yhat, rowscale, lse, ll,
-                         g) + (None, None)
+                         g) + (None, None, None)
 
 
 def _backward(opts, h2, w, normp, labels, rowscale, lse, ll, g):
@@ -818,17 +831,24 @@ def fused_lm_loss(hidden, w, labels, mask=None, *, vocab_size,
 
 def fused_lm_loss_sampled(hidden, w, seed, mask=None, *, vocab_size,
                           transpose_w=False, softcap=None, norm_kind=None,
-                          norm_scale=None, norm_bias=None, norm_eps=1e-6):
+                          norm_scale=None, norm_bias=None, norm_eps=1e-6,
+                          row_ids=None):
     """GNB's sampled-label CE in one sweep: draws ŷ ~ softmax(logits) with
     the hash noise of ``seed`` (two uint32 values) inside the forward and
     returns the masked-mean NLL against it as ``(loss, n_valid)``; its
-    gradient is Algorithm 2's ĝ through this stage."""
+    gradient is Algorithm 2's ĝ through this stage.  ``row_ids`` (one a
+    position of ``hidden``, flattened) keys the noise on each position's
+    row in a larger batch, so that a data-parallel rank draws the single
+    process's labels for its rows."""
     h2, rs, n_valid, normp, opts = _prep(
         hidden, w, mask, vocab_size=vocab_size, transpose_w=transpose_w,
         softcap=softcap, norm_kind=norm_kind, norm_scale=norm_scale,
         norm_bias=norm_bias, norm_eps=norm_eps)
     seed = tuple(int(v) & _M32 for v in seed)
-    return _FusedSampledNLL.apply(h2, w, normp, rs, seed, opts), n_valid
+    if row_ids is not None:
+        row_ids = row_ids.reshape(-1)
+    return (_FusedSampledNLL.apply(h2, w, normp, rs, seed, row_ids, opts),
+            n_valid)
 
 
 def fused_lm_loss_jvp(hidden, w, labels, mask=None, *, vocab_size,

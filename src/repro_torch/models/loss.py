@@ -108,18 +108,26 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, mask=None, *,
 
 
 def lm_loss_sampled(cfg: ModelConfig, params, hidden, seed, mask=None, *,
-                    impl=None, pre_norm=None, noise=None, yhat=None):
+                    impl=None, pre_norm=None, noise=None, yhat=None,
+                    row_ids=None):
     """GNB's sampled-label CE (Algorithm 2 lines 3-5): ŷ ~ softmax(logits)
     and the masked-mean NLL against it as ``(nll, n_valid)``, whose
     gradient is ĝ.  ``seed``: on "fused" two uint32 values (the hash
     noise); on "chunked" and "unfused" a ``torch.Generator``, or None with
     ``noise`` (Gumbel noise shaped like the logits, (..., Vp)) or, on
     "unfused", ``yhat`` (the labels).  Sampling has no HVP route:
-    "fused_jvp" takes the same kernels as "fused", as in the reference."""
+    "fused_jvp" takes the same kernels as "fused", as in the reference.
+    ``row_ids`` (shaped like ``hidden[..., 0]``, fused routes only) keys
+    the hash noise on each position's row in a larger batch
+    (:func:`~repro_torch.kernels.fused_ce.fused_lm_loss_sampled`)."""
     impl = _check_impl(impl)
     if impl in ("fused", "fused_jvp"):
         kw = _kernel_kw(cfg, params, pre_norm)
-        return fused_lm_loss_sampled(hidden, kw.pop("w"), seed, mask, **kw)
+        return fused_lm_loss_sampled(hidden, kw.pop("w"), seed, mask,
+                                     row_ids=row_ids, **kw)
+    if row_ids is not None:
+        raise ValueError("row_ids keys the fused route's hash noise; the "
+                         f"{impl} route draws from a generator or noise")
     hidden = _apply_final_norm(cfg, params, hidden, pre_norm)
     if impl == "unfused":
         logits = unembed(params.embed, hidden, cfg)

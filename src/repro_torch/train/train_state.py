@@ -19,7 +19,9 @@ class TrainState(NamedTuple):
     rng: Tuple[int, int]       # the key's two uint32 words, the reference's
     #                            ``split(PRNGKey(seed))[1]``; the per-step
     #                            noise streams derive from them
-    comp_state: tuple = ()     # gradient-compression state (not ported)
+    comp_state: Any = ()       # distributed.FlatCompressionState: the
+    #                            error feedback (this rank's segments) with
+    #                            compress_grads, else ()
 
 
 def threefry2x32(key: Tuple[int, int], x0: int, x1: int) -> Tuple[int, int]:

@@ -28,7 +28,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import build_layout, ravel_shards
 from repro_torch.data import DataConfig, MemmapTokens, make_source
 from repro_torch.launch import train as torch_launch
-from repro_torch.models import ModelConfig
+from repro_torch.models import ModelConfig, get_model
 from repro_torch.train import (TrainerConfig, checkpoint, make_train_fns,
                                train_loop)
 
@@ -229,7 +229,6 @@ def step0_gradients(attn="flash"):
     numpy arrays, stacked leaves stacked."""
     from repro.models import get_model as jax_get_model
     from repro_torch.core.types import flat_tensors, tree_leaves
-    from repro_torch.models import get_model
 
     jtc = JTrainerConfig(fused_loss=True, **TRAIN)
     params = jax_make_train_fns(CFG32, jtc)[0](jax.random.PRNGKey(0)).params
@@ -353,6 +352,43 @@ def _check_trajectory(over, every=None, shares=None, steps=13):
         np.testing.assert_allclose(_np(x), np.asarray(y, np.float32),
                                    rtol=1e-2, atol=2e-3)
     return s_port, s_ref
+
+
+@pytest.mark.parametrize("bucket", [None, 1536])
+def test_flat_clip_is_the_tree_clip(bucket):
+    """``trainer.clip_reduced`` on the raveled gradients (one rank) against
+    ``clip_by_global_norm`` on the tree: over whole shards the norm and
+    the clipped values bit for bit; over buckets that split leaves (the
+    compressed pipeline's pieces) the norm within 1e-6 relative."""
+    from repro_torch.core import clip_by_global_norm
+    from repro_torch.core.types import tree_map
+    from repro_torch.train import make_engine
+    from repro_torch.train.trainer import clip_reduced, norm_parts
+
+    params = get_model(TCFG32).init_params(TCFG32,
+                                           torch.Generator().manual_seed(0))
+    tree = params.param_tree()
+    gen = torch.Generator().manual_seed(1)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen), tree)
+    clip = clip_by_global_norm(1.0)
+    want, c_want = clip.update(grads, clip.init(tree))
+    engine = make_engine(TrainerConfig())
+    lay = engine.layout(tree)
+    g_sh = engine.ravel_grads(tree, grads)
+    if bucket is None:
+        pieces = [(g, False, i, 0) for i, g in enumerate(g_sh)]
+    else:
+        pieces = [(g[a:a + bucket], False, i, a) for i, g in enumerate(g_sh)
+                  for a in range(0, g.numel(), bucket)]
+    c_got = clip_reduced(pieces, norm_parts(lay, tree), clip.init(tree), 1.0)
+    if bucket is None:
+        assert torch.equal(c_got.last_norm, c_want.last_norm)
+        for a, b in zip(g_sh, engine.ravel_grads(tree, want)):
+            assert torch.equal(a, b)
+    else:
+        torch.testing.assert_close(c_got.last_norm, c_want.last_norm,
+                                   rtol=1e-6, atol=0)
+    assert int(c_got.triggers) == int(c_want.triggers) == 1
 
 
 def test_grad_accumulation_averages_microbatches():
@@ -517,10 +553,17 @@ def test_launcher_fused_kernel_and_adamw_on_cpu(tmp_path, extra):
 
 @pytest.mark.parametrize("flag", [["--compress-grads"],
                                   ["--comm-telemetry"]])
-def test_launcher_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        torch_launch.main(["--smoke", "--device", "cpu", "--steps", "1",
-                           *flag])
+def test_launcher_unported_flags_raise(flag, capsys):
+    """The flags the launcher refused before the data-parallel slice
+    (``NotImplementedError``) now train: a finite loss, and with
+    ``--comm-telemetry`` the ``comm`` field on the step line."""
+    torch_launch.main(["--smoke", "--device", "cpu", "--steps", "1",
+                       "--seq-len", "16", "--global-batch", "2",
+                       "--hess-subbatch", "1", *flag])
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("step")][0]
+    assert np.isfinite(float(line.split()[3]))
+    assert ("% of step)" in line) == (flag == ["--comm-telemetry"])
 
 
 @pytest.mark.parametrize("extra,refreshes", [
@@ -569,8 +612,17 @@ def test_launcher_baselines_and_estimators_on_cpu(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("over", [dict(compress_hess=True)])
 def test_trainer_unported_options_raise(over):
-    with pytest.raises(NotImplementedError):
-        make_train_fns(TCFG32, TrainerConfig(**over), device="cpu")
+    """``compress_hess``, refused before the data-parallel slice
+    (``NotImplementedError``), now trains: two steps with a refresh at
+    step 0, finite losses; an unknown estimator still raises."""
+    src = make_source(DataConfig(**dataclasses.asdict(_src(B=2, S=16))))
+    tc = TrainerConfig(**dict(TRAIN, hess_subbatch=1, **over))
+    state, hist = train_loop(TCFG32, tc, src, num_steps=2, device="cpu")
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert int(state.opt_state.hess_count) == 1
+    with pytest.raises(ValueError):
+        make_train_fns(TCFG32, TrainerConfig(**over, estimator="nope"),
+                       device="cpu")
 
 
 @pytest.mark.parametrize("over", [
