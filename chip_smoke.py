@@ -346,6 +346,26 @@ it fails and prints no result.  Phases, in order:
      bit for bit; the 12 steps uncompressed.  Each run's launch counts
      (its own process's) are exact.  A JSON line ``{"dp": ...}`` holds
      the step p50s, peaks and the compression's cost.
+  7. the grid's code path on one card: GPT-2 small's step 0 (Sophia-G
+     with the refresh, the engine kernels) through ``make_mesh((1, 1))``
+     and the trainer's grid (``shard_params``, the placements, the
+     engine's data axis) under NCCL at world size 1, against the same
+     step without a grid on the same weights and batch: the loss bit for
+     bit (``{"grid": ...}`` in the ``dp`` line).
+
+``python3 chip_smoke.py --model-axis`` (opt-in, on a machine with four
+cards of one host; the default run never takes it) builds the
+kernels, then runs four ranks of this script on four cards through NCCL:
+NeoX-6.6B and deepseek-moe-16b at 2 layers and full width, fp32, on the
+(1, 4) and (2, 2) grids against one card (phase 4's bounds); NeoX-6.6B's
+checkpoint at 2 layers and full width on (1, 4) (the card memory the save
+adds, its round trip bit for bit); NeoX-6.6B at
+full depth on (1, 4) (B 2 x S 2048, Sophia-G with two refreshes) and
+deepseek-moe-16b at ``MA_MOE_LAYERS`` of 28 layers on (2, 2) (B 4 x S
+2048) with the default and the all-to-all dispatch, each with its plain
+and refresh p50, the model axis's collectives' share of a plain step
+(CUDA events), the peak of the fullest card, the dropped share and the
+launch counts of the path's kernels (each held non-zero).
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -6169,6 +6189,477 @@ def phase_dp(torch):
         f"{report['uncompressed']['peak_gib']:.2f} GiB")
     return report
 
+# ---------------------------------------------------------------------------
+# phase 7: the grid's code path on one card; --model-axis: four cards
+
+
+def phase_grid(torch):
+    """GPT-2 small's step 0 (B=TRAIN_B x S=TRAIN_S, Sophia-G with the GNB
+    refresh, the engine kernels) through ``make_mesh((1, 1))`` and the
+    trainer's grid path (``shard_params``, the placements, the engine's
+    data axis) under an NCCL process group of one rank, against the same
+    step without a grid on the same weights and batch: the loss, the
+    gradient norm and the updated parameters bit for bit.  Returns the
+    report."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.gpt2 import GPT2_SMALL
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.distributed.sharding import set_grid
+    from repro_torch.launch.mesh import initialize_distributed, make_mesh
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train.trainer import to_device_batch
+
+    t0 = time.perf_counter()
+    tc = TrainerConfig(peak_lr=6e-4, total_steps=12, warmup_steps=2,
+                       hess_interval=10, hess_subbatch=TRAIN_B // 2, seed=0,
+                       fused_kernel=True)
+    src = make_source(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                 vocab_size=GPT2_SMALL.vocab_size, seed=0))
+    batch = to_device_batch(src.batch_at(0), "cuda")
+    out = {}
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        for tag, grid in (("plain", None), ("grid", make_mesh((1, 1)))):
+            from repro_torch.train import make_train_fns
+            init_fn, step = make_train_fns(GPT2_SMALL, tc, device="cuda",
+                                           grid=grid)
+            state, metrics = step(init_fn(), batch, True)
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in state.params.parameters()])
+            out[tag] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                        flat)
+            del state, step, init_fn
+            set_grid(None)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (l0, n0, p0), (l1, n1, p1) = out["plain"], out["grid"]
+    gap = (p1 - p0).abs().max().item()
+    if l0 != l1 or n0 != n1 or gap != 0:
+        raise AssertionError(f"[grid] step 0 on make_mesh((1, 1)) differs "
+                             f"from the step without a grid: loss {l1!r} "
+                             f"vs {l0!r}, grad norm {n1!r} vs {n0!r}, "
+                             f"updated parameters {gap:.3g} apart")
+    secs = time.perf_counter() - t0
+    log(f"[grid] GPT-2 small step 0 (B={TRAIN_B} x S={TRAIN_S}, Sophia-G "
+        f"with the refresh, engine kernels) on make_mesh((1, 1)) under NCCL "
+        f"at world size 1: loss {l1!r}, grad norm {n1!r} and the updated "
+        f"parameters bit for bit the step without a grid; {secs:.1f}s")
+    return dict(loss=l1, grad_norm=n1, grad_norm_plain=n0, param_gap=gap,
+                seconds=secs)
+
+
+MA_WORLD = 4
+MA_TIMEOUT_S = 900                      # the four ranks' run, builds apart
+MA_NEOX_B, MA_NEOX_S = 2, 2048          # NeoX-6.6B on (1, 4)
+MA_NEOX_STEPS, MA_NEOX_K = 6, 3         # refreshes at steps 0 and 3
+MA_MOE_B, MA_MOE_S = 4, 2048            # deepseek-moe-16b on (2, 2)
+MA_MOE_STEPS, MA_MOE_K = 4, 2           # refreshes at steps 0 and 2
+# deepseek-moe-16b's depth on (2, 2): each rank holds half the experts and
+# heads and half of m and h.  At 6 of 28 layers (1.97 B parameters a rank)
+# the fullest card peaked at 47.88 GiB (26.0 bytes a local parameter; the
+# update holds the gradient, the raveled parameters and the new ones
+# beside the state); at 8 (2.56 B a rank) at 62.13 GiB, where the default
+# dispatch, whose expert buffers hold both global groups of a rank's rows,
+# ran 2.6x slower than at 8 before that (plain 1037.2 ms against 403.9):
+# 6 leaves the allocator a third of the card
+MA_MOE_LAYERS = 6
+MA_CHECK_LAYERS = 2                     # the grid-vs-one-card step 0
+MA_PATH_KERNELS = ("ce_forward", "ce_forward_sampled", "ce_backward_dh",
+                   "ce_backward_dw", "attn_fwd", "attn_bwd_dq",
+                   "attn_bwd_dkv", "sophia_step", "sophia_refresh")
+
+
+def grid_step0(torch, name, cfg, grid, B, S):
+    """Step 0 at full width and MA_CHECK_LAYERS layers, fp32, flash
+    attention and the fused CE: the grid (each data rank its rows d, d + D,
+    ... as ``data.host_slice`` gives them, the loss over them / D,
+    gradients summed over data and gathered over model) against one
+    process on rank 0's card on the same weights and the whole batch (a
+    MoE model's routing groups and load-balance term the whole batch's on
+    both).  The loss within 1e-5 relative and every gradient within 1e-4
+    of its largest element: phase 4's card-vs-CPU bounds.  Rank 0 returns
+    (loss rel, gradient rel)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.convert import shard_params
+    from repro_torch.core.types import flat_tensors, tree_leaves
+    from repro_torch.distributed.sharding import gather_leaf, set_grid
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=MA_CHECK_LAYERS,
+                               dtype="float32")
+    model = get_model(cfg2)
+    full = model.init_params(cfg2,
+                             torch.Generator(device="cuda").manual_seed(1))
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                 .astype(np.int32)).cuda()
+             for k in ("tokens", "labels")}
+    rank = dist.get_rank()
+    ref = None
+    set_grid(None)
+    if rank == 0:
+        loss, _ = model.loss_fn(cfg2, full, batch, attn_impl="flash")
+        ref = (loss.item(), torch.autograd.grad(
+            loss, flat_tensors(full.param_tree())))
+        del loss
+    dist.barrier()
+    local = shard_params(full, grid)
+    del full
+    torch.cuda.empty_cache()
+    set_grid(grid)
+    mine = {k: v[grid.d::grid.data] for k, v in batch.items()}
+    loss, _ = model.loss_fn(cfg2, local, mine, attn_impl="flash")
+    tree = local.param_tree()
+    grads = iter(torch.autograd.grad(loss / grid.data, flat_tensors(tree)))
+    loss = (loss.detach() / grid.data).reshape(1)
+    dist.all_reduce(loss, group=grid.data_group)
+    rel, k = 0.0, 0
+    for leaf, pl in zip(tree_leaves(tree), tree_leaves(local.placements)):
+        g = ([next(grads) for _ in leaf] if isinstance(leaf, list)
+             else next(grads))
+        for t in (g if isinstance(g, list) else [g]):
+            dist.all_reduce(t, group=grid.data_group)
+        g = gather_leaf(g, pl, grid)
+        for t in (g if isinstance(g, list) else [g]):
+            if rank == 0:
+                want = ref[1][k]
+                rel = max(rel, (t - want).abs().max().item()
+                          / max(want.abs().max().item(), 1e-30))
+            k += 1
+    set_grid(None)
+    del local, tree, grads
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    loss_rel = abs(loss.item() - ref[0]) / abs(ref[0])
+    ok = np.isfinite(loss.item()) and loss_rel <= 1e-5 and rel <= 1e-4
+    log(f"[model-axis] {name} step 0 at full width, {MA_CHECK_LAYERS} "
+        f"layers, fp32, B={B} x S={S} on {grid.shape}: loss "
+        f"{loss.item():.6f}, one card {ref[0]:.6f} ({loss_rel:.3g} relative, "
+        f"limit 1e-5); gathered gradients within {rel:.3g} of each leaf's "
+        f"largest element (limit 1e-4); {time.perf_counter() - t0:.1f}s")
+    if not ok:
+        raise AssertionError(f"[model-axis] {name} step 0 on the grid vs one "
+                             f"card: loss {loss_rel:.3g}, gradients "
+                             f"{rel:.3g}")
+    return dict(loss_rel=loss_rel, grad_rel=rel)
+
+
+def grid_train(torch, name, cfg, grid, B, S, steps, k, moe_impl="gspmd"):
+    """Sophia-G (bf16 compute, the engine kernels, GNB refresh every ``k``
+    steps from step 0 on half the batch) for ``steps`` steps on the grid,
+    each data rank its rows (``host_slice``).  Launch counts zeroed just
+    before and read just after; each step's time, its model-axis
+    collectives' span (CUDA events) and, with MoE layers, the share of
+    the loss's token-expert entries dropped.  Returns the report (peaks
+    and times the largest over the ranks)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig, host_slice, make_source
+    from repro_torch.distributed.tensor_parallel import comm_ms, comm_timing
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.models.moe import record_routing
+    from repro_torch.train import TrainerConfig, make_train_fns
+    from repro_torch.train.trainer import to_device_batch
+
+    t_all = time.perf_counter()
+    tc = TrainerConfig(peak_lr=MODEL_LR, total_steps=steps, warmup_steps=2,
+                       hess_interval=k, hess_subbatch=max(grid.data, B // 2),
+                       seed=0, fused_kernel=True, moe_impl=moe_impl)
+    init_fn, train_step = make_train_fns(cfg, tc, device="cuda", grid=grid)
+    state = init_fn()
+    torch.cuda.empty_cache()
+    n_local = sum(p.numel() for p in state.params.parameters())
+    src = make_source(DataConfig(seq_len=S, global_batch=B,
+                                 vocab_size=cfg.vocab_size, seed=0))
+    batches = [to_device_batch(host_slice(src.batch_at(t), grid.d,
+                                          grid.data), "cuda")
+               for t in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    reset_launch_counts()
+    rows = (B // grid.data) * S
+    times, comm, losses, dropped = [], [], [], []
+    for t in range(steps):
+        comm_timing(True)
+        t0 = time.perf_counter()
+        with record_routing() as calls:
+            state, metrics = train_step(state, batches[t], t % k == 0)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comm.append(comm_ms() / 1e3)
+        comm_timing(False)
+        keep = [c["keep"] for c in calls
+                if c["expert_idx"].shape[0] in (rows, rows // grid.model)]
+        if keep:
+            dropped.append(sum(int((~x).sum()) for x in keep)
+                           / sum(x.numel() for x in keep))
+        del calls, keep
+    launches = dict(KERNEL_LAUNCHES)
+    stats = torch.cuda.memory_stats()
+    peak = torch.tensor([float(torch.cuda.max_memory_allocated()),
+                         float(stats.get("reserved_bytes.all.peak", 0)),
+                         float(stats.get("num_alloc_retries", 0)
+                               - retries0)],
+                        device="cuda")
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    missing = [x for x in MA_PATH_KERNELS if not launches.get(x)]
+    if missing or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"[model-axis] {name}: kernels not launched "
+                             f"{missing}, losses {losses}")
+    plain = [i for i in range(1, steps) if i % k]
+    refresh = [i for i in range(1, steps) if i % k == 0]
+    p50 = statistics.median([times[i] for i in plain])
+    share = statistics.median([comm[i] / times[i] for i in plain])
+    report = dict(shape=list(grid.shape), layers=cfg.n_layers,
+                  params_per_rank=n_local, B=B, S=S, moe_impl=moe_impl,
+                  losses=losses, plain_p50_ms=p50 * 1e3,
+                  refresh_p50_ms=(statistics.median(
+                      [times[i] for i in refresh]) * 1e3
+                      if refresh else None),
+                  step0_ms=times[0] * 1e3,
+                  comm_share_plain_p50=share,
+                  comm_ms_plain_p50=statistics.median(
+                      [comm[i] for i in plain]) * 1e3,
+                  peak_gib_max_rank=peak[0].item() / 2 ** 30,
+                  reserved_peak_gib_max_rank=peak[1].item() / 2 ** 30,
+                  alloc_retries_max_rank=int(peak[2].item()),
+                  step_ms=[t * 1e3 for t in times],
+                  dropped_share=dropped or None, launches=launches,
+                  seconds=time.perf_counter() - t_all)
+    del state, train_step, init_fn, batches
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        log(f"[model-axis] {name} Sophia-G on {grid.shape}, {cfg.n_layers} "
+            f"layers ({n_local:,} parameters a rank), B={B} x S={S}"
+            + (f", {moe_impl} dispatch" if cfg.family == "moe" else "")
+            + f": losses {[round(x, 4) for x in losses]}; plain p50 "
+            f"{p50 * 1e3:.1f} ms, refresh p50 "
+            f"{report['refresh_p50_ms'] or float('nan'):.1f} ms (step 0 "
+            f"{times[0] * 1e3:.0f} ms); model-axis collectives p50 "
+            f"{report['comm_ms_plain_p50']:.1f} ms ({share:.3f} of a plain "
+            f"step, CUDA events); peak {report['peak_gib_max_rank']:.2f} GiB "
+            f"on the fullest card (reserved "
+            f"{report['reserved_peak_gib_max_rank']:.2f}, allocator retries "
+            f"{report['alloc_retries_max_rank']}); steps "
+            f"{[round(t) for t in report['step_ms']]} ms"
+            + (f"; dropped share {[round(x, 4) for x in dropped]}"
+               if dropped else "")
+            + f"; launches {launches}; {report['seconds']:.1f}s")
+    return report
+
+
+def grid_checkpoint(torch, name, cfg, grid):
+    """A grid's save and restore at full width and MA_CHECK_LAYERS layers:
+    one Sophia-G step with the refresh (so m and h are not zero), then
+    ``checkpoint.save`` (collective, rank 0 writes) into build/, the card
+    memory it adds on the fullest card beside the state, held to twice the
+    largest whole leaf (the gathered blocks and their join: the save
+    gathers one leaf at a time to rank 0), then ``restore`` into a fresh
+    state on the grid, its parameters, m and h held bit for bit.  Returns
+    the report."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.core.types import leaf_parts, tree_leaves
+    from repro_torch.data import DataConfig, host_slice, make_source
+    from repro_torch.distributed.sharding import set_grid
+    from repro_torch.train import TrainerConfig, checkpoint, make_train_fns
+    from repro_torch.train.trainer import to_device_batch
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=MA_CHECK_LAYERS)
+    tc = TrainerConfig(peak_lr=MODEL_LR, total_steps=4, warmup_steps=2,
+                       hess_interval=2, hess_subbatch=max(grid.data, 1),
+                       seed=0, fused_kernel=True)
+    init_fn, step = make_train_fns(cfg2, tc, device="cuda", grid=grid)
+    src = make_source(DataConfig(seq_len=MA_NEOX_S, global_batch=MA_NEOX_B,
+                                 vocab_size=cfg.vocab_size, seed=0))
+    batch = to_device_batch(host_slice(src.batch_at(0), grid.d, grid.data),
+                            "cuda")
+    state, _ = step(init_fn(), batch, True)
+    del batch
+    # the largest unit the save gathers: a leaf, or a layer of a stacked
+    # one, whole
+    largest = max(t.numel() * t.element_size()
+                  * (grid.model if "model" in pl else 1)
+                  for leaf, pl in zip(tree_leaves(state.params.param_tree()),
+                                      tree_leaves(state.params.placements))
+                  for t in leaf_parts(leaf))
+    path = os.path.join(ROOT, "build", "grid_ckpt")
+    if dist.get_rank() == 0 and os.path.exists(path):
+        shutil.rmtree(path)
+    dist.barrier()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_save = time.perf_counter()
+    checkpoint.save(path, 1, state)
+    t_save = time.perf_counter() - t_save
+    added = torch.tensor([float(torch.cuda.max_memory_allocated() - base)],
+                         device="cuda")
+    dist.all_reduce(added, op=dist.ReduceOp.MAX)
+    t_res = time.perf_counter()
+    like, _ = checkpoint.restore(path, init_fn())
+    t_res = time.perf_counter() - t_res
+    same = all(torch.equal(a, b) for a, b in zip(
+        list(state.params.parameters()) + list(state.opt_state.m)
+        + list(state.opt_state.h),
+        list(like.params.parameters()) + list(like.opt_state.m)
+        + list(like.opt_state.h)))
+    ok = torch.tensor([1.0 if same else 0.0], device="cuda")
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    del state, like, step, init_fn
+    set_grid(None)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    size = 0
+    if dist.get_rank() == 0:
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+        shutil.rmtree(path)
+    rep = dict(layers=MA_CHECK_LAYERS, save_s=t_save, restore_s=t_res,
+               bytes_written=size, save_added_gib_max_rank=added.item()
+               / 2 ** 30, largest_leaf_gib=largest / 2 ** 30,
+               round_trip_bit_for_bit=bool(ok.item()),
+               seconds=time.perf_counter() - t0)
+    if dist.get_rank() == 0:
+        log(f"[model-axis] {name} checkpoint on {grid.shape} at full width, "
+            f"{MA_CHECK_LAYERS} layers: save {t_save:.1f}s ({size / 1e9:.2f} "
+            f"GB written by rank 0), adding {rep['save_added_gib_max_rank']:.3f}"
+            f" GiB on the fullest card (largest whole leaf "
+            f"{rep['largest_leaf_gib']:.3f} GiB); restore {t_res:.1f}s, "
+            f"parameters, m and h bit for bit: {bool(ok.item())}; "
+            f"{rep['seconds']:.1f}s")
+    if not ok.item() or added.item() > 2 * largest:
+        raise AssertionError(f"[model-axis] {name} checkpoint: round trip "
+                             f"bit for bit {bool(ok.item())}, save added "
+                             f"{added.item():.4g} B (limit {2 * largest} B)")
+    return rep
+
+
+def model_axis_rank(rank: int, port: int, out: str) -> None:
+    """One of MA_WORLD ranks (one card each, NCCL): the 2-layer step-0
+    checks, NeoX-6.6B at full depth on (1, 4) and deepseek-moe-16b on
+    (2, 2) with both dispatches.  Rank 0 writes the report to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.gpt2 import NEOX_6_6B
+    from repro_torch.launch.mesh import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"127.0.0.1:{port}", MA_WORLD, rank,
+                           timeout_s=300)
+    g14, g22 = make_mesh((1, 4)), make_mesh((2, 2))
+    moe = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=MA_MOE_LAYERS)
+    rep = {}
+
+    def record(key, value):
+        # rank 0 rewrites the report after each run: a later failure keeps
+        # the earlier runs' numbers
+        rep[key] = value
+        if rank == 0:
+            with open(out + ".part", "w") as f:
+                json.dump(rep, f)
+
+    record("neox_step0", grid_step0(torch, "neox-6.6b", NEOX_6_6B, g14,
+                                    MA_NEOX_B, MA_NEOX_S))
+    record("deepseek_step0", grid_step0(
+        torch, "deepseek-moe-16b", get_config("deepseek-moe-16b"), g22,
+        MA_MOE_B, MA_MOE_S))
+    record("neox_checkpoint", grid_checkpoint(torch, "neox-6.6b", NEOX_6_6B,
+                                              g14))
+    record("neox", grid_train(torch, "neox-6.6b", NEOX_6_6B, g14, MA_NEOX_B,
+                              MA_NEOX_S, MA_NEOX_STEPS, MA_NEOX_K))
+    for impl in ("gspmd", "a2a"):
+        record(f"deepseek_{impl}", grid_train(
+            torch, "deepseek-moe-16b", moe, g22, MA_MOE_B, MA_MOE_S,
+            MA_MOE_STEPS, MA_MOE_K, moe_impl=impl))
+    if rank == 0:
+        os.replace(out + ".part", out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def model_axis_main() -> int:
+    """``--model-axis``: MA_WORLD ranks on MA_WORLD cards of one host,
+    each a process of this script; prints their log, the
+    report and the contract's last line.  Any rank's failure fails the
+    run."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    if torch.cuda.device_count() < MA_WORLD:
+        print(f"chip_smoke --model-axis: {MA_WORLD} cards needed, "
+              f"{torch.cuda.device_count()} found", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    for c in cards:
+        log(c)
+    phase_build()
+    port = _free_port()
+    out = os.path.join(ROOT, "build", "model_axis.json")
+    for path in (out, out + ".part"):
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--model-axis-rank", str(r), str(port), out])
+             for r in range(MA_WORLD)]
+    try:
+        # a rank that fails leaves the others in a collective: stop them
+        # at once rather than at NCCL's timeout
+        deadline = time.perf_counter() + MA_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        codes = [p.wait() for p in procs]
+    if any(codes) or not os.path.exists(out):
+        if os.path.exists(out + ".part"):
+            with open(out + ".part") as f:
+                log(f"[model-axis] the runs done before the failure: "
+                    f"{f.read()}")
+        print(f"chip_smoke --model-axis: ranks exited {codes}",
+              file=sys.stderr)
+        return 1
+    with open(out) as f:
+        rep = json.load(f)
+    log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
+    name, power = [x.strip() for x in cards[0].split(",", 1)]
+    log(cards[0])
+    log(json.dumps({"model_axis": rep, "card": name, "power_limit": power}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
 
 def main() -> int:
     import torch
@@ -6217,6 +6708,7 @@ def main() -> int:
             + timed("5 flash", phase_flash_timings, torch, attn_err,
                     trained))
     dp = timed("6 dp", phase_dp, torch)
+    grid = timed("7 grid", phase_grid, torch)
     for row in rows:     # each model's own runs, counted apart
         row["launches_models"] = {m: r["launches"].get(row["name"], 0)
                                   for m, r in models.items()}
@@ -6274,7 +6766,8 @@ def main() -> int:
                 rglru_share_of_plain_step=t.get("rglru_share_of_plain_step"),
                 serve=r["serve"])
     name, power = [s.strip() for s in card.split(",", 1)]
-    log(json.dumps({"dp": dp, "card": name, "power_limit": power}))
+    log(json.dumps({"dp": dp, "grid": grid, "card": name,
+                    "power_limit": power}))
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)
     log(json.dumps({"models": summary, "card": name, "power_limit": power}))
@@ -6286,4 +6779,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        model_axis_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    sys.exit(model_axis_main() if sys.argv[1:] == ["--model-axis"]
+             else main())

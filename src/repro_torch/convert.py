@@ -129,3 +129,45 @@ def engine_state_from_jax(np_state, layout: ShardLayout,
                                    device),
         clip_fraction=_array_to_torch(
             np.asarray(np_state.clip_fraction, np.float32), device))
+
+
+def shard_params(full, grid, cfg: ModelConfig = None):
+    """One rank's parameters on ``grid`` (``distributed/sharding.py``):
+    ``full`` a port module or the reference's numpy tree (with ``cfg``),
+    sliced along each leaf's model entry to the rank's block.  The module
+    carries its placement tree as ``placements`` (computed on the whole
+    shapes) for the trainer and the checkpoints.  Raises ``ValueError``
+    where the model axis does not divide a leaf that the layers split
+    (``sharding.check_splits``)."""
+    from .distributed.sharding import (check_splits, partition_params,
+                                       shard_tree)
+    from .models.transformer import unstack_layers
+    if not hasattr(full, "param_tree"):
+        full = params_from_jax(full, cfg)
+    placements = partition_params(full, grid)
+    if grid is not None:
+        check_splits(placements, grid)
+    if grid is None or grid.model <= 1:
+        local = full
+    else:
+        tree = shard_tree(full.param_tree(), placements, grid)
+        tree = dict(tree, layers=unstack_layers(full.cfg, tree["layers"]))
+        local = Transformer(full.cfg, tree)
+    local.placements = placements
+    local.grid = grid
+    return local
+
+
+def gather_params(local, grid) -> dict:
+    """The inverse of :func:`shard_params` (collective over the model
+    group): the whole tree, the reference's layout, each stacked leaf one
+    tensor with its leading layer axis."""
+    from .distributed.sharding import gather_leaf
+
+    def build(tree, pl):
+        if isinstance(tree, dict):
+            return {k: build(tree[k], pl[k]) for k in sorted(tree)}
+        leaf = gather_leaf(tree, pl, grid)
+        return torch.stack(leaf) if isinstance(leaf, list) else leaf
+
+    return build(local.param_tree(), local.placements)

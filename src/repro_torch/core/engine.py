@@ -28,6 +28,14 @@ Backends:
 
 Lion, SignGD and SGD keep no curvature shards (``h`` is empty, as in the
 reference); Sophia and AdaHessian refresh theirs out of band.
+
+On a grid's data axis (``data=(size, index, group)``, the reference's
+``flat_shard_spec``/``engine_partition_specs``) each flat shard of m and
+h is held as the rank's 1/size slice where it divides
+(:func:`flat_shard_slice`), else whole; the step takes the gradient and
+estimate slices (the trainer reduce-scatters them), updates the rank's
+slice of the parameters and all-gathers them over the data group.  The
+layout is the one of the rank's leaves (its blocks on a model axis).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..kernels import ref as kref
 from ..kernels import sophia_update as kblk
@@ -210,6 +219,27 @@ def write_shards(layout: ShardLayout, shards: Tuple[torch.Tensor, ...],
             parts[0].copy_(value)
 
 
+def flat_shard_slice(n: int, size: int, index: int) -> Tuple[int, int]:
+    """The (start, stop) of data rank ``index`` of ``size`` in a flat shard
+    of ``n`` elements: the reference's ``flat_shard_spec`` splits a shard
+    over the data axis where ``size`` divides it, else replicates it (the
+    whole shard); here the slice must also keep the kernels' 8-element
+    alignment."""
+    if size <= 1 or n % size or (n // size) % 8:
+        return 0, n
+    k = n // size
+    return index * k, (index + 1) * k
+
+
+@torch.no_grad()
+def _gather_slices(t: torch.Tensor, group) -> torch.Tensor:
+    """Every data rank's slice of a flat shard, whole (all-gather)."""
+    full = torch.empty((t.numel() * dist.get_world_size(group),),
+                       dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(full, t.contiguous(), group=group)
+    return full
+
+
 # ---------------------------------------------------------------------------
 # engine state
 
@@ -250,7 +280,8 @@ class OptimizerEngine:
 
     def __init__(self, optimizer: str, *, hypers: dict,
                  backend: str = "reference", block: int = BLOCK,
-                 state_dtype: torch.dtype = torch.float32):
+                 state_dtype: torch.dtype = torch.float32,
+                 data: Optional[tuple] = None):
         if optimizer not in FAMILIES:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if backend not in BACKENDS:
@@ -262,7 +293,16 @@ class OptimizerEngine:
         self.backend = backend
         self.block = block
         self.state_dtype = state_dtype
+        # (size, index, group) of the data axis the flat shards split over
+        self.data = data if data is not None and data[0] > 1 else None
         self._layouts: dict = {}
+
+    def data_slice(self, n: int) -> Tuple[int, int]:
+        """The rank's (start, stop) of a flat shard of ``n`` elements over
+        the data axis (:func:`flat_shard_slice`)."""
+        if self.data is None:
+            return 0, n
+        return flat_shard_slice(n, self.data[0], self.data[1])
 
     @property
     def needs_curvature(self) -> bool:
@@ -294,9 +334,9 @@ class OptimizerEngine:
         device = leaf_parts(tree_leaves(params)[0])[0].device
 
         def zeros():
-            return tuple(torch.zeros((s,), dtype=self.state_dtype,
+            return tuple(torch.zeros((b - a,), dtype=self.state_dtype,
                                      device=device)
-                         for s in lay.shard_sizes)
+                         for a, b in map(self.data_slice, lay.shard_sizes))
 
         scalar = dict(device=device)
         return EngineState(
@@ -334,11 +374,12 @@ class OptimizerEngine:
         scale = torch.as_tensor(scale, dtype=torch.float32)
         return self._apply_shards(state, params, g_sh, lr, e_sh, flag, scale)
 
-    @staticmethod
-    def _est_shards(lay: ShardLayout, est) -> Tuple[torch.Tensor, ...]:
+    def _est_shards(self, lay: ShardLayout, est) -> Tuple[torch.Tensor, ...]:
+        sizes = [b - a for a, b in map(self.data_slice, lay.shard_sizes)]
         if (len(est) != lay.n_shards
-                or any(e.shape != (s,) for e, s in zip(est, lay.shard_sizes))):
-            raise ValueError("est must be flat shards in the engine layout")
+                or any(e.shape != (s,) for e, s in zip(est, sizes))):
+            raise ValueError("est must be flat shards in the engine layout "
+                             "(the rank's slices on a data axis)")
         return tuple(e.to(torch.float32) for e in est)
 
     def _apply_shards(self, state: EngineState, params: Tree, g_sh, lr,
@@ -350,19 +391,33 @@ class OptimizerEngine:
         c1 = (state.count + 1).to(torch.float32)   # bias-correction step
         p_sh = ravel_shards(lay, params)
         new_p, new_m, new_h = [], [], []
-        nclip = None
+        nclip = nclip_seg = None
         for i in range(lay.n_shards):
             h_i = state.h[i] if self.needs_curvature else None
             e_i = e_sh[i] if e_sh is not None else None
+            a, b = self.data_slice(lay.shard_sizes[i])
+            blk = math.gcd(b - a, self.block)
             p2, m2, h2, n_i = self._step_shard(
-                p_sh[i], state.m[i], h_i, g_sh[i], e_i, lr, c1, flag, scale)
+                p_sh[i][a:b], state.m[i], h_i, g_sh[i], e_i, lr, c1, flag,
+                scale, blk)
+            if (a, b) != (0, lay.shard_sizes[i]):
+                # the rank's slice: the whole shard from every data rank's
+                p2 = _gather_slices(p2, self.data[2])
             new_p.append(p2)
             new_m.append(m2)
             if h2 is not None:
                 new_h.append(h2)
             if n_i is not None:
                 n_i = n_i.to(torch.float32)
-                nclip = n_i if nclip is None else nclip + n_i
+                if (a, b) != (0, lay.shard_sizes[i]):
+                    nclip_seg = n_i if nclip_seg is None else nclip_seg + n_i
+                else:
+                    nclip = n_i if nclip is None else nclip + n_i
+        if nclip_seg is not None:
+            # the slices' clip counts summed over the data ranks
+            nclip_seg = nclip_seg.clone()
+            dist.all_reduce(nclip_seg, group=self.data[2])
+            nclip = nclip_seg if nclip is None else nclip + nclip_seg
         write_shards(lay, tuple(new_p), params)
         hess_count = state.hess_count
         if flag is not None:
@@ -374,14 +429,14 @@ class OptimizerEngine:
             hess_count=hess_count, clip_fraction=clip_fraction)
         return params, new_state
 
-    def _step_shard(self, p, m, h, g, e, lr, c1, flag, scale):
+    def _step_shard(self, p, m, h, g, e, lr, c1, flag, scale, blk=None):
         """One flat shard on the backend: the plain update when ``e`` is
         None, the update with the refresh fused in otherwise (the family
         dispatch of the reference's ``core/engine.py:391-442``).  Returns
         (p', m', h' or None, clip count or None)."""
         hp = self.hypers
         fused = self.backend == "fused"
-        kw = dict(block=self.block) if fused else {}
+        kw = dict(block=blk or self.block) if fused else {}
         fam = self.family
         if fam == "sophia":
             args = dict(beta1=hp["beta1"], gamma=hp["gamma"], eps=hp["eps"],
@@ -459,9 +514,9 @@ class OptimizerEngine:
         kw = dict(beta2=self.hypers["beta2"], scale=scale,
                   square=self.family == "adahessian")
         if self.backend == "fused":
-            new_h = tuple(kblk.hessian_ema_block(h, e, block=self.block,
-                                                 **kw)
-                          for h, e in zip(state.h, e_sh))
+            new_h = tuple(kblk.hessian_ema_block(
+                h, e, block=math.gcd(h.numel(), self.block), **kw)
+                for h, e in zip(state.h, e_sh))
         else:
             new_h = tuple(kref.hessian_ema_ref(h, e, **kw)
                           for h, e in zip(state.h, e_sh))

@@ -28,15 +28,21 @@ gradients through the int8 error-feedback pipeline in buckets of
 ``--comm-bucket-elems``; ``--compress-hess`` the refresh's gradient-valued
 pieces too.
 
-Data parallel: launch the SAME command once per rank, adding
+Several processes: launch the SAME command once per rank, adding
 
     --coordinator host:port --num-processes N --process-id <rank>
 
 (NCCL on the card of the rank's local index; gloo with ``--device cpu``),
 or pass ``--devices N`` to have this process spawn the N local ranks,
-one per card (gloo processes with ``--device cpu``).  Each rank trains on
-its rows of the global batch; checkpoints are collective (rank 0 writes,
-manifests checked across ranks).
+one per card (gloo processes with ``--device cpu``).  The ranks form the
+reference's auto ``(data, model)`` grid (``launch/mesh.py:build_mesh``:
+2 ranks -> (2, 1), 4 -> (2, 2), 8 -> (4, 2), 16 -> (4, 4)); each rank
+trains on the rows of its data coordinate, holds its blocks of the
+parameters over the model axis (tensor and expert parallelism, the dense
+and MoE families; another family raises ``NotImplementedError`` on a model
+axis above one) and its slices of the optimizer's m and h over the data
+axis.  Checkpoints are collective (every leaf gathered whole, rank 0
+writes the one-process format, manifests checked across ranks).
 
 With ``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps
 (asynchronously on one process) and at the end, and resumes from the
@@ -77,7 +83,7 @@ from ..train import TrainerConfig, checkpoint as ckpt, make_engine, \
 from ..train.elastic import (NodeLoss, PreemptionGuard, StragglerDetector,
                              is_distributed_failure, run_resumable)
 from ..train.trainer import ESTIMATORS, to_device_batch
-from .mesh import initialize_distributed
+from .mesh import build_mesh, initialize_distributed
 
 #: a rank's exit code when it checkpointed for a restart on fewer ranks
 EXIT_DEGRADE = 75
@@ -226,8 +232,11 @@ def main(argv=None):
 
 
 def _train(args, cfg, device):
-    ndev, rank = world()
+    nproc, rank = world()
     p0 = rank == 0
+    grid = build_mesh()
+    # the rows of the rank's data coordinate (model ranks share them)
+    ndev, drank = (grid.data, grid.d) if grid is not None else (1, 0)
     tc = TrainerConfig(
         optimizer=args.opt, estimator=args.estimator, peak_lr=args.peak_lr,
         total_steps=args.steps, warmup_steps=max(2, args.steps // 20),
@@ -240,14 +249,14 @@ def _train(args, cfg, device):
         comm_bucket_elems=args.comm_bucket_elems,
         comm_telemetry=args.comm_telemetry, state_dtype=args.state_dtype,
         seed=args.seed)
-    init_fn, train_step = make_train_fns(cfg, tc, device=device)
+    init_fn, train_step = make_train_fns(cfg, tc, device=device, grid=grid)
     src = make_source(DataConfig(
         seq_len=args.seq_len, global_batch=args.global_batch,
         vocab_size=cfg.vocab_size, seed=args.seed, source=args.data,
         path=args.data_path))
     engine = make_engine(tc)
     like = init_fn()
-    layout_meta = dict(engine.describe(like.params.param_tree()),
+    layout_meta = dict(ckpt.layout_manifest(like.params),
                        optimizer=args.opt, state_dtype=args.state_dtype,
                        compress_grads=bool(args.compress_grads))
     fresh = [like]       # the first attempt trains from the state built
@@ -273,7 +282,7 @@ def _train(args, cfg, device):
             args.ckpt_dir, make_state(), expect_layout=layout_meta)
         if p0:
             print(f"[resume] restored step {start} from {args.ckpt_dir} "
-                  f"onto {ndev} process(es) on {device}", flush=True)
+                  f"onto {nproc} process(es) on {device}", flush=True)
         return state, start
 
     guard = PreemptionGuard()
@@ -281,7 +290,7 @@ def _train(args, cfg, device):
     def run(state, start):
         straggler = StragglerDetector()
         degrade = bool(args.elastic and args.degrade_after
-                       and args.ckpt_dir and ndev > 1)
+                       and args.ckpt_dir and nproc > 1)
         t_start = time.time()
         for t in range(start, args.steps):
             t0 = time.time()
@@ -289,7 +298,7 @@ def _train(args, cfg, device):
             # source) and takes its rows
             batch = src.batch_at(t)
             if ndev > 1:
-                batch = host_slice(batch, rank, ndev)
+                batch = host_slice(batch, drank, ndev)
             batch = to_device_batch(batch, device)
             try:
                 state, metrics = train_step(
@@ -297,7 +306,7 @@ def _train(args, cfg, device):
                     engine.hessian_aware and t % tc.hess_interval == 0)
                 loss = float(metrics["loss"])
             except Exception as e:
-                if ndev > 1 and is_distributed_failure(e):
+                if nproc > 1 and is_distributed_failure(e):
                     # a peer died: unrecoverable in-process; the relaunch
                     # resumes the survivors from the last manifest
                     raise NodeLoss(
@@ -309,7 +318,7 @@ def _train(args, cfg, device):
                 print(f"[straggler] step {t} took {dt:.2f}s "
                       f"(mean {straggler.mean:.2f}s)", flush=True)
             preempt = guard.requested
-            if ndev > 1:
+            if nproc > 1:
                 # the ranks decide together (a save is collective): any
                 # rank past the straggler limit, any rank preempted
                 votes = torch.tensor(
@@ -358,7 +367,7 @@ def _train(args, cfg, device):
         if args.metrics_out and p0:
             _append(args.metrics_out, dict(
                 done=args.steps - start, start=start, peak_bytes=peak_bytes,
-                launches=dict(KERNEL_LAUNCHES), ranks=ndev,
+                launches=dict(KERNEL_LAUNCHES), ranks=nproc,
                 hess_count=int(state.opt_state.hess_count)))
         if p0:
             print(f"done: {args.steps - start} steps in "

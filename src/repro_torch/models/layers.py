@@ -531,6 +531,23 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig):
     return p
 
 
+def _lookup(tok, tokens):
+    """The fp32 rows of ``tokens``; on a grid's model axis, each rank's
+    rows of its block of ``tok`` (the others zero), summed over model
+    (vocabulary parallelism; exact, one term is not zero)."""
+    from ..distributed.sharding import model_parallel
+    if model_parallel() <= 1:
+        return tok[tokens.to(torch.int64)]
+    from ..distributed.sharding import active_grid
+    from ..distributed.tensor_parallel import reduce_from_model
+    rows = tok.shape[0]
+    lo = active_grid().m * rows
+    t = tokens.to(torch.int64)
+    mine = (t >= lo) & (t < lo + rows)
+    x = tok[torch.where(mine, t - lo, 0)] * mine[..., None].to(tok.dtype)
+    return reduce_from_model(x)
+
+
 def embed(p, tokens, cfg: ModelConfig, positions=None):
     """Gather from the fp32 table, cast to the compute dtype; with the
     embedding scale multiply by sqrt(d_model) rounded to that dtype first
@@ -539,7 +556,7 @@ def embed(p, tokens, cfg: ModelConfig, positions=None):
     past the table (only the zero-padded tail of a last prefill chunk,
     whose queries nothing reads) takes the last row instead of indexing
     out of bounds."""
-    x = p["tok"][tokens.to(torch.int64)].to(cfg.compute_dtype)
+    x = _lookup(p["tok"], tokens).to(cfg.compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -555,11 +572,13 @@ def unembed(p, x, cfg: ModelConfig):
     weight is cast to x's dtype and the product accumulates in fp32
     (:func:`wide`): products of bf16 values are exact in fp32, as with the
     reference's ``preferred_element_type``."""
+    from ..distributed.tensor_parallel import gather_from_model
     acc = wide(x.dtype)
+    # on a grid's model axis the rank's block is gathered whole first
     if cfg.tie_embeddings:
-        w = p["tok"].to(x.dtype).to(acc).T
+        w = gather_from_model(p["tok"], 0).to(x.dtype).to(acc).T
     else:
-        w = p["unembed"].to(x.dtype).to(acc)
+        w = gather_from_model(p["unembed"], 1).to(x.dtype).to(acc)
     logits = x.to(acc) @ w
     logits = _softcap(logits, cfg.final_logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:

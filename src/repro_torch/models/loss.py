@@ -34,6 +34,7 @@ and "unfused" from a ``torch.Generator`` (the reference draws them with
 from __future__ import annotations
 
 from ..core.estimators import gumbel, sample_labels
+from ..distributed.tensor_parallel import gather_from_model
 from ..kernels.fused_ce import (_pack_norm, apply_norm,
                                 chunked_lm_loss, chunked_lm_loss_sampled,
                                 fused_lm_loss, fused_lm_loss_jvp,
@@ -53,10 +54,14 @@ def _check_impl(impl) -> str:
 
 def unembed_weights(cfg: ModelConfig, params):
     """(w, transpose_w): the unembedding in its stored layout, (Vp, D)
-    tied or (D, Vp) untied."""
+    tied or (D, Vp) untied.  On a grid's model axis the rank's block (the
+    tied ``tok`` rows, the untied ``unembed`` columns) is gathered whole
+    first: the CE kernels run on every model rank over the same rows, and
+    the gradient goes back to each rank's block by slicing
+    (``tensor_parallel.gather_from_model``)."""
     if cfg.tie_embeddings:
-        return params.embed["tok"], False
-    return params.embed["unembed"], True
+        return gather_from_model(params.embed["tok"], 0), False
+    return gather_from_model(params.embed["unembed"], 1), True
 
 
 def _kernel_kw(cfg: ModelConfig, params, pre_norm) -> dict:

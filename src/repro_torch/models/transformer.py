@@ -66,6 +66,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.sharding import model_parallel
+from ..distributed.tensor_parallel import split_attention, split_mlp
 from ..kernels.decode_attention import GLOBAL_WINDOW
 from .common import ModelConfig, check_supported
 from .layers import (_flash_attention_proj, _qkv, decode_attention_slots,
@@ -251,6 +253,8 @@ def _ffn_residual(layer, x, cfg: ModelConfig, aux=None):
     if "moe" in layer.groups:
         f, a = moe_ffn(layer.moe, h, cfg)
         aux = a if aux is None else aux + a
+    elif model_parallel() > 1:
+        f = split_mlp(mlp, layer.mlp, h, cfg)
     else:
         f = mlp(layer.mlp, h, cfg)
     if cfg.post_norms:
@@ -385,15 +389,19 @@ def forward_hidden(cfg: ModelConfig, params: Transformer, tokens, *,
     windows = layer_windows(cfg)
     scales = layer_scales(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # on a grid's model axis each rank attends over its heads
+    # (distributed/tensor_parallel.py)
+    attend = (split_attention if model_parallel() > 1
+              else (lambda fn, *a, **kw: fn(*a, **kw)))
 
     def layer_fn(i):
         layer = params.layers[i]
 
         def run(x, aux):
             h = _norm(layer.ln1, x, cfg)
-            a = train_attention(layer.attn, h, cfg, positions=positions,
-                                window=windows[i], layer_scale=scales[i],
-                                impl=attn_impl)
+            a = attend(train_attention, layer.attn, h, cfg,
+                       positions=positions, window=windows[i],
+                       layer_scale=scales[i], impl=attn_impl)
             return _ffn_residual(layer, _attn_residual(layer, x, a, cfg),
                                  cfg, aux)
         return run

@@ -31,6 +31,18 @@ Two leaves need care, because numpy and JAX hold them differently:
     it left off, and a reference checkpoint continues the reference's
     trajectory wherever the refresh noise is passed in.
 
+On a ``(data, model)`` grid (``distributed/sharding.py``; the pure
+data-parallel (W, 1) grid when a process group has no other) a save is
+collective and writes the one-process format: each parameter is gathered
+whole by its placement, and each flat m/h (and error-feedback) shard,
+held as the rank's data slice of the rank's local layout (the layout of
+its blocks), is gathered over data, unraveled, gathered over model leaf
+by leaf and raveled into the whole tree's layout.  Every gather goes to
+rank 0 alone, one leaf (or one local flat shard) at a time, straight to
+its host.  A restore reads each leaf to the host and sends each rank
+only its block, so a checkpoint crosses grids, processes and packages.
+The launcher records the whole tree's layout (:func:`layout_manifest`).
+
 Data parallel (a ``torch.distributed`` group of W > 1 ranks):
 
   * ``save`` is collective: every rank calls it; the error-feedback
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import shutil
 import threading
@@ -60,11 +73,12 @@ import torch
 import torch.distributed as dist
 
 from ..core.clipping import ClipState
-from ..core.engine import EngineState, dtype_name
+from ..core.engine import EngineState, build_layout, dtype_name
 from ..core.types import leaf_parts, tree_leaves
 from ..distributed import world
 from ..distributed.compression import FlatCompressionState
 from ..distributed.overlap import comm_device
+from ..distributed.sharding import block, model_dim, resolve_grid
 from .train_state import TrainState
 
 _MANIFEST = "manifest.json"
@@ -103,39 +117,156 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _grid(params, group=None):
+    grid = getattr(params, "grid", None)
+    return grid if grid is not None else resolve_grid(None, group)
+
+
+def _model_split(params, grid) -> bool:
+    return grid is not None and grid.model > 1
+
+
+def _dims(params) -> list:
+    """Each leaf's model dim (None where it is whole)."""
+    return [model_dim(p) for p in tree_leaves(params.placements)]
+
+
+def _layouts(params, grid):
+    """(the local layout, the whole tree's layout, model dims): the flat
+    layout of the rank's blocks and of the whole leaves."""
+    tree = params.param_tree()
+    local = build_layout(tree)
+    if not _model_split(params, grid):
+        return local, local, None
+    dims = _dims(params)
+    shapes = []
+    for shape, dim in zip(local.leaf_shapes, dims):
+        shape = list(shape)
+        if dim is not None:
+            shape[dim] *= grid.model
+        shapes.append(tuple(shape))
+    meta = [torch.empty(sh, dtype=dt, device="meta")
+            for sh, dt in zip(shapes, local.leaf_dtypes)]
+    whole = build_layout({f"{i:06d}": t for i, t in enumerate(meta)})
+    return local, whole, dims
+
+
+def layout_manifest(params, group=None) -> dict:
+    """The flat layout a checkpoint of ``params`` records: the whole
+    tree's (collective-free)."""
+    return _layouts(params, _grid(params, group))[1].manifest()
+
+
+def _leaf_views(shards, lay):
+    for shape, si, off in zip(lay.leaf_shapes, lay.leaf_shard,
+                              lay.leaf_offset):
+        yield shards[si][off:off + math.prod(shape)].reshape(shape)
+
+
+def _from_whole_layout(shards, lay, whole, dims, grid):
+    """Shards in the whole tree's layout -> the rank's blocks in its local
+    layout."""
+    if dims is None:
+        return list(shards)
+    out = [torch.zeros((n,), dtype=sh.dtype, device=sh.device)
+           for n, sh in zip(lay.shard_sizes, shards)]
+    for k, t in enumerate(_leaf_views(shards, whole)):
+        t = block(t, dims[k], grid.m, grid.model)
+        si, off = lay.leaf_shard[k], lay.leaf_offset[k]
+        out[si][off:off + t.numel()] = t.reshape(-1)
+    return out
+
+
+def _gather_root(t: torch.Tensor, group, dim: int = 0):
+    """``t``'s equal blocks from every rank of ``group`` joined along
+    ``dim`` on the group's first rank (collective); None on the others."""
+    t = t.contiguous()
+    dst = dist.get_global_rank(group, 0)
+    if dist.get_rank(group) != 0:
+        dist.gather(t, None, dst=dst, group=group)
+        return None
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.gather(t, parts, dst=dst, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _host(t):
+    return None if t is None else t.to("cpu")
+
+
 def _state_leaves(state: TrainState, group=None):
-    """[(array, dtype name)] in the checkpoint's leaf order (collective
-    when the error feedback is segmented over ranks)."""
-    out = [(np.asarray(state.step, np.int32), "int32")]
-    for leaf in tree_leaves(state.params.param_tree()):
-        parts = leaf_parts(leaf)
-        value = (torch.stack([p.detach() for p in parts])
-                 if isinstance(leaf, (list, tuple)) else parts[0])
-        out.append((_to_numpy(value), dtype_name(value.dtype)))
+    """[(array, dtype name)] in the checkpoint's leaf order on rank 0, None
+    on the other ranks (collective on a grid: every rank calls it).  A
+    grid's save gathers one leaf at a time to rank 0 alone, and rank 0
+    moves it to the host at once: no card holds more than one whole leaf,
+    or one whole flat shard of its local layout, beside its state.  The
+    parameters are gathered over model by the ranks of data coordinate 0
+    (every data coordinate holds the same blocks); each flat m/h (and
+    error-feedback) shard is gathered over data to those ranks, then leaf
+    by leaf over model into the whole tree's layout."""
+    params = state.params
+    grid = _grid(params, group)
+    root = grid is None or grid.rank == 0
+    split = _model_split(params, grid)
+    dims = _dims(params) if split else None
+    out = [(np.asarray(state.step, np.int32), "int32")] if root else None
+    for k, leaf in enumerate(tree_leaves(params.param_tree())):
+        stacked = isinstance(leaf, (list, tuple))
+        parts = [p.detach() for p in leaf_parts(leaf)]
+        if split and grid.d == 0 and dims[k] is not None:
+            dim = dims[k] - 1 if stacked else dims[k]
+            parts = [_host(_gather_root(p, grid.model_group, dim))
+                     for p in parts]
+        if root:
+            value = torch.stack(parts) if stacked else parts[0]
+            out.append((_to_numpy(value), dtype_name(value.dtype)))
     opt = state.opt_state
-    for t in (opt.count, *opt.m, *opt.h, opt.hess_count, opt.clip_fraction,
+    lay, whole, ldims = _layouts(params, grid)
+
+    def flat(xs):
+        """The rank's slices of its local layout's shards -> the whole
+        tree's shards on rank 0's host."""
+        if grid is None:
+            return list(xs)
+        res = ([torch.zeros((n,), dtype=x.dtype)
+                for n, x in zip(whole.shard_sizes, xs)]
+               if root and split else [])
+        for si, (x, n) in enumerate(zip(xs, lay.shard_sizes)):
+            if x.numel() != n:
+                x = _gather_root(x, grid.data_group)
+            if grid.d != 0:
+                continue
+            if not split:
+                res.append(_host(x) if root else x)
+                continue
+            for k in range(len(lay.leaf_shapes)):
+                if lay.leaf_shard[k] != si:
+                    continue
+                shape, off = lay.leaf_shapes[k], lay.leaf_offset[k]
+                t = x[off:off + math.prod(shape)].reshape(shape)
+                if ldims[k] is not None:
+                    t = _host(_gather_root(t, grid.model_group, ldims[k]))
+                if root:
+                    wo = whole.leaf_offset[k]
+                    res[whole.leaf_shard[k]][wo:wo + t.numel()] = \
+                        t.reshape(-1).cpu()
+        return res
+
+    m, h, err = flat(opt.m), flat(opt.h), flat(_errors(state))
+    if not root:
+        return None
+    for t in (opt.count, *m, *h, opt.hess_count, opt.clip_fraction,
               *state.clip_state):
         out.append((_to_numpy(t), dtype_name(t.dtype)))
     out.append((np.asarray(state.rng, np.uint32), "uint32"))
-    for e, m in zip(_errors(state), opt.m):
-        out.append((_to_numpy(_whole_shard(e, m.numel(), group)),
-                    "float32"))
+    for e in err:
+        out.append((_to_numpy(e), "float32"))
     return out
 
 
 def _errors(state: TrainState):
     comp = state.comp_state
     return comp.error if isinstance(comp, FlatCompressionState) else ()
-
-
-def _whole_shard(e: torch.Tensor, n: int, group=None) -> torch.Tensor:
-    """A rank's error-feedback buffer as the whole shard of ``n``: its
-    segment gathered from every rank (collective), or itself."""
-    if e.numel() == n:
-        return e
-    full = torch.empty((n,), dtype=e.dtype, device=e.device)
-    dist.all_gather_into_tensor(full, e.contiguous(), group=group)
-    return full
 
 
 def _sync(group=None) -> None:
@@ -176,14 +307,11 @@ def save(ckpt_dir: str, step: int, state: TrainState, *,
     files on a thread (one process only).  Data parallel: collective, rank
     0 writes."""
     ndev, rank = world(group)
+    leaves = _state_leaves(state, group)
     if ndev > 1 and rank != 0:
-        # take part in rank 0's gathers of the error feedback, then in its
-        # barrier after the write
-        for e, m in zip(_errors(state), state.opt_state.m):
-            _whole_shard(e, m.numel(), group)
+        # rank 0 writes; meet at its barrier after the write
         _sync(group)
         return
-    leaves = _state_leaves(state, group)
     os.makedirs(ckpt_dir, exist_ok=True)
     if async_ and ndev <= 1:
         t = threading.Thread(target=_write,
@@ -302,23 +430,50 @@ def restore(ckpt_dir: str, like: TrainState, *,
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"expected {want}")
     device = opt.count.device
-    vals = iter(_load(os.path.join(d, f"leaf_{i:05d}.npy"), dt, device)
+    grid = _grid(like.params, group)
+    split = _model_split(like.params, grid)
+    dims = _dims(like.params) if split else [None] * len(param_leaves)
+    # on a grid each leaf is read to the host, and only the rank's block
+    # or slice of it goes to the card
+    src = device if grid is None else "cpu"
+    vals = iter(_load(os.path.join(d, f"leaf_{i:05d}.npy"), dt, src)
                 for i, dt in enumerate(manifest["dtypes"]))
     saved_step = int(next(vals))
-    for leaf in param_leaves:
+    for leaf, dim in zip(param_leaves, dims):
         value = next(vals)
         parts = leaf_parts(leaf)
         if isinstance(leaf, (list, tuple)):
             for p, v in zip(parts, value):
-                p.copy_(v)
+                p.copy_(block(v, None if dim is None else dim - 1,
+                              grid.m, grid.model) if split else v)
         else:
-            parts[0].copy_(value)
-    count = next(vals)
-    m = tuple(next(vals) for _ in range(n_m))
-    h = tuple(next(vals) for _ in range(n_h))
-    opt_state = EngineState(count=count, m=m, h=h, hess_count=next(vals),
-                            clip_fraction=next(vals))
-    clip_state = ClipState(next(vals), next(vals), next(vals))
+            parts[0].copy_(block(value, dim, grid.m, grid.model)
+                           if split else value)
+    lay, whole, ldims = _layouts(like.params, grid)
+
+    def flat(saved, likes):
+        """The whole tree's shards -> this rank's slices of its local
+        layout's, as ``likes`` holds them."""
+        if grid is None:
+            return tuple(saved)
+        local = _from_whole_layout(saved, lay, whole, ldims, grid)
+        out = []
+        for x, want in zip(local, likes):
+            k = want.numel()
+            out.append((x if x.numel() == k
+                        else x[grid.d * k:(grid.d + 1) * k].clone()
+                        ).to(device))
+        return tuple(out)
+
+    def scalar():
+        return next(vals).to(device)
+
+    count = scalar()
+    m = flat([next(vals) for _ in range(n_m)], opt.m)
+    h = flat([next(vals) for _ in range(n_h)], opt.h)
+    opt_state = EngineState(count=count, m=m, h=h, hess_count=scalar(),
+                            clip_fraction=scalar())
+    clip_state = ClipState(scalar(), scalar(), scalar())
     key = next(vals)
     if tuple(key.shape) != (2,):
         raise ValueError(f"the rng leaf has shape {tuple(key.shape)}, not "
@@ -326,14 +481,8 @@ def restore(ckpt_dir: str, like: TrainState, *,
     rng = (int(key[0]), int(key[1]))
     comp = like.comp_state
     if errors:
-        _, rank = world(group)
-        segs = []
-        for e in errors:
-            full = next(vals)
-            k = e.numel()
-            segs.append(full if full.numel() == k
-                        else full[rank * k:(rank + 1) * k].clone())
-        comp = FlatCompressionState(error=tuple(segs))
+        comp = FlatCompressionState(
+            error=flat([next(vals) for _ in errors], errors))
     return TrainState(step=saved_step, params=like.params,
                       opt_state=opt_state, clip_state=clip_state,
                       rng=rng, comp_state=comp), step

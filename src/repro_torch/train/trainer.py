@@ -56,25 +56,38 @@ from ``(rng, tag, step)`` with numpy (:func:`compress_seed`; tags
 ``RNG_TAG_COMPRESS`` and ``RNG_TAG_HESS_COMPRESS``, the reference's);
 ``compress_seed_fn(tag, step)`` replaces them.
 
-Data parallel.  When a ``torch.distributed`` process group is initialized
-(``launch/mesh.py:initialize_distributed``), each of its W ranks trains on
-its rows of the global batch (``data.host_slice``) and keeps the whole
-state replicated: parameters, m and h are updated identically on every
-rank.  Each rank's loss is its local token sum over the GLOBAL valid-token
-count (an all-reduced count), so the reduced gradient is the single
-process's.  One path serves every world size, the reference's order: the
-raveled, unclipped local gradients are reduced (fp32 all-reduce, or the
-compressed pipeline's reduce-scatter; nothing on one rank), the global
-norm is taken from the reduced values and clips them
-(:func:`clip_reduced`), and only then are they quantized.  The refresh's
-sub-batch is the first ``hess_subbatch`` rows of the global batch, split
-over the ranks the same way; each rank runs the estimator on its own rows
-only, and GNB's labels are drawn at each position's row in the global
-sub-batch (the fused route's hash keyed on ``row_ids``, the chunked
-route's generator draws kept at those rows), so a rank's draws are the
-single process's.  A MoE model's load-balance term is scaled as its CE is
-(a token mean), which is exact when every rank's mask counts the same
-tokens.
+Across processes.  On a ``(data, model)`` grid (``launch/mesh.py:
+make_mesh``; with a process group and no grid, the pure data-parallel (W,
+1) grid over it) each rank trains on the rows of its data coordinate
+(``data.host_slice``), holds its blocks of the parameters along the model
+axis (``convert.shard_params``: tensor parallelism in the dense trunk,
+expert parallelism in the MoE FFN, ``distributed/tensor_parallel.py``)
+and its slices of the flat m/h shards along the data axis (the engine's
+``data``); parameters stay whole across data within a model block.  Each
+rank's loss is its local token sum over the GLOBAL valid-token count (an
+all-reduced count over data; the model ranks of one data coordinate see
+the same rows), so the reduced gradient is the single process's.  One
+path serves every grid, the reference's order: the raveled, unclipped
+local gradients are reduced over data (reduce-scattered to the rank's
+slice where the engine splits a shard, else all-reduced in fp32; or the
+compressed pipeline's reduce-scatter), the global norm is taken from the
+reduced values (squares summed over data for the slices, over model for
+the leaves split there, a replicated leaf counted once) and clips them
+(:func:`clip_reduced`), and only then are they quantized.  The engine
+updates its slices and all-gathers the parameters over data.  The
+refresh's sub-batch is the first ``hess_subbatch`` rows of the global
+batch, split over the data ranks the same way; each runs the estimator on
+its own rows only, and GNB's labels are drawn at each position's row in
+the global sub-batch (the fused route's hash keyed on ``row_ids``, the
+chunked route's generator draws kept at those rows), so a rank's draws
+are the single process's.  A MoE model's default dispatch routes in the
+global batch's groups and computes the global batch's load-balance term
+on every rank (``models/moe.py``), scaled by the rank's share like its
+CE: the shares sum to one, and the term's backward sums the data ranks'
+shares, so the objective and its gradient are the single process's.  The
+all-to-all dispatch's term is the reference's mean over the ranks of
+each rank's own.  The Hutchinson HVP does not run on a model axis
+(:func:`check_grid`).
 """
 from __future__ import annotations
 
@@ -94,9 +107,12 @@ from ..core.clipping import ClipState
 from ..core.types import flat_tensors, leaf_parts, tree_leaves, \
     tree_unflatten
 from ..data import host_slice
+from ..convert import shard_params
 from ..distributed import GradCompressor, world
 from ..distributed.overlap import delta_seconds, stamp
+from ..distributed.sharding import model_dim, resolve_grid, set_grid
 from ..models import ModelConfig, get_model
+from ..models.moe import MOE_IMPLS, set_moe_impl
 from ..models.layers import TRAIN_ATTN_IMPLS
 from ..models.transformer import REMATS
 from ..serve.engine import resolve_device
@@ -145,6 +161,8 @@ class TrainerConfig:
     comm_telemetry: bool = False       # comm_seconds / step_seconds /
     #                                    exposed_comm_fraction metrics
     state_dtype: str = "float32"       # optimizer m/h dtype
+    moe_impl: str = "gspmd"            # MoE dispatch on a model axis:
+    #                                    "gspmd" or "a2a" (models/moe.py)
     seed: int = 0
 
 
@@ -159,6 +177,34 @@ def check_ported(tc: TrainerConfig) -> None:
         raise ValueError(f"state_dtype {tc.state_dtype!r}")
     if tc.estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator {tc.estimator!r}")
+    if tc.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl {tc.moe_impl!r} is not one of "
+                         f"{MOE_IMPLS}")
+
+
+#: what a grid's model axis runs (ROADMAP A5b-rest names the rest)
+MODEL_AXIS_FAMILIES = ("dense", "moe")
+
+
+def check_grid(cfg: ModelConfig, tc: TrainerConfig, grid) -> None:
+    """Raise ``NotImplementedError`` before the first step for what a grid
+    with a model axis above one does not take: a family other than the
+    dense and MoE ones (tensor parallelism for RWKV, Griffin and the
+    encoder-decoder is ROADMAP A5b-rest), and the Hutchinson HVP, whose
+    ``torch.func`` transforms do not run through the model axis's
+    collectives."""
+    if grid is None or grid.model <= 1:
+        return
+    if cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"config {cfg.name!r}: family {cfg.family!r} has no tensor "
+            f"parallelism (a model axis of {grid.model}); the grid splits "
+            f"the {MODEL_AXIS_FAMILIES} families (ROADMAP A5b-rest: tensor "
+            f"parallelism for RWKV, Griffin and the encoder-decoder)")
+    if tc.estimator == "hutchinson":
+        raise NotImplementedError(
+            "the Hutchinson estimator on a model axis (torch.func's jvp of "
+            "grad through the model axis's collectives is not ported)")
 
 
 def make_schedule(tc: TrainerConfig):
@@ -167,11 +213,12 @@ def make_schedule(tc: TrainerConfig):
     return linear_warmup_cosine(tc.peak_lr, tc.total_steps, tc.warmup_steps)
 
 
-def make_engine(tc: TrainerConfig) -> OptimizerEngine:
+def make_engine(tc: TrainerConfig, grid=None) -> OptimizerEngine:
     """Engine for ``tc.optimizer`` with the paper's per-optimizer hypers
     (the reference's table, ``trainer.py:133-155``), on the ``fused``
     backend (the engine kernels) with ``tc.fused_kernel`` and the
-    ``reference`` backend without."""
+    ``reference`` backend without; on a ``grid`` its flat shards split over
+    the data axis."""
     name = tc.optimizer
     if name in ("sophia_g", "sophia_h"):
         hypers = dict(beta1=tc.beta1, beta2=tc.beta2, gamma=tc.gamma,
@@ -192,9 +239,12 @@ def make_engine(tc: TrainerConfig) -> OptimizerEngine:
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     sdt = torch.bfloat16 if tc.state_dtype == "bfloat16" else torch.float32
+    data = (None if grid is None
+            else (grid.data, grid.d, grid.data_group))
     return OptimizerEngine(tc.optimizer, hypers=hypers,
                            backend="fused" if tc.fused_kernel
-                           else "reference", state_dtype=sdt)
+                           else "reference", state_dtype=sdt, data=data)
+
 
 
 def _stream(rng, step: int, tag: int = RNG_TAG_HESS) -> np.random.Generator:
@@ -278,7 +328,7 @@ def norm_parts(layout, tree):
 
 
 def clip_reduced(pieces, parts, state: ClipState, max_norm: float,
-                 group=None) -> ClipState:
+                 group=None, split=None, model_group=None) -> ClipState:
     """The global-norm clip on reduced flat gradients, in place.
     ``pieces`` ``[(tensor, segmented, shard, offset)]`` cover the reduced
     shards, ``tensor`` holding elements ``offset + [0, n)`` of shard
@@ -289,7 +339,11 @@ def clip_reduced(pieces, parts, state: ClipState, max_norm: float,
     piece the norm is ``clip_by_global_norm``'s on the tree bit for bit.
     Scales every piece by ``max_norm / norm`` when the norm exceeds
     ``max_norm`` (the reference's rule) and returns the clip state with
-    the global norm."""
+    the global norm.
+
+    On a model axis (``split`` one flag a leaf, ``model_group``) a leaf
+    split over model sums its squares over the model ranks, and a
+    replicated one counts once."""
     flat = [rng for leaf in parts for rng in leaf]
     by_shard: dict = {}
     for k, (si, a, b) in enumerate(flat):
@@ -310,13 +364,25 @@ def clip_reduced(pieces, parts, state: ClipState, max_norm: float,
         _all_reduce([vec], group)
         for k, x in enumerate(vec.unbind(0)):
             sq_all[k].append(x)
-    total, k = None, 0
+    sums, k = [], 0
     for leaf in parts:
         s = 0
         for _ in leaf:
             x = sq_all[k]
             s = s + sum(x[1:], x[0])
             k += 1
+        sums.append(s)
+    if split is not None and any(split):
+        # the split leaves' squares summed over the model ranks
+        flags = torch.tensor(split, device=pieces[0][0].device)
+        vec = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                           device=flags.device)
+                           for x in sums])
+        part = torch.where(flags, vec, torch.zeros_like(vec))
+        _all_reduce([part], model_group)
+        sums = list(torch.where(flags, part, vec).unbind(0))
+    total = None
+    for s in sums:
         total = s if total is None else total + s
     norm = torch.sqrt(total)
     trigger = norm > max_norm
@@ -333,7 +399,7 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
                    probe_fn: Optional[Callable] = None,
                    noise_fn: Optional[Callable] = None,
                    compress_seed_fn: Optional[Callable] = None,
-                   group=None):
+                   group=None, grid=None):
     """Returns ``(init_fn, train_step)``.  ``hess_seed_fn(step)`` replaces
     GNB's noise seed of the fused sweep, ``probe_fn(step, layout)``
     Hutchinson's probe shards (:func:`hess_seed`, :func:`hess_probe`),
@@ -345,22 +411,37 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
 
     ``group``: the process group of a data-parallel run (the default
     group when one is initialized); each rank then passes ``train_step``
-    its rows of the global batch (``data.host_slice``).
+    its rows of the global batch (``data.host_slice``).  ``grid``: a
+    ``(data, model)`` grid (``launch/mesh.py:make_mesh``) in its place:
+    each rank passes the rows of its data coordinate, holds its blocks of
+    the parameters along the model axis and its slices of the flat
+    optimizer shards along the data axis.
 
     ``init_fn(params=None) -> TrainState``: random parameters from a
     ``torch.Generator`` seeded with ``tc.seed`` on the device, or the given
-    ``Transformer``; the key ``train_key(tc.seed)``.
+    ``Transformer``, the whole tree in both cases (on a grid the rank keeps
+    its blocks, ``convert.shard_params``, so every grid trains the weights
+    one process would); the key ``train_key(tc.seed)``.
     ``train_step(state, batch, do_refresh) -> (state, metrics)``: one step
     on a batch of device tensors; the parameters are updated in place."""
     check_ported(tc)
+    grid = resolve_grid(grid, group)
+    check_grid(cfg, tc, grid)
+    set_moe_impl(tc.moe_impl)
     device = resolve_device(device)
     model = get_model(cfg)
-    engine = make_engine(tc)
+    engine = make_engine(tc, grid)
     schedule = make_schedule(tc)
     clipper = clip_by_global_norm(tc.grad_clip)
     compressor = GradCompressor() if tc.compress_grads else None
     hess_compressor = GradCompressor() if tc.compress_hess else None
-    ndev, rank = world(group)
+    # the data axis: its size, this rank's coordinate, its group (the
+    # rows, the loss scale and the gradient reduction); model ranks of one
+    # data coordinate see the same rows
+    ndev, rank = (grid.data, grid.d) if grid is not None else (1, 0)
+    group = grid.data_group if grid is not None else None
+    model_group = grid.model_group if grid is not None else None
+    set_grid(grid)
     # fused_attn applies only while attn_impl is "auto"; an explicit impl
     # wins (the reference's mapping, trainer.py:216-221)
     attn_impl = (tc.attn_impl if tc.attn_impl != "auto"
@@ -380,6 +461,8 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         if params is None:
             gen = torch.Generator(device=device).manual_seed(tc.seed)
             params = model.init_params(cfg, gen)
+        if grid is not None:
+            params = shard_params(params, grid)
         tree = params.param_tree()
         comp = (compressor.init_shards(engine.layout(tree), device=device,
                                        group=group)
@@ -435,18 +518,47 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
         return (loss_sum * inv, {k: v * inv for k, v in met_sum.items()},
                 [g * inv for g in g_sum])
 
+    def reduce_shards(g_sh):
+        """(the rank's reduced shards, their clip pieces): the fp32
+        reduction over the data axis, reduce-scattered to the rank's slice
+        where the engine splits a shard, all-reduced where it does not."""
+        out, pieces = [], []
+        for i, g in enumerate(g_sh):
+            a, b = engine.data_slice(g.numel())
+            if (a, b) == (0, g.numel()):
+                _all_reduce([g], group)
+                out.append(g)
+                pieces.append((g, False, i, 0))
+                continue
+            seg = torch.empty((b - a,), dtype=g.dtype, device=g.device)
+            dist.reduce_scatter_tensor(seg, g.contiguous(), group=group)
+            out.append(seg)
+            pieces.append((seg, True, i, a))
+        return tuple(out), pieces
+
+    def own_slices(g_sh):
+        """The rank's data slice of each whole reduced shard."""
+        return tuple(g[slice(*engine.data_slice(g.numel()))] for g in g_sh)
+
+    def split_leaves(params):
+        """One flag a leaf: whether it is split over the model axis."""
+        if grid is None or grid.model <= 1:
+            return None
+        return [model_dim(p) is not None
+                for p in tree_leaves(params.placements)]
+
     def reduce_estimate(g_sh, share, state):
         """The refresh's gradient-valued pieces, scaled by this rank's
-        share and reduced over the ranks (int8 and stateless with
-        ``compress_hess``); unchanged on one process without it."""
+        share and reduced over the data axis (int8 and stateless with
+        ``compress_hess``), the rank's slices of them; unchanged on one
+        process without it."""
         if ndev > 1:
             g_sh = tuple(g * share for g in g_sh)
         if hess_compressor is not None:
-            return hess_compressor.allreduce_shards_stateless(
+            return own_slices(hess_compressor.allreduce_shards_stateless(
                 g_sh, cseed(state, RNG_TAG_HESS_COMPRESS), group=group,
-                bucket_elems=tc.comm_bucket_elems)
-        _all_reduce(g_sh, group)
-        return g_sh
+                bucket_elems=tc.comm_bucket_elems))
+        return reduce_shards(g_sh)[0]
 
     def global_share(local):
         """(this rank's share of the global count, the global count)."""
@@ -552,12 +664,14 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
 
         def clip(pieces):
             clipped.append(clip_reduced(pieces, parts, state.clip_state,
-                                        tc.grad_clip, group))
+                                        tc.grad_clip, group,
+                                        split_leaves(state.params),
+                                        model_group))
 
         g_sh = engine.ravel_grads(tree, tree_unflatten(tree, g_flat))
         if compressor is None:
-            _all_reduce(g_sh, group)
-            clip([(g, False, i, 0) for i, g in enumerate(g_sh)])
+            g_sh, pieces = reduce_shards(g_sh)
+            clip(pieces)
             return g_sh, clipped[0], comp_state, tele
         out = compressor.allreduce_shards(
             g_sh, comp_state, cseed(state, RNG_TAG_COMPRESS), group=group,
@@ -567,10 +681,14 @@ def make_train_fns(cfg: ModelConfig, tc: TrainerConfig, *, device=None,
             g_sh, comp_state, tele = out
         else:
             g_sh, comp_state = out
-        return g_sh, clipped[0], comp_state, tele
+        return own_slices(g_sh), clipped[0], comp_state, tele
 
     def train_step(state: TrainState, batch, do_refresh=False):
         """One step (Algorithm 3 lines 6-13, the refresh on the flag)."""
+        # the layers read the grid and the dispatch from module state,
+        # which another trainer in the process may have set
+        set_grid(grid)
+        set_moe_impl(tc.moe_impl)
         t_step0 = stamp(device) if tc.comm_telemetry else None
         params = state.params
         tree = params.param_tree()
@@ -616,21 +734,22 @@ def train_loop(cfg: ModelConfig, tc: TrainerConfig, source, *,
                noise_fn: Optional[Callable] = None,
                compress_seed_fn: Optional[Callable] = None,
                callback: Optional[Callable] = None, start_step: int = 0,
-               group=None):
-    """The loop: the batch of step t from ``source.batch_at(t)`` (this
-    rank's rows of it when a process group is initialized) and the refresh
-    at ``t % hess_interval == 0``.  Returns ``(state, history)``, the
-    history one dict of floats per step."""
+               group=None, grid=None):
+    """The loop: the batch of step t from ``source.batch_at(t)`` (the rows
+    of this rank's data coordinate when a process group is initialized)
+    and the refresh at ``t % hess_interval == 0``.  Returns ``(state,
+    history)``, the history one dict of floats per step."""
     device = resolve_device(device)
     init_fn, train_step = make_train_fns(cfg, tc, device=device,
                                          hess_seed_fn=hess_seed_fn,
                                          probe_fn=probe_fn,
                                          noise_fn=noise_fn,
                                          compress_seed_fn=compress_seed_fn,
-                                         group=group)
+                                         group=group, grid=grid)
     if state is None:
         state = init_fn()
-    ndev, rank = world(group)
+    grid = resolve_grid(grid, group)
+    ndev, rank = (grid.data, grid.d) if grid is not None else (1, 0)
     needs_hess = hessian_aware_optimizer(tc.optimizer)
     history = []
     for t in range(start_step, start_step + num_steps):

@@ -25,6 +25,23 @@ Modes:
   peer        rank 1 exits after a barrier; rank 0's next all-reduce
               fails, and it writes whether ``is_distributed_failure``
               classifies the error.
+  grid        the ranks as a ``--shape`` D,M grid (``make_mesh``) train
+              ``--cfg`` (``GRID_CFGS``) from the reference's checkpoint in
+              ``--ckpt-dir`` (or fresh, or from ``--resume-dir``) for
+              ``--steps`` steps on the seeds of ``--seeds``: writes the
+              step-0 loss and gathered gradients (``--grads 1``: the loss
+              of the rank's rows, its gradient summed over data and
+              gathered over model, leaf by leaf), the losses, grad norms
+              and the gathered parameters; ``--save-dir`` checkpoints at
+              the end.
+  moe         each rank runs the MoE FFN of ``--cfg`` on the ``--inp``
+              input (x, a cotangent, the parameters) as the ``--shape``
+              grid's rank, dispatch ``--impl``, on its data coordinate's
+              rows (``gspmd``: rows d, d + D, ... as the trainer gives
+              them; ``a2a``: the d-th block, as the reference's shard_map
+              does): writes the output, aux and the gradients of
+              ``sum(out * ct) + aux``, summed over data and gathered over
+              model.
 
 ``_torch_dist_driver.py launch-straggling ARGS`` instead runs
 ``repro_torch.launch.train`` with ARGS, its straggler detector flagging
@@ -70,7 +87,21 @@ ap.add_argument("--seeds", default=None)
 ap.add_argument("--ckpt-dir", default=None)
 ap.add_argument("--save-dir", default=None)
 ap.add_argument("--resume-dir", default=None)
+ap.add_argument("--shape", default="1,1")
+ap.add_argument("--cfg", default="gpt2_tiny")
+ap.add_argument("--grads", type=int, default=0)
+ap.add_argument("--impl", default="gspmd")
 args = ap.parse_args()
+
+
+def grid_cfg(name):
+    """The port's fp32 configs of the grid tests (their reference twins
+    are ``tests/test_torch_tensor_parallel.py:CFGS``)."""
+    from repro_torch.configs import get_config
+    arch = {"gpt2_tiny": "gpt2-small", "yi_smoke": "yi-6b",
+            "deepseek_smoke": "deepseek-moe-16b",
+            "llama4_smoke": "llama4-maverick-400b-a17b"}[name]
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
 
 torch.set_num_threads(1)
 initialize_distributed(args.store, args.world, args.rank, "cpu",
@@ -141,14 +172,129 @@ elif args.mode == "digest":
     init_fn, _ = make_train_fns(cfg, TrainerConfig(), device="cpu")
     state = init_fn()
     mine = f"{args.ckpt_dir}{args.rank}"
-    # each rank writes a directory of its own, with its rank in the extra
-    checkpoint._write(checkpoint._state_leaves(state), 1, mine,
-                      {"rank": args.rank})
+    # each rank writes a directory of its own, with its rank in the extra,
+    # of the leaves that the collective _state_leaves gives rank 0
+    leaves = [checkpoint._state_leaves(state)]
+    dist.broadcast_object_list(leaves, src=0)
+    checkpoint._write(leaves[0], 1, mine, {"rank": args.rank})
     try:
         checkpoint.restore_resharded(mine, init_fn())
         out["raised"] = np.array(0)
     except ValueError as e:
         out["raised"] = np.array(int("differs across ranks" in str(e)))
+
+elif args.mode == "grid":
+    from repro_torch.convert import gather_params
+    from repro_torch.core.types import flat_tensors, tree_leaves
+    from repro_torch.data import DataConfig, host_slice, make_source
+    from repro_torch.distributed.sharding import gather_leaf, set_grid
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainerConfig, checkpoint,
+                                   make_train_fns, train_loop)
+    from repro_torch.train.trainer import to_device_batch
+
+    D, M = (int(x) for x in args.shape.split(","))
+    grid = make_mesh((D, M))
+    cfg = grid_cfg(args.cfg)
+    tc = TrainerConfig(**json.loads(args.tc))
+    src = make_source(DataConfig(seq_len=16, global_batch=4,
+                                 vocab_size=cfg.vocab_size))
+    state = make_train_fns(cfg, tc, device="cpu", grid=grid)[0]()
+    start = 0
+    if args.resume_dir:
+        state, start = checkpoint.restore_resharded(args.resume_dir, state)
+    elif args.ckpt_dir:
+        state, _ = checkpoint.restore(args.ckpt_dir, state)
+    if args.grads:
+        set_grid(grid)
+        params = state.params
+        batch = to_device_batch(host_slice(src.batch_at(0), grid.d, D),
+                                "cpu")
+        attn = "flash" if tc.fused_attn else "auto"
+        loss, _ = get_model(cfg).loss_fn(cfg, params, batch, attn_impl=attn,
+                                         loss_impl="fused")
+        tree = params.param_tree()
+        grads = iter(torch.autograd.grad(loss / D, flat_tensors(tree)))
+        loss = loss.detach() / D
+        dg = grid.data_group
+        dist.all_reduce(loss, group=dg)
+        out["loss0"] = loss.numpy()
+        for i, (leaf, pl) in enumerate(zip(tree_leaves(tree),
+                                           tree_leaves(params.placements))):
+            g = [next(grads) for _ in leaf] if isinstance(leaf, list) \
+                else next(grads)
+            for t in (g if isinstance(g, list) else [g]):
+                dist.all_reduce(t, group=dg)
+            g = gather_leaf(g, pl, grid)
+            out[f"g{i}"] = (torch.stack(g) if isinstance(g, list)
+                            else g).numpy()
+    seeds = np.load(args.seeds) if args.seeds else None
+    kw = {}
+    if seeds is not None:
+        kw = dict(hess_seed_fn=lambda step: seeds["hess"][step])
+    state, hist = train_loop(cfg, tc, src, num_steps=args.steps,
+                             device="cpu", state=state, start_step=start,
+                             grid=grid, **kw)
+    if args.save_dir:
+        checkpoint.save(args.save_dir, start + args.steps, state)
+    out["loss"] = np.array([h["loss"] for h in hist])
+    out["grad_norm"] = np.array([h["grad_norm"] for h in hist])
+    full = gather_params(state.params, grid)
+    out["params"] = torch.cat([t.detach().reshape(-1)
+                               for t in tree_leaves(full)]).numpy()
+
+elif args.mode == "moe":
+    from repro_torch.distributed.sharding import (gather_leaf,
+                                                  partition_params, set_grid,
+                                                  shard_tree)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import moe_ffn, set_moe_impl
+
+    D, M = (int(x) for x in args.shape.split(","))
+    grid = make_mesh((D, M))
+    data = np.load(args.inp)
+    cfg = dataclasses.replace(grid_cfg(args.cfg),
+                              capacity_factor=float(data["cf"]))
+    full = {k[2:]: torch.from_numpy(data[k]) for k in data if k[:2] == "p_"}
+    shared = {k[7:]: v for k, v in full.items() if k.startswith("shared_")}
+    full = {k: v for k, v in full.items() if not k.startswith("shared_")}
+    if shared:
+        full["shared"] = shared
+    pl = partition_params({"moe": full}, grid, cfg=cfg)["moe"]
+    local = shard_tree(full, pl, grid)
+    for t in [v for v in local.values() if torch.is_tensor(v)] + \
+            list(local.get("shared", {}).values()):
+        t.requires_grad_(True)
+    set_grid(grid)
+    set_moe_impl(args.impl)
+    # the default dispatch takes the trainer's rows (data.host_slice: rows
+    # d, d + D, ...), the all-to-all the reference's shard_map's (a block)
+    B = data["x"].shape[0]
+    rows = (slice(grid.d, None, D) if args.impl == "gspmd" else
+            slice(grid.d * (B // D), (grid.d + 1) * (B // D)))
+    x = torch.from_numpy(data["x"])[rows].clone()
+    x.requires_grad_(True)
+    ct = torch.from_numpy(data["ct"])[rows]
+    y, aux = moe_ffn(local, x, cfg)
+    # every data rank's share of aux: the default dispatch's is the global
+    # batch's, the all-to-all's mean over data the reference's pmean
+    ((y * ct).sum() + aux / D).backward()
+    out["out"] = y.detach().numpy()
+    out["aux"] = aux.detach().numpy()
+    gx = x.grad
+    out["gx"] = gx.numpy()
+
+    def leaves(tree, pls, pre=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], pls[k], pre + k + "_")
+            else:
+                yield pre + k, tree[k], pls[k]
+    for name, t, p in leaves(local, pl):
+        g = t.grad.clone()
+        dist.all_reduce(g, group=grid.data_group)
+        out[f"g_{name}"] = gather_leaf(g, p, grid).numpy()
 
 elif args.mode == "peer":
     from repro_torch.train.elastic import is_distributed_failure
@@ -168,4 +314,7 @@ elif args.mode == "peer":
     os._exit(0)
 
 np.savez(os.path.join(args.out, f"rank{args.rank}.npz"), **out)
+# every rank done before any tears its gloo pairs down: a rank that exits
+# while a peer still reads from it can abort the peer at exit
+dist.barrier()
 dist.destroy_process_group()
