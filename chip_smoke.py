@@ -40,7 +40,9 @@ it fails and prints no result.  Phases, in order:
      dh and dW within 1e-5 of their largest element in fp32 and, with bf16
      h or W, element by element against each element's sum of absolute
      terms (``check_bf16_grad``; bf16 h takes the tensor-core kernels,
-     forward and backward, and each case logs its share beyond 2^-16);
+     forward and backward, and each case logs its share beyond 2^-16;
+     the combined ``ce_backward``, row 13, returns both bit for bit as
+     the standalone dh and dW calls do);
      the sampled labels identical except on rows whose two best perturbed
      logits lie within 1e-5, never a padded column, and the sampled
      forward on every other row with ``row_ids`` (a data-parallel rank's
@@ -315,7 +317,10 @@ it fails and prints no result.  Phases, in order:
      ``torch.optim.SGD(momentum=0.9, dampening=0, fused=True).step()``
      beside the kernel at the same momentum) that computes the same
      function; each CE and flash row names
-     the units its bf16 products run on (tensor cores or FMA); the CE
+     the units its bf16 products run on (tensor cores or FMA) and its
+     TFLOP/s on its products and on the bf16 passes it runs; the dh and
+     dW rows carry row 13, the combined ``ce_backward``, timed at each of
+     their shapes under "ce_backward"; the CE
      kernels at N=8192, the sampled forward also at the refresh's
      N=4096; under each CE and flash row's ``shapes`` the rope models'
      shapes, and under decode attention's NeoX-6.6B's heads (hd 128,
@@ -925,11 +930,17 @@ def check_ce_case(torch, name, spec):
 
     dh_k = ce.ce_backward_dh(h, w, normp, labels, rs, lse_p, **opts)
     dw_k = ce.ce_backward_dw(h, w, normp, labels, rs, lse_p, **opts)
+    # row 13, the combined call: both gradients bit for bit as above
+    dh_c, dw_c = ce.ce_backward(h, w, normp, labels, rs, lse_p, **opts)
     dh_p, dw_p = ce.ce_backward_plain(h, w, normp, labels, rs, lse_p, **opts)
     torch.cuda.synchronize()
     if dh_k.dtype != dh_p.dtype or dw_k.dtype != w.dtype:
         raise AssertionError(f"{name}: dh/dW dtypes {dh_k.dtype}, "
                              f"{dw_k.dtype}")
+    if not (torch.equal(dh_c, dh_k) and torch.equal(dw_c, dw_k)):
+        raise AssertionError(f"{name}: ce_backward's dh/dW differ from "
+                             "ce_backward_dh's and ce_backward_dw's")
+    del dh_c, dw_c
     pad = dw_k[:, opts["vocab"]:] if opts["transpose_w"] else \
         dw_k[opts["vocab"]:]
     if pad.numel() and bool((pad != 0).any()):
@@ -978,7 +989,9 @@ def check_ce_case(torch, name, spec):
         + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
         + f" (forwards within {tol}); dh/dW relative to their largest "
         f"element " + ", ".join(f"{e:.3g}" for e in rel.values())
-        + f"; {grad_note}; sampled labels: {n_diff} differ, {n_near} rows "
+        + f"; {grad_note}; ce_backward (row 13) equals ce_backward_dh and "
+        f"ce_backward_dw bit for bit; sampled labels: {n_diff} differ, "
+        f"{n_near} rows "
         f"near a tie (< {NEAR_TIE}); {rows_note}")
     return errs
 
@@ -5386,7 +5399,10 @@ CE_REFRESH_N = 4096        # the sampled forward's rows in a GNB refresh
 def _ce_timed(torch, spec, label, reps=20, plain_once=False):
     """The four CE kernels at ``spec`` (bf16 h, fp32 W): {kernel: entry}
     with the kernel's time, its plain version's, its bound and the library
-    composition's (not one call) beside it; ``reps`` launches each (a
+    composition's (not one call) beside it, its TFLOP/s on its products
+    and on the bf16 passes it runs; the dh and dW entries also carry row
+    13, the combined ``ce_backward``, under "ce_backward"; ``reps``
+    launches each (a
     quarter of that for the plain versions after a warm-up, or with
     ``plain_once``, at the models' shapes, one call and one warm-up
     launch of the others: ``TIME_CUTS``)."""
@@ -5481,11 +5497,45 @@ def _ce_timed(torch, spec, label, reps=20, plain_once=False):
             "shape": f"{label}: N={N} D={D} Vp={Vp} h=bf16 W=fp32 "
                      f"{layout} {spec['norm']}"
                      + (f" softcap {cap:g}" if cap else "")}
+        passes = ce.ce_passes(name, w_bf16=w.dtype == torch.bfloat16)
+        out[name]["tflops"] = flops / ms / 1e9
+        out[name]["tflops_passes"] = passes * 2 * N * D * Vp / ms / 1e9
         log(f"[timing] {name} ({CE_UNITS[name]}) {label}: kernel {ms:.3f} "
             f"ms, plain {plain_ms:.3f} ms, library {library[name]}, bound "
             f"{bound_ms:.4f} ms ({flops} flops at {BF16_FLOPS_PER_S:.3g}/s, "
             f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g}/s); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"{flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{out[name]['tflops_passes']:.1f} on the {passes} bf16 passes "
+            f"it runs")
+    # row 13: the combined call, dh and dW from one prep and one logits
+    # sweep a chunk; its plain version is the plain backward (timed above
+    # for rows 14 and 15, which it computes whole), its yardstick the
+    # composition's autograd backward
+    ms = time_ms(torch, lambda: ce.ce_backward(h, w, normp, labels, rs, lse,
+                                               **opts),
+                 flush, reps=reps, warmup=warm)
+    flops = ce.ce_flops(N, D, Vp, "ce_backward")
+    nbytes = ce.ce_bytes(N, D, Vp, "ce_backward", bytes_h=h.element_size(),
+                         bytes_w=w.element_size())
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    passes = ce.ce_passes("ce_backward", w_bf16=w.dtype == torch.bfloat16)
+    row13 = {"ms": ms, "plain_ms": out["ce_backward_dh"]["plain_ms"],
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "library_ms": library["ce_backward_dh"],
+             "tflops": flops / ms / 1e9,
+             "tflops_passes": passes * 2 * N * D * Vp / ms / 1e9}
+    for name in ("ce_backward_dh", "ce_backward_dw"):
+        out[name]["ce_backward"] = row13
+    log(f"[timing] ce_backward (row 13, dh and dW together; "
+        f"{CE_UNITS['ce_backward_dh']}) {label}: kernel {ms:.3f} ms (rows "
+        f"14 + 15 alone {out['ce_backward_dh']['ms']:.3f} + "
+        f"{out['ce_backward_dw']['ms']:.3f}), plain {row13['plain_ms']:.3f} "
+        f"ms, library {row13['library_ms']}, bound {row13['bound_ms']:.4f} "
+        f"ms ({flops} flops, {nbytes} bytes); {row13['tflops']:.1f} TFLOP/s "
+        f"on the three products, {row13['tflops_passes']:.1f} on the "
+        f"{passes} bf16 passes it runs")
     return out
 
 

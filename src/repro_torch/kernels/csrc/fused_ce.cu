@@ -6,19 +6,17 @@
 //   the forward (SAMPLE = false)       _ce_forward (pallas_call :521,
 //                                      body _ce_fwd_kernel :281)
 //   the forward (SAMPLE = true)        _ce_forward_sampled (:544, body :312)
-//     fp32 h: ce_forward_kernel<SAMPLE>; bf16 h: ce_mma_kernel with the
-//     kEpiLse / kEpiSample epilogue; both then ce_combine_kernel
-//   ce_backward_dh_kernel              _ce_backward's dh sweep (:601, body
-//                                      _ce_bwd_dh_kernel :388) and the dh
-//                                      half of its fused schedule (:583,
-//                                      body _ce_bwd_fused_kernel :443)
-//   ce_backward_dw_kernel              _ce_backward's dW sweep (:621, body
-//                                      _ce_bwd_dw_kernel :413) and the dW
-//                                      half of the fused schedule
-// The TPU's one-sweep "fused" backward exists only because of a Pallas
-// pipelining rule (an output block must not be revisited after another
-// was written); blocks here own their outputs outright, so the backward
-// is always the dh kernel and the dW kernel.
+//     fp32 h: ce_forward_kernel<SAMPLE>; bf16 h: ce_mma_kernel<., SAMPLE>
+//     (mma.sync) with the fold epilogue; both then ce_combine_kernel
+//   the backward                       _ce_backward's fused schedule (:583,
+//                                      body _ce_bwd_fused_kernel :443), its
+//                                      dh sweep (:601, _ce_bwd_dh_kernel
+//                                      :388) and its dW sweep (:621,
+//                                      _ce_bwd_dw_kernel :413)
+//     fp32 h: ce_backward_dh_kernel and ce_backward_dw_kernel; bf16 h:
+//     ce_wgmma_kernel's logits, dh and dW cases, one prep and one logits
+//     sweep a chunk for both gradients or for one (ce_backward_launch
+//     with a null dh or dW)
 //
 // The function, as the reference computes it: the final norm applied to
 // each hidden row (fp32 statistics, cast back to h's dtype T: ln =
@@ -37,8 +35,8 @@
 //             and dW = d^T . h_n (h_n in fp32), both summed in fp32, dW
 //             rounded once into W's dtype.
 //
-// Bound: operations.  Each sweep multiplies (N, D) by (D, Vp): 2 N D Vp
-// flops for the forward, twice that for each backward kernel (the logits
+// Bound: operations.  Each product multiplies (N, D) by (D, Vp): 2 N D Vp
+// flops for the forward, three times that for the backward (the logits
 // are recomputed), against one read of h and W.  At the GPT-2 small
 // training shape (N = 8192, D = 768, Vp = 50304) that is ~2,600 flops per
 // byte, far above the ~295 where the card's bf16 tensor cores stop being
@@ -60,11 +58,12 @@
 //   * IEEE rounding intrinsics keep the norm, softcap and d arithmetic in
 //     the reference's operation order (no contraction into FMA).
 // With h in bf16 (the training path) the forward runs on the bf16 tensor
-// cores through the backward's product kernel (below): after the same
-// prep (h_n in bf16, an fp32 W's hi plane; ~90 MB at N = 8192), one
-// ce_mma_kernel sweep computes s = h_n . hi^T over the whole vocabulary,
-// 128 x 128 tiles with the row tiles fastest, and its epilogue folds each
-// tile into one partial per row (fold_tile: a thread's 8 columns, the 4
+// cores (mma.sync.m16n8k16, a 3-stage cp.async ring): after the same
+// prep as the backward's (h_n in bf16, an fp32 W's hi plane; ~90 MB at
+// N = 8192), one ce_mma_kernel sweep computes s = h_n . hi^T over the
+// whole vocabulary, 128 x 128 tiles with the row tiles fastest, and its
+// epilogue folds each tile into one partial per row (fold_tile: a
+// thread's 8 columns, the 4
 // lanes of a quad by shuffles, the 4 column warps through shared memory,
 // earliest column on ties); ce_combine_kernel merges the Vp / 128
 // partials of each row in column order.  h_n and hi are the reference's
@@ -72,41 +71,66 @@
 // differs from the plain version.
 //
 // The backward with h in bf16 (the training path) runs on the bf16 tensor
-// cores (mma.sync.m16n8k16, fp32 accumulate), in a workspace design:
-//   * a prep kernel writes h_n, the normed rows rounded to bf16, once into
-//     an (Np, D) plane (rows padded to 128 with zeros), and one splits an
-//     fp32 W into bf16 planes hi = bf16(W) and lo = bf16(W - hi);
-//   * the vocabulary goes in chunks of cw columns (a multiple of 128, as
-//     many as keep the d workspace under 256 MiB; 7296 at N = 8192).  For
-//     each chunk a logits kernel recomputes s = h_n . hi^T (hi is exactly
-//     the reference's cast of W to h's dtype, so one bf16 product is the
-//     reference's logits) and writes d in fp32 as two bf16 planes d_hi =
-//     bf16(d), d_lo = bf16(d - d_hi) to the (Np, cw) workspace; then the
-//     dh kernel adds d . W over the chunk into an fp32 accumulator as
-//     d_hi.W_hi + d_hi.W_lo + d_lo.W_hi (two passes for bf16 W), and the dW
-//     kernel writes the chunk's rows of dW = d^T . h_n over all rows as
-//     d_hi^T.h_n + d_lo^T.h_n (h_n is exact in bf16), rounded once into W's
-//     dtype.  Each pair of pieces carries ~16 of fp32's 24 bits, the
-//     dropped lo.lo term is ~2^-18 of a product, and every sum runs in
-//     fp32: the reference's fp32 operands to well inside the element-wise
-//     contract (2^-16 of each element's sum of absolute terms).  A
-//     per-slice design (a block owning rows by a D-slice, recomputing the
-//     logits for each slice) would hold no workspace but pay the logits
-//     D / slice times; the workspace costs 4 N cw bytes written and read
-//     a chunk (239 MB at N = 8192: ~0.07 ms each way at 3.35 TB/s);
-//   * one mma kernel serves the three products (and the forward's logits,
-//     above): a 128 x 128 output tile per block of 8 warps (64 x 32 each:
-//     4 x 4 mma tiles, 64 fp32 accumulators a thread and 64 more for the
-//     part in flight, see kPromote), k-steps of 32 through a 3-stage
-//     cp.async ring of padded shared-memory tiles, fragments by ldmatrix
-//     (.trans where an operand's contiguous axis is not k), the operand
-//     layouts (tied or untied W, d or d^T) as template flags, and the
-//     epilogue (d to the workspace, dh accumulate, dW store, the forward's
-//     fold) as a template case.  Blocks own their outputs: no atomics, dW
-//     deterministic and rounded once.  At the training shape the grids are
-//     3648 (logits), 384 (dh) and 342 (dW) blocks a chunk, all above the
-//     card's 132 SMs;
-//   * the chunk loop runs on the host, on the caller's stream.
+// cores through wgmma, fed by TMA (ce_wgmma_kernel), in a workspace design.
+// It replaces the TPU's fused schedule (_ce_bwd_fused_kernel :443, one
+// logits recompute for both gradients) and its dh and dW sweeps
+// (_ce_bwd_dh_kernel :388, _ce_bwd_dw_kernel :413): ce_backward_launch
+// runs the fused schedule, or with a null dh or dW one of its halves on
+// the same kernels.
+//   * Bound: operations.  A call does three products of 2 N D Vp flops
+//     each (the logits recompute, d . W, d^T . h_n: 1.90 TFLOP at GPT-2
+//     small's N 8192, D 768, Vp 50304) against ~0.35 GB of inputs and
+//     outputs, ~1.9 ms at the bf16 peak against ~0.1 ms of bytes.
+//   * Passes.  One prep writes h_n, the normed rows rounded to bf16, into
+//     an (Np, D) plane (rows padded to 128 with zeros), and splits an fp32
+//     W into bf16 planes hi = bf16(W) and lo = bf16(W - hi).  Then, for
+//     each chunk of cw vocabulary columns, one logits sweep s = h_n . hi^T
+//     (hi is exactly the reference's cast of W to h's dtype, so one bf16
+//     pass is the reference's logits) writes d in fp32 as two bf16 planes
+//     d_hi = bf16(d), d_lo = bf16(d - d_hi) to the (Np, cw) workspace; the
+//     dh product adds d . W over the chunk into an fp32 accumulator as
+//     d_hi.W_hi + d_hi.W_lo + d_lo.W_hi (d_hi.W + d_lo.W for bf16 W) and
+//     the dW product writes the chunk's rows of dW = d_hi^T.h_n +
+//     d_lo^T.h_n (h_n is exact in bf16), rounded once into W's dtype: six
+//     bf16 passes of 2 N D Vp (five with bf16 W).  The pieces are needed:
+//     each pair carries ~16 of fp32's 24 bits, the dropped lo.lo term is
+//     ~2^-18 of a product, and every sum runs in fp32, which holds the
+//     contract (2^-16 of each element's sum of absolute terms); one piece
+//     puts most elements beyond it.  The standalone dh and dW calls run
+//     the prep and the logits each (one pass more apiece).
+//   * Pipeline.  Each product is one persistent launch of one 384-thread
+//     block an SM walking 128 x 128 output tiles.  Warp 8 (its warpgroup
+//     hands its registers to the consumers by setmaxnreg, 232 against 40)
+//     keeps a ring of 64-deep stages full (192 KB: 6 stages for the
+//     logits, 4 for dW and for dh with bf16 W, 3 for dh with fp32 W)
+//     with cp.async.bulk.tensor loads of 128-byte swizzled boxes, each
+//     stage's bytes counted on a full mbarrier and its reuse gated by an
+//     empty one; two consumer warpgroups issue m64n128k16 wgmmas on rows
+//     0-63 and 64-127 of the tile straight from shared memory, the four
+//     operand layouts (tied or untied W, dh or dW) set by the descriptors'
+//     major-ness and the instruction's transpose bits, no copy; the tile's
+//     epilogue (d and its split to the workspace, dh accumulate, dW store)
+//     runs from registers while the producer loads the next tile's
+//     stages.  Blocks own their output tiles: no atomics, dW deterministic
+//     and rounded once, the combined call equal to the standalone ones bit
+//     for bit.
+//   * Promotion.  The tensor cores drop bits below the larger operand's
+//     last place when they add into their accumulator (see kPromote), so
+//     each stage's wgmmas (64 of k, every pass) sum into a fresh part and
+//     the part is added into the tile's sum with a rounded fp32 add.  That
+//     keeps 64 + 64 accumulators a consumer thread, so a warpgroup's tile
+//     is 64 x 128.
+//   * Chunk width: as many 128-column tiles as keep the two d planes
+//     under 256 MiB (kWsBudget; 57 tiles, cw 7296, 7 chunks at N 8192).
+//     On an H100 (tests/_ce_backward_compare.py builds the other
+//     budgets) the combined call took 8.1, 7.6, 7.4 and 7.3 ms at 128,
+//     256, 512 and 1024 MiB at GPT-2 small's shape, and 181, 184, 193 and
+//     210 ms at gemma2-9b's (N 8192, D 3584, Vp 256000): 256 MiB is within
+//     4% of each shape's best.  A chunk whose planes stay in the 50 MB
+//     L2 (cw <= ~1500 at N 8192) would give dW's launch 12 tiles a chunk
+//     for 132 SMs; at 7296 the three launches of a chunk have 3648, 384
+//     and 342.
+//   * The chunk loop runs on the host, on the caller's stream.
 // With h in fp32 (the card-vs-CPU checks and tests; not the training
 // path) the backward keeps the first version on the fp32 FMA units: the
 // dh kernel owns 32 rows and loops over the vocabulary, the dW kernel owns
@@ -123,6 +147,7 @@
 // no room for a single-bf16 logits product.
 // The C entry points return cudaGetLastError() after the launches and
 // never synchronise.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -669,7 +694,7 @@ ce_backward_dw_kernel(CeArgs a, TW* __restrict__ dw) {
 }
 
 // ---------------------------------------------------------------------------
-// backward on the bf16 tensor cores (h in bf16)
+// the forward on the bf16 tensor cores (h in bf16): mma.sync
 
 constexpr int kMT = 128;               // output tile rows of an mma block
 constexpr int kNT = 128;               // output tile columns
@@ -681,49 +706,25 @@ constexpr int kStages = 3;             // cp.async ring depth
 // a 50304-column sweep put 20-67% of dh's elements past 2^-16 of their
 // absolute sum on an H100).  Each block therefore sums kPromote
 // stages (64 of k) on the tensor cores and adds that part into the running
-// sum with a rounded fp32 add.
+// sum with a rounded fp32 add (the backward's wgmma kernel below does the
+// same, one 64-deep stage at a time).
 constexpr int kPromote = 2;
 constexpr int kKmStride = kKT + 8;     // padded row of a k-contiguous tile
 constexpr int kMnStride = kMT + 8;     // padded row of an m/n-contiguous tile
 constexpr int kPlane = kMT * kKmStride;  // bf16 elements of one tile plane
 static_assert(kMT == kNT && kMT * kKmStride >= kKT * kMnStride,
               "one plane size serves both layouts");
-constexpr size_t kWsBudget = size_t(256) << 20;  // bytes of the d workspace
 
-// d to the workspace, dh accumulate, dW store; the forward's fold of the
-// logits into (m, l, label logit) or, sampled, (m, l, draw) per row
-enum Epilogue {
-  kEpiDlogits = 0,
-  kEpiDh = 1,
-  kEpiDw = 2,
-  kEpiLse = 3,
-  kEpiSample = 4
-};
-
-// One operand of a product: bf16 planes hi and lo (lo unused with fewer
-// passes), leading dimension ld in elements.  KMAJOR: element (i, k) at
-// i * ld + k; else at k * ld + i.
+// One bf16 operand plane, leading dimension ld in elements.  KMAJOR:
+// element (i, k) at i * ld + k; else at k * ld + i.
 struct Operand {
   const bf16* hi;
-  const bf16* lo;
   int ld;
 };
 
-// Epilogue state.  Logits: the chunk's first vocab column c0 and the d
-// workspace planes (ldd columns).  dh: the fp32 accumulator (ld D), whether
-// this chunk is the first (overwrite), and the bf16 output of the last
-// chunk (null unless dh is returned in h's dtype).  dW: c0 and the output
-// in W's dtype and layout.  Forward: the partials that ce_combine_kernel
-// merges, part[{m, l, ll, zm}][tile][row] and part_idx[tile][row].
-struct Epi {
-  int c0;
-  bf16* d_hi;
-  bf16* d_lo;
-  int ldd;
-  float* acc;
-  int first;
-  bf16* out_t;
-  void* dw;
+// The partials that ce_combine_kernel merges: part[{m, l, ll, zm}][tile]
+// [row] and part_idx[tile][row].
+struct FoldOut {
   float* part;
   int* part_idx;
 };
@@ -793,19 +794,13 @@ __device__ __forceinline__ void load_plane(bf16* dst, const bf16* src,
   }
 }
 
-// The A fragment of 16 rows from r0 at depth kk of a staged tile.
-template <bool KMAJOR>
+// The A fragment of 16 rows from r0 at depth kk of a staged k-contiguous
+// tile.
 __device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* t,
                                        int r0, int kk) {
   const int lane = threadIdx.x % 32;
-  if (KMAJOR) {
-    ldsm_x4<false>(r, t + (r0 + (lane & 15)) * kKmStride + kk +
-                          (lane >> 4) * 8);
-  } else {
-    const int q = lane >> 3, i = lane & 7;
-    ldsm_x4<true>(r, t + (kk + (q >> 1) * 8 + i) * kMnStride + r0 +
-                         (q & 1) * 8);
-  }
+  ldsm_x4<false>(r, t + (r0 + (lane & 15)) * kKmStride + kk +
+                        (lane >> 4) * 8);
 }
 
 // The B fragments of two n8 tiles (16 columns from c0) at depth kk: {b0,
@@ -824,23 +819,22 @@ __device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* t,
   }
 }
 
-// The forward's epilogue: the logits tile at rows m0.., vocab columns c0
-// (all columns of the sweep from epi.c0 + n0 on) folded into one partial
-// per row, part[{m, l, ll, zm}][c0 / 128][row] (and part_idx): each thread
-// folds its 8 columns of each of its 8 rows in ascending order, the 4
-// lanes of a quad merge by shuffles and the 4 column warps through shared
-// memory (the drained cp.async ring) in column order.  The draw keeps the
-// earliest column among equal maxima at every merge, so with
-// ce_combine_kernel's strict > across tiles it is the first argmax of the
-// row, as the reference's.
+// The forward's epilogue: the logits tile at rows m0.., vocab columns
+// n0.. folded into one partial per row, part[{m, l, ll, zm}][n0 / 128]
+// [row] (and part_idx): each thread folds its 8 columns of each of its 8
+// rows in ascending order, the 4 lanes of a quad merge by shuffles and the
+// 4 column warps through shared memory (the drained cp.async ring) in
+// column order.  The draw keeps the earliest column among equal maxima at
+// every merge, so with ce_combine_kernel's strict > across tiles it is the
+// first argmax of the row, as the reference's.
 template <bool SAMPLE>
 __device__ __forceinline__ void fold_tile(const float (&acc)[4][4][4],
-                                          const CeArgs& a, const Epi& epi,
+                                          const CeArgs& a, const FoldOut& out,
                                           int m0, int n0,
                                           unsigned char* smem_raw) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;
-  const int c0 = epi.c0 + n0;
+  const int c0 = n0;
   const int cl = c0 + wn * 32 + 2 * (lane % 4);  // column of j = 0, e = 0
   float* red = reinterpret_cast<float*>(smem_raw);  // [4][4 wn][kMT rows]
   int* red_i = reinterpret_cast<int*>(red + 16 * kMT);  // [4 wn][kMT rows]
@@ -931,46 +925,37 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[4][4][4],
   }
   const size_t P = (size_t)(a.Vp / kNT) * a.N;
   const size_t o = (size_t)(c0 / kNT) * a.N + r;
-  epi.part[o] = M;
-  epi.part[P + o] = L;
-  epi.part[2 * P + o] = LL;
+  out.part[o] = M;
+  out.part[P + o] = L;
+  out.part[2 * P + o] = LL;
   if (SAMPLE) {
-    epi.part[3 * P + o] = Z;
-    epi.part_idx[o] = I;
+    out.part[3 * P + o] = Z;
+    out.part_idx[o] = I;
   }
 }
 
-// The 128 x 128 tile at block (m0, n0) of the passes of A (M x K) . B
-// (K x N) over k < K: PASSES 1 is hi.hi, 2 adds A_lo.B_hi, 3 adds
-// A_hi.B_lo too; then the epilogue EPI.  Every dimension is a multiple of
-// the tile: the callers pad rows to 128, and D and every chunk are
-// multiples of 128.  The forward's grid runs the row tiles fastest, so
-// that the blocks in flight share a few tiles of W and all of h_n stays in
-// the L2 cache: W is read from memory about once.
-template <bool A_KMAJOR, bool B_KMAJOR, int PASSES, int EPI, typename TW,
-          bool TRANSW>
+// The 128 x 128 logits tile at block (m0, n0) of h_n (Np x D) . hi^T over
+// k < K = D, folded into one partial per row (fold_tile).  Every dimension
+// is a multiple of the tile: rows are padded to 128, and D and Vp are
+// multiples of 128.  The grid runs the row tiles fastest, so that the
+// blocks in flight share a few tiles of W and all of h_n stays in the L2
+// cache: W is read from memory about once.
+template <bool B_KMAJOR, bool SAMPLE>
 __global__ void __launch_bounds__(kThreads)
-ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
+ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, FoldOut out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int kAPlanes = PASSES >= 2 ? 2 : 1;
-  constexpr int kBPlanes = PASSES == 3 ? 2 : 1;
-  constexpr int kStageElems = (kAPlanes + kBPlanes) * kPlane;
-  constexpr bool kFold = EPI == kEpiLse || EPI == kEpiSample;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int kStageElems = 2 * kPlane;
+  const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;  // a 2 x 4 grid of 64 x 32 tiles
-  const int m0 = (kFold ? blockIdx.x : blockIdx.y) * kMT;
-  const int n0 = (kFold ? blockIdx.y : blockIdx.x) * kNT;
+  const int m0 = blockIdx.x * kMT;
+  const int n0 = blockIdx.y * kNT;
 
   auto stage_load = [&](int s, int kt) {
     bf16* base = smem + s * kStageElems;
     const int k0 = kt * kKT;
-    load_plane<A_KMAJOR>(base, A.hi, A.ld, m0, k0);
-    if (kAPlanes == 2)
-      load_plane<A_KMAJOR>(base + kPlane, A.lo, A.ld, m0, k0);
-    bf16* bb = base + kAPlanes * kPlane;
-    load_plane<B_KMAJOR>(bb, B.hi, B.ld, n0, k0);
-    if (kBPlanes == 2) load_plane<B_KMAJOR>(bb + kPlane, B.lo, B.ld, n0, k0);
+    load_plane<true>(base, A.hi, A.ld, m0, k0);
+    load_plane<B_KMAJOR>(base + kPlane, B.hi, B.ld, n0, k0);
   };
 
   // part sums kPromote stages on the tensor cores; acc sums the parts with
@@ -996,10 +981,10 @@ ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
     if (nxt < nk) stage_load(nxt % kStages, nxt);
     cp_async_commit();
     const bf16* base = smem + (kt % kStages) * kStageElems;
-    const bf16* tb = base + kAPlanes * kPlane;
+    const bf16* tb = base + kPlane;
 #pragma unroll
     for (int kk = 0; kk < kKT; kk += 16) {
-      uint32_t bh[4][2], bl[4][2];
+      uint32_t bh[4][2];
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         uint32_t r[4];
@@ -1008,26 +993,14 @@ ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
         bh[2 * p][1] = r[1];
         bh[2 * p + 1][0] = r[2];
         bh[2 * p + 1][1] = r[3];
-        if (kBPlanes == 2) {
-          frag_b<B_KMAJOR>(r, tb + kPlane, wn * 32 + p * 16, kk);
-          bl[2 * p][0] = r[0];
-          bl[2 * p][1] = r[1];
-          bl[2 * p + 1][0] = r[2];
-          bl[2 * p + 1][1] = r[3];
-        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        uint32_t ah[4], al[4];
-        frag_a<A_KMAJOR>(ah, base, wm * 64 + i * 16, kk);
-        if (kAPlanes == 2)
-          frag_a<A_KMAJOR>(al, base + kPlane, wm * 64 + i * 16, kk);
+        uint32_t ah[4];
+        frag_a(ah, base, wm * 64 + i * 16, kk);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < 4; ++j)
           mma_bf16(part[i][j], ah, bh[j][0], bh[j][1]);
-          if (PASSES >= 2) mma_bf16(part[i][j], al, bh[j][0], bh[j][1]);
-          if (PASSES == 3) mma_bf16(part[i][j], ah, bl[j][0], bl[j][1]);
-        }
       }
     }
     if ((kt + 1) % kPromote == 0 || kt == nk - 1) {
@@ -1043,73 +1016,417 @@ ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, Epi epi) {
     }
   }
   cp_async_wait<0>();
-  if constexpr (kFold) {
-    fold_tile<EPI == kEpiSample>(acc, a, epi, m0, n0, smem_raw);
-    return;
-  }
+  fold_tile<SAMPLE>(acc, a, out, m0, n0, smem_raw);
+}
 
-  // acc[i][j][2 h + e] is the tile's element at row wm 64 + 16 i + lane / 4
-  // + 8 h, column wn 32 + 8 j + 2 (lane % 4) + e
+// ---------------------------------------------------------------------------
+// the backward on the bf16 tensor cores (h in bf16): wgmma fed by TMA
+
+constexpr int kWgBM = 128;        // output tile rows: 64 a consumer warpgroup
+constexpr int kWgBN = 128;        // output tile columns
+constexpr int kWgBK = 64;         // k of one stage, summed apart (kPromote)
+constexpr int kWgThreads = 384;   // two consumer warpgroups, one producer
+constexpr int kTileBytes = kWgBM * kWgBK * 2;  // one bf16 plane of a stage
+constexpr int kRingBytes = 12 * kTileBytes;    // 192 KB: 3, 4 or 6 stages
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;  // 2 x 128 x 232 +
+                                                        // 128 x 40 <= 64 K
+// The d workspace: as many 128-column tiles a chunk as keep its two bf16
+// planes under 256 MiB (7296 columns at N 8192: see the note at the top).
+constexpr size_t kWsBudget = size_t(256) << 20;
+
+// d to the workspace, dh accumulate, dW store
+enum BwdEpilogue { kEpiDlogits = 0, kEpiDh = 1, kEpiDw = 2 };
+
+// Epilogue state.  Logits: the chunk's first vocab column c0 and the d
+// workspace planes (ldd columns).  dh: the fp32 accumulator (ld D), whether
+// this chunk is the first (overwrite), and the bf16 output of the last
+// chunk (null unless dh is returned in h's dtype).  dW: c0 and the output
+// in W's dtype and layout.
+struct Epi {
+  int c0;
+  bf16* d_hi;
+  bf16* d_lo;
+  int ldd;
+  float* acc;
+  int first;
+  bf16* out_t;
+  void* dw;
+};
+
+// The TMA descriptors of one product: A's and B's hi and lo planes (lo
+// unused with fewer passes).
+struct Maps {
+  CUtensorMap a_hi, a_lo, b_hi, b_lo;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also sets the bytes the barrier's phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Until the phase of parity ``parity`` has completed (the phase before a
+// fresh barrier's first counts as completed, parity 1).  A wait of ~10 s
+// (2^34 cycles; a tile takes microseconds) traps: a load that never lands
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// One box of a 2-d tensor map into shared memory at coordinates (x
+// innermost, y), its bytes counted on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x),
+      "r"(y)
+      : "memory");
+}
+
+// The 128 x 64 tile of an operand at (rows r0.., depth k0..): K-major, one
+// box of 128 rows of 64 (one 128-byte swizzle row each); MN-major, two
+// boxes of 64 depth rows of 64 (rows r0.. and r0 + 64..), 8 KB apart.
+template <bool MN>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int k0) {
+  if (MN) {
+    tma_load(dst, map, bar, r0, k0);
+    tma_load(dst + kTileBytes / 2, map, bar, r0 + 64, k0);
+  } else {
+    tma_load(dst, map, bar, k0, r0);
+  }
+}
+
+// The wgmma descriptor of a 128-byte swizzled tile at p: 8-row groups
+// 1024 bytes apart (SBO), 64-wide MN blocks lbo apart (MN-major).
+__device__ __forceinline__ uint64_t wg_desc(const unsigned char* p,
+                                            uint32_t lbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// k-step s (16 of k) of a staged tile: K-major, 32 bytes along the
+// swizzle row; MN-major, 16 rows of 128 bytes (the second 64-wide block
+// of a 128-wide B 8 KB on).
+template <bool MN>
+__device__ __forceinline__ uint64_t wg_desc_k(const unsigned char* t,
+                                              int s) {
+  return MN ? wg_desc(t + s * 2048, kTileBytes / 2) : wg_desc(t + s * 32, 16);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin the registers of d here: reads after a wgmma_wait cannot move above
+// it, writes before a wgmma_fence cannot move below it.
+__device__ __forceinline__ void hold(float (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// d (m64n128) += A B (scale_d 0: d = A B), both from shared memory; TA, TB
+// 1 where the operand is MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The epilogue of one consumer thread: acc[4 j + 2 h + e] is the tile's
+// element at row r + 8 h, column c + 8 j + e.
+template <int EPI, typename TW, bool TRANSW>
+__device__ __forceinline__ void wg_epilogue(const float (&acc)[64],
+                                            const CeArgs& a, const Epi& epi,
+                                            int r, int c) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + wm * 64 + i * 16 + lane / 4 + 8 * h;
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (EPI == kEpiDlogits) {
+      // row: a token row (past N: d = 0); c: a column of the chunk
+      const bool live = row < a.N;
+      const float lse = live ? a.lse[row] : 0.0f;
+      const float rs = live ? a.rs[row] : 0.0f;
+      const int lab = live ? a.labels[row] : -1;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + wn * 32 + j * 8 + 2 * (lane % 4);
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (EPI == kEpiDlogits) {
-          // r: a row (past N: d = 0); c: a column of the chunk
-          float d0 = 0.0f, d1 = 0.0f;
-          if (r < a.N) {
-            const float lse = a.lse[r], rs = a.rs[r];
-            const int lab = a.labels[r];
-            d0 = dlogit(a, v0, epi.c0 + c, lse, lab, rs);
-            d1 = dlogit(a, v1, epi.c0 + c + 1, lse, lab, rs);
-          }
-          const bf16 h0 = __float2bfloat16_rn(d0);
-          const bf16 h1 = __float2bfloat16_rn(d1);
-          __nv_bfloat162 hi, lo;
-          hi.x = h0;
-          hi.y = h1;
-          lo.x = __float2bfloat16_rn(__fsub_rn(d0, __bfloat162float(h0)));
-          lo.y = __float2bfloat16_rn(__fsub_rn(d1, __bfloat162float(h1)));
-          const size_t o = (size_t)r * epi.ldd + c;
-          *reinterpret_cast<__nv_bfloat162*>(epi.d_hi + o) = hi;
-          *reinterpret_cast<__nv_bfloat162*>(epi.d_lo + o) = lo;
-        } else if (EPI == kEpiDh) {
-          // r: a row, c: a column of D
-          if (r >= a.N) continue;
-          const size_t o = (size_t)r * a.D + c;
-          float2 v = make_float2(v0, v1);
-          if (!epi.first) {
-            const float2 p = *reinterpret_cast<const float2*>(epi.acc + o);
-            v.x = __fadd_rn(p.x, v.x);
-            v.y = __fadd_rn(p.y, v.y);
-          }
-          if (epi.out_t != nullptr) {
-            __nv_bfloat162 t;
-            t.x = __float2bfloat16_rn(v.x);
-            t.y = __float2bfloat16_rn(v.y);
-            *reinterpret_cast<__nv_bfloat162*>(epi.out_t + o) = t;
-          } else {
-            *reinterpret_cast<float2*>(epi.acc + o) = v;
-          }
+      for (int j = 0; j < 16; ++j) {
+        const int col = c + 8 * j;
+        float d0 = 0.0f, d1 = 0.0f;
+        if (live) {
+          d0 = dlogit(a, acc[4 * j + 2 * h], epi.c0 + col, lse, lab, rs);
+          d1 = dlogit(a, acc[4 * j + 2 * h + 1], epi.c0 + col + 1, lse, lab,
+                      rs);
+        }
+        const bf16 h0 = __float2bfloat16_rn(d0);
+        const bf16 h1 = __float2bfloat16_rn(d1);
+        __nv_bfloat162 hi, lo;
+        hi.x = h0;
+        hi.y = h1;
+        lo.x = __float2bfloat16_rn(__fsub_rn(d0, __bfloat162float(h0)));
+        lo.y = __float2bfloat16_rn(__fsub_rn(d1, __bfloat162float(h1)));
+        const size_t o = (size_t)row * epi.ldd + col;
+        *reinterpret_cast<__nv_bfloat162*>(epi.d_hi + o) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(epi.d_lo + o) = lo;
+      }
+    } else if (EPI == kEpiDh) {
+      // row: a token row; c: a column of D.  The earlier chunks' sums of
+      // the row are loaded in one batch before any is used: loaded one at
+      // a time, each waits behind the producer's TMA traffic (on an H100
+      // at GPT-2 small's shape, 0.65 ms a chunk, twice the product itself)
+      if (row >= a.N) continue;
+      const size_t o0 = (size_t)row * a.D + c;
+      float2 prev[16];
+      if (!epi.first) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          prev[j] = __ldcg(reinterpret_cast<const float2*>(epi.acc + o0 +
+                                                           8 * j));
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const size_t o = o0 + 8 * j;
+        float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (!epi.first) {
+          v.x = __fadd_rn(prev[j].x, v.x);
+          v.y = __fadd_rn(prev[j].y, v.y);
+        }
+        if (epi.out_t != nullptr) {
+          __nv_bfloat162 t;
+          t.x = __float2bfloat16_rn(v.x);
+          t.y = __float2bfloat16_rn(v.y);
+          *reinterpret_cast<__nv_bfloat162*>(epi.out_t + o) = t;
         } else {
-          // r: a vocab column of the chunk, c: a column of D
-          TW* dw = static_cast<TW*>(epi.dw);
-          const int col = epi.c0 + r;
-          if (TRANSW) {
-            dw[(size_t)c * a.Vp + col] = from_float<TW>(v0);
-            dw[(size_t)(c + 1) * a.Vp + col] = from_float<TW>(v1);
-          } else {
-            dw[(size_t)col * a.D + c] = from_float<TW>(v0);
-            dw[(size_t)col * a.D + c + 1] = from_float<TW>(v1);
+          *reinterpret_cast<float2*>(epi.acc + o) = v;
+        }
+      }
+    } else {
+      // row: a vocab column of the chunk; c: a column of D
+      TW* dw = static_cast<TW*>(epi.dw);
+      const int col = epi.c0 + row;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int k = c + 8 * j;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (TRANSW) {
+          dw[(size_t)k * a.Vp + col] = from_float<TW>(v0);
+          dw[(size_t)(k + 1) * a.Vp + col] = from_float<TW>(v1);
+        } else {
+          dw[(size_t)col * a.D + k] = from_float<TW>(v0);
+          dw[(size_t)col * a.D + k + 1] = from_float<TW>(v1);
+        }
+      }
+    }
+  }
+}
+
+// The backward's products, A (M x K) . B (K x N) over k < K, PASSES 1 the
+// hi planes alone, 2 adding A_lo.B_hi, 3 adding A_hi.B_lo too, then the
+// epilogue EPI; A_MN / B_MN: the operand is stored MN-major (its k not
+// contiguous).  A persistent block of one SM walks the 128 x 128 output
+// tiles t = blockIdx.x, + gridDim.x, ...: the logits run the row tiles
+// fastest (the blocks in flight share a few tiles of W and keep all of h_n
+// in the L2 cache), d . W and d^T . h_n the D tiles (the blocks in flight
+// share a block of d).  Warp 8 (the producer warpgroup, its registers
+// given to the consumers) keeps the ring of 64-deep stages full with TMA
+// loads on mbarriers; consumer warpgroup g (threads 128 g..) issues the
+// wgmmas of rows 64 g.. of each tile, sums each stage's passes on the
+// tensor cores into part and adds part into acc with rounded fp32 adds
+// (the promotion, see kPromote), releases the stage, and stores the tile
+// while the producer is already loading the next one's stages.  Every
+// dimension is a multiple of 128; blocks own their output tiles outright.
+template <int EPI, bool A_MN, bool B_MN, int PASSES, typename TW,
+          bool TRANSW>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ce_wgmma_kernel(const __grid_constant__ Maps maps, int K, int tiles_m,
+                int tiles_n, CeArgs a, Epi epi) {
+  constexpr int kAPlanes = PASSES >= 2 ? 2 : 1;
+  constexpr int kBPlanes = PASSES == 3 ? 2 : 1;
+  constexpr int kStageBytes = (kAPlanes + kBPlanes) * kTileBytes;
+  constexpr int kRing = kRingBytes / kStageBytes;
+  static_assert(kRing * kStageBytes == kRingBytes, "whole stages");
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  unsigned char* ring =
+      wg_smem + ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRingBytes);
+  uint64_t* empty = full + kRing;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);    // the producer's expect_tx, then the bytes
+      mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = tiles_m * tiles_n;
+  const int nk = K / kWgBK;
+  auto coords = [&](int t, int& m0, int& n0) {
+    const bool rows_fast = EPI == kEpiDlogits;
+    m0 = (rows_fast ? t % tiles_m : t / tiles_n) * kWgBM;
+    n0 = (rows_fast ? t / tiles_m : t % tiles_n) * kWgBN;
+  };
+
+  if (threadIdx.x >= 256) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      // B's vocabulary offset: the logits' rows of W, d . W's depth
+      const int b_r = EPI == kEpiDlogits ? epi.c0 : 0;
+      const int b_k = EPI == kEpiDh ? epi.c0 : 0;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        int m0, n0;
+        coords(t, m0, n0);
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * kStageBytes;
+          uint64_t* bar = &full[stage];
+          mbar_expect_tx(bar, kStageBytes);
+          const int k0 = kb * kWgBK;
+          load_tile<A_MN>(st, &maps.a_hi, bar, m0, k0);
+          if (kAPlanes == 2)
+            load_tile<A_MN>(st + kTileBytes, &maps.a_lo, bar, m0, k0);
+          unsigned char* sb = st + kAPlanes * kTileBytes;
+          load_tile<B_MN>(sb, &maps.b_hi, bar, b_r + n0, b_k + k0);
+          if (kBPlanes == 2)
+            load_tile<B_MN>(sb + kTileBytes, &maps.b_lo, bar, b_r + n0,
+                            b_k + k0);
+          if (++stage == kRing) {
+            stage = 0;
+            phase ^= 1;
           }
         }
       }
     }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int g = threadIdx.x / 128;
+    const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int m0, n0;
+      coords(t, m0, n0);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* st = ring + stage * kStageBytes;
+        const unsigned char* ta = st + g * (kTileBytes / 2);  // rows 64 g..
+        const unsigned char* tb = st + kAPlanes * kTileBytes;
+        hold(part);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kWgBK / 16; ++s) {
+          const uint64_t da = wg_desc_k<A_MN>(ta, s);
+          const uint64_t db = wg_desc_k<B_MN>(tb, s);
+          wgmma_n128<A_MN, B_MN>(part, da, db, s > 0);
+          if (PASSES >= 2)
+            wgmma_n128<A_MN, B_MN>(part, wg_desc_k<A_MN>(ta + kTileBytes, s),
+                                   db, 1);
+          if (PASSES == 3)
+            wgmma_n128<A_MN, B_MN>(part, da,
+                                   wg_desc_k<B_MN>(tb + kTileBytes, s), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(part);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+        if (++stage == kRing) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_epilogue<EPI, TW, TRANSW>(acc, a, epi,
+                                   m0 + 64 * g + 16 * warp + lane / 4,
+                                   n0 + 2 * (lane % 4));
+    }
+  }
 }
 
 // h_n, the normed rows rounded to bf16, in an (Np, D) plane; rows past N
@@ -1248,20 +1565,6 @@ TcPlan fwd_plan(int N, int D, int Vp, int w_bf16) {
   return p;
 }
 
-template <bool A_KMAJOR, bool B_KMAJOR, int PASSES, int EPI, typename TW,
-          bool TRANSW>
-cudaError_t launch_mma(dim3 grid, const Operand& A, const Operand& B, int K,
-                       const CeArgs& a, const Epi& epi, cudaStream_t st) {
-  constexpr int planes = (PASSES >= 2 ? 2 : 1) + (PASSES == 3 ? 2 : 1);
-  const int smem = (int)(sizeof(bf16) * kStages * planes * kPlane);
-  auto kern = ce_mma_kernel<A_KMAJOR, B_KMAJOR, PASSES, EPI, TW, TRANSW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, st>>>(A, B, K, a, epi);
-  return cudaGetLastError();
-}
-
 // Row statistics, h_n and W's planes: what every chunk reads.
 template <typename TW>
 cudaError_t tc_prep(const CeArgs& a, float* stats, const TcPlan& p,
@@ -1279,33 +1582,14 @@ cudaError_t tc_prep(const CeArgs& a, float* stats, const TcPlan& p,
   return cudaGetLastError();
 }
 
-// W's bf16 planes from vocab column c0 on: (vocab c, depth k) lies at
-// c D + k in a tied W (Vp, D) and at k Vp + c in an untied one (D, Vp).
-template <typename TW, bool TRANSW>
-Operand w_operand(const CeArgs& a, const TcPlan& p, unsigned char* ws,
-                  int c0) {
-  const size_t off = TRANSW ? (size_t)c0 : (size_t)c0 * a.D;
-  const int ld = TRANSW ? a.Vp : a.D;
-  if (!std::is_same<TW, float>::value)
-    return Operand{static_cast<const bf16*>(a.w) + off, nullptr, ld};
-  return Operand{reinterpret_cast<const bf16*>(ws + p.w_hi) + off,
-                 reinterpret_cast<const bf16*>(ws + p.w_lo) + off, ld};
-}
-
-// d of the chunk of columns c0 .. c0 + width into the workspace: s = h_n .
-// hi^T over k = D (W k-contiguous when tied).
-template <typename TW, bool TRANSW>
-cudaError_t tc_dlogits(const CeArgs& a, const TcPlan& p, unsigned char* ws,
-                       int c0, int width, cudaStream_t st) {
-  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), nullptr, a.D};
-  Epi epi{};
-  epi.c0 = c0;
-  epi.d_hi = reinterpret_cast<bf16*>(ws + p.d_hi);
-  epi.d_lo = reinterpret_cast<bf16*>(ws + p.d_lo);
-  epi.ldd = p.cw;
-  return launch_mma<true, !TRANSW, 1, kEpiDlogits, TW, TRANSW>(
-      dim3(width / kNT, p.Np / kMT), hn, w_operand<TW, TRANSW>(a, p, ws, c0),
-      a.D, a, epi, st);
+// W's bf16 hi plane: the workspace's for an fp32 W, else W itself; (vocab
+// c, depth k) lies at c D + k in a tied W (Vp, D) and at k Vp + c in an
+// untied one (D, Vp).
+template <typename TW>
+const bf16* w_hi_plane(const CeArgs& a, const TcPlan& p,
+                       const unsigned char* ws) {
+  if (!std::is_same<TW, float>::value) return static_cast<const bf16*>(a.w);
+  return reinterpret_cast<const bf16*>(ws + p.w_hi);
 }
 
 // The forward with bf16 h: s = h_n . hi^T over the whole vocabulary in
@@ -1321,85 +1605,180 @@ cudaError_t forward_tc_impl(const CeArgs& a, float* stats, int splits, int,
   const TcPlan p = fwd_plan(a.N, a.D, a.Vp, !std::is_same<TW, float>::value);
   cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
   if (err != cudaSuccess) return err;
-  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), nullptr, a.D};
-  Epi epi{};
-  epi.part = part;
-  epi.part_idx = part_idx;
-  err = launch_mma<true, !TRANSW, 1, SAMPLE ? kEpiSample : kEpiLse, TW,
-                   TRANSW>(dim3(p.Np / kMT, splits), hn,
-                           w_operand<TW, TRANSW>(a, p, ws, 0), a.D, a, epi,
-                           st);
+  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), a.D};
+  const Operand w{w_hi_plane<TW>(a, p, ws), TRANSW ? a.Vp : a.D};
+  constexpr int smem = (int)(sizeof(bf16) * kStages * 2 * kPlane);
+  auto kern = ce_mma_kernel<!TRANSW, SAMPLE>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(p.Np / kMT, splits), kThreads, smem, st>>>(
+      hn, w, a.D, a, FoldOut{part, part_idx});
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ce_combine_kernel<<<(a.N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       a.N, splits, SAMPLE ? 1 : 0, part, part_idx, lse, ll, yhat);
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda); null where it is missing.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+// The TMA map of a (outer, inner) bf16 plane: boxes of 64 inner elements
+// (one 128-byte swizzle row) by box_rows, swizzled 128 bytes as the wgmma
+// descriptors read them.  box_rows 128 for an operand read K-major (inner
+// is its k), 64 for one read MN-major.
+bool plane_map(CUtensorMap* map, const void* base, int inner, int outer,
+               int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return n;
+}
+
+template <int EPI, bool A_MN, bool B_MN, int PASSES, typename TW,
+          bool TRANSW>
+cudaError_t launch_wgmma(const Maps& maps, int K, int tiles_m, int tiles_n,
+                         const CeArgs& a, const Epi& epi, cudaStream_t st) {
+  // the ring, 1024 bytes to align it, and its full and empty barriers
+  constexpr int smem = kRingBytes + 1024 + 2 * 6 * 8;
+  auto kern = ce_wgmma_kernel<EPI, A_MN, B_MN, PASSES, TW, TRANSW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = std::min(tiles_m * tiles_n, sm_count());
+  kern<<<grid, kWgThreads, smem, st>>>(maps, K, tiles_m, tiles_n, a, epi);
+  return cudaGetLastError();
+}
+
+// The bf16-h backward: one prep, then for each vocabulary chunk one logits
+// sweep writing d as (d_hi, d_lo), the dh product (unless dh is null) and
+// the dW product (unless dw is null).  The products of a chunk follow its
+// logits on the stream, and the next chunk's logits follow both.
 template <typename TW, bool TRANSW>
-cudaError_t dh_tc_impl(const CeArgs& a, float* stats, void* dh, int dh_f32,
-                       unsigned char* ws, cudaStream_t st) {
+cudaError_t backward_tc_impl(const CeArgs& a, float* stats, void* dh,
+                             int dh_f32, void* dw, unsigned char* ws,
+                             cudaStream_t st) {
   constexpr bool kW32 = std::is_same<TW, float>::value;
-  const TcPlan p = tc_plan(a.N, a.D, a.Vp, !kW32, !dh_f32);
+  const TcPlan p = tc_plan(a.N, a.D, a.Vp, !kW32, dh != nullptr && !dh_f32);
   cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
   if (err != cudaSuccess) return err;
-  const Operand d{reinterpret_cast<const bf16*>(ws + p.d_hi),
-                  reinterpret_cast<const bf16*>(ws + p.d_lo), p.cw};
-  const dim3 grid(a.D / kNT, p.Np / kMT);
+  const bf16* hn = reinterpret_cast<const bf16*>(ws + p.hn);
+  const bf16* w_hi = w_hi_plane<TW>(a, p, ws);
+  const bf16* w_lo = reinterpret_cast<const bf16*>(ws + p.w_lo);
+  bf16* d_hi = reinterpret_cast<bf16*>(ws + p.d_hi);
+  bf16* d_lo = reinterpret_cast<bf16*>(ws + p.d_lo);
+  // W as stored: (Vp, D) tied, (D, Vp) untied
+  const int w_in = TRANSW ? a.Vp : a.D, w_out = TRANSW ? a.D : a.Vp;
+  // logits h_n . hi^T: A = h_n K-major; B = W, n over the vocabulary,
+  // K-major tied and MN-major untied
+  Maps lg{}, mh{}, mw{};
+  bool ok = plane_map(&lg.a_hi, hn, a.D, p.Np, 128) &&
+            plane_map(&lg.b_hi, w_hi, w_in, w_out, TRANSW ? 64 : 128);
+  // d . W: A = d K-major; B = W, n over D, MN-major tied, K-major untied
+  if (dh != nullptr)
+    ok = ok && plane_map(&mh.a_hi, d_hi, p.cw, p.Np, 128) &&
+         plane_map(&mh.a_lo, d_lo, p.cw, p.Np, 128) &&
+         plane_map(&mh.b_hi, w_hi, w_in, w_out, TRANSW ? 128 : 64) &&
+         (!kW32 || plane_map(&mh.b_lo, w_lo, w_in, w_out, TRANSW ? 128 : 64));
+  // d^T . h_n: A = d^T (m the chunk's columns, k the rows), B = h_n (n
+  // over D), both MN-major
+  if (dw != nullptr)
+    ok = ok && plane_map(&mw.a_hi, d_hi, p.cw, p.Np, 64) &&
+         plane_map(&mw.a_lo, d_lo, p.cw, p.Np, 64) &&
+         plane_map(&mw.b_hi, hn, a.D, p.Np, 64);
+  if (!ok) return cudaErrorInvalidValue;
   for (int ci = 0; ci < p.n_chunks; ++ci) {
     const int c0 = ci * p.cw, width = std::min(p.cw, a.Vp - c0);
-    err = tc_dlogits<TW, TRANSW>(a, p, ws, c0, width, st);
+    Epi e{};
+    e.c0 = c0;
+    e.d_hi = d_hi;
+    e.d_lo = d_lo;
+    e.ldd = p.cw;
+    err = launch_wgmma<kEpiDlogits, false, TRANSW, 1, TW, TRANSW>(
+        lg, a.D, p.Np / kWgBM, width / kWgBN, a, e, st);
     if (err != cudaSuccess) return err;
-    Epi epi{};
-    epi.acc = dh_f32 ? static_cast<float*>(dh)
-                     : reinterpret_cast<float*>(ws + p.acc);
-    epi.first = ci == 0;
-    epi.out_t = !dh_f32 && ci == p.n_chunks - 1 ? static_cast<bf16*>(dh)
-                                                 : nullptr;
-    // d . W: k runs over the chunk's vocab columns, n over D; W is
-    // n-contiguous there when tied, k-contiguous when untied
-    const Operand w = w_operand<TW, TRANSW>(a, p, ws, c0);
-    err = kW32 ? launch_mma<true, TRANSW, 3, kEpiDh, TW, TRANSW>(
-                     grid, d, w, width, a, epi, st)
-               : launch_mma<true, TRANSW, 2, kEpiDh, TW, TRANSW>(
-                     grid, d, w, width, a, epi, st);
-    if (err != cudaSuccess) return err;
+    if (dh != nullptr) {
+      Epi eh{};
+      eh.c0 = c0;
+      eh.acc = dh_f32 ? static_cast<float*>(dh)
+                      : reinterpret_cast<float*>(ws + p.acc);
+      eh.first = ci == 0;
+      eh.out_t = !dh_f32 && ci == p.n_chunks - 1 ? static_cast<bf16*>(dh)
+                                                  : nullptr;
+      err = kW32 ? launch_wgmma<kEpiDh, false, !TRANSW, 3, TW, TRANSW>(
+                       mh, width, p.Np / kWgBM, a.D / kWgBN, a, eh, st)
+                 : launch_wgmma<kEpiDh, false, !TRANSW, 2, TW, TRANSW>(
+                       mh, width, p.Np / kWgBM, a.D / kWgBN, a, eh, st);
+      if (err != cudaSuccess) return err;
+    }
+    if (dw != nullptr) {
+      Epi ew{};
+      ew.c0 = c0;
+      ew.dw = dw;
+      err = launch_wgmma<kEpiDw, true, true, 2, TW, TRANSW>(
+          mw, p.Np, width / kWgBM, a.D / kWgBN, a, ew, st);
+      if (err != cudaSuccess) return err;
+    }
   }
   return cudaSuccess;
 }
 
-template <typename TW, bool TRANSW>
-cudaError_t dw_tc_impl(const CeArgs& a, float* stats, void* dw,
-                       unsigned char* ws, cudaStream_t st) {
-  const TcPlan p = tc_plan(a.N, a.D, a.Vp, !std::is_same<TW, float>::value,
-                           0);
-  cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
-  if (err != cudaSuccess) return err;
-  // d^T . h_n: m runs over the chunk's vocab columns, k over the rows
-  // (d^T m-contiguous), n over D (h_n n-contiguous)
-  const Operand dt{reinterpret_cast<const bf16*>(ws + p.d_hi),
-                   reinterpret_cast<const bf16*>(ws + p.d_lo), p.cw};
-  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), nullptr, a.D};
-  for (int ci = 0; ci < p.n_chunks; ++ci) {
-    const int c0 = ci * p.cw, width = std::min(p.cw, a.Vp - c0);
-    err = tc_dlogits<TW, TRANSW>(a, p, ws, c0, width, st);
-    if (err != cudaSuccess) return err;
-    Epi epi{};
-    epi.c0 = c0;
-    epi.dw = dw;
-    err = launch_mma<false, false, 2, kEpiDw, TW, TRANSW>(
-        dim3(a.D / kNT, width / kMT), dt, hn, p.Np, a, epi, st);
-    if (err != cudaSuccess) return err;
+// The backward with h in fp32: the dh kernel (unless dh is null), then
+// the dW kernel (unless dw is null).
+template <typename T, typename TW, bool TRANSW>
+cudaError_t backward_impl(const CeArgs& a, float* stats, void* dh,
+                          int dh_f32, void* dw, unsigned char* ws,
+                          cudaStream_t st) {
+  if (dh != nullptr) {
+    const cudaError_t err =
+        dh_impl<T, TW, TRANSW>(a, stats, dh, dh_f32, ws, st);
+    if (err != cudaSuccess || dw == nullptr) return err;
   }
-  return cudaSuccess;
+  return dw_impl<T, TW, TRANSW>(a, stats, dw, ws, st);
 }
 
 typedef cudaError_t (*ForwardFn)(const CeArgs&, float*, int, int, float*,
                                  int*, float*, float*, int*, unsigned char*,
                                  cudaStream_t);
-typedef cudaError_t (*DhFn)(const CeArgs&, float*, void*, int,
-                            unsigned char*, cudaStream_t);
-typedef cudaError_t (*DwFn)(const CeArgs&, float*, void*, unsigned char*,
-                            cudaStream_t);
+typedef cudaError_t (*BackwardFn)(const CeArgs&, float*, void*, int, void*,
+                                  unsigned char*, cudaStream_t);
 
 // Tables indexed by 4 * h_bf16 + 2 * w_bf16 + transpose_w: fp32 h on the
 // FMA units, bf16 h on the tensor cores.
@@ -1417,17 +1796,11 @@ ForwardFn pick_forward(int index) {
   return table[index];
 }
 
-const DhFn kDhTable[8] = {
-    dh_impl<float, float, false>, dh_impl<float, float, true>,
-    dh_impl<float, bf16, false>,  dh_impl<float, bf16, true>,
-    dh_tc_impl<float, false>,     dh_tc_impl<float, true>,
-    dh_tc_impl<bf16, false>,      dh_tc_impl<bf16, true>};
-
-const DwFn kDwTable[8] = {
-    dw_impl<float, float, false>, dw_impl<float, float, true>,
-    dw_impl<float, bf16, false>,  dw_impl<float, bf16, true>,
-    dw_tc_impl<float, false>,     dw_tc_impl<float, true>,
-    dw_tc_impl<bf16, false>,      dw_tc_impl<bf16, true>};
+const BackwardFn kBackwardTable[8] = {
+    backward_impl<float, float, false>, backward_impl<float, float, true>,
+    backward_impl<float, bf16, false>,  backward_impl<float, bf16, true>,
+    backward_tc_impl<float, false>,     backward_tc_impl<float, true>,
+    backward_tc_impl<bf16, false>,      backward_tc_impl<bf16, true>};
 
 CeArgs make_args(const void* h, const void* w, const float* normp,
                  const float* stats, const int* labels, const float* rs,
@@ -1513,33 +1886,22 @@ long long ce_backward_ws_bytes(int N, int D, int Vp, int h_bf16, int w_bf16,
   return (long long)tc_plan(N, D, Vp, w_bf16, !dh_f32).bytes;
 }
 
-// dh (N, D): fp32 when dh_f32, else h's dtype.  ws: the workspace of
+// dh (N, D; fp32 when dh_f32, else h's dtype) and dW (W's shape and
+// dtype); a null dh or dW is not computed (dh_f32 is then 1), so one call
+// gives both or either.  With bf16 h one prep and one logits sweep a chunk
+// feed the products asked for, each bit for bit what it gives alone; with
+// fp32 h the two FMA kernels.  ws: the workspace of
 // ce_backward_ws_bytes(..., dh_f32).
-int ce_backward_dh_launch(const void* h, const void* w, const float* normp,
-                          float* stats, const int* labels, const float* rs,
-                          const float* lse, void* dh, int dh_f32, void* ws,
-                          int N, int D, int V, int Vp, int h_bf16, int w_bf16,
-                          int transpose_w, int norm, float eps, float softcap,
-                          void* stream) {
+int ce_backward_launch(const void* h, const void* w, const float* normp,
+                       float* stats, const int* labels, const float* rs,
+                       const float* lse, void* dh, int dh_f32, void* dw,
+                       void* ws, int N, int D, int V, int Vp, int h_bf16,
+                       int w_bf16, int transpose_w, int norm, float eps,
+                       float softcap, void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
                              Vp, norm, eps, softcap, 0u, 0u);
-  return (int)kDhTable[table_index(h_bf16, w_bf16, transpose_w)](
-      a, stats, dh, dh_f32, static_cast<unsigned char*>(ws),
-      static_cast<cudaStream_t>(stream));
-}
-
-// dW, W's shape and dtype.  ws: the workspace of ce_backward_ws_bytes(...,
-// 1).
-int ce_backward_dw_launch(const void* h, const void* w, const float* normp,
-                          float* stats, const int* labels, const float* rs,
-                          const float* lse, void* dw, void* ws, int N, int D,
-                          int V, int Vp, int h_bf16, int w_bf16,
-                          int transpose_w, int norm, float eps, float softcap,
-                          void* stream) {
-  const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
-                             Vp, norm, eps, softcap, 0u, 0u);
-  return (int)kDwTable[table_index(h_bf16, w_bf16, transpose_w)](
-      a, stats, dw, static_cast<unsigned char*>(ws),
+  return (int)kBackwardTable[table_index(h_bf16, w_bf16, transpose_w)](
+      a, stats, dh, dh_f32, dw, static_cast<unsigned char*>(ws),
       static_cast<cudaStream_t>(stream));
 }
 

@@ -12,10 +12,10 @@ unembedding without the (N, Vp) logits ever existing:
             ``(seed, row, col)``, so it reproduces the reference's draws
             exactly) and keeps the drawn column's raw logit: GNB's sampled
             labels with no second pass;
-  backward two sweeps recompute each logits tile and emit d(normed hidden)
-            and dW from ``softmax - onehot``; the autograd functions pull
-            d(normed hidden) back through the norm with autograd of the
-            plain :func:`apply_norm`;
+  backward one call recomputes the logits once for both gradients and
+            emits d(normed hidden) and dW from ``softmax - onehot``; the
+            autograd functions pull d(normed hidden) back through the norm
+            with autograd of the plain :func:`apply_norm`;
   twin      :func:`fused_lm_loss_jvp`, the labeled NLL for the Hutchinson
             HVP: the forward kernel's value, and a backward and a tangent
             rule of plain differentiable PyTorch (2048-column chunks), so
@@ -32,13 +32,14 @@ On a CUDA tensor each entry point launches the hand-written kernels of
   ``ce_forward``          forward (TPU kernel ``_ce_forward``, row 11)
   ``ce_forward_sampled``  forward with the draw (``_ce_forward_sampled``,
                           row 12)
-  ``ce_backward_dh``      d(normed hidden) (``_ce_backward`` dh, row 14,
-                          and the dh half of its fused schedule, row 13)
-  ``ce_backward_dw``      dW (``_ce_backward`` dW, row 15, and the dW half
-                          of row 13)
+  ``ce_backward_dh``      d(normed hidden) (``_ce_backward`` dh, row 14)
+  ``ce_backward_dw``      dW (``_ce_backward`` dW, row 15)
+  ``ce_backward``         both (``_ce_backward``'s fused schedule, row 13):
+                          one launch of the pair, counted as one of each
 
-With h in bf16 (the training path) all four multiply on the bf16 tensor
-cores (h_n and W cast to bf16, as the reference casts them; fp32 sums);
+With h in bf16 (the training path) all of them multiply on the bf16
+tensor cores (h_n and W cast to bf16, as the reference casts them; fp32
+sums): the forwards on ``mma.sync``, the backward on ``wgmma`` fed by TMA;
 with fp32 h on the fp32 FMA units (the card-vs-CPU checks at 1e-5).
 
 On a CPU tensor it computes the plain version beside it, the reference's
@@ -325,10 +326,8 @@ _SIGNATURES = {
                                                       _UINT, _UINT, _INT,
                                                       _INT, _PTR, _PTR],
     "ce_forward_ws_bytes": [_INT] * 5,
-    "ce_backward_dh_launch": [_PTR] * 8 + [_INT, _PTR] + [_INT] * 8
+    "ce_backward_launch": [_PTR] * 8 + [_INT, _PTR, _PTR] + [_INT] * 8
     + [_FLOAT, _FLOAT, _PTR],
-    "ce_backward_dw_launch": [_PTR] * 9 + [_INT] * 8 + [_FLOAT, _FLOAT,
-                                                         _PTR],
     "ce_backward_ws_bytes": [_INT] * 6,
     "ce_row_stats_launch": [_PTR, _PTR] + [_INT] * 4 + [_FLOAT, _PTR],
 }
@@ -457,6 +456,9 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
 
 def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
                      transpose_w, softcap, norm, eps):
+    """``which`` "dh", "dw" or "both" (a tuple (dh, dW) from one launch of
+    the pair: with bf16 h one prep and one logits sweep a chunk feed both
+    products; it counts one launch of each kernel, since both run)."""
     c = _common(h2, w, normp, vocab=vocab, transpose_w=transpose_w,
                 softcap=softcap, norm=norm, eps=eps)
     N = h2.shape[0]
@@ -477,21 +479,23 @@ def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
     _, D, _, Vp, h_bf16, w_bf16 = c["dims"][:6]
     ws = torch.empty((max(1, _launch_fn("ce_backward_ws_bytes")(
         N, D, Vp, h_bf16, w_bf16, dh_f32)),), dtype=torch.uint8, device=dev)
-    if which == "dh":
-        out = torch.empty(h2.shape, device=dev,
-                          dtype=_f32 if norm is not None else h2.dtype)
-        err = _launch_fn("ce_backward_dh_launch")(
-            *ptrs, out.data_ptr(), dh_f32, ws.data_ptr(), *c["dims"],
-            *c["cfg"], c["stream"])
-    else:
-        out = torch.empty(w.shape, dtype=w.dtype, device=dev)
-        err = _launch_fn("ce_backward_dw_launch")(
-            *ptrs, out.data_ptr(), ws.data_ptr(), *c["dims"], *c["cfg"],
-            c["stream"])
-    name = f"ce_backward_{which}"
-    _raise_on(err, name)
-    KERNEL_LAUNCHES[name] += 1
-    return out
+    dh = dw = None
+    if which != "dw":
+        dh = torch.empty(h2.shape, device=dev,
+                         dtype=_f32 if norm is not None else h2.dtype)
+    if which != "dh":
+        dw = torch.empty(w.shape, dtype=w.dtype, device=dev)
+    # a null output (0) is one the C entry does not compute
+    err = _launch_fn("ce_backward_launch")(
+        *ptrs, 0 if dh is None else dh.data_ptr(), dh_f32,
+        0 if dw is None else dw.data_ptr(), ws.data_ptr(), *c["dims"],
+        *c["cfg"], c["stream"])
+    _raise_on(err, "ce_backward" if which == "both"
+              else f"ce_backward_{which}")
+    for name, out in (("ce_backward_dh", dh), ("ce_backward_dw", dw)):
+        if out is not None:
+            KERNEL_LAUNCHES[name] += 1
+    return (dh, dw) if which == "both" else (dh if which == "dh" else dw)
 
 
 def row_stats(h2, *, norm, eps=1e-6):
@@ -576,14 +580,18 @@ def ce_backward_dw(h2, w, normp, labels, rs, lse, *, vocab,
 
 def ce_backward(h2, w, normp, labels, rs, lse, *, vocab, transpose_w=False,
                 softcap=None, norm=None, eps=1e-6):
-    """(d normed hidden, dW): one plain sweep on the CPU, the dh and dW
-    kernels on the GPU."""
+    """(d normed hidden, dW): one plain sweep on the CPU; on the GPU one
+    launch of the dh and dW kernels together (the reference's fused
+    schedule: with bf16 h one prep and one logits recompute a vocabulary
+    chunk for both products, each gradient bit for bit the one
+    :func:`ce_backward_dh` or :func:`ce_backward_dw` returns).  It adds
+    one to the counts of both ``ce_backward_dh`` and ``ce_backward_dw``,
+    since both products run."""
     kw = dict(vocab=vocab, transpose_w=transpose_w, softcap=softcap,
               norm=norm, eps=eps)
     if _route(h2) == "cpu":
         return ce_backward_plain(h2, w, normp, labels, rs, lse, **kw)
-    return (_backward_kernel("dh", h2, w, normp, labels, rs, lse, **kw),
-            _backward_kernel("dw", h2, w, normp, labels, rs, lse, **kw))
+    return _backward_kernel("both", h2, w, normp, labels, rs, lse, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -904,9 +912,21 @@ def chunked_lm_loss_sampled(hidden, w, draw, mask=None, *, vocab_size,
 
 
 def ce_flops(N: int, D: int, Vp: int, which: str) -> int:
-    """Multiply-add flops of one call: the forward's logits product, and
-    for each backward kernel the recomputed logits plus its own product."""
-    return 2 * N * D * Vp * (1 if which.startswith("ce_forward") else 2)
+    """Multiply-add flops of one call: the forward's logits product; for
+    each backward kernel alone the recomputed logits plus its own product;
+    for ``ce_backward`` (both) the logits and the two products."""
+    products = {"ce_backward_dh": 2, "ce_backward_dw": 2, "ce_backward": 3}
+    return 2 * N * D * Vp * products.get(which, 1)
+
+
+def ce_passes(which: str, *, w_bf16: bool) -> int:
+    """The bf16 products of 2 N D Vp flops the tensor-core route (bf16 h)
+    runs for one call: the logits once (the forwards, and once per
+    backward call), d . W in three hi/lo passes (two with a bf16 W), d^T .
+    h_n in two."""
+    dh, dw = (2 if w_bf16 else 3), 2
+    return {"ce_backward_dh": 1 + dh, "ce_backward_dw": 1 + dw,
+            "ce_backward": 1 + dh + dw}.get(which, 1)
 
 
 def ce_bytes(N: int, D: int, Vp: int, which: str, *, bytes_h: int,
@@ -920,6 +940,10 @@ def ce_bytes(N: int, D: int, Vp: int, which: str, *, bytes_h: int,
     if which == "ce_forward_sampled":
         return inputs + 3 * vec                        # lse, ll, yhat
     reads = inputs + 3 * vec                           # labels, rs, lse
+    dh = N * D * (4 if norm else bytes_h)
+    dw = Vp * D * bytes_w
     if which == "ce_backward_dh":
-        return reads + N * D * (4 if norm else bytes_h)
-    return reads + Vp * D * bytes_w
+        return reads + dh
+    if which == "ce_backward_dw":
+        return reads + dw
+    return reads + dh + dw                             # ce_backward: both

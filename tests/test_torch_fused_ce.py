@@ -390,6 +390,32 @@ def test_forward_vocab_splits_cover_every_tile(N, Vp):
     assert splits * -(-N // 64) <= 2 * 528 or splits == 1
 
 
+@pytest.mark.parametrize("w_bf16", [False, True])
+def test_backward_work_counts(w_bf16):
+    """The work ``chip_smoke.py`` bounds the backward by: the combined call
+    (row 13) does the logits and both products, each standalone call the
+    logits and its own; the bf16 passes the tensor-core route runs (d . W
+    in three hi/lo passes with an fp32 W, two with a bf16 one; d^T . h_n
+    in two); the combined call's bytes are the inputs once and both
+    outputs."""
+    N, D, Vp = 8192, 768, 50304
+    one = 2 * N * D * Vp
+    assert ce.ce_flops(N, D, Vp, "ce_backward") == 3 * one
+    assert ce.ce_flops(N, D, Vp, "ce_backward_dh") == 2 * one
+    assert ce.ce_flops(N, D, Vp, "ce_forward") == one
+    dh = 2 if w_bf16 else 3
+    assert ce.ce_passes("ce_backward", w_bf16=w_bf16) == 1 + dh + 2
+    assert ce.ce_passes("ce_backward_dh", w_bf16=w_bf16) == 1 + dh
+    assert ce.ce_passes("ce_backward_dw", w_bf16=w_bf16) == 3
+    bw = 2 if w_bf16 else 4
+    kw = dict(bytes_h=2, bytes_w=bw)
+    both = ce.ce_bytes(N, D, Vp, "ce_backward", **kw)
+    assert both == (ce.ce_bytes(N, D, Vp, "ce_backward_dh", **kw)
+                    + Vp * D * bw)
+    assert both == (ce.ce_bytes(N, D, Vp, "ce_backward_dw", **kw)
+                    + N * D * 4)
+
+
 # ---------------------------------------------------------------------------
 # the tensor-core backward's operand split, emulated in PyTorch
 
