@@ -745,6 +745,8 @@ CE_CASES = [
      dict(sp, N=130, h="float32", mask=True))
     for name, sp in CE_DENSE_SHAPES]
 CE_SEED = (1234567, 89101112)      # the sampled forward's noise seed
+# the bf16-h forwards' kernel (rows 11-12), as the profiler names it
+CE_FWD_KERNEL = "ce_fwd_wgmma_kernel"
 NEAR_TIE = 1e-5
 
 
@@ -777,14 +779,15 @@ def _ce_inputs(torch, *, N, D, V, Vp, tied, norm, softcap, h, w, mask,
     return hid, wt, normp, labels, rs, opts
 
 
-def _draw_gaps(torch, h2, w, normp, opts):
+def _draw_gaps(torch, h2, w, normp, opts, stats=None):
     """Per row, the gap between the two best perturbed logits of the
     plain sweep (a smaller gap is a near-tie the kernel may break the
-    other way: its sums run in another order)."""
+    other way: its sums run in another order); ``stats`` as in
+    ``fused_ce.apply_norm``."""
     from repro_torch.kernels.fused_ce import (_chunk_logits, apply_norm,
                                               hash_gumbel)
 
-    hn = apply_norm(h2, normp, opts["norm"], opts["eps"])
+    hn = apply_norm(h2, normp, opts["norm"], opts["eps"], stats)
     h32 = hn.float()
     N = h2.shape[0]
     Vp = w.shape[1] if opts["transpose_w"] else w.shape[0]
@@ -1952,7 +1955,8 @@ def phase_train(torch):
 
         win = profile_window(f"train {label} (gpt2-small B={TRAIN_B} "
                              f"S={TRAIN_S} bf16)", one_step, match="::ce_",
-                             also=("flash_attn::", "sophia_update::"))
+                             also=("flash_attn::", "sophia_update::",
+                                   CE_FWD_KERNEL))
         state = holder["out"][0]
         busy = win["device_busy_us"]
         win["matched_share"] = win["matched_us"] / busy if busy else None
@@ -1960,9 +1964,14 @@ def phase_train(torch):
         win["attn_share"] = win["attn_us"] / busy if busy else None
         win["engine_us"] = win["also_us"]["sophia_update::"]
         win["engine_share"] = win["engine_us"] / busy if busy else None
+        # the step's CE forwards ran on the Hopper kernel (rows 11-12)
+        win["ce_forward_us"] = win["also_us"][CE_FWD_KERNEL]
         if not win["engine_us"] > 0:
             raise AssertionError(f"profile of the {label}: no sophia_update "
                                  "kernel on the device")
+        if not win["ce_forward_us"] > 0:
+            raise AssertionError(f"profile of the {label}: no "
+                                 f"{CE_FWD_KERNEL} on the device")
         windows.append(win)
         log("[profile] " + json.dumps(win))
     report["profile"] = windows

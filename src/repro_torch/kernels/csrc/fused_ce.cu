@@ -6,8 +6,9 @@
 //   the forward (SAMPLE = false)       _ce_forward (pallas_call :521,
 //                                      body _ce_fwd_kernel :281)
 //   the forward (SAMPLE = true)        _ce_forward_sampled (:544, body :312)
-//     fp32 h: ce_forward_kernel<SAMPLE>; bf16 h: ce_mma_kernel<., SAMPLE>
-//     (mma.sync) with the fold epilogue; both then ce_combine_kernel
+//     fp32 h: ce_forward_kernel<SAMPLE>; bf16 h: ce_fwd_wgmma_kernel<.,
+//     SAMPLE> (wgmma fed by TMA, the fold in registers); both then
+//     ce_combine_kernel
 //   the backward                       _ce_backward's fused schedule (:583,
 //                                      body _ce_bwd_fused_kernel :443), its
 //                                      dh sweep (:601, _ce_bwd_dh_kernel
@@ -58,17 +59,54 @@
 //   * IEEE rounding intrinsics keep the norm, softcap and d arithmetic in
 //     the reference's operation order (no contraction into FMA).
 // With h in bf16 (the training path) the forward runs on the bf16 tensor
-// cores (mma.sync.m16n8k16, a 3-stage cp.async ring): after the same
-// prep as the backward's (h_n in bf16, an fp32 W's hi plane; ~90 MB at
-// N = 8192), one ce_mma_kernel sweep computes s = h_n . hi^T over the
-// whole vocabulary, 128 x 128 tiles with the row tiles fastest, and its
-// epilogue folds each tile into one partial per row (fold_tile: a
-// thread's 8 columns, the 4
-// lanes of a quad by shuffles, the 4 column warps through shared memory,
-// earliest column on ties); ce_combine_kernel merges the Vp / 128
-// partials of each row in column order.  h_n and hi are the reference's
-// casts, so each product is exact and only the order of the fp32 sums
-// differs from the plain version.
+// cores through wgmma, fed by TMA (ce_fwd_wgmma_kernel).
+//   * Bound: operations.  One product of 2 N D Vp flops (633 GFLOP at
+//     GPT-2 small's N 8192, D 768, Vp 50304: 0.64 ms at the bf16 peak)
+//     against one read of h and W (~170 MB, ~0.05 ms).  The fold adds an
+//     expf an element (for the draw also the hash and two logf), work for
+//     the FP32 and special-function units that the products do not use.
+//   * Passes.  The backward's prep writes h_n, the normed rows rounded to
+//     bf16 (rows padded to 128), and for an fp32 W its hi plane bf16(W)
+//     (ce_split_kernel with no lo plane):
+//     the reference's casts, so one bf16 pass gives the reference's
+//     logits, each product exact and only the order of the fp32 sums
+//     differing from the plain version.  Then one persistent sweep over the
+//     whole vocabulary (its walk: the note above ce_fwd_wgmma_kernel), and
+//     ce_combine_kernel merges each row's k partials (k pieces of the
+//     vocabulary a row tile, 33 at the models' shapes on an H100: 5.4 MB
+//     at N 8192 where one partial a 128-column tile took 64 MB).
+//   * Pipeline.  One 384-thread block an SM: a producer warpgroup, which
+//     gives its registers to the other two (setmaxnreg) and whose first
+//     thread keeps a ring of three 128-deep stages full (64 KB each: h_n
+//     and W as 64-deep halves of 128-byte swizzled boxes,
+//     cp.async.bulk.tensor onto full/empty mbarriers), and two consumer
+//     warpgroups on the rows 0-63 and 64-127 of each 128 x 128 tile.  Each
+//     64-deep half sums on the tensor cores into a fresh part (four
+//     m64n128k16 wgmmas) that is promoted into acc (see kWgBK), so the
+//     logits equal the sums of the mma.sync kernel this replaced, which
+//     promoted every 64 of k too; two parts alternate, so a half's wgmmas
+//     run while the last one is added.
+//   * The fold runs from registers: in the m64n128 accumulator layout one
+//     row's 128 columns lie in the 4 lanes of a quad; each thread folds
+//     its 32 columns of each of its 2 rows in ascending order (a max, then
+//     the sum of exp(s - max); the label logit, or the first argmax of s +
+//     g with its raw logit), two xor shuffles merge the quad (among equal
+//     z the smaller column), and lane q carries row q's fold across the
+//     unit's run of tiles (strict > across tiles).  No shared memory, no
+//     block barrier, no branch inside (fold_cols).  It runs while the
+//     producer refills the ring, not under products (see the note above
+//     ce_fwd_wgmma_kernel).
+//   * What bounds it on an H100: the fold and the feed, not the tensor
+//     cores.  At GPT-2 small's shape a call's sweep takes ~1.5 ms against
+//     the products' 0.64 at the peak; without its fold the kernel before
+//     the producer warp took 1.21 ms of its 1.62
+//     (tests/_ce_forward_compare.py, NVIDIA H100 80GB HBM3, 700 W), and
+//     the draw's fold (the hash and two precise logf an element) makes
+//     row 12 about twice row 11 at D 768.
+//   * The draw keeps its exact arithmetic: softcap, the -1e30 sentinel,
+//     row_ids and the hash (mix32, hash_gumbel) with precise expf and logf,
+//     so ŷ is the first argmax of s + g over the valid columns, as the
+//     reference draws it, whatever the pieces.
 //
 // The backward with h in bf16 (the training path) runs on the bf16 tensor
 // cores through wgmma, fed by TMA (ce_wgmma_kernel), in a workspace design.
@@ -694,337 +732,22 @@ ce_backward_dw_kernel(CeArgs a, TW* __restrict__ dw) {
 }
 
 // ---------------------------------------------------------------------------
-// the forward on the bf16 tensor cores (h in bf16): mma.sync
-
-constexpr int kMT = 128;               // output tile rows of an mma block
-constexpr int kNT = 128;               // output tile columns
-constexpr int kKT = 32;                // k-depth of one pipeline stage
-constexpr int kStages = 3;             // cp.async ring depth
-// The tensor cores add a product into an fp32 accumulator truncating the
-// bits below the larger operand's last place, so a long chain drifts
-// toward zero by up to an ulp of the running sum per mma (one chain over
-// a 50304-column sweep put 20-67% of dh's elements past 2^-16 of their
-// absolute sum on an H100).  Each block therefore sums kPromote
-// stages (64 of k) on the tensor cores and adds that part into the running
-// sum with a rounded fp32 add (the backward's wgmma kernel below does the
-// same, one 64-deep stage at a time).
-constexpr int kPromote = 2;
-constexpr int kKmStride = kKT + 8;     // padded row of a k-contiguous tile
-constexpr int kMnStride = kMT + 8;     // padded row of an m/n-contiguous tile
-constexpr int kPlane = kMT * kKmStride;  // bf16 elements of one tile plane
-static_assert(kMT == kNT && kMT * kKmStride >= kKT * kMnStride,
-              "one plane size serves both layouts");
-
-// One bf16 operand plane, leading dimension ld in elements.  KMAJOR:
-// element (i, k) at i * ld + k; else at k * ld + i.
-struct Operand {
-  const bf16* hi;
-  int ld;
-};
-
-// The partials that ce_combine_kernel merges: part[{m, l, ll, zm}][tile]
-// [row] and part_idx[tile][row].
-struct FoldOut {
-  float* part;
-  int* part_idx;
-};
+// the bf16 tensor cores (h in bf16): wgmma fed by TMA
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  if (TRANS) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-  }
-}
-
-// c += a . b: one m16n8k16 product, bf16 operands, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage one 128 x kKT tile of a plane (rows i0.., depth k0..) in shared
-// memory: 512 copies of 16 bytes, two a thread.
-template <bool KMAJOR>
-__device__ __forceinline__ void load_plane(bf16* dst, const bf16* src,
-                                           int ld, int i0, int k0) {
-#pragma unroll
-  for (int e = threadIdx.x; e < kMT * kKT / 8; e += kThreads) {
-    if (KMAJOR) {
-      const int i = e / (kKT / 8), k = (e % (kKT / 8)) * 8;
-      cp_async16(dst + i * kKmStride + k,
-                 src + (size_t)(i0 + i) * ld + k0 + k);
-    } else {
-      const int k = e / (kMT / 8), i = (e % (kMT / 8)) * 8;
-      cp_async16(dst + k * kMnStride + i,
-                 src + (size_t)(k0 + k) * ld + i0 + i);
-    }
-  }
-}
-
-// The A fragment of 16 rows from r0 at depth kk of a staged k-contiguous
-// tile.
-__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* t,
-                                       int r0, int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4<false>(r, t + (r0 + (lane & 15)) * kKmStride + kk +
-                        (lane >> 4) * 8);
-}
-
-// The B fragments of two n8 tiles (16 columns from c0) at depth kk: {b0,
-// b1} of the first, then of the second.
-template <bool KMAJOR>
-__device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* t,
-                                       int c0, int kk) {
-  const int lane = threadIdx.x % 32;
-  const int q = lane >> 3, i = lane & 7;
-  if (KMAJOR) {
-    ldsm_x4<false>(r, t + (c0 + (q >> 1) * 8 + i) * kKmStride + kk +
-                          (q & 1) * 8);
-  } else {
-    ldsm_x4<true>(r, t + (kk + (q & 1) * 8 + i) * kMnStride + c0 +
-                         (q >> 1) * 8);
-  }
-}
-
-// The forward's epilogue: the logits tile at rows m0.., vocab columns
-// n0.. folded into one partial per row, part[{m, l, ll, zm}][n0 / 128]
-// [row] (and part_idx): each thread folds its 8 columns of each of its 8
-// rows in ascending order, the 4 lanes of a quad merge by shuffles and the
-// 4 column warps through shared memory (the drained cp.async ring) in
-// column order.  The draw keeps the earliest column among equal maxima at
-// every merge, so with ce_combine_kernel's strict > across tiles it is the
-// first argmax of the row, as the reference's.
-template <bool SAMPLE>
-__device__ __forceinline__ void fold_tile(const float (&acc)[4][4][4],
-                                          const CeArgs& a, const FoldOut& out,
-                                          int m0, int n0,
-                                          unsigned char* smem_raw) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int c0 = n0;
-  const int cl = c0 + wn * 32 + 2 * (lane % 4);  // column of j = 0, e = 0
-  float* red = reinterpret_cast<float*>(smem_raw);  // [4][4 wn][kMT rows]
-  int* red_i = reinterpret_cast<int*>(red + 16 * kMT);  // [4 wn][kMT rows]
-  __syncthreads();  // every warp is done reading the ring
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wm * 64 + i * 16 + lane / 4 + 8 * h;
-      const int r = m0 + rl;
-      float s[8], m = kNegInf;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float dcap;
-        s[k] = finish_logit(a, acc[i][k >> 1][2 * h + (k & 1)],
-                            cl + 8 * (k >> 1) + (k & 1), &dcap);
-        m = fmaxf(m, s[k]);
-      }
-      float l = 0.0f, ll = 0.0f, zm = kNegInf;
-      int zi = 0;
-      const int lab = !SAMPLE && r < a.N ? a.labels[r] : -1;
-      const uint32_t rmix = row_word(a, r);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c = cl + 8 * (k >> 1) + (k & 1);
-        if (c < a.V) {
-          l += expf(s[k] - m);
-          if (SAMPLE) {
-            const float z = s[k] + hash_gumbel(rmix, (uint32_t)c, a.seed1);
-            if (z > zm) {  // strict: the columns rise
-              zm = z;
-              zi = c;
-              ll = s[k];
-            }
-          }
-        }
-        if (!SAMPLE && c == lab) ll = s[k];
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-        const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
-        const float ll2 = __shfl_xor_sync(0xffffffffu, ll, off);
-        const float mn = fmaxf(m, m2);
-        l = l * expf(m - mn) + l2 * expf(m2 - mn);
-        m = mn;
-        if (SAMPLE) {
-          const float z2 = __shfl_xor_sync(0xffffffffu, zm, off);
-          const int i2 = __shfl_xor_sync(0xffffffffu, zi, off);
-          if (z2 > zm || (z2 == zm && i2 < zi)) {
-            zm = z2;
-            zi = i2;
-            ll = ll2;
-          }
-        } else {
-          ll += ll2;  // one column of the row holds the label
-        }
-      }
-      if (lane % 4 == 0) {
-        red[(0 * 4 + wn) * kMT + rl] = m;
-        red[(1 * 4 + wn) * kMT + rl] = l;
-        red[(2 * 4 + wn) * kMT + rl] = ll;
-        red[(3 * 4 + wn) * kMT + rl] = zm;
-        red_i[wn * kMT + rl] = zi;
-      }
-    }
-  __syncthreads();
-  const int rl = threadIdx.x, r = m0 + rl;
-  if (rl >= kMT || r >= a.N) return;
-  float M = kNegInf, L = 0.0f, LL = 0.0f, Z = kNegInf;
-  int I = 0;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {  // column order
-    const float m = red[w * kMT + rl];
-    const float mn = fmaxf(M, m);
-    L = L * expf(M - mn) + red[(4 + w) * kMT + rl] * expf(m - mn);
-    M = mn;
-    if (SAMPLE) {
-      const float z = red[(12 + w) * kMT + rl];
-      if (z > Z) {
-        Z = z;
-        I = red_i[w * kMT + rl];
-        LL = red[(8 + w) * kMT + rl];
-      }
-    } else {
-      LL += red[(8 + w) * kMT + rl];
-    }
-  }
-  const size_t P = (size_t)(a.Vp / kNT) * a.N;
-  const size_t o = (size_t)(c0 / kNT) * a.N + r;
-  out.part[o] = M;
-  out.part[P + o] = L;
-  out.part[2 * P + o] = LL;
-  if (SAMPLE) {
-    out.part[3 * P + o] = Z;
-    out.part_idx[o] = I;
-  }
-}
-
-// The 128 x 128 logits tile at block (m0, n0) of h_n (Np x D) . hi^T over
-// k < K = D, folded into one partial per row (fold_tile).  Every dimension
-// is a multiple of the tile: rows are padded to 128, and D and Vp are
-// multiples of 128.  The grid runs the row tiles fastest, so that the
-// blocks in flight share a few tiles of W and all of h_n stays in the L2
-// cache: W is read from memory about once.
-template <bool B_KMAJOR, bool SAMPLE>
-__global__ void __launch_bounds__(kThreads)
-ce_mma_kernel(Operand A, Operand B, int K, CeArgs a, FoldOut out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int kStageElems = 2 * kPlane;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;  // a 2 x 4 grid of 64 x 32 tiles
-  const int m0 = blockIdx.x * kMT;
-  const int n0 = blockIdx.y * kNT;
-
-  auto stage_load = [&](int s, int kt) {
-    bf16* base = smem + s * kStageElems;
-    const int k0 = kt * kKT;
-    load_plane<true>(base, A.hi, A.ld, m0, k0);
-    load_plane<B_KMAJOR>(base + kPlane, B.hi, B.ld, n0, k0);
-  };
-
-  // part sums kPromote stages on the tensor cores; acc sums the parts with
-  // IEEE fp32 adds (see kPromote)
-  float acc[4][4][4], part[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.0f;
-
-  const int nk = K / kKT;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) stage_load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = kt + kStages - 1;
-    if (nxt < nk) stage_load(nxt % kStages, nxt);
-    cp_async_commit();
-    const bf16* base = smem + (kt % kStages) * kStageElems;
-    const bf16* tb = base + kPlane;
-#pragma unroll
-    for (int kk = 0; kk < kKT; kk += 16) {
-      uint32_t bh[4][2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        frag_b<B_KMAJOR>(r, tb, wn * 32 + p * 16, kk);
-        bh[2 * p][0] = r[0];
-        bh[2 * p][1] = r[1];
-        bh[2 * p + 1][0] = r[2];
-        bh[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t ah[4];
-        frag_a(ah, base, wm * 64 + i * 16, kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(part[i][j], ah, bh[j][0], bh[j][1]);
-      }
-    }
-    if ((kt + 1) % kPromote == 0 || kt == nk - 1) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
-            part[i][j][e] = 0.0f;
-          }
-    }
-  }
-  cp_async_wait<0>();
-  fold_tile<SAMPLE>(acc, a, out, m0, n0, smem_raw);
-}
-
-// ---------------------------------------------------------------------------
-// the backward on the bf16 tensor cores (h in bf16): wgmma fed by TMA
-
-constexpr int kWgBM = 128;        // output tile rows: 64 a consumer warpgroup
+// The tensor cores add a product into an fp32 accumulator truncating the
+// bits below the larger operand's last place, so a long chain drifts
+// toward zero by up to an ulp of the running sum per product (one chain
+// over a 50304-column sweep put 20-67% of dh's elements past 2^-16 of
+// their absolute sum on an H100).  Every product below therefore sums one
+// kWgBK-deep stage on the tensor cores into a fresh part and adds the part
+// into the tile's sum with a rounded fp32 add (the promotion).
+constexpr int kWgBM = 128;        // output tile rows
 constexpr int kWgBN = 128;        // output tile columns
-constexpr int kWgBK = 64;         // k of one stage, summed apart (kPromote)
+constexpr int kWgBK = 64;         // k of one stage, summed apart (promotion)
 constexpr int kWgThreads = 384;   // two consumer warpgroups, one producer
 constexpr int kTileBytes = kWgBM * kWgBK * 2;  // one bf16 plane of a stage
 constexpr int kRingBytes = 12 * kTileBytes;    // 192 KB: 3, 4 or 6 stages
@@ -1311,7 +1034,7 @@ __device__ __forceinline__ void wg_epilogue(const float (&acc)[64],
 // loads on mbarriers; consumer warpgroup g (threads 128 g..) issues the
 // wgmmas of rows 64 g.. of each tile, sums each stage's passes on the
 // tensor cores into part and adds part into acc with rounded fp32 adds
-// (the promotion, see kPromote), releases the stage, and stores the tile
+// (the promotion, see kWgBK), releases the stage, and stores the tile
 // while the producer is already loading the next one's stages.  Every
 // dimension is a multiple of 128; blocks own their output tiles outright.
 template <int EPI, bool A_MN, bool B_MN, int PASSES, typename TW,
@@ -1429,6 +1152,392 @@ ce_wgmma_kernel(const __grid_constant__ Maps maps, int K, int tiles_m,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the forward on the bf16 tensor cores: ce_fwd_wgmma_kernel
+//
+// A persistent block of one SM walks 128 x 128 logits tiles.  The walk
+// (fused_ce.py:forward_plan mirrors it): the (Np / 128) x (Vp / 128)
+// tiles, each row tile's vocabulary cut into k pieces of consecutive
+// tiles, the first T % k of them one tile longer; the row tiles in groups
+// of G, and within a group unit (j, i), piece j of row tile i, with the
+// row tiles fastest; block b takes the units b, b + gridDim.x, ..., one
+// run of consecutive tiles each.  The blocks in flight then share a few W
+// tiles and a group's rows of h_n, which stay in the 50 MB L2 cache: G
+// is every row tile where h_n takes at most 20 MB (GPT-2 small's 12.6 MB
+// at N 8192), else 12 (about the square root of the blocks in flight, so
+// a group's rows and the W tiles in flight take about as many bytes).
+// The host picks k for the fewest tiles on the busiest block.
+//
+// A block is 384 threads: consumer warpgroup g (warps 4 g..4 g + 3, g <
+// 2) owns rows 64 g.. of every tile, and the two share one ring of
+// kFwdRing 128-deep stages (h_n's 128 rows and the W tile, each as two
+// 64-deep halves) that the producer warpgroup's first thread fills (the
+// note above ce_fwd_wgmma_kernel).
+
+struct FwdPlan {
+  int n_rt, T, k, nk;  // row tiles, vocab tiles, pieces, stages a tile
+  int G;               // row tiles a group
+};
+
+// The partials that ce_combine_kernel merges, one per (piece, row):
+// part[{m, l, ll, zm}][piece][row] and part_idx[piece][row].
+struct FoldOut {
+  float* part;
+  int* part_idx;
+};
+
+struct FwdUnit {
+  int m0, j, v0, v1;  // rows m0.., piece j, vocab tiles [v0, v1)
+};
+
+// Unit u: in group u / (G k) of G row tiles (the last may hold fewer),
+// piece j of row tile i, the row tiles fastest.
+__device__ __forceinline__ FwdUnit fwd_unit(const FwdPlan& p, int u) {
+  const int grp = u / (p.G * p.k), r = u % (p.G * p.k);
+  const int rows = min(p.G, p.n_rt - grp * p.G);
+  const int j = r / rows, q = p.T / p.k, rem = p.T % p.k;
+  FwdUnit f;
+  f.m0 = (grp * p.G + r % rows) * kWgBM;
+  f.j = j;
+  f.v0 = j * q + min(j, rem);
+  f.v1 = f.v0 + q + (j < rem ? 1 : 0);
+  return f;
+}
+
+// A fold of some columns of one row: lse's (m, l) over its valid columns
+// and the label logit ll, or (sampled) the first argmax zi of s + g, its
+// z and its raw logit ll.
+struct Fold {
+  float m, l, ll, z;
+  int zi;
+};
+
+// (m, l) <- the log-sum-exp merge of (m, l) and (m2, l2): l e^(m - mn) +
+// l2 e^(m2 - mn) with mn = max(m, m2).  One factor is e^0 = 1, so one
+// expf; the products and the sum are rounded apart (no contraction), so
+// the two lanes of a shuffle pair agree bit for bit.
+__device__ __forceinline__ void lse_merge(float& m, float& l, float m2,
+                                          float l2) {
+  const float e = expf(-fabsf(m - m2));
+  const bool mine = m >= m2;
+  l = __fadd_rn(__fmul_rn(l, mine ? 1.0f : e), __fmul_rn(l2, mine ? e : 1.0f));
+  m = fmaxf(m, m2);
+}
+
+// The quad's four threads, which hold the other 96 columns of f's row,
+// merged into f by xor shuffles 1 and 2 (among equal z the smaller
+// column); every lane of the quad ends with the row's fold.
+template <bool SAMPLE>
+__device__ __forceinline__ void quad_merge(Fold& f) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, f.m, off);
+    const float l2 = __shfl_xor_sync(0xffffffffu, f.l, off);
+    const float ll2 = __shfl_xor_sync(0xffffffffu, f.ll, off);
+    lse_merge(f.m, f.l, m2, l2);
+    if (SAMPLE) {
+      const float z2 = __shfl_xor_sync(0xffffffffu, f.z, off);
+      const int i2 = __shfl_xor_sync(0xffffffffu, f.zi, off);
+      if (z2 > f.z || (z2 == f.z && i2 < f.zi)) {
+        f.z = z2;
+        f.zi = i2;
+        f.ll = ll2;
+      }
+    } else {
+      f.ll = __fadd_rn(f.ll, ll2);  // one column of the row holds the label
+    }
+  }
+}
+
+// A consumer thread's two rows of its warpgroup's 64 x 128 tile (rows r, r
+// + 8: row h's elements at acc[4 j + 2 h + e], vocab columns c + 8 j + e,
+// j < 16, e < 2), folded from registers: each row's 32 logits finished
+// (finish_logit's arithmetic, written back over acc) and their max taken,
+// then folded in ascending column order (the sum of exp(s - max), and the
+// label logit or the draw: strict >, the thread's columns rise).  The
+// code has no branch inside: the softcap is a template argument, a column
+// past V adds exp(-inf) = +0 to the sum (the same bits as skipping it) and
+// cannot win the draw, so the 64 elements' exp, hash and logf chains are
+// one block the compiler interleaves (a branch around each element's
+// chain kept them apart: on an H100 at GPT-2 small's shape the fold then
+// took more time than the products).
+template <bool SAMPLE, bool CAP>
+__device__ __forceinline__ void fold_cols(float (&acc)[64], const CeArgs& a,
+                                          int c, const int (&lab)[2],
+                                          const uint32_t (&rmix)[2],
+                                          Fold (&f)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) f[h] = Fold{kNegInf, 0.0f, 0.0f, kNegInf, 0};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& x = acc[4 * j + 2 * h + e];
+        if (CAP) x = a.softcap * tanhf(x / a.softcap);
+        x = c + 8 * j + e < a.V ? x : kNegInf;
+        f[h].m = fmaxf(f[h].m, x);
+      }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = c + 8 * j + e;
+      const bool valid = col < a.V;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float s = acc[4 * j + 2 * h + e];
+        f[h].l += expf(valid ? s - f[h].m : -INFINITY);
+        if (SAMPLE) {
+          const float z = s + hash_gumbel(rmix[h], (uint32_t)col, a.seed1);
+          const bool take = valid && z > f[h].z;
+          f[h].z = take ? z : f[h].z;
+          f[h].zi = take ? col : f[h].zi;
+          f[h].ll = take ? s : f[h].ll;
+        } else {
+          f[h].ll = col == lab[h] ? s : f[h].ll;
+        }
+      }
+    }
+}
+
+// fold_cols with the call's softcap, then each row's quad merged
+// (quad_merge).
+template <bool SAMPLE>
+__device__ __forceinline__ void fold_rows(float (&acc)[64], const CeArgs& a,
+                                          int c, const int (&lab)[2],
+                                          const uint32_t (&rmix)[2],
+                                          Fold (&f)[2]) {
+  if (a.softcap > 0.0f)
+    fold_cols<SAMPLE, true>(acc, a, c, lab, rmix, f);
+  else
+    fold_cols<SAMPLE, false>(acc, a, c, lab, rmix, f);
+  quad_merge<SAMPLE>(f[0]);
+  quad_merge<SAMPLE>(f[1]);
+}
+
+// The running fold of a unit's row (lane q's row q, q < 2): merge one
+// tile's fold t of the row into it where ``mine``; strict > for the draw,
+// since the tile's columns follow the run's.
+template <bool SAMPLE>
+__device__ __forceinline__ void run_merge(Fold& run, bool mine,
+                                          const Fold& t) {
+  if (!mine) return;
+  lse_merge(run.m, run.l, t.m, t.l);
+  if (SAMPLE) {
+    if (t.z > run.z) {
+      run.z = t.z;
+      run.zi = t.zi;
+      run.ll = t.ll;
+    }
+  } else {
+    run.ll = __fadd_rn(run.ll, t.ll);
+  }
+}
+
+// ---- the forward's feed, products and kernel (tests/_ce_forward_compare.py
+// builds variants with another text from this line to the prep kernels)
+constexpr int kFwdThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kFwdRing = 3;       // 128-deep stages
+constexpr int kFwdK = 2 * kWgBK;  // k of a stage: two promotions
+constexpr int kFwdHBox = 128;     // rows of h_n's TMA box
+// a stage: h_n 128 x 128 and W 128 x 128, each two 64-deep halves
+constexpr int kFwdStageBytes = 4 * kTileBytes;
+// the ring, 1024 bytes to align it, its full and empty barriers
+constexpr int kFwdSmem = kFwdRing * kFwdStageBytes + 1024 + 2 * kFwdRing * 8;
+constexpr int kFwdConsumerRegs = 240, kFwdProducerRegs = 24;  // 2 x 128 x
+                                                              // 240 + 128 x
+                                                              // 24 <= 64 K
+
+// The producer (warpgroup 2's first thread): every stage of the block's
+// walk, each into its ring slot once both consumer warpgroups released it.
+template <bool B_MN>
+__device__ __forceinline__ void fwd_produce(const Maps& maps,
+                                            const FwdPlan& p, int units,
+                                            unsigned char* ring,
+                                            uint64_t* full,
+                                            uint64_t* empty) {
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const FwdUnit f = fwd_unit(p, u);
+    for (int v = f.v0; v < f.v1; ++v)
+      for (int kb = 0; kb < p.nk; ++kb) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * kFwdStageBytes;
+        uint64_t* bar = &full[stage];
+        mbar_expect_tx(bar, kFwdStageBytes);
+        const int k0 = kb * kFwdK;
+        load_tile<false>(st, &maps.a_hi, bar, f.m0, k0);
+        load_tile<false>(st + kTileBytes, &maps.a_hi, bar, f.m0, k0 + kWgBK);
+        unsigned char* sb = st + 2 * kTileBytes;
+        load_tile<B_MN>(sb, &maps.b_hi, bar, v * kWgBN, k0);
+        load_tile<B_MN>(sb + kTileBytes, &maps.b_hi, bar, v * kWgBN,
+                        k0 + kWgBK);
+        if (++stage == kFwdRing) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+  }
+}
+
+// Issue the four m64n128k16 wgmmas of 64-deep half ``h`` of the stage at
+// ``st`` into d (d = the half's product), one commit group.  da, db: the
+// descriptors of the stage's rows of h_n and of W at k = 0; a half is 16
+// KB further (1024 in a descriptor's address field), a k-step 32 bytes
+// (K-major, 2) or 16 rows of 128 bytes (MN-major, 128).
+template <bool B_MN>
+__device__ __forceinline__ void issue_half(float (&d)[64], uint64_t da,
+                                           uint64_t db, int h) {
+  hold(d);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kWgBK / 16; ++s)
+    wgmma_n128<0, B_MN>(d, da + 1024 * h + 2 * s,
+                        db + 1024 * h + (B_MN ? 128 : 2) * s, s > 0);
+  wgmma_commit();
+}
+
+// acc += d, the promotion of one half's product once its group is done
+// (the caller's wgmma_wait).
+__device__ __forceinline__ void promote(float (&acc)[64], float (&d)[64]) {
+  hold(d);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+}
+
+// The logits of one forward call, h_n (Np x D) . hi^T over the whole
+// vocabulary, folded into one partial per (piece, row) with no logit
+// leaving the registers.
+//   * Feed.  Warpgroup 2 gives its registers to the consumers
+//     (setmaxnreg: 240 a consumer thread, 24 a producer thread; ptxas
+//     allocates the consumers' code up to 240) and its first thread keeps
+//     the ring of kFwdRing 128-deep stages full with 128-byte swizzled TMA
+//     boxes, across tiles and units, so the ring is full when a fold
+//     begins and the next tile's products start at once.  No consumer
+//     waits on an empty barrier.
+//   * Products.  Warpgroup g sums each 64-deep half of a stage for its 64
+//     rows on the tensor cores into a fresh part (four m64n128k16 wgmmas
+//     straight from shared memory; the W tile K-major when tied, MN-major
+//     when untied, by descriptor alone) and adds the part into acc (the
+//     promotion).  Two parts alternate, so a half's wgmmas run while the
+//     previous half's part is added.  A 128-deep stage halves the
+//     handshakes a product.
+//   * Fold.  At the end of a tile each warpgroup folds its 64 rows from acc
+//     (fold_rows; lane q < 2 of each quad then merges the tile into the
+//     running fold of the quad's row q, strict > across tiles) while the
+//     producer refills the ring; at the end of a unit each lane q < 2
+//     writes its row's partial.  The fold does not run under products: a
+//     ping-pong that puts it there (each warpgroup its own 64-row tiles,
+//     their products in turns; tests/_ce_forward_variants.cu) feeds 1.5x
+//     the bytes a product and was slower on an H100 at every timed shape
+//     once the fold lost its branches (PERF.md, PR 32).
+//   * Registers: acc 64 and two parts of 64 a thread, the running fold 5,
+//     the unit's labels or row hash words 2 (ptxas: 20-36 bytes of spill
+//     at 240, and its C7514 note that the wgmmas are serialized).
+template <bool B_MN, bool SAMPLE>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ Maps maps, FwdPlan p, CeArgs a,
+                    FoldOut out) {
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* ring =
+      wg_smem + ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kFwdRing * kFwdStageBytes);
+  uint64_t* empty = full + kFwdRing;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdRing; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx, then the bytes
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int units = p.n_rt * p.k;
+  if (threadIdx.x >= 256) {
+    reg_dealloc<kFwdProducerRegs>();
+    if (threadIdx.x == 256)
+      fwd_produce<B_MN>(maps, p, units, ring, full, empty);
+    return;
+  }
+  reg_alloc<kFwdConsumerRegs>();
+  const int g = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int q = lane % 4;
+  const int rl = 64 * g + 16 * warp + lane / 4;  // the thread's first row
+  float acc[64], part0[64], part1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part0[i] = part1[i] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  // the descriptors of slot s: rows 64 g.. of h_n, and W
+  auto desc_a = [&](int s) {
+    return wg_desc_k<false>(ring + s * kFwdStageBytes + g * (kTileBytes / 2),
+                            0);
+  };
+  auto desc_b = [&](int s) {
+    return wg_desc_k<B_MN>(ring + s * kFwdStageBytes + 2 * kTileBytes, 0);
+  };
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const FwdUnit f = fwd_unit(p, u);
+    int lab[2];
+    uint32_t rmix[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = f.m0 + rl + 8 * h;
+      lab[h] = !SAMPLE && row < a.N ? a.labels[row] : -1;
+      rmix[h] = SAMPLE ? row_word(a, row) : 0u;
+    }
+    Fold run{kNegInf, 0.0f, 0.0f, kNegInf, 0};  // lane q's row q (q < 2)
+    for (int v = f.v0; v < f.v1; ++v) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      int prev = 0;
+      for (int kb = 0; kb < p.nk; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint64_t da = desc_a(stage), db = desc_b(stage);
+        issue_half<B_MN>(part0, da, db, 0);
+        if (kb > 0) {
+          // the previous stage's second half, then its slot
+          wgmma_wait<1>();
+          promote(acc, part1);
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        issue_half<B_MN>(part1, da, db, 1);
+        wgmma_wait<1>();
+        promote(acc, part0);
+        prev = stage;
+        if (++stage == kFwdRing) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      promote(acc, part1);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      const int col = v * kWgBN + 2 * q;
+      Fold fr[2];
+      fold_rows<SAMPLE>(acc, a, col, lab, rmix, fr);
+      run_merge<SAMPLE>(run, q == 0, fr[0]);
+      run_merge<SAMPLE>(run, q == 1, fr[1]);
+    }
+    const int row = f.m0 + rl + 8 * q;
+    if (q < 2 && row < a.N) {
+      const size_t P4 = (size_t)p.k * a.N;
+      const size_t o = (size_t)f.j * a.N + row;
+      out.part[o] = run.m;
+      out.part[P4 + o] = run.l;
+      out.part[2 * P4 + o] = run.ll;
+      if (SAMPLE) {
+        out.part[3 * P4 + o] = run.z;
+        out.part_idx[o] = run.zi;
+      }
+    }
+  }
+}
+
 // h_n, the normed rows rounded to bf16, in an (Np, D) plane; rows past N
 // are zero.
 __global__ void __launch_bounds__(kThreads)
@@ -1441,18 +1550,28 @@ ce_prep_hn_kernel(CeArgs a, int Np, bf16* __restrict__ hn) {
   }
 }
 
-// hi = bf16(w) and, unless lo is null, lo = bf16(w - hi), element by
-// element.
+// hi = bf16(w) and, unless lo is null, lo = bf16(w - hi), four elements a
+// thread and step (16-byte loads, read once: streaming).  n4 = n / 4: n
+// is a multiple of 4 (D % 128 == 0) and w starts on a 16-byte boundary
+// (the wrapper's check).
 __global__ void __launch_bounds__(kThreads)
-ce_split_kernel(const float* __restrict__ w, size_t n, bf16* __restrict__ hi,
-                bf16* __restrict__ lo) {
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
+ce_split_kernel(const float4* __restrict__ w, size_t n4,
+                uint2* __restrict__ hi, uint2* __restrict__ lo) {
+  auto bits = [](__nv_bfloat162 v) {
+    return *reinterpret_cast<const uint32_t*>(&v);
+  };
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n4;
        e += (size_t)gridDim.x * kThreads) {
-    const float x = w[e];
-    const bf16 h = __float2bfloat16_rn(x);
-    hi[e] = h;
+    const float4 x = __ldcs(w + e);
+    const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+    hi[e] = make_uint2(bits(a), bits(b));
     if (lo != nullptr)
-      lo[e] = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
+      lo[e] = make_uint2(
+          bits(__floats2bfloat162_rn(__fsub_rn(x.x, __low2float(a)),
+                                     __fsub_rn(x.y, __high2float(a)))),
+          bits(__floats2bfloat162_rn(__fsub_rn(x.z, __low2float(b)),
+                                     __fsub_rn(x.w, __high2float(b)))));
   }
 }
 
@@ -1533,15 +1652,15 @@ size_t up256(size_t x) { return (x + 255) / 256 * 256; }
 
 TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc) {
   TcPlan p;
-  p.Np = (N + kMT - 1) / kMT * kMT;
-  const int tiles = Vp / kNT;
-  const size_t per_tile = size_t(4) * p.Np * kNT;  // d_hi and d_lo bytes
+  p.Np = (N + kWgBM - 1) / kWgBM * kWgBM;
+  const int tiles = Vp / kWgBN;
+  const size_t per_tile = size_t(4) * p.Np * kWgBN;  // d_hi and d_lo bytes
   const int max_tiles =
       (int)std::min<size_t>(tiles, std::max<size_t>(1, kWsBudget / per_tile));
   const int n = (tiles + max_tiles - 1) / max_tiles;
   const int per = (tiles + n - 1) / n;
   p.n_chunks = (tiles + per - 1) / per;
-  p.cw = per * kNT;
+  p.cw = per * kWgBN;
   p.w_lo_plane = true;
   const size_t wbytes = w_bf16 ? 0 : up256(size_t(2) * Vp * D);
   p.hn = 0;
@@ -1576,9 +1695,9 @@ cudaError_t tc_prep(const CeArgs& a, float* stats, const TcPlan& p,
   err = cudaGetLastError();
   if (err != cudaSuccess || !std::is_same<TW, float>::value) return err;
   ce_split_kernel<<<2048, kThreads, 0, st>>>(
-      static_cast<const float*>(a.w), (size_t)a.Vp * a.D,
-      reinterpret_cast<bf16*>(ws + p.w_hi),
-      p.w_lo_plane ? reinterpret_cast<bf16*>(ws + p.w_lo) : nullptr);
+      static_cast<const float4*>(a.w), (size_t)a.Vp * a.D / 4,
+      reinterpret_cast<uint2*>(ws + p.w_hi),
+      p.w_lo_plane ? reinterpret_cast<uint2*>(ws + p.w_lo) : nullptr);
   return cudaGetLastError();
 }
 
@@ -1590,35 +1709,6 @@ const bf16* w_hi_plane(const CeArgs& a, const TcPlan& p,
                        const unsigned char* ws) {
   if (!std::is_same<TW, float>::value) return static_cast<const bf16*>(a.w);
   return reinterpret_cast<const bf16*>(ws + p.w_hi);
-}
-
-// The forward with bf16 h: s = h_n . hi^T over the whole vocabulary in
-// one mma sweep whose epilogue folds each 128-column tile into a partial
-// per row (fold_tile), then ce_combine_kernel merges the Vp / 128 partials
-// of each row in column order.
-template <typename TW, bool TRANSW, bool SAMPLE>
-cudaError_t forward_tc_impl(const CeArgs& a, float* stats, int splits, int,
-                            float* part, int* part_idx, float* lse,
-                            float* ll, int* yhat, unsigned char* ws,
-                            cudaStream_t st) {
-  if (splits != a.Vp / kNT) return cudaErrorInvalidValue;
-  const TcPlan p = fwd_plan(a.N, a.D, a.Vp, !std::is_same<TW, float>::value);
-  cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
-  if (err != cudaSuccess) return err;
-  const Operand hn{reinterpret_cast<const bf16*>(ws + p.hn), a.D};
-  const Operand w{w_hi_plane<TW>(a, p, ws), TRANSW ? a.Vp : a.D};
-  constexpr int smem = (int)(sizeof(bf16) * kStages * 2 * kPlane);
-  auto kern = ce_mma_kernel<!TRANSW, SAMPLE>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(p.Np / kMT, splits), kThreads, smem, st>>>(
-      hn, w, a.D, a, FoldOut{part, part_idx});
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ce_combine_kernel<<<(a.N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      a.N, splits, SAMPLE ? 1 : 0, part, part_idx, lse, ll, yhat);
-  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point
@@ -1684,6 +1774,45 @@ cudaError_t launch_wgmma(const Maps& maps, int K, int tiles_m, int tiles_n,
   if (err != cudaSuccess) return err;
   const int grid = std::min(tiles_m * tiles_n, sm_count());
   kern<<<grid, kWgThreads, smem, st>>>(maps, K, tiles_m, tiles_n, a, epi);
+  return cudaGetLastError();
+}
+
+// The forward with bf16 h: the prep (h_n, and W's hi plane for an fp32
+// W), one persistent ce_fwd_wgmma_kernel sweep over the whole vocabulary
+// in ``splits`` = k pieces a row tile, the row tiles in groups of
+// ``group`` (fused_ce.py:forward_plan), then ce_combine_kernel merges each
+// row's k partials in column order.
+template <typename TW, bool TRANSW, bool SAMPLE>
+cudaError_t forward_tc_impl(const CeArgs& a, float* stats, int splits,
+                            int group, float* part, int* part_idx, float* lse,
+                            float* ll, int* yhat, unsigned char* ws,
+                            cudaStream_t st) {
+  const int T = a.Vp / kWgBN;
+  if (splits < 1 || splits > T) return cudaErrorInvalidValue;
+  const TcPlan p = fwd_plan(a.N, a.D, a.Vp, !std::is_same<TW, float>::value);
+  cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
+  if (err != cudaSuccess) return err;
+  // A = h_n K-major; B = W, n over the vocabulary, K-major tied and
+  // MN-major untied (the backward's logits maps)
+  const int w_in = TRANSW ? a.Vp : a.D, w_out = TRANSW ? a.D : a.Vp;
+  Maps m{};
+  if (!(plane_map(&m.a_hi, ws + p.hn, a.D, p.Np, kFwdHBox) &&
+        plane_map(&m.b_hi, w_hi_plane<TW>(a, p, ws), w_in, w_out,
+                  TRANSW ? 64 : 128)))
+    return cudaErrorInvalidValue;
+  if (group < 1 || group > p.Np / kWgBM) return cudaErrorInvalidValue;
+  const FwdPlan fp{p.Np / kWgBM, T, splits, a.D / kFwdK, group};
+  const int units = fp.n_rt * fp.k;
+  auto kern = ce_fwd_wgmma_kernel<TRANSW, SAMPLE>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kFwdSmem);
+  if (err != cudaSuccess) return err;
+  kern<<<std::min(sm_count(), units), kFwdThreads, kFwdSmem, st>>>(
+      m, fp, a, FoldOut{part, part_idx});
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ce_combine_kernel<<<(a.N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      a.N, splits, SAMPLE ? 1 : 0, part, part_idx, lse, ll, yhat);
   return cudaGetLastError();
 }
 
@@ -1845,9 +1974,10 @@ long long ce_forward_ws_bytes(int N, int D, int Vp, int h_bf16, int w_bf16) {
 // lse, ll (and, sampled, yhat) of every row.  row_ids: (N,) int32, the
 // hash's row of each row (sampled only), or null for the row's index.
 // stats: (N, 2) fp32 scratch;
-// part: (4, splits, N) fp32 and part_idx (splits, N) int32 scratch, with
-// splits = Vp / 128 and one tile each for bf16 h; ws: the workspace of
-// ce_forward_ws_bytes.
+// part: (4, splits, N) fp32 and part_idx (splits, N) int32 scratch: with
+// fp32 h splits vocab splits of ``per`` tiles each, with bf16 h splits =
+// k, the pieces of forward_plan, and ``per`` its row group; ws: the
+// workspace of ce_forward_ws_bytes.
 int ce_forward_launch(const void* h, const void* w, const float* normp,
                       float* stats, const int* labels, const int* row_ids,
                       float* part, int* part_idx, float* lse, float* ll,
@@ -1855,15 +1985,14 @@ int ce_forward_launch(const void* h, const void* w, const float* normp,
                       int D, int V, int Vp, int h_bf16, int w_bf16,
                       int transpose_w, int norm, float eps, float softcap,
                       int sample, unsigned int seed0, unsigned int seed1,
-                      int splits, int tiles_per_split, void* ws,
-                      void* stream) {
+                      int splits, int per, void* ws, void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, nullptr, nullptr, N,
                              D, V, Vp, norm, eps, softcap, seed0, seed1,
                              row_ids);
   const int idx = table_index(h_bf16, w_bf16, transpose_w);
   const ForwardFn fn = sample ? pick_forward<true>(idx)
                               : pick_forward<false>(idx);
-  return (int)fn(a, stats, splits, tiles_per_split, part, part_idx, lse, ll,
+  return (int)fn(a, stats, splits, per, part, part_idx, lse, ll,
                  yhat, static_cast<unsigned char*>(ws),
                  static_cast<cudaStream_t>(stream));
 }

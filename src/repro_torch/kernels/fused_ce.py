@@ -38,8 +38,12 @@ On a CUDA tensor each entry point launches the hand-written kernels of
                           one launch of the pair, counted as one of each
 
 With h in bf16 (the training path) all of them multiply on the bf16
-tensor cores (h_n and W cast to bf16, as the reference casts them; fp32
-sums): the forwards on ``mma.sync``, the backward on ``wgmma`` fed by TMA;
+tensor cores through ``wgmma`` fed by TMA (h_n and W cast to bf16, as the
+reference casts them; fp32 sums): the forwards in one persistent sweep, a
+producer warp feeding two consumer warpgroups that fold each 128 x 128
+logits tile from registers (:func:`forward_plan` is its walk), the
+backward in one prep and one
+logits sweep a chunk for both gradients;
 with fp32 h on the fp32 FMA units (the card-vs-CPU checks at 1e-5).
 
 On a CPU tensor it computes the plain version beside it, the reference's
@@ -57,7 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -223,8 +227,8 @@ def _chunk_logits(h32, w, cdt, c0, bv, transpose_w, softcap, vocab):
 
 
 def _sweep_plain(h2, w, normp, labels, seed, *, vocab, transpose_w, softcap,
-                 norm, eps, chunk, row_ids=None):
-    hn = apply_norm(h2, normp, norm, eps)
+                 norm, eps, chunk, row_ids=None, stats=None):
+    hn = apply_norm(h2, normp, norm, eps, stats)
     N = hn.shape[0]
     Vp = _vp_of(w, transpose_w)
     bv = vocab_chunk(Vp, chunk, 128)
@@ -254,25 +258,29 @@ def _sweep_plain(h2, w, normp, labels, seed, *, vocab, transpose_w, softcap,
 
 
 def ce_forward_plain(h2, w, normp, labels, *, vocab, transpose_w=False,
-                     softcap=None, norm=None, eps=1e-6, chunk=CHUNK):
-    """(lse, label logit) per row, fp32 (N,) each."""
+                     softcap=None, norm=None, eps=1e-6, chunk=CHUNK,
+                     stats=None):
+    """(lse, label logit) per row, fp32 (N,) each.  ``stats`` as in
+    :func:`apply_norm`."""
     lse, ll, _ = _sweep_plain(h2, w, normp, labels, None, vocab=vocab,
                               transpose_w=transpose_w, softcap=softcap,
-                              norm=norm, eps=eps, chunk=chunk)
+                              norm=norm, eps=eps, chunk=chunk, stats=stats)
     return lse, ll
 
 
 def ce_forward_sampled_plain(h2, w, normp, seed, *, vocab,
                              transpose_w=False, softcap=None, norm=None,
-                             eps=1e-6, chunk=CHUNK, row_ids=None):
+                             eps=1e-6, chunk=CHUNK, row_ids=None,
+                             stats=None):
     """(lse, drawn logit, ŷ int32) per row.  ``seed`` is two uint32
     values (the hash noise) or ``draw(c0, width) -> (N, width)`` fp32
     Gumbel noise of the chunk of columns from ``c0``, called in chunk
     order.  ``row_ids`` (N,) gives each row the hash's row index (its
-    place in a larger batch); None: ``arange(N)``."""
+    place in a larger batch); None: ``arange(N)``.  ``stats`` as in
+    :func:`apply_norm`."""
     return _sweep_plain(h2, w, normp, None, seed, vocab=vocab,
                         transpose_w=transpose_w, softcap=softcap, norm=norm,
-                        eps=eps, chunk=chunk, row_ids=row_ids)
+                        eps=eps, chunk=chunk, row_ids=row_ids, stats=stats)
 
 
 def ce_backward_plain(h2, w, normp, labels, rs, lse, *, vocab,
@@ -365,9 +373,10 @@ def check_kernel_args(h2, w, normp, *, transpose_w, norm) -> None:
         if t.device != h2.device or not t.is_contiguous():
             raise ValueError(f"fused_ce: {name} must be contiguous on "
                              f"{h2.device}")
-    # with bf16 h the tensor-core kernels copy a bf16 W in 16-byte pieces
-    if (h2.dtype == w.dtype == torch.bfloat16) and w.data_ptr() % 16:
-        raise ValueError("fused_ce: a bf16 w does not start on a 16-byte "
+    # with bf16 h the tensor-core route reads W in 16-byte pieces (TMA
+    # boxes of a bf16 W; the prep's loads of an fp32 W)
+    if h2.dtype == torch.bfloat16 and w.data_ptr() % 16:
+        raise ValueError("fused_ce: with bf16 h, w must start on a 16-byte "
                          "boundary")
     if norm not in _NORM_CODE:
         raise ValueError(f"fused_ce: norm {norm!r} not in {NORMS}")
@@ -397,13 +406,110 @@ def _raise_on(err: int, name: str) -> None:
 def forward_splits(N: int, Vp: int) -> Tuple[int, int]:
     """(splits, tiles per split) of the fp32-h forward's vocab axis:
     enough (64-row x split) blocks for about four per SM of an H100.  (The
-    bf16-h forward writes one partial per 128-column tile: Vp // 128
-    splits of one tile.)"""
+    bf16-h forward's pieces are :func:`forward_plan`'s.)"""
     n_tiles = Vp // 128
     row_blocks = -(-N // 64)
     want = max(1, min(n_tiles, -(-528 // row_blocks)))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+H100_SMS = 132
+
+
+class ForwardPlan(NamedTuple):
+    """The persistent walk of the bf16-h forward (``csrc/fused_ce.cu``, the
+    note above ``ce_fwd_wgmma_kernel``).  ``pieces`` (k) cuts each row
+    tile's vocabulary into runs of consecutive 128-column tiles; the row
+    tiles run in groups of ``group``; ``grid`` blocks, one an SM;
+    ``busiest`` the 128 x 128 tiles of the block with the most;
+    ``idle_share`` the share of the card's SM time the walk leaves idle at
+    the end: 1 - tiles / (sms * busiest)."""
+    row_tiles: int
+    vocab_tiles: int
+    pieces: int
+    group: int
+    grid: int
+    busiest: int
+    idle_share: float
+
+
+H_N_L2_BYTES = 20 << 20   # h_n this large or smaller stays in the L2 whole
+ROW_GROUP = 12            # else row tiles a group: ~sqrt of 132 blocks
+
+
+def _piece(T: int, k: int, j: int) -> Tuple[int, int]:
+    """Vocab tiles [v0, v1) of piece j of k: the first T % k one longer."""
+    q, rem = divmod(T, k)
+    v0 = j * q + min(j, rem)
+    return v0, v0 + q + (j < rem)
+
+
+def _unit(n_rt: int, k: int, G: int, u: int) -> Tuple[int, int]:
+    """(row tile, piece) of unit u: groups of G row tiles (the last may
+    hold fewer), within a group the row tiles fastest."""
+    grp, r = divmod(u, G * k)
+    rows = min(G, n_rt - grp * G)
+    return grp * G + r % rows, r // rows
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(N: int, Vp: int, D: int, sms: int = H100_SMS) -> ForwardPlan:
+    """The bf16-h forward's schedule on a card of ``sms`` SMs.  Block b
+    takes the units b, b + grid, b + 2 grid, ... of the order of
+    :func:`_unit`: the row tiles fastest within a group, so the blocks in
+    flight share a few W tiles and a group's rows of h_n (every row tile
+    where h_n takes at most ``H_N_L2_BYTES``, else ``ROW_GROUP``).  k is
+    the one that leaves the busiest block the fewest tiles in the order
+    without groups (where block 0 is the busiest: loads fall with b), then
+    the fewest pieces (which size the partials: 4 fp32 and an int32 a
+    piece and row); ``busiest`` is counted in the grouped order."""
+    n_rt, T = -(-N // 128), Vp // 128
+    G = n_rt if n_rt * 256 * D <= H_N_L2_BYTES else min(n_rt, ROW_GROUP)
+    best = None
+    for k in range(1, T + 1):
+        units = n_rt * k
+        grid = min(sms, units)
+        q, rem = divmod(T, k)
+        load = q * -(-units // grid) + -(-(rem * n_rt) // grid)
+        if best is None or load < best[0]:
+            best = (load, k, grid)
+    _, k, grid = best
+    loads = [0] * grid
+    for u in range(n_rt * k):
+        v0, v1 = _piece(T, k, _unit(n_rt, k, G, u)[1])
+        loads[u % grid] += v1 - v0
+    busiest = max(loads)
+    return ForwardPlan(n_rt, T, k, G, grid, busiest,
+                       1.0 - n_rt * T / (sms * busiest))
+
+
+def forward_units(plan: ForwardPlan):
+    """Per block, its units in the order it runs them: (row tile, piece,
+    first vocab tile, end vocab tile)."""
+    out = [[] for _ in range(plan.grid)]
+    for u in range(plan.row_tiles * plan.pieces):
+        i, j = _unit(plan.row_tiles, plan.pieces, plan.group, u)
+        out[u % plan.grid].append((i, j,
+                                   *_piece(plan.vocab_tiles, plan.pieces, j)))
+    return out
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def forward_scratch(N: int, Vp: int, D: int, h_bf16: bool,
+                    sms: int = H100_SMS) -> Tuple[int, int]:
+    """(splits, per) of a forward call: its partials are ``part`` (4,
+    splits, N) fp32 and ``part_idx`` (splits, N) int32.  With bf16 h the
+    pieces and the row group of :func:`forward_plan`, with fp32 h
+    :func:`forward_splits`' splits and tiles a split."""
+    if h_bf16:
+        plan = forward_plan(N, Vp, D, sms)
+        return plan.pieces, plan.group
+    return forward_splits(N, Vp)
 
 
 def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
@@ -414,9 +520,12 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
     dev = h2.device
     sample = seed is not None
     _, D, _, Vp, h_bf16, w_bf16 = c["dims"][:6]
-    # bf16 h: the tensor-core route, one partial per 128-column tile and a
-    # workspace for h_n and W's bf16 plane
-    splits, per = (Vp // 128, 1) if h_bf16 else forward_splits(N, Vp)
+    # bf16 h: the tensor-core route, one partial per piece of the walk and
+    # a workspace for h_n and W's bf16 plane
+    splits, per = forward_scratch(
+        N, Vp, D, bool(h_bf16),
+        _sm_count(dev.index if dev.index is not None
+                  else torch.cuda.current_device()))
     ws = torch.empty((max(1, _launch_fn("ce_forward_ws_bytes")(
         N, D, Vp, h_bf16, w_bf16)),), dtype=torch.uint8, device=dev)
     part = torch.empty((4 * splits * N,), dtype=_f32, device=dev)

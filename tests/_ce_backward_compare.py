@@ -105,9 +105,9 @@ def kind_of(name):
     return "other"
 
 
-def profile_call(torch, fn, flush, reps=3):
+def profile_call(torch, fn, flush, reps=3, kind=kind_of):
     """``torch.profiler`` over ``reps`` calls (the L2 flushed before each):
-    per call, the device time of each part (:func:`kind_of`), the kernel
+    per call, the device time of each part (``kind``), the kernel
     count, and the span from its first kernel's start to its last one's
     end (the span minus the busy time is the device's idle time inside
     the call)."""
@@ -139,13 +139,13 @@ def profile_call(torch, fn, flush, reps=3):
     for evs in calls:
         parts = {}
         for e in evs:
-            k = kind_of(e.name)
+            k = kind(e.name)
             parts[k] = parts.get(k, 0.0) + (e.time_range.end
                                             - e.time_range.start) / 1e3
         span = (evs[-1].time_range.end - evs[0].time_range.start) / 1e3
         out.append({"ms": parts, "kernels": len(evs), "span_ms": span,
                     "busy_ms": sum(parts.values()),
-                    "each": [(kind_of(e.name), round((e.time_range.end
+                    "each": [(kind(e.name), round((e.time_range.end
                               - e.time_range.start) / 1e3, 4))
                              for e in evs]})
     return out

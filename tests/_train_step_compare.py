@@ -5,7 +5,7 @@ does not collect it); it needs an NVIDIA GPU and nvcc.  Unpack the other
 commit into the ignored ``build/`` first:
 
     mkdir -p build/parent
-    git archive 4479893 | tar -x -C build/parent
+    git archive 7188079 | tar -x -C build/parent
     python3 tests/_train_step_compare.py build/parent [--out FILE.json]
 
 Each turn builds the kernels of its checkout (into that checkout's

@@ -370,6 +370,12 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="16-byte"):
         ce.check_kernel_args(h.to(torch.bfloat16), w, torch.zeros(2, 128),
                              transpose_w=False, norm=None)
+    w = torch.zeros(256 * 128 + 1)[1:].view(256, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        ce.check_kernel_args(h.to(torch.bfloat16), w, torch.zeros(2, 128),
+                             transpose_w=False, norm=None)
+    ce.check_kernel_args(h, w, torch.zeros(2, 128), transpose_w=False,
+                         norm=None)  # fp32 h: the FMA kernels, any offset
 
 
 def test_no_route_for_other_devices():
@@ -518,44 +524,111 @@ def test_tensor_core_operand_split_meets_the_bf16_contract(tied):
 # the tensor-core forward (bf16 h), emulated in PyTorch
 
 
+def _lse_merge(m, l, m2, l2):
+    """The kernels' log-sum-exp merge: l e^(m - mn) + l2 e^(m2 - mn)."""
+    mn = torch.maximum(m, m2)
+    return mn, l * torch.exp(m - mn) + l2 * torch.exp(m2 - mn)
+
+
+def _tc_fold_tile(s, cols, vocab, lab, g):
+    """One 128-column tile of logits ``s`` (N, 128) at ``cols`` folded as
+    ``csrc/fused_ce.cu:fold_row`` folds it: each of a quad's four threads
+    t takes the columns 2 t + 8 j + e (j < 16, e < 2) in ascending order
+    (its max, then the sum of exp(s - max) column by column over the valid
+    ones; the label logit, or the first argmax of s + g with its raw
+    logit), then the quad merges by xor 1 and xor 2.  Returns (m, l, ll, z,
+    zi), (N,) each."""
+    N = s.shape[0]
+
+    def by_thread(x):      # (..., 128) -> (..., 4 threads, 32 columns)
+        return x.reshape(*x.shape[:-1], 16, 4, 2).transpose(-3, -2) \
+            .reshape(*x.shape[:-1], 4, 32)
+
+    st, ct = by_thread(s), by_thread(cols)
+    gt = None if g is None else by_thread(g)
+    m = st.amax(-1)
+    l, ll = torch.zeros(N, 4), torch.zeros(N, 4)
+    z = torch.full((N, 4), ce.NEG_INF)
+    zi = torch.zeros((N, 4), dtype=torch.int32)
+    for x in range(32):
+        sx, cx = st[:, :, x], ct[:, x]
+        valid = (cx < vocab)[None, :]
+        l = l + torch.where(valid, torch.exp(sx - m), 0.0)
+        if g is None:
+            ll = torch.where(cx[None, :] == lab[:, None], sx, ll)
+        else:
+            zx = sx + gt[:, :, x]
+            up = valid & (zx > z)
+            z, zi, ll = (torch.where(up, zx, z),
+                         torch.where(up, cx.to(torch.int32)[None, :], zi),
+                         torch.where(up, sx, ll))
+    for off in (1, 2):
+        pair = torch.arange(4) ^ off
+        m2, l2, ll2 = m[:, pair], l[:, pair], ll[:, pair]
+        m, l = _lse_merge(m, l, m2, l2)
+        if g is None:
+            ll = ll + ll2
+        else:
+            z2, i2 = z[:, pair], zi[:, pair]
+            up = (z2 > z) | ((z2 == z) & (i2 < zi))
+            z, zi, ll = (torch.where(up, z2, z), torch.where(up, i2, zi),
+                         torch.where(up, ll2, ll))
+    return m[:, 0], l[:, 0], ll[:, 0], z[:, 0], zi[:, 0]
+
+
 def _tc_forward_emulated(h2, w, normp, labels, seed, *, vocab, transpose_w,
-                         softcap, norm, eps=1e-6):
+                         softcap, norm, eps=1e-6, pieces=None):
     """(lse, label or drawn logit, ŷ) as the bf16-h forward sums them
-    (``csrc/fused_ce.cu``: ``ce_mma_kernel``'s fold epilogue, then
-    ``ce_combine_kernel``), emulated: h_n in bf16 and W's hi plane
-    bf16(W) (bf16 values in fp32 tensors: every product exact, every sum
-    in fp32); each 128-column tile folded into one partial per row (m, l
-    over its valid columns, and the label logit or the tile's first argmax
-    of s + g with its raw logit), the partials merged in column order with
-    strict > across tiles."""
+    (``csrc/fused_ce.cu``: ``ce_fwd_wgmma_kernel``, then
+    ``ce_combine_kernel``), emulated: h_n in bf16 and W's hi plane bf16(W)
+    (bf16 values in fp32 tensors: every product exact, every sum in fp32);
+    each 128-column tile folded per thread and quad (:func:`_tc_fold_tile`);
+    the tiles of each of the row's ``pieces`` runs (default
+    ``forward_plan``'s) merged in order into one partial, strict > for the
+    draw; the partials merged in column order (the combine kernel)."""
     hn = ce.apply_norm(h2, normp, norm, eps).float()
     hi = w.to(torch.bfloat16).float()
     Vp = w.shape[1] if transpose_w else w.shape[0]
     N = hn.shape[0]
+    k = pieces or ce.forward_plan(N, Vp, hn.shape[1]).pieces
     rows = torch.arange(N)[:, None]
+    lab = None if labels is None else labels.long()
     M = torch.full((N,), ce.NEG_INF)
     L, LL = torch.zeros(N), torch.zeros(N)
     Z, I = torch.full((N,), ce.NEG_INF), torch.zeros(N, dtype=torch.int32)
-    for c0 in range(0, Vp, 128):
-        raw = hn @ (hi[:, c0:c0 + 128] if transpose_w
-                    else hi[c0:c0 + 128].T)
-        if softcap is not None:
-            raw = softcap * torch.tanh(raw / softcap)
-        cols = torch.arange(c0, c0 + 128)
-        valid = (cols < vocab)[None, :]
-        s = torch.where(valid, raw, ce.NEG_INF)
-        m = s.amax(-1)
-        l = torch.where(valid, torch.exp(s - m[:, None]), 0.0).sum(-1)
-        mn = torch.maximum(M, m)
-        L = L * torch.exp(M - mn) + l * torch.exp(m - mn)
+    for j in range(k):
+        rm, rl, rll = torch.full((N,), ce.NEG_INF), torch.zeros(N), \
+            torch.zeros(N)
+        rz, ri = torch.full((N,), ce.NEG_INF), torch.zeros(N,
+                                                           dtype=torch.int32)
+        v0, v1 = ce._piece(Vp // 128, k, j)
+        for v in range(v0, v1):
+            c0 = 128 * v
+            raw = hn @ (hi[:, c0:c0 + 128] if transpose_w
+                        else hi[c0:c0 + 128].T)
+            if softcap is not None:
+                raw = softcap * torch.tanh(raw / softcap)
+            cols = torch.arange(c0, c0 + 128)
+            s = torch.where((cols < vocab)[None, :], raw, ce.NEG_INF)
+            g = (None if seed is None
+                 else ce.hash_gumbel(seed, rows, cols[None]))
+            m, l, ll, z, zi = _tc_fold_tile(s, cols, vocab, lab, g)
+            rm, rl = _lse_merge(rm, rl, m, l)
+            if seed is None:
+                rll = rll + ll
+            else:
+                up = z > rz
+                rz, ri, rll = (torch.where(up, z, rz), torch.where(up, zi, ri),
+                               torch.where(up, ll, rll))
+        mn = torch.maximum(M, rm)
+        L = L * torch.exp(M - mn) + rl * torch.exp(rm - mn)
         M = mn
         if seed is None:
-            hit = cols[None, :] == labels.long()[:, None]
-            LL = LL + torch.where(hit, s, 0.0).sum(-1)
+            LL = LL + rll
         else:
-            z = torch.where(valid, s + ce.hash_gumbel(seed, rows, cols[None]),
-                            ce.NEG_INF)
-            Z, I, LL = ce.online_argmax_step((Z, I, LL), s, z, c0)
+            up = rz > Z
+            Z, I, LL = (torch.where(up, rz, Z), torch.where(up, ri, I),
+                        torch.where(up, rll, LL))
     return M + torch.log(torch.clamp_min(L, 1e-37)), LL, I
 
 
@@ -622,3 +695,132 @@ def test_tensor_core_forward_emulation_matches_reference(tied, softcap):
     np.testing.assert_array_equal(y.numpy(), np.asarray(y_r))
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_r), atol=TOL)
     np.testing.assert_allclose(ll.numpy(), np.asarray(ll_r), atol=TOL)
+
+
+# runs of the forward's walk: 1 tile, 3 tiles (merge boundaries inside the
+# vocabulary) and a last run of tiles wholly past V (VP_RUNS=1024: 8 tiles)
+VP_RUNS = 1024
+RUN_CASES = [(8, 1000), (3, 1000), (3, 700)]
+RUN_IDS = ["run1", "run3", "run_past_V"]
+
+
+def _runs_setup(tied, seed=5):
+    """bf16 h (48, D), fp32 W over VP_RUNS columns, labels below 700."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((48, D)).astype(np.float32)
+    w = (rng.standard_normal((VP_RUNS, D) if tied else (D, VP_RUNS)) * 0.2
+         ).astype(np.float32)
+    labels = rng.integers(0, 700, 48).astype(np.int32)
+    jh = jnp.asarray(h).astype(jnp.bfloat16)
+    return jh, jnp.asarray(w), jnp.asarray(labels), _to_torch(jh), \
+        torch.from_numpy(w), torch.from_numpy(labels)
+
+
+@pytest.mark.parametrize("pieces,vocab", RUN_CASES, ids=RUN_IDS)
+@pytest.mark.parametrize("tied", [True, False])
+def test_tensor_core_forward_runs_match_plain(tied, pieces, vocab):
+    """The bf16-h forward's fold with ``pieces`` runs a row (run1: 8 runs
+    of one tile; run3: runs of 3, 3, 2 tiles, merged at columns 384 and
+    768 inside the vocabulary; run_past_V: the last run's tiles, columns
+    768-1023, wholly past V = 700) against the plain versions: lse and
+    the label or drawn logit within 3e-6, the draws identical and never a
+    padded column."""
+    _, _, _, h2, w, lab = _runs_setup(tied)
+    opts = dict(vocab=vocab, transpose_w=not tied, softcap=30.0, norm=None)
+    normp = torch.zeros(2, D)
+    lse, ll, _ = _tc_forward_emulated(h2, w, normp, lab, None, **opts,
+                                      pieces=pieces)
+    lse_p, ll_p = ce.ce_forward_plain(h2, w, normp, lab, **opts)
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(ll.numpy(), ll_p.numpy(), atol=TOL, rtol=0)
+    lse, ll, y = _tc_forward_emulated(h2, w, normp, None, SEED9, **opts,
+                                      pieces=pieces)
+    lse_p, ll_p, y_p = ce.ce_forward_sampled_plain(h2, w, normp, SEED9,
+                                                   **opts)
+    np.testing.assert_array_equal(y.numpy(), y_p.numpy())
+    assert int(y.max()) < vocab
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(ll.numpy(), ll_p.numpy(), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("pieces,vocab", RUN_CASES, ids=RUN_IDS)
+def test_tensor_core_forward_runs_match_reference(pieces, vocab):
+    """The same runs against the reference's ``_ce_forward`` and
+    ``_ce_forward_sampled`` (Pallas, interpret mode) on the same numpy
+    inputs, untied fp32 W cast to bf16 by both: lse and the label or drawn
+    logit within 3e-6, the draws bit-identical."""
+    jh, jw, jlab, h2, w, lab = _runs_setup(False)
+    kw = dict(vocab=vocab, transpose_w=True, softcap=None, norm=None,
+              eps=1e-6)
+    normp = torch.zeros(2, D)
+    lse_r, ll_r = jax_ce_forward(jh, jw, None, jlab, **kw, **REF_BLOCKS)
+    lse, ll, _ = _tc_forward_emulated(h2, w, normp, lab, None, **kw,
+                                      pieces=pieces)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_r), atol=TOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_r), atol=TOL)
+    lse_r, ll_r, y_r = jax_ce_forward_sampled(jh, jw, None,
+                                              jnp.asarray(SEED9), **kw,
+                                              **REF_BLOCKS)
+    lse, ll, y = _tc_forward_emulated(h2, w, normp, None, SEED9, **kw,
+                                      pieces=pieces)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_r))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_r), atol=TOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_r), atol=TOL)
+
+
+# the forward's walk: the loss shapes phase 5 of chip_smoke.py times
+# (GPT-2 small's, its refresh's, the rope models' and the dense configs')
+# and ragged ones
+PLAN_SHAPES = [
+    ("gpt2-small", 8192, 768, 50304), ("gpt2-small-refresh", 4096, 768, 50304),
+    ("neox-1.5b", 8192, 1536, 50432), ("stablelm-1.6b", 8192, 2048, 100352),
+    ("neox-6.6b", 4096, 4096, 50432), ("yi-6b", 4096, 4096, 64000),
+    ("qwen1.5-110b", 2048, 8192, 152064), ("gemma2-9b", 8192, 3584, 256000),
+    ("qwen2-vl-7b", 4096, 3584, 152064),
+    ("deepseek-moe-16b", 4096, 2048, 102400),
+    ("rwkv6-7b", 4096, 4096, 65536),
+    ("recurrentgemma-2b", 8192, 2560, 256000),
+    ("seamless-m4t-medium", 8192, 1024, 256256),
+    ("N7", 7, 768, 256), ("N8000", 8000, 768, 50304),
+    ("Vp1024", 300, 4096, 1024),
+]
+
+
+@pytest.mark.parametrize("name,N,D,Vp", PLAN_SHAPES,
+                         ids=[s[0] for s in PLAN_SHAPES])
+def test_forward_plan_covers_every_tile_once(name, N, D, Vp):
+    """``forward_plan``'s walk on an H100's 132 SMs: every (row tile,
+    vocab tile) in exactly one block's units, each unit a run of
+    consecutive tiles of one row tile, the runs of a row tile in column
+    order by piece; the busiest block's tile count as the plan states it;
+    at most 2% of the SM time idle at the models' shapes (a ragged small
+    batch cannot fill the card); and the partials the wrapper sizes are
+    one per piece and row."""
+    plan = ce.forward_plan(N, Vp, D)
+    n_rt, T = -(-N // 128), Vp // 128
+    assert (plan.row_tiles, plan.vocab_tiles) == (n_rt, T)
+    assert 1 <= plan.pieces <= T and plan.grid <= 132
+    assert plan.group == (n_rt if n_rt * 256 * D <= 20 << 20
+                          else min(n_rt, 12))
+    seen = np.zeros((n_rt, T), np.int64)
+    ends = {}
+    loads = []
+    for units in ce.forward_units(plan):
+        n = 0
+        for i, j, v0, v1 in units:
+            assert 0 <= v0 < v1 <= T
+            seen[i, v0:v1] += 1
+            ends[(i, j)] = (v0, v1)
+            n += v1 - v0
+        loads.append(n)
+    assert (seen == 1).all()
+    for i in range(n_rt):
+        runs = [ends[(i, j)] for j in range(plan.pieces)]
+        assert runs[0][0] == 0 and runs[-1][1] == T
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert max(loads) == plan.busiest
+    assert plan.idle_share == pytest.approx(1 - n_rt * T / (132 * max(loads)))
+    if N >= 2048:
+        assert plan.idle_share < 0.02
+    assert ce.forward_scratch(N, Vp, D, True) == (plan.pieces, plan.group)
+    assert ce.forward_scratch(N, Vp, D, False) == ce.forward_splits(N, Vp)
