@@ -85,6 +85,15 @@ it fails and prints no result.  Phases, in order:
      gemma2-9b at 4, 1,710,358,528; qwen2-vl-7b at 4; deepseek-moe-16b
      at 3, 2,183,135,232; rwkv6-7b at 6), the plain versions over
      slices;
+  2b. the kernel tuner (``kernels/autotune.py``) at GPT-2 small's
+     training shapes (the CE at N=8192, D=768, Vp=50304, tied, ln, bf16
+     h; flash at B=8, H=12, S=1024, hd=64, causal, bf16), its cache in a
+     temporary directory: each measured candidate's time (rows 11, 13,
+     16-18), the seed's and the pick's; the cache read back; the kernels
+     at the pick against their plain versions with this phase's checks,
+     and against the seed's output (the label logits and dW bit for bit,
+     lse within 1e-4, dh within 2^-16 of its absolute sums; flash o, dq,
+     dk, dv within 2^-7 of theirs, lse within 1e-5 of its largest);
   3. GPT-2 small served at full width and depth with random weights from a
      seeded generator: 16 mixed-length requests over 8 slots, once with a
      bf16 KV cache and once with int8.  Launch counts are zeroed just
@@ -346,7 +355,9 @@ it fails and prints no result.  Phases, in order:
      at world size 1: GPT-2 small 12 steps at B=8 x S=1024, Sophia-G +
      GNB on the engine kernels, ``--compress-grads --compress-hess
      --comm-telemetry`` in 8 buckets, ``--elastic`` with an asynchronous
-     checkpoint at step 8; the same command after step 12's checkpoint is
+     checkpoint at step 8, ``--retune`` (its two ``[retune]`` lines logged;
+     the tuner's cache in the run's directory, which the later runs
+     read); the same command after step 12's checkpoint is
      removed, which must resume at step 8 and log the first run's losses
      bit for bit; the 12 steps uncompressed.  Each run's launch counts
      (its own process's) are exact.  A JSON line ``{"dp": ...}`` holds
@@ -393,9 +404,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # allocator from fragmenting (set before torch first touches the card)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+# the H100 SXM's peaks, kept once in the port (launch/roofline.py): device
+# memory, fp32 outside the tensor cores, dense bf16 on them
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_FLOPS as FP32_FLOPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_FLOPS_PER_S)
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DECODE_ATTN = ("src/repro_torch/kernels/csrc/decode_attention.cu",
                {"decode_attention": "src/repro/kernels/decode_attention.py:47",
@@ -1309,6 +1323,182 @@ def phase_flash_kernels(torch):
         torch, f"seamless-m4t-medium-encoder_B1_S{PREFILL_S}_H16_noncausal",
         SEAMLESS_LONG_ATTN)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the kernel tuner (kernels/autotune.py) at GPT-2 small's training
+# shapes
+
+TUNE_CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
+TUNE_CE = dict(CE_MAIN, N=8192)          # a training step's loss
+TUNE_ATTN = ATTN_MAIN                      # a training step's attention
+# a pick against the seed on the same inputs.  The label logit and dW do
+# not depend on the pieces, the row group or the chunk width: bit for bit.
+# lse does (the combine merges each row's k partials in order): within
+# 1e-4, the CE forward tests' bound.  dh does (its fp32 sums regroup over
+# the chunks): every element within 2^-16 of its sum of absolute terms,
+# the tight bound of check_bf16_grad.  Flash: other key or q tiles regroup
+# the fp32 sums before the one bf16 rounding, so o, dq, dk and dv within
+# 2^-7 of their absolute sums (the contract), lse within 1e-5 of its
+# largest element.
+TUNE_LSE_TOL = 1e-4
+TUNE_FLASH_LSE_REL = 1e-5
+
+
+def _tune_log(kind, tuned, seed_labels):
+    """Each measured candidate's time, then the pick against the seed;
+    returns the pick's gain (the share of the seed's time it saves)."""
+    for label, ms in tuned.timings.items():
+        tag = " (seed)" if label in seed_labels else ""
+        log(f"[tune] {kind} {label}: {ms:.4f} ms{tag}")
+    gain = 1.0 - tuned.measured_ms / tuned.seed_ms
+    log(f"[tune] {kind} pick: {tuned} -- {tuned.measured_ms:.4f} ms against "
+        f"the seed's {tuned.seed_ms:.4f} ({100 * gain:.2f}% less)")
+    return gain
+
+
+def ce_pick_against_seed(torch, spec, tuned, seed):
+    """The CE kernels at the pick against the seed on one input: the
+    label logit and dW bit for bit, lse within TUNE_LSE_TOL, dh within
+    2^-16 of each element's absolute sum."""
+    from repro_torch.kernels import fused_ce as ce
+
+    h, w, normp, labels, rs, opts = _ce_inputs(torch, **spec)
+    out = {}
+    for side, t in (("seed", seed), ("pick", tuned)):
+        lse, ll, _ = ce._forward_kernel(h, w, normp, labels, None, **opts,
+                                        plan=(t.pieces, t.group))
+        out[side] = (lse, ll)
+    lse = out["seed"][0]
+    for side, t in (("seed", seed), ("pick", tuned)):
+        out[side] += ce._backward_kernel("both", h, w, normp, labels, rs,
+                                         lse, **opts, cw=t.cw)
+    torch.cuda.synchronize()
+    (lse_s, ll_s, dh_s, dw_s), (lse_t, ll_t, dh_t, dw_t) = (out["seed"],
+                                                           out["pick"])
+    if not (torch.equal(ll_t, ll_s) and torch.equal(dw_t, dw_s)):
+        raise AssertionError("[tune] CE: the pick's label logits or dW "
+                             "differ from the seed's")
+    lse_err = (lse_t - lse_s).abs().max().item()
+    stats = ce.row_stats(h, norm=opts["norm"], eps=opts["eps"])
+    s_dh, _ = _abs_sums(torch, h, w, normp, labels, rs, lse, opts, stats)
+    diff = (dh_t - dh_s).abs()
+    beyond = int((diff > 2 ** -16 * s_dh + 2 ** -24 * s_dh.max()).sum())
+    if not lse_err <= TUNE_LSE_TOL or beyond:
+        raise AssertionError(f"[tune] CE pick against the seed: lse "
+                             f"{lse_err:.3g} (limit {TUNE_LSE_TOL}), {beyond} "
+                             f"dh elements beyond 2^-16 of their absolute sum")
+    note = (f"label logits and dW bit for bit, lse within {lse_err:.3g}, dh "
+            f"within {(diff / s_dh.clamp_min(1e-30)).max().item():.3g} of "
+            f"its absolute sums")
+    log(f"[tune] CE pick against the seed: {note}")
+    return note
+
+
+def flash_pick_against_seed(torch, spec, tuned):
+    """The flash kernels at the pick against the seed's tiles on one bf16
+    input: o, dq, dk, dv within 2^-7 of their absolute sums, lse within
+    TUNE_FLASH_LSE_REL of its largest element."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, g, kw = _attn_inputs(torch, spec, torch.bfloat16)
+    seed = fa.seed_tiles(spec["hd"])
+    got = {}
+    for side, t in (("seed", seed), ("pick", tuned.tiles)):
+        o, lse = fa._forward_kernel(q, k, v, tiles=t, **kw)
+        got[side] = dict(o=o, lse=lse)
+    delta = (g.float() * got["seed"]["o"].float()).sum(-1)
+    lse = got["seed"]["lse"]
+    for side, t in (("seed", seed), ("pick", tuned.tiles)):
+        got[side]["dq"] = fa._dq_kernel(q, k, v, g, lse, delta, tiles=t,
+                                        **kw)
+        got[side]["dk"], got[side]["dv"] = fa._dkv_kernel(
+            q, k, v, g, lse, delta, tiles=t, **kw)
+    torch.cuda.synchronize()
+    sums = fa.contract_sums(q, k, v, g, lse, delta, **kw)
+    misses = {n: fa.contract_misses(got["pick"][n], got["seed"][n], s)
+              for n, s in sums.items()}
+    lse_rel = ((got["pick"]["lse"] - lse).abs().max().item()
+               / lse.abs().max().item())
+    if any(m[0] for m in misses.values()) or not (
+            lse_rel <= TUNE_FLASH_LSE_REL):
+        raise AssertionError(
+            f"[tune] flash pick against the seed: elements beyond 2^-7 of "
+            f"their absolute sums {dict((n, m[0]) for n, m in misses.items())}"
+            f", lse {lse_rel:.3g} of its largest")
+    note = ("o, dq, dk, dv within 2^-7 of their absolute sums (share beyond "
+            "2^-9: " + ", ".join(f"{n} {m[1]:.3g}" for n, m in misses.items())
+            + f"), lse within {lse_rel:.3g} of its largest")
+    log(f"[tune] flash pick against the seed: {note}")
+    return note
+
+
+def phase_tune(torch):
+    """``kernels/autotune.py`` at GPT-2 small's training shapes (the CE at
+    N 8192, D 768, Vp 50,304, tied, ln, bf16 h, fp32 W; flash at B 8, H
+    12, S 1024, hd 64, causal, bf16): every measured candidate's time, the
+    seed's and the pick's; the cache written and read back; the kernels
+    at the pick against their plain versions with phase 2's checks and
+    against the seed's output.  The cache lives in a temporary directory,
+    never ``~/.cache``, and goes with it, so the later phases run the
+    seeds and no call carries a pick into the next.  Returns the
+    report."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import autotune as at
+
+    work = tempfile.mkdtemp(prefix="tune-", dir=os.path.join(ROOT, "build"))
+    before = os.environ.get(TUNE_CACHE_ENV)
+    os.environ[TUNE_CACHE_ENV] = os.path.join(work, "autotune.json")
+    at.clear_memory_cache()
+    try:
+        sp, a = TUNE_CE, TUNE_ATTN
+        ce_shape = dict(h_dtype=torch.bfloat16, w_dtype=torch.float32,
+                        transpose_w=not sp["tied"], softcap=sp["softcap"],
+                        norm=sp["norm"])
+        t = at.tune_shape(sp["N"], sp["D"], sp["Vp"], **ce_shape,
+                          refresh=True)
+        sms = at.device_info(torch.cuda.current_device())[1]
+        seed = at.ce_seed(sp["N"], sp["D"], sp["Vp"], sms)
+        ce_gain = _tune_log("CE", t, (
+            f"ce_forward pieces={seed.pieces} group={seed.group}",
+            f"ce_backward cw={seed.cw}"))
+        attn_shape = dict(causal=a["causal"], window=a["window"],
+                          softcap=a["softcap"])
+        ta = at.tune_attn_shape(a["B"], a["H"], a["Hkv"], a["Sq"], a["Sk"],
+                                a["hd"], **attn_shape, refresh=True)
+        st = at.attn_seed(a["hd"])
+        attn_gain = _tune_log("flash", ta, (
+            at.tile_label("attn_fwd", st.fwd),
+            at.tile_label("attn_bwd_dq", st.dq),
+            at.tile_label("attn_bwd_dkv", (st.dkv_bq, st.dkv_ho))))
+        # a fresh process's lookup: the file's picks
+        at.clear_memory_cache()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        got = at.get_tuned(sp["N"], sp["D"], sp["Vp"], **ce_shape,
+                           device=dev)
+        got_a = at.get_tuned_attn(a["B"], a["H"], a["Hkv"], a["Sq"],
+                                  a["Sk"], a["hd"], dtype=torch.bfloat16,
+                                  **attn_shape, device=dev)
+        if got != t or got_a != ta:
+            raise AssertionError(f"[tune] the cache read back {got}, "
+                                 f"{got_a} for {t}, {ta}")
+        errs = check_ce_case(torch, "tuned_train_step_N8192", sp)
+        errs.update(check_flash_case(torch, "tuned_train_step", a,
+                                     torch.bfloat16))
+        ce_note = ce_pick_against_seed(torch, sp, t, seed)
+        attn_note = flash_pick_against_seed(torch, a, ta)
+    finally:
+        if before is None:
+            os.environ.pop(TUNE_CACHE_ENV, None)
+        else:
+            os.environ[TUNE_CACHE_ENV] = before
+        at.clear_memory_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(ce=dataclasses.asdict(t), attn=dataclasses.asdict(ta),
+                ce_gain=ce_gain, attn_gain=attn_gain, plain_errs=errs,
+                ce_against_seed=ce_note, attn_against_seed=attn_note)
 
 
 # the engine kernels: GPT-2 small's flat shard (build_layout: one fp32
@@ -6075,14 +6265,15 @@ def compression_on_the_shard(torch):
     report = dict(ms=statistics.median(times[1:]),
                   device_busy_ms=prof["device_busy_us"] / 1e3,
                   kernels=prof["kernels_launched"],
-                  bound_ms=nbytes / 3.35e12 * 1e3, bytes=nbytes,
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
                   top_kernels_us=prof["top_kernels_us"][:6])
     log(f"[dp] compression over the {DP_SHARD:,}-element shard in "
         f"{DP_BUCKETS} buckets: bucketed == monolithic bit for bit (deq, "
         f"error); one call {report['ms']:.2f} ms (events, median of 5), "
         f"device busy {report['device_busy_ms']:.2f} ms in "
         f"{report['kernels']} kernels (profiler); bytes bound "
-        f"{report['bound_ms']:.3f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s)")
+        f"{report['bound_ms']:.3f} ms ({nbytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s)")
     del g, e0, st
     torch.cuda.empty_cache()
     return report
@@ -6096,8 +6287,10 @@ def dp_launch(tag, extra, workdir, timeout=300):
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *DP_ARGS,
            "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes",
            "1", "--process-id", "0", "--metrics-out", out, *extra]
+    # the tuner's cache in the run's directory, never ~/.cache
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]),
+        **{TUNE_CACHE_ENV: os.path.join(workdir, "autotune.json")})
     t0 = time.perf_counter()
     r = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
                        text=True, timeout=timeout)
@@ -6175,7 +6368,17 @@ def phase_dp(torch):
         ck = os.path.join(work, "ckpt")
         run = DP_COMPRESS + ["--elastic", "--ckpt-dir", ck, "--ckpt-every",
                              str(DP_CKPT)]
-        _, first, last1 = dp_launch("compressed", run, work)
+        # the first run tunes the CE and flash kernels at its shapes; the
+        # others read its picks from the run's cache, so the resumed run
+        # takes the same tiles as the one it resumes
+        out1, first, last1 = dp_launch("compressed", run + ["--retune"],
+                                       work)
+        retune = [ln for ln in out1.splitlines()
+                  if ln.startswith("[retune]")]
+        if len(retune) != 2:
+            raise AssertionError(f"[dp] --retune printed {retune}")
+        for ln in retune:
+            log(f"[dp] {ln}")
         if last1["launches"] != _dp_want(DP_STEPS, 0):
             raise AssertionError(f"[dp] compressed run launches "
                                  f"{last1['launches']} != "
@@ -6225,7 +6428,7 @@ def phase_dp(torch):
     comm = [r["comm_seconds"] for r in first[1:]]
     frac = [r["exposed_comm_fraction"] for r in first[1:]]
     report.update(
-        launches=last1["launches"], resume=resume,
+        launches=last1["launches"], resume=resume, retune=retune,
         compressed=dict(plain_p50_ms=c_plain * 1e3,
                         refresh_p50_ms=c_ref * 1e3,
                         peak_gib=last1["peak_bytes"] / 2 ** 30,
@@ -6745,10 +6948,15 @@ def main() -> int:
         return out
 
     log(f"[cuts] for the script's time: {TIME_CUTS}")
+    # every phase but 2b and 6 (which tune into caches of their own) runs
+    # the kernels' seed tiles: a cache under ~/.cache is never read
+    os.environ[TUNE_CACHE_ENV] = os.path.join(ROOT, "build",
+                                              "no-autotune-cache.json")
     timed("1 build", phase_build)
     main_err = timed("2 decode", phase_kernels, torch)
     ce_err = timed("2 ce", phase_ce_kernels, torch)
     attn_err = timed("2 flash", phase_flash_kernels, torch)
+    tune = timed("2 tune", phase_tune, torch)
     engine_err = timed("2 engine", phase_engine_kernels, torch)
     served = timed("3 serve", phase_serve, torch)
     trained = timed("4 train", phase_train, torch)
@@ -6825,7 +7033,7 @@ def main() -> int:
                 rglru_share_of_plain_step=t.get("rglru_share_of_plain_step"),
                 serve=r["serve"])
     name, power = [s.strip() for s in card.split(",", 1)]
-    log(json.dumps({"dp": dp, "grid": grid, "card": name,
+    log(json.dumps({"tune": tune, "dp": dp, "grid": grid, "card": name,
                     "power_limit": power}))
     log(f"[total] wall {time.perf_counter() - t_start:.1f}s")
     log(card)

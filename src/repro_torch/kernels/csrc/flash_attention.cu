@@ -591,9 +591,11 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 
 constexpr int kKeys = 64;  // keys of a dK/dV block
 
-// Keys of a forward or dQ K/V tile: 64, and 32 at hd 256, where the
-// m64n256 accumulator (O, dQ) already takes 128 registers a thread and a
-// four-stage ring of 64-key K and V tiles would take 256 KB.
+// Keys of a forward or dQ K/V tile by default (the seed of
+// kernels/autotune.py): 64, and 32 at hd 256, where the m64n256
+// accumulator (O, dQ) already takes 128 registers a thread and a
+// four-stage ring of 64-key K and V tiles would take 256 KB.  At hd 64
+// and 128 a tile of 32 keys is built too (launch_rows).
 template <int HD>
 __host__ __device__ constexpr int key_tile() {
   return HD == 256 ? 32 : 64;
@@ -1004,9 +1006,9 @@ __device__ __forceinline__ void online_softmax(const Args& a, float (&s)[N],
 // tile apart: with P of tile j - 1 in registers, S = Q K_j^T and O += P
 // V_{j-1} go to the tensor cores together and the softmax of tile j runs
 // while the second is in flight.
-template <int HD>
+template <int HD, int BN>
 __global__ void __launch_bounds__(128) forward_wgmma_kernel(const Args a) {
-  constexpr int NT = 128, BM = 64, kStages = 4, BN = key_tile<HD>();
+  constexpr int NT = 128, BM = 64, kStages = 4;
   constexpr int kTile = BN * HD * 2;  // bytes of one K or V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sq = smem_raw;
@@ -1332,9 +1334,9 @@ __device__ __forceinline__ void probs(const Args& a, const float (&s)[N],
 // tensor cores with dQ += dS K_{j-1} (m64nHD, K read MN-major), and dS of
 // tile j is formed while the last is in flight.  dS is rounded to bf16
 // once; the dQ sum stays in fp32 registers and takes the scale at the end.
-template <int HD>
+template <int HD, int BN>
 __global__ void __launch_bounds__(128) dq_wgmma_kernel(const Args a) {
-  constexpr int NT = 128, BM = 64, kStages = 4, BN = key_tile<HD>();
+  constexpr int NT = 128, BM = 64, kStages = 4;
   constexpr int kTile = BN * HD * 2;  // bytes of one K or V tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sq = smem_raw;
@@ -1475,38 +1477,77 @@ struct FmaTiles {
 };
 
 // bf16: the tensor-core kernels, one warpgroup a block.  The forward and
-// dQ own q tiles of 64 rows and walk a four-stage K/V ring of key_tile<HD>
-// keys (dQ also keeps its dO tile); dK/dV walks q tiles of 64 rows (32 at
-// hd 128 and 256, where dK and dV take twice the registers) through a
-// three-stage ring, and at hd 256 each key tile has two blocks, one for
-// each half of the head dims.
-template <int HD>
-cudaError_t launch_tc(Which w, const Args& a, cudaStream_t stream) {
-  void (*kern)(Args);
-  size_t smem;
-  long long tiles;
-  int heads;
-  if (w != kDkv) {
-    kern = w == kForward ? forward_wgmma_kernel<HD> : dq_wgmma_kernel<HD>;
-    smem = (size_t)((w == kForward ? 64 : 128) + 4 * 2 * key_tile<HD>()) *
-           HD * 2;
-    tiles = (a.Sq + 63) / 64;
-    heads = a.H;
-  } else {
-    constexpr int BQ = HD >= 128 ? 32 : 64, HO = HD == 256 ? 128 : HD;
-    kern = dkv_wgmma_kernel<HD, BQ, HO>;
-    smem = (size_t)2 * kKeys * HD * 2 +
-           3 * ((2 * BQ * HD * 2 + 2 * BQ * 4 + 1023) / 1024 * 1024);
-    tiles = (long long)(a.Sk + kKeys - 1) / kKeys * (HD / HO);
-    heads = a.Hkv;
-  }
+// dQ own q tiles of 64 rows and walk a four-stage K/V ring of BN keys (dQ
+// also keeps its dO tile); dK/dV walks q tiles of BQ rows through a
+// three-stage ring, and where HO < HD each key tile has HD / HO blocks,
+// one for each slice of the head dims.  The tiles are the caller's
+// (kernels/autotune.py; flash_attention.py's KEY_TILES and DKV_TILES
+// list the same choices), each built for the head dims below, the first
+// the seed:
+//
+//   hd    forward and dQ: BN    dK/dV: (BQ, HO)
+//   32    64                    (64, 32)
+//   64    64, 32                (64, 64), (32, 64)
+//   128   64, 32                (32, 128), (64, 64)
+//   256   32                    (32, 128)
+//
+// The seed's dK/dV takes q tiles of 64 rows, 32 at hd 128 and 256 where dK
+// and dV take twice the registers; the other choice at hd 128 halves the
+// columns a block sums (two blocks a key tile recompute P^T and dS^T) to
+// take 64-row q tiles.  A choice not built returns cudaErrorInvalidValue.
+template <int HD, int BN>
+cudaError_t launch_rows(Which w, const Args& a, cudaStream_t stream) {
+  void (*kern)(Args) = w == kForward ? forward_wgmma_kernel<HD, BN>
+                                     : dq_wgmma_kernel<HD, BN>;
+  const size_t smem = (size_t)((w == kForward ? 64 : 128) + 4 * 2 * BN) *
+                      HD * 2;
+  const long long tiles = (a.Sq + 63) / 64;
   if (tiles > 65535 || a.B > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (tiles == 0 || a.B == 0) return cudaSuccess;
-  kern<<<dim3(heads, a.B, (unsigned)tiles), 128, smem, stream>>>(a);
+  kern<<<dim3(a.H, a.B, (unsigned)tiles), 128, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int HD, int BQ, int HO>
+cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+  void (*kern)(Args) = dkv_wgmma_kernel<HD, BQ, HO>;
+  const size_t smem = (size_t)2 * kKeys * HD * 2 +
+                      3 * ((2 * BQ * HD * 2 + 2 * BQ * 4 + 1023) / 1024 * 1024);
+  const long long tiles = (long long)(a.Sk + kKeys - 1) / kKeys * (HD / HO);
+  if (tiles > 65535 || a.B > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (tiles == 0 || a.B == 0) return cudaSuccess;
+  kern<<<dim3(a.Hkv, a.B, (unsigned)tiles), 128, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// t0, t1: BN and 0 for the forward and dQ, (BQ, HO) for dK/dV.
+template <int HD>
+cudaError_t launch_tc(Which w, const Args& a, int t0, int t1,
+                      cudaStream_t stream) {
+  constexpr int kBN = key_tile<HD>();
+  constexpr int kBQ = HD >= 128 ? 32 : 64, kHO = HD == 256 ? 128 : HD;
+  if (w != kDkv) {
+    if (t1 != 0) return cudaErrorInvalidValue;
+    if (t0 == kBN) return launch_rows<HD, kBN>(w, a, stream);
+    if constexpr (HD == 64 || HD == 128) {
+      if (t0 == 32) return launch_rows<HD, 32>(w, a, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (t0 == kBQ && t1 == kHO) return launch_dkv<HD, kBQ, kHO>(a, stream);
+  if constexpr (HD == 64) {
+    if (t0 == 32 && t1 == 64) return launch_dkv<HD, 32, 64>(a, stream);
+  }
+  if constexpr (HD == 128) {
+    if (t0 == 64 && t1 == 64) return launch_dkv<HD, 64, 64>(a, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int HD, Which W>
@@ -1526,12 +1567,15 @@ cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp32: the FMA kernels; bf16: the tensor-core kernels.
+// fp32: the FMA kernels, whose tiles are fixed (t0 = t1 = 0); bf16: the
+// tensor-core kernels at the tiles t0, t1.
 template <typename T, int HD>
-cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
+cudaError_t launch(Which w, const Args& a, int t0, int t1,
+                   cudaStream_t stream) {
   if constexpr (sizeof(T) == sizeof(bf16)) {
-    return launch_tc<HD>(w, a, stream);
+    return launch_tc<HD>(w, a, t0, t1, stream);
   } else {
+    if (t0 != 0 || t1 != 0) return cudaErrorInvalidValue;
     switch (w) {
       case kForward: return launch_fma<T, HD, kForward>(a, stream);
       case kDq: return launch_fma<T, HD, kDq>(a, stream);
@@ -1541,19 +1585,20 @@ cudaError_t launch(Which w, const Args& a, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t dispatch(Which w, const Args& a, int hd, cudaStream_t stream) {
+cudaError_t dispatch(Which w, const Args& a, int hd, int t0, int t1,
+                     cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(w, a, stream);
-    case 64: return launch<T, 64>(w, a, stream);
-    case 128: return launch<T, 128>(w, a, stream);
-    case 256: return launch<T, 256>(w, a, stream);
+    case 32: return launch<T, 32>(w, a, t0, t1, stream);
+    case 64: return launch<T, 64>(w, a, t0, t1, stream);
+    case 128: return launch<T, 128>(w, a, t0, t1, stream);
+    case 256: return launch<T, 256>(w, a, t0, t1, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(Which w, Args& a, int B, int H, int Hkv, int Sq, int Sk, int hd,
         int is_bf16, int causal, long long window, long long q_offset,
-        float scale, float softcap, void* stream) {
+        float scale, float softcap, int t0, int t1, void* stream) {
   a.B = B;
   a.H = H;
   a.Hkv = Hkv;
@@ -1565,8 +1610,8 @@ int run(Which w, Args& a, int B, int H, int Hkv, int Sq, int Sk, int hd,
   a.scale = scale;
   a.softcap = softcap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<bf16>(w, a, hd, s)
-                       : dispatch<float>(w, a, hd, s));
+  return (int)(is_bf16 ? dispatch<bf16>(w, a, hd, t0, t1, s)
+                       : dispatch<float>(w, a, hd, t0, t1, s));
 }
 
 }  // namespace
@@ -1574,12 +1619,14 @@ int run(Which w, Args& a, int B, int H, int Hkv, int Sq, int Sk, int hd,
 
 extern "C" {
 
-// o (B, H, Sq, hd) in q's dtype and lse (B, H, Sq) fp32.
+// o (B, H, Sq, hd) in q's dtype and lse (B, H, Sq) fp32.  The last two
+// ints of every entry are the tiles (launch_tc): BN and 0 for the forward
+// and dQ, (BQ, HO) for dK/dV, and 0, 0 with fp32 operands.
 int flash_forward_launch(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int H, int Hkv, int Sq, int Sk,
                          int hd, int is_bf16, int causal, long long window,
                          long long q_offset, float scale, float softcap,
-                         void* stream) {
+                         int t0, int t1, void* stream) {
   flash_attn::Args a = {};
   a.q = q;
   a.k = k;
@@ -1588,7 +1635,7 @@ int flash_forward_launch(const void* q, const void* k, const void* v, void* o,
   a.lse = lse;
   return flash_attn::run(flash_attn::kForward, a, B, H, Hkv, Sq, Sk, hd,
                          is_bf16, causal, window, q_offset, scale, softcap,
-                         stream);
+                         t0, t1, stream);
 }
 
 // dq like q, from the forward's lse and delta = rowsum(do * o).
@@ -1597,7 +1644,8 @@ int flash_backward_dq_launch(const void* q, const void* k, const void* v,
                              const float* delta, void* dq, int B, int H,
                              int Hkv, int Sq, int Sk, int hd, int is_bf16,
                              int causal, long long window, long long q_offset,
-                             float scale, float softcap, void* stream) {
+                             float scale, float softcap, int t0, int t1,
+                             void* stream) {
   flash_attn::Args a = {};
   a.q = q;
   a.k = k;
@@ -1607,7 +1655,8 @@ int flash_backward_dq_launch(const void* q, const void* k, const void* v,
   a.delta = delta;
   a.dq = dq;
   return flash_attn::run(flash_attn::kDq, a, B, H, Hkv, Sq, Sk, hd, is_bf16,
-                         causal, window, q_offset, scale, softcap, stream);
+                         causal, window, q_offset, scale, softcap, t0, t1,
+                         stream);
 }
 
 // dk like k and dv like v, each summed over its GQA group.
@@ -1617,7 +1666,7 @@ int flash_backward_dkv_launch(const void* q, const void* k, const void* v,
                               int H, int Hkv, int Sq, int Sk, int hd,
                               int is_bf16, int causal, long long window,
                               long long q_offset, float scale, float softcap,
-                              void* stream) {
+                              int t0, int t1, void* stream) {
   flash_attn::Args a = {};
   a.q = q;
   a.k = k;
@@ -1628,7 +1677,8 @@ int flash_backward_dkv_launch(const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   return flash_attn::run(flash_attn::kDkv, a, B, H, Hkv, Sq, Sk, hd, is_bf16,
-                         causal, window, q_offset, scale, softcap, stream);
+                         causal, window, q_offset, scale, softcap, t0, t1,
+                         stream);
 }
 
 }  // extern "C"

@@ -158,16 +158,17 @@
 //     the part is added into the tile's sum with a rounded fp32 add.  That
 //     keeps 64 + 64 accumulators a consumer thread, so a warpgroup's tile
 //     is 64 x 128.
-//   * Chunk width: as many 128-column tiles as keep the two d planes
-//     under 256 MiB (kWsBudget; 57 tiles, cw 7296, 7 chunks at N 8192).
-//     On an H100 (tests/_ce_backward_compare.py builds the other
-//     budgets) the combined call took 8.1, 7.6, 7.4 and 7.3 ms at 128,
-//     256, 512 and 1024 MiB at GPT-2 small's shape, and 181, 184, 193 and
-//     210 ms at gemma2-9b's (N 8192, D 3584, Vp 256000): 256 MiB is within
-//     4% of each shape's best.  A chunk whose planes stay in the 50 MB
-//     L2 (cw <= ~1500 at N 8192) would give dW's launch 12 tiles a chunk
-//     for 132 SMs; at 7296 the three launches of a chunk have 3648, 384
-//     and 342.
+//   * Chunk width cw: the caller's (ce_backward_launch's cw, a multiple
+//     of 128 columns).  fused_ce.py:backward_plan gives the seed, as many
+//     128-column tiles as keep the two d planes under 256 MiB (57 tiles,
+//     cw 7296, 7 chunks at N 8192), and kernels/autotune.py may measure a
+//     wider or narrower one for a shape.  On an H100 the combined call
+//     took 8.1, 7.6, 7.4 and 7.3 ms at 128, 256, 512 and 1024 MiB of
+//     planes at GPT-2 small's shape, and 181, 184, 193 and 210 ms at
+//     gemma2-9b's (N 8192, D 3584, Vp 256000): 256 MiB is within 4% of
+//     each shape's best.  A chunk whose planes stay in the 50 MB L2 (cw
+//     <= ~1500 at N 8192) would give dW's launch 12 tiles a chunk for 132
+//     SMs; at 7296 the three launches of a chunk have 3648, 384 and 342.
 //   * The chunk loop runs on the host, on the caller's stream.
 // With h in fp32 (the card-vs-CPU checks and tests; not the training
 // path) the backward keeps the first version on the fp32 FMA units: the
@@ -753,10 +754,6 @@ constexpr int kTileBytes = kWgBM * kWgBK * 2;  // one bf16 plane of a stage
 constexpr int kRingBytes = 12 * kTileBytes;    // 192 KB: 3, 4 or 6 stages
 constexpr int kConsumerRegs = 232, kProducerRegs = 40;  // 2 x 128 x 232 +
                                                         // 128 x 40 <= 64 K
-// The d workspace: as many 128-column tiles a chunk as keep its two bf16
-// planes under 256 MiB (7296 columns at N 8192: see the note at the top).
-constexpr size_t kWsBudget = size_t(256) << 20;
-
 // d to the workspace, dh accumulate, dW store
 enum BwdEpilogue { kEpiDlogits = 0, kEpiDh = 1, kEpiDw = 2 };
 
@@ -1641,7 +1638,8 @@ cudaError_t dw_impl(const CeArgs& a, float* stats, void* dw,
 
 // The tensor-core workspace, at 256-byte offsets: h_n (Np, D); W's hi and
 // (backward) lo planes, fp32 W only; the backward's d_hi and d_lo (Np, cw)
-// and, when dh is returned in bf16, its fp32 accumulator (N, D).
+// and, when dh is returned in bf16, its fp32 accumulator (N, D).  cw, the
+// vocabulary columns of a chunk, is the caller's (valid_cw).
 struct TcPlan {
   int Np, cw, n_chunks;
   bool w_lo_plane;
@@ -1650,17 +1648,16 @@ struct TcPlan {
 
 size_t up256(size_t x) { return (x + 255) / 256 * 256; }
 
-TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc) {
+// A chunk width the backward takes: whole 128-column tiles, at most Vp.
+bool valid_cw(int Vp, int cw) {
+  return cw > 0 && cw % kWgBN == 0 && cw <= Vp;
+}
+
+TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc, int cw) {
   TcPlan p;
   p.Np = (N + kWgBM - 1) / kWgBM * kWgBM;
-  const int tiles = Vp / kWgBN;
-  const size_t per_tile = size_t(4) * p.Np * kWgBN;  // d_hi and d_lo bytes
-  const int max_tiles =
-      (int)std::min<size_t>(tiles, std::max<size_t>(1, kWsBudget / per_tile));
-  const int n = (tiles + max_tiles - 1) / max_tiles;
-  const int per = (tiles + n - 1) / n;
-  p.n_chunks = (tiles + per - 1) / per;
-  p.cw = per * kWgBN;
+  p.n_chunks = (Vp + cw - 1) / cw;
+  p.cw = cw;
   p.w_lo_plane = true;
   const size_t wbytes = w_bf16 ? 0 : up256(size_t(2) * Vp * D);
   p.hn = 0;
@@ -1675,7 +1672,7 @@ TcPlan tc_plan(int N, int D, int Vp, int w_bf16, int dh_acc) {
 
 // The forward's: h_n and W's hi plane alone (one sweep, no d planes).
 TcPlan fwd_plan(int N, int D, int Vp, int w_bf16) {
-  TcPlan p = tc_plan(N, D, Vp, w_bf16, 0);
+  TcPlan p = tc_plan(N, D, Vp, w_bf16, 0, Vp);
   p.n_chunks = 1;
   p.cw = Vp;
   p.w_lo_plane = false;
@@ -1822,10 +1819,12 @@ cudaError_t forward_tc_impl(const CeArgs& a, float* stats, int splits,
 // logits on the stream, and the next chunk's logits follow both.
 template <typename TW, bool TRANSW>
 cudaError_t backward_tc_impl(const CeArgs& a, float* stats, void* dh,
-                             int dh_f32, void* dw, unsigned char* ws,
+                             int dh_f32, void* dw, int cw, unsigned char* ws,
                              cudaStream_t st) {
   constexpr bool kW32 = std::is_same<TW, float>::value;
-  const TcPlan p = tc_plan(a.N, a.D, a.Vp, !kW32, dh != nullptr && !dh_f32);
+  if (!valid_cw(a.Vp, cw)) return cudaErrorInvalidValue;
+  const TcPlan p =
+      tc_plan(a.N, a.D, a.Vp, !kW32, dh != nullptr && !dh_f32, cw);
   cudaError_t err = tc_prep<TW>(a, stats, p, ws, st);
   if (err != cudaSuccess) return err;
   const bf16* hn = reinterpret_cast<const bf16*>(ws + p.hn);
@@ -1890,11 +1889,12 @@ cudaError_t backward_tc_impl(const CeArgs& a, float* stats, void* dh,
 }
 
 // The backward with h in fp32: the dh kernel (unless dh is null), then
-// the dW kernel (unless dw is null).
+// the dW kernel (unless dw is null).  It has no chunks: cw must be 0.
 template <typename T, typename TW, bool TRANSW>
 cudaError_t backward_impl(const CeArgs& a, float* stats, void* dh,
-                          int dh_f32, void* dw, unsigned char* ws,
+                          int dh_f32, void* dw, int cw, unsigned char* ws,
                           cudaStream_t st) {
+  if (cw != 0) return cudaErrorInvalidValue;
   if (dh != nullptr) {
     const cudaError_t err =
         dh_impl<T, TW, TRANSW>(a, stats, dh, dh_f32, ws, st);
@@ -1907,7 +1907,7 @@ typedef cudaError_t (*ForwardFn)(const CeArgs&, float*, int, int, float*,
                                  int*, float*, float*, int*, unsigned char*,
                                  cudaStream_t);
 typedef cudaError_t (*BackwardFn)(const CeArgs&, float*, void*, int, void*,
-                                  unsigned char*, cudaStream_t);
+                                  int, unsigned char*, cudaStream_t);
 
 // Tables indexed by 4 * h_bf16 + 2 * w_bf16 + transpose_w: fp32 h on the
 // FMA units, bf16 h on the tensor cores.
@@ -2008,29 +2008,32 @@ int ce_row_stats_launch(const void* h, float* stats, int N, int D,
                       : launch_row_stats<float>(a, stats, st));
 }
 
-// Workspace bytes the backward asks for (0 with fp32 h).
+// Workspace bytes the backward asks for at chunk width cw (0 with fp32
+// h, whose cw is 0; -1 for a cw the route does not take).
 long long ce_backward_ws_bytes(int N, int D, int Vp, int h_bf16, int w_bf16,
-                               int dh_f32) {
-  if (!h_bf16) return 0;
-  return (long long)tc_plan(N, D, Vp, w_bf16, !dh_f32).bytes;
+                               int dh_f32, int cw) {
+  if (!h_bf16) return cw == 0 ? 0 : -1;
+  if (!valid_cw(Vp, cw)) return -1;
+  return (long long)tc_plan(N, D, Vp, w_bf16, !dh_f32, cw).bytes;
 }
 
 // dh (N, D; fp32 when dh_f32, else h's dtype) and dW (W's shape and
 // dtype); a null dh or dW is not computed (dh_f32 is then 1), so one call
 // gives both or either.  With bf16 h one prep and one logits sweep a chunk
-// feed the products asked for, each bit for bit what it gives alone; with
-// fp32 h the two FMA kernels.  ws: the workspace of
-// ce_backward_ws_bytes(..., dh_f32).
+// feed the products asked for, each bit for bit what it gives alone, in
+// chunks of cw vocabulary columns (a multiple of 128 up to Vp; another
+// returns cudaErrorInvalidValue); with fp32 h the two FMA kernels (cw 0).
+// ws: the workspace of ce_backward_ws_bytes(..., dh_f32, cw).
 int ce_backward_launch(const void* h, const void* w, const float* normp,
                        float* stats, const int* labels, const float* rs,
                        const float* lse, void* dh, int dh_f32, void* dw,
                        void* ws, int N, int D, int V, int Vp, int h_bf16,
                        int w_bf16, int transpose_w, int norm, float eps,
-                       float softcap, void* stream) {
+                       float softcap, int cw, void* stream) {
   const CeArgs a = make_args(h, w, normp, stats, labels, rs, lse, N, D, V,
                              Vp, norm, eps, softcap, 0u, 0u);
   return (int)kBackwardTable[table_index(h_bf16, w_bf16, transpose_w)](
-      a, stats, dh, dh_f32, dw, static_cast<unsigned char*>(ws),
+      a, stats, dh, dh_f32, dw, cw, static_cast<unsigned char*>(ws),
       static_cast<cudaStream_t>(stream));
 }
 

@@ -57,7 +57,9 @@ At hd 256 (gemma2) the kernels take smaller tiles: the bf16 forward and dQ
 walk key tiles of 32, the bf16 dK/dV splits the head dims over two blocks
 a key tile, and the fp32 dQ and dK/dV own 32 query rows or keys a block
 (``csrc/flash_attention.cu``); the function and its rounding points are
-the same.
+the same.  The bf16 kernels' tiles come from ``kernels/autotune.py``
+(:data:`KEY_TILES`, :data:`DKV_TILES`: a measured pick for the shape, else
+the first, today's); the fp32 kernels' are fixed.
 
 Masking is the reference's: causal, a sliding window by key distance (the
 sentinel ``1 << 30`` means none), ``q_offset`` shifting the query
@@ -81,7 +83,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -91,6 +93,27 @@ NEG_INF = -1e30           # masked-score sentinel of the reference
 WINDOW_NONE = 1 << 30     # window value that masks nothing
 HEAD_DIMS = (32, 64, 128, 256)
 _f32 = torch.float32
+
+# The bf16 kernels' tiles built for each head dim (csrc/flash_attention.cu,
+# launch_tc), the seed first: the forward's and dQ's key tile BN, and
+# dK/dV's (q tile BQ, head dims a block sums HO).
+KEY_TILES = {32: (64,), 64: (64, 32), 128: (64, 32), 256: (32,)}
+DKV_TILES = {32: ((64, 32),), 64: ((64, 64), (32, 64)),
+             128: ((32, 128), (64, 64)), 256: ((32, 128),)}
+
+
+class FlashTiles(NamedTuple):
+    """The three bf16 kernels' tiles: the forward's key tile, dQ's key
+    tile and dK/dV's (BQ, HO)."""
+    fwd: int
+    dq: int
+    dkv: Tuple[int, int]
+
+
+def seed_tiles(hd: int) -> FlashTiles:
+    """Each kernel's first built tile at ``hd``: the pick without a
+    measured entry."""
+    return FlashTiles(KEY_TILES[hd][0], KEY_TILES[hd][0], DKV_TILES[hd][0])
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +251,7 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, *, causal=True, scale,
 
 _PTR, _INT, _LL, _FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
-_DIMS = [_INT] * 8 + [_LL, _LL, _FLOAT, _FLOAT, _PTR]
+_DIMS = [_INT] * 8 + [_LL, _LL, _FLOAT, _FLOAT, _INT, _INT, _PTR]
 _SIGNATURES = {
     "flash_forward_launch": [_PTR] * 5 + _DIMS,
     "flash_backward_dq_launch": [_PTR] * 7 + _DIMS,
@@ -278,13 +301,38 @@ def check_kernel_args(q, k, v, do=None, lse=None, delta=None) -> None:
                          "on a 16-byte boundary")
 
 
-def _dims(q, k, *, causal, window, q_offset, scale, softcap):
+def _dims(q, k, tile, *, causal, window, q_offset, scale, softcap):
+    """The C entries' arguments after the pointers; ``tile`` the kernel's
+    two tile ints (0, 0 for the fp32 kernels)."""
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     return (B, H, Hkv, Sq, Sk, hd, int(q.dtype == torch.bfloat16),
             int(bool(causal)), WINDOW_NONE if window is None else int(window),
-            int(q_offset), float(scale), float(softcap or 0.0),
+            int(q_offset), float(scale), float(softcap or 0.0), *tile,
             torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _tile(which, q, k, tiles, opts):
+    """(t0, t1) of kernel ``which`` for the C entry: for bf16 the
+    ``tiles`` given (the tuner's own measurements) or the tuner's entry for
+    this shape; (0, 0) for the fp32 kernels, whose tiles are fixed."""
+    if q.dtype != torch.bfloat16:
+        if tiles is not None:
+            raise ValueError("flash_attention: the fp32 kernels take no "
+                             "tiles")
+        return 0, 0
+    if tiles is None:
+        from .autotune import get_tuned_attn
+        B, H, Sq, hd = q.shape
+        tiles = get_tuned_attn(
+            B, H, k.shape[1], Sq, k.shape[2], hd, dtype=q.dtype,
+            causal=opts["causal"], window=opts["window"],
+            softcap=opts["softcap"], device=q.device).tiles
+    if which == "attn_fwd":
+        return tiles.fwd, 0
+    if which == "attn_bwd_dq":
+        return tiles.dq, 0
+    return tiles.dkv
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -292,37 +340,40 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def _forward_kernel(q, k, v, **opts):
+def _forward_kernel(q, k, v, tiles=None, **opts):
     check_kernel_args(q, k, v)
+    tile = _tile("attn_fwd", q, k, tiles, opts)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=_f32, device=q.device)
     err = _launch_fn("flash_forward_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *_dims(q, k, **opts))
+        lse.data_ptr(), *_dims(q, k, tile, **opts))
     _raise_on(err, "attn_fwd")
     KERNEL_LAUNCHES["attn_fwd"] += 1
     return o, lse
 
 
-def _dq_kernel(q, k, v, do, lse, delta, **opts):
+def _dq_kernel(q, k, v, do, lse, delta, tiles=None, **opts):
     check_kernel_args(q, k, v, do, lse, delta)
+    tile = _tile("attn_bwd_dq", q, k, tiles, opts)
     dq = torch.empty_like(q)
     err = _launch_fn("flash_backward_dq_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_dims(q, k, **opts))
+        *_dims(q, k, tile, **opts))
     _raise_on(err, "attn_bwd_dq")
     KERNEL_LAUNCHES["attn_bwd_dq"] += 1
     return dq
 
 
-def _dkv_kernel(q, k, v, do, lse, delta, **opts):
+def _dkv_kernel(q, k, v, do, lse, delta, tiles=None, **opts):
     check_kernel_args(q, k, v, do, lse, delta)
+    tile = _tile("attn_bwd_dkv", q, k, tiles, opts)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _launch_fn("flash_backward_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k, **opts))
+        *_dims(q, k, tile, **opts))
     _raise_on(err, "attn_bwd_dkv")
     KERNEL_LAUNCHES["attn_bwd_dkv"] += 1
     return dk, dv
@@ -581,3 +632,40 @@ def attn_bytes(B, H, Hkv, Sq, Sk, hd, which: str, *, itemsize: int) -> int:
     if which == "attn_bwd_dq":
         return 3 * qp + 2 * kp + 2 * row          # q, k, v, do, lse, delta; dq
     return 2 * qp + 4 * kp + 2 * row              # ...; dk, dv
+
+
+# ---------------------------------------------------------------------------
+# device-memory traffic of a layer's attention (launch/roofline.py's
+# overlay; the reference's formulas, integer for integer)
+
+
+def attention_hbm_bytes_flash(B, H, Hkv, S, hd, bytes_per_el=2) -> int:
+    """The forward's floor: Q and O per head, K and V per KV head (the
+    online softmax stores no score)."""
+    q_o = 2 * B * H * S * hd * bytes_per_el
+    kv = 2 * B * Hkv * S * hd * bytes_per_el
+    return q_o + kv
+
+
+def attention_hbm_bytes_train_flash(B, H, Hkv, S, hd,
+                                    bytes_per_el=2) -> int:
+    """Forward and backward's floor: the forward (Q, K, V read; O, lse
+    written), dQ (those again, dO; dQ written) and dK/dV (likewise; dK, dV
+    written).  Re-streaming K/V tiles across query tiles depends on the
+    tile and is left out of the floor."""
+    q_like = B * H * S * hd * bytes_per_el
+    kv_like = B * Hkv * S * hd * bytes_per_el
+    lse = 4 * B * H * S
+    fwd = 2 * q_like + 2 * kv_like + lse
+    d_q = 3 * q_like + 2 * kv_like + 2 * lse
+    d_kv = 2 * q_like + 4 * kv_like + 2 * lse
+    return fwd + d_q + d_kv
+
+
+def attention_hbm_bytes_unfused(B, H, S, hd, block_k=1024, passes=5,
+                                bytes_per_el=4) -> int:
+    """The materialized scores: each (S, block_k) fp32 tile makes
+    ``passes`` round trips (scores, mask, softmax, weights, the product's
+    operand)."""
+    tiles = max(S // block_k, 1)
+    return B * H * S * block_k * tiles * passes * bytes_per_el

@@ -335,8 +335,8 @@ _SIGNATURES = {
                                                       _INT, _PTR, _PTR],
     "ce_forward_ws_bytes": [_INT] * 5,
     "ce_backward_launch": [_PTR] * 8 + [_INT, _PTR, _PTR] + [_INT] * 8
-    + [_FLOAT, _FLOAT, _PTR],
-    "ce_backward_ws_bytes": [_INT] * 6,
+    + [_FLOAT, _FLOAT, _INT, _PTR],
+    "ce_backward_ws_bytes": [_INT] * 7,
     "ce_row_stats_launch": [_PTR, _PTR] + [_INT] * 4 + [_FLOAT, _PTR],
 }
 
@@ -453,35 +453,87 @@ def _unit(n_rt: int, k: int, G: int, u: int) -> Tuple[int, int]:
     return grp * G + r % rows, r // rows
 
 
+def piece_loads(N: int, Vp: int, sms: int = H100_SMS):
+    """[(busiest block's tiles, k) for k = 1 .. Vp / 128]: each count of
+    pieces and the 128 x 128 tiles its busiest block walks in the order
+    without groups (block 0 is then the busiest: loads fall with b)."""
+    n_rt, T = -(-N // 128), Vp // 128
+    out = []
+    for k in range(1, T + 1):
+        units = n_rt * k
+        grid = min(sms, units)
+        q, rem = divmod(T, k)
+        out.append((q * -(-units // grid) + -(-(rem * n_rt) // grid), k))
+    return out
+
+
 @functools.lru_cache(maxsize=256)
 def forward_plan(N: int, Vp: int, D: int, sms: int = H100_SMS) -> ForwardPlan:
-    """The bf16-h forward's schedule on a card of ``sms`` SMs.  Block b
+    """The bf16-h forward's schedule on a card of ``sms`` SMs, the seed of
+    ``kernels/autotune.py`` (the pick without a measured entry).  Block b
     takes the units b, b + grid, b + 2 grid, ... of the order of
     :func:`_unit`: the row tiles fastest within a group, so the blocks in
     flight share a few W tiles and a group's rows of h_n (every row tile
     where h_n takes at most ``H_N_L2_BYTES``, else ``ROW_GROUP``).  k is
     the one that leaves the busiest block the fewest tiles in the order
-    without groups (where block 0 is the busiest: loads fall with b), then
-    the fewest pieces (which size the partials: 4 fp32 and an int32 a
-    piece and row); ``busiest`` is counted in the grouped order."""
-    n_rt, T = -(-N // 128), Vp // 128
+    without groups (:func:`piece_loads`), then the fewest pieces (which
+    size the partials: 4 fp32 and an int32 a piece and row); ``busiest``
+    is counted in the grouped order."""
+    n_rt = -(-N // 128)
     G = n_rt if n_rt * 256 * D <= H_N_L2_BYTES else min(n_rt, ROW_GROUP)
-    best = None
-    for k in range(1, T + 1):
-        units = n_rt * k
-        grid = min(sms, units)
-        q, rem = divmod(T, k)
-        load = q * -(-units // grid) + -(-(rem * n_rt) // grid)
-        if best is None or load < best[0]:
-            best = (load, k, grid)
-    _, k, grid = best
+    _, k = min(piece_loads(N, Vp, sms))
+    return plan_at(N, Vp, k, G, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_at(N: int, Vp: int, pieces: int, group: int,
+            sms: int = H100_SMS) -> ForwardPlan:
+    """The walk of the bf16-h forward at ``pieces`` (k) and ``group`` (G),
+    any 1 <= k <= Vp / 128 and 1 <= G <= the row tiles: its grid, its
+    busiest block's tiles in the grouped order and its idle share."""
+    n_rt, T = -(-N // 128), Vp // 128
+    if not (1 <= pieces <= T and 1 <= group <= n_rt):
+        raise ValueError(f"fused_ce: pieces {pieces} (1..{T}) or group "
+                         f"{group} (1..{n_rt}) out of range")
+    grid = min(sms, n_rt * pieces)
     loads = [0] * grid
-    for u in range(n_rt * k):
-        v0, v1 = _piece(T, k, _unit(n_rt, k, G, u)[1])
+    for u in range(n_rt * pieces):
+        v0, v1 = _piece(T, pieces, _unit(n_rt, pieces, group, u)[1])
         loads[u % grid] += v1 - v0
     busiest = max(loads)
-    return ForwardPlan(n_rt, T, k, G, grid, busiest,
+    return ForwardPlan(n_rt, T, pieces, group, grid, busiest,
                        1.0 - n_rt * T / (sms * busiest))
+
+
+WS_BUDGET = 256 << 20    # the d planes of a chunk, the seed's budget
+
+
+def backward_plan(N: int, Vp: int, budget: int = WS_BUDGET) -> int:
+    """The bf16-h backward's chunk width cw, the seed of
+    ``kernels/autotune.py``: as many 128-column tiles a chunk as keep its
+    two bf16 d planes, (Np, cw) each, within ``budget`` bytes (at least
+    one), spread evenly over the chunks that takes (``csrc/fused_ce.cu``,
+    the chunk-width note: 7296 at N 8192, Vp 50,304)."""
+    Np, tiles = -(-N // 128) * 128, Vp // 128
+    per_tile = 4 * Np * 128
+    most = min(tiles, max(1, budget // per_tile))
+    n = -(-tiles // most)
+    return -(-tiles // n) * 128
+
+
+def _up256(x: int) -> int:
+    return -(-x // 256) * 256
+
+
+def backward_ws_bytes(N: int, D: int, Vp: int, *, w_bf16: bool,
+                      dh_f32: bool, cw: int) -> int:
+    """Workspace bytes of the bf16-h backward at chunk width ``cw`` (the
+    C side's ``tc_plan``): h_n (Np, D) bf16, an fp32 W's hi and lo planes,
+    the two (Np, cw) d planes and, for a bf16 dh, its fp32 sums (N, D)."""
+    Np = -(-N // 128) * 128
+    w_planes = 0 if w_bf16 else 2 * _up256(2 * Vp * D)
+    return (_up256(2 * Np * D) + w_planes + 2 * _up256(2 * Np * cw)
+            + (0 if dh_f32 else _up256(4 * N * D)))
 
 
 def forward_units(plan: ForwardPlan):
@@ -495,25 +547,21 @@ def forward_units(plan: ForwardPlan):
     return out
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def forward_scratch(N: int, Vp: int, D: int, h_bf16: bool,
-                    sms: int = H100_SMS) -> Tuple[int, int]:
-    """(splits, per) of a forward call: its partials are ``part`` (4,
-    splits, N) fp32 and ``part_idx`` (splits, N) int32.  With bf16 h the
-    pieces and the row group of :func:`forward_plan`, with fp32 h
-    :func:`forward_splits`' splits and tiles a split."""
-    if h_bf16:
-        plan = forward_plan(N, Vp, D, sms)
-        return plan.pieces, plan.group
-    return forward_splits(N, Vp)
+def _tuned(h2, w, *, transpose_w, softcap, norm):
+    """The tuner's entry for this call's shape (kernels/autotune.py): a
+    measured pick, or the seed (:func:`forward_plan`'s pieces and group,
+    :func:`backward_plan`'s chunk width)."""
+    from .autotune import get_tuned
+    N, D = h2.shape
+    return get_tuned(N, D, _vp_of(w, transpose_w), h_dtype=h2.dtype,
+                     w_dtype=w.dtype, transpose_w=transpose_w,
+                     softcap=softcap, norm=norm, device=h2.device)
 
 
 def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
-                    softcap, norm, eps, row_ids=None):
+                    softcap, norm, eps, row_ids=None, plan=None):
+    """``plan`` (pieces, group) overrides the tuner's for bf16 h (the
+    tuner's own measurements); the fp32-h route has no choice."""
     c = _common(h2, w, normp, vocab=vocab, transpose_w=transpose_w,
                 softcap=softcap, norm=norm, eps=eps)
     N = h2.shape[0]
@@ -522,10 +570,16 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
     _, D, _, Vp, h_bf16, w_bf16 = c["dims"][:6]
     # bf16 h: the tensor-core route, one partial per piece of the walk and
     # a workspace for h_n and W's bf16 plane
-    splits, per = forward_scratch(
-        N, Vp, D, bool(h_bf16),
-        _sm_count(dev.index if dev.index is not None
-                  else torch.cuda.current_device()))
+    if not h_bf16:
+        if plan is not None:
+            raise ValueError("fused_ce: the fp32-h forward takes no plan")
+        splits, per = forward_splits(N, Vp)
+    elif plan is None:
+        t = _tuned(h2, w, transpose_w=transpose_w, softcap=softcap,
+                   norm=norm)
+        splits, per = t.pieces, t.group
+    else:
+        splits, per = plan
     ws = torch.empty((max(1, _launch_fn("ce_forward_ws_bytes")(
         N, D, Vp, h_bf16, w_bf16)),), dtype=torch.uint8, device=dev)
     part = torch.empty((4 * splits * N,), dtype=_f32, device=dev)
@@ -564,10 +618,13 @@ def _forward_kernel(h2, w, normp, labels, seed, *, vocab, transpose_w,
 
 
 def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
-                     transpose_w, softcap, norm, eps):
+                     transpose_w, softcap, norm, eps, cw=None):
     """``which`` "dh", "dw" or "both" (a tuple (dh, dW) from one launch of
     the pair: with bf16 h one prep and one logits sweep a chunk feed both
-    products; it counts one launch of each kernel, since both run)."""
+    products; it counts one launch of each kernel, since both run).
+    ``cw``, the vocabulary columns of a chunk, overrides the tuner's for
+    bf16 h (the tuner's own measurements); the fp32-h route has no
+    chunks."""
     c = _common(h2, w, normp, vocab=vocab, transpose_w=transpose_w,
                 softcap=softcap, norm=norm, eps=eps)
     N = h2.shape[0]
@@ -586,8 +643,20 @@ def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
     # vocab chunk of d in two bf16 planes, dh's fp32 sums
     dh_f32 = int(which == "dw" or norm is not None)
     _, D, _, Vp, h_bf16, w_bf16 = c["dims"][:6]
-    ws = torch.empty((max(1, _launch_fn("ce_backward_ws_bytes")(
-        N, D, Vp, h_bf16, w_bf16, dh_f32)),), dtype=torch.uint8, device=dev)
+    if not h_bf16:
+        if cw is not None:
+            raise ValueError("fused_ce: the fp32-h backward takes no chunk "
+                             "width")
+        cw = 0
+    elif cw is None:
+        cw = _tuned(h2, w, transpose_w=transpose_w, softcap=softcap,
+                    norm=norm).cw
+    n_ws = _launch_fn("ce_backward_ws_bytes")(N, D, Vp, h_bf16, w_bf16,
+                                              dh_f32, cw)
+    if n_ws < 0:
+        raise ValueError(f"fused_ce: chunk width {cw} is not a multiple of "
+                         f"128 in [128, {Vp}]")
+    ws = torch.empty((max(1, n_ws),), dtype=torch.uint8, device=dev)
     dh = dw = None
     if which != "dw":
         dh = torch.empty(h2.shape, device=dev,
@@ -598,7 +667,7 @@ def _backward_kernel(which, h2, w, normp, labels, rs, lse, *, vocab,
     err = _launch_fn("ce_backward_launch")(
         *ptrs, 0 if dh is None else dh.data_ptr(), dh_f32,
         0 if dw is None else dw.data_ptr(), ws.data_ptr(), *c["dims"],
-        *c["cfg"], c["stream"])
+        *c["cfg"], cw, c["stream"])
     _raise_on(err, "ce_backward" if which == "both"
               else f"ce_backward_{which}")
     for name, out in (("ce_backward_dh", dh), ("ce_backward_dw", dw)):
@@ -1056,3 +1125,32 @@ def ce_bytes(N: int, D: int, Vp: int, which: str, *, bytes_h: int,
     if which == "ce_backward_dw":
         return reads + dw
     return reads + dh + dw                             # ce_backward: both
+
+
+# ---------------------------------------------------------------------------
+# device-memory traffic of the whole loss (launch/roofline.py's overlay; the
+# reference's formulas, integer for integer)
+
+
+def lm_loss_hbm_bytes_fused(N, D, V, *, bytes_h=2, bytes_w=4,
+                            norm_fused=False) -> int:
+    """The logits-free loss: h and W stream once a sweep (one forward, two
+    backward), the outputs are dh, dW and four (N,) vectors; no term
+    scales with N V.  ``norm_fused`` drops a standalone final norm's (N,
+    D) write and read."""
+    h = N * D * bytes_h
+    wb = V * D * bytes_w
+    vecs = 4 * N * 4
+    total = 3 * (h + wb) + h + wb + vecs
+    if not norm_fused:
+        total += 2 * h
+    return total
+
+
+def lm_loss_hbm_bytes_unfused(N, D, V, *, bytes_h=2, bytes_w=4,
+                              passes=5) -> int:
+    """The materialized loss: the fp32 (N, V) logits cross device memory
+    ``passes`` times (projection write, log-softmax read and write, the
+    label gather, the backward's softmax read) beside the projection's
+    operands."""
+    return N * V * 4 * passes + 2 * (N * D * bytes_h + V * D * bytes_w)

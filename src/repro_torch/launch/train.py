@@ -28,6 +28,18 @@ gradients through the int8 error-feedback pipeline in buckets of
 ``--comm-bucket-elems``; ``--compress-hess`` the refresh's gradient-valued
 pieces too.
 
+``--retune`` measures the CE and flash kernels' tiles at this run's exact
+shapes on the card before the first step (``kernels/autotune.py``: the
+loss's rows a step, d_model, the padded vocabulary, tied or untied, the
+softcap and the fused norm; each distinct attention window's (B, H, Hkv,
+S, hd)), prints a ``[retune]`` line for each with the pick, its source and
+its time against the seed's, and writes the picks to the tuner's cache
+(``$REPRO_TORCH_AUTOTUNE_CACHE``, default
+``~/.cache/repro_torch/autotune.json``), which later runs read.  On
+several ranks, rank 0 measures and writes the cache and the other ranks
+take its picks.  With ``--device cpu`` it raises ``ValueError``: the CPU runs the plain
+versions, which have nothing to tune.
+
 Several processes: launch the SAME command once per rank, adding
 
     --coordinator host:port --num-processes N --process-id <rank>
@@ -120,6 +132,11 @@ def parse_args(argv=None):
                          "kernels of kernels/flash_attention.py); "
                          "--no-fused-attn trains on the materialized-scores "
                          "attention")
+    ap.add_argument("--retune", action="store_true",
+                    help="measure the CE and flash kernels' tiles at this "
+                         "run's shapes on the card before training "
+                         "(kernels/autotune.py; refreshes the cache's "
+                         "entries)")
     ap.add_argument("--compress-grads", action="store_true",
                     help="int8 error-feedback gradient reduction "
                          "(distributed/compression.py)")
@@ -205,6 +222,10 @@ def spawn_ranks(argv, n: int, degrade: bool) -> int:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.retune and torch.device(args.device or "cuda").type != "cuda":
+        raise ValueError(
+            f"--retune measures the CUDA kernels on the card; --device "
+            f"{args.device} runs their plain versions, which are never tuned")
     if args.devices and not args.coordinator:
         code = spawn_ranks(sys.argv[1:] if argv is None else argv,
                            args.devices, bool(args.degrade_after))
@@ -229,6 +250,86 @@ def main(argv=None):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _retune_shapes(args, cfg, tc, grid):
+    """(the loss's CE shape, [each attention shape]) of this run on one
+    rank: its data coordinate's rows a step and, on a model axis, its
+    heads; the unembedding is whole on every rank."""
+    D, M = (grid.data, grid.model) if grid is not None else (1, 1)
+    rows = args.global_batch // D // max(1, tc.grad_accum) * args.seq_len
+    ce_shape = dict(
+        N=rows, D=cfg.d_model, Vp=cfg.padded_vocab, h_dtype=cfg.compute_dtype,
+        w_dtype=getattr(torch, cfg.param_dtype),
+        transpose_w=not cfg.tie_embeddings, softcap=cfg.final_logit_softcap,
+        norm=cfg.norm_type if cfg.family in ("dense", "moe") else "rms")
+    attn = []
+    if tc.fused_attn and tc.attn_impl == "auto" and cfg.family in (
+            "dense", "moe", "griffin"):
+        from ..kernels.flash_attention import WINDOW_NONE
+        from ..models.transformer import layer_windows
+        windows = (layer_windows(cfg) if cfg.family != "griffin"
+                   else [cfg.local_window])
+        B = args.global_batch // D // max(1, tc.grad_accum)
+        for w in sorted(set(windows)):
+            attn.append(dict(
+                B=B, H=cfg.n_heads // M, Hkv=max(1, cfg.n_kv_heads // M),
+                Sq=args.seq_len, Sk=args.seq_len, hd=cfg.hd,
+                dtype=cfg.compute_dtype, causal=True,
+                window=None if w >= WINDOW_NONE else w,
+                softcap=cfg.attn_logit_softcap))
+    return ce_shape if tc.fused_loss else None, attn
+
+
+def retune(args, cfg, tc, device, grid, p0) -> None:
+    """Measure the CE and flash kernels' candidates at this run's shapes
+    (``kernels/autotune.py``, refreshing the cache) and print the picks.
+    Rank 0 alone measures and writes the cache; the other ranks take its
+    picks over the process group (``autotune.adopt``), so that every rank
+    launches the same tiles: model peers compute the same loss (a chunk
+    width changes dh's summation order), and a resume reads picks that
+    every rank ran.  The tuning's launches and memory are not the run's:
+    the launch counts are restored by the tuner and rank 0's peak-memory
+    count reset here."""
+    from ..kernels import autotune
+
+    ce_shape, attn = _retune_shapes(args, cfg, tc, grid)
+    shapes = ([ce_shape] if ce_shape is not None else []) + attn
+    picks = None
+    if p0:
+        picks = []
+        if ce_shape is not None:
+            # the step's activations need the rest of the free memory
+            picks.append(autotune.tune_shape(
+                **ce_shape, device=device, refresh=True,
+                ws_limit=torch.cuda.mem_get_info(device)[0] // 2))
+        picks += [autotune.tune_attn_shape(**shape, device=device,
+                                           refresh=True) for shape in attn]
+        torch.cuda.reset_peak_memory_stats(device)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        box = [picks]
+        dist.broadcast_object_list(box, src=0)
+        if not p0:
+            for shape, t in zip(shapes, box[0]):
+                autotune.adopt(t, device, **shape)
+    if not p0:
+        return
+    for shape, t in zip(shapes, picks):
+        if isinstance(t, autotune.TunedCE):
+            print(f"[retune] fused CE N={shape['N']} D={shape['D']} "
+                  f"Vp={shape['Vp']} "
+                  f"{'untied' if shape['transpose_w'] else 'tied'} "
+                  f"softcap={shape['softcap']} norm={shape['norm']}: "
+                  f"pieces={t.pieces} group={t.group} cw={t.cw} "
+                  f"({t.source}): {t.measured_ms:.3f} ms forward + "
+                  f"backward against the seed's {t.seed_ms:.3f}", flush=True)
+        else:
+            print(f"[retune] flash attention B={shape['B']} H={shape['H']} "
+                  f"Hkv={shape['Hkv']} S={shape['Sq']} hd={shape['hd']} "
+                  f"window={shape['window']}: forward BN={t.fwd} dQ "
+                  f"BN={t.dq} dK/dV BQ={t.dkv_bq} HO={t.dkv_ho} "
+                  f"({t.source}): {t.measured_ms:.3f} ms for the three "
+                  f"against the seed's {t.seed_ms:.3f}", flush=True)
 
 
 def _train(args, cfg, device):
@@ -256,6 +357,8 @@ def _train(args, cfg, device):
         path=args.data_path))
     engine = make_engine(tc)
     like = init_fn()
+    if args.retune:
+        retune(args, cfg, tc, device, grid, p0)
     layout_meta = dict(ckpt.layout_manifest(like.params),
                        optimizer=args.opt, state_dtype=args.state_dtype,
                        compress_grads=bool(args.compress_grads))

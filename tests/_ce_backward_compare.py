@@ -1,8 +1,9 @@
 """The CE backward on the card: the ``wgmma``/TMA kernels as committed
 against the ``mma.sync`` kernels they replaced (commit 4479893), in turns
 (old, new, new, old) in one process, at GPT-2 small's loss shape and
-gemma2-9b's; and the committed kernels at other d-workspace budgets (the
-chunk width's choice, ``csrc/fused_ce.cu:kWsBudget``).  A diagnostic behind
+gemma2-9b's; and the committed kernels at the chunk widths of other
+d-workspace budgets (``fused_ce.backward_plan``'s budget; the seed's is
+``fused_ce.WS_BUDGET``).  A diagnostic behind
 PERF.md, not a test (pytest does not collect it); it needs an NVIDIA GPU
 and nvcc.  Extract the old kernel and its wrapper first, into the ignored
 ``build/``:
@@ -19,8 +20,8 @@ Each time is ``chip_smoke.time_ms``'s (CUDA events around each call, the L2
 flushed before it, the median).  Per shape: the old pair (its dh and dW
 calls, each with its own prep and logits; rows 14 + 15) and the new
 combined call (row 13), each also alone (rows 14, 15), in the order old,
-new, new, old; then the new combined call built with each other budget of
-MiB.  TFLOP/s on the three products and on the bf16 passes each call runs.
+new, new, old; then the new combined call at the chunk width of each
+other budget of MiB.  TFLOP/s on the three products and on the bf16 passes each call runs.
 ``torch.profiler`` splits three calls of each side by part (prep, logits,
 dh, dW) and gives each call's span and busy time.
 """
@@ -29,7 +30,6 @@ import ctypes
 import importlib.util
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -57,20 +57,6 @@ def nvcc(source, lib):
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
                            f"{proc.stderr}")
     return lib
-
-
-def budget_source(mib):
-    """The committed source with kWsBudget set to ``mib`` MiB, in build/."""
-    from repro_torch.kernels import _build
-    src = (_build.CSRC / "fused_ce.cu").read_text()
-    new, n = re.subn(r"kWsBudget = size_t\(\d+\) << 20",
-                     f"kWsBudget = size_t({mib}) << 20", src)
-    if n != 1:
-        raise RuntimeError("kWsBudget not found in fused_ce.cu")
-    path = os.path.join(OLD, f"fused_ce_budget{mib}.cu")
-    with open(path, "w") as f:
-        f.write(new)
-    return path
 
 
 def wrapper_module(wrapper, lib, name):
@@ -173,9 +159,6 @@ def main():
     budgets = [int(b) for b in args.budgets.split(",") if b]
     t0 = time.perf_counter()
     jobs = {"old": (args.old_source, os.path.join(OLD, "libfused_ce_old.so"))}
-    for mib in budgets:
-        jobs[f"budget{mib}"] = (budget_source(mib), os.path.join(
-            OLD, f"libfused_ce_budget{mib}.so"))
     with ThreadPoolExecutor(len(jobs) + 1) as pool:
         new_build = pool.submit(_build.build, "fused_ce")
         libs = dict(zip(jobs, pool.map(lambda j: nvcc(*j), jobs.values())))
@@ -183,9 +166,6 @@ def main():
     print(f"built {len(jobs) + 1} libraries in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     old = wrapper_module(args.old_wrapper, libs["old"], "_fused_ce_old")
-    variants = {mib: wrapper_module(ce.__file__, libs[f"budget{mib}"],
-                                    f"_fused_ce_budget{mib}")
-                for mib in budgets}
     flush = torch.empty(128 * 2 ** 20 // 4, device="cuda")
     report = {"card": card, "shapes": {}}
     for label in args.shapes.split(","):
@@ -227,14 +207,16 @@ def main():
                         "old_pair" if side == "old" else "new_combined")
                     times[key].append(t(calls[key]))
         med = {k: statistics.median(v) for k, v in times.items()}
-        budget_ms = {mib: t(lambda m=mod: m.ce_backward(*args_, **opts))
-                     for mib, mod in variants.items()}
+        at_budget = {mib: (lambda cw=ce.backward_plan(N, Vp, mib << 20):
+                           ce._backward_kernel("both", *args_, **opts,
+                                               cw=cw))
+                     for mib in budgets}
+        budget_ms = {mib: t(fn) for mib, fn in at_budget.items()}
         prof = {"new_combined": profile_call(torch, calls["new_combined"],
                                              flush),
                 "old_pair": profile_call(torch, calls["old_pair"], flush)}
-        for mib, mod in variants.items():
-            prof[f"budget{mib}"] = profile_call(
-                torch, lambda m=mod: m.ce_backward(*args_, **opts), flush)
+        for mib, fn in at_budget.items():
+            prof[f"budget{mib}"] = profile_call(torch, fn, flush)
         unit = 2 * N * D * Vp / 1e9      # GFLOP of one pass; ms -> TFLOP/s
         passes = {k: ce.ce_passes(n, w_bf16=False) for k, n in (
             ("combined", "ce_backward"), ("dh", "ce_backward_dh"),

@@ -34,6 +34,9 @@ Modes:
               gathered over model, leaf by leaf), the losses, grad norms
               and the gathered parameters; ``--save-dir`` checkpoints at
               the end.
+  retune      ``launch/train.py``'s ``retune`` on a stand-in card, each
+              rank's stand-in tuner picking differently: writes how many
+              shapes the rank measured and its lookups' picks afterwards.
   moe         each rank runs the MoE FFN of ``--cfg`` on the ``--inp``
               input (x, a cotangent, the parameters) as the ``--shape``
               grid's rank, dispatch ``--impl``, on its data coordinate's
@@ -295,6 +298,55 @@ elif args.mode == "moe":
         g = t.grad.clone()
         dist.all_reduce(g, group=grid.data_group)
         out[f"g_{name}"] = gather_leaf(g, p, grid).numpy()
+
+elif args.mode == "retune":
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.train import TrainerConfig
+
+    # a stand-in card, and stand-in tuners whose picks differ by rank
+    # (rank r's: r + 1 of every choice)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+        args.out, "autotune.json")
+    card = ("NVIDIA H100 80GB HBM3", 132)
+    at.device_info = lambda index: card
+    at._device = lambda device: torch.device("cuda", 0)
+    torch.cuda.mem_get_info = lambda device: (1 << 30, 1 << 30)
+    torch.cuda.reset_peak_memory_stats = lambda device: None
+    measured = []
+    r1 = args.rank + 1
+
+    def tune_shape(N, D, Vp, *, device, refresh, ws_limit, **kw):
+        measured.append("ce")
+        key = at.cache_key(N, D, Vp, **kw, device_name=card[0], sms=card[1])
+        return at._remember(at._CE, key, at.TunedCE(
+            r1, r1, 128 * r1, "measured", measured_ms=1.0, seed_ms=2.0))
+
+    def tune_attn_shape(B, H, Hkv, Sq, Sk, hd, *, device, refresh, **kw):
+        measured.append("attn")
+        key = at.attn_cache_key(B, H, Hkv, Sq, Sk, hd, **kw,
+                                device_name=card[0], sms=card[1])
+        return at._remember(at._ATTN, key, at.TunedAttn(
+            16 * r1, 16 * r1, 16 * r1, 16 * r1, "measured", measured_ms=1.0,
+            seed_ms=2.0))
+
+    at.tune_shape, at.tune_attn_shape = tune_shape, tune_attn_shape
+    cli = launch_train.parse_args(["--arch", "gpt2-small", "--smoke",
+                                   "--seq-len", "16", "--global-batch", "4",
+                                   "--retune"])
+    cfg, tc, grid = get_config("gpt2-small", smoke=True), TrainerConfig(), \
+        build_mesh()
+    launch_train.retune(cli, cfg, tc, torch.device("cpu"), grid,
+                        args.rank == 0)
+    ce_shape, attn = launch_train._retune_shapes(cli, cfg, tc, grid)
+    t = at.get_tuned(**ce_shape, device="cpu")
+    a = at.get_tuned_attn(**attn[0], device="cpu")
+    out.update(measured=np.array(len(measured)),
+               ce=np.array([t.pieces, t.group, t.cw]),
+               attn=np.array([a.fwd, a.dq, a.dkv_bq, a.dkv_ho]),
+               source=np.array(t.source if t.source == a.source else "mixed"))
 
 elif args.mode == "peer":
     from repro_torch.train.elastic import is_distributed_failure

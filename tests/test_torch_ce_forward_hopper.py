@@ -22,7 +22,7 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import (KERNEL_LAUNCHES, fused_ce,
+from repro_torch.kernels import (KERNEL_LAUNCHES, autotune, fused_ce,
                                  reset_launch_counts)
 
 torch.set_num_threads(1)
@@ -131,18 +131,27 @@ def test_sampled_forward_with_row_ids(cuda_device, tied):
     assert (lse_r - lse[sel]).abs().max().item() <= FWD_TOL
 
 
-def test_pieces_follow_the_plan(cuda_device):
-    """At GPT-2 small's loss shape the wrapper sizes its partials by
-    ``forward_plan`` on this card's SM count; the call's answers do not
+def test_pieces_follow_the_plan(cuda_device, tmp_path, monkeypatch):
+    """At GPT-2 small's loss shape, with no measured entry, the wrapper's
+    lookup gives the walk the rule before the tuner gave on this card's SM
+    count (``forward_plan``'s pieces and group); the call's answers do not
     depend on the row count's pieces (N 8192 and its first 4096 rows)."""
+    from test_torch_autotune import _old_forward_plan
     cs = _cs()
     spec = dict(N=8192, D=768, V=50304, Vp=50304, tied=True, norm="ln",
                 softcap=None, h="bfloat16", w="float32", mask=False)
     h, w, normp, labels, _, opts = cs._ce_inputs(torch, **spec)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = fused_ce.forward_plan(8192, 50304, 768, sms)
-    assert fused_ce.forward_scratch(8192, 50304, 768, True, sms) == \
-        (plan.pieces, plan.group)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    autotune.clear_memory_cache()
+    try:
+        t = fused_ce._tuned(h, w, transpose_w=opts["transpose_w"],
+                            softcap=opts["softcap"], norm=opts["norm"])
+    finally:
+        autotune.clear_memory_cache()
+    assert t.source == "seed"
+    assert (t.pieces, t.group) == _old_forward_plan(8192, 50304, 768, sms)
     lse, ll = fused_ce.ce_forward(h, w, normp, labels, **opts)
     lse_h, ll_h = fused_ce.ce_forward(h[:4096].contiguous(), w, normp,
                                       labels[:4096], **opts)

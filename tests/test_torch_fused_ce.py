@@ -25,6 +25,7 @@ from repro.kernels.ref import (_lm_logits_ref, lm_loss_grads_ref,
                                lm_loss_sampled_ref)
 from repro.models.layers import layer_norm as jax_layer_norm
 from repro.models.layers import rms_norm as jax_rms_norm
+from repro_torch.kernels import autotune
 from repro_torch.kernels import fused_ce as ce
 
 # One intra-op thread per process: the suite runs six pytest-xdist workers
@@ -794,8 +795,7 @@ def test_forward_plan_covers_every_tile_once(name, N, D, Vp):
     consecutive tiles of one row tile, the runs of a row tile in column
     order by piece; the busiest block's tile count as the plan states it;
     at most 2% of the SM time idle at the models' shapes (a ragged small
-    batch cannot fill the card); and the partials the wrapper sizes are
-    one per piece and row."""
+    batch cannot fill the card)."""
     plan = ce.forward_plan(N, Vp, D)
     n_rt, T = -(-N // 128), Vp // 128
     assert (plan.row_tiles, plan.vocab_tiles) == (n_rt, T)
@@ -822,5 +822,52 @@ def test_forward_plan_covers_every_tile_once(name, N, D, Vp):
     assert plan.idle_share == pytest.approx(1 - n_rt * T / (132 * max(loads)))
     if N >= 2048:
         assert plan.idle_share < 0.02
-    assert ce.forward_scratch(N, Vp, D, True) == (plan.pieces, plan.group)
-    assert ce.forward_scratch(N, Vp, D, False) == ce.forward_splits(N, Vp)
+
+
+@pytest.mark.parametrize("h_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16-h", "fp32-h"])
+def test_the_forward_sizes_its_partials_by_its_walk(h_dtype, monkeypatch):
+    """The wrapper's launch: with bf16 h the tuner's entry, here a
+    (pieces, group) that no rule gives, reaches the C entry as its splits
+    and row group and sizes the partials (4 fp32 and an int32 a piece and
+    row); with fp32 h, ``forward_splits`` does, and the tuner is not
+    asked.  The C entries are stand-ins that record their arguments."""
+    N, D, Vp = 300, 128, 1024
+    calls, sizes = {}, []
+
+    def c_entry(name):
+        def fn(*a):
+            calls[name] = a
+            return 0
+        return fn
+
+    empty = torch.empty
+
+    def recording_empty(*a, **k):
+        t = empty(*a, **k)
+        sizes.append((tuple(t.shape), t.dtype))
+        return t
+
+    def entry(*a, **k):
+        if h_dtype != torch.bfloat16:
+            raise AssertionError("the fp32-h route asked the tuner")
+        return autotune.TunedCE(5, 2, 256, "measured")
+
+    monkeypatch.setattr(ce, "_launch_fn", c_entry)
+    monkeypatch.setattr(autotune, "get_tuned", entry)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(N, D, generator=g).to(h_dtype)
+    w = torch.randn(Vp, D, generator=g)
+    normp = torch.stack([torch.ones(D), torch.zeros(D)])
+    labels = torch.randint(0, 1000, (N,), generator=g)
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    ce._forward_kernel(h, w, normp, labels, None, vocab=1000,
+                       transpose_w=False, softcap=None, norm="ln", eps=1e-6)
+    monkeypatch.setattr(torch, "empty", empty)
+    splits, per = ((5, 2) if h_dtype == torch.bfloat16
+                   else ce.forward_splits(N, Vp))
+    assert calls["ce_forward_launch"][-4:-2] == (splits, per)
+    assert ((4 * splits * N,), torch.float32) in sizes
+    assert ((splits * N,), torch.int32) in sizes
